@@ -1,0 +1,25 @@
+"""Split R-hat.
+
+A NumPy-only copy of ``split_rhat`` from
+``riemannhamiltonianmontecarlo_tpu/diagnostics/rhat.py`` (whose module
+imports jax), unchanged.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+
+def split_rhat(samples: np.ndarray) -> np.ndarray:
+    """Gelman-Rubin split-R-hat.  samples: (C, N, P) -> (P,)."""
+    x = np.asarray(samples, dtype=np.float64)
+    c, n, p = x.shape
+    half = n // 2
+    halves = np.concatenate([x[:, :half], x[:, half : 2 * half]], axis=0)  # (2C, half, P)
+    s = halves.shape[1]
+    chain_mean = halves.mean(axis=1)  # (2C, P)
+    chain_var = halves.var(axis=1, ddof=1)  # (2C, P)
+    w = chain_var.mean(axis=0)
+    b = s * chain_mean.var(axis=0, ddof=1)
+    var_plus = (s - 1) / s * w + b / s
+    return np.sqrt(var_plus / w)

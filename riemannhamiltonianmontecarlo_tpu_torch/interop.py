@@ -1,0 +1,52 @@
+"""The JAX package's weights and state, as NumPy arrays, into port objects.
+
+Takes NumPy arrays (``np.asarray`` of the JAX package's arrays) and never
+imports jax, so both packages can be made to compute on identical inputs.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from riemannhamiltonianmontecarlo_tpu_torch.models.logreg import LogisticRegression
+from riemannhamiltonianmontecarlo_tpu_torch.samplers.rmhmc import RMHMCState, _Geometry
+
+
+def _tensor(x, device, dtype=torch.float32) -> torch.Tensor:
+    # A copy: arrays from JAX are read-only, and the port owns its tensors.
+    return torch.tensor(np.asarray(x), dtype=dtype, device=device)
+
+
+def logreg_from_numpy(
+    X: np.ndarray,
+    t: np.ndarray,
+    alpha: float = 100.0,
+    mask: np.ndarray | None = None,
+    device: str | torch.device = "cpu",
+) -> LogisticRegression:
+    """``LogisticRegression`` (float32) on ``device`` from the design matrix, labels and mask."""
+    return LogisticRegression(
+        _tensor(X, device),
+        _tensor(t, device),
+        alpha=alpha,
+        mask=None if mask is None else _tensor(mask, device),
+    )
+
+
+def rmhmc_state_from_numpy(
+    position: np.ndarray,
+    logp: np.ndarray,
+    geo: dict | None = None,
+    device: str | torch.device = "cpu",
+) -> RMHMCState:
+    """``RMHMCState`` from the JAX state's fields.
+
+    ``geo`` is None (the port rebuilds the geometry lazily) or a dict of the
+    ``_Geometry`` fields (``logp, grad, metric, cache, chol, inv,
+    half_logdet``), e.g. ``state.geo._asdict()`` of a JAX ``RMHMCState``.
+    """
+    g = None
+    if geo is not None:
+        g = _Geometry(**{name: _tensor(geo[name], device) for name in _Geometry._fields})
+    return RMHMCState(_tensor(position, device), _tensor(logp, device), g)

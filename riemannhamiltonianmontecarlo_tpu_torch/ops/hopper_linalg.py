@@ -1,0 +1,172 @@
+"""Hand-written Hopper kernels for chain-batched small-matrix Cholesky.
+
+The port of ``riemannhamiltonianmontecarlo_tpu/ops/pallas_linalg.py``:
+
+* K1 ``cholesky(g)``: lower factor, (C, D, D) -> (C, D, D), upper triangle
+  exactly 0.  Replaces ``pallas_linalg.cholesky`` (``pallas_call`` at
+  ``pallas_linalg.py:116``).
+* K2 ``chol_solve_logdet(g, b)``: fused factor + solve(G, b) + log|G|,
+  (C, D, D), (C, D) -> (C, D), (C,).  Replaces
+  ``pallas_linalg.chol_solve_logdet`` (``pallas_call`` at ``:150``).
+
+Each has three functions.  ``<op>_cuda`` is the kernel's wrapper: it checks
+the input (CUDA device, float32, shape, D <= 48), moves it chains-last
+(D, D, C) as the TPU wrapper does, launches the CUDA kernel of
+``csrc/hopper_linalg.cu`` on the current stream, counts the launch, and
+raises on anything else -- a CPU tensor included.  ``<op>_plain`` is the
+plain-PyTorch twin: the same unrolled outer-product elimination and
+substitutions (``_chol_body`` / ``_solve_body``), in the public layout.
+``<op>`` is what the rest of the port calls: the twin for a CPU tensor,
+the kernel for a CUDA one, never a fallback from one to the other.
+
+The library is built by ``ops._build`` at the first CUDA call, never at
+import, so this module imports on a machine without CUDA.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+from torch import Tensor
+
+from riemannhamiltonianmontecarlo_tpu_torch.ops import _build
+
+MAX_DIM = 48  # ops.linalg.UNROLL_MAX_DIM; the kernels' local storage is sized for it
+
+# Launch counts of the CUDA kernels, so a run can show it went through them.
+_LAUNCHES = {"cholesky": 0, "chol_solve_logdet": 0}
+
+
+def launch_counts() -> dict[str, int]:
+    return dict(_LAUNCHES)
+
+
+def reset_launch_counts() -> None:
+    for name in _LAUNCHES:
+        _LAUNCHES[name] = 0
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = _build.load_library()
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.rhmc_cholesky.argtypes = [ptr, ptr, i32, i32, ptr]
+    lib.rhmc_cholesky.restype = i32
+    lib.rhmc_chol_solve_logdet.argtypes = [ptr, ptr, ptr, ptr, i32, i32, ptr]
+    lib.rhmc_chol_solve_logdet.restype = i32
+    return lib
+
+
+def _check_batch(g: Tensor, b: Tensor | None = None) -> None:
+    if g.device.type != "cuda":
+        raise ValueError(f"the CUDA kernel needs a CUDA tensor, got one on {g.device}")
+    if g.dtype != torch.float32:
+        raise TypeError(f"the CUDA kernel takes float32, got {g.dtype}")
+    if g.ndim != 3 or g.shape[1] != g.shape[2]:
+        raise ValueError(f"expected a (C, D, D) batch, got shape {tuple(g.shape)}")
+    if not 1 <= g.shape[-1] <= MAX_DIM:
+        raise ValueError(f"the CUDA kernel takes 1 <= D <= {MAX_DIM}, got D = {g.shape[-1]}")
+    if b is not None:
+        if b.device != g.device or b.dtype != g.dtype or b.shape != g.shape[:2]:
+            raise ValueError(
+                f"rhs must be a {tuple(g.shape[:2])} {g.dtype} tensor on {g.device}, "
+                f"got {tuple(b.shape)} {b.dtype} on {b.device}"
+            )
+
+
+def _launch(name: str, fn, tensors: tuple[Tensor, ...], c: int, d: int) -> None:
+    for t in tensors:
+        if not t.is_contiguous():  # the chains-last index arithmetic assumes it
+            raise ValueError(f"{name}: kernel operand is not contiguous")
+    device = tensors[0].device
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*(t.data_ptr() for t in tensors), c, d, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed with CUDA error {err}")
+    _LAUNCHES[name] += 1
+
+
+# -- K1: Cholesky ------------------------------------------------------------
+
+
+def cholesky_plain(g: Tensor) -> Tensor:
+    """Unrolled outer-product Cholesky on (..., D, D) (``_chol_body``)."""
+    d = g.shape[-1]
+    idx = torch.arange(d, device=g.device)
+    rem = g
+    cols = []
+    for j in range(d):
+        diag = torch.sqrt(rem[..., j, j])
+        col = rem[..., :, j] / diag[..., None]
+        col = torch.where(idx >= j, col, 0.0)
+        cols.append(col)
+        rem = rem - col[..., :, None] * col[..., None, :]
+    return torch.stack(cols, dim=-1)
+
+
+def cholesky_cuda(g: Tensor) -> Tensor:
+    """K1 on the card: (C, D, D) float32 CUDA -> lower factor (C, D, D).
+
+    The result is a (C, D, D) view of chains-last (D, D, C) storage.
+    """
+    _check_batch(g)
+    c, d, _ = g.shape
+    gt = g.permute(1, 2, 0).contiguous()
+    if c == 0:
+        return gt.permute(2, 0, 1)
+    lt = torch.empty_like(gt)
+    _launch("cholesky", _lib().rhmc_cholesky, (gt, lt), c, d)
+    return lt.permute(2, 0, 1)
+
+
+def cholesky(g: Tensor) -> Tensor:
+    """Lower Cholesky factor of a (C, D, D) batch: twin on CPU, K1 on CUDA."""
+    if g.device.type == "cpu":
+        return cholesky_plain(g)
+    return cholesky_cuda(g)
+
+
+# -- K2: fused factor + solve + log-det ----------------------------------------
+
+
+def chol_solve_logdet_plain(g: Tensor, b: Tensor) -> tuple[Tensor, Tensor]:
+    """Factor, forward + back substitution and log-det (``_solve_body``, ``_fused_kernel``)."""
+    d = g.shape[-1]
+    l = cholesky_plain(g)
+    ys = []
+    for i in range(d):  # L y = b
+        s = b[..., i]
+        for k in range(i):
+            s = s - l[..., i, k] * ys[k]
+        ys.append(s / l[..., i, i])
+    xs: list = [None] * d
+    for i in reversed(range(d)):  # L^T x = y
+        s = ys[i]
+        for k in range(i + 1, d):
+            s = s - l[..., k, i] * xs[k]
+        xs[i] = s / l[..., i, i]
+    logdet = 2.0 * torch.sum(torch.log(torch.diagonal(l, dim1=-2, dim2=-1)), dim=-1)
+    return torch.stack(xs, dim=-1), logdet
+
+
+def chol_solve_logdet_cuda(g: Tensor, b: Tensor) -> tuple[Tensor, Tensor]:
+    """K2 on the card: (C, D, D), (C, D) float32 CUDA -> x = G^-1 b (C, D), log|G| (C,)."""
+    _check_batch(g, b)
+    c, d, _ = g.shape
+    gt = g.permute(1, 2, 0).contiguous()
+    bt = b.T.contiguous()
+    xt = torch.empty_like(bt)
+    logdet = torch.empty(c, dtype=g.dtype, device=g.device)
+    if c > 0:
+        _launch("chol_solve_logdet", _lib().rhmc_chol_solve_logdet, (gt, bt, xt, logdet), c, d)
+    return xt.T, logdet
+
+
+def chol_solve_logdet(g: Tensor, b: Tensor) -> tuple[Tensor, Tensor]:
+    """Fused Cholesky + solve(G, b) + log|G|: twin on CPU, K2 on CUDA."""
+    if g.device.type == "cpu":
+        return chol_solve_logdet_plain(g, b)
+    return chol_solve_logdet_cuda(g, b)

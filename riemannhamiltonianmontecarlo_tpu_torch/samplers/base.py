@@ -1,0 +1,80 @@
+"""Transition-kernel interface.
+
+Port of ``riemannhamiltonianmontecarlo_tpu/samplers/base.py``.  A sampler is
+a set of plain functions on *batched* chain states (leading chain axis C):
+
+* ``init(position) -> State``                  position: (C, D)
+* ``step(generator, state) -> (State, Info)``  draws its noise from the
+  ``torch.Generator`` (on the chains' device) and calls
+* ``transition(state, noise) -> (State, Info)``, the pure part: the same
+  state and noise always give the same result, so a test can feed it the
+  JAX package's draws.
+
+Divergence policy as in the JAX package: a non-finite proposal rejects that
+chain's move and sets ``Info.divergent`` without disturbing the rest.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, NamedTuple
+
+import torch
+from torch import Tensor
+
+
+class Info(NamedTuple):
+    """Per-step, per-chain diagnostics emitted by every kernel."""
+
+    accept_prob: Tensor  # (C,) min(1, exp(ratio)), 0 where divergent
+    accepted: Tensor  # (C,) bool
+    divergent: Tensor  # (C,) bool: the proposal was masked to a rejection
+
+
+class Kernel(NamedTuple):
+    init: Callable[[Tensor], Any]
+    step: Callable[[torch.Generator, Any], tuple[Any, Info]]
+    transition: Callable[[Any, Any], tuple[Any, Info]] | None = None
+
+
+def metropolis_accept(u: Tensor, ratio: Tensor, divergent: Tensor | None = None) -> tuple[Tensor, Tensor]:
+    """Vectorized MH accept step given the caller's u ~ U[0, 1).
+
+    ``ratio > log u`` (the reference's ``Ratio > 0 or Ratio > log(rand)``,
+    ``code/hmc.py:77``); u = 0 gives log u = -inf and accepts any finite
+    ratio.  Non-finite ratios and divergent proposals always reject.
+    """
+    ok = torch.isfinite(ratio)
+    if divergent is not None:
+        ok = ok & ~divergent
+    accept = ok & (ratio > torch.log(u))
+    accept_prob = torch.where(ok, torch.exp(torch.clamp(ratio, max=0.0)), 0.0)
+    return accept, accept_prob
+
+
+def tree_map(fn: Callable, tree, *rest):
+    """Map ``fn`` over the tensor leaves of matching trees.
+
+    Trees are tensors, None, (named) tuples, lists and dicts of trees.
+    """
+    if tree is None:
+        return None
+    if isinstance(tree, Tensor):
+        return fn(tree, *rest)
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        out = [tree_map(fn, *leaves) for leaves in zip(tree, *rest, strict=True)]
+        if hasattr(tree, "_fields"):  # NamedTuple
+            return type(tree)(*out)
+        return type(tree)(out)
+    raise TypeError(f"unsupported tree node {type(tree).__name__}")
+
+
+def tree_where(cond: Tensor, tree_true, tree_false):
+    """Select between two trees per chain (cond broadcast on the leading axis)."""
+
+    def sel(a: Tensor, b: Tensor) -> Tensor:
+        c = cond.reshape(cond.shape + (1,) * (a.ndim - cond.ndim))
+        return torch.where(c, a, b)
+
+    return tree_map(sel, tree_true, tree_false)
