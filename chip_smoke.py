@@ -26,37 +26,62 @@ It imports no jax.  Phases, each printing one line of findings:
 5. the main path: MAP + jitter init, burn-in, timed sampling run, with the
    kernels' launch counts, acceptance, divergences, split R-hat, and the
    posterior means against a plain-linalg run under another seed; prints
-   seconds per transition and min-ESS/s.
+   seconds per transition and min-ESS/s;
+6. blr-samplers: the experiment entry point
+   ``experiments.run_experiment(..., device="cuda")`` for all nine BLR
+   samplers on a synthetic CSV of australian's shape (N=690, D=15), mMALA
+   and RMHMC once more on one of german's shape (N=1000, D=25: K1's and
+   K2's spilling D=25 instantiations end to end), and adaptive RMHMC (K1
+   and K2 under a tensor step size).  Each run: finite samples of the
+   right shape, acceptance in a window from RESULTS.md or the JAX
+   package's tests, divergences, posterior means against the RMHMC run on
+   the same data (z < 5 from exact-mode ESS), and K1 / K2 launch counts
+   equal to the formulas the samplers' code gives; prints seconds per
+   transition and min-ESS/s beside the nvidia-smi line.
 
 It ends with the nvidia-smi line, one JSON line per kernel summary
 (``{"kernels": [...]}``) and, as the last line,
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the exit
 code is non-zero and the last line is not printed; so does a machine with
 no CUDA device.
+
+Phase 6 writes its CSVs under the git-ignored ``build/smoke_data`` and
+points ``RHMC_DATA_DIR`` there, before the port is imported.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import os
 import re
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
-import torch
 
-import riemannhamiltonianmontecarlo_tpu_torch as rt
-from riemannhamiltonianmontecarlo_tpu_torch._precision import precision_flags
-from riemannhamiltonianmontecarlo_tpu_torch.ops import _build
-from riemannhamiltonianmontecarlo_tpu_torch.ops import hopper_linalg as hl
-from riemannhamiltonianmontecarlo_tpu_torch.samplers import rmhmc
+SMOKE_DATA = Path(__file__).resolve().parent / "build" / "smoke_data"
+os.environ["RHMC_DATA_DIR"] = str(SMOKE_DATA)  # read when the port's datasets module is imported
+
+import torch  # noqa: E402
+
+import riemannhamiltonianmontecarlo_tpu_torch as rt  # noqa: E402
+from riemannhamiltonianmontecarlo_tpu_torch import experiments  # noqa: E402
+from riemannhamiltonianmontecarlo_tpu_torch._precision import precision_flags  # noqa: E402
+from riemannhamiltonianmontecarlo_tpu_torch.ops import _build  # noqa: E402
+from riemannhamiltonianmontecarlo_tpu_torch.ops import hopper_linalg as hl  # noqa: E402
+from riemannhamiltonianmontecarlo_tpu_torch.samplers import rmhmc  # noqa: E402
 
 DEVICE = "cuda"
 NUM_CHAINS = 4096
 N_DATA, DIM = 690, 15  # australian's shape: 690 rows, 14 features + intercept
 BURN_IN, NUM_SAMPLES = 100, 300
+# Phase 5's plain-linalg comparison run is shorter than its kernel run: the
+# plain path takes ~6x as long per transition, and phase 6 needs the time.
+PLAIN_BURN_IN, PLAIN_SAMPLES = 100, 100
 L, K = 6, 4  # reference constants (RMHMCConfig defaults)
 # Tolerances of the kernels against their twins: those of the JAX package's
 # Pallas tests (tests/test_pallas_linalg.py), |k - p| <= atol + rtol |p|.
@@ -236,20 +261,20 @@ def phase_transition(model) -> None:
         tolerance={"position": 1e-3, "logp": 1e-2, "accept_prob": 1e-3})
 
 
-def sample(model, method, seed: int) -> dict:
+def sample(model, method, seed: int, burn_in: int = BURN_IN, num_samples: int = NUM_SAMPLES) -> dict:
     """Burn-in, then a timed sampling run; returns the run's numbers and samples."""
     kern = rmhmc.build(model, rmhmc.RMHMCConfig(linalg=method))
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
     init = rt.utils.default_init(model, gen, NUM_CHAINS)
     torch.cuda.synchronize()
-    warm = rt.parallel.run(kern, gen, init, num_samples=BURN_IN, collect=False)
+    warm = rt.parallel.run(kern, gen, init, num_samples=burn_in, collect=False)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res = rt.parallel.run(kern, gen, None, num_samples=NUM_SAMPLES, init_state=warm.final_state)
+    res = rt.parallel.run(kern, gen, None, num_samples=num_samples, init_state=warm.final_state)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     samples = res.samples.cpu().numpy()
-    check(samples.shape == (NUM_CHAINS, NUM_SAMPLES, DIM) and np.isfinite(samples).all(),
+    check(samples.shape == (NUM_CHAINS, num_samples, DIM) and np.isfinite(samples).all(),
           f"samples of shape {samples.shape}, finite: {bool(np.isfinite(samples).all())}")
     ess = rt.diagnostics.ess_multichain(samples)
     return {
@@ -276,7 +301,7 @@ def phase_main_path(model, smi: str) -> dict:
     check(kern["divergent"] <= max_div, f"{kern['divergent']} divergences > {max_div}")
     check(kern["rhat"] < MAX_RHAT, f"max split R-hat {kern['rhat']} >= {MAX_RHAT}")
 
-    plain = sample(model, "unrolled", seed=2)
+    plain = sample(model, "unrolled", seed=2, burn_in=PLAIN_BURN_IN, num_samples=PLAIN_SAMPLES)
     check(hl.launch_counts() == launches, "the plain-linalg run launched a kernel")
     for run in (kern, plain):
         s = run["samples"].reshape(-1, DIM)
@@ -289,32 +314,189 @@ def phase_main_path(model, smi: str) -> dict:
     say("main-path", chains=NUM_CHAINS, burn_in=BURN_IN, samples=NUM_SAMPLES,
         launches=launches, accept_rate=kern["accept"], divergent=kern["divergent"],
         max_split_rhat=kern["rhat"], max_z_means_vs_plain=float(z.max()),
+        plain_burn_in=PLAIN_BURN_IN, plain_samples=PLAIN_SAMPLES,
         plain_accept_rate=plain["accept"], plain_divergent=plain["divergent"])
     say("main-path-times", card=smi, sampling_s=kern["seconds"],
         s_per_transition=kern["seconds"] / NUM_SAMPLES, min_ess=min_ess,
         min_ess_per_s=min_ess / kern["seconds"],
-        plain_sampling_s=plain["seconds"], plain_s_per_transition=plain["seconds"] / NUM_SAMPLES,
+        plain_sampling_s=plain["seconds"], plain_s_per_transition=plain["seconds"] / PLAIN_SAMPLES,
         plain_min_ess_per_s=float(plain["ess"].min()) / plain["seconds"])
     return launches
+
+
+# -- phase 6: the other BLR samplers through the experiment entry point --------
+
+# Acceptance windows: the min-max acceptance of the sampler over the five BLR
+# tables of RESULTS.md (lines 114-206, reference presets), widened by 0.15 on
+# each side, since the data here is synthetic; the adaptive run: the JAX
+# package's own tolerance, |accept - 0.8| < 0.12 (tests/test_adaptation.py:34).
+RESULTS_WINDOW = "RESULTS.md BLR tables, min-max over 5 datasets +- 0.15"
+ACCEPT = {
+    "metropolis": (0.183, 0.495),  # 0.333-0.345
+    "hmc": (0.669, 1.0),  # 0.819-0.873
+    "mala": (0.465, 0.838),  # 0.615-0.688
+    "mmala": (0.255, 0.843),  # 0.405-0.693
+    "mmala_simplified": (0.202, 0.819),  # 0.352-0.669
+    "iwls": (0.103, 0.881),  # 0.253-0.731
+    "gibbs": (1.0, 1.0),  # 1.000 (every sweep is taken)
+    "rmhmc": (0.708, 1.0),  # 0.858-0.949
+    "rmhmc_studentt": (0.781, 1.0),  # 0.931-0.972
+}
+SHAPES = {"australian": (690, 15, 0), "german": (1000, 25, 1)}  # (N, D, synthetic seed)
+
+
+@dataclasses.dataclass(frozen=True)
+class BlrRun:
+    sampler: str
+    dataset: str = "australian"
+    chains: int = NUM_CHAINS
+    burn_in: int = 100
+    samples: int = 200
+    adapt: bool = False
+
+    @property
+    def label(self) -> str:
+        return f"{self.sampler}{'-adapt' if self.adapt else ''}/{self.dataset}"
+
+    @property
+    def steps(self) -> int:
+        """Transitions run_experiment takes: burn-in and two half-scans."""
+        return self.burn_in + 2 * (self.samples // 2)
+
+    def expected_launches(self) -> dict:
+        """K1 / K2 launches, read from the samplers' code (init + per step)."""
+        k1, k2 = 0, 0
+        if self.sampler in ("mmala", "mmala_simplified", "iwls"):
+            k1 = 1 + self.steps  # one factorization in init, one per proposal
+        elif self.sampler == "gibbs":
+            k1 = 2 * self.steps  # ops.inv_psd and chol(V), no factorization in init
+        elif self.sampler in ("rmhmc", "rmhmc_studentt"):
+            k1, k2 = 1 + L * self.steps, L * K * self.steps  # as phase 5
+        return {"cholesky": k1, "chol_solve_logdet": k2}
+
+
+# Burn-in lengths: enough for the slow mixers (component-wise AMH adapts its
+# SDs every 100 sweeps; MALA's steps are small) to forget the MAP + jitter
+# start, so the means can be held against RMHMC's.  Gibbs at 1024 chains.
+BLR_RUNS = (
+    BlrRun("rmhmc"),
+    BlrRun("rmhmc_studentt"),
+    BlrRun("metropolis", burn_in=3000),
+    BlrRun("hmc"),
+    BlrRun("mala", burn_in=2000),
+    BlrRun("mmala", burn_in=300),
+    BlrRun("mmala_simplified", burn_in=300),
+    BlrRun("iwls", burn_in=300),
+    BlrRun("gibbs", chains=1024, burn_in=200, samples=100),
+    BlrRun("rmhmc", adapt=True),
+    BlrRun("rmhmc", dataset="german"),
+    BlrRun("mmala", dataset="german", burn_in=300),
+)
+
+
+def write_smoke_csvs() -> None:
+    """Synthetic CSVs in the datasets' own layout: features, then the label
+    (0/1 for australian, 1/2 for german)."""
+    SMOKE_DATA.mkdir(parents=True, exist_ok=True)
+    for name, (n, d, seed) in SHAPES.items():
+        ds = rt.models.synthetic_logreg(seed=seed, n=n, d=d)
+        _, one_two, _ = rt.models.datasets.DATASET_SPECS[name]
+        label = ds.t + 1.0 if one_two else ds.t
+        np.savetxt(SMOKE_DATA / f"{name}.csv", np.column_stack([ds.X[:, 1:], label]), delimiter=",")
+
+
+def exact_ess(samples: np.ndarray) -> tuple[np.ndarray, int]:
+    """Exact-mode Geyer ESS summed over chains, and the number of chains
+    whose series stood still (no ESS defined: they add none)."""
+    c, s, d = samples.shape
+    with np.errstate(invalid="ignore", divide="ignore"):
+        per = rt.diagnostics.ess_geyer(np.moveaxis(samples, 1, 0).reshape(s, c * d), nfft_mode="exact").reshape(c, d)
+    return np.nansum(per, axis=0), int(np.isnan(per).any(axis=1).sum())
+
+
+def phase_blr_samplers(smi: str) -> dict:
+    write_smoke_csvs()
+    refs, launches_by_path = {}, {}
+    for run in BLR_RUNS:
+        n, d, _ = SHAPES[run.dataset]
+        hl.reset_launch_counts()
+        res = experiments.run_experiment(
+            run.sampler, run.dataset, device=DEVICE, num_chains=run.chains, num_samples=run.samples,
+            burn_in=run.burn_in, seed=7, adapt=run.adapt, keep_samples=True,
+        )
+        launches = hl.launch_counts()
+        expected = run.expected_launches()
+        check(launches == expected, f"{run.label}: launch counts {launches}, expected {expected}")
+        launches_by_path[run.label] = launches
+
+        samples = res.samples
+        check(samples.shape == (run.chains, run.samples, d) and np.isfinite(samples).all(),
+              f"{run.label}: samples of shape {samples.shape}, finite: {bool(np.isfinite(samples).all())}")
+        lo, hi = (0.68, 0.92) if run.adapt else ACCEPT[run.sampler]
+        source = "tests/test_adaptation.py:34, |accept - 0.8| < 0.12" if run.adapt else RESULTS_WINDOW
+        check(lo <= res.accept_rate <= hi, f"{run.label}: acceptance {res.accept_rate} outside ({lo}, {hi}), {source}")
+        max_div = MAX_DIVERGENT_FRACTION * run.chains * run.samples
+        check(res.divergences <= max_div, f"{run.label}: {res.divergences} divergences > {max_div}")
+
+        flat = samples.reshape(-1, d)
+        ess, still = exact_ess(samples)
+        here = {"mean": flat.mean(0), "var": flat.var(0), "ess": ess}
+        ref_label = f"rmhmc/{run.dataset}"
+        if run.label == ref_label:
+            refs[run.dataset] = here
+            z_max = 0.0
+        else:
+            ref = refs[run.dataset]
+            z = np.abs(here["mean"] - ref["mean"]) / np.sqrt(here["var"] / here["ess"] + ref["var"] / ref["ess"])
+            z_max = float(z.max())
+            check(z_max < Z_BOUND, f"{run.label}: posterior means differ from {ref_label}: max z {z_max}")
+
+        per_transition = res.sampling_time_s / (2 * (run.samples // 2))
+        say("blr-samplers", run=run.label, N=n, D=d, chains=run.chains, burn_in=run.burn_in,
+            samples=run.samples, accept_rate=res.accept_rate, accept_window=[lo, hi], accept_source=source,
+            divergent=res.divergences, max_z_means_vs=[ref_label, z_max], chains_standing_still=still,
+            adapted_step_size=res.adapted_step_size, max_split_rhat=res.rhat_max, launches=launches)
+        # min_ess: run_experiment's own (reference nFFT; NaN when a chain stood
+        # still); min_ess_exact: exact nFFT, still chains adding no ESS.
+        say("blr-samplers-times", run=run.label, card=smi, s_per_transition=per_transition,
+            min_ess=res.ess_min, min_ess_per_s=res.ess_min / res.sampling_time_s,
+            min_ess_exact=float(ess.min()), min_ess_exact_per_s=float(ess.min()) / res.sampling_time_s,
+            sampling_s=res.sampling_time_s)
+    return launches_by_path
 
 
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         sys.exit(1)
+    seconds, t0 = {}, time.perf_counter()
+
+    def lap(name: str) -> None:
+        nonlocal t0
+        seconds[name], t0 = time.perf_counter() - t0, time.perf_counter()
+
     with torch.inference_mode():
         smi = phase_device()
         phase_build()
+        lap("device+build")
         kernels = phase_kernels(smi)
+        lap("kernels")
         model = blr_model()
         phase_transition(model)
+        lap("transition")
         launches = phase_main_path(model, smi)
+        lap("main-path")
+        by_path = phase_blr_samplers(smi)
+        lap("blr-samplers")
+    say("phase-seconds", **seconds)
 
     t15 = kernels["times"][15]
     summary = [
         {"name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
          "launches": launches[name], "max_abs_err": kernels["err"][name],
-         "ms": t15[f"{name}_ms"], "plain_ms": t15[f"{name}_plain_ms"]}
+         "ms": t15[f"{name}_ms"], "plain_ms": t15[f"{name}_plain_ms"],
+         "launches_by_path": {"rmhmc-main-path": launches[name],
+                              **{label: counts[name] for label, counts in by_path.items()}}}
         for name in ("cholesky", "chol_solve_logdet")
     ]
     print(smi, flush=True)

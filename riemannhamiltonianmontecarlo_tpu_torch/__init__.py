@@ -6,18 +6,23 @@ package's sub-package layout and function names, so each module has an
 obvious counterpart; the JAX package is the reference the port is tested
 against.  The port imports ``torch`` and ``numpy``, never ``jax``.
 
-Ported so far (the main path: Bayesian logistic regression sampled by
-RMHMC):
+Ported so far (the Bayesian logistic regression workload, every sampler):
 
 * :mod:`.models` -- ``LogisticRegression`` (an ``nn.Module``), datasets;
 * :mod:`.ops` -- chain-batched small-matrix linalg, dispatching 3-D CUDA
   batches to the hand-written Cholesky kernels of ``ops/hopper_linalg.py``;
-* :mod:`.samplers` -- ``rmhmc`` (pure ``transition(state, noise)`` plus a
-  ``step(generator, state)`` that draws the noise);
-* :mod:`.parallel` -- the chain runner;
-* :mod:`.diagnostics` -- Geyer ESS and split R-hat (host NumPy);
-* :mod:`.utils` -- MAP + jitter initialization;
-* :mod:`.interop` -- the JAX package's arrays (as NumPy) to port objects.
+  the truncated-normal and GIG samplers of the Gibbs sampler;
+* :mod:`.samplers` -- ``rmhmc``, ``hmc``, ``mala``, ``metropolis``,
+  ``mmala``, ``iwls`` and ``gibbs`` (each a pure
+  ``transition(state, noise)`` plus a ``step(generator, state)`` that draws
+  the noise);
+* :mod:`.parallel` -- the chain runner and dual-averaging adaptation;
+* :mod:`.diagnostics` -- Geyer ESS, split R-hat (host NumPy and on the
+  device) and Geweke z;
+* :mod:`.utils` -- reference presets, MAP + jitter initialization;
+* :mod:`.interop` -- the JAX package's arrays (as NumPy) to port objects;
+* ``experiments`` (imported on its own) -- the BLR experiment layer and
+  its CLI, ``python -m riemannhamiltonianmontecarlo_tpu_torch.experiments``.
 """
 
 __version__ = "0.1.0"

@@ -3,7 +3,9 @@
 A NumPy-only copy of the host estimator of
 ``riemannhamiltonianmontecarlo_tpu/diagnostics/ess.py`` (whose module imports
 jax): ``nextpow2``, ``autocorrelation``, ``ess_geyer`` and ``ess_multichain``,
-unchanged, so both packages report the same ESS for the same samples.  The
+unchanged, so both packages report the same ESS for the same samples; plus
+``ess_geyer_device``, the same estimator in float32 on ``torch.fft`` for
+samples that stay on the device.  The
 north-star metric (min-ESS/s) is *defined* by this estimator, a
 re-derivation of the reference's (``code/tools.py:21-74`` / MATLAB
 ``Results/CalculateESS.m``):
@@ -19,12 +21,14 @@ re-derivation of the reference's (``code/tools.py:21-74`` / MATLAB
     Kept as the default because the metric is defined by it.
   * ``"exact"`` -- nFFT = 2 * nextpow2(N): alias-free linear ACF.
 
-Diagnostics run on the host in float64: they are post-processing.
+The host diagnostics run in float64: they are post-processing.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
+from torch import Tensor
 
 
 def nextpow2(i: int) -> int:
@@ -71,6 +75,36 @@ def ess_geyer(
     mono = -acs[0] + 2.0 * np.sum(np.where(gamma > 0.0, gamma, 0.0), axis=0)
     mono = np.maximum(mono, 1.0)
     return n / mono
+
+
+def ess_geyer_device(samples: Tensor, max_lag: int | None = None, max_bytes: int = 1 << 29) -> Tensor:
+    """Geyer ESS on the samples' device (exact, alias-free ACF), in float32.
+
+    samples: (N, P) or (C, N, P) tensor -> (P,), summed over chains.  Equal
+    to ``ess_multichain(..., nfft_mode="exact")`` up to float32 precision.
+    The parameter axis is processed in chunks so the complex FFT scratch
+    (C x 2 nextpow2(N) x chunk complex64) stays under ``max_bytes``.
+    """
+    x = samples if samples.ndim == 3 else samples[None]
+    c, n, p = x.shape
+    if max_lag is None:
+        max_lag = n - 1
+    nfft = 2 * nextpow2(n)
+    half = (max_lag + 1) // 2
+    xc = x - x.mean(dim=1, keepdim=True)
+
+    def chunk_ess(xc_chunk: Tensor) -> Tensor:
+        f = torch.fft.fft(xc_chunk, n=nfft, dim=1)
+        acf = torch.fft.ifft(f * torch.conj(f), dim=1).real[:, : max_lag + 1]
+        acf = acf / torch.clamp(acf[:, :1], min=1e-30)
+        gamma = acf[:, 0 : 2 * half : 2] + acf[:, 1 : 2 * half : 2]
+        gamma = torch.cummin(gamma, dim=1).values  # initial monotone sequence
+        mono = -acf[:, 0] + 2.0 * torch.sum(torch.clamp(gamma, min=0.0), dim=1)
+        return n / torch.clamp(mono, min=1.0)  # (C, chunk)
+
+    chunk = max(int(max_bytes // (8 * c * nfft)), 1)
+    ess = torch.cat([chunk_ess(xc[:, :, lo : lo + chunk]) for lo in range(0, p, chunk)], dim=1)
+    return ess.sum(dim=0) if samples.ndim == 3 else ess[0]
 
 
 def ess_multichain(

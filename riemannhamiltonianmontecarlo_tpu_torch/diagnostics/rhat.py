@@ -2,12 +2,15 @@
 
 A NumPy-only copy of ``split_rhat`` from
 ``riemannhamiltonianmontecarlo_tpu/diagnostics/rhat.py`` (whose module
-imports jax), unchanged.
+imports jax), unchanged; and ``split_rhat_device``, the same formula in
+torch on the samples' device.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
+from torch import Tensor
 
 
 def split_rhat(samples: np.ndarray) -> np.ndarray:
@@ -23,3 +26,16 @@ def split_rhat(samples: np.ndarray) -> np.ndarray:
     b = s * chain_mean.var(axis=0, ddof=1)
     var_plus = (s - 1) / s * w + b / s
     return np.sqrt(var_plus / w)
+
+
+def split_rhat_device(samples: Tensor) -> Tensor:
+    """Split R-hat on the samples' device.  samples: (C, N, P) -> (P,)."""
+    half = samples.shape[1] // 2
+    halves = torch.cat([samples[:, :half], samples[:, half : 2 * half]], dim=0)
+    s = halves.shape[1]
+    chain_mean = halves.mean(dim=1)
+    chain_var = halves.var(dim=1, correction=1)
+    w = chain_var.mean(dim=0)
+    b = s * chain_mean.var(dim=0, correction=1)
+    var_plus = (s - 1) / s * w + b / s
+    return torch.sqrt(var_plus / w)

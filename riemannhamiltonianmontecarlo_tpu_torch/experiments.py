@@ -1,0 +1,347 @@
+"""The BLR experiment layer: a library and a CLI.
+
+Port of the BLR path of ``riemannhamiltonianmontecarlo_tpu/experiments.py``:
+build the model and kernel from the reference presets, run the chains on
+one device, and report the reference's summary statistics (min / median /
+mean / max ESS, sampling-phase wall clock, time per min-ESS --
+``code/main.py:70-79``, ``CalculateStatistics.m:24-31``).
+
+Timing protocol: only the post-burn-in sampling phase is timed.  It runs as
+two identical half-scans; the reported time is twice the *second* half, a
+steady-state measurement, with ``torch.cuda.synchronize()`` at both ends on
+a CUDA device.
+
+The device is explicit.  A CUDA request on a machine without CUDA raises;
+nothing falls back to the CPU.  Not ported yet (ROADMAP.md): the other
+workloads (``--workload`` accepts ``blr`` only), ``ess_mode="native"``
+(slice 6).
+
+CLI::
+
+    python -m riemannhamiltonianmontecarlo_tpu_torch.experiments \\
+        --sampler mmala --dataset australian --device cuda
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+from typing import Any
+
+import numpy as np
+import torch
+
+from riemannhamiltonianmontecarlo_tpu_torch import diagnostics, interop, models, parallel, samplers, utils
+from riemannhamiltonianmontecarlo_tpu_torch.utils.config import (
+    MALA_STEP_SIZES,
+    MALA_TRANSIENT_FACTOR,
+    reference_preset,
+)
+
+SAMPLERS = (
+    "metropolis",
+    "hmc",
+    "mala",
+    "mmala",
+    "mmala_simplified",
+    "iwls",
+    "gibbs",
+    "rmhmc",
+    "rmhmc_studentt",
+)
+ESS_MODES = ("reference", "exact", "device")
+WORKLOADS = ("blr",)  # stochvol, lgc and fhn: ROADMAP.md slices 3-5
+
+
+@dataclasses.dataclass
+class ExperimentResult:
+    sampler: str
+    dataset: str
+    num_chains: int
+    num_samples: int
+    ess_min: float
+    ess_median: float
+    ess_mean: float
+    ess_max: float
+    sampling_time_s: float
+    time_per_min_ess: float
+    accept_rate: float
+    divergences: int
+    posterior_mean: np.ndarray
+    posterior_std: np.ndarray
+    rhat_max: float = float("nan")
+    geweke_max_abs_z: float = float("nan")
+    adapted_step_size: float | None = None  # set by --adapt runs
+    samples: np.ndarray | None = None
+
+    def summary(self) -> str:
+        return (
+            f"{self.sampler} on {self.dataset}: {self.num_chains} chains x "
+            f"{self.num_samples} samples\n"
+            f"  ESS (total over chains): min {self.ess_min:.0f}  median "
+            f"{self.ess_median:.0f}  mean {self.ess_mean:.0f}  max {self.ess_max:.0f}\n"
+            f"  sampling time: {self.sampling_time_s:.3f} s   "
+            f"time/minESS: {self.time_per_min_ess:.3e} s   "
+            f"accept: {self.accept_rate:.3f}   divergences: {self.divergences}   "
+            f"max R-hat: {self.rhat_max:.4f}   max |Geweke z|: {self.geweke_max_abs_z:.2f}\n"
+            f"  posterior mean[:5]: {np.round(self.posterior_mean[:5], 3)}"
+        )
+
+
+def build_kernel(name: str, model, dataset: str, overrides: dict[str, Any] | None = None):
+    """(kernel, warmup_kernel_or_None) from reference presets."""
+    kw = dict(reference_preset(name, dataset).sampler_kwargs)
+    if overrides:
+        kw.update(overrides)
+    s = samplers
+    if name == "metropolis":
+        return s.metropolis.build(model, s.metropolis.AMHConfig()), None
+    if name == "hmc":
+        return s.hmc.build(model, s.hmc.HMCConfig(**kw)), None
+    if name == "mala":
+        step = kw.get("step_size", MALA_STEP_SIZES.get(dataset, 0.05))
+        factor = MALA_TRANSIENT_FACTOR.get(dataset, 1.0)
+        kernel = s.mala.build(model, s.mala.MALAConfig(step_size=step))
+        warm = s.mala.build(model, s.mala.MALAConfig(step_size=step, transient=True, transient_factor=factor))
+        return kernel, warm
+    if name == "mmala":
+        return s.mmala.build(model, s.mmala.MMALAConfig(**kw)), None
+    if name == "mmala_simplified":
+        return s.mmala.build(model, s.mmala.MMALAConfig(simplified=True, **kw)), None
+    if name == "iwls":
+        return s.iwls.build(model), None
+    if name == "gibbs":
+        return s.gibbs.build(model), None
+    if name == "rmhmc":
+        return s.rmhmc.build(model, s.rmhmc.RMHMCConfig(**kw)), None
+    if name == "rmhmc_studentt":
+        return s.rmhmc.build(model, s.rmhmc.RMHMCConfig(student_t=True, **kw)), None
+    raise KeyError(f"unknown sampler '{name}'; options: {SAMPLERS}")
+
+
+# Samplers whose step size dual averaging can adapt: (build_fn, config,
+# optimal-scaling acceptance target).  Targets: 0.651 for the HMC family
+# (Beskos et al. 2013), 0.574 for Langevin (Roberts & Rosenthal 1998).
+def adaptive_parts(name: str, dataset: str, overrides: dict[str, Any] | None = None):
+    """(build_fn, config, target_accept) for --adapt runs.
+
+    The step size starts from a dimension-blind guess, not the hand-tuned
+    reference constant: the point is zero per-dataset tuning.
+    """
+    kw = dict(reference_preset(name, dataset).sampler_kwargs)
+    if overrides:
+        kw.update(overrides)
+    kw.pop("step_size", None)  # discard the hand-tuned constant
+    s = samplers
+    if name == "hmc":
+        return s.hmc.build, s.hmc.HMCConfig(step_size=0.1, **kw), 0.651
+    if name == "mala":
+        return s.mala.build, s.mala.MALAConfig(step_size=0.1), 0.574
+    if name == "mmala":
+        return s.mmala.build, s.mmala.MMALAConfig(step_size=0.5, **kw), 0.574
+    if name == "mmala_simplified":
+        return s.mmala.build, s.mmala.MMALAConfig(step_size=0.5, simplified=True, **kw), 0.574
+    if name == "rmhmc":
+        return s.rmhmc.build, s.rmhmc.RMHMCConfig(step_size=0.1, **kw), 0.8
+    if name == "rmhmc_studentt":
+        return s.rmhmc.build, s.rmhmc.RMHMCConfig(step_size=0.1, student_t=True, **kw), 0.8
+    raise KeyError(f"sampler '{name}' has no adaptable step size")
+
+
+def resolve_device(device: str | torch.device) -> torch.device:
+    """The device to run on; a CUDA request without CUDA raises."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(device)!r} requested but torch.cuda.is_available() is False; "
+            "pass device='cpu' (--device cpu) to run on the CPU"
+        )
+    return device
+
+
+def _synchronize(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def run_experiment(
+    sampler: str,
+    dataset: str = "australian",
+    *,
+    device: str | torch.device = "cuda",
+    num_chains: int = 1024,
+    num_samples: int | None = None,
+    burn_in: int | None = None,
+    seed: int = 0,
+    init: str = "map",
+    ess_mode: str = "reference",
+    keep_samples: bool = False,
+    sampler_overrides: dict[str, Any] | None = None,
+    adapt: bool = False,
+) -> ExperimentResult:
+    if ess_mode == "native":
+        raise ValueError("ess_mode='native' (the C++ ESS engine) is not ported yet: ROADMAP.md slice 6")
+    if ess_mode not in ESS_MODES:
+        raise ValueError(f"ess_mode must be one of {ESS_MODES}, got {ess_mode!r}")
+    device = resolve_device(device)
+    preset = reference_preset(sampler, dataset)
+    num_samples = preset.num_samples if num_samples is None else num_samples
+    burn_in = preset.burn_in if burn_in is None else burn_in
+
+    ds = models.load_dataset(dataset)
+    model = interop.logreg_from_numpy(ds.X, ds.t, device=device)
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    if init == "map":
+        position = utils.default_init(model, gen, num_chains)
+    elif init == "zeros":
+        position = torch.zeros((num_chains, model.dim), device=device)
+    elif init == "reference":
+        # code/rmhmc.py:27 uses 1e-3; code/hmc.py:27 zeros.
+        position = torch.full((num_chains, model.dim), 1e-3, device=device)
+    else:
+        raise ValueError(f"init must be map|zeros|reference, got {init!r}")
+
+    half = max(num_samples // 2, 1)
+    adapted_eps = None
+    if adapt:
+        # Dual-averaging warmup on pooled acceptance: no hand-tuned step.
+        build_fn, cfg, target = adaptive_parts(sampler, dataset, sampler_overrides)
+        warm_kernel = parallel.adaptive(build_fn, model, cfg, parallel.AdaptationConfig(target_accept=target))
+        warm = parallel.run(warm_kernel, gen, position, num_samples=burn_in, collect=False)
+        adapted_eps = parallel.frozen_step_size(warm.final_state)
+        kernel = build_fn(model, dataclasses.replace(cfg, step_size=adapted_eps))
+        warm_state = warm.final_state.inner
+    else:
+        kernel, warmup_kernel = build_kernel(sampler, model, dataset, sampler_overrides)
+        # The transient-phase kernel (MALA's sqrt(D) scaling, BLR_MALA.m:167)
+        # steps the burn-in; its state type matches the stationary kernel's.
+        warm = parallel.run(warmup_kernel or kernel, gen, position, num_samples=burn_in, collect=False)
+        warm_state = warm.final_state
+    _synchronize(device)
+
+    res_a = parallel.run(kernel, gen, None, num_samples=half, init_state=warm_state)
+    _synchronize(device)
+    t0 = time.perf_counter()
+    res_b = parallel.run(kernel, gen, None, num_samples=half, init_state=res_a.final_state)
+    _synchronize(device)
+    sampling_time = 2.0 * (time.perf_counter() - t0)
+
+    accept = 0.5 * (float(res_a.accept_rate) + float(res_b.accept_rate))
+    div = int(res_a.divergences) + int(res_b.divergences)
+    dev_samples = torch.cat([res_a.samples, res_b.samples], dim=1)  # (C, S, D)
+    num_kept = dev_samples.shape[1]
+
+    if ess_mode == "device":
+        # ESS, R-hat and moments on the device (alias-free ACF): only small
+        # arrays and an 8-chain slice for Geweke reach the host.
+        ess = diagnostics.ess_geyer_device(dev_samples).cpu().numpy()
+        rhat_max = float(diagnostics.split_rhat_device(dev_samples).max())
+        flat_mean = dev_samples.mean(dim=(0, 1)).cpu().numpy()
+        flat_std = dev_samples.std(dim=(0, 1), correction=0).cpu().numpy()
+        geweke_max = float(np.abs(diagnostics.geweke_z(dev_samples[:8].cpu().numpy())).max())
+        samples = dev_samples.cpu().numpy() if keep_samples else None
+    else:
+        samples = dev_samples.cpu().numpy()
+        ess = diagnostics.ess_multichain(samples, nfft_mode=ess_mode)
+        rhat_max = float(diagnostics.split_rhat(samples).max())
+        geweke_max = float(np.abs(diagnostics.geweke_z(samples[:8])).max())
+        flat = samples.reshape(-1, samples.shape[-1])
+        flat_mean, flat_std = flat.mean(axis=0), flat.std(axis=0)
+
+    return ExperimentResult(
+        sampler=sampler,
+        dataset=dataset,
+        num_chains=num_chains,
+        num_samples=num_kept,
+        ess_min=float(ess.min()),
+        ess_median=float(np.median(ess)),
+        ess_mean=float(ess.mean()),
+        ess_max=float(ess.max()),
+        sampling_time_s=sampling_time,
+        time_per_min_ess=sampling_time / float(ess.min()),
+        accept_rate=accept,
+        divergences=div,
+        posterior_mean=flat_mean,
+        posterior_std=flat_std,
+        rhat_max=rhat_max,
+        geweke_max_abs_z=geweke_max,
+        adapted_step_size=adapted_eps,
+        samples=samples if keep_samples else None,
+    )
+
+
+def aggregate(results: list[ExperimentResult]) -> dict[str, tuple[float, float]]:
+    """Mean +- standard error over independent repeats.
+
+    The reference aggregates 10 runs this way (``code/main.py:43-54``,
+    ``Results/CalculateStatistics.m:7-31``).  Returns {stat: (mean,
+    stderr)} for the ESS summary, sampling time, time/minESS and
+    acceptance.
+    """
+    out: dict[str, tuple[float, float]] = {}
+    n = len(results)
+    for stat in (
+        "ess_min",
+        "ess_median",
+        "ess_mean",
+        "ess_max",
+        "sampling_time_s",
+        "time_per_min_ess",
+        "accept_rate",
+    ):
+        vals = np.asarray([getattr(r, stat) for r in results], np.float64)
+        out[stat] = (float(vals.mean()), float(vals.std(ddof=1) / np.sqrt(n)) if n > 1 else 0.0)
+    return out
+
+
+def run_repeated(
+    sampler: str, dataset: str = "australian", *, n_repeats: int = 10, seed: int = 0, **kwargs
+) -> tuple[list[ExperimentResult], dict[str, tuple[float, float]]]:
+    """n independent repeats (seeds seed .. seed + n - 1) and their aggregate."""
+    results = [run_experiment(sampler, dataset, seed=seed + i, **kwargs) for i in range(n_repeats)]
+    return results, aggregate(results)
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--workload", default="blr", help="only 'blr' is ported (ROADMAP.md, slices 3-5)")
+    ap.add_argument("--sampler", default="rmhmc", choices=SAMPLERS)
+    ap.add_argument("--dataset", default="australian", choices=sorted(models.datasets.DATASET_SPECS))
+    ap.add_argument("--device", default="cuda", help="torch device, e.g. cuda, cuda:1 or cpu")
+    ap.add_argument("--chains", type=int, default=1024)
+    ap.add_argument("--samples", type=int, default=None)
+    ap.add_argument("--burn-in", type=int, default=None)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--init", choices=("map", "zeros", "reference"), default="map")
+    ap.add_argument("--ess-mode", choices=ESS_MODES, default="reference",
+                    help="'native' (the C++ engine) is not ported yet (ROADMAP.md, slice 6)")
+    ap.add_argument("--adapt", action="store_true",
+                    help="dual-averaging step-size warmup instead of the hand-tuned reference constant")
+    args = ap.parse_args(argv)
+    if args.workload not in WORKLOADS:
+        ap.error(f"workload '{args.workload}' is not ported yet (ROADMAP.md, slices 3-5); options: {WORKLOADS}")
+    try:
+        device = resolve_device(args.device)
+    except RuntimeError as e:
+        ap.error(str(e))
+    res = run_experiment(
+        args.sampler,
+        args.dataset,
+        device=device,
+        num_chains=args.chains,
+        num_samples=args.samples,
+        burn_in=args.burn_in,
+        seed=args.seed,
+        init=args.init,
+        ess_mode=args.ess_mode,
+        adapt=args.adapt,
+    )
+    if args.adapt:
+        print(f"adapted step size: {res.adapted_step_size:.4g}")
+    print(res.summary())
+
+
+if __name__ == "__main__":
+    main()

@@ -6,10 +6,13 @@ imports jax, so both packages can be made to compute on identical inputs.
 
 from __future__ import annotations
 
+from typing import Any, Mapping
+
 import numpy as np
 import torch
 
 from riemannhamiltonianmontecarlo_tpu_torch.models.logreg import LogisticRegression
+from riemannhamiltonianmontecarlo_tpu_torch.parallel.adaptation import AdaptiveState, DualAveragingState
 from riemannhamiltonianmontecarlo_tpu_torch.samplers.rmhmc import RMHMCState, _Geometry
 
 
@@ -50,3 +53,30 @@ def rmhmc_state_from_numpy(
     if geo is not None:
         g = _Geometry(**{name: _tensor(geo[name], device) for name in _Geometry._fields})
     return RMHMCState(_tensor(position, device), _tensor(logp, device), g)
+
+
+def _fields(state: Any) -> Mapping[str, Any]:
+    return state._asdict() if hasattr(state, "_asdict") else state
+
+
+def state_from_numpy(state_type: type, fields: Any, device: str | torch.device = "cpu"):
+    """A port sampler state of ``state_type`` from the JAX state's fields.
+
+    ``state_type`` is a flat state NamedTuple of the port: ``HMCState``,
+    ``MALAState``, ``AMHState``, ``MMALAState``, ``IWLSState``,
+    ``GibbsState`` or ``DualAveragingState``.  ``fields`` is the JAX state
+    (a NamedTuple of arrays) or a dict of its fields, by the same names.
+    Each array is copied with its dtype (float32 stays float32, the int32
+    counters stay int32).
+    """
+    f = _fields(fields)
+    return state_type(**{name: torch.from_numpy(np.array(f[name])).to(device) for name in state_type._fields})
+
+
+def adaptive_state_from_numpy(inner_type: type, fields: Any, device: str | torch.device = "cpu") -> AdaptiveState:
+    """``AdaptiveState`` from the JAX one: ``inner`` of ``inner_type`` plus the dual-averaging state."""
+    f = _fields(fields)
+    return AdaptiveState(
+        state_from_numpy(inner_type, f["inner"], device),
+        state_from_numpy(DualAveragingState, f["da"], device),
+    )

@@ -62,6 +62,10 @@ class LogisticRegression(nn.Module):
     def dim(self) -> int:
         return self.X.shape[-1]
 
+    @property
+    def num_data(self) -> int:
+        return self.X.shape[0]
+
     # -- densities ---------------------------------------------------------
 
     def _logits(self, w: Tensor) -> Tensor:
@@ -83,6 +87,12 @@ class LogisticRegression(nn.Module):
     def grad(self, w: Tensor) -> Tensor:
         resid = self.t - torch.sigmoid(self._logits(w))  # (..., N)
         return torch.matmul(resid, self.X) - w / self.alpha
+
+    def logp_and_grad(self, w: Tensor) -> tuple[Tensor, Tensor]:
+        f = self._logits(w)
+        logp = self._loglik(f) + self.log_prior(w)
+        resid = self.t - torch.sigmoid(f)
+        return logp, torch.matmul(resid, self.X) - w / self.alpha
 
     # -- manifold geometry -------------------------------------------------
 
@@ -139,3 +149,22 @@ class LogisticRegression(nn.Module):
         """s_n = x_n^T M x_n, batched: one (..., D^2) x (D^2, N) GEMM."""
         m_flat = m.reshape(*m.shape[:-2], self.dim * self.dim)
         return torch.matmul(m_flat, self.outer_features.T)
+
+    # -- IWLS helpers (``code/iwls.py:28-35``) ------------------------------
+
+    def iwls_proposal(self, w: Tensor) -> tuple[Tensor, Tensor]:
+        """One Newton/IWLS step: proposal mean and covariance.
+
+        cov  = (I/alpha + X^T diag(v) X)^{-1} = G(w)^{-1}
+        mean = cov @ (X^T diag(v) X w + X^T (t - p))
+        ``inv_ex`` skips the singularity check, which would wait for the
+        device; a singular G gives non-finite entries, as ``jnp.linalg.inv``.
+        """
+        f = self._logits(w)
+        p = torch.sigmoid(f)
+        v = p * (1.0 - p)
+        g = self._metric_from_v(v)
+        rhs = torch.matmul(v * f + (self.t - p), self.X)  # (..., D)
+        cov = torch.linalg.inv_ex(g).inverse
+        mean = torch.einsum("...ab,...b->...a", cov, rhs)
+        return mean, cov

@@ -1,9 +1,13 @@
-"""Batched numerical ops: chain-vectorized linalg and its Hopper kernels."""
+"""Batched numerical ops: chain-vectorized linalg and its Hopper kernels,
+the truncated-normal and GIG samplers of the Gibbs sampler."""
 
 from riemannhamiltonianmontecarlo_tpu_torch.ops import hopper_linalg
+from riemannhamiltonianmontecarlo_tpu_torch.ops.gig import sample_gig_half
+from riemannhamiltonianmontecarlo_tpu_torch.ops.truncnorm import truncated_normal_onesided
 from riemannhamiltonianmontecarlo_tpu_torch.ops.linalg import (
     cho_solve,
     cholesky,
+    inv_psd,
     inv_psd_from_chol,
     logdet_from_chol,
     mvn_sample,
@@ -19,7 +23,10 @@ __all__ = [
     "solve_lower_triangular",
     "solve_upper_from_lower",
     "solve_psd",
+    "inv_psd",
     "inv_psd_from_chol",
     "logdet_from_chol",
     "mvn_sample",
+    "sample_gig_half",
+    "truncated_normal_onesided",
 ]

@@ -121,6 +121,11 @@ def solve_psd(a: Tensor, b: Tensor, *, method: str | None = None) -> Tensor:
     return cho_solve(cholesky(a, method=method), b, method=method)
 
 
+def inv_psd(a: Tensor, *, method: str | None = None) -> Tensor:
+    """Inverse of symmetric PD matrices via Cholesky (K1 on a 3-D CUDA batch)."""
+    return inv_psd_from_chol(cholesky(a, method=method), method=method)
+
+
 def inv_psd_from_chol(l: Tensor, *, method: str | None = None) -> Tensor:
     """A^{-1} = L^{-T} L^{-1} from the lower Cholesky factor."""
     d = l.shape[-1]

@@ -23,11 +23,17 @@ from torch import Tensor
 
 
 class Info(NamedTuple):
-    """Per-step, per-chain diagnostics emitted by every kernel."""
+    """Per-step, per-chain diagnostics emitted by every kernel.
 
-    accept_prob: Tensor  # (C,) min(1, exp(ratio)), 0 where divergent
-    accepted: Tensor  # (C,) bool
-    divergent: Tensor  # (C,) bool: the proposal was masked to a rejection
+    A coordinate-sweep kernel (component-wise Metropolis) reports at sweep
+    level: ``accept_prob`` is the mean over the sweep's proposals and
+    ``accepted`` the float fraction of them taken.  Single-proposal kernels
+    give a bool ``accepted``.
+    """
+
+    accept_prob: Tensor  # (C,) min(1, exp(ratio)), 0 where divergent (sweep mean for AMH)
+    accepted: Tensor  # (C,) bool; float fraction of the sweep's moves for AMH
+    divergent: Tensor  # (C,) bool: a proposal was masked to a rejection
 
 
 class Kernel(NamedTuple):

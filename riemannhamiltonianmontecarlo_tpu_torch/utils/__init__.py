@@ -1,9 +1,13 @@
-"""Utilities: chain initialization."""
+"""Utilities: configuration presets, chain initialization."""
 
+from riemannhamiltonianmontecarlo_tpu_torch.utils.config import (
+    ExperimentConfig,
+    reference_preset,
+)
 from riemannhamiltonianmontecarlo_tpu_torch.utils.init import (
     default_init,
     jittered_init,
     map_estimate,
 )
 
-__all__ = ["default_init", "jittered_init", "map_estimate"]
+__all__ = ["ExperimentConfig", "reference_preset", "default_init", "jittered_init", "map_estimate"]
