@@ -15,11 +15,11 @@ It imports no jax.  Phases, each printing one line of findings:
    register / spill report;
 3. kernels: K1 (Cholesky) and K2 (fused solve + log-det) against their
    plain-PyTorch twins on the card, on seeded SPD batches at
-   C in {4096, 4097} and D in {7, 10, 15, 25} (10 takes the kernels'
-   runtime-width instantiation, the others a compile-time width):
-   tolerance, exact-zero upper
-   triangle, and one non-PD chain giving non-finite output in that chain
-   only; then the median CUDA-event time of each beside its twin's;
+   C in {4096, 4097} and D in {3, 7, 10, 15, 25}, and at StochVol's
+   C = 1024, D = 3 (10 takes the kernels' runtime-width instantiation, the
+   others a compile-time width): tolerance, exact-zero upper triangle, and
+   one non-PD chain giving non-finite output in that chain only; then the
+   median CUDA-event time of each beside its twin's at D = 3, 15 and 25;
 4. one RMHMC transition through the kernels against one through the plain
    linalg, on the same state and noise (BLR, synthetic data of the
    australian shape N=690, D=15, 4096 chains);
@@ -37,7 +37,26 @@ It imports no jax.  Phases, each printing one line of findings:
    package's tests, divergences, posterior means against the RMHMC run on
    the same data (z < 5 from exact-mode ESS), and K1 / K2 launch counts
    equal to the formulas the samplers' code gives; prints seconds per
-   transition and min-ESS/s beside the nvidia-smi line.
+   transition and min-ESS/s beside the nvidia-smi line;
+7. stochvol: ``experiments.run_workload("stochvol", m, device="cuda")`` for
+   m in {rmhmc, hmc, mala, mmala} at T = 2000 latents and 1024 chains (the
+   hyper block runs K1 / K2 at D = 3): finite hyper and latent samples of
+   the right shapes, acceptance in a window around the JAX package's at the
+   same constants, depth, seed and data (measured on the CPU, PERF.md),
+   divergences (no gate for hmc, whose reference rate is ~0.7%), hyper
+   means against the JAX package's at the same depth from the same start
+   (z < 5 over the chain means; only RMHMC has mixed at these depths) and
+   RMHMC's inside the boxes of tests/test_stochvol.py:77-79, and K1 / K2
+   launch counts equal to the formulas;
+8. lgc: ``run_workload("lgc", s, device="cuda")`` on the 64 x 64 grid
+   (D = 4096) for constant-metric RMHMC (phmc, 64 chains), the
+   position-dependent mMALA (8 chains, a (C, 4096, 4096) metric per step)
+   and whitened MALA transient / stationary (16 chains), and
+   ``samplers.pmala`` on the model's constant metric (64 chains): finite
+   samples, acceptance against the JAX package's on the same generated
+   data, and the phmc and pmala posterior-mean fields within z < 5 of each
+   other; phmc's acceptance with ``trajectory_precision="default"`` (TF32 in
+   the trajectory) is printed without a gate.
 
 It ends with the nvidia-smi line, one JSON line per kernel summary
 (``{"kernels": [...]}``) and, as the last line,
@@ -73,7 +92,7 @@ from riemannhamiltonianmontecarlo_tpu_torch import experiments  # noqa: E402
 from riemannhamiltonianmontecarlo_tpu_torch._precision import precision_flags  # noqa: E402
 from riemannhamiltonianmontecarlo_tpu_torch.ops import _build  # noqa: E402
 from riemannhamiltonianmontecarlo_tpu_torch.ops import hopper_linalg as hl  # noqa: E402
-from riemannhamiltonianmontecarlo_tpu_torch.samplers import rmhmc  # noqa: E402
+from riemannhamiltonianmontecarlo_tpu_torch.samplers import pmala, rmhmc  # noqa: E402
 
 DEVICE = "cuda"
 NUM_CHAINS = 4096
@@ -180,51 +199,51 @@ def phase_build() -> None:
 def phase_kernels(smi: str) -> dict:
     """K1 and K2 against their twins; returns per-kernel max |err| and times."""
     err = {"cholesky": 0.0, "chol_solve_logdet": 0.0}
-    for d in (7, 10, 15, 25):
-        for c in (NUM_CHAINS, NUM_CHAINS + 1):
-            g, b = spd_batch(c, d, seed=1000 * d + c)
-            bad = c // 2 + 1
-            g[bad] = -torch.eye(d, device=DEVICE)  # not PD
-            ok = torch.ones(c, dtype=torch.bool, device=DEVICE)
-            ok[bad] = False
+    shapes = [(c, d) for d in (3, 7, 10, 15, 25) for c in (NUM_CHAINS, NUM_CHAINS + 1)] + [(SV_CHAINS, 3)]
+    for c, d in shapes:
+        g, b = spd_batch(c, d, seed=1000 * d + c)
+        bad = c // 2 + 1
+        g[bad] = -torch.eye(d, device=DEVICE)  # not PD
+        ok = torch.ones(c, dtype=torch.bool, device=DEVICE)
+        ok[bad] = False
 
-            lk, lp = hl.cholesky_cuda(g), hl.cholesky_plain(g)
-            torch.cuda.synchronize()
-            check(bool((torch.triu(lk, 1) == 0).all()), f"K1 upper triangle not exactly 0 (C={c}, D={d})")
-            check(bool(torch.isfinite(lk[ok]).all()), f"K1 non-finite on a PD chain (C={c}, D={d})")
-            check(not bool(torch.isfinite(lk[bad]).all()), f"K1 finite on the non-PD chain (C={c}, D={d})")
-            e, over = excess(lk[ok], lp[ok], TOL["L"])
-            check(over <= 0, f"K1 vs twin beyond tolerance at C={c}, D={d}: max |err| {e}")
-            err["cholesky"] = max(err["cholesky"], e)
+        lk, lp = hl.cholesky_cuda(g), hl.cholesky_plain(g)
+        torch.cuda.synchronize()
+        check(bool((torch.triu(lk, 1) == 0).all()), f"K1 upper triangle not exactly 0 (C={c}, D={d})")
+        check(bool(torch.isfinite(lk[ok]).all()), f"K1 non-finite on a PD chain (C={c}, D={d})")
+        check(not bool(torch.isfinite(lk[bad]).all()), f"K1 finite on the non-PD chain (C={c}, D={d})")
+        e, over = excess(lk[ok], lp[ok], TOL["L"])
+        check(over <= 0, f"K1 vs twin beyond tolerance at C={c}, D={d}: max |err| {e}")
+        err["cholesky"] = max(err["cholesky"], e)
 
-            (xk, ldk), (xp, ldp) = hl.chol_solve_logdet_cuda(g, b), hl.chol_solve_logdet_plain(g, b)
-            torch.cuda.synchronize()
-            check(bool(torch.isfinite(xk[ok]).all() and torch.isfinite(ldk[ok]).all()),
-                  f"K2 non-finite on a PD chain (C={c}, D={d})")
-            check(not bool(torch.isfinite(xk[bad]).all()) and not bool(torch.isfinite(ldk[bad])),
-                  f"K2 finite on the non-PD chain (C={c}, D={d})")
-            ex, over_x = excess(xk[ok], xp[ok], TOL["x"])
-            el, over_l = excess(ldk[ok], ldp[ok], TOL["logdet"])
-            check(over_x <= 0 and over_l <= 0,
-                  f"K2 vs twin beyond tolerance at C={c}, D={d}: max |err| x {ex}, logdet {el}")
-            err["chol_solve_logdet"] = max(err["chol_solve_logdet"], ex, el)
-    say("kernels", checked="C in (4096, 4097) x D in (7, 10, 15, 25), one non-PD chain each",
+        (xk, ldk), (xp, ldp) = hl.chol_solve_logdet_cuda(g, b), hl.chol_solve_logdet_plain(g, b)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(xk[ok]).all() and torch.isfinite(ldk[ok]).all()),
+              f"K2 non-finite on a PD chain (C={c}, D={d})")
+        check(not bool(torch.isfinite(xk[bad]).all()) and not bool(torch.isfinite(ldk[bad])),
+              f"K2 finite on the non-PD chain (C={c}, D={d})")
+        ex, over_x = excess(xk[ok], xp[ok], TOL["x"])
+        el, over_l = excess(ldk[ok], ldp[ok], TOL["logdet"])
+        check(over_x <= 0 and over_l <= 0,
+              f"K2 vs twin beyond tolerance at C={c}, D={d}: max |err| x {ex}, logdet {el}")
+        err["chol_solve_logdet"] = max(err["chol_solve_logdet"], ex, el)
+    say("kernels", checked="C in (4096, 4097) x D in (3, 7, 10, 15, 25) and C=1024 x D=3, one non-PD chain each",
         max_abs_err=err, tolerance_rtol_atol=TOL)
 
     times = {}
-    for d in (15, 25):
-        g, b = spd_batch(NUM_CHAINS, d, seed=d)
+    for c, d in ((NUM_CHAINS, 3), (SV_CHAINS, 3), (NUM_CHAINS, 15), (NUM_CHAINS, 25)):
+        g, b = spd_batch(c, d, seed=d)
         gt = g.permute(1, 2, 0).contiguous()
         lt = torch.empty_like(gt)
-        times[d] = {
+        times[c, d] = {
             "cholesky_ms": median_ms(lambda: hl.cholesky_cuda(g)),
             "cholesky_kernel_only_ms": median_ms(
-                lambda: hl._launch("cholesky", hl._lib().rhmc_cholesky, (gt, lt), NUM_CHAINS, d)),
+                lambda: hl._launch("cholesky", hl._lib().rhmc_cholesky, (gt, lt), c, d)),
             "cholesky_plain_ms": median_ms(lambda: hl.cholesky_plain(g)),
             "chol_solve_logdet_ms": median_ms(lambda: hl.chol_solve_logdet_cuda(g, b)),
             "chol_solve_logdet_plain_ms": median_ms(lambda: hl.chol_solve_logdet_plain(g, b)),
         }
-        say("kernel-times", C=NUM_CHAINS, D=d, card=smi, **times[d])
+        say("kernel-times", C=c, D=d, card=smi, **times[c, d])
     return {"err": err, "times": times}
 
 
@@ -465,6 +484,191 @@ def phase_blr_samplers(smi: str) -> dict:
     return launches_by_path
 
 
+# -- phase 7: stochastic volatility through the workload entry point -----------
+
+SV_CHAINS, SV_OBS, SV_SEED = 1024, 2000, 0
+# (burn-in, samples) per method: the reference's 20000 samples cut to a smoke run.
+# hmc at 30 + 30: its sweep is ~1 s (100 hyper leapfrog steps, each a torch.func
+# gradient), and the whole script keeps within half its 1200 s limit.
+SV_RUNS = {"rmhmc": (100, 100), "hmc": (30, 30), "mmala": (200, 200), "mala": (500, 200)}
+# The JAX package at the same constants, depth, seed and data, on the CPU with
+# 64 chains (PERF.md): acceptance, and the mean and sd over chains of the
+# per-chain hyper means (beta, sigma, phi).
+SV_JAX_CHAINS = 64
+SV_JAX = {
+    "rmhmc": {"accept": 0.97417, "mean": [0.58724, 0.21813, 0.96800], "sd": [0.063905, 0.024776, 0.0070603]},
+    "hmc": {"accept": 0.75142, "mean": [0.56198, 0.50877, 0.82606], "sd": [0.025712, 0.11514, 0.10313]},
+    "mmala": {"accept": 0.88061, "mean": [0.58657, 0.59788, 0.62536], "sd": [0.010593, 0.037440, 0.099955]},
+    "mala": {"accept": 0.81891, "mean": [0.63407, 0.54942, 0.11832], "sd": [0.0061821, 0.016158, 0.049598]},
+}
+ACCEPT_TOL = 0.05  # |accept - JAX accept|
+SV_BOXES = ((0.4, 0.95), (0.03, 0.45), (0.55, 1.0))  # (beta, sigma, phi), tests/test_stochvol.py:77-79
+HYPER_L = rt.samplers.stochvol.StochVolConfig().hyper_num_leapfrog  # 6, the rmhmc preset's
+HYPER_FP = rt.samplers.stochvol.StochVolConfig().hyper_num_fixed_point  # 5
+
+
+def sv_expected_launches(method: str, sweeps: int) -> dict:
+    """K1 / K2 launches of a stochvol run, read from the code: the hyper kernel
+    is rebuilt every sweep; RMHMC builds the geometry at the start and after
+    each leapfrog step (K1) and solves once per position fixed-point round
+    (K2); mMALA factors in ``init`` and at the proposal (K1)."""
+    if method == "rmhmc":
+        return {"cholesky": (1 + HYPER_L) * sweeps, "chol_solve_logdet": HYPER_L * HYPER_FP * sweeps}
+    if method == "mmala":
+        return {"cholesky": 2 * sweeps, "chol_solve_logdet": 0}
+    return {"cholesky": 0, "chol_solve_logdet": 0}
+
+
+def chain_mean_z(a: np.ndarray, b_mean, b_sd, b_chains: int) -> np.ndarray:
+    """|mean(a) - b| over the standard error of both, from the spread of per-chain means."""
+    cm = a.mean(axis=1)
+    se2 = cm.var(axis=0, ddof=1) / cm.shape[0] + np.asarray(b_sd) ** 2 / b_chains
+    return np.abs(cm.mean(axis=0) - np.asarray(b_mean)) / np.sqrt(se2)
+
+
+def check_hyper_autodiff() -> None:
+    """The hyper block's torch.func gradient and dG under inference mode, as
+    the runner calls them, against central differences of ``hyper_logp`` and
+    ``hyper_metric`` in float64 (torch 2.11 returned zeros there unguarded)."""
+    y, _ = rt.models.stochvol.generate_data(seed=SV_SEED, num_obs=SV_OBS)
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    c = 16
+    theta = torch.tensor([0.6, np.log(0.2), np.arctanh(0.95)], device=DEVICE) + 0.05 * torch.randn(
+        (c, 3), generator=gen, device=DEVICE)
+    x = 0.5 * torch.randn((c, SV_OBS), generator=gen, device=DEVICE)
+    hyper = rt.interop.stochvol_from_numpy(y, device=DEVICE).hyper_manifold(x)
+    grad, jac = hyper.grad(theta), hyper.dg_cache(theta)
+    exact = rt.models.stochvol.StochVolModel(torch.from_numpy(y).to(DEVICE))  # float64
+    th64, x64, h = theta.double(), x.double(), 1e-6
+    steps = h * torch.eye(3, dtype=torch.float64, device=DEVICE)
+    fd_grad = torch.stack([(exact.hyper_logp(th64 + e, x64) - exact.hyper_logp(th64 - e, x64)) / (2 * h)
+                           for e in steps], dim=-1)
+    fd_jac = torch.stack([(exact.hyper_metric(th64 + e) - exact.hyper_metric(th64 - e)) / (2 * h) for e in steps],
+                         dim=1)
+    errs = {}
+    for name, port, ref in (("grad", grad, fd_grad), ("dg_cache", jac, fd_jac)):
+        # per coordinate d of the derivative, relative to its largest entry over the chains
+        err = (port.double() - ref).abs().transpose(0, 1).reshape(3, -1).amax(1)
+        errs[name] = float((err / ref.abs().transpose(0, 1).reshape(3, -1).amax(1)).max())
+        check(errs[name] < 1e-3, f"stochvol hyper {name} under inference mode vs central differences: "
+                                 f"max error {errs[name]} of its scale")
+    say("stochvol-autodiff", chains=c, T=SV_OBS, max_error_of_scale=errs, tolerance=1e-3)
+
+
+def phase_stochvol(smi: str) -> dict:
+    check_hyper_autodiff()
+    launches_by_path, rm = {}, None
+    for method, (burn, samples) in SV_RUNS.items():
+        label = f"stochvol/{method}"
+        hl.reset_launch_counts()
+        res = experiments.run_workload("stochvol", method, device=DEVICE, num_chains=SV_CHAINS, num_samples=samples,
+                                       burn_in=burn, seed=SV_SEED, keep_samples=True, stochvol_obs=SV_OBS)
+        launches = hl.launch_counts()
+        sweeps = burn + 2 * (samples // 2)
+        expected = sv_expected_launches(method, sweeps)
+        check(launches == expected, f"{label}: launch counts {launches}, expected {expected}")
+        launches_by_path[label] = launches
+
+        hyper, latent = res.samples["hyper"], res.samples["latent"]
+        check(hyper.shape == (SV_CHAINS, samples, 3) and latent.shape == (SV_CHAINS, samples, SV_OBS),
+              f"{label}: samples of shapes {hyper.shape}, {latent.shape}")
+        check(np.isfinite(hyper).all() and np.isfinite(latent).all(), f"{label}: non-finite samples")
+        ref = SV_JAX[method]
+        check(abs(res.accept_rate - ref["accept"]) <= ACCEPT_TOL,
+              f"{label}: acceptance {res.accept_rate} vs the JAX package's {ref['accept']} +- {ACCEPT_TOL}")
+        max_div = MAX_DIVERGENT_FRACTION * SV_CHAINS * samples
+        if method != "hmc":  # the JAX package's hmc diverges in ~0.7% of sweeps (RESULTS.md:45)
+            check(res.divergences <= max_div, f"{label}: {res.divergences} divergences > {max_div}")
+        z_jax = chain_mean_z(hyper, ref["mean"], ref["sd"], SV_JAX_CHAINS)
+        check(float(z_jax.max()) < Z_BOUND, f"{label}: hyper means vs the JAX package's: z {z_jax}")
+        means = hyper.reshape(-1, 3).mean(0)
+        cm = hyper.mean(1)
+        if method == "rmhmc":
+            rm = (cm.mean(0), cm.std(0, ddof=1))
+            inside = all(lo < m < hi for m, (lo, hi) in zip(means, SV_BOXES))
+            check(inside, f"{label}: hyper means {means} outside {SV_BOXES}")
+        z_rm = chain_mean_z(hyper, rm[0], rm[1], SV_CHAINS)
+        say("stochvol", run=label, T=SV_OBS, chains=SV_CHAINS, burn_in=burn, samples=samples,
+            accept_rate=res.accept_rate, jax_accept=ref["accept"], divergent=res.divergences,
+            hyper_means=means.tolist(), max_z_means_vs_jax=float(z_jax.max()),
+            max_z_means_vs_rmhmc_no_gate=float(z_rm.max()), max_split_rhat=res.rhat_max, launches=launches)
+        per_sweep = res.sampling_time_s / (2 * (samples // 2))
+        say("stochvol-times", run=label, card=smi, s_per_sweep=per_sweep, sampling_s=res.sampling_time_s,
+            **{f"min_ess_{g}_per_s": float(e.min()) / res.sampling_time_s for g, e in res.ess.items()})
+    return launches_by_path
+
+
+# -- phase 8: log-Gaussian Cox on the 64 x 64 grid -------------------------------
+
+LGC_N, LGC_SEED = 64, 0
+# (sampler, chains, burn-in, samples); chain counts as RESULTS.md:77-79 ran
+# them, 8 for the position-dependent mMALA ((C, 4096, 4096) metric, 64 MB per chain).
+LGC_RUNS = (("rmhmc", 64, 100, 100), ("mmala", 8, 50, 50),
+            ("mala_transient", 16, 200, 200), ("mala_stationary", 16, 200, 200))
+# pmala moves the field from the prior mean slowly: at 200 + 200 steps its
+# means still sat a median z of 7.8 from phmc's; at 1000 + 1000 (2 s) they
+# agree (PERF.md).
+PMALA_RUN = (64, 1000, 1000)
+# The JAX package's acceptance at the same constants, depth, seed and data, on
+# the CPU (PERF.md): 8 chains (mmala 2, hence its wider window).
+LGC_JAX = {"rmhmc": 0.95772, "mmala": 0.30671, "mala_transient": 0.79961, "mala_stationary": 4.9e-7, "pmala": 0.88239}
+LGC_ACCEPT_TOL = {"mmala": 0.15}
+
+
+def lgc_check(label: str, accept: float, ref: float, tol: float, samples: np.ndarray, shape) -> None:
+    check(samples.shape == shape and np.isfinite(samples).all(),
+          f"{label}: samples of shape {samples.shape}, finite: {bool(np.isfinite(samples).all())}")
+    check(abs(accept - ref) <= tol, f"{label}: acceptance {accept} vs the JAX package's {ref} +- {tol}")
+
+
+def phase_lgc(smi: str) -> dict:
+    d = LGC_N * LGC_N
+    launches_by_path, fields, accepts = {}, {}, {}
+    for sampler, chains, burn, samples in LGC_RUNS:
+        label = f"lgc/{sampler}"
+        hl.reset_launch_counts()
+        res = experiments.run_workload("lgc", sampler, device=DEVICE, num_chains=chains, num_samples=samples,
+                                       burn_in=burn, seed=LGC_SEED, keep_samples=True, lgc_n=LGC_N)
+        launches_by_path[label] = hl.launch_counts()  # D = 4096: the library factorization, no kernel
+        check(launches_by_path[label] == {"cholesky": 0, "chol_solve_logdet": 0}, f"{label}: a kernel launched at D={d}")
+        tol = LGC_ACCEPT_TOL.get(sampler, ACCEPT_TOL)
+        lgc_check(label, res.accept_rate, LGC_JAX[sampler], tol, res.samples["latent"], (chains, samples, d))
+        fields[sampler], accepts[sampler] = res.samples["latent"], res.accept_rate
+        say("lgc", run=label, D=d, chains=chains, burn_in=burn, samples=samples, accept_rate=res.accept_rate,
+            jax_accept=LGC_JAX[sampler], accept_tol=tol, divergent=res.divergences, max_split_rhat=res.rhat_max)
+        say("lgc-times", run=label, card=smi, s_per_step=res.sampling_time_s / (2 * (samples // 2)),
+            min_ess_per_s=float(res.ess["latent"].min()) / res.sampling_time_s)
+
+    # Constant-metric mMALA (RESULTS.md:78), on the model's metric_chol / metric_inv.
+    y, _ = rt.models.lgc.generate_data(seed=LGC_SEED, n=LGC_N)
+    model = rt.interop.lgc_from_numpy(y, LGC_N, device=DEVICE)
+    chains, burn, samples = PMALA_RUN
+    kernel = pmala.build(model, model.metric_chol, model.metric_inv)
+    init = model.prior_mean().expand(chains, -1).clone()
+    smp, accept, div, seconds = experiments.timed_sampling(kernel, init, device=torch.device(DEVICE), burn_in=burn,
+                                                           num_samples=samples, seed=LGC_SEED)
+    smp = smp.cpu().numpy()
+    lgc_check("lgc/pmala", accept, LGC_JAX["pmala"], ACCEPT_TOL, smp, (chains, samples, d))
+    cm = fields["rmhmc"].mean(axis=1)
+    z = chain_mean_z(smp, cm.mean(0), cm.std(0, ddof=1), cm.shape[0])
+    check(float(z.max()) < Z_BOUND, f"lgc: pmala and phmc posterior-mean fields differ: max z {float(z.max())}")
+    say("lgc", run="lgc/pmala", D=d, chains=chains, burn_in=burn, samples=samples, accept_rate=accept,
+        jax_accept=LGC_JAX["pmala"], divergent=div, max_z_field_means_vs_phmc=float(z.max()))
+    say("lgc-times", run="lgc/pmala", card=smi, s_per_step=seconds / (2 * (samples // 2)))
+
+    # phmc with TF32 inside the trajectory: printed, no gate (samplers/phmc.py).
+    chains, burn, samples = LGC_RUNS[0][1:]
+    res = experiments.run_workload("lgc", "rmhmc", device=DEVICE, num_chains=chains, num_samples=samples,
+                                   burn_in=burn, seed=LGC_SEED, lgc_n=LGC_N,
+                                   overrides={"trajectory_precision": "default"})
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 left on after the TF32 trajectory run")
+    say("lgc", run="lgc/rmhmc-tf32-trajectory", chains=chains, burn_in=burn, samples=samples,
+        accept_rate=res.accept_rate, full_fp32_accept_rate=accepts["rmhmc"], divergent=res.divergences, gate="none")
+    say("lgc-times", run="lgc/rmhmc-tf32-trajectory", card=smi,
+        s_per_step=res.sampling_time_s / (2 * (samples // 2)))
+    return launches_by_path
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -488,13 +692,18 @@ def main() -> None:
         lap("main-path")
         by_path = phase_blr_samplers(smi)
         lap("blr-samplers")
+        by_path.update(phase_stochvol(smi))
+        lap("stochvol")
+        by_path.update(phase_lgc(smi))
+        lap("lgc")
     say("phase-seconds", **seconds)
 
-    t15 = kernels["times"][15]
+    t15, t3 = kernels["times"][NUM_CHAINS, 15], kernels["times"][SV_CHAINS, 3]
     summary = [
         {"name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
          "launches": launches[name], "max_abs_err": kernels["err"][name],
          "ms": t15[f"{name}_ms"], "plain_ms": t15[f"{name}_plain_ms"],
+         "ms_stochvol_c1024_d3": t3[f"{name}_ms"], "plain_ms_stochvol_c1024_d3": t3[f"{name}_plain_ms"],
          "launches_by_path": {"rmhmc-main-path": launches[name],
                               **{label: counts[name] for label, counts in by_path.items()}}}
         for name in ("cholesky", "chol_solve_logdet")

@@ -9,6 +9,9 @@ so the settings hold from the first matmul and einsum on.
 
 from __future__ import annotations
 
+import contextlib
+from typing import Iterator
+
 import torch
 
 
@@ -17,6 +20,21 @@ def set_full_fp32() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
+
+
+@contextlib.contextmanager
+def tf32_matmuls() -> Iterator[None]:
+    """Allow TF32 in cuBLAS matmuls inside the block, and restore the flag after.
+
+    For in-trajectory work only (``samplers/phmc.py`` ``trajectory_precision``):
+    whatever feeds an MH test runs outside it, in full fp32.
+    """
+    previous = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = previous
 
 
 def precision_flags() -> dict:

@@ -1,10 +1,17 @@
-"""The BLR experiment layer: a library and a CLI.
+"""The experiment layer: a library and a CLI.
 
-Port of the BLR path of ``riemannhamiltonianmontecarlo_tpu/experiments.py``:
-build the model and kernel from the reference presets, run the chains on
-one device, and report the reference's summary statistics (min / median /
-mean / max ESS, sampling-phase wall clock, time per min-ESS --
-``code/main.py:70-79``, ``CalculateStatistics.m:24-31``).
+Port of ``riemannhamiltonianmontecarlo_tpu/experiments.py``: build the model
+and kernel from the reference presets, run the chains on one device, and
+report the reference's summary statistics (min / median / mean / max ESS,
+sampling-phase wall clock, time per min-ESS -- ``code/main.py:70-79``,
+``CalculateStatistics.m:24-31``).  Two halves:
+
+* BLR (``run_experiment``): the nine samplers on the five datasets;
+* the other workloads (``run_workload``): stochastic volatility (the
+  two-block samplers) and log-Gaussian Cox (constant-metric RMHMC,
+  position-dependent mMALA, whitened MALA), on data generated from
+  ``seed``.  FitzHugh-Nagumo and the joint LGC samplers are not ported yet
+  (ROADMAP.md slices 4-5) and raise ``NotImplementedError``.
 
 Timing protocol: only the post-burn-in sampling phase is timed.  It runs as
 two identical half-scans; the reported time is twice the *second* half, a
@@ -12,14 +19,15 @@ steady-state measurement, with ``torch.cuda.synchronize()`` at both ends on
 a CUDA device.
 
 The device is explicit.  A CUDA request on a machine without CUDA raises;
-nothing falls back to the CPU.  Not ported yet (ROADMAP.md): the other
-workloads (``--workload`` accepts ``blr`` only), ``ess_mode="native"``
-(slice 6).
+nothing falls back to the CPU.  Not ported yet (ROADMAP.md):
+``ess_mode="native"`` (slice 6).
 
 CLI::
 
     python -m riemannhamiltonianmontecarlo_tpu_torch.experiments \\
         --sampler mmala --dataset australian --device cuda
+    python -m riemannhamiltonianmontecarlo_tpu_torch.experiments \\
+        --workload stochvol --sampler rmhmc --device cuda
 """
 
 from __future__ import annotations
@@ -33,6 +41,7 @@ import numpy as np
 import torch
 
 from riemannhamiltonianmontecarlo_tpu_torch import diagnostics, interop, models, parallel, samplers, utils
+from riemannhamiltonianmontecarlo_tpu_torch.samplers.base import tree_map
 from riemannhamiltonianmontecarlo_tpu_torch.utils.config import (
     MALA_STEP_SIZES,
     MALA_TRANSIENT_FACTOR,
@@ -51,7 +60,6 @@ SAMPLERS = (
     "rmhmc_studentt",
 )
 ESS_MODES = ("reference", "exact", "device")
-WORKLOADS = ("blr",)  # stochvol, lgc and fhn: ROADMAP.md slices 3-5
 
 
 @dataclasses.dataclass
@@ -304,42 +312,244 @@ def run_repeated(
     return results, aggregate(results)
 
 
+# --------------------------------------------------------------------------
+# Non-BLR workloads: the reference's Run_* scripts behind one entry point.
+# --------------------------------------------------------------------------
+
+WORKLOAD_SAMPLERS = {
+    "blr": SAMPLERS,
+    "stochvol": ("rmhmc", "hmc", "mala", "mmala"),
+    "lgc": ("rmhmc", "mmala", "mala_transient", "mala_stationary", "rmhmc_joint", "mmala_joint"),
+    "fhn": ("rmhmc", "hmc", "mala", "mmala", "mmala_simplified", "metropolis"),
+}
+
+
+def not_ported(workload: str, sampler: str) -> str | None:
+    """Why (workload, sampler) cannot run in the port yet, or None if it can."""
+    if workload == "fhn":
+        return "workload 'fhn' is not ported yet (ROADMAP.md slice 5, item 15)"
+    if workload == "lgc" and sampler in ("rmhmc_joint", "mmala_joint"):
+        return f"lgc sampler '{sampler}' is not ported yet (ROADMAP.md slice 4, item 14)"
+    return None
+
+
+def timed_sampling(kernel, init, *, device: torch.device, burn_in: int, num_samples: int, seed: int = 0,
+                   collect_fn=None, warmup_kernel=None):
+    """Burn-in, then the two-half steady-state timing protocol (module docstring).
+
+    ``warmup_kernel`` (or None) steps the burn-in.  Returns (samples,
+    accept_rate, divergences, sampling_time_s); samples concatenates both
+    halves along the sample axis (a tree, as ``collect_fn`` returns).
+    """
+    gen = torch.Generator(device=device).manual_seed(seed)
+    warm = parallel.run(kernel, gen, init, num_samples=0, burn_in=max(burn_in, 1), collect=False,
+                        warmup_kernel=warmup_kernel)
+    _synchronize(device)
+    half = max(num_samples // 2, 1)
+    res_a = parallel.run(kernel, gen, None, num_samples=half, init_state=warm.final_state, collect_fn=collect_fn)
+    _synchronize(device)
+    t0 = time.perf_counter()
+    res_b = parallel.run(kernel, gen, None, num_samples=half, init_state=res_a.final_state, collect_fn=collect_fn)
+    _synchronize(device)
+    t = 2.0 * (time.perf_counter() - t0)
+    samples = tree_map(lambda a, b: torch.cat([a, b], dim=1), res_a.samples, res_b.samples)
+    accept = 0.5 * (float(res_a.accept_rate) + float(res_b.accept_rate))
+    div = int(res_a.divergences) + int(res_b.divergences)
+    return samples, accept, div, t
+
+
+def build_workload(workload: str, sampler: str, *, device: str | torch.device = "cuda",
+                   overrides: dict[str, Any] | None = None, seed: int = 0,
+                   stochvol_obs: int = 2000, lgc_n: int = 64):
+    """(kernel, init_position_fn, collect_fn, groups_fn, warmup_kernel).
+
+    All at reference constants, on data generated from ``seed``.
+    ``groups_fn(samples) -> {group_name: (C, S, P) tensor}`` maps the
+    collected tree to the named quantities whose ESS the paper reports
+    (StochVol hyperparameters vs latent volatilities, Tables 8/9).
+    ``warmup_kernel`` (or None) steps the burn-in only: StochVol MALA's
+    transient-phase step sizes.
+    """
+    reason = not_ported(workload, sampler)
+    if reason:
+        raise NotImplementedError(reason)
+    if workload not in WORKLOAD_SAMPLERS or workload == "blr":
+        raise KeyError(f"unknown workload '{workload}' for run_workload; options: stochvol, lgc")
+    if sampler not in WORKLOAD_SAMPLERS[workload]:
+        raise KeyError(f"unknown {workload} sampler '{sampler}'; options: {WORKLOAD_SAMPLERS[workload]}")
+    device = resolve_device(device)
+    kw = dict(overrides or {})
+    s = samplers
+
+    if workload == "stochvol":
+        y, _ = models.stochvol.generate_data(seed=seed, num_obs=stochvol_obs)
+        model = interop.stochvol_from_numpy(y, device=device)
+        t13 = stochvol_obs ** (1.0 / 3.0)
+        t12 = stochvol_obs**0.5
+        presets = {
+            # StochVol_RMHMC.m:66-77
+            "rmhmc": dict(),
+            # StochVol_HMC.m:57-67
+            "hmc": dict(method="hmc", latent_num_leapfrog=100, latent_step_size=0.03,
+                        hyper_num_leapfrog=100, hyper_step_size=0.015),
+            # StochVol_MALA.m stationary phase (:279-283): eps = StepSize/T^(1/3)
+            "mala": dict(method="mala", latent_step_size=0.03 / t13, hyper_step_size=0.005 / t13),
+            # StochVol_mMALA.m:66-72
+            "mmala": dict(method="mmala", latent_step_size=0.07, hyper_step_size=1.0),
+        }
+        kernel = s.stochvol.build(model, s.stochvol.StochVolConfig(**{**presets[sampler], **kw}))
+        warmup_kernel = None
+        if sampler == "mala":
+            # Transient phase (StochVol_MALA.m:62-67): eps = 0.05/T^(1/2)
+            # latents, 0.01/T^(1/2) hypers, switched to the stationary
+            # constants at the burn-in boundary (:279-283).
+            warmup_kernel = s.stochvol.build(model, s.stochvol.StochVolConfig(**{**dict(
+                method="mala", latent_step_size=0.05 / t12, hyper_step_size=0.01 / t12), **kw}))
+
+        def init_fn(chains: int) -> torch.Tensor:
+            # (beta, sigma, phi) = 0.5, StochVol_RMHMC.m:86-89
+            return torch.full((chains, 3), 0.5, device=device)
+
+        return (kernel, init_fn, lambda st: (st.position, st.x),
+                lambda smp: {"hyper": smp[0], "latent": smp[1]}, warmup_kernel)
+
+    # lgc
+    y, _ = models.lgc.generate_data(seed=seed, n=lgc_n)
+    model = interop.lgc_from_numpy(y, lgc_n, device=device)
+    if sampler in ("mala_transient", "mala_stationary"):
+        # Whitened parametrization, LGC_MALA_Transient.m:32-33 /
+        # LGC_MALA_Stationary.m:32-33.
+        wh = model.whitened()
+        cfg = (s.mala.MALAConfig(step_size=2.0, transient=True, **kw) if sampler == "mala_transient"
+               else s.mala.MALAConfig(step_size=1.65**2, **kw))
+        return (s.mala.build(wh, cfg), lambda c: torch.zeros((c, model.dim), device=device), None,
+                lambda smp: {"latent": wh.to_x(smp)}, None)
+    if sampler == "mmala":
+        # LGC_mMALA_LV.m:31-34: the position-dependent metric, a (C, D, D) build per step.
+        kernel = s.mmala.build(model, s.mmala.MMALAConfig(**{"step_size": 0.07, "jitter": 1e-5, **kw}))
+    else:
+        # Constant-metric RMHMC == preconditioned HMC, LGC_RMHMC_LV.m:95-101,149-196
+        # (L=30, eps=0.1 :32-33).
+        kernel = s.phmc.build(model, model.metric_chol, model.metric_inv,
+                              s.phmc.PHMCConfig(**{"step_size": 0.1, "num_leapfrog": 30, **kw}))
+    prior = model.prior_mean()
+    return kernel, lambda c: prior.expand(c, -1).clone(), None, lambda smp: {"latent": smp}, None
+
+
+@dataclasses.dataclass
+class WorkloadResult:
+    workload: str
+    sampler: str
+    num_chains: int
+    num_samples: int
+    accept_rate: float
+    divergences: int
+    sampling_time_s: float
+    ess: dict[str, np.ndarray]  # group -> per-coordinate chain-summed ESS
+    rhat_max: dict[str, float] = dataclasses.field(default_factory=dict)
+    geweke_max_abs_z: dict[str, float] = dataclasses.field(default_factory=dict)
+    samples: dict[str, np.ndarray] | None = None  # group -> (C, S, P), set by keep_samples runs
+
+    def summary(self) -> str:
+        lines = [
+            f"{self.workload}/{self.sampler}: {self.num_chains} chains x "
+            f"{self.num_samples} samples   accept {self.accept_rate:.3f}   "
+            f"divergences {self.divergences}   sampling {self.sampling_time_s:.3f} s"
+        ]
+        for group, ess in self.ess.items():
+            rhat = self.rhat_max.get(group, float("nan"))
+            gz = self.geweke_max_abs_z.get(group, float("nan"))
+            lines.append(
+                f"  {group}: ESS min {ess.min():.0f}  median {np.median(ess):.0f}  "
+                f"max {ess.max():.0f}   time/minESS {self.sampling_time_s / ess.min():.3e} s"
+                f"   max R-hat {rhat:.4f}   max |Geweke z| {gz:.2f}"
+            )
+        return "\n".join(lines)
+
+
+def run_workload(workload: str, sampler: str, *, device: str | torch.device = "cuda", num_chains: int = 64,
+                 num_samples: int = 1000, burn_in: int = 300, seed: int = 0,
+                 overrides: dict[str, Any] | None = None, keep_samples: bool = False,
+                 **data_kw) -> WorkloadResult:
+    """Reference-preset experiment on the stochvol or lgc workload.
+
+    ESS, split R-hat and moments run on the device per group; Geweke z on
+    an 8-chain slice on the host.  ``keep_samples`` also returns each
+    group's samples as NumPy.
+    """
+    if workload == "blr":
+        raise ValueError("use run_experiment(...) for the BLR workload")
+    device = resolve_device(device)
+    kernel, init_fn, collect_fn, groups_fn, warmup_kernel = build_workload(
+        workload, sampler, device=device, overrides=overrides, seed=seed, **data_kw)
+    samples, accept, div, t = timed_sampling(
+        kernel, init_fn(num_chains), device=device, burn_in=burn_in, num_samples=num_samples,
+        seed=seed, collect_fn=collect_fn, warmup_kernel=warmup_kernel)
+    with torch.inference_mode():
+        groups = groups_fn(samples)
+        ess = {g: diagnostics.ess_geyer_device(a).cpu().numpy() for g, a in groups.items()}
+        rhat = ({g: float(diagnostics.split_rhat_device(a).max()) for g, a in groups.items()}
+                if num_chains >= 2 else {})
+    # Geweke stationarity per group on a small chain subset (z ~ N(0,1)
+    # under stationarity).
+    geweke = {g: float(np.abs(diagnostics.geweke_z(a[:8].cpu().numpy())).max()) for g, a in groups.items()}
+    kept = {g: a.cpu().numpy() for g, a in groups.items()} if keep_samples else None
+    num_kept = next(iter(groups.values())).shape[1]
+    return WorkloadResult(workload, sampler, num_chains, num_kept, accept, div, t, ess, rhat, geweke, kept)
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--workload", default="blr", help="only 'blr' is ported (ROADMAP.md, slices 3-5)")
-    ap.add_argument("--sampler", default="rmhmc", choices=SAMPLERS)
-    ap.add_argument("--dataset", default="australian", choices=sorted(models.datasets.DATASET_SPECS))
+    ap.add_argument("--workload", choices=tuple(WORKLOAD_SAMPLERS), default="blr")
+    ap.add_argument("--sampler", default="rmhmc")
+    ap.add_argument("--dataset", default="australian", choices=sorted(models.datasets.DATASET_SPECS),
+                    help="BLR only")
     ap.add_argument("--device", default="cuda", help="torch device, e.g. cuda, cuda:1 or cpu")
-    ap.add_argument("--chains", type=int, default=1024)
+    ap.add_argument("--chains", type=int, default=None, help="default 1024 for blr, 64 otherwise")
     ap.add_argument("--samples", type=int, default=None)
     ap.add_argument("--burn-in", type=int, default=None)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--init", choices=("map", "zeros", "reference"), default="map")
+    ap.add_argument("--init", choices=("map", "zeros", "reference"), default="map", help="BLR only")
     ap.add_argument("--ess-mode", choices=ESS_MODES, default="reference",
-                    help="'native' (the C++ engine) is not ported yet (ROADMAP.md, slice 6)")
+                    help="BLR only; 'native' (the C++ engine) is not ported yet (ROADMAP.md, slice 6)")
     ap.add_argument("--adapt", action="store_true",
-                    help="dual-averaging step-size warmup instead of the hand-tuned reference constant")
+                    help="BLR only: dual-averaging step-size warmup instead of the hand-tuned reference constant")
     args = ap.parse_args(argv)
-    if args.workload not in WORKLOADS:
-        ap.error(f"workload '{args.workload}' is not ported yet (ROADMAP.md, slices 3-5); options: {WORKLOADS}")
+    if args.sampler not in WORKLOAD_SAMPLERS[args.workload]:
+        ap.error(f"sampler '{args.sampler}' not available for workload '{args.workload}' "
+                 f"(options: {WORKLOAD_SAMPLERS[args.workload]})")
+    reason = not_ported(args.workload, args.sampler)
+    if reason:
+        ap.error(reason)
     try:
         device = resolve_device(args.device)
     except RuntimeError as e:
         ap.error(str(e))
-    res = run_experiment(
-        args.sampler,
-        args.dataset,
-        device=device,
-        num_chains=args.chains,
-        num_samples=args.samples,
-        burn_in=args.burn_in,
-        seed=args.seed,
-        init=args.init,
-        ess_mode=args.ess_mode,
-        adapt=args.adapt,
-    )
-    if args.adapt:
-        print(f"adapted step size: {res.adapted_step_size:.4g}")
+    if args.workload == "blr":
+        res = run_experiment(
+            args.sampler,
+            args.dataset,
+            device=device,
+            num_chains=args.chains or 1024,
+            num_samples=args.samples,
+            burn_in=args.burn_in,
+            seed=args.seed,
+            init=args.init,
+            ess_mode=args.ess_mode,
+            adapt=args.adapt,
+        )
+        if args.adapt:
+            print(f"adapted step size: {res.adapted_step_size:.4g}")
+    else:
+        res = run_workload(
+            args.workload,
+            args.sampler,
+            device=device,
+            num_chains=args.chains or 64,
+            num_samples=args.samples or 1000,
+            burn_in=args.burn_in if args.burn_in is not None else 300,
+            seed=args.seed,
+        )
     print(res.summary())
 
 

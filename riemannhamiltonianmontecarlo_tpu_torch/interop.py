@@ -11,7 +11,9 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
+from riemannhamiltonianmontecarlo_tpu_torch.models.lgc import LGCModel
 from riemannhamiltonianmontecarlo_tpu_torch.models.logreg import LogisticRegression
+from riemannhamiltonianmontecarlo_tpu_torch.models.stochvol import StochVolModel
 from riemannhamiltonianmontecarlo_tpu_torch.parallel.adaptation import AdaptiveState, DualAveragingState
 from riemannhamiltonianmontecarlo_tpu_torch.samplers.rmhmc import RMHMCState, _Geometry
 
@@ -35,6 +37,30 @@ def logreg_from_numpy(
         alpha=alpha,
         mask=None if mask is None else _tensor(mask, device),
     )
+
+
+def stochvol_from_numpy(y: np.ndarray, device: str | torch.device = "cpu") -> StochVolModel:
+    """``StochVolModel`` (float32) on ``device`` from the observations y (T,)."""
+    return StochVolModel(_tensor(y, device))
+
+
+def lgc_from_numpy(
+    y: np.ndarray,
+    n: int,
+    sigma_inv: np.ndarray | None = None,
+    metric_chol: np.ndarray | None = None,
+    metric_inv: np.ndarray | None = None,
+    device: str | torch.device = "cpu",
+) -> LGCModel:
+    """``LGCModel`` on ``device`` from the counts y (n^2,).
+
+    The dense (n^2, n^2) operators are taken as given where passed (e.g. the
+    JAX model's float32 ``sigma_inv``, ``metric_chol`` and ``metric_inv``, so
+    that both packages compute on identical constants); any not given are
+    computed in float64 on the host.
+    """
+    ops = {"sigma_inv": sigma_inv, "metric_chol": metric_chol, "metric_inv": metric_inv}
+    return LGCModel(_tensor(y, device), n=n, **{k: None if v is None else _tensor(v, device) for k, v in ops.items()})
 
 
 def rmhmc_state_from_numpy(
@@ -64,7 +90,8 @@ def state_from_numpy(state_type: type, fields: Any, device: str | torch.device =
 
     ``state_type`` is a flat state NamedTuple of the port: ``HMCState``,
     ``MALAState``, ``AMHState``, ``MMALAState``, ``IWLSState``,
-    ``GibbsState`` or ``DualAveragingState``.  ``fields`` is the JAX state
+    ``GibbsState``, ``StochVolState``, ``PHMCState``, ``PMALAState`` or
+    ``DualAveragingState``.  ``fields`` is the JAX state
     (a NamedTuple of arrays) or a dict of its fields, by the same names.
     Each array is copied with its dtype (float32 stays float32, the int32
     counters stay int32).

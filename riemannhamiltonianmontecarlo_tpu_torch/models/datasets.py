@@ -51,13 +51,18 @@ class Dataset(NamedTuple):
     name: str
 
 
-def _find_csv(name: str) -> Path:
+def find_data_file(filename: str) -> Path | None:
+    """``filename`` in ``$RHMC_DATA_DIR`` or ``<repo>/data``, or None."""
     for base in _SEARCH_PATHS:
-        if not base:
-            continue
-        p = Path(base) / f"{name}.csv"
-        if p.exists():
-            return p
+        if base and (Path(base) / filename).exists():
+            return Path(base) / filename
+    return None
+
+
+def _find_csv(name: str) -> Path:
+    p = find_data_file(f"{name}.csv")
+    if p is not None:
+        return p
     raise FileNotFoundError(
         f"dataset '{name}' not found; searched {_SEARCH_PATHS}. "
         "Set RHMC_DATA_DIR or use synthetic_logreg()."

@@ -142,11 +142,13 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // Call f with the width as a compile-time constant for the widths the repo
-// uses (tests and the five BLR datasets: 5, 6, 7, 8, 14, 15, 25), and with 0
-// (the runtime-width instantiation) for any other D <= kMaxDim.
+// uses (the StochVol hyper block's D = 3; tests and the five BLR datasets: 5,
+// 6, 7, 8, 14, 15, 25), and with 0 (the runtime-width instantiation, whose
+// local arrays are sized for kMaxDim) for any other D <= kMaxDim.
 template <typename F>
 cudaError_t with_width(int d, F&& f) {
   switch (d) {
+    case 3: return f(std::integral_constant<int, 3>{});
     case 5: return f(std::integral_constant<int, 5>{});
     case 6: return f(std::integral_constant<int, 6>{});
     case 7: return f(std::integral_constant<int, 7>{});

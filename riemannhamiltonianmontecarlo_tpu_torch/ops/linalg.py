@@ -1,9 +1,10 @@
 """Chain-batched small-matrix linear algebra.
 
 Port of ``riemannhamiltonianmontecarlo_tpu/ops/linalg.py``.  RMHMC on the
-BLR workloads needs Cholesky factors, triangular solves, PD inverses and
-log-determinants of tiny (D = 7..25) matrices batched over thousands of
-chains.  The plain path keeps the chain axis vectorized and unrolls the
+BLR workloads (and the StochVol hyper block, D = 3) needs Cholesky factors,
+triangular solves, PD inverses and log-determinants of tiny (D = 3..25)
+matrices batched over thousands of chains; LGC's position-dependent mMALA
+(D = 4096) takes the library path.  The plain path keeps the chain axis vectorized and unrolls the
 factorization over the static dimension D, as the JAX package does.
 
 ``method`` selects the implementation:

@@ -1,0 +1,136 @@
+"""Where a step's time goes, per workload sampler, on a CUDA card.
+
+For each (workload, sampler) at its full size: wall milliseconds per step
+from unprofiled steps (``torch.cuda.synchronize()`` at both ends), then
+``torch.profiler`` over a few more steps for the device's busy time, the
+number of kernel launches and the share of device time in GEMMs (kernel
+names with gemm / cutlass / xmma) and in the library factorizations
+(potrf / trsm).  The idle share is 1 - busy / wall.  For StochVol it also
+times the bidiagonal Cholesky scan (``ops.tridiag.cholesky``, run once per
+sweep by rmhmc, hmc and mmala) inside the sweep, for its share of a sweep.
+
+    python -m riemannhamiltonianmontecarlo_tpu_torch.step_profile [--out FILE]
+
+Prints one JSON line per run (and writes them to FILE).  Needs a CUDA
+device; there is no CPU path.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import re
+import time
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from riemannhamiltonianmontecarlo_tpu_torch import experiments, models, parallel
+from riemannhamiltonianmontecarlo_tpu_torch.ops import tridiag
+from riemannhamiltonianmontecarlo_tpu_torch.samplers import pmala
+
+# (workload, sampler, chains): the chip-smoke configurations.
+RUNS = (
+    ("stochvol", "rmhmc", 1024), ("stochvol", "hmc", 1024), ("stochvol", "mala", 1024), ("stochvol", "mmala", 1024),
+    ("lgc", "rmhmc", 64), ("lgc", "pmala", 64), ("lgc", "mmala", 8), ("lgc", "mala_stationary", 16),
+)
+GEMM = re.compile(r"gemm|cutlass|xmma|gemv", re.IGNORECASE)
+FACTOR = re.compile(r"potrf|trsm|chol", re.IGNORECASE)
+
+
+def _kernel(workload: str, sampler: str, device: torch.device):
+    if sampler == "pmala":  # constant-metric mMALA, built on the model's metric (RESULTS.md:78)
+        y, _ = models.lgc.generate_data(seed=0, n=64)
+        model = experiments.interop.lgc_from_numpy(y, 64, device=device)
+        return pmala.build(model, model.metric_chol, model.metric_inv), lambda c: model.prior_mean().expand(c, -1).clone()
+    kernel, init_fn, _, _, _ = experiments.build_workload(workload, sampler, device=device, seed=0)
+    return kernel, init_fn
+
+
+def _wall_ms(fn, reps: int) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / reps
+
+
+def profile_run(workload: str, sampler: str, chains: int, *, warm: int, steps: int, profiled: int) -> dict:
+    device = torch.device("cuda")
+    kernel, init_fn = _kernel(workload, sampler, device)
+    gen = torch.Generator(device=device).manual_seed(0)
+    with torch.inference_mode():
+        state = parallel.run(kernel, gen, init_fn(chains), num_samples=0, burn_in=warm, collect=False).final_state
+        box = [state]
+
+        def one_step():
+            box[0], _ = kernel.step(gen, box[0])
+
+        wall = _wall_ms(one_step, steps)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(profiled):
+                one_step()
+            torch.cuda.synchronize()
+    # Device-side events (kernels, memcpy, memset) and their durations in ms per step.
+    kernels = [(e.name, e.time_range.elapsed_us() / 1e3 / profiled) for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(ms for _, ms in kernels)
+    out = {
+        "workload": workload, "sampler": sampler, "chains": chains, "wall_ms_per_step": wall,
+        "device_busy_ms_per_step": busy, "idle_share": 1.0 - busy / wall,
+        "kernel_launches_per_step": len(kernels) / profiled,
+        "gemm_share_of_device": sum(ms for name, ms in kernels if GEMM.search(name)) / busy,
+        "factor_share_of_device": sum(ms for name, ms in kernels if FACTOR.search(name)) / busy,
+    }
+    if workload == "stochvol" and sampler != "mala":
+        out.update(_scan_share(one_step, steps))
+    return out
+
+
+def _scan_share(one_step, steps: int) -> dict:
+    """The bidiagonal scan's wall ms per step and share of the step, in place:
+    ``tridiag.cholesky`` is wrapped with a synchronize on both sides while
+    ``steps`` more steps run (the samplers call it through the module)."""
+    inner, spent = tridiag.cholesky, [0.0]
+
+    def timed(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = inner(*args)
+        torch.cuda.synchronize()
+        spent[0] += time.perf_counter() - t0
+        return result
+
+    tridiag.cholesky = timed
+    try:
+        with torch.inference_mode():
+            wall = _wall_ms(one_step, steps)
+    finally:
+        tridiag.cholesky = inner
+    scan = 1e3 * spent[0] / steps
+    return {"tridiag_scan_wall_ms_per_step": scan, "tridiag_scan_share_of_step": scan / wall}
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--warm", type=int, default=3, help="steps before any timing")
+    ap.add_argument("--steps", type=int, default=5, help="unprofiled steps timed for the wall clock")
+    ap.add_argument("--profiled", type=int, default=3, help="steps under torch.profiler")
+    ap.add_argument("--out", default=None, help="also write the JSON lines here")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        ap.error("needs a CUDA device (torch.cuda.is_available() is False)")
+    lines = []
+    for workload, sampler, chains in RUNS:
+        rec = profile_run(workload, sampler, chains, warm=args.warm, steps=args.steps, profiled=args.profiled)
+        rec["device"] = torch.cuda.get_device_name(0)
+        lines.append(json.dumps(rec))
+        print(lines[-1], flush=True)
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write("\n".join(lines) + "\n")
+
+
+if __name__ == "__main__":
+    main()

@@ -128,7 +128,7 @@ def test_torch_refusals(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="is_available"):
         experiments.run_experiment("hmc", "australian", device="cuda")
-    for argv in (["--device", "cuda"], ["--workload", "stochvol", "--device", "cpu"]):
+    for argv in (["--device", "cuda"], ["--workload", "fhn", "--device", "cpu"]):
         with pytest.raises(SystemExit) as exit_info:
             experiments.main(argv)
         assert exit_info.value.code != 0

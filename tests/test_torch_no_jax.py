@@ -16,6 +16,7 @@ import sys
 import torch
 import riemannhamiltonianmontecarlo_tpu_torch as rt
 import chip_smoke  # noqa: F401
+import riemannhamiltonianmontecarlo_tpu_torch.step_profile  # noqa: F401
 ds = rt.models.synthetic_logreg(0, 50, 5)
 model = rt.interop.logreg_from_numpy(ds.X, ds.t)
 kern = rt.samplers.rmhmc.build(model)
