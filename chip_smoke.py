@@ -12,14 +12,30 @@ It imports no jax.  Phases, each printing one line of findings:
    versions, the fp32 precision flags;
 2. build: compiles ``ops/csrc/*.cu`` with nvcc (cached by source hash under
    the git-ignored ``build/``), prints the build seconds and the ptxas
-   register / spill report;
+   register / spill report, and holds ``hopper_linalg.launch_geometry``
+   (lanes per chain, chains per block, shared-memory tile) against the
+   built library's own answer for every width 1..48;
 3. kernels: K1 (Cholesky) and K2 (fused solve + log-det) against their
    plain-PyTorch twins on the card, on seeded SPD batches at
    C in {4096, 4097} and D in {3, 7, 10, 15, 25}, and at StochVol's
    C = 1024, D = 3 (10 takes the kernels' runtime-width instantiation, the
    others a compile-time width): tolerance, exact-zero upper triangle, and
-   one non-PD chain giving non-finite output in that chain only; then the
-   median CUDA-event time of each beside its twin's at D = 3, 15 and 25;
+   non-PD chains (the first, a middle and the last chain of a block, and
+   the batch's last chain) giving non-finite output in those chains only;
+   an operand that is not 16-byte aligned and one that is not contiguous
+   give the same bits as the aligned contiguous one.  Then, at
+   (C, D) = (4096, 15), (4096, 25), (4096, 3) and (1024, 3), for each
+   kernel: the wrapper's time (``ms``: median CUDA-event time of one call;
+   ``burst_ms``: 200 calls back to back over the count), the launch alone
+   on allocated outputs (``kernel_only_ms``, 200 back to back), the
+   device's own kernel duration by kernel name from torch.profiler over 50
+   launches (``device_us``), the twin's time, the least time the card could
+   take (``bound_us``, bytes read once and written once at 3.35 TB/s
+   against the operations at 67 TFLOP/s fp32) and the share of it reached,
+   and a library yardstick the port never calls on these shapes:
+   ``torch.linalg.cholesky_ex`` for K1 (``library_ms``), and for K2, which
+   no one call computes, the sequence cholesky_ex, cholesky_solve, log of
+   the diagonal (``library_seq_ms``: a sequence, for information only);
 4. one RMHMC transition through the kernels against one through the plain
    linalg, on the same state and noise (BLR, synthetic data of the
    australian shape N=690, D=15, 4096 chains);
@@ -70,6 +86,7 @@ points ``RHMC_DATA_DIR`` there, before the port is imported.
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import os
@@ -100,7 +117,7 @@ N_DATA, DIM = 690, 15  # australian's shape: 690 rows, 14 features + intercept
 BURN_IN, NUM_SAMPLES = 100, 300
 # Phase 5's plain-linalg comparison run is shorter than its kernel run: the
 # plain path takes ~6x as long per transition, and phase 6 needs the time.
-PLAIN_BURN_IN, PLAIN_SAMPLES = 100, 100
+PLAIN_BURN_IN, PLAIN_SAMPLES = 50, 50
 L, K = 6, 4  # reference constants (RMHMCConfig defaults)
 # Tolerances of the kernels against their twins: those of the JAX package's
 # Pallas tests (tests/test_pallas_linalg.py), |k - p| <= atol + rtol |p|.
@@ -154,6 +171,62 @@ def median_ms(fn, reps: int = 50, warmup: int = 5) -> float:
     return statistics.median(times)
 
 
+def burst_ms(fn, launches: int = 200, warmup: int = 10) -> float:
+    """One CUDA-event pair around ``launches`` calls back to back, over the count."""
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(launches):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / launches
+
+
+def device_us(fn, launches: int = 50, name_part: str | None = None) -> dict:
+    """The device's own time per call of ``fn``, from torch.profiler over
+    ``launches`` calls: the summed duration of the device events whose name
+    holds ``name_part`` (every device event when None), and how many such
+    events one call makes (rounded: the profiler now and then drops an event,
+    so the time is the mean event's times that count).  If the profiler shows
+    no such event, the time is ``burst_ms`` of 200 calls instead and
+    ``source`` says so."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(launches):
+            fn()
+        torch.cuda.synchronize()
+    spans = [e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA and (name_part is None or name_part in e.name)]
+    if not spans:
+        return {"us": 1e3 * burst_ms(fn), "events_per_call": None, "source": "events, 200 back to back"}
+    per_call = max(1, round(len(spans) / launches))
+    return {"us": per_call * sum(spans) / len(spans), "events_per_call": per_call, "source": "torch.profiler"}
+
+
+# The card's published peaks (NVIDIA H100 SXM data sheet): device memory
+# bytes per second, and float32 operations per second outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+
+
+def bound_us(name: str, c: int, d: int) -> tuple[float, str]:
+    """The least microseconds the card could take for kernel ``name`` on a
+    (C, D, D) float32 batch, and which side gives it.  Bytes: each input read
+    once, each output written once (K1: G in, L out; K2: G and b in, x and
+    log|G| out).  Operations: ~D^3/3 for the factor, 2 D^2 more for K2's two
+    substitutions, per chain."""
+    floats = {"cholesky": 2 * c * d * d, "chol_solve_logdet": c * d * d + 2 * c * d + c}[name]
+    ops = c * d**3 / 3 + (2 * c * d * d if name == "chol_solve_logdet" else 0)
+    by_bytes, by_ops = 1e6 * 4 * floats / HBM_BYTES_PER_S, 1e6 * ops / FP32_OPS_PER_S
+    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+
+
 def spd_batch(c: int, d: int, seed: int):
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
     a = torch.randn((c, d, d), generator=gen, device=DEVICE)
@@ -191,59 +264,144 @@ def phase_build() -> None:
     spills = [int(s) for s in re.findall(r"(\d+) bytes spill stores", log)]
     stack = [int(s) for s in re.findall(r"(\d+) bytes stack frame", log)]
     check(regs, "ptxas report names no kernel")
+    # Registers per kernel and width, from the mangled names: K1 / K2, the rows
+    # the instantiation is unrolled for, "rt" where the width comes at run time.
+    per_kernel = {
+        f"{'K1' if name == 'cholesky_kernel' else 'K2'}<{n}{'' if exact == '1' else ',rt'}>": int(r)
+        for name, n, exact, r in re.findall(
+            r"(cholesky_kernel|chol_solve_logdet_kernel)INS_5WidthILi(\d+)ELb([01])E.*?Used (\d+) registers", log, re.S)
+    }
+    for d in range(1, hl.MAX_DIM + 1):
+        mirror, built = hl.launch_geometry(d), hl.built_launch_geometry(d)
+        check(mirror == built, f"launch geometry at D={d}: Python mirror {mirror}, built library {built}")
     say("build", seconds=seconds, library=str(lib_path), kernels=len(regs),
         max_registers=max(regs), max_spill_store_bytes=max(spills, default=0),
-        max_stack_frame_bytes=max(stack, default=0))
+        max_stack_frame_bytes=max(stack, default=0), registers=per_kernel,
+        geometry={d: tuple(hl.launch_geometry(d)) for d in (3, 10, 15, 25, 48)})
+
+
+# Device kernels by the name torch.profiler shows them under.
+KERNEL_NAMES = {"cholesky": "cholesky_kernel", "chol_solve_logdet": "chol_solve_logdet_kernel"}
+TIMED_SHAPES = ((NUM_CHAINS, 15), (NUM_CHAINS, 25), (NUM_CHAINS, 3), (1024, 3))  # BLR australian, german; StochVol hyper
+
+
+def non_pd_chains(c: int, d: int) -> list[int]:
+    """Chains to spoil: the first chain of a block, the middle of the next,
+    the last of the one after (blocks near C/2), and the batch's last chain."""
+    per_block = hl.launch_geometry(d).chains_per_block
+    block = (c // 2) // per_block
+    return [block * per_block, (block + 1) * per_block + per_block // 2, (block + 3) * per_block - 1, c - 1]
+
+
+def check_kernels(c: int, d: int, err: dict) -> None:
+    """K1 and K2 against their twins on one seeded batch with non-PD chains in it."""
+    g, b = spd_batch(c, d, seed=1000 * d + c)
+    bad = non_pd_chains(c, d)
+    g[bad] = -torch.eye(d, device=DEVICE)  # not PD
+    ok = torch.ones(c, dtype=torch.bool, device=DEVICE)
+    ok[bad] = False
+    at = f"(C={c}, D={d})"
+
+    lk, lp = hl.cholesky_cuda(g), hl.cholesky_plain(g)
+    torch.cuda.synchronize()
+    check(lk.is_contiguous() and lk.shape == g.shape, f"K1 result not a contiguous (C, D, D) {at}")
+    check(bool((torch.triu(lk, 1) == 0).all()), f"K1 upper triangle not exactly 0 {at}")
+    check(bool(torch.isfinite(lk[ok]).all()), f"K1 non-finite on a PD chain {at}")
+    check(not bool(torch.isfinite(lk[bad]).flatten(1).all(1).any()), f"K1 finite on a non-PD chain {at}")
+    e, over = excess(lk[ok], lp[ok], TOL["L"])
+    check(over <= 0, f"K1 vs twin beyond tolerance at {at}: max |err| {e}")
+    err["cholesky"] = max(err["cholesky"], e)
+
+    # x: the back substitution subtracts in descending k where the twin sums in
+    # ascending k, and log|G| is a butterfly sum: TOL allows for the rounding.
+    (xk, ldk), (xp, ldp) = hl.chol_solve_logdet_cuda(g, b), hl.chol_solve_logdet_plain(g, b)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(xk[ok]).all() and torch.isfinite(ldk[ok]).all()), f"K2 non-finite on a PD chain {at}")
+    check(not bool(torch.isfinite(xk[bad]).all(1).any()) and not bool(torch.isfinite(ldk[bad]).any()),
+          f"K2 finite on a non-PD chain {at}")
+    ex, over_x = excess(xk[ok], xp[ok], TOL["x"])
+    el, over_l = excess(ldk[ok], ldp[ok], TOL["logdet"])
+    check(over_x <= 0 and over_l <= 0, f"K2 vs twin beyond tolerance at {at}: max |err| x {ex}, logdet {el}")
+    err["chol_solve_logdet"] = max(err["chol_solve_logdet"], ex, el)
+
+
+def check_operand_forms(c: int, d: int) -> None:
+    """An operand off 16-byte alignment (the kernels' 4-byte copy path) and a
+    strided one (the wrapper's one copy) give the bits of the plain call."""
+    g, b = spd_batch(c, d, seed=77)
+    l0, (x0, ld0) = hl.cholesky_cuda(g), hl.chol_solve_logdet_cuda(g, b)
+    flat = torch.empty(g.numel() + 1, device=DEVICE)
+    shifted = flat[1:].view_as(g).copy_(g)
+    check(shifted.data_ptr() % 16 != 0 and shifted.is_contiguous(), "the shifted operand is 16-byte aligned")
+    wide = torch.zeros((c, d + 1, d + 2), device=DEVICE)
+    wide[:, :d, :d] = g
+    strided = wide[:, :d, :d]
+    check(not strided.is_contiguous(), "the strided operand is contiguous")
+    for form, gf in (("unaligned", shifted), ("strided", strided)):
+        lf, (xf, ldf) = hl.cholesky_cuda(gf), hl.chol_solve_logdet_cuda(gf, b)
+        torch.cuda.synchronize()
+        check(torch.equal(lf, l0) and torch.equal(xf, x0) and torch.equal(ldf, ld0),
+              f"{form} operand at C={c}, D={d}: result differs from the aligned contiguous one")
+
+
+def library_cholesky(g):
+    return torch.linalg.cholesky_ex(g)[0]
+
+
+def library_solve_logdet_sequence(g, b):
+    l = torch.linalg.cholesky_ex(g)[0]
+    x = torch.cholesky_solve(b[..., None], l)[..., 0]
+    return x, 2.0 * torch.log(torch.diagonal(l, dim1=-2, dim2=-1)).sum(-1)
+
+
+def time_kernels(c: int, d: int) -> dict:
+    """Both kernels' times at one shape, beside twin, bound and library yardstick."""
+    g, b = spd_batch(c, d, seed=d)
+    l, x, logdet = torch.empty_like(g), torch.empty_like(b), torch.empty(c, device=DEVICE)
+    lib = hl._lib()
+    calls = {
+        "cholesky": (lambda: hl.cholesky_cuda(g), lambda: hl.cholesky_plain(g),
+                     lambda: hl._launch("cholesky", lib.rhmc_cholesky, (g, l), c, d),
+                     "library_ms", lambda: library_cholesky(g)),
+        "chol_solve_logdet": (lambda: hl.chol_solve_logdet_cuda(g, b), lambda: hl.chol_solve_logdet_plain(g, b),
+                              lambda: hl._launch("chol_solve_logdet", lib.rhmc_chol_solve_logdet,
+                                                 (g, b, x, logdet), c, d),
+                              "library_seq_ms", lambda: library_solve_logdet_sequence(g, b)),
+    }
+    out = {}
+    for name, (wrapper, plain, launch, library_key, library) in calls.items():
+        dev = device_us(launch, name_part=KERNEL_NAMES[name])
+        check(dev["events_per_call"] in (None, 1), f"{name}: {dev['events_per_call']} device kernels per launch")
+        lib_dev = device_us(library)
+        bound, bound_by = bound_us(name, c, d)
+        out[name] = {
+            "ms": median_ms(wrapper), "burst_ms": burst_ms(wrapper), "kernel_only_ms": burst_ms(launch),
+            "device_us": dev["us"], "device_us_source": dev["source"], "plain_ms": median_ms(plain),
+            "bound_us": bound, "bound_by": bound_by, "share_of_bound": bound / dev["us"],
+            library_key: median_ms(library), "library_device_us": lib_dev["us"],
+            "library_device_kernels_per_call": lib_dev["events_per_call"],
+        }
+    out["chol_solve_logdet"]["library_seq_note"] = "sequence of three library calls, information only"
+    return out
 
 
 def phase_kernels(smi: str) -> dict:
     """K1 and K2 against their twins; returns per-kernel max |err| and times."""
     err = {"cholesky": 0.0, "chol_solve_logdet": 0.0}
     shapes = [(c, d) for d in (3, 7, 10, 15, 25) for c in (NUM_CHAINS, NUM_CHAINS + 1)] + [(SV_CHAINS, 3)]
-    for c, d in shapes:
-        g, b = spd_batch(c, d, seed=1000 * d + c)
-        bad = c // 2 + 1
-        g[bad] = -torch.eye(d, device=DEVICE)  # not PD
-        ok = torch.ones(c, dtype=torch.bool, device=DEVICE)
-        ok[bad] = False
-
-        lk, lp = hl.cholesky_cuda(g), hl.cholesky_plain(g)
-        torch.cuda.synchronize()
-        check(bool((torch.triu(lk, 1) == 0).all()), f"K1 upper triangle not exactly 0 (C={c}, D={d})")
-        check(bool(torch.isfinite(lk[ok]).all()), f"K1 non-finite on a PD chain (C={c}, D={d})")
-        check(not bool(torch.isfinite(lk[bad]).all()), f"K1 finite on the non-PD chain (C={c}, D={d})")
-        e, over = excess(lk[ok], lp[ok], TOL["L"])
-        check(over <= 0, f"K1 vs twin beyond tolerance at C={c}, D={d}: max |err| {e}")
-        err["cholesky"] = max(err["cholesky"], e)
-
-        (xk, ldk), (xp, ldp) = hl.chol_solve_logdet_cuda(g, b), hl.chol_solve_logdet_plain(g, b)
-        torch.cuda.synchronize()
-        check(bool(torch.isfinite(xk[ok]).all() and torch.isfinite(ldk[ok]).all()),
-              f"K2 non-finite on a PD chain (C={c}, D={d})")
-        check(not bool(torch.isfinite(xk[bad]).all()) and not bool(torch.isfinite(ldk[bad])),
-              f"K2 finite on the non-PD chain (C={c}, D={d})")
-        ex, over_x = excess(xk[ok], xp[ok], TOL["x"])
-        el, over_l = excess(ldk[ok], ldp[ok], TOL["logdet"])
-        check(over_x <= 0 and over_l <= 0,
-              f"K2 vs twin beyond tolerance at C={c}, D={d}: max |err| x {ex}, logdet {el}")
-        err["chol_solve_logdet"] = max(err["chol_solve_logdet"], ex, el)
-    say("kernels", checked="C in (4096, 4097) x D in (3, 7, 10, 15, 25) and C=1024 x D=3, one non-PD chain each",
+    for c, d in shapes + [(NUM_CHAINS + 1, 40)]:  # 40: two rows a lane
+        check_kernels(c, d, err)
+    for c, d in ((NUM_CHAINS + 1, 15), (NUM_CHAINS, 8), (NUM_CHAINS + 1, 40)):
+        check_operand_forms(c, d)
+    say("kernels", checked="C in (4096, 4097) x D in (3, 7, 10, 15, 25), C=1024 x D=3 and C=4097 x D=40, four non-PD chains each "
+        "(first, middle, last of a block; last of the batch); unaligned and strided operands at D in (15, 8, 40)",
         max_abs_err=err, tolerance_rtol_atol=TOL)
 
     times = {}
-    for c, d in ((NUM_CHAINS, 3), (SV_CHAINS, 3), (NUM_CHAINS, 15), (NUM_CHAINS, 25)):
-        g, b = spd_batch(c, d, seed=d)
-        gt = g.permute(1, 2, 0).contiguous()
-        lt = torch.empty_like(gt)
-        times[c, d] = {
-            "cholesky_ms": median_ms(lambda: hl.cholesky_cuda(g)),
-            "cholesky_kernel_only_ms": median_ms(
-                lambda: hl._launch("cholesky", hl._lib().rhmc_cholesky, (gt, lt), c, d)),
-            "cholesky_plain_ms": median_ms(lambda: hl.cholesky_plain(g)),
-            "chol_solve_logdet_ms": median_ms(lambda: hl.chol_solve_logdet_cuda(g, b)),
-            "chol_solve_logdet_plain_ms": median_ms(lambda: hl.chol_solve_logdet_plain(g, b)),
-        }
-        say("kernel-times", C=c, D=d, card=smi, **times[c, d])
+    for c, d in TIMED_SHAPES:
+        times[c, d] = time_kernels(c, d)
+        for name, row in times[c, d].items():
+            say("kernel-times", kernel=name, C=c, D=d, card=smi, **row)
     return {"err": err, "times": times}
 
 
@@ -396,7 +554,8 @@ class BlrRun:
 
 # Burn-in lengths: enough for the slow mixers (component-wise AMH adapts its
 # SDs every 100 sweeps; MALA's steps are small) to forget the MAP + jitter
-# start, so the means can be held against RMHMC's.  Gibbs at 1024 chains.
+# start, so the means can be held against RMHMC's.  Gibbs at 1024 chains: it
+# needs its 200 sweeps (at 100 its means sat z = 12 from RMHMC's).
 BLR_RUNS = (
     BlrRun("rmhmc"),
     BlrRun("rmhmc_studentt"),
@@ -669,7 +828,11 @@ def phase_lgc(smi: str) -> dict:
     return launches_by_path
 
 
-def main() -> None:
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description="Drive the port's main path on one CUDA card and check it.")
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="stop after phase 3 and print the whole ptxas report (no result lines: not a pass)")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         sys.exit(1)
@@ -685,6 +848,10 @@ def main() -> None:
         lap("device+build")
         kernels = phase_kernels(smi)
         lap("kernels")
+        if args.kernels_only:
+            print((_build.build().parent / "ptxas.log").read_text(), flush=True)
+            say("phase-seconds", **seconds)
+            return
         model = blr_model()
         phase_transition(model)
         lap("transition")
@@ -698,16 +865,23 @@ def main() -> None:
         lap("lgc")
     say("phase-seconds", **seconds)
 
-    t15, t3 = kernels["times"][NUM_CHAINS, 15], kernels["times"][SV_CHAINS, 3]
-    summary = [
-        {"name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
-         "launches": launches[name], "max_abs_err": kernels["err"][name],
-         "ms": t15[f"{name}_ms"], "plain_ms": t15[f"{name}_plain_ms"],
-         "ms_stochvol_c1024_d3": t3[f"{name}_ms"], "plain_ms_stochvol_c1024_d3": t3[f"{name}_plain_ms"],
-         "launches_by_path": {"rmhmc-main-path": launches[name],
-                              **{label: counts[name] for label, counts in by_path.items()}}}
-        for name in ("cholesky", "chol_solve_logdet")
-    ]
+    # Top-level times: the main path's shape (C 4096, D 15); every timed shape under "shapes".
+    summary = []
+    for name in ("cholesky", "chol_solve_logdet"):
+        main_shape = kernels["times"][NUM_CHAINS, DIM][name]
+        summary.append({
+            "name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
+            "launches": launches[name], "max_abs_err": kernels["err"][name],
+            "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
+            "bound_ms": main_shape["bound_us"] / 1e3, "bound_by": main_shape["bound_by"],
+            "library_ms": main_shape.get("library_ms"),
+            **{key: main_shape[key] for key in ("device_us", "bound_us", "share_of_bound", "library_seq_ms")
+               if key in main_shape},
+            "card": smi,
+            "shapes": {f"C{c}_D{d}": row[name] for (c, d), row in kernels["times"].items()},
+            "launches_by_path": {"rmhmc-main-path": launches[name],
+                                 **{label: counts[name] for label, counts in by_path.items()}},
+        })
     print(smi, flush=True)
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {

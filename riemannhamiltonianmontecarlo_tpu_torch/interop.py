@@ -2,6 +2,8 @@
 
 Takes NumPy arrays (``np.asarray`` of the JAX package's arrays) and never
 imports jax, so both packages can be made to compute on identical inputs.
+Every converter puts its result on ``device``, ``"cuda"`` unless the caller
+asks for the CPU, as ``experiments.run_experiment`` does.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ def logreg_from_numpy(
     t: np.ndarray,
     alpha: float = 100.0,
     mask: np.ndarray | None = None,
-    device: str | torch.device = "cpu",
+    device: str | torch.device = "cuda",
 ) -> LogisticRegression:
     """``LogisticRegression`` (float32) on ``device`` from the design matrix, labels and mask."""
     return LogisticRegression(
@@ -39,7 +41,7 @@ def logreg_from_numpy(
     )
 
 
-def stochvol_from_numpy(y: np.ndarray, device: str | torch.device = "cpu") -> StochVolModel:
+def stochvol_from_numpy(y: np.ndarray, device: str | torch.device = "cuda") -> StochVolModel:
     """``StochVolModel`` (float32) on ``device`` from the observations y (T,)."""
     return StochVolModel(_tensor(y, device))
 
@@ -50,7 +52,7 @@ def lgc_from_numpy(
     sigma_inv: np.ndarray | None = None,
     metric_chol: np.ndarray | None = None,
     metric_inv: np.ndarray | None = None,
-    device: str | torch.device = "cpu",
+    device: str | torch.device = "cuda",
 ) -> LGCModel:
     """``LGCModel`` on ``device`` from the counts y (n^2,).
 
@@ -67,7 +69,7 @@ def rmhmc_state_from_numpy(
     position: np.ndarray,
     logp: np.ndarray,
     geo: dict | None = None,
-    device: str | torch.device = "cpu",
+    device: str | torch.device = "cuda",
 ) -> RMHMCState:
     """``RMHMCState`` from the JAX state's fields.
 
@@ -85,7 +87,7 @@ def _fields(state: Any) -> Mapping[str, Any]:
     return state._asdict() if hasattr(state, "_asdict") else state
 
 
-def state_from_numpy(state_type: type, fields: Any, device: str | torch.device = "cpu"):
+def state_from_numpy(state_type: type, fields: Any, device: str | torch.device = "cuda"):
     """A port sampler state of ``state_type`` from the JAX state's fields.
 
     ``state_type`` is a flat state NamedTuple of the port: ``HMCState``,
@@ -100,7 +102,7 @@ def state_from_numpy(state_type: type, fields: Any, device: str | torch.device =
     return state_type(**{name: torch.from_numpy(np.array(f[name])).to(device) for name in state_type._fields})
 
 
-def adaptive_state_from_numpy(inner_type: type, fields: Any, device: str | torch.device = "cpu") -> AdaptiveState:
+def adaptive_state_from_numpy(inner_type: type, fields: Any, device: str | torch.device = "cuda") -> AdaptiveState:
     """``AdaptiveState`` from the JAX one: ``inner`` of ``inner_type`` plus the dual-averaging state."""
     f = _fields(fields)
     return AdaptiveState(

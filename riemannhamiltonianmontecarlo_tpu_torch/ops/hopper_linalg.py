@@ -10,14 +10,22 @@ The port of ``riemannhamiltonianmontecarlo_tpu/ops/pallas_linalg.py``:
   ``pallas_linalg.chol_solve_logdet`` (``pallas_call`` at ``:150``).
 
 Each has three functions.  ``<op>_cuda`` is the kernel's wrapper: it checks
-the input (CUDA device, float32, shape, D <= 48), moves it chains-last
-(D, D, C) as the TPU wrapper does, launches the CUDA kernel of
-``csrc/hopper_linalg.cu`` on the current stream, counts the launch, and
-raises on anything else -- a CPU tensor included.  ``<op>_plain`` is the
-plain-PyTorch twin: the same unrolled outer-product elimination and
-substitutions (``_chol_body`` / ``_solve_body``), in the public layout.
-``<op>`` is what the rest of the port calls: the twin for a CPU tensor,
-the kernel for a CUDA one, never a fallback from one to the other.
+the input (CUDA device, float32, shape, D <= 48), allocates the outputs with
+``torch.empty``, launches the CUDA kernel of ``csrc/hopper_linalg.cu`` on the
+current stream, counts the launch, and raises on anything else -- a CPU
+tensor included.  The kernels read and write the public layout, contiguous
+(C, D, D) and (C, D): a contiguous operand goes to the kernel as it is, with
+no copy and no transposed view on the way in or out; only an operand that is
+not contiguous is copied once.  ``<op>_plain`` is the plain-PyTorch twin: the
+same unrolled outer-product elimination and substitutions (``_chol_body`` /
+``_solve_body``).  ``<op>`` is what the rest of the port calls: the twin for
+a CPU tensor, the kernel for a CUDA one, never a fallback from one to the
+other.
+
+On the card a group of lanes owns one chain and a block owns a run of
+neighbouring chains, staged through a shared-memory tile;
+``launch_geometry(d)`` mirrors the source's choice of lanes per chain,
+chains per block and tile size for every width.
 
 The library is built by ``ops._build`` at the first CUDA call, never at
 import, so this module imports on a machine without CUDA.
@@ -27,13 +35,21 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 from torch import Tensor
 
 from riemannhamiltonianmontecarlo_tpu_torch.ops import _build
 
-MAX_DIM = 48  # ops.linalg.UNROLL_MAX_DIM; the kernels' local storage is sized for it
+MAX_DIM = 48  # ops.linalg.UNROLL_MAX_DIM; the kernels' widest instantiation
+THREADS_PER_BLOCK = 128
+# Widths the kernels are unrolled for exactly; any other D <= MAX_DIM runs at
+# the next of CAPACITIES with identity rows as padding (csrc: with_width).
+EXACT_WIDTHS = (3, 5, 6, 7, 8, 14, 15, 25)
+CAPACITIES = (4, 8, 16, 32, 48)
+STATIC_SHARED_LIMIT = 48 * 1024  # bytes of shared memory a block gets without opting in
+_KERNEL_DEVICE = "cuda"  # the only device type the wrappers launch on
 
 # Launch counts of the CUDA kernels, so a run can show it went through them.
 _LAUNCHES = {"cholesky": 0, "chol_solve_logdet": 0}
@@ -48,10 +64,37 @@ def reset_launch_counts() -> None:
         _LAUNCHES[name] = 0
 
 
+class LaunchGeometry(NamedTuple):
+    """How the kernels lay a width out on the card (csrc: ``Width``)."""
+
+    lanes_per_chain: int  # a power of two, at most a warp
+    rows_per_lane: int  # lane i holds rows i, i + lanes_per_chain
+    chains_per_block: int
+    row_stride: int  # floats between rows of the shared tile: odd, so no bank conflicts
+    shared_bytes: int  # the block's tile
+
+
+def launch_geometry(d: int) -> LaunchGeometry:
+    """The source's launch geometry for width ``d``, mirrored in Python.
+
+    ``rhmc_launch_geometry`` of the built library gives the source's own
+    answer; ``chip_smoke.py`` holds the two against each other on the card.
+    """
+    if not 1 <= d <= MAX_DIM:
+        raise ValueError(f"the CUDA kernel takes 1 <= D <= {MAX_DIM}, got D = {d}")
+    rows = d if d in EXACT_WIDTHS else next(cap for cap in CAPACITIES if d <= cap)
+    lanes = next((n for n in (4, 8, 16) if rows <= n), 32)
+    chains = THREADS_PER_BLOCK // lanes
+    stride = d | 1
+    return LaunchGeometry(lanes, -(-rows // lanes), chains, stride, 4 * chains * d * stride)
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load_library()
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.rhmc_launch_geometry.argtypes = [i32, ctypes.POINTER(i32)]
+    lib.rhmc_launch_geometry.restype = i32
     lib.rhmc_cholesky.argtypes = [ptr, ptr, i32, i32, ptr]
     lib.rhmc_cholesky.restype = i32
     lib.rhmc_chol_solve_logdet.argtypes = [ptr, ptr, ptr, ptr, i32, i32, ptr]
@@ -59,8 +102,17 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def built_launch_geometry(d: int) -> LaunchGeometry:
+    """The built library's own geometry for width ``d`` (builds the library: needs the toolkit)."""
+    out = (ctypes.c_int * 5)()
+    err = _lib().rhmc_launch_geometry(d, out)
+    if err != 0:
+        raise RuntimeError(f"rhmc_launch_geometry({d}) failed with CUDA error {err}")
+    return LaunchGeometry(*out)
+
+
 def _check_batch(g: Tensor, b: Tensor | None = None) -> None:
-    if g.device.type != "cuda":
+    if g.device.type != _KERNEL_DEVICE:
         raise ValueError(f"the CUDA kernel needs a CUDA tensor, got one on {g.device}")
     if g.dtype != torch.float32:
         raise TypeError(f"the CUDA kernel takes float32, got {g.dtype}")
@@ -78,7 +130,7 @@ def _check_batch(g: Tensor, b: Tensor | None = None) -> None:
 
 def _launch(name: str, fn, tensors: tuple[Tensor, ...], c: int, d: int) -> None:
     for t in tensors:
-        if not t.is_contiguous():  # the chains-last index arithmetic assumes it
+        if not t.is_contiguous():  # the kernels' index arithmetic assumes it
             raise ValueError(f"{name}: kernel operand is not contiguous")
     device = tensors[0].device
     with torch.cuda.device(device):
@@ -108,18 +160,14 @@ def cholesky_plain(g: Tensor) -> Tensor:
 
 
 def cholesky_cuda(g: Tensor) -> Tensor:
-    """K1 on the card: (C, D, D) float32 CUDA -> lower factor (C, D, D).
-
-    The result is a (C, D, D) view of chains-last (D, D, C) storage.
-    """
+    """K1 on the card: (C, D, D) float32 CUDA -> lower factor, contiguous (C, D, D)."""
     _check_batch(g)
     c, d, _ = g.shape
-    gt = g.permute(1, 2, 0).contiguous()
-    if c == 0:
-        return gt.permute(2, 0, 1)
-    lt = torch.empty_like(gt)
-    _launch("cholesky", _lib().rhmc_cholesky, (gt, lt), c, d)
-    return lt.permute(2, 0, 1)
+    g = g.contiguous()  # g itself unless the caller's is strided
+    l = torch.empty_like(g)
+    if c > 0:
+        _launch("cholesky", _lib().rhmc_cholesky, (g, l), c, d)
+    return l
 
 
 def cholesky(g: Tensor) -> Tensor:
@@ -156,13 +204,12 @@ def chol_solve_logdet_cuda(g: Tensor, b: Tensor) -> tuple[Tensor, Tensor]:
     """K2 on the card: (C, D, D), (C, D) float32 CUDA -> x = G^-1 b (C, D), log|G| (C,)."""
     _check_batch(g, b)
     c, d, _ = g.shape
-    gt = g.permute(1, 2, 0).contiguous()
-    bt = b.T.contiguous()
-    xt = torch.empty_like(bt)
+    g, b = g.contiguous(), b.contiguous()  # themselves unless the caller's are strided
+    x = torch.empty_like(b)
     logdet = torch.empty(c, dtype=g.dtype, device=g.device)
     if c > 0:
-        _launch("chol_solve_logdet", _lib().rhmc_chol_solve_logdet, (gt, bt, xt, logdet), c, d)
-    return xt.T, logdet
+        _launch("chol_solve_logdet", _lib().rhmc_chol_solve_logdet, (g, b, x, logdet), c, d)
+    return x, logdet
 
 
 def chol_solve_logdet(g: Tensor, b: Tensor) -> tuple[Tensor, Tensor]:

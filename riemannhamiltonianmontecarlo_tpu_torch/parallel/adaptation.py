@@ -36,7 +36,7 @@ class DualAveragingState(NamedTuple):
     t: Tensor  # () int32
 
 
-def da_init(eps0: float, device: str | torch.device = "cpu") -> DualAveragingState:
+def da_init(eps0: float, device: str | torch.device = "cuda") -> DualAveragingState:
     def scalar(value: float) -> Tensor:
         return torch.tensor(value, dtype=torch.float32, device=device)
 

@@ -29,7 +29,7 @@ torch.set_num_threads(1)
 
 def test_torch_da_update_trajectory_matches_jax():
     accepts = np.random.default_rng(0).uniform(0.2, 1.0, size=60).astype(np.float32)
-    js, ts = jad.da_init(0.3), adaptation.da_init(0.3)
+    js, ts = jad.da_init(0.3), adaptation.da_init(0.3, device="cpu")
     for a in accepts:
         js = jad.da_update(js, jnp.asarray(a), 0.651, gamma=0.05, t0=10.0, kappa=0.75)
         ts = adaptation.da_update(ts, torch.tensor(a), 0.651, gamma=0.05, t0=10.0, kappa=0.75)
@@ -37,7 +37,7 @@ def test_torch_da_update_trajectory_matches_jax():
             np.testing.assert_allclose(float(getattr(ts, name)), float(getattr(js, name)), rtol=1e-5, atol=1e-6)
         assert int(ts.t) == int(js.t)
     assert ts.t.dtype == torch.int32 and ts.log_eps.dtype == torch.float32
-    carried = interop.state_from_numpy(adaptation.DualAveragingState, js)
+    carried = interop.state_from_numpy(adaptation.DualAveragingState, js, device="cpu")
     assert adaptation.frozen_step_size(adaptation.AdaptiveState(None, carried)) == pytest.approx(
         jad.frozen_step_size(jad.AdaptiveState(None, js)), rel=1e-6)
 
@@ -45,7 +45,7 @@ def test_torch_da_update_trajectory_matches_jax():
 def blr(n=120, d=4):
     ds = rt.models.synthetic_logreg(seed=3, n=n, d=d, w_scale=1.0)
     x, t = ds.X.astype(np.float32), ds.t.astype(np.float32)
-    return rj.models.LogisticRegression(jnp.asarray(x), jnp.asarray(t)), interop.logreg_from_numpy(x, t)
+    return rj.models.LogisticRegression(jnp.asarray(x), jnp.asarray(t)), interop.logreg_from_numpy(x, t, device="cpu")
 
 
 def test_torch_adaptive_hmc_hits_target_on_blr():

@@ -55,7 +55,7 @@ def test_torch_loader_reads_the_csv_as_jax_does():
 @pytest.mark.parametrize("name", experiments.SAMPLERS)
 def test_torch_build_kernel_every_sampler(name):
     ds = tdatasets.synthetic_logreg(seed=1, n=40, d=4)
-    model = interop.logreg_from_numpy(ds.X, ds.t)
+    model = interop.logreg_from_numpy(ds.X, ds.t, device="cpu")
     kernel, warm = experiments.build_kernel(name, model, "australian", None)
     assert (warm is not None) == (name == "mala")
     gen = torch.Generator().manual_seed(0)

@@ -99,7 +99,7 @@ def test_torch_gig_zero_normal_draw_is_redrawn(monkeypatch):
 def gibbs_target():
     ds = rt.models.synthetic_logreg(seed=9, n=60, d=5)
     x, t = ds.X.astype(np.float32), ds.t.astype(np.float32)
-    return rj.models.LogisticRegression(jnp.asarray(x), jnp.asarray(t)), interop.logreg_from_numpy(x, t)
+    return rj.models.LogisticRegression(jnp.asarray(x), jnp.asarray(t)), interop.logreg_from_numpy(x, t, device="cpu")
 
 
 def test_torch_gibbs_step_deterministic_part_matches_jax(gibbs_target):
@@ -122,7 +122,7 @@ def test_torch_gibbs_step_deterministic_part_matches_jax(gibbs_target):
         "b": jnp.einsum("cdn,cn->cd", s, inv_lam * state.z, precision=_PREC),
         "h": jnp.einsum("nd,cdn->cn", x, s, precision=_PREC),
     }
-    tstate = interop.state_from_numpy(gibbs.GibbsState, state)
+    tstate = interop.state_from_numpy(gibbs.GibbsState, state, device="cpu")
     cond = gibbs.conditionals(tm, tstate)
     for name, want in ref.items():
         want = np.asarray(want)
@@ -141,7 +141,7 @@ def test_torch_gibbs_step_deterministic_part_matches_jax(gibbs_target):
 def test_torch_gibbs_posterior_matches_jax_run():
     ds = rt.models.synthetic_logreg(seed=21, n=50, d=3, w_scale=1.0)
     x, t = ds.X.astype(np.float32), ds.t.astype(np.float32)
-    jm, tm = rj.models.LogisticRegression(jnp.asarray(x), jnp.asarray(t)), interop.logreg_from_numpy(x, t)
+    jm, tm = rj.models.LogisticRegression(jnp.asarray(x), jnp.asarray(t)), interop.logreg_from_numpy(x, t, device="cpu")
     c, burn, n = 32, 50, 150
     # one scan each (burn-in kept, then dropped): the JAX run compiles once
     jres = rj.parallel.run(rj.samplers.gibbs.build(jm), jax.random.key(4), jnp.zeros((c, 3)), num_samples=burn + n)

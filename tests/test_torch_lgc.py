@@ -43,7 +43,7 @@ def scaled_close(port, ref, rel=1e-4, err_msg=""):
 def target():
     y, x_true = jlgc.generate_data(seed=2, n=N)
     jm = jlgc.LGCModel(jnp.asarray(y, jnp.float32), n=N)
-    tm = interop.lgc_from_numpy(y, N, np.asarray(jm.sigma_inv), np.asarray(jm.metric_chol), np.asarray(jm.metric_inv))
+    tm = interop.lgc_from_numpy(y, N, np.asarray(jm.sigma_inv), np.asarray(jm.metric_chol), np.asarray(jm.metric_inv), device="cpu")
     pos = (x_true + 0.05 * np.random.default_rng(0).normal(size=(C, D))).astype(np.float32)
     return jm, tm, pos
 
@@ -52,7 +52,7 @@ def test_torch_lgc_operators_carried_across_give_identical_outputs(target):
     """A JAX model's operators carried across, against the port's own float64
     host setup: the same numpy algebra cast to float32, so bit for bit."""
     jm, tm, pos = target
-    own = interop.lgc_from_numpy(np.asarray(jm.y), N)
+    own = interop.lgc_from_numpy(np.asarray(jm.y), N, device="cpu")
     for name in ("y", "sigma_inv", "metric_chol", "metric_inv"):
         assert torch.equal(getattr(own, name), getattr(tm, name)), name
         np.testing.assert_array_equal(getattr(tm, name).numpy(), np.asarray(getattr(jm, name)))
@@ -193,7 +193,7 @@ def test_torch_state_from_numpy_takes_the_lgc_states(target, name):
     jmod, tmod = {"phmc": (jphmc, phmc), "pmala": (jpmala, pmala)}[name]
     jstate = jmod.build(jm, jm.metric_chol, jm.metric_inv).init(jnp.asarray(pos[:4]))
     state_type = phmc.PHMCState if name == "phmc" else pmala.PMALAState
-    tstate = interop.state_from_numpy(state_type, jstate)
+    tstate = interop.state_from_numpy(state_type, jstate, device="cpu")
     assert type(tstate) is state_type and tstate._fields == jstate._fields
     for field in tstate._fields:
         assert getattr(tstate, field).dtype == torch.float32

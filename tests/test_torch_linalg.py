@@ -4,8 +4,14 @@ The CUDA kernels run only on a card (``chip_smoke.py`` holds them against
 these twins there).  Here the twins are held against the Pallas kernels in
 interpret mode and against float64 numpy, and the CPU side of the
 dispatch is checked: a CPU tensor takes the twin, never the kernel, and the
-kernels' own wrappers refuse it.
+kernels' own wrappers refuse it.  What Python still decides around the
+kernels is tested too: which operands the wrappers hand to the launch (the
+caller's own when contiguous, one copy otherwise), the launch geometry
+mirrored from the CUDA source for every width, and ``chip_smoke.py``'s bound.
 """
+
+import re
+import types
 
 import jax
 import jax.numpy as jnp
@@ -13,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from riemannhamiltonianmontecarlo_tpu import ops as jops
 from riemannhamiltonianmontecarlo_tpu.ops import pallas_linalg as plin
 from riemannhamiltonianmontecarlo_tpu_torch import ops
@@ -142,3 +149,140 @@ def test_torch_build_without_nvcc_raises(monkeypatch):
         _build._nvcc()
     assert _build.library_dir().parent == _build.BUILD_ROOT
     assert _build.library_dir() == _build.library_dir()  # keyed by content, stable
+
+
+# -- what the wrappers hand to the launch ---------------------------------------
+
+
+@pytest.fixture
+def recorded_launches(monkeypatch):
+    """The wrappers with the card patched away: CPU tensors pass the device
+    check, the library is a stand-in and ``_launch`` records its operands."""
+    seen = []
+    monkeypatch.setattr(hl, "_KERNEL_DEVICE", "cpu")
+    monkeypatch.setattr(hl, "_lib", lambda: types.SimpleNamespace(rhmc_cholesky="k1", rhmc_chol_solve_logdet="k2"))
+    monkeypatch.setattr(hl, "_launch", lambda name, fn, tensors, c, d: seen.append((name, fn, tensors, c, d)))
+    return seen
+
+
+def strided(t):
+    """The same values in storage with a gap after every row (not contiguous)."""
+    wide = torch.zeros((*t.shape[:-1], t.shape[-1] + 2))
+    wide[..., : t.shape[-1]] = t
+    out = wide[..., : t.shape[-1]]
+    assert not out.is_contiguous() and torch.equal(out, t)
+    return out
+
+
+@pytest.mark.parametrize("g_strided", [False, True], ids=["contiguous", "strided"])
+def test_torch_cholesky_cuda_hands_over_the_callers_operand(recorded_launches, g_strided):
+    g, _ = spd(6, 5, seed=11)
+    g = strided(torch.from_numpy(g)) if g_strided else torch.from_numpy(g)
+    l = hl.cholesky_cuda(g)
+    ((name, fn, (g_seen, l_seen), c, d),) = recorded_launches  # one launch
+    assert (name, fn, c, d) == ("cholesky", "k1", 6, 5)
+    assert g_seen.is_contiguous() and torch.equal(g_seen, g)
+    assert (g_seen.data_ptr() == g.data_ptr()) == (not g_strided)  # no copy unless it must
+    assert l_seen is l and l.is_contiguous() and l.shape == (6, 5, 5)
+
+
+@pytest.mark.parametrize("g_strided,b_strided", [(False, False), (True, False), (False, True), (True, True)])
+def test_torch_chol_solve_logdet_cuda_hands_over_the_callers_operands(recorded_launches, g_strided, b_strided):
+    g, b = spd(6, 5, seed=12)
+    g = strided(torch.from_numpy(g)) if g_strided else torch.from_numpy(g)
+    b = strided(torch.from_numpy(b)) if b_strided else torch.from_numpy(b)
+    x, logdet = hl.chol_solve_logdet_cuda(g, b)
+    ((name, fn, (g_seen, b_seen, x_seen, ld_seen), c, d),) = recorded_launches
+    assert (name, fn, c, d) == ("chol_solve_logdet", "k2", 6, 5)
+    for seen, given, was_strided in ((g_seen, g, g_strided), (b_seen, b, b_strided)):
+        assert seen.is_contiguous() and torch.equal(seen, given)
+        assert (seen.data_ptr() == given.data_ptr()) == (not was_strided)
+    assert x_seen is x and x.is_contiguous() and x.shape == (6, 5)
+    assert ld_seen is logdet and logdet.shape == (6,)
+
+
+def test_torch_cuda_wrappers_launch_nothing_on_an_empty_batch(recorded_launches):
+    g, b = torch.zeros((0, 5, 5)), torch.zeros((0, 5))
+    assert hl.cholesky_cuda(g).shape == (0, 5, 5)
+    x, logdet = hl.chol_solve_logdet_cuda(g, b)
+    assert x.shape == (0, 5) and logdet.shape == (0,)
+    assert recorded_launches == []
+
+
+@pytest.mark.parametrize("bad", ["dtype", "shape", "width", "rhs"])
+def test_torch_cuda_wrappers_refuse_what_the_kernels_do_not_take(recorded_launches, bad):
+    g, b = torch.zeros((4, 5, 5)), torch.zeros((4, 5))
+    if bad == "dtype":
+        with pytest.raises(TypeError, match="float32"):
+            hl.cholesky_cuda(g.double())
+    elif bad == "shape":
+        with pytest.raises(ValueError, match=r"\(C, D, D\)"):
+            hl.cholesky_cuda(torch.zeros((4, 5, 6)))
+    elif bad == "width":
+        with pytest.raises(ValueError, match="D <= 48"):
+            hl.cholesky_cuda(torch.zeros((2, 49, 49)))
+    else:
+        with pytest.raises(ValueError, match="rhs"):
+            hl.chol_solve_logdet_cuda(g, b[:, :4])
+    assert recorded_launches == []
+
+
+# -- the launch geometry, mirrored from the CUDA source ---------------------------
+
+
+@pytest.mark.parametrize("d", range(1, hl.MAX_DIM + 1))
+def test_torch_launch_geometry_covers_every_width(d):
+    geo = hl.launch_geometry(d)
+    assert geo.lanes_per_chain in (4, 8, 16, 32)  # a power of two, inside a warp
+    assert geo.rows_per_lane in (1, 2) and geo.lanes_per_chain * geo.rows_per_lane >= d  # every row has a lane
+    assert geo.chains_per_block * geo.lanes_per_chain == hl.THREADS_PER_BLOCK
+    assert geo.chains_per_block % 4 == 0  # a block's run of G starts 16-byte aligned when G does
+    assert geo.row_stride % 2 == 1 and d <= geo.row_stride <= d + 1  # odd: no bank conflicts
+    assert geo.shared_bytes == 4 * geo.chains_per_block * d * geo.row_stride <= hl.STATIC_SHARED_LIMIT
+
+
+def test_torch_launch_geometry_main_path_widths():
+    """The widths the main paths run: StochVol's hyper block, australian, german."""
+    assert hl.launch_geometry(3) == (4, 1, 32, 3, 1152)
+    assert hl.launch_geometry(15) == (16, 1, 8, 15, 7200)
+    assert hl.launch_geometry(25) == (32, 1, 4, 25, 10000)
+    assert hl.launch_geometry(48) == (32, 2, 4, 49, 37632)
+    for d in (0, 49):
+        with pytest.raises(ValueError, match="D <= 48"):
+            hl.launch_geometry(d)
+
+
+def test_torch_launch_geometry_mirrors_the_cuda_source():
+    """The widths, capacities, block size and lane rule read from hopper_linalg.cu."""
+    src = (_build.CSRC_DIR / "hopper_linalg.cu").read_text()
+    exact = [(int(a), int(b)) for a, b in re.findall(r"case (\d+): return f\(Width<(\d+), true>", src)]
+    assert all(a == b for a, b in exact) and tuple(a for a, _ in exact) == hl.EXACT_WIDTHS
+    caps = [(int(a), int(b)) for a, b in re.findall(r"if \(d <= (\d+)\) return f\(Width<(\d+), false>", src)]
+    assert all(a == b for a, b in caps)
+    assert tuple(a for a, _ in caps) + (hl.MAX_DIM,) == hl.CAPACITIES and "Width<kMaxDim, false>" in src
+    assert f"constexpr int kMaxDim = {hl.MAX_DIM};" in src
+    assert f"constexpr int kThreads = {hl.THREADS_PER_BLOCK};" in src
+    assert "return n <= 4 ? 4 : n <= 8 ? 8 : n <= 16 ? 16 : 32;" in src  # lanes_for
+    assert "constexpr int row_stride(int d) { return d | 1; }" in src
+    assert "permute" not in src and src.count("__global__") == 2  # one kernel template per function
+
+
+# -- chip_smoke.py's bound ---------------------------------------------------------
+
+
+# Bytes each kernel must move (inputs read once, outputs written once) over
+# 3.35 TB/s, in microseconds, worked out by hand for the four timed shapes.
+@pytest.mark.parametrize("name,c,d,expected_us", [
+    ("cholesky", 4096, 15, 2 * 4096 * 225 * 4 / 3.35e6),  # 7.37 MB -> 2.2 us
+    ("cholesky", 4096, 25, 20_480_000 / 3.35e6),  # 6.11 us
+    ("cholesky", 4096, 3, 294_912 / 3.35e6),
+    ("cholesky", 1024, 3, 73_728 / 3.35e6),
+    ("chol_solve_logdet", 4096, 15, (3_686_400 + 245_760 + 245_760 + 16_384) / 3.35e6),  # 4.19 MB -> 1.25 us
+    ("chol_solve_logdet", 4096, 25, 11_075_584 / 3.35e6),  # 3.31 us
+    ("chol_solve_logdet", 4096, 3, 262_144 / 3.35e6),
+    ("chol_solve_logdet", 1024, 3, 65_536 / 3.35e6),
+])
+def test_torch_chip_smoke_bound_us(name, c, d, expected_us):
+    assert (c, d) in chip_smoke.TIMED_SHAPES
+    us, bound_by = chip_smoke.bound_us(name, c, d)
+    assert us == pytest.approx(expected_us, rel=1e-12) and bound_by == "bytes"

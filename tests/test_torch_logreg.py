@@ -40,7 +40,7 @@ def pair(request):
     jm = JaxLogisticRegression(
         jnp.asarray(x), jnp.asarray(t), mask=None if mask is None else jnp.asarray(mask)
     )
-    tm = interop.logreg_from_numpy(x, t, mask=mask)
+    tm = interop.logreg_from_numpy(x, t, mask=mask, device="cpu")
     rng = np.random.default_rng(d + n)
     w = (0.3 * rng.normal(size=(CHAINS, d))).astype(np.float32)
     u = rng.normal(size=(CHAINS, d)).astype(np.float32)
@@ -91,9 +91,9 @@ def test_torch_logreg_mask_removes_padding():
     xp = np.concatenate([x, np.zeros((8, 7), np.float32)])
     tp = np.concatenate([t, np.zeros(8, np.float32)])
     mask = np.concatenate([np.ones(120, np.float32), np.zeros(8, np.float32)])
-    plain = interop.logreg_from_numpy(x, t)
-    padded = interop.logreg_from_numpy(xp, tp, mask=mask)
-    unmasked = interop.logreg_from_numpy(xp, tp)
+    plain = interop.logreg_from_numpy(x, t, device="cpu")
+    padded = interop.logreg_from_numpy(xp, tp, mask=mask, device="cpu")
+    unmasked = interop.logreg_from_numpy(xp, tp, device="cpu")
     w = torch.from_numpy(np.random.default_rng(0).normal(size=(4, 7)).astype(np.float32))
     torch.testing.assert_close(padded.logp(w), plain.logp(w), rtol=1e-5, atol=1e-4)
     torch.testing.assert_close(padded.grad(w), plain.grad(w), rtol=1e-5, atol=1e-5)
@@ -105,7 +105,7 @@ def test_torch_logreg_mask_removes_padding():
 def test_torch_logreg_buffers_follow_module():
     """X, t, the mask and the outer features are buffers: .to() moves and casts them."""
     ds = synthetic_logreg(seed=2, n=30, d=5)
-    model = interop.logreg_from_numpy(ds.X, ds.t, alpha=10.0, mask=np.ones(30))
+    model = interop.logreg_from_numpy(ds.X, ds.t, alpha=10.0, mask=np.ones(30), device="cpu")
     assert set(dict(model.named_buffers())) == {"X", "t", "mask", "outer_features"}
     assert model.outer_features.shape == (30, 25)
     m64 = model.to(torch.float64)

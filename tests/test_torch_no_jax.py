@@ -17,8 +17,9 @@ import torch
 import riemannhamiltonianmontecarlo_tpu_torch as rt
 import chip_smoke  # noqa: F401
 import riemannhamiltonianmontecarlo_tpu_torch.step_profile  # noqa: F401
+import riemannhamiltonianmontecarlo_tpu_torch.kernel_ab  # noqa: F401
 ds = rt.models.synthetic_logreg(0, 50, 5)
-model = rt.interop.logreg_from_numpy(ds.X, ds.t)
+model = rt.interop.logreg_from_numpy(ds.X, ds.t, device="cpu")
 kern = rt.samplers.rmhmc.build(model)
 gen = torch.Generator().manual_seed(0)
 state, info = kern.step(gen, kern.init(rt.utils.default_init(model, gen, 4)))

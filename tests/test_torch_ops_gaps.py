@@ -38,7 +38,7 @@ def pair(request):
     ds = rt.models.synthetic_logreg(seed=d, n=690 if d > 7 else 250, d=d)
     x, t = ds.X.astype(np.float32), ds.t.astype(np.float32)
     w = (0.3 * np.random.default_rng(d).normal(size=(12, d))).astype(np.float32)
-    return rj.models.LogisticRegression(jnp.asarray(x), jnp.asarray(t)), interop.logreg_from_numpy(x, t), w
+    return rj.models.LogisticRegression(jnp.asarray(x), jnp.asarray(t)), interop.logreg_from_numpy(x, t, device="cpu"), w
 
 
 def test_torch_logp_and_grad_matches_jax(pair):
@@ -130,10 +130,10 @@ def assert_same(port, ref):
 def test_torch_state_round_trip(states, state_type):
     if state_type is adaptation.DualAveragingState:
         jstate = states[adaptation.AdaptiveState].da
-        port = interop.state_from_numpy(state_type, jstate)
+        port = interop.state_from_numpy(state_type, jstate, device="cpu")
     elif state_type is adaptation.AdaptiveState:
         jstate = states[state_type]
-        port = interop.adaptive_state_from_numpy(hmc.HMCState, jstate)
+        port = interop.adaptive_state_from_numpy(hmc.HMCState, jstate, device="cpu")
         assert isinstance(port.inner, hmc.HMCState) and isinstance(port.da, adaptation.DualAveragingState)
         for name in hmc.HMCState._fields:
             assert_same(getattr(port.inner, name), getattr(jstate.inner, name))
@@ -143,7 +143,7 @@ def test_torch_state_round_trip(states, state_type):
         return
     else:
         jstate = states[state_type]
-        port = interop.state_from_numpy(state_type, {k: np.asarray(v) for k, v in jstate._asdict().items()})
+        port = interop.state_from_numpy(state_type, {k: np.asarray(v) for k, v in jstate._asdict().items()}, device="cpu")
     assert isinstance(port, state_type) and port._fields == jstate._fields
     for name in state_type._fields:
         assert_same(getattr(port, name), getattr(jstate, name))

@@ -33,7 +33,7 @@ def target():
     ds = synthetic_logreg(seed=5, n=N, d=D)
     x, t = ds.X.astype(np.float32), ds.t.astype(np.float32)
     jm = rj.models.LogisticRegression(jnp.asarray(x), jnp.asarray(t))
-    tm = interop.logreg_from_numpy(x, t)
+    tm = interop.logreg_from_numpy(x, t, device="cpu")
     center = np.asarray(rj.utils.map_estimate(jm))
     pos = (center + 0.1 * np.random.default_rng(0).normal(size=(C, D))).astype(np.float32)
     return jm, tm, pos
@@ -91,7 +91,7 @@ def test_torch_init_geometry_from_interop(target):
     jstate = jk.init(jnp.asarray(pos))
     carried = interop.rmhmc_state_from_numpy(
         np.asarray(jstate.position), np.asarray(jstate.logp),
-        geo={k: np.asarray(v) for k, v in jstate.geo._asdict().items()},
+        geo={k: np.asarray(v) for k, v in jstate.geo._asdict().items()}, device="cpu",
     )
     own = tk.init(torch.from_numpy(pos))
     for name in own.geo._fields:
@@ -102,7 +102,7 @@ def test_torch_init_geometry_from_interop(target):
     a, ia = tk.transition(carried, noise)
     b, ib = tk.transition(own, noise)
     np.testing.assert_allclose(ia.accept_prob.numpy(), ib.accept_prob.numpy(), atol=1e-3)
-    lazy = interop.rmhmc_state_from_numpy(pos, np.asarray(jstate.logp))
+    lazy = interop.rmhmc_state_from_numpy(pos, np.asarray(jstate.logp), device="cpu")
     assert lazy.geo is None
     c, _ = tk.transition(lazy, noise)  # geometry rebuilt lazily
     np.testing.assert_allclose(c.position.numpy(), b.position.numpy(), atol=1e-5)

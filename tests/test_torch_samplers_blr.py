@@ -33,7 +33,7 @@ def target():
     ds = synthetic_logreg(seed=5, n=N, d=D)
     x, t = ds.X.astype(np.float32), ds.t.astype(np.float32)
     jm = rj.models.LogisticRegression(jnp.asarray(x), jnp.asarray(t))
-    tm = interop.logreg_from_numpy(x, t)
+    tm = interop.logreg_from_numpy(x, t, device="cpu")
     center = np.asarray(rj.utils.map_estimate(jm))
     pos = (center + 0.1 * np.random.default_rng(0).normal(size=(C, D))).astype(np.float32)
     return jm, tm, pos
@@ -175,7 +175,7 @@ def test_torch_metropolis_sweep_matches_jax_step(target):
     away = margin > MARGIN
     assert away.sum() >= 0.75 * C
 
-    ts, ti = tk.transition(interop.state_from_numpy(metropolis.AMHState, jstate), noise)
+    ts, ti = tk.transition(interop.state_from_numpy(metropolis.AMHState, jstate, device="cpu"), noise)
     np.testing.assert_allclose(ts.position.numpy()[away], np.asarray(js.position)[away], atol=1e-6)
     np.testing.assert_allclose(ts.logp.numpy()[away], np.asarray(js.logp)[away], atol=1e-2)
     np.testing.assert_allclose(ti.accept_prob.numpy(), np.asarray(ji.accept_prob), atol=1e-3)

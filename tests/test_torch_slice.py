@@ -24,7 +24,7 @@ Z = 5.0
 def models(n, d, seed=0):
     ds = rt.models.synthetic_logreg(seed=seed, n=n, d=d)
     x, t = ds.X.astype(np.float32), ds.t.astype(np.float32)
-    return rj.models.LogisticRegression(jnp.asarray(x), jnp.asarray(t)), rt.interop.logreg_from_numpy(x, t)
+    return rj.models.LogisticRegression(jnp.asarray(x), jnp.asarray(t)), rt.interop.logreg_from_numpy(x, t, device="cpu")
 
 
 def test_torch_map_estimate_and_init_match_jax():

@@ -52,7 +52,7 @@ def inputs(t: int, c: int, seed: int):
 @pytest.fixture(scope="module")
 def models_t200():
     y, x, theta = inputs(200, 6, seed=3)
-    return jsv_model.StochVolModel(jnp.asarray(y)), interop.stochvol_from_numpy(y), x, theta
+    return jsv_model.StochVolModel(jnp.asarray(y)), interop.stochvol_from_numpy(y, device="cpu"), x, theta
 
 
 def test_torch_stochvol_latent_methods_match_jax(models_t200):
@@ -156,7 +156,7 @@ def margin(accept_prob: torch.Tensor, u: torch.Tensor) -> np.ndarray:
 @pytest.mark.parametrize("method", list(CONFIGS))
 def test_torch_stochvol_sweep_matches_jax_step(method):
     y, x, theta = inputs(T, C, seed=4)
-    jm, tm = jsv_model.StochVolModel(jnp.asarray(y)), interop.stochvol_from_numpy(y)
+    jm, tm = jsv_model.StochVolModel(jnp.asarray(y)), interop.stochvol_from_numpy(y, device="cpu")
     cfg = CONFIGS[method]
     jk = jsv.build(jm, jsv.StochVolConfig(**cfg))
     tcfg = tsv.StochVolConfig(**cfg)
@@ -167,7 +167,7 @@ def test_torch_stochvol_sweep_matches_jax_step(method):
     key = jax.random.key(31)
     js, ji = jax.jit(jk.step)(key, jstate)
     noise = replay(key, method)
-    tstate = interop.state_from_numpy(tsv.StochVolState, jstate)
+    tstate = interop.state_from_numpy(tsv.StochVolState, jstate, device="cpu")
     ts, ti = tk.transition(tstate, noise)
 
     # the two blocks on the port's side, for the margins and the Info algebra
@@ -197,7 +197,7 @@ def test_torch_stochvol_sweep_info_is_the_mean_over_blocks():
     tiny (accepts ~always) and the hyper step enormous (rejects ~always),
     ``accepted`` sits near 0.5, the mean over the two blocks."""
     y, _ = jsv_model.generate_data(seed=3, num_obs=300)
-    model = interop.stochvol_from_numpy(y)
+    model = interop.stochvol_from_numpy(y, device="cpu")
     kernel = tsv.build(model, tsv.StochVolConfig(method="mala", latent_step_size=1e-5, hyper_step_size=50.0))
     gen = torch.Generator().manual_seed(0)
     state = kernel.init(torch.full((32, 3), 0.5))
@@ -213,7 +213,7 @@ def test_torch_stochvol_sweep_info_is_the_mean_over_blocks():
 
 
 def test_torch_stochvol_rejects_an_unknown_method():
-    model = interop.stochvol_from_numpy(np.ones(10))
+    model = interop.stochvol_from_numpy(np.ones(10), device="cpu")
     with pytest.raises(ValueError, match="unknown stochvol method"):
         tsv.build(model, tsv.StochVolConfig(method="nuts"))
 
