@@ -17,15 +17,16 @@ It imports no jax.  Phases, each printing one line of findings:
    built library's own answer for every width 1..48;
 3. kernels: K1 (Cholesky) and K2 (fused solve + log-det) against their
    plain-PyTorch twins on the card, on seeded SPD batches at
-   C in {4096, 4097} and D in {3, 7, 10, 15, 25}, and at StochVol's
-   C = 1024, D = 3 (10 takes the kernels' runtime-width instantiation, the
+   C in {4096, 4097} and D in {3, 7, 10, 15, 25}, at StochVol's
+   C = 1024, D = 3 and at the joint LGC hyper block's (C, D) = (4, 2) and
+   (4097, 2) (2 and 10 take the kernels' runtime-width instantiation, the
    others a compile-time width): tolerance, exact-zero upper triangle, and
    non-PD chains (the first, a middle and the last chain of a block, and
    the batch's last chain) giving non-finite output in those chains only;
    an operand that is not 16-byte aligned and one that is not contiguous
    give the same bits as the aligned contiguous one.  Then, at
-   (C, D) = (4096, 15), (4096, 25), (4096, 3) and (1024, 3), for each
-   kernel: the wrapper's time (``ms``: median CUDA-event time of one call;
+   (C, D) = (4096, 15), (4096, 25), (4096, 3), (1024, 3) and (4, 2), for
+   each kernel: the wrapper's time (``ms``: median CUDA-event time of one call;
    ``burst_ms``: 200 calls back to back over the count), the launch alone
    on allocated outputs (``kernel_only_ms``, 200 back to back), the
    device's own kernel duration by kernel name from torch.profiler over 50
@@ -72,7 +73,21 @@ It imports no jax.  Phases, each printing one line of findings:
    samples, acceptance against the JAX package's on the same generated
    data, and the phmc and pmala posterior-mean fields within z < 5 of each
    other; phmc's acceptance with ``trajectory_precision="default"`` (TF32 in
-   the trajectory) is printed without a gate.
+   the trajectory) is printed without a gate;
+9. lgc-joint: ``run_workload("lgc", "rmhmc_joint" | "mmala_joint",
+   device="cuda")`` on the 64 x 64 grid (D = 4096 latents + 2
+   hyperparameters, 4 chains; the hyper block's (4, 2, 2) metric runs K1,
+   and under RMHMC K2): positive finite hyper samples, finite latent
+   samples, K1 / K2 launch counts equal to the formulas, sweep-level
+   acceptance within 0.12 of RESULTS.md:258-261 (another data set), no
+   divergences; then the same two samplers at n = 32 (D = 1024) against the
+   JAX package's acceptance (within 0.05) and hyper chain means (z < 5) at
+   the same constants, depth, seed and generated data (``LGCJ_JAX``,
+   measured on the CPU by ``tests/reference_workload_jax.py``); then
+   ``parallel.run_checkpointed`` on ``rmhmc_joint`` at n = 32, stopped after
+   one segment and resumed, against the run that was not stopped, bit for
+   bit, its files under ``build/``.  Seconds per sweep, min-ESS/s and the
+   peak of allocated device memory are printed without a gate.
 
 It ends with the nvidia-smi line, one JSON line per kernel summary
 (``{"kernels": [...]}``) and, as the last line,
@@ -91,6 +106,7 @@ import dataclasses
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -282,13 +298,17 @@ def phase_build() -> None:
 
 # Device kernels by the name torch.profiler shows them under.
 KERNEL_NAMES = {"cholesky": "cholesky_kernel", "chol_solve_logdet": "chol_solve_logdet_kernel"}
-TIMED_SHAPES = ((NUM_CHAINS, 15), (NUM_CHAINS, 25), (NUM_CHAINS, 3), (1024, 3))  # BLR australian, german; StochVol hyper
+# BLR australian, german; StochVol hyper; joint LGC hyper
+TIMED_SHAPES = ((NUM_CHAINS, 15), (NUM_CHAINS, 25), (NUM_CHAINS, 3), (1024, 3), (4, 2))
 
 
 def non_pd_chains(c: int, d: int) -> list[int]:
     """Chains to spoil: the first chain of a block, the middle of the next,
-    the last of the one after (blocks near C/2), and the batch's last chain."""
+    the last of the one after (blocks near C/2), and the batch's last chain;
+    one middle chain where the batch is smaller than that."""
     per_block = hl.launch_geometry(d).chains_per_block
+    if c < 8 * per_block:
+        return [c // 2]
     block = (c // 2) // per_block
     return [block * per_block, (block + 1) * per_block + per_block // 2, (block + 3) * per_block - 1, c - 1]
 
@@ -389,12 +409,13 @@ def phase_kernels(smi: str) -> dict:
     """K1 and K2 against their twins; returns per-kernel max |err| and times."""
     err = {"cholesky": 0.0, "chol_solve_logdet": 0.0}
     shapes = [(c, d) for d in (3, 7, 10, 15, 25) for c in (NUM_CHAINS, NUM_CHAINS + 1)] + [(SV_CHAINS, 3)]
+    shapes += [(LGCJ_CHAINS, 2), (NUM_CHAINS + 1, 2)]  # the joint LGC hyper block's width
     for c, d in shapes + [(NUM_CHAINS + 1, 40)]:  # 40: two rows a lane
         check_kernels(c, d, err)
     for c, d in ((NUM_CHAINS + 1, 15), (NUM_CHAINS, 8), (NUM_CHAINS + 1, 40)):
         check_operand_forms(c, d)
-    say("kernels", checked="C in (4096, 4097) x D in (3, 7, 10, 15, 25), C=1024 x D=3 and C=4097 x D=40, four non-PD chains each "
-        "(first, middle, last of a block; last of the batch); unaligned and strided operands at D in (15, 8, 40)",
+    say("kernels", checked="C in (4096, 4097) x D in (3, 7, 10, 15, 25), C=1024 x D=3, C in (4, 4097) x D=2 and C=4097 x D=40, "
+        "four non-PD chains each (first, middle, last of a block; last of the batch; one of the 4 at C=4); unaligned and strided operands at D in (15, 8, 40)",
         max_abs_err=err, tolerance_rtol_atol=TOL)
 
     times = {}
@@ -647,17 +668,19 @@ def phase_blr_samplers(smi: str) -> dict:
 
 SV_CHAINS, SV_OBS, SV_SEED = 1024, 2000, 0
 # (burn-in, samples) per method: the reference's 20000 samples cut to a smoke run.
-# hmc at 30 + 30: its sweep is ~1 s (100 hyper leapfrog steps, each a torch.func
-# gradient), and the whole script keeps within half its 1200 s limit.
-SV_RUNS = {"rmhmc": (100, 100), "hmc": (30, 30), "mmala": (200, 200), "mala": (500, 200)}
+# hmc's sweep is ~1-1.4 s (100 hyper leapfrog steps, each a torch.func
+# gradient).  rmhmc, hmc and mmala ran 100 + 100, 30 + 30 and 200 + 200 until
+# the joint LGC phase needed their seconds: the whole script keeps its time.
+SV_RUNS = {"rmhmc": (60, 60), "hmc": (20, 20), "mmala": (120, 120), "mala": (500, 200)}
 # The JAX package at the same constants, depth, seed and data, on the CPU with
-# 64 chains (PERF.md): acceptance, and the mean and sd over chains of the
-# per-chain hyper means (beta, sigma, phi).
+# 64 chains (tests/reference_workload_jax.py --workload stochvol --chains 64
+# at each depth; mala as first measured, PERF.md): acceptance, and the mean and
+# sd over chains of the per-chain hyper means (beta, sigma, phi).
 SV_JAX_CHAINS = 64
 SV_JAX = {
-    "rmhmc": {"accept": 0.97417, "mean": [0.58724, 0.21813, 0.96800], "sd": [0.063905, 0.024776, 0.0070603]},
-    "hmc": {"accept": 0.75142, "mean": [0.56198, 0.50877, 0.82606], "sd": [0.025712, 0.11514, 0.10313]},
-    "mmala": {"accept": 0.88061, "mean": [0.58657, 0.59788, 0.62536], "sd": [0.010593, 0.037440, 0.099955]},
+    "rmhmc": {"accept": 0.97787, "mean": [0.57898, 0.30451, 0.94133], "sd": [0.025043, 0.053394, 0.018672]},
+    "hmc": {"accept": 0.76414, "mean": [0.55987, 0.62500, 0.77352], "sd": [0.037463, 0.22994, 0.12187]},
+    "mmala": {"accept": 0.87705, "mean": [0.60316, 0.60362, 0.41053], "sd": [0.0087495, 0.032835, 0.10421]},
     "mala": {"accept": 0.81891, "mean": [0.63407, 0.54942, 0.11832], "sd": [0.0061821, 0.016158, 0.049598]},
 }
 ACCEPT_TOL = 0.05  # |accept - JAX accept|
@@ -828,10 +851,130 @@ def phase_lgc(smi: str) -> dict:
     return launches_by_path
 
 
+# -- phase 9: joint log-Gaussian Cox (unknown hyperparameters) --------------------
+
+LGCJ_CHAINS, LGCJ_SEED = 4, 0
+# (burn-in, samples) at the full width, n = 64: the reference's 1000 + 5000 cut to a smoke run.
+LGCJ_RUNS = {"rmhmc_joint": (30, 60), "mmala_joint": (30, 60)}
+# Sweep-level acceptance of RESULTS.md:258-261 (4 chains, 1000 + 5000 sweeps on
+# the authors' data set, hence the width of the window).
+LGCJ_RESULTS = {"rmhmc_joint": 0.881, "mmala_joint": 0.669}
+LGCJ_RESULTS_TOL = 0.12
+# The same-data gate: n = 32 (D = 1024), 4 chains, this depth.
+LGCJ_SMALL_N, LGCJ_SMALL_RUN = 32, (50, 100)
+# The JAX package at the same constants, depth, seed and generated data, on the
+# CPU with 16 chains (tests/reference_workload_jax.py --workload lgc --samplers
+# rmhmc_joint mmala_joint --lgc-n 32 --chains 16 --burn-in 50 --samples 100):
+# acceptance, and the mean and sd over chains of the per-chain means of (sigma^2, beta).
+LGCJ_JAX_CHAINS = 16
+LGCJ_JAX = {
+    "rmhmc_joint": {"accept": 0.98637, "mean": [1.67089, 0.029062], "sd": [0.46311, 0.0090042]},
+    "mmala_joint": {"accept": 0.94732, "mean": [1.50904, 0.086207], "sd": [0.31542, 0.024106]},
+}
+LGCJ_RESUME = dict(num_samples=12, burn_in=4, checkpoint_every=4)  # three segments, stopped after one
+SMOKE_CKPT = SMOKE_DATA.parent / "smoke_ckpt"
+JOINT_CFG = rt.samplers.lgc_joint.LGCJointConfig()  # hyper L = 1, 3 position fixed-point rounds
+
+
+def lgcj_expected_launches(sampler: str, sweeps: int) -> dict:
+    """K1 / K2 launches of a joint LGC run, read from the code: the hyper kernel
+    is rebuilt and ``init``-ed every sweep.  RMHMC builds the (C, 2, 2) geometry
+    in ``init`` and after each of its L leapfrog steps (K1) and solves once per
+    position fixed-point round (K2); mMALA factors in ``init`` and at the
+    proposal (K1).  The latent block and the GP algebra are at D = n^2: library calls."""
+    if sampler == "rmhmc_joint":
+        return {"cholesky": (1 + JOINT_CFG.hyper_num_leapfrog) * sweeps,
+                "chol_solve_logdet": JOINT_CFG.hyper_num_leapfrog * JOINT_CFG.hyper_num_fixed_point * sweeps}
+    return {"cholesky": 2 * sweeps, "chol_solve_logdet": 0}
+
+
+def lgcj_run(sampler: str, n: int, burn: int, samples: int):
+    """One joint run through the workload entry point, with its launch counts
+    held to the formulas, its shapes and signs checked, and its peak memory."""
+    label = f"lgc/{sampler}" + ("" if n == 64 else f"-n{n}")
+    torch.cuda.reset_peak_memory_stats()
+    hl.reset_launch_counts()
+    res = experiments.run_workload("lgc", sampler, device=DEVICE, num_chains=LGCJ_CHAINS, num_samples=samples,
+                                   burn_in=burn, seed=LGCJ_SEED, keep_samples=True, lgc_n=n)
+    launches = hl.launch_counts()
+    expected = lgcj_expected_launches(sampler, max(burn, 1) + 2 * (samples // 2))
+    check(launches == expected, f"{label}: launch counts {launches}, expected {expected}")
+    hyper, latent = res.samples["hyper"], res.samples["latent"]
+    check(hyper.shape == (LGCJ_CHAINS, samples, 2) and latent.shape == (LGCJ_CHAINS, samples, n * n),
+          f"{label}: samples of shapes {hyper.shape}, {latent.shape}")
+    check(np.isfinite(hyper).all() and (hyper > 0).all(), f"{label}: hyper samples not finite and positive")
+    check(np.isfinite(latent).all(), f"{label}: non-finite latent samples")
+    check(res.divergences == 0, f"{label}: {res.divergences} divergences")
+    return label, res, launches, torch.cuda.max_memory_allocated()
+
+
+def phase_lgc_joint(smi: str) -> dict:
+    launches_by_path = {}
+    for sampler, (burn, samples) in LGCJ_RUNS.items():
+        label, res, launches, peak = lgcj_run(sampler, LGC_N, burn, samples)
+        launches_by_path[label] = launches
+        ref = LGCJ_RESULTS[sampler]
+        check(abs(res.accept_rate - ref) <= LGCJ_RESULTS_TOL,
+              f"{label}: acceptance {res.accept_rate} vs RESULTS.md:258-261 {ref} +- {LGCJ_RESULTS_TOL}")
+        say("lgc-joint", run=label, D=LGC_N * LGC_N, chains=LGCJ_CHAINS, burn_in=burn, samples=samples,
+            accept_rate=res.accept_rate, results_md_accept=ref, accept_tol=LGCJ_RESULTS_TOL,
+            divergent=res.divergences, hyper_means=res.samples["hyper"].reshape(-1, 2).mean(0).tolist(),
+            launches=launches)
+        say("lgc-joint-times", run=label, card=smi, s_per_sweep=res.sampling_time_s / (2 * (samples // 2)),
+            sampling_s=res.sampling_time_s, max_memory_allocated_bytes=peak,
+            **{f"min_ess_{g}_per_s": float(e.min()) / res.sampling_time_s for g, e in res.ess.items()})
+
+    # The same data as the JAX package's run, at n = 32.
+    burn, samples = LGCJ_SMALL_RUN
+    for sampler, ref in LGCJ_JAX.items():
+        label, res, launches, peak = lgcj_run(sampler, LGCJ_SMALL_N, burn, samples)
+        launches_by_path[label] = launches
+        check(abs(res.accept_rate - ref["accept"]) <= ACCEPT_TOL,
+              f"{label}: acceptance {res.accept_rate} vs the JAX package's {ref['accept']} +- {ACCEPT_TOL}")
+        # Four chains: the spread of their means is itself uncertain, so the
+        # standard error takes the larger of it and the reference's.
+        cm = res.samples["hyper"].mean(axis=1)
+        sd = np.maximum(cm.std(axis=0, ddof=1), ref["sd"])
+        z = np.abs(cm.mean(axis=0) - ref["mean"]) / np.sqrt(sd**2 / LGCJ_CHAINS + np.square(ref["sd"]) / LGCJ_JAX_CHAINS)
+        check(float(z.max()) < Z_BOUND, f"{label}: hyper chain means {cm.mean(axis=0)} vs the JAX package's {ref['mean']}: z {z}")
+        say("lgc-joint", run=label, D=LGCJ_SMALL_N**2, chains=LGCJ_CHAINS, burn_in=burn, samples=samples,
+            accept_rate=res.accept_rate, jax_accept=ref["accept"], accept_tol=ACCEPT_TOL, divergent=res.divergences,
+            hyper_chain_means=cm.mean(axis=0).tolist(), hyper_chain_means_sd=cm.std(axis=0, ddof=1).tolist(),
+            jax_hyper_chain_means=ref["mean"], jax_hyper_chain_means_sd=ref["sd"],
+            max_z_means_vs_jax=float(z.max()), launches=launches)
+        say("lgc-joint-times", run=label, card=smi, s_per_sweep=res.sampling_time_s / (2 * (samples // 2)),
+            max_memory_allocated_bytes=peak)
+
+    # Resume on the card: stopped after one segment and resumed, against the run not stopped.
+    shutil.rmtree(SMOKE_CKPT, ignore_errors=True)
+    kernel, init_fn, collect_fn, _, _ = experiments.build_workload("lgc", "rmhmc_joint", device=DEVICE,
+                                                                   seed=LGCJ_SEED, lgc_n=LGCJ_SMALL_N)
+    kw = dict(collect_fn=collect_fn, **LGCJ_RESUME)
+    full = rt.parallel.run_checkpointed(kernel, LGCJ_SEED, init_fn(LGCJ_CHAINS), checkpoint_path=SMOKE_CKPT / "full.npz", **kw)
+    stopped = rt.parallel.run_checkpointed(kernel, LGCJ_SEED, init_fn(LGCJ_CHAINS), checkpoint_path=SMOKE_CKPT / "cut.npz",
+                                           _stop_after_segments=1, **kw)
+    resumed = rt.parallel.run_checkpointed(kernel, LGCJ_SEED, init_fn(LGCJ_CHAINS), checkpoint_path=SMOKE_CKPT / "cut.npz", **kw)
+    every = LGCJ_RESUME["checkpoint_every"]
+    check(stopped.samples[0].shape[1] == every and resumed.samples[0].shape[1] == LGCJ_RESUME["num_samples"],
+          f"resume: {stopped.samples[0].shape[1]} samples when stopped, {resumed.samples[0].shape[1]} when resumed")
+    check(all(t.is_cuda for t in (*full.samples, *resumed.samples, *resumed.final_state)), "resume: a tensor left the card")
+    same = {name: torch.equal(a, b) for name, a, b in (
+        ("hyper", full.samples[0], resumed.samples[0]), ("latent", full.samples[1], resumed.samples[1]),
+        ("theta", full.final_state.theta, resumed.final_state.theta), ("x", full.final_state.x, resumed.final_state.x))}
+    check(all(same.values()), f"resume: the resumed run differs from the run that was not stopped: {same}")
+    check(bool(torch.isfinite(full.samples[1]).all()) and not torch.equal(full.samples[1][:, 0], full.samples[1][:, -1]),
+          "resume: the run did not move")
+    say("lgc-joint-resume", sampler="rmhmc_joint", n=LGCJ_SMALL_N, chains=LGCJ_CHAINS, **LGCJ_RESUME,
+        stopped_after_segments=1, bit_identical=same, files=sorted(f.name for f in SMOKE_CKPT.iterdir()))
+    return launches_by_path
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description="Drive the port's main path on one CUDA card and check it.")
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after phase 3 and print the whole ptxas report (no result lines: not a pass)")
+    ap.add_argument("--lgc-joint-only", action="store_true",
+                    help="phases 1-2 and 9 only (no result lines: not a pass)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -846,6 +989,11 @@ def main(argv=None) -> None:
         smi = phase_device()
         phase_build()
         lap("device+build")
+        if args.lgc_joint_only:
+            phase_lgc_joint(smi)
+            lap("lgc-joint")
+            say("phase-seconds", **seconds)
+            return
         kernels = phase_kernels(smi)
         lap("kernels")
         if args.kernels_only:
@@ -863,6 +1011,8 @@ def main(argv=None) -> None:
         lap("stochvol")
         by_path.update(phase_lgc(smi))
         lap("lgc")
+        by_path.update(phase_lgc_joint(smi))
+        lap("lgc-joint")
     say("phase-seconds", **seconds)
 
     # Top-level times: the main path's shape (C 4096, D 15); every timed shape under "shapes".

@@ -6,23 +6,29 @@ package's sub-package layout and function names, so each module has an
 obvious counterpart; the JAX package is the reference the port is tested
 against.  The port imports ``torch`` and ``numpy``, never ``jax``.
 
-Ported so far (the Bayesian logistic regression workload, every sampler):
+Ported so far (Bayesian logistic regression with every sampler, stochastic
+volatility, log-Gaussian Cox with known and with unknown hyperparameters):
 
-* :mod:`.models` -- ``LogisticRegression`` (an ``nn.Module``), datasets;
+* :mod:`.models` -- ``LogisticRegression`` (an ``nn.Module``), datasets,
+  ``StochVolModel``, ``LGCModel``, ``LGCJointModel``;
 * :mod:`.ops` -- chain-batched small-matrix linalg, dispatching 3-D CUDA
   batches to the hand-written Cholesky kernels of ``ops/hopper_linalg.py``;
   the truncated-normal and GIG samplers of the Gibbs sampler;
 * :mod:`.samplers` -- ``rmhmc``, ``hmc``, ``mala``, ``metropolis``,
-  ``mmala``, ``iwls`` and ``gibbs`` (each a pure
+  ``mmala``, ``iwls``, ``gibbs``, ``stochvol``, ``phmc``, ``pmala`` and
+  ``lgc_joint`` (each a pure
   ``transition(state, noise)`` plus a ``step(generator, state)`` that draws
   the noise);
-* :mod:`.parallel` -- the chain runner and dual-averaging adaptation;
+* :mod:`.parallel` -- the chain runner, its checkpointed form
+  (``run_checkpointed``) and dual-averaging adaptation;
 * :mod:`.diagnostics` -- Geyer ESS, split R-hat (host NumPy and on the
   device) and Geweke z;
-* :mod:`.utils` -- reference presets, MAP + jitter initialization;
+* :mod:`.utils` -- reference presets, MAP + jitter initialization,
+  checkpoint / resume of state trees;
 * :mod:`.interop` -- the JAX package's arrays (as NumPy) to port objects;
-* ``experiments`` (imported on its own) -- the BLR experiment layer and
-  its CLI, ``python -m riemannhamiltonianmontecarlo_tpu_torch.experiments``.
+* ``experiments`` (imported on its own) -- the experiment layer and its
+  CLI, ``python -m riemannhamiltonianmontecarlo_tpu_torch.experiments``;
+  ``tools.run_lgc_joint`` -- the joint LGC run in resumable segments.
 """
 
 __version__ = "0.1.0"

@@ -9,9 +9,10 @@ sampling-phase wall clock, time per min-ESS -- ``code/main.py:70-79``,
 * BLR (``run_experiment``): the nine samplers on the five datasets;
 * the other workloads (``run_workload``): stochastic volatility (the
   two-block samplers) and log-Gaussian Cox (constant-metric RMHMC,
-  position-dependent mMALA, whitened MALA), on data generated from
-  ``seed``.  FitzHugh-Nagumo and the joint LGC samplers are not ported yet
-  (ROADMAP.md slices 4-5) and raise ``NotImplementedError``.
+  position-dependent mMALA, whitened MALA, and the joint samplers over
+  (sigma^2, beta, x), ``rmhmc_joint`` / ``mmala_joint``), on data generated
+  from ``seed``.  FitzHugh-Nagumo is not ported yet (ROADMAP.md slice 5)
+  and raises ``NotImplementedError``.
 
 Timing protocol: only the post-burn-in sampling phase is timed.  It runs as
 two identical half-scans; the reported time is twice the *second* half, a
@@ -28,6 +29,8 @@ CLI::
         --sampler mmala --dataset australian --device cuda
     python -m riemannhamiltonianmontecarlo_tpu_torch.experiments \\
         --workload stochvol --sampler rmhmc --device cuda
+    python -m riemannhamiltonianmontecarlo_tpu_torch.experiments \\
+        --workload lgc --sampler rmhmc_joint --chains 4 --device cuda
 """
 
 from __future__ import annotations
@@ -328,8 +331,6 @@ def not_ported(workload: str, sampler: str) -> str | None:
     """Why (workload, sampler) cannot run in the port yet, or None if it can."""
     if workload == "fhn":
         return "workload 'fhn' is not ported yet (ROADMAP.md slice 5, item 15)"
-    if workload == "lgc" and sampler in ("rmhmc_joint", "mmala_joint"):
-        return f"lgc sampler '{sampler}' is not ported yet (ROADMAP.md slice 4, item 14)"
     return None
 
 
@@ -374,7 +375,8 @@ def build_workload(workload: str, sampler: str, *, device: str | torch.device = 
     if reason:
         raise NotImplementedError(reason)
     if workload not in WORKLOAD_SAMPLERS or workload == "blr":
-        raise KeyError(f"unknown workload '{workload}' for run_workload; options: stochvol, lgc")
+        options = [w for w in WORKLOAD_SAMPLERS if w != "blr" and not not_ported(w, "")]
+        raise KeyError(f"unknown workload '{workload}' for run_workload; options: {', '.join(options)}")
     if sampler not in WORKLOAD_SAMPLERS[workload]:
         raise KeyError(f"unknown {workload} sampler '{sampler}'; options: {WORKLOAD_SAMPLERS[workload]}")
     device = resolve_device(device)
@@ -415,6 +417,15 @@ def build_workload(workload: str, sampler: str, *, device: str | torch.device = 
 
     # lgc
     y, _ = models.lgc.generate_data(seed=seed, n=lgc_n)
+    if sampler in ("rmhmc_joint", "mmala_joint"):
+        # Joint (sigma^2, beta, x) inference: LGC_RMHMC_Paras_LV.m /
+        # LGC_mMALA_Paras_LV.m (hyper eps 0.2; latent eps 0.1 / 0.07).
+        jm = interop.lgc_joint_from_numpy(y, lgc_n, device=device)
+        preset = dict(method="mmala", latent_step_size=0.07) if sampler == "mmala_joint" else {}
+        kernel = s.lgc_joint.build(jm, s.lgc_joint.LGCJointConfig(**{**preset, **kw}))
+        theta0 = torch.tensor([jm.init_sigma_sq, jm.init_beta], device=device)
+        return (kernel, lambda c: theta0.expand(c, -1).clone(), lambda st: (st.position, st.x),
+                lambda smp: {"hyper": smp[0], "latent": smp[1]}, None)
     model = interop.lgc_from_numpy(y, lgc_n, device=device)
     if sampler in ("mala_transient", "mala_stationary"):
         # Whitened parametrization, LGC_MALA_Transient.m:32-33 /
@@ -509,6 +520,8 @@ def main(argv=None) -> None:
     ap.add_argument("--samples", type=int, default=None)
     ap.add_argument("--burn-in", type=int, default=None)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--lgc-n", type=int, default=64,
+                    help="lgc only: the grid is n x n (D = n^2 latents; 64 is the reference size)")
     ap.add_argument("--init", choices=("map", "zeros", "reference"), default="map", help="BLR only")
     ap.add_argument("--ess-mode", choices=ESS_MODES, default="reference",
                     help="BLR only; 'native' (the C++ engine) is not ported yet (ROADMAP.md, slice 6)")
@@ -549,6 +562,7 @@ def main(argv=None) -> None:
             num_samples=args.samples or 1000,
             burn_in=args.burn_in if args.burn_in is not None else 300,
             seed=args.seed,
+            **({"lgc_n": args.lgc_n} if args.workload == "lgc" else {}),
         )
     print(res.summary())
 

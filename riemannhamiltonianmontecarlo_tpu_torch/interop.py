@@ -13,7 +13,7 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
-from riemannhamiltonianmontecarlo_tpu_torch.models.lgc import LGCModel
+from riemannhamiltonianmontecarlo_tpu_torch.models.lgc import LGCJointModel, LGCModel
 from riemannhamiltonianmontecarlo_tpu_torch.models.logreg import LogisticRegression
 from riemannhamiltonianmontecarlo_tpu_torch.models.stochvol import StochVolModel
 from riemannhamiltonianmontecarlo_tpu_torch.parallel.adaptation import AdaptiveState, DualAveragingState
@@ -65,6 +65,16 @@ def lgc_from_numpy(
     return LGCModel(_tensor(y, device), n=n, **{k: None if v is None else _tensor(v, device) for k, v in ops.items()})
 
 
+def lgc_joint_from_numpy(y: np.ndarray, n: int, device: str | torch.device = "cuda", **constants) -> LGCJointModel:
+    """``LGCJointModel`` on ``device`` from the counts y (n^2,).
+
+    ``constants``: ``gamma_k``, ``gamma_theta``, ``init_sigma_sq``,
+    ``init_beta`` where they differ from the reference's.  The model holds
+    no precomputed operator: both packages build the grid distances from n.
+    """
+    return LGCJointModel(_tensor(y, device), n=n, device=device, **constants)
+
+
 def rmhmc_state_from_numpy(
     position: np.ndarray,
     logp: np.ndarray,
@@ -92,8 +102,8 @@ def state_from_numpy(state_type: type, fields: Any, device: str | torch.device =
 
     ``state_type`` is a flat state NamedTuple of the port: ``HMCState``,
     ``MALAState``, ``AMHState``, ``MMALAState``, ``IWLSState``,
-    ``GibbsState``, ``StochVolState``, ``PHMCState``, ``PMALAState`` or
-    ``DualAveragingState``.  ``fields`` is the JAX state
+    ``GibbsState``, ``StochVolState``, ``LGCJointState``, ``PHMCState``,
+    ``PMALAState`` or ``DualAveragingState``.  ``fields`` is the JAX state
     (a NamedTuple of arrays) or a dict of its fields, by the same names.
     Each array is copied with its dtype (float32 stays float32, the int32
     counters stay int32).

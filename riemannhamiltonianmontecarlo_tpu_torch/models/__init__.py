@@ -7,7 +7,7 @@ from riemannhamiltonianmontecarlo_tpu_torch.models.datasets import (
     load_dataset,
     synthetic_logreg,
 )
-from riemannhamiltonianmontecarlo_tpu_torch.models.lgc import LGCModel
+from riemannhamiltonianmontecarlo_tpu_torch.models.lgc import LGCJointModel, LGCModel
 from riemannhamiltonianmontecarlo_tpu_torch.models.logreg import LogisticRegression, ManifoldState
 from riemannhamiltonianmontecarlo_tpu_torch.models.stochvol import StochVolModel
 
@@ -21,6 +21,7 @@ __all__ = [
     "FunctionModel",
     "autodiff_manifold",
     "LGCModel",
+    "LGCJointModel",
     "StochVolModel",
     "Dataset",
     "load_dataset",

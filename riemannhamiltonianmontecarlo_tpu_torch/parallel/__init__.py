@@ -1,4 +1,4 @@
-"""Execution layer: the chain runner and step-size adaptation."""
+"""Execution layer: the chain runner (plain and checkpointed) and step-size adaptation."""
 
 from riemannhamiltonianmontecarlo_tpu_torch.parallel.adaptation import (
     AdaptationConfig,
@@ -6,6 +6,7 @@ from riemannhamiltonianmontecarlo_tpu_torch.parallel.adaptation import (
     frozen_step_size,
     run_adaptive,
 )
-from riemannhamiltonianmontecarlo_tpu_torch.parallel.runner import RunResult, run
+from riemannhamiltonianmontecarlo_tpu_torch.parallel.runner import RunResult, run, run_checkpointed, segment_generator
 
-__all__ = ["AdaptationConfig", "adaptive", "frozen_step_size", "run_adaptive", "RunResult", "run"]
+__all__ = ["AdaptationConfig", "adaptive", "frozen_step_size", "run_adaptive", "RunResult", "run", "run_checkpointed",
+           "segment_generator"]

@@ -1,6 +1,7 @@
 """Chain runner: warmup + sampling loops over a batch of chains.
 
-Port of ``run`` from ``riemannhamiltonianmontecarlo_tpu/parallel/runner.py``.
+Port of ``run`` and ``run_checkpointed`` from
+``riemannhamiltonianmontecarlo_tpu/parallel/runner.py``.
 The JAX package's jitted ``lax.scan`` becomes a Python loop over steps, run
 under ``torch.inference_mode()``: samples go into one preallocated
 (S, C, D) tensor on the chains' device, and the acceptance and divergence
@@ -12,8 +13,10 @@ phase (``code/hmc.py:92-96``).
 from __future__ import annotations
 
 import dataclasses
+from pathlib import Path
 from typing import Any
 
+import numpy as np
 import torch
 from torch import Tensor
 
@@ -95,5 +98,100 @@ def run(
         final_state=state,
         accept_rate=accept,
         divergences=div,
+        warmup_accept_rate=warm_accept,
+    )
+
+
+def segment_generator(seed: int, segment: int, device: torch.device | str) -> torch.Generator:
+    """The generator of one segment of a segmented run, a function of
+    (seed, segment) alone: the analog of ``jax.random.fold_in(key, segment)``.
+    A run stopped after any segment and resumed draws what the run that was
+    not stopped draws."""
+    mixed = int(np.random.SeedSequence([seed, segment]).generate_state(1, dtype=np.uint64)[0])
+    return torch.Generator(device=device).manual_seed(mixed & (2**63 - 1))
+
+
+def run_checkpointed(
+    kernel: Kernel,
+    seed: int,
+    init_position: Tensor,
+    *,
+    num_samples: int,
+    checkpoint_path,
+    burn_in: int = 0,
+    checkpoint_every: int = 500,
+    collect_fn=None,
+    warmup_kernel: Kernel | None = None,
+    _stop_after_segments: int | None = None,
+) -> RunResult:
+    """``run`` in ``checkpoint_every``-step segments with resume.
+
+    After each segment the kernel state is checkpointed atomically
+    (``utils.checkpoint.save_state``) and the segment's samples are
+    persisted to ``<checkpoint_path>.seg<i>``, so a killed run restarts from
+    the last completed segment instead of step 0.  The burn-in (at least one
+    step, by ``warmup_kernel`` where given) draws from
+    ``segment_generator(seed, 0)`` and sampling segment i from
+    ``segment_generator(seed, i + 1)``, on ``init_position``'s device, so an
+    interrupted-and-resumed run is bit-identical to an uninterrupted one.
+    ``_stop_after_segments`` simulates a crash (tests only).
+
+    Single process; the JAX package's per-process shard files wait for the
+    port's ``torch.distributed`` layer (ROADMAP.md item 17).
+    """
+    from riemannhamiltonianmontecarlo_tpu_torch.utils import checkpoint as ckpt
+
+    path = Path(checkpoint_path)
+    device = init_position.device
+    n_seg = -(-num_samples // checkpoint_every)
+    sizes = [checkpoint_every] * (n_seg - 1)
+    sizes.append(num_samples - checkpoint_every * (n_seg - 1))
+
+    def seg_path(i: int) -> Path:
+        return path.with_name(path.name + f".seg{i}")
+
+    if ckpt.checkpoint_exists(path):
+        with torch.inference_mode():
+            template = (warmup_kernel or kernel).init(init_position)
+        state, start_seg, _ = ckpt.load_state(path, template)
+        warm_accept = torch.zeros((), device=device)
+    else:
+        warm = run(kernel, segment_generator(seed, 0, device), init_position, num_samples=0,
+                   burn_in=max(burn_in, 1), collect=False, warmup_kernel=warmup_kernel)
+        state, start_seg, warm_accept = warm.final_state, 0, warm.warmup_accept_rate
+        ckpt.save_state(path, state, step=0)
+
+    accepts, divs = [], []
+    for i in range(start_seg, n_seg):
+        if _stop_after_segments is not None and i - start_seg >= _stop_after_segments:
+            break
+        res = run(kernel, segment_generator(seed, i + 1, device), None, num_samples=sizes[i],
+                  init_state=state, collect_fn=collect_fn)
+        state = res.final_state
+        accepts.append(float(res.accept_rate) * sizes[i])
+        divs.append(int(res.divergences))
+        ckpt.save_state(seg_path(i), res.samples, step=i)
+        ckpt.save_state(path, state, step=i + 1)
+
+    # Reassemble all persisted segments (including pre-crash ones) in order,
+    # stopping at the first gap.
+    parts = []
+    for i in range(n_seg):
+        if not ckpt.checkpoint_exists(seg_path(i)):
+            break
+        parts.append(ckpt.load_leaves(seg_path(i)))
+    samples = None
+    if parts:
+        merged = [torch.from_numpy(np.concatenate([p[j] for p in parts], axis=1)).to(device)
+                  for j in range(len(parts[0]))]
+        # The collect_fn tree's structure, from a probe of the final state.
+        samples = ckpt.tree_unflatten((collect_fn or _position_of)(state), merged)
+
+    total = sum(sizes[start_seg : start_seg + len(accepts)]) or 1
+    return RunResult(
+        samples=samples,
+        final_state=state,
+        accept_rate=torch.tensor(sum(accepts) / total, device=device),
+        divergences=torch.tensor(sum(divs), device=device),
         warmup_accept_rate=warm_accept,
     )

@@ -57,6 +57,22 @@ def metropolis_accept(u: Tensor, ratio: Tensor, divergent: Tensor | None = None)
     return accept, accept_prob
 
 
+class LatentResult(NamedTuple):
+    """One MH update of a latent block (the two-block samplers)."""
+
+    x: Tensor  # (C, T) after the MH test
+    accepted: Tensor  # (C,) bool
+    accept_prob: Tensor  # (C,)
+    divergent: Tensor  # (C,) bool
+
+
+def finish_latent(x: Tensor, x_new: Tensor, ratio: Tensor, u_acc: Tensor) -> LatentResult:
+    """The MH test of a latent block's proposal ``x_new``; a non-finite ratio or proposal is a divergent reject."""
+    divergent = ~(torch.isfinite(ratio) & torch.isfinite(x_new).all(dim=-1))
+    accept, accept_prob = metropolis_accept(u_acc, ratio, divergent)
+    return LatentResult(torch.where(accept[:, None], x_new, x), accept, accept_prob, divergent)
+
+
 def tree_map(fn: Callable, tree, *rest):
     """Map ``fn`` over the tensor leaves of matching trees.
 

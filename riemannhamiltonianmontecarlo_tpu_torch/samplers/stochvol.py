@@ -39,7 +39,7 @@ from riemannhamiltonianmontecarlo_tpu_torch.samplers import hmc as hmc_mod
 from riemannhamiltonianmontecarlo_tpu_torch.samplers import mala as mala_mod
 from riemannhamiltonianmontecarlo_tpu_torch.samplers import mmala as mmala_mod
 from riemannhamiltonianmontecarlo_tpu_torch.samplers import rmhmc as rmhmc_mod
-from riemannhamiltonianmontecarlo_tpu_torch.samplers.base import Info, Kernel, metropolis_accept
+from riemannhamiltonianmontecarlo_tpu_torch.samplers.base import Info, Kernel, LatentResult, finish_latent
 
 METHODS = ("rmhmc", "hmc", "mala", "mmala")
 
@@ -84,19 +84,6 @@ class StochVolNoise(NamedTuple):
     hyper: Any
 
 
-class LatentResult(NamedTuple):
-    x: Tensor  # (C, T) after the MH test
-    accepted: Tensor  # (C,) bool
-    accept_prob: Tensor  # (C,)
-    divergent: Tensor  # (C,) bool
-
-
-def _finish(x: Tensor, x_new: Tensor, ratio: Tensor, u_acc: Tensor) -> LatentResult:
-    divergent = ~(torch.isfinite(ratio) & torch.isfinite(x_new).all(dim=-1))
-    accept, accept_prob = metropolis_accept(u_acc, ratio, divergent)
-    return LatentResult(torch.where(accept[:, None], x_new, x), accept, accept_prob, divergent)
-
-
 def latent_update(model, config: StochVolConfig, x: Tensor, theta: Tensor, noise: StochVolNoise) -> LatentResult:
     """One MH update of the latent block x | theta by ``config.method``."""
     eps = config.latent_step_size
@@ -108,7 +95,7 @@ def latent_update(model, config: StochVolConfig, x: Tensor, theta: Tensor, noise
         log_q_fwd = -0.5 * torch.sum((x_new - mean_fwd) ** 2, dim=-1) / eps
         log_q_rev = -0.5 * torch.sum((x - mean_rev) ** 2, dim=-1) / eps
         ratio = model.latent_logp(x_new, theta) + log_q_rev - model.latent_logp(x, theta) - log_q_fwd
-        return _finish(x, x_new, ratio, noise.u_acc)
+        return finish_latent(x, x_new, ratio, noise.u_acc)
 
     if config.method == "mmala":
         # Tridiagonally preconditioned MALA (StochVol_mMALA.m latents): G is
@@ -130,7 +117,7 @@ def latent_update(model, config: StochVolConfig, x: Tensor, theta: Tensor, noise
         log_q_fwd = -0.5 * quad(x_new - mean_fwd) / eps
         log_q_rev = -0.5 * quad(x - mean_rev) / eps
         ratio = model.latent_logp(x_new, theta) + log_q_rev - model.latent_logp(x, theta) - log_q_fwd
-        return _finish(x, x_new, ratio, noise.u_acc)
+        return finish_latent(x, x_new, ratio, noise.u_acc)
 
     c = x.shape[0]
     if config.method == "rmhmc":
@@ -168,7 +155,7 @@ def latent_update(model, config: StochVolConfig, x: Tensor, theta: Tensor, noise
         return 0.5 * torch.sum(p * tridiag.solve(diag, off, p), dim=-1)
 
     ratio = (model.latent_logp(xc, theta) - kinetic(pc)) - (logp0 - kinetic(p0))
-    return _finish(x, xc, ratio, noise.u_acc)
+    return finish_latent(x, xc, ratio, noise.u_acc)
 
 
 def hyper_kernel(config: StochVolConfig, hyper_model) -> Kernel:

@@ -5,11 +5,13 @@ from unprofiled steps (``torch.cuda.synchronize()`` at both ends), then
 ``torch.profiler`` over a few more steps for the device's busy time, the
 number of kernel launches and the share of device time in GEMMs (kernel
 names with gemm / cutlass / xmma) and in the library factorizations
-(potrf / trsm).  The idle share is 1 - busy / wall.  For StochVol it also
+(potrf / trsm; the trsm part also on its own), and the peak of allocated
+device memory.  The idle share is 1 - busy / wall.  For StochVol it also
 times the bidiagonal Cholesky scan (``ops.tridiag.cholesky``, run once per
 sweep by rmhmc, hmc and mmala) inside the sweep, for its share of a sweep.
 
-    python -m riemannhamiltonianmontecarlo_tpu_torch.step_profile [--out FILE]
+    python -m riemannhamiltonianmontecarlo_tpu_torch.step_profile [--out FILE] \\
+        [--only lgc/rmhmc_joint lgc/mmala_joint]
 
 Prints one JSON line per run (and writes them to FILE).  Needs a CUDA
 device; there is no CPU path.
@@ -33,9 +35,11 @@ from riemannhamiltonianmontecarlo_tpu_torch.samplers import pmala
 RUNS = (
     ("stochvol", "rmhmc", 1024), ("stochvol", "hmc", 1024), ("stochvol", "mala", 1024), ("stochvol", "mmala", 1024),
     ("lgc", "rmhmc", 64), ("lgc", "pmala", 64), ("lgc", "mmala", 8), ("lgc", "mala_stationary", 16),
+    ("lgc", "rmhmc_joint", 4), ("lgc", "mmala_joint", 4),
 )
 GEMM = re.compile(r"gemm|cutlass|xmma|gemv", re.IGNORECASE)
 FACTOR = re.compile(r"potrf|trsm|chol", re.IGNORECASE)
+TRSM = re.compile(r"trsm", re.IGNORECASE)  # the triangular solves' part of FACTOR
 
 
 def _kernel(workload: str, sampler: str, device: torch.device):
@@ -82,6 +86,8 @@ def profile_run(workload: str, sampler: str, chains: int, *, warm: int, steps: i
         "kernel_launches_per_step": len(kernels) / profiled,
         "gemm_share_of_device": sum(ms for name, ms in kernels if GEMM.search(name)) / busy,
         "factor_share_of_device": sum(ms for name, ms in kernels if FACTOR.search(name)) / busy,
+        "trsm_share_of_device": sum(ms for name, ms in kernels if TRSM.search(name)) / busy,
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
     }
     if workload == "stochvol" and sampler != "mala":
         out.update(_scan_share(one_step, steps))
@@ -118,11 +124,18 @@ def main(argv=None) -> None:
     ap.add_argument("--steps", type=int, default=5, help="unprofiled steps timed for the wall clock")
     ap.add_argument("--profiled", type=int, default=3, help="steps under torch.profiler")
     ap.add_argument("--out", default=None, help="also write the JSON lines here")
+    ap.add_argument("--only", nargs="+", default=None, metavar="WORKLOAD/SAMPLER",
+                    help="profile these runs only (default: all of RUNS)")
     args = ap.parse_args(argv)
+    known = {f"{w}/{s}" for w, s, _ in RUNS}
+    if args.only and not set(args.only) <= known:
+        ap.error(f"--only takes names among {sorted(known)}")
     if not torch.cuda.is_available():
         ap.error("needs a CUDA device (torch.cuda.is_available() is False)")
     lines = []
     for workload, sampler, chains in RUNS:
+        if args.only and f"{workload}/{sampler}" not in args.only:
+            continue
         rec = profile_run(workload, sampler, chains, warm=args.warm, steps=args.steps, profiled=args.profiled)
         rec["device"] = torch.cuda.get_device_name(0)
         lines.append(json.dumps(rec))

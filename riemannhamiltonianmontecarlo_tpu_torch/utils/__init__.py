@@ -1,5 +1,6 @@
-"""Utilities: configuration presets, chain initialization."""
+"""Utilities: configuration presets, chain initialization, checkpoint / resume."""
 
+from riemannhamiltonianmontecarlo_tpu_torch.utils import checkpoint
 from riemannhamiltonianmontecarlo_tpu_torch.utils.config import (
     ExperimentConfig,
     reference_preset,
@@ -10,4 +11,4 @@ from riemannhamiltonianmontecarlo_tpu_torch.utils.init import (
     map_estimate,
 )
 
-__all__ = ["ExperimentConfig", "reference_preset", "default_init", "jittered_init", "map_estimate"]
+__all__ = ["checkpoint", "ExperimentConfig", "reference_preset", "default_init", "jittered_init", "map_estimate"]

@@ -4,8 +4,9 @@ Small runs on the CPU: stochastic volatility at T = 60 and log-Gaussian Cox
 at n = 8, checking the ``WorkloadResult`` fields and the group shapes as
 ``tests/test_experiments.py:121-166`` does for the JAX package; the burn-in
 of StochVol MALA stepped by its transient-phase kernel; the CLI's workload
-choices and its "not ported yet" errors for FitzHugh-Nagumo and the joint
-LGC samplers; ``load_data`` finding the authors' files.
+choices and its "not ported yet" error for FitzHugh-Nagumo (the joint LGC
+samplers, refused until they were ported, are in ``test_torch_lgc_joint.py``);
+``load_data`` finding the authors' files.
 """
 
 import dataclasses
@@ -91,8 +92,8 @@ def test_torch_workload_cli_runs_stochvol_on_cpu(capsys):
 @pytest.mark.parametrize("argv, needle", [
     (["--workload", "fhn"], "slice 5"),
     (["--workload", "fhn", "--sampler", "mala"], "slice 5"),
-    (["--workload", "lgc", "--sampler", "rmhmc_joint"], "slice 4"),
-    (["--workload", "lgc", "--sampler", "mmala_joint"], "slice 4"),
+    (["--workload", "fhn", "--sampler", "rmhmc_joint"], "not available for workload"),
+    (["--workload", "lgc", "--sampler", "hmc"], "not available for workload"),
     (["--workload", "stochvol", "--sampler", "gibbs"], "not available for workload"),
     (["--workload", "sv"], "invalid choice"),
 ])
@@ -109,8 +110,9 @@ def test_torch_workload_cli_refusals(capsys, argv, needle):
 def test_torch_workload_library_refusals():
     with pytest.raises(NotImplementedError, match="slice 5"):
         experiments.run_workload("fhn", "mala", device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        experiments.build_workload("lgc", "rmhmc_joint", device="cpu")
+    with pytest.raises(NotImplementedError, match="slice 5"):
+        experiments.build_workload("fhn", "rmhmc", device="cpu")
+    assert len(experiments.build_workload("lgc", "rmhmc_joint", device="cpu", lgc_n=4)) == 5  # ported: no refusal
     with pytest.raises(ValueError, match="run_experiment"):
         experiments.run_workload("blr", "rmhmc", device="cpu")
     with pytest.raises(KeyError):
