@@ -11,21 +11,22 @@ It imports no jax.  Phases, each printing one line of findings:
 1. device: the card's name and power limit (nvidia-smi), torch / CUDA
    versions, the fp32 precision flags;
 2. build: compiles ``ops/csrc/*.cu`` with nvcc (cached by source hash under
-   the git-ignored ``build/``), prints the build seconds and the ptxas
-   register / spill report, and holds ``hopper_linalg.launch_geometry``
+   the git-ignored ``build/``; one nvcc per source, all started together),
+   prints the build seconds and the ptxas register / spill report (K1 / K2
+   per width, the FHN kernel per order), and holds ``hopper_linalg.launch_geometry``
    (lanes per chain, chains per block, shared-memory tile) against the
    built library's own answer for every width 1..48;
 3. kernels: K1 (Cholesky) and K2 (fused solve + log-det) against their
    plain-PyTorch twins on the card, on seeded SPD batches at
    C in {4096, 4097} and D in {3, 7, 10, 15, 25}, at StochVol's
-   C = 1024, D = 3 and at the joint LGC hyper block's (C, D) = (4, 2) and
+   C = 1024, D = 3, FHN's C = 256, D = 3 and at the joint LGC hyper block's (C, D) = (4, 2) and
    (4097, 2) (2 and 10 take the kernels' runtime-width instantiation, the
    others a compile-time width): tolerance, exact-zero upper triangle, and
    non-PD chains (the first, a middle and the last chain of a block, and
    the batch's last chain) giving non-finite output in those chains only;
    an operand that is not 16-byte aligned and one that is not contiguous
    give the same bits as the aligned contiguous one.  Then, at
-   (C, D) = (4096, 15), (4096, 25), (4096, 3), (1024, 3) and (4, 2), for
+   (C, D) = (4096, 15), (4096, 25), (4096, 3), (1024, 3), (256, 3) and (4, 2), for
    each kernel: the wrapper's time (``ms``: median CUDA-event time of one call;
    ``burst_ms``: 200 calls back to back over the count), the launch alone
    on allocated outputs (``kernel_only_ms``, 200 back to back), the
@@ -36,7 +37,18 @@ It imports no jax.  Phases, each printing one line of findings:
    and a library yardstick the port never calls on these shapes:
    ``torch.linalg.cholesky_ex`` for K1 (``library_ms``), and for K2, which
    no one call computes, the sequence cholesky_ex, cholesky_solve, log of
-   the diagonal (``library_seq_ms``: a sequence, for information only);
+   the diagonal (``library_seq_ms``: a sequence, for information only).
+   Then the FitzHugh-Nagumo sensitivity kernel (``ops/csrc/fhn_sens.cu``)
+   against its plain twin at (C, num_obs, substeps) = (256, 200, 5) and
+   (257, 200, 5), orders 0, 1 and 2, on seeded theta around the truth with
+   one chain outside the support and one whose trajectory overflows: each
+   output within 1e-4 of its largest finite entry, the same non-finite
+   entries, logp -inf and a zero gradient in both special chains, the other
+   chains' outputs bit for bit those of a batch without the special ones;
+   per order its device time beside its bound and the twin's time; then K1
+   and K2 against their twins on the metrics it returns at 256 chains (the
+   matrices the FHN samplers factor).  A timed kernel that torch.profiler
+   does not see fails the run;
 4. one RMHMC transition through the kernels against one through the plain
    linalg, on the same state and noise (BLR, synthetic data of the
    australian shape N=690, D=15, 4096 chains);
@@ -80,14 +92,21 @@ It imports no jax.  Phases, each printing one line of findings:
    and under RMHMC K2): positive finite hyper samples, finite latent
    samples, K1 / K2 launch counts equal to the formulas, sweep-level
    acceptance within 0.12 of RESULTS.md:258-261 (another data set), no
-   divergences; then the same two samplers at n = 32 (D = 1024) against the
+   divergences; then the same two samplers at n = 32 (D = 1024, 16 chains) against the
    JAX package's acceptance (within 0.05) and hyper chain means (z < 5) at
    the same constants, depth, seed and generated data (``LGCJ_JAX``,
    measured on the CPU by ``tests/reference_workload_jax.py``); then
    ``parallel.run_checkpointed`` on ``rmhmc_joint`` at n = 32, stopped after
    one segment and resumed, against the run that was not stopped, bit for
    bit, its files under ``build/``.  Seconds per sweep, min-ESS/s and the
-   peak of allocated device memory are printed without a gate.
+   peak of allocated device memory are printed without a gate;
+10. fhn: ``run_workload("fhn", m, device="cuda")`` at 200 x 5 and 256 chains
+   for the six samplers: finite samples, FHN-kernel launches by order and
+   K1 / K2 launches equal to the formulas, acceptance within 0.05 of the JAX
+   package's at the same constants, depth, seed and data and chain means
+   within z < 5 of its (``FHN_JAX``, measured on the CPU by
+   ``tests/reference_workload_jax.py``); divergences and ``RESULTS.md``'s
+   acceptance printed beside them, without a gate.
 
 It ends with the nvidia-smi line, one JSON line per kernel summary
 (``{"kernels": [...]}``) and, as the last line,
@@ -201,28 +220,33 @@ def burst_ms(fn, launches: int = 200, warmup: int = 10) -> float:
     return start.elapsed_time(end) / launches
 
 
-def device_us(fn, launches: int = 50, name_part: str | None = None) -> dict:
+def device_us(fn, launches: int = 50, name_part: str | None = None, sessions: int = 4) -> dict:
     """The device's own time per call of ``fn``, from torch.profiler over
     ``launches`` calls: the summed duration of the device events whose name
     holds ``name_part`` (every device event when None), and how many such
     events one call makes (rounded: the profiler now and then drops an event,
-    so the time is the mean event's times that count).  If the profiler shows
-    no such event, the time is ``burst_ms`` of 200 calls instead and
-    ``source`` says so."""
+    so the time is the mean event's times that count).  Now and then a
+    profiler session of a long process records no device event at all: such
+    a session is run again, up to ``sessions`` in all, and how many it took
+    is returned.  A profile without the named kernel fails the run."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(launches):
-            fn()
-        torch.cuda.synchronize()
-    spans = [e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA and (name_part is None or name_part in e.name)]
-    if not spans:
-        return {"us": 1e3 * burst_ms(fn), "events_per_call": None, "source": "events, 200 back to back"}
+    for session in range(1, sessions + 1):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(launches):
+                fn()
+            torch.cuda.synchronize()
+        device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if device:
+            break
+    spans = [e.time_range.elapsed_us() for e in device if name_part is None or name_part in e.name]
+    check(spans, f"torch.profiler recorded no device event named {name_part!r} over {launches} calls in "
+                 f"{session} sessions ({len(device)} device events: {sorted({e.name for e in device})[:5]})")
     per_call = max(1, round(len(spans) / launches))
-    return {"us": per_call * sum(spans) / len(spans), "events_per_call": per_call, "source": "torch.profiler"}
+    return {"us": per_call * sum(spans) / len(spans), "events_per_call": per_call, "source": "torch.profiler",
+            "sessions": session}
 
 
 # The card's published peaks (NVIDIA H100 SXM data sheet): device memory
@@ -287,19 +311,24 @@ def phase_build() -> None:
         for name, n, exact, r in re.findall(
             r"(cholesky_kernel|chol_solve_logdet_kernel)INS_5WidthILi(\d+)ELb([01])E.*?Used (\d+) registers", log, re.S)
     }
+    # The FHN kernel per order: registers and spill stores (none expected).
+    fhn = {f"fhn<{order}>": {"registers": int(r), "spill_store_bytes": int(sp)}
+           for order, sp, r in re.findall(rf"{FHN_KERNEL_NAME}ILi(\d)E.*?(\d+) bytes spill stores.*?Used (\d+) registers",
+                                          log, re.S)}
+    check(sorted(fhn) == [f"fhn<{o}>" for o in rt.ops.fhn_sens.ORDERS], f"ptxas report names FHN kernels {sorted(fhn)}")
     for d in range(1, hl.MAX_DIM + 1):
         mirror, built = hl.launch_geometry(d), hl.built_launch_geometry(d)
         check(mirror == built, f"launch geometry at D={d}: Python mirror {mirror}, built library {built}")
     say("build", seconds=seconds, library=str(lib_path), kernels=len(regs),
         max_registers=max(regs), max_spill_store_bytes=max(spills, default=0),
-        max_stack_frame_bytes=max(stack, default=0), registers=per_kernel,
+        max_stack_frame_bytes=max(stack, default=0), registers=per_kernel, fhn_kernel=fhn,
         geometry={d: tuple(hl.launch_geometry(d)) for d in (3, 10, 15, 25, 48)})
 
 
 # Device kernels by the name torch.profiler shows them under.
 KERNEL_NAMES = {"cholesky": "cholesky_kernel", "chol_solve_logdet": "chol_solve_logdet_kernel"}
-# BLR australian, german; StochVol hyper; joint LGC hyper
-TIMED_SHAPES = ((NUM_CHAINS, 15), (NUM_CHAINS, 25), (NUM_CHAINS, 3), (1024, 3), (4, 2))
+# BLR australian, german; StochVol hyper; FHN; joint LGC hyper
+TIMED_SHAPES = ((NUM_CHAINS, 15), (NUM_CHAINS, 25), (NUM_CHAINS, 3), (1024, 3), (256, 3), (4, 2))
 
 
 def non_pd_chains(c: int, d: int) -> list[int]:
@@ -391,12 +420,13 @@ def time_kernels(c: int, d: int) -> dict:
     out = {}
     for name, (wrapper, plain, launch, library_key, library) in calls.items():
         dev = device_us(launch, name_part=KERNEL_NAMES[name])
-        check(dev["events_per_call"] in (None, 1), f"{name}: {dev['events_per_call']} device kernels per launch")
+        check(dev["events_per_call"] == 1, f"{name}: {dev['events_per_call']} device kernels per launch")
         lib_dev = device_us(library)
         bound, bound_by = bound_us(name, c, d)
         out[name] = {
             "ms": median_ms(wrapper), "burst_ms": burst_ms(wrapper), "kernel_only_ms": burst_ms(launch),
-            "device_us": dev["us"], "device_us_source": dev["source"], "plain_ms": median_ms(plain),
+            "device_us": dev["us"], "device_us_source": dev["source"], "profiler_sessions": dev["sessions"],
+            "plain_ms": median_ms(plain),
             "bound_us": bound, "bound_by": bound_by, "share_of_bound": bound / dev["us"],
             library_key: median_ms(library), "library_device_us": lib_dev["us"],
             "library_device_kernels_per_call": lib_dev["events_per_call"],
@@ -408,13 +438,13 @@ def time_kernels(c: int, d: int) -> dict:
 def phase_kernels(smi: str) -> dict:
     """K1 and K2 against their twins; returns per-kernel max |err| and times."""
     err = {"cholesky": 0.0, "chol_solve_logdet": 0.0}
-    shapes = [(c, d) for d in (3, 7, 10, 15, 25) for c in (NUM_CHAINS, NUM_CHAINS + 1)] + [(SV_CHAINS, 3)]
+    shapes = [(c, d) for d in (3, 7, 10, 15, 25) for c in (NUM_CHAINS, NUM_CHAINS + 1)] + [(SV_CHAINS, 3), (FHN_CHAINS, 3)]
     shapes += [(LGCJ_CHAINS, 2), (NUM_CHAINS + 1, 2)]  # the joint LGC hyper block's width
     for c, d in shapes + [(NUM_CHAINS + 1, 40)]:  # 40: two rows a lane
         check_kernels(c, d, err)
     for c, d in ((NUM_CHAINS + 1, 15), (NUM_CHAINS, 8), (NUM_CHAINS + 1, 40)):
         check_operand_forms(c, d)
-    say("kernels", checked="C in (4096, 4097) x D in (3, 7, 10, 15, 25), C=1024 x D=3, C in (4, 4097) x D=2 and C=4097 x D=40, "
+    say("kernels", checked="C in (4096, 4097) x D in (3, 7, 10, 15, 25), C in (1024, 256) x D=3, C in (4, 4097) x D=2 and C=4097 x D=40, "
         "four non-PD chains each (first, middle, last of a block; last of the batch; one of the 4 at C=4); unaligned and strided operands at D in (15, 8, 40)",
         max_abs_err=err, tolerance_rtol_atol=TOL)
 
@@ -549,7 +579,7 @@ class BlrRun:
     dataset: str = "australian"
     chains: int = NUM_CHAINS
     burn_in: int = 100
-    samples: int = 200
+    samples: int = 100
     adapt: bool = False
 
     @property
@@ -576,7 +606,9 @@ class BlrRun:
 # Burn-in lengths: enough for the slow mixers (component-wise AMH adapts its
 # SDs every 100 sweeps; MALA's steps are small) to forget the MAP + jitter
 # start, so the means can be held against RMHMC's.  Gibbs at 1024 chains: it
-# needs its 200 sweeps (at 100 its means sat z = 12 from RMHMC's).
+# needs its 200 sweeps (at 100 its means sat z = 12 from RMHMC's).  Samples:
+# 100, Gibbs 50 (200 / 100 until the whole script neared its time limit):
+# fewer samples only widen the z gate's standard error.
 BLR_RUNS = (
     BlrRun("rmhmc"),
     BlrRun("rmhmc_studentt"),
@@ -586,7 +618,7 @@ BLR_RUNS = (
     BlrRun("mmala", burn_in=300),
     BlrRun("mmala_simplified", burn_in=300),
     BlrRun("iwls", burn_in=300),
-    BlrRun("gibbs", chains=1024, burn_in=200, samples=100),
+    BlrRun("gibbs", chains=1024, burn_in=200, samples=50),
     BlrRun("rmhmc", adapt=True),
     BlrRun("rmhmc", dataset="german"),
     BlrRun("mmala", dataset="german", burn_in=300),
@@ -669,18 +701,19 @@ def phase_blr_samplers(smi: str) -> dict:
 SV_CHAINS, SV_OBS, SV_SEED = 1024, 2000, 0
 # (burn-in, samples) per method: the reference's 20000 samples cut to a smoke run.
 # hmc's sweep is ~1-1.4 s (100 hyper leapfrog steps, each a torch.func
-# gradient).  rmhmc, hmc and mmala ran 100 + 100, 30 + 30 and 200 + 200 until
-# the joint LGC phase needed their seconds: the whole script keeps its time.
-SV_RUNS = {"rmhmc": (60, 60), "hmc": (20, 20), "mmala": (120, 120), "mala": (500, 200)}
+# gradient).  rmhmc, hmc and mmala ran 100 + 100, 30 + 30 and 200 + 200, then
+# rmhmc 60 + 60 and mmala 120 + 120, until the joint LGC and FHN phases needed
+# their seconds: the whole script keeps its time.
+SV_RUNS = {"rmhmc": (40, 40), "hmc": (20, 20), "mmala": (80, 80), "mala": (500, 200)}
 # The JAX package at the same constants, depth, seed and data, on the CPU with
 # 64 chains (tests/reference_workload_jax.py --workload stochvol --chains 64
 # at each depth; mala as first measured, PERF.md): acceptance, and the mean and
 # sd over chains of the per-chain hyper means (beta, sigma, phi).
 SV_JAX_CHAINS = 64
 SV_JAX = {
-    "rmhmc": {"accept": 0.97787, "mean": [0.57898, 0.30451, 0.94133], "sd": [0.025043, 0.053394, 0.018672]},
+    "rmhmc": {"accept": 0.97919, "mean": [0.57688, 0.39101, 0.90810], "sd": [0.022739, 0.076522, 0.033959]},
     "hmc": {"accept": 0.76414, "mean": [0.55987, 0.62500, 0.77352], "sd": [0.037463, 0.22994, 0.12187]},
-    "mmala": {"accept": 0.87705, "mean": [0.60316, 0.60362, 0.41053], "sd": [0.0087495, 0.032835, 0.10421]},
+    "mmala": {"accept": 0.87643, "mean": [0.61066, 0.60137, 0.28221], "sd": [0.0071586, 0.026313, 0.083836]},
     "mala": {"accept": 0.81891, "mean": [0.63407, 0.54942, 0.11832], "sd": [0.0061821, 0.016158, 0.049598]},
 }
 ACCEPT_TOL = 0.05  # |accept - JAX accept|
@@ -860,8 +893,9 @@ LGCJ_RUNS = {"rmhmc_joint": (30, 60), "mmala_joint": (30, 60)}
 # the authors' data set, hence the width of the window).
 LGCJ_RESULTS = {"rmhmc_joint": 0.881, "mmala_joint": 0.669}
 LGCJ_RESULTS_TOL = 0.12
-# The same-data gate: n = 32 (D = 1024), 4 chains, this depth.
-LGCJ_SMALL_N, LGCJ_SMALL_RUN = 32, (50, 100)
+# The same-data gate: n = 32 (D = 1024), this depth, 16 chains (at 4 the
+# spread of the chain means was itself too uncertain to gate on: PERF.md).
+LGCJ_SMALL_N, LGCJ_SMALL_RUN, LGCJ_SMALL_CHAINS = 32, (50, 100), 16
 # The JAX package at the same constants, depth, seed and generated data, on the
 # CPU with 16 chains (tests/reference_workload_jax.py --workload lgc --samplers
 # rmhmc_joint mmala_joint --lgc-n 32 --chains 16 --burn-in 50 --samples 100):
@@ -888,19 +922,19 @@ def lgcj_expected_launches(sampler: str, sweeps: int) -> dict:
     return {"cholesky": 2 * sweeps, "chol_solve_logdet": 0}
 
 
-def lgcj_run(sampler: str, n: int, burn: int, samples: int):
+def lgcj_run(sampler: str, n: int, burn: int, samples: int, chains: int):
     """One joint run through the workload entry point, with its launch counts
     held to the formulas, its shapes and signs checked, and its peak memory."""
     label = f"lgc/{sampler}" + ("" if n == 64 else f"-n{n}")
     torch.cuda.reset_peak_memory_stats()
     hl.reset_launch_counts()
-    res = experiments.run_workload("lgc", sampler, device=DEVICE, num_chains=LGCJ_CHAINS, num_samples=samples,
+    res = experiments.run_workload("lgc", sampler, device=DEVICE, num_chains=chains, num_samples=samples,
                                    burn_in=burn, seed=LGCJ_SEED, keep_samples=True, lgc_n=n)
     launches = hl.launch_counts()
     expected = lgcj_expected_launches(sampler, max(burn, 1) + 2 * (samples // 2))
     check(launches == expected, f"{label}: launch counts {launches}, expected {expected}")
     hyper, latent = res.samples["hyper"], res.samples["latent"]
-    check(hyper.shape == (LGCJ_CHAINS, samples, 2) and latent.shape == (LGCJ_CHAINS, samples, n * n),
+    check(hyper.shape == (chains, samples, 2) and latent.shape == (chains, samples, n * n),
           f"{label}: samples of shapes {hyper.shape}, {latent.shape}")
     check(np.isfinite(hyper).all() and (hyper > 0).all(), f"{label}: hyper samples not finite and positive")
     check(np.isfinite(latent).all(), f"{label}: non-finite latent samples")
@@ -911,7 +945,7 @@ def lgcj_run(sampler: str, n: int, burn: int, samples: int):
 def phase_lgc_joint(smi: str) -> dict:
     launches_by_path = {}
     for sampler, (burn, samples) in LGCJ_RUNS.items():
-        label, res, launches, peak = lgcj_run(sampler, LGC_N, burn, samples)
+        label, res, launches, peak = lgcj_run(sampler, LGC_N, burn, samples, LGCJ_CHAINS)
         launches_by_path[label] = launches
         ref = LGCJ_RESULTS[sampler]
         check(abs(res.accept_rate - ref) <= LGCJ_RESULTS_TOL,
@@ -927,17 +961,14 @@ def phase_lgc_joint(smi: str) -> dict:
     # The same data as the JAX package's run, at n = 32.
     burn, samples = LGCJ_SMALL_RUN
     for sampler, ref in LGCJ_JAX.items():
-        label, res, launches, peak = lgcj_run(sampler, LGCJ_SMALL_N, burn, samples)
+        label, res, launches, peak = lgcj_run(sampler, LGCJ_SMALL_N, burn, samples, LGCJ_SMALL_CHAINS)
         launches_by_path[label] = launches
         check(abs(res.accept_rate - ref["accept"]) <= ACCEPT_TOL,
               f"{label}: acceptance {res.accept_rate} vs the JAX package's {ref['accept']} +- {ACCEPT_TOL}")
-        # Four chains: the spread of their means is itself uncertain, so the
-        # standard error takes the larger of it and the reference's.
         cm = res.samples["hyper"].mean(axis=1)
-        sd = np.maximum(cm.std(axis=0, ddof=1), ref["sd"])
-        z = np.abs(cm.mean(axis=0) - ref["mean"]) / np.sqrt(sd**2 / LGCJ_CHAINS + np.square(ref["sd"]) / LGCJ_JAX_CHAINS)
+        z = chain_mean_z(res.samples["hyper"], ref["mean"], ref["sd"], LGCJ_JAX_CHAINS)
         check(float(z.max()) < Z_BOUND, f"{label}: hyper chain means {cm.mean(axis=0)} vs the JAX package's {ref['mean']}: z {z}")
-        say("lgc-joint", run=label, D=LGCJ_SMALL_N**2, chains=LGCJ_CHAINS, burn_in=burn, samples=samples,
+        say("lgc-joint", run=label, D=LGCJ_SMALL_N**2, chains=LGCJ_SMALL_CHAINS, burn_in=burn, samples=samples,
             accept_rate=res.accept_rate, jax_accept=ref["accept"], accept_tol=ACCEPT_TOL, divergent=res.divergences,
             hyper_chain_means=cm.mean(axis=0).tolist(), hyper_chain_means_sd=cm.std(axis=0, ddof=1).tolist(),
             jax_hyper_chain_means=ref["mean"], jax_hyper_chain_means_sd=ref["sd"],
@@ -968,6 +999,265 @@ def phase_lgc_joint(smi: str) -> dict:
         stopped_after_segments=1, bit_identical=same, files=sorted(f.name for f in SMOKE_CKPT.iterdir()))
     return launches_by_path
 
+# -- phase 10: FitzHugh-Nagumo: the sensitivity kernel and six samplers ------------
+
+FHN_OBS, FHN_SUBSTEPS, FHN_CHAINS, FHN_SEED = 200, 5, 256, 0  # the JAX build_workload defaults
+FHN_SOURCE = "riemannhamiltonianmontecarlo_tpu_torch/ops/csrc/fhn_sens.cu"
+FHN_REPLACES = "riemannhamiltonianmontecarlo_tpu/models/fhn.py:55-85 (jacfwd through lax.scan; no pallas_call)"
+FHN_KERNEL_NAME = "fhn_sensitivities_kernel"
+# Kernel against twin: |k - p| <= 1e-4 x the output's largest finite |entry|.  Both
+# are float32 with another order of operations (FMAs, another summation
+# order); the JAX package's own float32 / float64 spread on this model is
+# <= 1.9e-5 of each output's scale.
+FHN_TOL = 1e-4
+FHN_SPECIAL = ((-0.1, 0.2, 3.0), (0.2, 0.2, 100.0))  # outside the support; a trajectory that overflows
+# (burn-in, samples) per sampler, the reference's 5000 + 5000 (hmc 1000 + 5000) cut to a smoke run.
+FHN_RUNS = {"rmhmc": (50, 50), "mmala": (100, 100), "mmala_simplified": (100, 100), "mala": (200, 200),
+            "metropolis": (200, 200), "hmc": (20, 20)}
+FHN_RMHMC_L, FHN_RMHMC_FP, FHN_HMC_L = 6, 5, 150  # the fhn presets of experiments.build_workload
+FHN_JITTER = 1e-6  # added to G by the fhn rmhmc and mmala presets
+# The JAX package at the same constants, depth, seed and generated data, on the
+# CPU with 64 chains (JAX_PLATFORMS=cpu python tests/reference_workload_jax.py
+# --workload fhn --chains 64 --samplers <m> --burn-in <b> --samples <s>, the
+# depths of FHN_RUNS; ~5 min for the six): acceptance, divergences, and the
+# mean and sd over chains of the per-chain means of (a, b, c).
+FHN_JAX_CHAINS = 64
+FHN_JAX = {
+    "rmhmc": {"accept": 0.96256, "divergent": 2, "mean": [0.19076, 0.2667, 2.9703], "sd": [0.0029123, 0.013862, 0.0056827]},
+    "mmala": {"accept": 0.50693, "divergent": 3, "mean": [0.19057, 0.26196, 2.9718], "sd": [0.0038499, 0.020282, 0.009644]},
+    "mmala_simplified": {"accept": 0.64583, "divergent": 11, "mean": [0.19039, 0.2592, 2.9721], "sd": [0.004396, 0.033025, 0.010497]},
+    "mala": {"accept": 0.67635, "divergent": 3, "mean": [0.18905, 0.26738, 2.973], "sd": [0.006251, 0.066566, 0.026531]},
+    "metropolis": {"accept": 0.34307, "divergent": 0, "mean": [0.19017, 0.27304, 2.9675], "sd": [0.0065591, 0.043494, 0.019747]},
+    "hmc": {"accept": 0.91902, "divergent": 44, "mean": [0.19094, 0.26392, 2.9809], "sd": [0.0044489, 0.021497, 0.05897]},
+}
+# RESULTS.md:96-101 (the reference's depth, another data set): printed, no gate.
+FHN_RESULTS = {"metropolis": 0.340, "mala": 0.676, "hmc": 0.942, "mmala": 0.509, "mmala_simplified": 0.641,
+               "rmhmc": 0.963}
+
+
+def fhn_constants() -> dict:
+    return dict(substeps=FHN_SUBSTEPS, noise_sd=0.5, gamma_scale=3.0)
+
+
+def fhn_data():
+    data, _ = rt.models.fhn.generate_data(seed=FHN_SEED if FHN_SEED > 0 else 1, num_obs=FHN_OBS)
+    return torch.tensor(data, dtype=torch.float32, device=DEVICE)
+
+
+def fhn_thetas(c: int) -> tuple[torch.Tensor, list[int]]:
+    """Seeded theta around the truth, with the special chains in the middle
+    of a block and as the batch's last chain."""
+    gen = torch.Generator(device=DEVICE).manual_seed(c)
+    truth = torch.tensor(rt.models.fhn.THETA_TRUE, device=DEVICE)
+    theta = truth * (1.0 + 0.1 * torch.randn((c, 3), generator=gen, device=DEVICE))
+    special = [c // 2 + 5, c - 1]
+    theta[special] = torch.tensor(FHN_SPECIAL, device=DEVICE)
+    return theta, special
+
+
+def check_fhn_kernel(c: int, order: int, data, err: dict) -> float:
+    """The kernel against its twin at one (C, order); returns the twin's ms."""
+    theta, special = fhn_thetas(c)
+    at = f"(C={c}, order {order})"
+    k = rt.ops.fhn_sens.fhn_sensitivities_cuda(theta, data, order, **fhn_constants())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p = rt.ops.fhn_sens.fhn_sensitivities_plain(theta, data, order, **fhn_constants())
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    keep = torch.ones(c, dtype=torch.bool, device=DEVICE)
+    keep[special] = False
+    alone = rt.ops.fhn_sens.fhn_sensitivities_cuda(theta[keep].contiguous(), data, order, **fhn_constants())
+    torch.cuda.synchronize()
+    for name, kt, pt, at_ in zip(k._fields, k, p, alone):
+        if kt is None:
+            continue
+        fin = torch.isfinite(pt)
+        check(torch.equal(torch.isfinite(kt), fin), f"fhn {name} {at}: non-finite entries differ from the twin's")
+        scale = float(pt[fin].abs().max())
+        e = float((kt - pt)[fin].abs().max())
+        check(e <= FHN_TOL * scale, f"fhn {name} vs twin {at}: max |err| {e} > {FHN_TOL} x {scale}")
+        err[name] = max(err.get(name, 0.0), e / scale)
+        same = (kt[keep] == at_) | (torch.isnan(kt[keep]) & torch.isnan(at_))
+        check(bool(same.all()), f"fhn {name} {at}: other chains' outputs change with the special chains")
+    check(bool((k.logp[special] == -torch.inf).all() and (p.logp[special] == -torch.inf).all()),
+          f"fhn logp {at}: not -inf at the special chains")
+    if order >= 1:
+        check(bool((k.grad[special] == 0).all() and (p.grad[special] == 0).all()),
+              f"fhn grad {at}: not 0 at the special chains")
+    return plain_ms
+
+
+def fhn_bound_us(order: int, c: int) -> tuple[float, str, float]:
+    """(bound_us, bound_by, operations): bytes once (theta, data in; the
+    order's outputs out) at 3.35 TB/s against the operations counted from the
+    source at 67 TFLOP/s."""
+    outputs = {0: 1, 1: 1 + 3 + 9, 2: 1 + 3 + 9 + 27}[order]
+    nbytes = 4 * (3 * c + 2 * FHN_OBS + outputs * c)
+    ops = rt.ops.fhn_sens.operations(order, c, FHN_OBS, FHN_SUBSTEPS)
+    by_bytes, by_ops = 1e6 * nbytes / HBM_BYTES_PER_S, 1e6 * ops / FP32_OPS_PER_S
+    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations", ops
+
+
+def check_kernels_on_fhn_metrics(data, k_err: dict) -> dict:
+    """K1 and K2 against their twins on the metrics the FHN samplers factor:
+    G + jitter I from the kernel's order-2 call at 256 chains around the
+    truth (entries up to ~2e4), b a momentum L z, as RMHMC's fixed point
+    solves.  Tolerances as phase 3's."""
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    truth = torch.tensor(rt.models.fhn.THETA_TRUE, device=DEVICE)
+    theta = truth * (1.0 + 0.1 * torch.randn((FHN_CHAINS, 3), generator=gen, device=DEVICE))
+    g = rt.ops.fhn_sens.fhn_sensitivities_cuda(theta, data, 2, **fhn_constants()).metric
+    g = g + FHN_JITTER * torch.eye(3, device=DEVICE)
+    check(bool(torch.isfinite(g).all()), "FHN metrics around the truth not finite")
+    lp = hl.cholesky_plain(g)
+    b = (lp @ torch.randn((FHN_CHAINS, 3, 1), generator=gen, device=DEVICE))[..., 0]
+    lk, (xk, ldk), (xp, ldp) = hl.cholesky_cuda(g), hl.chol_solve_logdet_cuda(g, b), hl.chol_solve_logdet_plain(g, b)
+    torch.cuda.synchronize()
+    errs = {"L": excess(lk, lp, TOL["L"]), "x": excess(xk, xp, TOL["x"]), "logdet": excess(ldk, ldp, TOL["logdet"])}
+    check(all(over <= 0 for _, over in errs.values()), f"K1 / K2 vs twins on FHN metrics beyond tolerance: {errs}")
+    k_err["cholesky"] = max(k_err["cholesky"], errs["L"][0])
+    k_err["chol_solve_logdet"] = max(k_err["chol_solve_logdet"], errs["x"][0], errs["logdet"][0])
+    cond = torch.linalg.cond(g.double())
+    return {"max_abs_err": {name: e for name, (e, _) in errs.items()}, "max_entry": float(g.abs().max()),
+            "condition_min_max": [float(cond.min()), float(cond.max())]}
+
+
+def phase_fhn_kernel(smi: str, k_err: dict) -> dict:
+    """The FHN kernel against its twin and its times, then K1 / K2 on its
+    metrics (``k_err``: phase 3's max |err| per kernel, raised here).  Runs
+    right after phase 3, where torch.profiler sees the device."""
+    data = fhn_data()
+    err, plain_ms = {}, {}
+    for c in (FHN_CHAINS, FHN_CHAINS + 1):
+        for order in rt.ops.fhn_sens.ORDERS:
+            ms = check_fhn_kernel(c, order, data, err)
+            if c == FHN_CHAINS:  # the timed batch: the twin's one call there is its time
+                plain_ms[order] = ms
+    say("fhn-kernel", checked=f"C in ({FHN_CHAINS}, {FHN_CHAINS + 1}) x orders 0-2 at {FHN_OBS} x {FHN_SUBSTEPS}, "
+        "one chain outside the support and one that overflows", max_err_of_scale=err, tolerance_of_scale=FHN_TOL)
+    say("kernels-on-fhn-metrics", C=FHN_CHAINS, jitter=FHN_JITTER, tolerance_rtol_atol=TOL,
+        **check_kernels_on_fhn_metrics(data, k_err))
+    theta, _ = fhn_thetas(FHN_CHAINS)
+    times = {}
+    for order in rt.ops.fhn_sens.ORDERS:
+        def launch():
+            return rt.ops.fhn_sens.fhn_sensitivities_cuda(theta, data, order, **fhn_constants())
+        dev = device_us(launch, launches=20, name_part=FHN_KERNEL_NAME)
+        check(dev["events_per_call"] == 1, f"fhn: {dev['events_per_call']} device kernels per launch")
+        bound, bound_by, ops = fhn_bound_us(order, FHN_CHAINS)
+        times[order] = {"ms": median_ms(launch, reps=20), "device_us": dev["us"], "device_us_source": dev["source"],
+                        "profiler_sessions": dev["sessions"],
+                        "plain_ms": plain_ms[order], "bound_us": bound, "bound_by": bound_by, "operations": ops,
+                        "share_of_bound": bound / dev["us"]}
+        say("fhn-kernel-times", order=order, C=FHN_CHAINS, num_obs=FHN_OBS, substeps=FHN_SUBSTEPS, card=smi,
+            **times[order], library="none: no single PyTorch call integrates an ODE with its sensitivities")
+    say("fhn-kernel-scaling", card=smi, **fhn_scaling(data))
+    return {"err": max(err.values()), "err_by_output": err, "times": times}
+
+
+FHN_SCALING_CHAINS = (32, FHN_CHAINS, 4224, 16896, 33792)  # 4224: one warp on each SM; 16896: on each scheduler
+
+
+def fhn_scaling(data) -> dict:
+    """Milliseconds per launch (CUDA events over 10 launches) by order and
+    chain count on theta around the truth, and at 256 chains with the two
+    special chains in the batch: flat in C while each warp has a scheduler
+    of its own says the bound is one chain's sequence of steps."""
+    truth = torch.tensor(rt.models.fhn.THETA_TRUE, device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(7)
+    out = {}
+    for order in rt.ops.fhn_sens.ORDERS:
+        row = {}
+        for c in FHN_SCALING_CHAINS:
+            theta = truth * (1.0 + 0.05 * torch.randn((c, 3), generator=gen, device=DEVICE))
+            row[str(c)] = burst_ms(lambda: rt.ops.fhn_sens.fhn_sensitivities_cuda(theta, data, order, **fhn_constants()),
+                                   launches=10, warmup=2)
+        special, _ = fhn_thetas(FHN_CHAINS)
+        row[f"{FHN_CHAINS}_with_special_chains"] = burst_ms(
+            lambda: rt.ops.fhn_sens.fhn_sensitivities_cuda(special, data, order, **fhn_constants()), launches=10, warmup=2)
+        out[f"order{order}_ms_by_chains"] = row
+    return out
+
+
+def fhn_expected_launches(sampler: str, sweeps: int) -> tuple[dict, dict]:
+    """(FHN-kernel launches by order, K1 / K2 launches) of a run, read from the
+    code: RMHMC calls ``manifold_state`` (order 2, then K1) in ``init`` and
+    after each leapfrog step and ``metric`` (order 1, then K2) in each round of
+    the position fixed point; mMALA ``manifold_state`` and K1 in ``init`` and
+    at the proposal; HMC ``logp`` in ``init`` and at the trajectory's end and
+    ``grad`` at its start and after each of the L steps; MALA
+    ``logp_and_grad`` in ``init`` and at the proposal; Metropolis ``logp``
+    in ``init`` and once per coordinate."""
+    fhn, k1, k2 = {0: 0, 1: 0, 2: 0}, 0, 0
+    if sampler == "rmhmc":
+        fhn[2] = k1 = 1 + FHN_RMHMC_L * sweeps
+        fhn[1] = k2 = FHN_RMHMC_L * FHN_RMHMC_FP * sweeps
+    elif sampler in ("mmala", "mmala_simplified"):
+        fhn[2] = k1 = 1 + sweeps
+    elif sampler == "hmc":
+        fhn[1], fhn[0] = (1 + FHN_HMC_L) * sweeps, 1 + sweeps
+    elif sampler == "mala":
+        fhn[1] = 1 + sweeps
+    else:  # metropolis
+        fhn[0] = 1 + 3 * sweeps
+    return fhn, {"cholesky": k1, "chol_solve_logdet": k2}
+
+
+def phase_fhn(smi: str, kernel: dict) -> dict:
+    """The six samplers; ``kernel`` is ``phase_fhn_kernel``'s result."""
+    fhn_by_path, k_by_path = {}, {}
+    for sampler, (burn, samples) in FHN_RUNS.items():
+        label = f"fhn/{sampler}"
+        rt.ops.fhn_sens.reset_launch_counts()
+        hl.reset_launch_counts()
+        res = experiments.run_workload("fhn", sampler, device=DEVICE, num_chains=FHN_CHAINS, num_samples=samples,
+                                       burn_in=burn, seed=FHN_SEED, keep_samples=True, fhn_obs=FHN_OBS,
+                                       fhn_substeps=FHN_SUBSTEPS)
+        fhn_launches, k_launches = rt.ops.fhn_sens.launch_counts(), hl.launch_counts()
+        fhn_expected, k_expected = fhn_expected_launches(sampler, burn + 2 * (samples // 2))
+        check(fhn_launches == fhn_expected, f"{label}: FHN kernel launches {fhn_launches}, expected {fhn_expected}")
+        check(k_launches == k_expected, f"{label}: K1 / K2 launches {k_launches}, expected {k_expected}")
+        fhn_by_path[label], k_by_path[label] = fhn_launches, k_launches
+
+        params = res.samples["params"]
+        check(params.shape == (FHN_CHAINS, samples, 3) and np.isfinite(params).all(),
+              f"{label}: samples of shape {params.shape}, finite: {bool(np.isfinite(params).all())}")
+        ref = FHN_JAX[sampler]
+        check(abs(res.accept_rate - ref["accept"]) <= ACCEPT_TOL,
+              f"{label}: acceptance {res.accept_rate} vs the JAX package's {ref['accept']} +- {ACCEPT_TOL}")
+        z = chain_mean_z(params, ref["mean"], ref["sd"], FHN_JAX_CHAINS)
+        check(float(z.max()) < Z_BOUND, f"{label}: chain means vs the JAX package's: z {z}")
+        cm = params.mean(axis=1)
+        say("fhn", run=label, num_obs=FHN_OBS, substeps=FHN_SUBSTEPS, chains=FHN_CHAINS, burn_in=burn,
+            samples=samples, accept_rate=res.accept_rate, jax_accept=ref["accept"], accept_tol=ACCEPT_TOL,
+            results_md_accept_no_gate=FHN_RESULTS[sampler], divergent=res.divergences,
+            jax_divergent=ref["divergent"], jax_chains=FHN_JAX_CHAINS, chain_means=cm.mean(0).tolist(),
+            jax_chain_means=ref["mean"], max_z_means_vs_jax=float(z.max()), max_split_rhat=res.rhat_max,
+            fhn_launches=fhn_launches, launches=k_launches)
+        say("fhn-times", run=label, card=smi, s_per_transition=res.sampling_time_s / (2 * (samples // 2)),
+            sampling_s=res.sampling_time_s, min_ess_per_s=float(res.ess["params"].min()) / res.sampling_time_s)
+    return {"kernel": kernel, "fhn_by_path": fhn_by_path, "k_by_path": k_by_path}
+
+
+def fhn_summary(fhn: dict, smi: str) -> dict:
+    """The FHN kernel's entry of the kernels line: order 2 at (256, 200, 5) at
+    the top (RMHMC's and mMALA's geometry), every order under "orders"."""
+    times = fhn["kernel"]["times"]
+    top = times[2]
+    total = sum(sum(counts.values()) for counts in fhn["fhn_by_path"].values())
+    return {
+        "name": "fhn_sensitivities", "route": "cuda", "source": FHN_SOURCE, "replaces": FHN_REPLACES,
+        "launches": total, "max_abs_err": fhn["kernel"]["err"], "max_abs_err_is": "of each output's scale",
+        "ms": top["ms"], "plain_ms": top["plain_ms"], "bound_ms": top["bound_us"] / 1e3, "bound_by": top["bound_by"],
+        "library_ms": None, "library_note": "no single PyTorch call integrates an ODE with its sensitivities",
+        "device_us": top["device_us"], "share_of_bound": top["share_of_bound"], "card": smi,
+        "shape": {"C": FHN_CHAINS, "num_obs": FHN_OBS, "substeps": FHN_SUBSTEPS, "order": 2},
+        "orders": {str(order): row for order, row in times.items()},
+        "launches_by_path": {label: {str(o): n for o, n in counts.items()}
+                             for label, counts in fhn["fhn_by_path"].items()},
+    }
+
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description="Drive the port's main path on one CUDA card and check it.")
@@ -975,6 +1265,8 @@ def main(argv=None) -> None:
                     help="stop after phase 3 and print the whole ptxas report (no result lines: not a pass)")
     ap.add_argument("--lgc-joint-only", action="store_true",
                     help="phases 1-2 and 9 only (no result lines: not a pass)")
+    ap.add_argument("--fhn-only", action="store_true",
+                    help="phases 1-2, the FHN kernel's part of 3, and 10 only (no result lines: not a pass)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -994,7 +1286,13 @@ def main(argv=None) -> None:
             lap("lgc-joint")
             say("phase-seconds", **seconds)
             return
+        if args.fhn_only:
+            phase_fhn(smi, phase_fhn_kernel(smi, {"cholesky": 0.0, "chol_solve_logdet": 0.0}))
+            lap("fhn")
+            say("phase-seconds", **seconds)
+            return
         kernels = phase_kernels(smi)
+        fhn_kernel = phase_fhn_kernel(smi, kernels["err"])
         lap("kernels")
         if args.kernels_only:
             print((_build.build().parent / "ptxas.log").read_text(), flush=True)
@@ -1013,6 +1311,9 @@ def main(argv=None) -> None:
         lap("lgc")
         by_path.update(phase_lgc_joint(smi))
         lap("lgc-joint")
+        fhn = phase_fhn(smi, fhn_kernel)
+        by_path.update(fhn["k_by_path"])
+        lap("fhn")
     say("phase-seconds", **seconds)
 
     # Top-level times: the main path's shape (C 4096, D 15); every timed shape under "shapes".
@@ -1032,6 +1333,7 @@ def main(argv=None) -> None:
             "launches_by_path": {"rmhmc-main-path": launches[name],
                                  **{label: counts[name] for label, counts in by_path.items()}},
         })
+    summary.append(fhn_summary(fhn, smi))
     print(smi, flush=True)
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {

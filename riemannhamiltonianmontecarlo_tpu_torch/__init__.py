@@ -6,14 +6,16 @@ package's sub-package layout and function names, so each module has an
 obvious counterpart; the JAX package is the reference the port is tested
 against.  The port imports ``torch`` and ``numpy``, never ``jax``.
 
-Ported so far (Bayesian logistic regression with every sampler, stochastic
-volatility, log-Gaussian Cox with known and with unknown hyperparameters):
+The four workloads are ported (Bayesian logistic regression with every
+sampler, stochastic volatility, log-Gaussian Cox with known and with unknown
+hyperparameters, FitzHugh-Nagumo):
 
 * :mod:`.models` -- ``LogisticRegression`` (an ``nn.Module``), datasets,
-  ``StochVolModel``, ``LGCModel``, ``LGCJointModel``;
+  ``StochVolModel``, ``LGCModel``, ``LGCJointModel``, ``FHNModel``;
 * :mod:`.ops` -- chain-batched small-matrix linalg, dispatching 3-D CUDA
   batches to the hand-written Cholesky kernels of ``ops/hopper_linalg.py``;
-  the truncated-normal and GIG samplers of the Gibbs sampler;
+  the FitzHugh-Nagumo sensitivity kernel of ``ops/fhn_sens.py``; the
+  truncated-normal and GIG samplers of the Gibbs sampler;
 * :mod:`.samplers` -- ``rmhmc``, ``hmc``, ``mala``, ``metropolis``,
   ``mmala``, ``iwls``, ``gibbs``, ``stochvol``, ``phmc``, ``pmala`` and
   ``lgc_joint`` (each a pure

@@ -8,11 +8,10 @@ sampling-phase wall clock, time per min-ESS -- ``code/main.py:70-79``,
 
 * BLR (``run_experiment``): the nine samplers on the five datasets;
 * the other workloads (``run_workload``): stochastic volatility (the
-  two-block samplers) and log-Gaussian Cox (constant-metric RMHMC,
+  two-block samplers), log-Gaussian Cox (constant-metric RMHMC,
   position-dependent mMALA, whitened MALA, and the joint samplers over
-  (sigma^2, beta, x), ``rmhmc_joint`` / ``mmala_joint``), on data generated
-  from ``seed``.  FitzHugh-Nagumo is not ported yet (ROADMAP.md slice 5)
-  and raises ``NotImplementedError``.
+  (sigma^2, beta, x), ``rmhmc_joint`` / ``mmala_joint``) and FitzHugh-Nagumo
+  (six samplers on the ODE posterior), on data generated from ``seed``.
 
 Timing protocol: only the post-burn-in sampling phase is timed.  It runs as
 two identical half-scans; the reported time is twice the *second* half, a
@@ -31,6 +30,8 @@ CLI::
         --workload stochvol --sampler rmhmc --device cuda
     python -m riemannhamiltonianmontecarlo_tpu_torch.experiments \\
         --workload lgc --sampler rmhmc_joint --chains 4 --device cuda
+    python -m riemannhamiltonianmontecarlo_tpu_torch.experiments \\
+        --workload fhn --sampler mmala --device cuda
 """
 
 from __future__ import annotations
@@ -327,13 +328,6 @@ WORKLOAD_SAMPLERS = {
 }
 
 
-def not_ported(workload: str, sampler: str) -> str | None:
-    """Why (workload, sampler) cannot run in the port yet, or None if it can."""
-    if workload == "fhn":
-        return "workload 'fhn' is not ported yet (ROADMAP.md slice 5, item 15)"
-    return None
-
-
 def timed_sampling(kernel, init, *, device: torch.device, burn_in: int, num_samples: int, seed: int = 0,
                    collect_fn=None, warmup_kernel=None):
     """Burn-in, then the two-half steady-state timing protocol (module docstring).
@@ -361,7 +355,7 @@ def timed_sampling(kernel, init, *, device: torch.device, burn_in: int, num_samp
 
 def build_workload(workload: str, sampler: str, *, device: str | torch.device = "cuda",
                    overrides: dict[str, Any] | None = None, seed: int = 0,
-                   stochvol_obs: int = 2000, lgc_n: int = 64):
+                   stochvol_obs: int = 2000, lgc_n: int = 64, fhn_obs: int = 200, fhn_substeps: int = 5):
     """(kernel, init_position_fn, collect_fn, groups_fn, warmup_kernel).
 
     All at reference constants, on data generated from ``seed``.
@@ -371,11 +365,8 @@ def build_workload(workload: str, sampler: str, *, device: str | torch.device = 
     ``warmup_kernel`` (or None) steps the burn-in only: StochVol MALA's
     transient-phase step sizes.
     """
-    reason = not_ported(workload, sampler)
-    if reason:
-        raise NotImplementedError(reason)
     if workload not in WORKLOAD_SAMPLERS or workload == "blr":
-        options = [w for w in WORKLOAD_SAMPLERS if w != "blr" and not not_ported(w, "")]
+        options = [w for w in WORKLOAD_SAMPLERS if w != "blr"]
         raise KeyError(f"unknown workload '{workload}' for run_workload; options: {', '.join(options)}")
     if sampler not in WORKLOAD_SAMPLERS[workload]:
         raise KeyError(f"unknown {workload} sampler '{sampler}'; options: {WORKLOAD_SAMPLERS[workload]}")
@@ -414,6 +405,36 @@ def build_workload(workload: str, sampler: str, *, device: str | torch.device = 
 
         return (kernel, init_fn, lambda st: (st.position, st.x),
                 lambda smp: {"hyper": smp[0], "latent": smp[1]}, warmup_kernel)
+
+    if workload == "fhn":
+        data, _ = models.fhn.generate_data(seed=seed if seed > 0 else 1, num_obs=fhn_obs)
+        model = interop.fhn_from_numpy(data, device=device, substeps=fhn_substeps)
+        builders = {
+            # ODE_RMHMC.m:72-74
+            "rmhmc": lambda: s.rmhmc.build(model, s.rmhmc.RMHMCConfig(
+                **{"step_size": 0.5, "num_leapfrog": 6, "num_fixed_point": 5, "jitter": 1e-6, **kw})),
+            # ODE_HMC.m:68-69
+            "hmc": lambda: s.hmc.build(model, s.hmc.HMCConfig(**{"step_size": 1.0 / 150.0, "num_leapfrog": 150, **kw})),
+            # ODE_MALA.m:64
+            "mala": lambda: s.mala.build(model, s.mala.MALAConfig(**{"step_size": 2e-4, **kw})),
+            # ODE_mMALA.m:69
+            "mmala": lambda: s.mmala.build(model, s.mmala.MMALAConfig(**{"step_size": 1.0, "jitter": 1e-6, **kw})),
+            # ODE_mMALA_Simp.m:74
+            "mmala_simplified": lambda: s.mmala.build(model, s.mmala.MMALAConfig(
+                **{"step_size": 1.0, "simplified": True, "jitter": 1e-6, **kw})),
+            "metropolis": lambda: s.metropolis.build(model, s.metropolis.AMHConfig(
+                **{"init_proposal_sd": 0.05, **kw})),
+        }
+        theta0 = torch.tensor(models.fhn.THETA_TRUE, device=device)
+
+        def fhn_init(chains: int) -> torch.Tensor:
+            # theta0 (1 + 0.05 N(0, 1)), the JAX package's law; it draws from
+            # jax.random.key(seed + 11) (threefry), this from a torch.Generator
+            # seeded with seed + 11: the same law, not the same numbers.
+            gen = torch.Generator(device=device).manual_seed(seed + 11)
+            return theta0 * (1.0 + 0.05 * torch.randn((chains, 3), generator=gen, device=device))
+
+        return builders[sampler](), fhn_init, None, lambda smp: {"params": smp}, None
 
     # lgc
     y, _ = models.lgc.generate_data(seed=seed, n=lgc_n)
@@ -482,7 +503,7 @@ def run_workload(workload: str, sampler: str, *, device: str | torch.device = "c
                  num_samples: int = 1000, burn_in: int = 300, seed: int = 0,
                  overrides: dict[str, Any] | None = None, keep_samples: bool = False,
                  **data_kw) -> WorkloadResult:
-    """Reference-preset experiment on the stochvol or lgc workload.
+    """Reference-preset experiment on the stochvol, lgc or fhn workload.
 
     ESS, split R-hat and moments run on the device per group; Geweke z on
     an 8-chain slice on the host.  ``keep_samples`` also returns each
@@ -522,6 +543,8 @@ def main(argv=None) -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--lgc-n", type=int, default=64,
                     help="lgc only: the grid is n x n (D = n^2 latents; 64 is the reference size)")
+    ap.add_argument("--fhn-obs", type=int, default=200, help="fhn only: observation times (200 is the reference's)")
+    ap.add_argument("--fhn-substeps", type=int, default=5, help="fhn only: RK4 steps per observation interval")
     ap.add_argument("--init", choices=("map", "zeros", "reference"), default="map", help="BLR only")
     ap.add_argument("--ess-mode", choices=ESS_MODES, default="reference",
                     help="BLR only; 'native' (the C++ engine) is not ported yet (ROADMAP.md, slice 6)")
@@ -531,9 +554,6 @@ def main(argv=None) -> None:
     if args.sampler not in WORKLOAD_SAMPLERS[args.workload]:
         ap.error(f"sampler '{args.sampler}' not available for workload '{args.workload}' "
                  f"(options: {WORKLOAD_SAMPLERS[args.workload]})")
-    reason = not_ported(args.workload, args.sampler)
-    if reason:
-        ap.error(reason)
     try:
         device = resolve_device(args.device)
     except RuntimeError as e:
@@ -554,6 +574,8 @@ def main(argv=None) -> None:
         if args.adapt:
             print(f"adapted step size: {res.adapted_step_size:.4g}")
     else:
+        size = {"lgc": {"lgc_n": args.lgc_n},
+                "fhn": {"fhn_obs": args.fhn_obs, "fhn_substeps": args.fhn_substeps}}.get(args.workload, {})
         res = run_workload(
             args.workload,
             args.sampler,
@@ -562,7 +584,7 @@ def main(argv=None) -> None:
             num_samples=args.samples or 1000,
             burn_in=args.burn_in if args.burn_in is not None else 300,
             seed=args.seed,
-            **({"lgc_n": args.lgc_n} if args.workload == "lgc" else {}),
+            **size,
         )
     print(res.summary())
 

@@ -13,6 +13,7 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
+from riemannhamiltonianmontecarlo_tpu_torch.models.fhn import FHNModel
 from riemannhamiltonianmontecarlo_tpu_torch.models.lgc import LGCJointModel, LGCModel
 from riemannhamiltonianmontecarlo_tpu_torch.models.logreg import LogisticRegression
 from riemannhamiltonianmontecarlo_tpu_torch.models.stochvol import StochVolModel
@@ -73,6 +74,15 @@ def lgc_joint_from_numpy(y: np.ndarray, n: int, device: str | torch.device = "cu
     no precomputed operator: both packages build the grid distances from n.
     """
     return LGCJointModel(_tensor(y, device), n=n, device=device, **constants)
+
+
+def fhn_from_numpy(data: np.ndarray, device: str | torch.device = "cuda", **constants) -> FHNModel:
+    """``FHNModel`` (float32) on ``device`` from the observations (num_obs, 2).
+
+    ``constants``: ``noise_sd``, ``substeps``, ``gamma_scale`` where they
+    differ from the reference's (0.5, 5, 3.0).
+    """
+    return FHNModel(_tensor(data, device), **constants)
 
 
 def rmhmc_state_from_numpy(

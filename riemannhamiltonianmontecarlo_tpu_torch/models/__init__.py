@@ -1,12 +1,13 @@
 """Models: log-posteriors with gradients and Fisher-metric geometry."""
 
-from riemannhamiltonianmontecarlo_tpu_torch.models import base, datasets, lgc, stochvol
+from riemannhamiltonianmontecarlo_tpu_torch.models import base, datasets, fhn, lgc, stochvol
 from riemannhamiltonianmontecarlo_tpu_torch.models.base import FunctionModel, ManifoldModel, Model, autodiff_manifold
 from riemannhamiltonianmontecarlo_tpu_torch.models.datasets import (
     Dataset,
     load_dataset,
     synthetic_logreg,
 )
+from riemannhamiltonianmontecarlo_tpu_torch.models.fhn import FHNModel
 from riemannhamiltonianmontecarlo_tpu_torch.models.lgc import LGCJointModel, LGCModel
 from riemannhamiltonianmontecarlo_tpu_torch.models.logreg import LogisticRegression, ManifoldState
 from riemannhamiltonianmontecarlo_tpu_torch.models.stochvol import StochVolModel
@@ -14,6 +15,7 @@ from riemannhamiltonianmontecarlo_tpu_torch.models.stochvol import StochVolModel
 __all__ = [
     "base",
     "datasets",
+    "fhn",
     "lgc",
     "stochvol",
     "Model",
@@ -23,6 +25,7 @@ __all__ = [
     "LGCModel",
     "LGCJointModel",
     "StochVolModel",
+    "FHNModel",
     "Dataset",
     "load_dataset",
     "synthetic_logreg",

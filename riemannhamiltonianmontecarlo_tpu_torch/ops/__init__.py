@@ -1,8 +1,8 @@
 """Batched numerical ops: chain-vectorized linalg and its Hopper kernels,
-batched tridiagonal algebra (StochVol), the truncated-normal and GIG
-samplers of the Gibbs sampler."""
+batched tridiagonal algebra (StochVol), the FitzHugh-Nagumo sensitivity
+kernel, the truncated-normal and GIG samplers of the Gibbs sampler."""
 
-from riemannhamiltonianmontecarlo_tpu_torch.ops import hopper_linalg, tridiag
+from riemannhamiltonianmontecarlo_tpu_torch.ops import fhn_sens, hopper_linalg, tridiag
 from riemannhamiltonianmontecarlo_tpu_torch.ops.gig import sample_gig_half
 from riemannhamiltonianmontecarlo_tpu_torch.ops.truncnorm import truncated_normal_onesided
 from riemannhamiltonianmontecarlo_tpu_torch.ops.linalg import (
@@ -18,6 +18,7 @@ from riemannhamiltonianmontecarlo_tpu_torch.ops.linalg import (
 )
 
 __all__ = [
+    "fhn_sens",
     "hopper_linalg",
     "tridiag",
     "cholesky",

@@ -2,10 +2,12 @@
 
 ``nvcc`` compiles every ``ops/csrc/*.cu`` for ``sm_90a`` into one shared
 library with a plain C interface, at first use, under
-``<checkout>/build/hopper_kernels/<hash>/`` (git-ignored).  The hash covers
-the sources and the flags, so an edited source rebuilds and an unchanged one
+``<checkout>/build/hopper_kernels/<hash>/`` (git-ignored): one ``nvcc -c``
+per source, all started together, then one link.  The hash covers the
+sources and the flags, so an edited source rebuilds and an unchanged one
 loads at once.  The ``-Xptxas -v`` report (registers, local memory and
-spills of each kernel) is kept beside the library as ``ptxas.log``.
+spills of each kernel) is kept beside the library as ``ptxas.log``, the
+sources' reports one after the other.
 
 Nothing here runs at import time, and any failure raises: there is no
 fallback to another implementation.
@@ -28,8 +30,9 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-lineinfo",
     "-Xptxas", "-v",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 
 def _nvcc() -> str:
@@ -45,7 +48,7 @@ def _nvcc() -> str:
 
 def library_dir() -> Path:
     """Directory of the library for the current sources and flags."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for src in sorted(CSRC_DIR.glob("*.cu")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -58,19 +61,30 @@ def build() -> Path:
     lib = out_dir / LIB_NAME
     if lib.exists():
         return lib
-    sources = sorted(str(p) for p in CSRC_DIR.glob("*.cu"))
+    sources = sorted(CSRC_DIR.glob("*.cu"))
     if not sources:
         raise RuntimeError(f"no CUDA sources under {CSRC_DIR}")
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *sources],
-        capture_output=True, text=True, check=False,
-    )
-    (out_dir / "ptxas.log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, lib)  # atomic: a concurrent build sees a whole library or none
+    nvcc, pid = _nvcc(), os.getpid()
+    objects = [out_dir / f"{src.stem}.{pid}.o" for src in sources]
+    tmp = out_dir / f"{LIB_NAME}.{pid}.tmp"
+    try:
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(sources, objects)]
+        reports = [(src.name, proc.communicate()[0], proc.returncode) for src, proc in zip(sources, procs)]
+        (out_dir / "ptxas.log").write_text("".join(f"== {name}\n{text}" for name, text, _ in reports))
+        failed = [f"{name} ({rc}):\n{text}" for name, text, rc in reports if rc != 0]
+        if failed:
+            raise RuntimeError("nvcc failed on " + "\n".join(failed))
+        proc = subprocess.run([nvcc, *LINK_FLAGS, "-o", str(tmp), *map(str, objects)], capture_output=True,
+                              text=True, check=False)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
+        os.replace(tmp, lib)  # atomic: a concurrent build sees a whole library or none
+    finally:  # no object or half-linked library is left behind, whatever failed
+        for path in (*objects, tmp):
+            path.unlink(missing_ok=True)
     return lib
 
 

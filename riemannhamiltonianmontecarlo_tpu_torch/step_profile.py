@@ -5,13 +5,14 @@ from unprofiled steps (``torch.cuda.synchronize()`` at both ends), then
 ``torch.profiler`` over a few more steps for the device's busy time, the
 number of kernel launches and the share of device time in GEMMs (kernel
 names with gemm / cutlass / xmma) and in the library factorizations
-(potrf / trsm; the trsm part also on its own), and the peak of allocated
-device memory.  The idle share is 1 - busy / wall.  For StochVol it also
+(potrf / trsm; the trsm part also on its own) and, for FitzHugh-Nagumo,
+in the sensitivity kernel (``fhn_sensitivities_kernel``), and the peak of
+allocated device memory.  The idle share is 1 - busy / wall.  For StochVol it also
 times the bidiagonal Cholesky scan (``ops.tridiag.cholesky``, run once per
 sweep by rmhmc, hmc and mmala) inside the sweep, for its share of a sweep.
 
     python -m riemannhamiltonianmontecarlo_tpu_torch.step_profile [--out FILE] \\
-        [--only lgc/rmhmc_joint lgc/mmala_joint]
+        [--only lgc/rmhmc_joint fhn/rmhmc]
 
 Prints one JSON line per run (and writes them to FILE).  Needs a CUDA
 device; there is no CPU path.
@@ -36,10 +37,12 @@ RUNS = (
     ("stochvol", "rmhmc", 1024), ("stochvol", "hmc", 1024), ("stochvol", "mala", 1024), ("stochvol", "mmala", 1024),
     ("lgc", "rmhmc", 64), ("lgc", "pmala", 64), ("lgc", "mmala", 8), ("lgc", "mala_stationary", 16),
     ("lgc", "rmhmc_joint", 4), ("lgc", "mmala_joint", 4),
+    ("fhn", "rmhmc", 256), ("fhn", "hmc", 256), ("fhn", "mmala", 256), ("fhn", "mala", 256),
 )
 GEMM = re.compile(r"gemm|cutlass|xmma|gemv", re.IGNORECASE)
 FACTOR = re.compile(r"potrf|trsm|chol", re.IGNORECASE)
 TRSM = re.compile(r"trsm", re.IGNORECASE)  # the triangular solves' part of FACTOR
+FHN = re.compile(r"fhn_sensitivities")
 
 
 def _kernel(workload: str, sampler: str, device: torch.device):
@@ -89,6 +92,8 @@ def profile_run(workload: str, sampler: str, chains: int, *, warm: int, steps: i
         "trsm_share_of_device": sum(ms for name, ms in kernels if TRSM.search(name)) / busy,
         "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
     }
+    if workload == "fhn":
+        out["fhn_kernel_share_of_device"] = sum(ms for name, ms in kernels if FHN.search(name)) / busy
     if workload == "stochvol" and sampler != "mala":
         out.update(_scan_share(one_step, steps))
     return out

@@ -128,9 +128,9 @@ def test_torch_refusals(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="is_available"):
         experiments.run_experiment("hmc", "australian", device="cuda")
-    for argv in (["--device", "cuda"], ["--workload", "fhn", "--device", "cpu"]):
+    for argv in (["--device", "cuda"], ["--workload", "fhn", "--sampler", "gibbs", "--device", "cpu"]):
         with pytest.raises(SystemExit) as exit_info:
             experiments.main(argv)
         assert exit_info.value.code != 0
     err = capsys.readouterr().err
-    assert "is_available() is False" in err and "ROADMAP.md" in err
+    assert "is_available() is False" in err and "not available for workload" in err

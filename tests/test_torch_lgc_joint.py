@@ -286,9 +286,10 @@ def test_torch_run_workload_lgc_joint(sampler):
 
 def test_torch_lgc_joint_presets_and_what_is_left_unported():
     """The presets of the JAX package's ``build_workload`` (``experiments.py:448-460``):
-    mMALA's latent step is 0.07, everything else the config's defaults; only fhn is left."""
-    assert experiments.not_ported("lgc", "rmhmc_joint") is None and experiments.not_ported("lgc", "mmala_joint") is None
-    assert "fhn" in experiments.not_ported("fhn", "rmhmc")
+    mMALA's latent step is 0.07, everything else the config's defaults.  No
+    workload is left unported: the refusal went with FitzHugh-Nagumo's port."""
+    assert not hasattr(experiments, "not_ported")
+    assert set(experiments.WORKLOAD_SAMPLERS) == {"blr", "stochvol", "lgc", "fhn"}
     with pytest.raises(KeyError, match="options: stochvol, lgc"):
         experiments.build_workload("volatility", "rmhmc", device="cpu")
     kernel, init_fn, collect_fn, groups_fn, warm = experiments.build_workload("lgc", "mmala_joint", device="cpu", lgc_n=6)

@@ -151,6 +151,27 @@ def test_torch_build_without_nvcc_raises(monkeypatch):
     assert _build.library_dir() == _build.library_dir()  # keyed by content, stable
 
 
+def test_torch_build_failure_leaves_no_objects(monkeypatch, tmp_path):
+    """A source that does not compile raises with nvcc's report, and no
+    object file or half-built library is left beside the report."""
+    class Nvcc:  # stands in for one ``nvcc -c``: writes its object, fails on fhn_sens.cu
+        def __init__(self, cmd, **kwargs):
+            out = cmd[cmd.index("-o") + 1]
+            with open(out, "wb"):
+                pass
+            self.returncode = 1 if cmd[-1].endswith("fhn_sens.cu") else 0
+
+        def communicate(self):
+            return ("error: a stand-in failure" if self.returncode else "ptxas info", None)
+
+    monkeypatch.setattr(_build, "BUILD_ROOT", tmp_path)
+    monkeypatch.setattr(_build, "_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(_build.subprocess, "Popen", Nvcc)
+    with pytest.raises(RuntimeError, match="nvcc failed on fhn_sens.cu"):
+        _build.build()
+    assert sorted(p.name for p in _build.library_dir().iterdir()) == ["ptxas.log"]
+
+
 # -- what the wrappers hand to the launch ---------------------------------------
 
 
@@ -271,16 +292,18 @@ def test_torch_launch_geometry_mirrors_the_cuda_source():
 
 
 # Bytes each kernel must move (inputs read once, outputs written once) over
-# 3.35 TB/s, in microseconds, worked out by hand for the four timed shapes.
+# 3.35 TB/s, in microseconds, worked out by hand for the timed shapes.
 @pytest.mark.parametrize("name,c,d,expected_us", [
     ("cholesky", 4096, 15, 2 * 4096 * 225 * 4 / 3.35e6),  # 7.37 MB -> 2.2 us
     ("cholesky", 4096, 25, 20_480_000 / 3.35e6),  # 6.11 us
     ("cholesky", 4096, 3, 294_912 / 3.35e6),
     ("cholesky", 1024, 3, 73_728 / 3.35e6),
+    ("cholesky", 256, 3, 18_432 / 3.35e6),  # FHN's metric
     ("chol_solve_logdet", 4096, 15, (3_686_400 + 245_760 + 245_760 + 16_384) / 3.35e6),  # 4.19 MB -> 1.25 us
     ("chol_solve_logdet", 4096, 25, 11_075_584 / 3.35e6),  # 3.31 us
     ("chol_solve_logdet", 4096, 3, 262_144 / 3.35e6),
     ("chol_solve_logdet", 1024, 3, 65_536 / 3.35e6),
+    ("chol_solve_logdet", 256, 3, 16_384 / 3.35e6),
 ])
 def test_torch_chip_smoke_bound_us(name, c, d, expected_us):
     assert (c, d) in chip_smoke.TIMED_SHAPES

@@ -19,7 +19,10 @@ import chip_smoke  # noqa: F401
 import riemannhamiltonianmontecarlo_tpu_torch.step_profile  # noqa: F401
 import riemannhamiltonianmontecarlo_tpu_torch.kernel_ab  # noqa: F401
 import riemannhamiltonianmontecarlo_tpu_torch.tools.run_lgc_joint  # noqa: F401
+import riemannhamiltonianmontecarlo_tpu_torch.models.fhn  # noqa: F401
+import riemannhamiltonianmontecarlo_tpu_torch.ops.fhn_sens  # noqa: F401
 assert rt.samplers.lgc_joint and rt.models.LGCJointModel and rt.utils.checkpoint and rt.parallel.run_checkpointed
+assert rt.models.FHNModel and rt.models.fhn and rt.ops.fhn_sens and rt.interop.fhn_from_numpy
 ds = rt.models.synthetic_logreg(0, 50, 5)
 model = rt.interop.logreg_from_numpy(ds.X, ds.t, device="cpu")
 kern = rt.samplers.rmhmc.build(model)

@@ -4,9 +4,9 @@ Small runs on the CPU: stochastic volatility at T = 60 and log-Gaussian Cox
 at n = 8, checking the ``WorkloadResult`` fields and the group shapes as
 ``tests/test_experiments.py:121-166`` does for the JAX package; the burn-in
 of StochVol MALA stepped by its transient-phase kernel; the CLI's workload
-choices and its "not ported yet" error for FitzHugh-Nagumo (the joint LGC
-samplers, refused until they were ported, are in ``test_torch_lgc_joint.py``);
-``load_data`` finding the authors' files.
+choices and the samplers each workload refuses (FitzHugh-Nagumo itself is
+in ``test_torch_fhn.py``, the joint LGC samplers in
+``test_torch_lgc_joint.py``); ``load_data`` finding the authors' files.
 """
 
 import dataclasses
@@ -90,8 +90,8 @@ def test_torch_workload_cli_runs_stochvol_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("argv, needle", [
-    (["--workload", "fhn"], "slice 5"),
-    (["--workload", "fhn", "--sampler", "mala"], "slice 5"),
+    (["--workload", "fhn", "--sampler", "gibbs"], "not available for workload"),
+    (["--workload", "fhn", "--sampler", "iwls"], "not available for workload"),
     (["--workload", "fhn", "--sampler", "rmhmc_joint"], "not available for workload"),
     (["--workload", "lgc", "--sampler", "hmc"], "not available for workload"),
     (["--workload", "stochvol", "--sampler", "gibbs"], "not available for workload"),
@@ -103,15 +103,12 @@ def test_torch_workload_cli_refusals(capsys, argv, needle):
     assert exit_info.value.code != 0
     err = capsys.readouterr().err
     assert needle in err
-    if "slice" in needle:
-        assert "not ported yet (ROADMAP.md" in err
 
 
 def test_torch_workload_library_refusals():
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        experiments.run_workload("fhn", "mala", device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        experiments.build_workload("fhn", "rmhmc", device="cpu")
+    with pytest.raises(KeyError, match="gibbs"):
+        experiments.run_workload("fhn", "gibbs", device="cpu")
+    assert len(experiments.build_workload("fhn", "rmhmc", device="cpu", fhn_obs=10, fhn_substeps=1)) == 5  # ported
     assert len(experiments.build_workload("lgc", "rmhmc_joint", device="cpu", lgc_n=4)) == 5  # ported: no refusal
     with pytest.raises(ValueError, match="run_experiment"):
         experiments.run_workload("blr", "rmhmc", device="cpu")
