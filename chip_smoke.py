@@ -106,7 +106,28 @@ It imports no jax.  Phases, each printing one line of findings:
    package's at the same constants, depth, seed and data and chain means
    within z < 5 of its (``FHN_JAX``, measured on the CPU by
    ``tests/reference_workload_jax.py``); divergences and ``RESULTS.md``'s
-   acceptance printed beside them, without a gate.
+   acceptance printed beside them, without a gate;
+11. distributed: the parallel layer on ``torch.distributed``.  In this
+   process, a process group of one rank over NCCL (a TCP store on a free
+   local port, torn down at the end): BLR RMHMC at full width (4096 chains,
+   50 + 50) through ``parallel.run(..., mesh=)`` on a ("chains", "data")
+   mesh of shape (1, 1) with the model from ``with_sharding``, and LGC phmc
+   at D = 4096 (64 chains, 20 + 20) on a ("chains", "latent") mesh, each
+   ``torch.equal`` to the same run without a mesh, with K1 / K2 launch
+   counts equal to the formulas; ``run_checkpointed`` with the mesh stopped
+   after one segment and resumed, bit for bit, its files without a ``.p``
+   suffix; ``run_experiment("rmhmc", ess_mode="native", mesh=)`` on phase
+   6's CSV, its min-ESS equal to the exact-mode ESS of its samples to 1e-10.
+   Then two ranks sharing the card over Gloo on CUDA tensors
+   (``parallel.launch.spawn``, plain subprocesses with a timeout): BLR RMHMC
+   at full width, 10 + 10, chains split (2, 1) and rows split (1, 2),
+   against the one-process run: chains whose accept decisions all stayed
+   1e-3 away from the boundary (at least 95%) take the same decisions and
+   positions within 1e-5 abs / 1e-5 rel; under the row split the ranks'
+   positions are bit-identical; K1 / K2 launch counts per rank equal the
+   formulas; the checkpoint shards ``.p0`` / ``.p1`` round-trip.  Seconds
+   per transition (world 1 against no mesh, two ranks) and all-reduces per
+   transition are printed beside the card, without a gate.
 
 It ends with the nvidia-smi line, one JSON line per kernel summary
 (``{"kernels": [...]}``) and, as the last line,
@@ -115,7 +136,8 @@ code is non-zero and the last line is not printed; so does a machine with
 no CUDA device.
 
 Phase 6 writes its CSVs under the git-ignored ``build/smoke_data`` and
-points ``RHMC_DATA_DIR`` there, before the port is imported.
+points ``RHMC_DATA_DIR`` there, before the port is imported; phase 11 writes
+under ``build/smoke_dist``.  ``--distributed-only`` runs phases 1-2 and 11.
 """
 
 from __future__ import annotations
@@ -130,7 +152,9 @@ import statistics
 import subprocess
 import sys
 import time
+from datetime import timedelta
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 
@@ -139,11 +163,16 @@ os.environ["RHMC_DATA_DIR"] = str(SMOKE_DATA)  # read when the port's datasets m
 
 import torch  # noqa: E402
 
+import torch.distributed as dist  # noqa: E402
+
 import riemannhamiltonianmontecarlo_tpu_torch as rt  # noqa: E402
 from riemannhamiltonianmontecarlo_tpu_torch import experiments  # noqa: E402
 from riemannhamiltonianmontecarlo_tpu_torch._precision import precision_flags  # noqa: E402
 from riemannhamiltonianmontecarlo_tpu_torch.ops import _build  # noqa: E402
 from riemannhamiltonianmontecarlo_tpu_torch.ops import hopper_linalg as hl  # noqa: E402
+from riemannhamiltonianmontecarlo_tpu_torch.parallel import collectives  # noqa: E402
+from riemannhamiltonianmontecarlo_tpu_torch.parallel.launch import free_port, spawn  # noqa: E402
+from riemannhamiltonianmontecarlo_tpu_torch.parallel.mesh import CHAIN_AXIS  # noqa: E402
 from riemannhamiltonianmontecarlo_tpu_torch.samplers import pmala, rmhmc  # noqa: E402
 
 DEVICE = "cuda"
@@ -516,12 +545,18 @@ def sample(model, method, seed: int, burn_in: int = BURN_IN, num_samples: int = 
     }
 
 
+def blr_expected_launches(steps: int) -> dict:
+    """K1 / K2 launches of a BLR RMHMC run of ``steps`` steps: one geometry at
+    init and after each leapfrog step, one solve a position fixed-point round."""
+    return {"cholesky": 1 + L * steps, "chol_solve_logdet": L * K * steps}
+
+
 def phase_main_path(model, smi: str) -> dict:
     steps = BURN_IN + NUM_SAMPLES
     hl.reset_launch_counts()
     kern = sample(model, None, seed=1)
     launches = hl.launch_counts()
-    expected = {"cholesky": 1 + L * steps, "chol_solve_logdet": L * K * steps}
+    expected = blr_expected_launches(steps)
     check(launches == expected, f"launch counts {launches}, expected {expected}")
     lo, hi = ACCEPT_WINDOW
     check(lo <= kern["accept"] <= hi, f"acceptance {kern['accept']} outside {ACCEPT_WINDOW}")
@@ -1259,6 +1294,227 @@ def fhn_summary(fhn: dict, smi: str) -> dict:
     }
 
 
+# -- phase 11: the parallel layer on torch.distributed ------------------------------
+
+DIST_SEED = 21
+DIST_BLR_RUN = (50, 50)  # (burn-in, samples): world 1 over NCCL against no mesh
+DIST_LGC_RUN = (20, 20)  # phmc at the lgc "rmhmc" preset (L 30, eps 0.1), 64 chains
+DIST_LGC_CHAINS = 64
+DIST_TWO_RANK_RUN = (10, 10)  # two ranks sharing the card over Gloo, against a run without a mesh
+DIST_TIMEOUT = 300.0  # seconds: the process groups' timeout and the two-rank launch's
+DIST_TOL = (1e-5, 1e-5)  # (rtol, atol): two-rank positions against the one-process run
+# An accept decision whose |log a - log u| came this close to 0 in either run
+# may flip under another order of float32 sums (|logp| ~ 3e2, so ~1e-5 of
+# rounding): such chains are counted, not compared.
+DIST_MARGIN = 1e-3
+DIST_MIN_AWAY = 0.95  # of the chains must stay away from the accept boundary in every step
+DIST_CKPT = dict(num_samples=6, burn_in=2, checkpoint_every=2)  # three segments, stopped after one
+DIST_ESS_RUN = dict(num_chains=1024, burn_in=50, num_samples=50)
+DIST_DIR = SMOKE_DATA.parent / "smoke_dist"
+
+
+class MarginState(NamedTuple):
+    inner: object
+    margin: torch.Tensor  # (C,) the smallest |log a - log u| of the run so far
+
+    @property
+    def position(self) -> torch.Tensor:
+        return self.inner.position
+
+
+def with_margins(kernel):
+    """``kernel`` that also keeps, per chain, how close its accept decisions came to the boundary."""
+    def init(position):
+        return MarginState(kernel.init(position), torch.full(position.shape[:1], float("inf"), device=position.device))
+
+    def transition(state, noise):
+        inner, info = kernel.transition(state.inner, noise)
+        margin = (torch.log(info.accept_prob) - torch.log(noise.u_acc)).abs()
+        return MarginState(inner, torch.minimum(state.margin, margin)), info
+
+    def step(generator, state):
+        return transition(state, kernel.draw_noise(generator, state.position))
+
+    return rt.samplers.Kernel(init, step, transition, kernel.draw_noise)
+
+
+def dist_run(kernel, init, mesh, burn: int, samples: int) -> dict:
+    """Burn-in and a timed sampling run through ``parallel.run(..., mesh=)``,
+    with the K1 / K2 launches and the all-reduces it made."""
+    gen = torch.Generator(device=DEVICE).manual_seed(DIST_SEED)
+    hl.reset_launch_counts()
+    collectives.reset_call_counts()
+    warm = rt.parallel.run(kernel, gen, init, num_samples=burn, collect=False, mesh=mesh)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = rt.parallel.run(kernel, gen, None, num_samples=samples, init_state=warm.final_state, mesh=mesh)
+    torch.cuda.synchronize()
+    return {"samples": res.samples, "accept": res.accept_rate, "div": res.divergences + warm.divergences,
+            "seconds": time.perf_counter() - t0, "launches": hl.launch_counts(),
+            "all_reduce": collectives.call_counts()["all_reduce"], "state": res.final_state}
+
+
+def distributed_rank(out: str) -> None:
+    """One of two ranks sharing the card over Gloo (run by ``parallel.launch``):
+    BLR RMHMC at full width with the chains split, then with the rows split,
+    and checkpoint shards; writes ``two_rank.r<rank>.npz`` under ``out``."""
+    rank, out = dist.get_rank(), Path(out)
+    model = blr_model()
+    init = torch.from_numpy(np.load(out / "init.npy")).to(DEVICE)
+    burn, samples = DIST_TWO_RANK_RUN
+    arrays = {}
+    with torch.inference_mode():
+        for label, shape in (("chains", (2, 1)), ("data", (1, 2))):
+            mesh = rt.parallel.make_mesh(2, (CHAIN_AXIS, "data"), shape)
+            run = dist_run(with_margins(rmhmc.build(model.with_sharding(mesh))), init, mesh, burn, samples)
+            arrays.update({f"{label}_samples": run["samples"], f"{label}_margin": run["state"].margin,
+                           f"{label}_accept": run["accept"], f"{label}_div": run["div"],
+                           f"{label}_s_per_transition": run["seconds"] / samples,
+                           f"{label}_all_reduce_per_transition": run["all_reduce"] / (burn + samples),
+                           **{f"{label}_{k}": v for k, v in run["launches"].items()}})
+        mesh = rt.parallel.make_mesh(2, (CHAIN_AXIS,), (2,))
+        kernel = rmhmc.build(model)
+        res = rt.parallel.run_checkpointed(kernel, DIST_SEED, init, checkpoint_path=out / "ckpt.npz", mesh=mesh,
+                                           **DIST_CKPT)
+        template = kernel.init(rt.parallel.shard_chains(mesh, init))
+    restored, step, _ = rt.utils.checkpoint.load_state(out / "ckpt.npz", template)
+    arrays["ckpt_round_trip"] = step == 3 and all(torch.equal(a, b) for a, b in zip(
+        rt.utils.checkpoint.tree_leaves(restored), rt.utils.checkpoint.tree_leaves(res.final_state)))
+    np.savez(out / f"two_rank.r{rank}.npz",
+             **{k: v.cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v) for k, v in arrays.items()})
+
+
+def compare_to_one_process(label: str, samples: np.ndarray, margin: np.ndarray, ref: dict) -> dict:
+    """Chains away from the accept boundary in both runs: the same decisions
+    and positions within DIST_TOL; the rest counted."""
+    away = np.minimum(margin, ref["margin"]) > DIST_MARGIN
+    n_away = int(away.sum())
+    check(n_away >= DIST_MIN_AWAY * NUM_CHAINS, f"{label}: only {n_away} chains stayed away from the accept boundary")
+    moved = lambda smp: (smp[:, 1:] != smp[:, :-1]).any(-1)  # noqa: E731
+    check(bool((moved(samples)[away] == moved(ref["samples"])[away]).all()), f"{label}: accept decisions differ")
+    rtol, atol = DIST_TOL
+    diff = np.abs(samples[away] - ref["samples"][away])
+    worst = float((diff - (atol + rtol * np.abs(ref["samples"][away]))).max())
+    check(worst <= 0, f"{label}: positions differ from the one-process run by up to {float(diff.max())}")
+    return {"away_from_boundary": n_away, "max_abs_diff": float(diff.max()), "tolerance": {"rtol": rtol, "atol": atol}}
+
+
+def phase_distributed(smi: str) -> dict:
+    """Phase 11: the parallel layer: world 1 over NCCL in this process, then
+    two ranks sharing the card over Gloo."""
+    shutil.rmtree(DIST_DIR, ignore_errors=True)
+    DIST_DIR.mkdir(parents=True)
+    model = blr_model()
+    init = rt.utils.default_init(model, torch.Generator(device=DEVICE).manual_seed(DIST_SEED), NUM_CHAINS)
+    launches_by_path = {}
+    rt.parallel.initialize_distributed(device=DEVICE, init_method=f"tcp://localhost:{free_port()}", world_size=1,
+                                       rank=0, timeout=timedelta(seconds=DIST_TIMEOUT))
+    try:
+        check(dist.get_backend() == "nccl", f"world 1 runs over {dist.get_backend()}, not NCCL")
+        # BLR RMHMC at full width: a ("chains", "data") mesh of shape (1, 1) against no mesh.
+        mesh = rt.parallel.make_mesh(1, (CHAIN_AXIS, "data"), (1, 1))
+        burn, samples = DIST_BLR_RUN
+        plain = dist_run(rmhmc.build(model), init, None, burn, samples)
+        world1 = dist_run(rmhmc.build(model.with_sharding(mesh)), init, mesh, burn, samples)
+        same = {k: torch.equal(plain[k], world1[k]) for k in ("samples", "accept", "div")}
+        check(all(same.values()), f"distributed: world 1 differs from the run without a mesh: {same}")
+        expected = blr_expected_launches(burn + samples)
+        for run in (plain, world1):
+            check(run["launches"] == expected, f"distributed: launch counts {run['launches']}, expected {expected}")
+        launches_by_path["distributed/world1-blr"] = world1["launches"]
+        steps = burn + samples
+        say("distributed", run="world1-blr", backend="nccl", mesh={CHAIN_AXIS: 1, "data": 1}, chains=NUM_CHAINS,
+            burn_in=burn, samples=samples, bit_identical_to_no_mesh=same, launches=world1["launches"],
+            accept_rate=float(world1["accept"]), divergent=int(world1["div"]))
+        say("distributed-times", run="world1-blr", card=smi, s_per_transition=world1["seconds"] / samples,
+            no_mesh_s_per_transition=plain["seconds"] / samples,
+            all_reduce_per_transition=world1["all_reduce"] / steps, no_mesh_all_reduce=plain["all_reduce"])
+
+        # LGC phmc at D = 4096: the operators' rows over a ("chains", "latent") mesh of shape (1, 1).
+        y, _ = rt.models.lgc.generate_data(seed=LGC_SEED, n=LGC_N)
+        lgc_model = rt.interop.lgc_from_numpy(y, LGC_N, device=DEVICE)
+        latent = rt.parallel.make_mesh(1, (CHAIN_AXIS, "latent"), (1, 1))
+        sharded = lgc_model.with_sharding(latent)
+        cfg = rt.samplers.phmc.PHMCConfig(step_size=0.1, num_leapfrog=30)  # the lgc "rmhmc" preset
+        lgc_init = lgc_model.prior_mean().expand(DIST_LGC_CHAINS, -1).clone()
+        burn, samples = DIST_LGC_RUN
+        lgc_plain = dist_run(rt.samplers.phmc.build(lgc_model, lgc_model.metric_chol, lgc_model.metric_inv, cfg),
+                             lgc_init, None, burn, samples)
+        lgc_world1 = dist_run(rt.samplers.phmc.build(sharded, sharded.metric_chol, sharded.metric_inv, cfg),
+                              lgc_init, latent, burn, samples)
+        same = {k: torch.equal(lgc_plain[k], lgc_world1[k]) for k in ("samples", "accept", "div")}
+        check(all(same.values()), f"distributed: LGC world 1 differs from the run without a mesh: {same}")
+        check(lgc_world1["launches"] == {"cholesky": 0, "chol_solve_logdet": 0}, "distributed: a kernel launched at D=4096")
+        check(float(lgc_world1["accept"]) > 0.5, f"distributed: LGC acceptance {float(lgc_world1['accept'])}")
+        say("distributed", run="world1-lgc-phmc", backend="nccl", mesh={CHAIN_AXIS: 1, "latent": 1},
+            D=LGC_N * LGC_N, chains=DIST_LGC_CHAINS, burn_in=burn, samples=samples, bit_identical_to_no_mesh=same,
+            accept_rate=float(lgc_world1["accept"]), divergent=int(lgc_world1["div"]))
+        say("distributed-times", run="world1-lgc-phmc", card=smi, s_per_transition=lgc_world1["seconds"] / samples,
+            no_mesh_s_per_transition=lgc_plain["seconds"] / samples,
+            all_reduce_per_transition=lgc_world1["all_reduce"] / (burn + samples))
+
+        # run_checkpointed with the mesh: stopped after one segment and resumed, bit for bit; no .p suffix at world 1.
+        kernel = rmhmc.build(model.with_sharding(mesh))
+        kw = dict(mesh=mesh, **DIST_CKPT)
+        full = rt.parallel.run_checkpointed(kernel, DIST_SEED, init, checkpoint_path=DIST_DIR / "full.npz", **kw)
+        rt.parallel.run_checkpointed(kernel, DIST_SEED, init, checkpoint_path=DIST_DIR / "cut.npz",
+                                     _stop_after_segments=1, **kw)
+        resumed = rt.parallel.run_checkpointed(kernel, DIST_SEED, init, checkpoint_path=DIST_DIR / "cut.npz", **kw)
+        same = {"samples": torch.equal(full.samples, resumed.samples),
+                "position": torch.equal(full.final_state.position, resumed.final_state.position)}
+        check(all(same.values()), f"distributed: the resumed run differs from the run not stopped: {same}")
+        files = sorted(f.name for f in DIST_DIR.iterdir())
+        check("cut.npz" in files and not any(".p" in f for f in files), f"distributed: checkpoint files {files}")
+        say("distributed", run="world1-resume", **DIST_CKPT, stopped_after_segments=1, bit_identical=same, files=files)
+
+        # The native ESS engine through the experiment entry point, on phase 6's CSV.
+        res = experiments.run_experiment("rmhmc", "australian", device=DEVICE, ess_mode="native", keep_samples=True,
+                                         mesh=mesh, **DIST_ESS_RUN)
+        exact = rt.diagnostics.ess_multichain(res.samples, nfft_mode="exact")
+        rel = abs(res.ess_min / float(exact.min()) - 1.0)
+        check(rel <= 1e-10, f"distributed: native min-ESS {res.ess_min} vs exact {float(exact.min())}")
+        say("distributed", run="world1-native-ess", **DIST_ESS_RUN, ess_min_native=res.ess_min,
+            ess_min_exact=float(exact.min()), rel_diff=rel, accept_rate=res.accept_rate)
+    finally:
+        dist.destroy_process_group()
+
+    # Two ranks sharing the card over Gloo, against the run without a mesh.
+    burn, samples = DIST_TWO_RANK_RUN
+    np.save(DIST_DIR / "init.npy", init.cpu().numpy())
+    with torch.inference_mode():
+        ref = dist_run(with_margins(rmhmc.build(model)), init, None, burn, samples)
+    ref = {"samples": ref["samples"].cpu().numpy(), "margin": ref["state"].margin.cpu().numpy()}
+    t0 = time.perf_counter()
+    spawn("chip_smoke:distributed_rank", 2, device=DEVICE, backend="gloo", args=[str(DIST_DIR)], timeout=DIST_TIMEOUT)
+    launch_s = time.perf_counter() - t0
+    r0, r1 = (np.load(DIST_DIR / f"two_rank.r{r}.npz") for r in range(2))
+    expected = blr_expected_launches(burn + samples)
+    fields = {}
+    for label in ("chains", "data"):
+        for r in (r0, r1):
+            got = {k: int(r[f"{label}_{k}"]) for k in expected}
+            check(got == expected, f"distributed 2-rank {label}: launch counts {got} on a rank, expected {expected}")
+            check(float(r[f"{label}_accept"]) == float(r0[f"{label}_accept"]), f"{label}: the ranks' acceptance differs")
+        launches_by_path[f"distributed/2rank-{label}-per-rank"] = expected
+        if label == "chains":
+            samples_, margin = (np.concatenate([r0[f"{label}_{k}"], r1[f"{label}_{k}"]]) for k in ("samples", "margin"))
+        else:
+            check(np.array_equal(r0["data_samples"], r1["data_samples"]), "data split: the ranks' positions differ")
+            samples_, margin = r0["data_samples"], np.minimum(r0["data_margin"], r1["data_margin"])
+        fields[label] = compare_to_one_process(f"2-rank {label}", samples_, margin, ref)
+        fields[label]["s_per_transition"] = [float(r[f"{label}_s_per_transition"]) for r in (r0, r1)]
+        fields[label]["all_reduce_per_transition"] = float(r0[f"{label}_all_reduce_per_transition"])
+    check(bool(r0["ckpt_round_trip"]) and bool(r1["ckpt_round_trip"]), "two ranks: a checkpoint shard did not round-trip")
+    shards = sorted(f.name for f in DIST_DIR.iterdir() if f.name.startswith("ckpt.npz.p"))
+    check("ckpt.npz.p0" in shards and "ckpt.npz.p1" in shards, f"two ranks: checkpoint shards {shards}")
+    say("distributed", run="2rank-gloo-blr", backend="gloo", chains=NUM_CHAINS, burn_in=burn, samples=samples,
+        boundary_margin=DIST_MARGIN, launches_per_rank=expected, checkpoint_shards=shards,
+        **{f"split_{label}": {k: v for k, v in f.items() if k != "s_per_transition"} for label, f in fields.items()})
+    say("distributed-times", run="2rank-gloo-blr", card=smi, launch_s=launch_s,
+        **{f"split_{label}_s_per_transition": f["s_per_transition"] for label, f in fields.items()})
+    return launches_by_path
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description="Drive the port's main path on one CUDA card and check it.")
     ap.add_argument("--kernels-only", action="store_true",
@@ -1267,6 +1523,8 @@ def main(argv=None) -> None:
                     help="phases 1-2 and 9 only (no result lines: not a pass)")
     ap.add_argument("--fhn-only", action="store_true",
                     help="phases 1-2, the FHN kernel's part of 3, and 10 only (no result lines: not a pass)")
+    ap.add_argument("--distributed-only", action="store_true",
+                    help="phases 1-2 and 11 only (no result lines: not a pass)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -1289,6 +1547,12 @@ def main(argv=None) -> None:
         if args.fhn_only:
             phase_fhn(smi, phase_fhn_kernel(smi, {"cholesky": 0.0, "chol_solve_logdet": 0.0}))
             lap("fhn")
+            say("phase-seconds", **seconds)
+            return
+        if args.distributed_only:
+            write_smoke_csvs()
+            phase_distributed(smi)
+            lap("distributed")
             say("phase-seconds", **seconds)
             return
         kernels = phase_kernels(smi)
@@ -1314,6 +1578,8 @@ def main(argv=None) -> None:
         fhn = phase_fhn(smi, fhn_kernel)
         by_path.update(fhn["k_by_path"])
         lap("fhn")
+        by_path.update(phase_distributed(smi))
+        lap("distributed")
     say("phase-seconds", **seconds)
 
     # Top-level times: the main path's shape (C 4096, D 15); every timed shape under "shapes".

@@ -22,15 +22,20 @@ hyperparameters, FitzHugh-Nagumo):
   ``transition(state, noise)`` plus a ``step(generator, state)`` that draws
   the noise);
 * :mod:`.parallel` -- the chain runner, its checkpointed form
-  (``run_checkpointed``) and dual-averaging adaptation;
-* :mod:`.diagnostics` -- Geyer ESS, split R-hat (host NumPy and on the
-  device) and Geweke z;
+  (``run_checkpointed``), dual-averaging adaptation, the monitor, and the
+  ``torch.distributed`` layer: a mesh of named axes over ranks, chains split
+  over ``"chains"`` (``mesh=`` on the runners), collectives, and
+  ``parallel.launch`` to start ranks;
+* :mod:`.diagnostics` -- Geyer ESS (host NumPy, on the device, and the
+  native C++ engine), split R-hat (host and device, across ranks), Geweke z,
+  figures (``diagnostics.plots``);
 * :mod:`.utils` -- reference presets, MAP + jitter initialization,
   checkpoint / resume of state trees;
 * :mod:`.interop` -- the JAX package's arrays (as NumPy) to port objects;
 * ``experiments`` (imported on its own) -- the experiment layer and its
   CLI, ``python -m riemannhamiltonianmontecarlo_tpu_torch.experiments``;
-  ``tools.run_lgc_joint`` -- the joint LGC run in resumable segments.
+  ``tools.run_lgc_joint`` -- the joint LGC run in resumable segments;
+  ``entry`` -- one transition on one device and the multi-rank dry run.
 """
 
 __version__ = "0.1.0"

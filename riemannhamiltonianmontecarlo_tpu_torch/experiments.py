@@ -19,8 +19,16 @@ steady-state measurement, with ``torch.cuda.synchronize()`` at both ends on
 a CUDA device.
 
 The device is explicit.  A CUDA request on a machine without CUDA raises;
-nothing falls back to the CPU.  Not ported yet (ROADMAP.md):
-``ess_mode="native"`` (slice 6).
+nothing falls back to the CPU.
+
+Ranks: ``run_experiment(..., mesh=)`` splits the chains over the mesh's
+``"chains"`` axis (and the BLR rows over a ``"data"`` axis, when it has one)
+and reports global figures on every rank.  The CLI joins a process group of
+its own when it runs under ``torchrun`` (``parallel.initialize_distributed``
+reads its environment) and prints on rank 0:
+
+    torchrun --nproc-per-node 2 -m riemannhamiltonianmontecarlo_tpu_torch.experiments \\
+        --sampler hmc --device cpu --chains 64
 
 CLI::
 
@@ -38,6 +46,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import time
 from typing import Any
 
@@ -63,7 +72,7 @@ SAMPLERS = (
     "rmhmc",
     "rmhmc_studentt",
 )
-ESS_MODES = ("reference", "exact", "device")
+ESS_MODES = ("reference", "exact", "device", "native")
 
 
 @dataclasses.dataclass
@@ -191,9 +200,17 @@ def run_experiment(
     keep_samples: bool = False,
     sampler_overrides: dict[str, Any] | None = None,
     adapt: bool = False,
+    mesh: parallel.Mesh | None = None,
 ) -> ExperimentResult:
-    if ess_mode == "native":
-        raise ValueError("ess_mode='native' (the C++ ESS engine) is not ported yet: ROADMAP.md slice 6")
+    """One BLR experiment at the reference presets (``code/main.py``).
+
+    ``ess_mode``: "reference" / "exact" (host NumPy, with or without the
+    reference's nFFT quirk), "device" (torch on the samples' device),
+    "native" (the C++ engine of ``native/fastess.cpp``, exact mode).  With a
+    ``mesh`` the chains (and, on a ``"data"`` axis, the rows) are split over
+    ranks; every figure is global and the same on each rank, and
+    ``samples`` are the rank's own chains.
+    """
     if ess_mode not in ESS_MODES:
         raise ValueError(f"ess_mode must be one of {ESS_MODES}, got {ess_mode!r}")
     device = resolve_device(device)
@@ -203,6 +220,8 @@ def run_experiment(
 
     ds = models.load_dataset(dataset)
     model = interop.logreg_from_numpy(ds.X, ds.t, device=device)
+    if mesh is not None and "data" in mesh.axis_names:
+        model = model.with_sharding(mesh, "data")
 
     gen = torch.Generator(device=device).manual_seed(seed)
     if init == "map":
@@ -220,8 +239,8 @@ def run_experiment(
     if adapt:
         # Dual-averaging warmup on pooled acceptance: no hand-tuned step.
         build_fn, cfg, target = adaptive_parts(sampler, dataset, sampler_overrides)
-        warm_kernel = parallel.adaptive(build_fn, model, cfg, parallel.AdaptationConfig(target_accept=target))
-        warm = parallel.run(warm_kernel, gen, position, num_samples=burn_in, collect=False)
+        warm_kernel = parallel.adaptive(build_fn, model, cfg, parallel.AdaptationConfig(target_accept=target), mesh)
+        warm = parallel.run(warm_kernel, gen, position, num_samples=burn_in, collect=False, mesh=mesh)
         adapted_eps = parallel.frozen_step_size(warm.final_state)
         kernel = build_fn(model, dataclasses.replace(cfg, step_size=adapted_eps))
         warm_state = warm.final_state.inner
@@ -229,14 +248,14 @@ def run_experiment(
         kernel, warmup_kernel = build_kernel(sampler, model, dataset, sampler_overrides)
         # The transient-phase kernel (MALA's sqrt(D) scaling, BLR_MALA.m:167)
         # steps the burn-in; its state type matches the stationary kernel's.
-        warm = parallel.run(warmup_kernel or kernel, gen, position, num_samples=burn_in, collect=False)
+        warm = parallel.run(warmup_kernel or kernel, gen, position, num_samples=burn_in, collect=False, mesh=mesh)
         warm_state = warm.final_state
     _synchronize(device)
 
-    res_a = parallel.run(kernel, gen, None, num_samples=half, init_state=warm_state)
+    res_a = parallel.run(kernel, gen, None, num_samples=half, init_state=warm_state, mesh=mesh)
     _synchronize(device)
     t0 = time.perf_counter()
-    res_b = parallel.run(kernel, gen, None, num_samples=half, init_state=res_a.final_state)
+    res_b = parallel.run(kernel, gen, None, num_samples=half, init_state=res_a.final_state, mesh=mesh)
     _synchronize(device)
     sampling_time = 2.0 * (time.perf_counter() - t0)
 
@@ -245,7 +264,10 @@ def run_experiment(
     dev_samples = torch.cat([res_a.samples, res_b.samples], dim=1)  # (C, S, D)
     num_kept = dev_samples.shape[1]
 
-    if ess_mode == "device":
+    if mesh is not None:
+        ess, rhat_max, flat_mean, flat_std, geweke_max = _global_summary(dev_samples, ess_mode, mesh)
+        samples = dev_samples.cpu().numpy() if keep_samples else None
+    elif ess_mode == "device":
         # ESS, R-hat and moments on the device (alias-free ACF): only small
         # arrays and an 8-chain slice for Geweke reach the host.
         ess = diagnostics.ess_geyer_device(dev_samples).cpu().numpy()
@@ -256,7 +278,7 @@ def run_experiment(
         samples = dev_samples.cpu().numpy() if keep_samples else None
     else:
         samples = dev_samples.cpu().numpy()
-        ess = diagnostics.ess_multichain(samples, nfft_mode=ess_mode)
+        ess = _host_ess(samples, ess_mode)
         rhat_max = float(diagnostics.split_rhat(samples).max())
         geweke_max = float(np.abs(diagnostics.geweke_z(samples[:8])).max())
         flat = samples.reshape(-1, samples.shape[-1])
@@ -282,6 +304,37 @@ def run_experiment(
         adapted_step_size=adapted_eps,
         samples=samples if keep_samples else None,
     )
+
+
+def _host_ess(samples: np.ndarray, ess_mode: str) -> np.ndarray:
+    if ess_mode == "native":
+        return diagnostics.native.ess_geyer_native(samples)
+    return diagnostics.ess_multichain(samples, nfft_mode=ess_mode)
+
+
+def _global_summary(dev_samples: torch.Tensor, ess_mode: str, mesh) -> tuple:
+    """ESS, max R-hat, posterior mean and sd, max |Geweke z| of the chains of
+    every rank, from this rank's (C_local, S, D) samples: each a sum over
+    chains, all-reduced over the mesh's chain group (Geweke: the first 8
+    chains, those of the group's first rank)."""
+    group = mesh.group(parallel.CHAIN_AXIS)
+
+    def total(x) -> torch.Tensor:
+        return parallel.collectives.all_reduce(torch.as_tensor(x, dtype=torch.float64, device=dev_samples.device), group)
+
+    if ess_mode == "device":
+        local_ess = diagnostics.ess_geyer_device(dev_samples)
+    else:
+        local_ess = _host_ess(dev_samples.cpu().numpy(), ess_mode)
+    ess = total(local_ess).cpu().numpy()
+    rhat_max = float(diagnostics.split_rhat_device(dev_samples, group).max())
+    x = dev_samples.to(torch.float64).reshape(-1, dev_samples.shape[-1])
+    count = x.shape[0] * parallel.collectives.group_size(group)
+    mean = total(x.sum(dim=0)) / count
+    std = torch.sqrt(total(((x - mean) ** 2).sum(dim=0)) / count)
+    first = mesh.index(parallel.CHAIN_AXIS) == 0
+    geweke = float(np.abs(diagnostics.geweke_z(dev_samples[:8].cpu().numpy())).max()) if first else 0.0
+    return ess, rhat_max, mean.cpu().numpy(), std.cpu().numpy(), float(total(geweke))
 
 
 def aggregate(results: list[ExperimentResult]) -> dict[str, tuple[float, float]]:
@@ -547,7 +600,7 @@ def main(argv=None) -> None:
     ap.add_argument("--fhn-substeps", type=int, default=5, help="fhn only: RK4 steps per observation interval")
     ap.add_argument("--init", choices=("map", "zeros", "reference"), default="map", help="BLR only")
     ap.add_argument("--ess-mode", choices=ESS_MODES, default="reference",
-                    help="BLR only; 'native' (the C++ engine) is not ported yet (ROADMAP.md, slice 6)")
+                    help="BLR only; 'native' is the C++ engine of native/fastess.cpp (exact mode)")
     ap.add_argument("--adapt", action="store_true",
                     help="BLR only: dual-averaging step-size warmup instead of the hand-tuned reference constant")
     args = ap.parse_args(argv)
@@ -558,6 +611,12 @@ def main(argv=None) -> None:
         device = resolve_device(args.device)
     except RuntimeError as e:
         ap.error(str(e))
+    mesh = None
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:  # started by torchrun
+        if args.workload != "blr":
+            ap.error(f"--workload {args.workload} does not split over ranks; run it in one process")
+        parallel.initialize_distributed(device=device)
+        mesh = parallel.make_mesh()
     if args.workload == "blr":
         res = run_experiment(
             args.sampler,
@@ -570,7 +629,13 @@ def main(argv=None) -> None:
             init=args.init,
             ess_mode=args.ess_mode,
             adapt=args.adapt,
+            mesh=mesh,
         )
+        if mesh is not None:
+            rank = torch.distributed.get_rank()
+            torch.distributed.destroy_process_group()
+            if rank != 0:
+                return
         if args.adapt:
             print(f"adapted step size: {res.adapted_step_size:.4g}")
     else:

@@ -22,11 +22,13 @@ Cholesky) runs in float64 on the host and is cast to float32 on the model's
 device; every per-position method is a (C, D) x (D, D) GEMM (cuBLAS, full
 fp32) plus elementwise work.  ``logp_and_grad_fast`` is the TF32 variant,
 for in-trajectory use only (as ``samplers/phmc.py`` runs its leapfrog
-under ``trajectory_precision`` "high" / "default").
+under ``trajectory_precision`` "high" / "default").  ``with_sharding`` splits
+the three dense operators by rows over a mesh axis (the latent axis).
 """
 
 from __future__ import annotations
 
+import copy
 import math
 from pathlib import Path
 
@@ -40,6 +42,7 @@ from riemannhamiltonianmontecarlo_tpu_torch._precision import tf32_matmuls
 from riemannhamiltonianmontecarlo_tpu_torch.models.base import autodiff_manifold, batched
 from riemannhamiltonianmontecarlo_tpu_torch.models.datasets import find_data_file
 from riemannhamiltonianmontecarlo_tpu_torch.models.logreg import ManifoldState
+from riemannhamiltonianmontecarlo_tpu_torch.parallel import collectives
 
 REFERENCE_MAT = "TestData64.mat"  # the authors' data set (Log_Gaussian_Cox/RMHMC/)
 
@@ -132,19 +135,44 @@ class LGCModel(nn.Module):
     def dim(self) -> int:
         return self.n * self.n
 
+    OPERATORS = ("sigma_inv", "metric_chol", "metric_inv")
+
+    def with_sharding(self, mesh, axis: str = "latent") -> "LGCModel":
+        """A copy of the model whose dense (D, D) operators hold only this
+        rank's rows lo:hi, split over ``axis`` of ``mesh`` (the JAX package's
+        ``with_sharding``, the framework's long-context axis, SURVEY.md
+        section 5): each operator becomes a ``collectives.RowShards``, D / k
+        rows a rank.  Positions stay whole on every rank of the axis; each
+        (C, D) x (D, D) product is a local partial product and an all-reduce
+        (``collectives.matmul``).  The sharded model serves the
+        constant-metric samplers (``phmc``, ``pmala``, which take the
+        operators through the same seam); the dense position-dependent
+        metric of mMALA needs the whole Sigma^{-1}.
+        """
+        k, i = mesh.size(axis), mesh.index(axis)
+        if self.dim % k:
+            raise ValueError(f"D = {self.dim} latents do not split evenly over {k} ranks of the '{axis}' axis")
+        lo, hi = i * self.dim // k, (i + 1) * self.dim // k
+        sharded = copy.copy(self)
+        sharded._buffers = dict(self._buffers)
+        for name in self.OPERATORS:  # no longer buffers: nn.Module refuses a non-tensor under a buffer's name
+            full = sharded._buffers.pop(name)
+            object.__setattr__(sharded, name, collectives.RowShards.of(full, lo, hi, mesh.group(axis)))
+        return sharded
+
     def logp(self, x: Tensor) -> Tensor:
         """y^T x - sum m e^x - (x-mu)^T Sigma^{-1} (x-mu)/2 (``:86``)."""
         centered = x - self.mu
-        quad = torch.sum(centered * torch.matmul(centered, self.sigma_inv), dim=-1)
+        quad = torch.sum(centered * collectives.matmul(centered, self.sigma_inv), dim=-1)
         return torch.sum(x * self.y, dim=-1) - self.m * torch.sum(torch.exp(x), dim=-1) - 0.5 * quad
 
     def grad(self, x: Tensor) -> Tensor:
         """y - m e^x - Sigma^{-1}(x - mu) (``:127``)."""
-        return self.y - self.m * torch.exp(x) - torch.matmul(x - self.mu, self.sigma_inv)
+        return self.y - self.m * torch.exp(x) - collectives.matmul(x - self.mu, self.sigma_inv)
 
     def logp_and_grad(self, x: Tensor) -> tuple[Tensor, Tensor]:
         centered = x - self.mu
-        sx = torch.matmul(centered, self.sigma_inv)
+        sx = collectives.matmul(centered, self.sigma_inv)
         expx = torch.exp(x)
         logp = torch.sum(x * self.y, dim=-1) - self.m * torch.sum(expx, dim=-1) - 0.5 * torch.sum(centered * sx, dim=-1)
         return logp, self.y - self.m * expx - sx

@@ -13,7 +13,11 @@ the device, so an adaptive step never waits for the host.  After warmup
 the step size freezes at the averaged iterate ``exp(log_eps_avg)``;
 ``frozen_step_size`` is the one place it becomes a Python float.
 
-On one device the cross-chain mean is a plain mean over the chain axis.
+The pooled acceptance is ``collectives.cross_chain_mean`` over the mesh's
+chain group, so with chains split over ranks every rank adapts the same step
+size (a plain mean over the chain axis without a mesh).  The wrapped kernel
+keeps the sampler's ``transition`` / ``draw_noise`` split, so the runner can
+split its chains like any other.
 """
 
 from __future__ import annotations
@@ -24,6 +28,8 @@ from typing import Any, Callable, NamedTuple
 import torch
 from torch import Tensor
 
+from riemannhamiltonianmontecarlo_tpu_torch.parallel.collectives import cross_chain_mean
+from riemannhamiltonianmontecarlo_tpu_torch.parallel.mesh import CHAIN_AXIS, Mesh
 from riemannhamiltonianmontecarlo_tpu_torch.parallel.runner import run
 from riemannhamiltonianmontecarlo_tpu_torch.samplers.base import Info, Kernel
 
@@ -90,24 +96,28 @@ def adaptive(
     model,
     config,
     adapt: AdaptationConfig = AdaptationConfig(),
+    mesh: Mesh | None = None,
 ) -> Kernel:
     """Wrap a step-size-bearing kernel with dual-averaging warmup.
 
     ``build_fn(model, config)`` must be a sampler ``build`` whose config
-    carries ``step_size`` (hmc / rmhmc / mala / mmala).
+    carries ``step_size`` (hmc / rmhmc / mala / mmala).  With a ``mesh`` the
+    acceptance is pooled over the chains of every rank.
     """
+    group = None if mesh is None else mesh.group(CHAIN_AXIS)
+    draw_noise = build_fn(model, config).draw_noise
 
     def init(position: Tensor) -> AdaptiveState:
         inner = build_fn(model, config).init(position)
         return AdaptiveState(inner, da_init(config.step_size, position.device))
 
-    def step(generator: torch.Generator, state: AdaptiveState) -> tuple[AdaptiveState, Info]:
+    def transition(state: AdaptiveState, noise) -> tuple[AdaptiveState, Info]:
         eps = torch.exp(state.da.log_eps)
         kernel = build_fn(model, dataclasses.replace(config, step_size=eps))
-        inner, info = kernel.step(generator, state.inner)
+        inner, info = kernel.transition(state.inner, noise)
         da = da_update(
             state.da,
-            info.accept_prob.mean(),
+            cross_chain_mean(info.accept_prob, group),
             adapt.target_accept,
             gamma=adapt.gamma,
             t0=adapt.t0,
@@ -115,7 +125,10 @@ def adaptive(
         )
         return AdaptiveState(inner, da), info
 
-    return Kernel(init, step)
+    def step(generator: torch.Generator, state: AdaptiveState) -> tuple[AdaptiveState, Info]:
+        return transition(state, draw_noise(generator, state.position))
+
+    return Kernel(init, step, transition, draw_noise)
 
 
 def frozen_step_size(state: AdaptiveState) -> float:
@@ -133,6 +146,7 @@ def run_adaptive(
     num_samples: int,
     warmup: int,
     adapt: AdaptationConfig = AdaptationConfig(),
+    mesh: Mesh | None = None,
     **run_kwargs,
 ):
     """Dual-averaging warmup, then sampling at the frozen step size.
@@ -140,13 +154,15 @@ def run_adaptive(
     Returns (RunResult, eps) where eps is the adapted step size.
     """
     warm = run(
-        adaptive(build_fn, model, config, adapt),
+        adaptive(build_fn, model, config, adapt, mesh),
         generator,
         init_position,
         num_samples=warmup,
         collect=False,
+        mesh=mesh,
     )
     eps = frozen_step_size(warm.final_state)
     kernel = build_fn(model, dataclasses.replace(config, step_size=eps))
-    res = run(kernel, generator, None, num_samples=num_samples, init_state=warm.final_state.inner, **run_kwargs)
+    res = run(kernel, generator, None, num_samples=num_samples, init_state=warm.final_state.inner, mesh=mesh,
+              **run_kwargs)
     return res, eps

@@ -8,6 +8,14 @@ under ``torch.inference_mode()``: samples go into one preallocated
 sums stay on the device (no host sync per step).  The burn-in / sampling
 split mirrors the reference convention of timing only the post-burn-in
 phase (``code/hmc.py:92-96``).
+
+Sharding: pass a ``parallel.mesh.Mesh`` and the chains are split over its
+``"chains"`` axis: each rank advances rows lo:hi of the global initial
+position with the kernel's chain-sliced step (``mesh.chain_sliced``), so
+the same seed gives the same chains however the axis is split, and keeps
+its own (C_local, S, D) samples, as JAX keeps addressable shards.  The
+acceptance and divergence figures are global (``collectives``); a step
+itself communicates only where the model is split along another axis.
 """
 
 from __future__ import annotations
@@ -18,8 +26,11 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import Tensor
 
+from riemannhamiltonianmontecarlo_tpu_torch.parallel.collectives import all_reduce, cross_chain_mean, cross_chain_sum
+from riemannhamiltonianmontecarlo_tpu_torch.parallel.mesh import CHAIN_AXIS, Mesh, chain_sliced, shard_chains
 from riemannhamiltonianmontecarlo_tpu_torch.samplers.base import Kernel, tree_map
 
 
@@ -66,10 +77,14 @@ def run(
     warmup_kernel: Kernel | None = None,
     init_state=None,
     collect_fn=None,
+    mesh: Mesh | None = None,
 ) -> RunResult:
     """Run ``burn_in`` warmup steps then collect ``num_samples`` samples.
 
     init_position: (C, D).  Returns samples as (C, num_samples // thin, D).
+    With a ``mesh`` whose chain axis has k > 1 ranks, ``init_position`` is
+    the global (C, D) and the samples are this rank's (C / k, S, D);
+    ``init_state`` is this rank's state.
     ``warmup_kernel`` (same state type) replaces ``kernel`` during burn-in.
     ``collect_fn`` maps the kernel state to the tree of tensors recorded
     each step (default: ``state.position``).  ``init_state`` continues from
@@ -77,6 +92,14 @@ def run(
     All randomness comes from ``generator``, which lives on the chains'
     device.
     """
+    group = None
+    if mesh is not None:
+        group = mesh.group(CHAIN_AXIS)
+        if mesh.size(CHAIN_AXIS) > 1:
+            kernel = chain_sliced(kernel, mesh)
+            warmup_kernel = None if warmup_kernel is None else chain_sliced(warmup_kernel, mesh)
+            if init_state is None:
+                init_position = shard_chains(mesh, init_position)
     with torch.inference_mode():
         state = init_state if init_state is not None else (warmup_kernel or kernel).init(init_position)
 
@@ -92,6 +115,10 @@ def run(
         if positions is not None:
             # (S, C, D) -> (C, S, D); thinning keeps every thin-th sample.
             samples = tree_map(lambda s: s.movedim(0, 1)[:, thin - 1 :: thin], positions)
+        if mesh is not None:
+            # Global figures: the mean over ranks of each rank's per-step chain means.
+            warm_accept, accept = (cross_chain_mean(a[None], group) for a in (warm_accept, accept))
+            div = cross_chain_sum(div[None], group)
 
     return RunResult(
         samples=samples,
@@ -111,6 +138,19 @@ def segment_generator(seed: int, segment: int, device: torch.device | str) -> to
     return torch.Generator(device=device).manual_seed(mixed & (2**63 - 1))
 
 
+def _agreed_segment(segment: int, device: torch.device) -> int:
+    """The segment every rank resumes from (-1: none); ranks that disagree
+    (a run killed between two ranks' saves) raise instead of resuming with
+    different collectives."""
+    both = all_reduce(torch.tensor([segment, -segment], dtype=torch.int64, device=device),
+                      dist.group.WORLD, op=dist.ReduceOp.MAX)
+    hi, lo = int(both[0]), -int(both[1])
+    if hi != lo:
+        raise RuntimeError(f"the ranks' checkpoints are at different segments ({lo} to {hi}): "
+                           "remove them and start again")
+    return hi
+
+
 def run_checkpointed(
     kernel: Kernel,
     seed: int,
@@ -122,6 +162,7 @@ def run_checkpointed(
     checkpoint_every: int = 500,
     collect_fn=None,
     warmup_kernel: Kernel | None = None,
+    mesh: Mesh | None = None,
     _stop_after_segments: int | None = None,
 ) -> RunResult:
     """``run`` in ``checkpoint_every``-step segments with resume.
@@ -136,8 +177,10 @@ def run_checkpointed(
     interrupted-and-resumed run is bit-identical to an uninterrupted one.
     ``_stop_after_segments`` simulates a crash (tests only).
 
-    Single process; the JAX package's per-process shard files wait for the
-    port's ``torch.distributed`` layer (ROADMAP.md item 17).
+    With a ``mesh`` the chains are split as in ``run``; when the job has more
+    than one rank each file is the rank's own shard, ``<path>.p<rank>``
+    holding its rows (``utils.checkpoint``), and the ranks resume from the
+    same segment or raise.
     """
     from riemannhamiltonianmontecarlo_tpu_torch.utils import checkpoint as ckpt
 
@@ -150,14 +193,20 @@ def run_checkpointed(
     def seg_path(i: int) -> Path:
         return path.with_name(path.name + f".seg{i}")
 
+    start_seg = -1
     if ckpt.checkpoint_exists(path):
+        start_seg = ckpt.saved_step(path)
+    if mesh is not None:
+        start_seg = _agreed_segment(start_seg, device)
+    if start_seg >= 0:
+        local = init_position if mesh is None or mesh.size(CHAIN_AXIS) == 1 else shard_chains(mesh, init_position)
         with torch.inference_mode():
-            template = (warmup_kernel or kernel).init(init_position)
+            template = (warmup_kernel or kernel).init(local)
         state, start_seg, _ = ckpt.load_state(path, template)
         warm_accept = torch.zeros((), device=device)
     else:
         warm = run(kernel, segment_generator(seed, 0, device), init_position, num_samples=0,
-                   burn_in=max(burn_in, 1), collect=False, warmup_kernel=warmup_kernel)
+                   burn_in=max(burn_in, 1), collect=False, warmup_kernel=warmup_kernel, mesh=mesh)
         state, start_seg, warm_accept = warm.final_state, 0, warm.warmup_accept_rate
         ckpt.save_state(path, state, step=0)
 
@@ -166,7 +215,7 @@ def run_checkpointed(
         if _stop_after_segments is not None and i - start_seg >= _stop_after_segments:
             break
         res = run(kernel, segment_generator(seed, i + 1, device), None, num_samples=sizes[i],
-                  init_state=state, collect_fn=collect_fn)
+                  init_state=state, collect_fn=collect_fn, mesh=mesh)
         state = res.final_state
         accepts.append(float(res.accept_rate) * sizes[i])
         divs.append(int(res.divergences))

@@ -8,7 +8,12 @@ a set of plain functions on *batched* chain states (leading chain axis C):
   ``torch.Generator`` (on the chains' device) and calls
 * ``transition(state, noise) -> (State, Info)``, the pure part: the same
   state and noise always give the same result, so a test can feed it the
-  JAX package's draws.
+  JAX package's draws;
+* ``draw_noise(generator, position) -> Noise``, where the noise is a
+  function of the position's shape, dtype and device alone: the parallel
+  layer draws the noise of every chain and keeps its own rows
+  (``parallel.mesh.chain_sliced``).  Samplers whose noise depends on more
+  of the state (Gibbs, the two-block samplers) leave it None.
 
 Divergence policy as in the JAX package: a non-finite proposal rejects that
 chain's move and sets ``Info.divergent`` without disturbing the rest.
@@ -40,6 +45,7 @@ class Kernel(NamedTuple):
     init: Callable[[Tensor], Any]
     step: Callable[[torch.Generator, Any], tuple[Any, Info]]
     transition: Callable[[Any, Any], tuple[Any, Info]] | None = None
+    draw_noise: Callable[[torch.Generator, Tensor], Any] | None = None
 
 
 def metropolis_accept(u: Tensor, ratio: Tensor, divergent: Tensor | None = None) -> tuple[Tensor, Tensor]:

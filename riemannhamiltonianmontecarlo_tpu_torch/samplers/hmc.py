@@ -96,4 +96,4 @@ def build(model, config: HMCConfig = HMCConfig()) -> Kernel:
     def step(generator: torch.Generator, state: HMCState) -> tuple[HMCState, Info]:
         return transition(state, draw_noise(generator, state.position))
 
-    return Kernel(init, step, transition)
+    return Kernel(init, step, transition, draw_noise)

@@ -79,4 +79,4 @@ def build(model, config: IWLSConfig = IWLSConfig()) -> Kernel:
     def step(generator: torch.Generator, state: IWLSState) -> tuple[IWLSState, Info]:
         return transition(state, draw_noise(generator, state.position))
 
-    return Kernel(init, step, transition)
+    return Kernel(init, step, transition, draw_noise)

@@ -87,4 +87,4 @@ def build(model, config: MALAConfig = MALAConfig()) -> Kernel:
     def step(generator: torch.Generator, state: MALAState) -> tuple[MALAState, Info]:
         return transition(state, draw_noise(generator, state.position))
 
-    return Kernel(init, step, transition)
+    return Kernel(init, step, transition, draw_noise)

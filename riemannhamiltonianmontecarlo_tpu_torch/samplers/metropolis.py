@@ -115,4 +115,4 @@ def build(model, config: AMHConfig = AMHConfig()) -> Kernel:
     def step(generator: torch.Generator, state: AMHState) -> tuple[AMHState, Info]:
         return transition(state, draw_noise(generator, state.position))
 
-    return Kernel(init, step, transition)
+    return Kernel(init, step, transition, draw_noise)

@@ -119,4 +119,4 @@ def build(model, config: MMALAConfig = MMALAConfig()) -> Kernel:
     def step(generator: torch.Generator, state: MMALAState) -> tuple[MMALAState, Info]:
         return transition(state, draw_noise(generator, state.position))
 
-    return Kernel(init, step, transition)
+    return Kernel(init, step, transition, draw_noise)

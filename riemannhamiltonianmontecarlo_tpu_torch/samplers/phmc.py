@@ -10,6 +10,10 @@ recovers standard HMC, ``LGCModel.metric_chol`` / ``metric_inv`` the
 reference LGC sampler (L = 30, eps = 0.1, ``:32-33``).
 
 The two dense ops per leapfrog step are (C, D) x (D, D) GEMMs (cuBLAS).
+The operators may be row-sharded over ranks (``collectives.RowShards``, from
+``LGCModel.with_sharding``): the products go through ``collectives.matmul``
+(partial products + all-reduce) and ``matmul_t`` (the momentum's columns,
+gathered), which are one ``torch.matmul`` on a plain tensor.
 ``trajectory_precision``: "highest" (default) keeps everything in full fp32;
 "high" and "default" allow TF32 in every matmul inside the leapfrog only
 (``_precision.tf32_matmuls``, which also covers the model's gradient).  The
@@ -29,6 +33,7 @@ import torch
 from torch import Tensor
 
 from riemannhamiltonianmontecarlo_tpu_torch._precision import tf32_matmuls
+from riemannhamiltonianmontecarlo_tpu_torch.parallel.collectives import RowShards, matmul, matmul_t
 from riemannhamiltonianmontecarlo_tpu_torch.samplers.base import Info, Kernel, metropolis_accept, tree_where
 
 PRECISIONS = ("highest", "high", "default")
@@ -64,8 +69,9 @@ def draw_noise(generator: torch.Generator, position: Tensor) -> PHMCNoise:
                      torch.rand((c,), **kw), torch.rand((c,), **kw))
 
 
-def build(model, mass_chol: Tensor, mass_inv: Tensor, config: PHMCConfig = PHMCConfig()) -> Kernel:
-    """``mass_chol``: lower Cholesky of G (D, D); ``mass_inv``: G^{-1}."""
+def build(model, mass_chol: Tensor | RowShards, mass_inv: Tensor | RowShards, config: PHMCConfig = PHMCConfig()) -> Kernel:
+    """``mass_chol``: lower Cholesky of G (D, D); ``mass_inv``: G^{-1}; each
+    whole or this rank's rows."""
     if config.trajectory_precision not in PRECISIONS:
         raise ValueError(f"trajectory_precision must be one of {PRECISIONS}, got {config.trajectory_precision!r}")
     eps = config.step_size
@@ -76,11 +82,11 @@ def build(model, mass_chol: Tensor, mass_inv: Tensor, config: PHMCConfig = PHMCC
         return PHMCState(position, model.logp(position))
 
     def kinetic(p: Tensor) -> Tensor:
-        return 0.5 * torch.sum(p * torch.matmul(p, mass_inv), dim=-1)
+        return 0.5 * torch.sum(p * matmul(p, mass_inv), dim=-1)
 
     def transition(state: PHMCState, noise: PHMCNoise) -> tuple[PHMCState, Info]:
         c = state.position.shape[0]
-        p0 = torch.matmul(noise.z, mass_chol.T)  # N(0, G)
+        p0 = matmul_t(noise.z, mass_chol)  # N(0, G)
         if config.randomize_length:
             n_steps = torch.ceil(noise.u_len * max_steps).to(torch.int32)
         else:
@@ -98,7 +104,7 @@ def build(model, mass_chol: Tensor, mass_inv: Tensor, config: PHMCConfig = PHMCC
             for i in range(max_steps):
                 active = (i < n_steps)[:, None]
                 p_half = p + 0.5 * dt * g
-                w_new = w + dt * torch.matmul(p_half, mass_inv)
+                w_new = w + dt * matmul(p_half, mass_inv)
                 _, g_new = model.logp_and_grad(w_new)
                 p_new = p_half + 0.5 * dt * g_new
                 w = torch.where(active, w_new, w)
@@ -115,4 +121,4 @@ def build(model, mass_chol: Tensor, mass_inv: Tensor, config: PHMCConfig = PHMCC
     def step(generator: torch.Generator, state: PHMCState) -> tuple[PHMCState, Info]:
         return transition(state, draw_noise(generator, state.position))
 
-    return Kernel(init, step, transition)
+    return Kernel(init, step, transition, draw_noise)

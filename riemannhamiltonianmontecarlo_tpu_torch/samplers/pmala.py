@@ -11,6 +11,11 @@ Supply (chol(G), G^{-1}) as for ``phmc``; identity matrices recover plain
 MALA.  The triangular inverse L^{-1} is built once with
 ``torch.linalg.solve_triangular``, so each step's noise is one (C, D) x
 (D, D) GEMM: z @ L^{-1} has covariance (L L^T)^{-1} = G^{-1}.
+
+The operators may be row-sharded over ranks (``collectives.RowShards``, from
+``LGCModel.with_sharding``): every product is then a partial product and an
+all-reduce (``collectives.matmul``), and L^{-1} is built once from the whole
+L, gathered at build, of which each rank keeps its rows.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ from typing import NamedTuple
 import torch
 from torch import Tensor
 
+from riemannhamiltonianmontecarlo_tpu_torch.parallel.collectives import RowShards, gather_rows, matmul
 from riemannhamiltonianmontecarlo_tpu_torch.samplers.base import Info, Kernel, metropolis_accept, tree_where
 
 
@@ -48,24 +54,29 @@ def draw_noise(generator: torch.Generator, position: Tensor) -> PMALANoise:
     return PMALANoise(torch.randn(position.shape, **kw), torch.rand(position.shape[:1], **kw))
 
 
-def build(model, mass_chol: Tensor, mass_inv: Tensor, config: PMALAConfig = PMALAConfig()) -> Kernel:
+def build(model, mass_chol: Tensor | RowShards, mass_inv: Tensor | RowShards,
+          config: PMALAConfig = PMALAConfig()) -> Kernel:
     """``mass_chol``: lower Cholesky L of the constant metric G (D, D);
-    ``mass_inv``: G^{-1}.  One ``logp_and_grad`` per step: the reverse drift
-    reuses the proposal's gradient, which the next step inherits on accept."""
+    ``mass_inv``: G^{-1}; each whole or this rank's rows.  One
+    ``logp_and_grad`` per step: the reverse drift reuses the proposal's
+    gradient, which the next step inherits on accept."""
     eps = config.step_size
     half = 0.5 * eps
     sqrt_eps = eps**0.5
-    d = mass_chol.shape[0]
-    eye = torch.eye(d, dtype=mass_chol.dtype, device=mass_chol.device)
-    inv_chol = torch.linalg.solve_triangular(mass_chol, eye, upper=False)
+    whole = mass_chol if isinstance(mass_chol, Tensor) else gather_rows(mass_chol)
+    eye = torch.eye(whole.shape[0], dtype=whole.dtype, device=whole.device)
+    inv_chol = torch.linalg.solve_triangular(whole, eye, upper=False)
+    if isinstance(mass_chol, RowShards):
+        inv_chol = RowShards.of(inv_chol, mass_chol.lo, mass_chol.hi, mass_chol.group)
+    del whole, eye
 
     def quad(delta: Tensor) -> Tensor:
         """delta^T G delta via the factor: ||delta @ L||^2."""
-        y = torch.matmul(delta, mass_chol)
+        y = matmul(delta, mass_chol)
         return torch.sum(y * y, dim=-1)
 
     def drift(position: Tensor, grad: Tensor) -> Tensor:
-        return position + half * torch.matmul(grad, mass_inv)
+        return position + half * matmul(grad, mass_inv)
 
     def init(position: Tensor) -> PMALAState:
         logp, grad = model.logp_and_grad(position)
@@ -73,7 +84,7 @@ def build(model, mass_chol: Tensor, mass_inv: Tensor, config: PMALAConfig = PMAL
 
     def transition(state: PMALAState, noise: PMALANoise) -> tuple[PMALAState, Info]:
         mean_fwd = drift(state.position, state.grad)
-        x_prop = mean_fwd + sqrt_eps * torch.matmul(noise.z, inv_chol)
+        x_prop = mean_fwd + sqrt_eps * matmul(noise.z, inv_chol)
 
         logp_prop, grad_prop = model.logp_and_grad(x_prop)
         mean_rev = drift(x_prop, grad_prop)
@@ -89,4 +100,4 @@ def build(model, mass_chol: Tensor, mass_inv: Tensor, config: PMALAConfig = PMAL
     def step(generator: torch.Generator, state: PMALAState) -> tuple[PMALAState, Info]:
         return transition(state, draw_noise(generator, state.position))
 
-    return Kernel(init, step, transition)
+    return Kernel(init, step, transition, draw_noise)

@@ -217,4 +217,4 @@ def build(model, config: RMHMCConfig = RMHMCConfig()) -> Kernel:
     def step(generator: torch.Generator, state: RMHMCState) -> tuple[RMHMCState, Info]:
         return transition(state, draw_noise(generator, state.position))
 
-    return Kernel(init, step, transition)
+    return Kernel(init, step, transition, draw_noise)

@@ -13,10 +13,12 @@ tuples, lists and dicts of trees.  Restore needs a template tree with the
 same structure (build the kernel state for the right shapes, then load into
 it); each leaf comes back on its template leaf's device with its dtype.
 
-Single process only.  The JAX package writes per-process shard files
-(``<path>.p<k>``) in multi-process runs; that half waits for the port's
-``torch.distributed`` layer (ROADMAP.md item 17).  Periodic checkpointing of
-long runs is ``parallel.run_checkpointed``.
+In a ``torch.distributed`` job of more than one rank each rank writes and
+reads its own shard file, ``<path>.p<rank>``, holding its local slice of
+every leaf (its rows of the chain axis), as the JAX package writes one per
+process: no rank gathers another's chains to checkpoint.  A job of one rank,
+or no job, uses the bare path.  Periodic checkpointing of long runs is
+``parallel.run_checkpointed``.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import Tensor
 
 from riemannhamiltonianmontecarlo_tpu_torch.samplers.base import tree_map
@@ -47,13 +50,21 @@ def tree_unflatten(like, leaves):
     return tree
 
 
+def _shard_path(path: str | Path) -> Path:
+    """This rank's shard file; the bare path in a job of one rank."""
+    path = Path(path)
+    if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
+        return path.with_name(path.name + f".p{dist.get_rank()}")
+    return path
+
+
 def save_state(path: str | Path, state: Any, *, step: int = 0, generator: torch.Generator | None = None) -> None:
     """Serialize a kernel-state tree (+ iteration counter, generator state), atomically."""
     payload = {f"leaf_{i}": leaf.detach().cpu().numpy() for i, leaf in enumerate(tree_leaves(state))}
     payload["__step__"] = np.asarray(step, np.int64)
     if generator is not None:
         payload["__generator__"] = generator.get_state().numpy()
-    path = Path(path)
+    path = _shard_path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
     tmp = path.with_suffix(path.suffix + ".tmp")
     with open(tmp, "wb") as f:
@@ -62,12 +73,18 @@ def save_state(path: str | Path, state: Any, *, step: int = 0, generator: torch.
 
 
 def checkpoint_exists(path: str | Path) -> bool:
-    return Path(path).exists()
+    return _shard_path(path).exists()
+
+
+def saved_step(path: str | Path) -> int:
+    """The iteration counter of a saved state."""
+    with np.load(_shard_path(path)) as data:
+        return int(data["__step__"])
 
 
 def load_leaves(path: str | Path) -> list[np.ndarray]:
     """The saved leaves as NumPy arrays, in order."""
-    with np.load(Path(path)) as data:
+    with np.load(_shard_path(path)) as data:
         n_leaves = sum(1 for k in data.files if k.startswith("leaf_"))
         return [data[f"leaf_{i}"] for i in range(n_leaves)]
 
@@ -79,7 +96,7 @@ def load_state(path: str | Path, like: Any):
     and devices.  Returns (state, step, generator_state_or_None); give the
     last to ``torch.Generator.set_state``.
     """
-    with np.load(Path(path)) as data:
+    with np.load(_shard_path(path)) as data:
         leaves = []
         for i, tmpl in enumerate(tree_leaves(like)):
             arr = data[f"leaf_{i}"]

@@ -122,9 +122,20 @@ def test_torch_cli_runs_on_cpu(capsys):
     assert out.startswith("mmala on australian: 8 chains x 20 samples")
 
 
+def test_torch_native_ess_mode_matches_exact():
+    """ess_mode="native" (the C++ engine, exact ACF) on the same chains as "exact"."""
+    kw = dict(device="cpu", num_chains=16, num_samples=40, burn_in=10,
+              sampler_overrides={"num_leapfrog": 10, "step_size": 0.1})
+    exact = experiments.run_experiment("hmc", "australian", ess_mode="exact", **kw)
+    native = experiments.run_experiment("hmc", "australian", ess_mode="native", **kw)
+    for stat in ("ess_min", "ess_median", "ess_mean", "ess_max"):
+        assert getattr(native, stat) == pytest.approx(getattr(exact, stat), rel=1e-10), stat
+    np.testing.assert_array_equal(native.posterior_mean, exact.posterior_mean)
+
+
 def test_torch_refusals(monkeypatch, capsys):
-    with pytest.raises(ValueError, match="slice 6"):
-        experiments.run_experiment("hmc", "australian", device="cpu", ess_mode="native")
+    with pytest.raises(ValueError, match="ess_mode must be one of"):
+        experiments.run_experiment("hmc", "australian", device="cpu", ess_mode="fast")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="is_available"):
         experiments.run_experiment("hmc", "australian", device="cuda")

@@ -21,8 +21,15 @@ import riemannhamiltonianmontecarlo_tpu_torch.kernel_ab  # noqa: F401
 import riemannhamiltonianmontecarlo_tpu_torch.tools.run_lgc_joint  # noqa: F401
 import riemannhamiltonianmontecarlo_tpu_torch.models.fhn  # noqa: F401
 import riemannhamiltonianmontecarlo_tpu_torch.ops.fhn_sens  # noqa: F401
+import riemannhamiltonianmontecarlo_tpu_torch.entry  # noqa: F401
+import riemannhamiltonianmontecarlo_tpu_torch.parallel.launch  # noqa: F401
+import riemannhamiltonianmontecarlo_tpu_torch.diagnostics.plots  # noqa: F401
 assert rt.samplers.lgc_joint and rt.models.LGCJointModel and rt.utils.checkpoint and rt.parallel.run_checkpointed
 assert rt.models.FHNModel and rt.models.fhn and rt.ops.fhn_sens and rt.interop.fhn_from_numpy
+assert rt.parallel.make_mesh and rt.parallel.chain_sliced and rt.parallel.cross_chain_mean and rt.parallel.monitor
+assert rt.parallel.profile_trace and rt.parallel.collectives.RowShards and rt.diagnostics.ess_geyer_native
+assert rt.models.LogisticRegression.with_sharding and rt.models.LGCModel.with_sharding
+assert "matplotlib" not in sys.modules, "the plots module imports matplotlib only when it draws"
 ds = rt.models.synthetic_logreg(0, 50, 5)
 model = rt.interop.logreg_from_numpy(ds.X, ds.t, device="cpu")
 kern = rt.samplers.rmhmc.build(model)
