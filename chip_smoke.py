@@ -110,24 +110,30 @@ It imports no jax.  Phases, each printing one line of findings:
 11. distributed: the parallel layer on ``torch.distributed``.  In this
    process, a process group of one rank over NCCL (a TCP store on a free
    local port, torn down at the end): BLR RMHMC at full width (4096 chains,
-   50 + 50) through ``parallel.run(..., mesh=)`` on a ("chains", "data")
+   20 + 20) through ``parallel.run(..., mesh=)`` on a ("chains", "data")
    mesh of shape (1, 1) with the model from ``with_sharding``, and LGC phmc
    at D = 4096 (64 chains, 20 + 20) on a ("chains", "latent") mesh, each
    ``torch.equal`` to the same run without a mesh, with K1 / K2 launch
-   counts equal to the formulas; ``run_checkpointed`` with the mesh stopped
-   after one segment and resumed, bit for bit, its files without a ``.p``
-   suffix; ``run_experiment("rmhmc", ess_mode="native", mesh=)`` on phase
-   6's CSV, its min-ESS equal to the exact-mode ESS of its samples to 1e-10.
-   Then two ranks sharing the card over Gloo on CUDA tensors
-   (``parallel.launch.spawn``, plain subprocesses with a timeout): BLR RMHMC
-   at full width, 10 + 10, chains split (2, 1) and rows split (1, 2),
-   against the one-process run: chains whose accept decisions all stayed
-   1e-3 away from the boundary (at least 95%) take the same decisions and
-   positions within 1e-5 abs / 1e-5 rel; under the row split the ranks'
-   positions are bit-identical; K1 / K2 launch counts per rank equal the
-   formulas; the checkpoint shards ``.p0`` / ``.p1`` round-trip.  Seconds
-   per transition (world 1 against no mesh, two ranks) and all-reduces per
-   transition are printed beside the card, without a gate.
+   counts equal to the formulas, and the host's time by op (torch.profiler)
+   of two BLR transitions with and without the mesh; ``run_checkpointed``
+   with the mesh stopped after one segment and resumed, bit for bit, its
+   files without a ``.p`` suffix; ``run_experiment("rmhmc",
+   ess_mode="native", mesh=)`` on phase 6's CSV, its min-ESS equal to the
+   exact-mode ESS of its samples to 1e-10.  Then two ranks sharing the card
+   over Gloo on CUDA tensors (``parallel.launch.spawn``, plain subprocesses
+   with a timeout): BLR RMHMC at full width, 10 + 10, chains split (2, 1)
+   and rows split (1, 2).  Under the chain split each rank is bit for bit
+   one process running that rank's half of the chains (the same noise, the
+   same batch size); under the row split the ranks' positions are
+   bit-identical.  Both against the one-process run of all chains: every
+   chain takes the same accept decisions with positions within 1e-5 abs /
+   1e-5 rel, except that a chain whose decisions came within 1e-3 of the
+   boundary may part (counted); the largest ratio of a difference to its
+   tolerance is printed, with which ops of a transition give other bits at
+   half the rows.  K1 / K2 launch counts per rank equal the formulas; the
+   checkpoint shards ``.p0`` / ``.p1`` round-trip.  Seconds per transition
+   (world 1 against no mesh, two ranks) and all-reduces per transition are
+   printed beside the card, without a gate.
 
 It ends with the nvidia-smi line, one JSON line per kernel summary
 (``{"kernels": [...]}``) and, as the last line,
@@ -137,7 +143,9 @@ no CUDA device.
 
 Phase 6 writes its CSVs under the git-ignored ``build/smoke_data`` and
 points ``RHMC_DATA_DIR`` there, before the port is imported; phase 11 writes
-under ``build/smoke_dist``.  ``--distributed-only`` runs phases 1-2 and 11.
+under ``build/smoke_dist``.  ``--phases distributed`` (a comma-separated subset of
+the phases' names, ``PHASES``) runs the device and build phases and that
+subset alone, and prints no result lines.
 """
 
 from __future__ import annotations
@@ -1297,17 +1305,18 @@ def fhn_summary(fhn: dict, smi: str) -> dict:
 # -- phase 11: the parallel layer on torch.distributed ------------------------------
 
 DIST_SEED = 21
-DIST_BLR_RUN = (50, 50)  # (burn-in, samples): world 1 over NCCL against no mesh
+DIST_BLR_RUN = (20, 20)  # (burn-in, samples): world 1 over NCCL against no mesh (torch.equal needs no depth)
 DIST_LGC_RUN = (20, 20)  # phmc at the lgc "rmhmc" preset (L 30, eps 0.1), 64 chains
 DIST_LGC_CHAINS = 64
 DIST_TWO_RANK_RUN = (10, 10)  # two ranks sharing the card over Gloo, against a run without a mesh
 DIST_TIMEOUT = 300.0  # seconds: the process groups' timeout and the two-rank launch's
 DIST_TOL = (1e-5, 1e-5)  # (rtol, atol): two-rank positions against the one-process run
-# An accept decision whose |log a - log u| came this close to 0 in either run
-# may flip under another order of float32 sums (|logp| ~ 3e2, so ~1e-5 of
-# rounding): such chains are counted, not compared.
+# A chain whose |log a - log u| came this close to 0 in either run may take
+# another decision under another order of float32 sums (|logp| ~ 3e2, so
+# ~1e-5 of rounding), and then another path: such a chain may part from the
+# one-process run; every other chain takes the same decisions, with its
+# positions within DIST_TOL.
 DIST_MARGIN = 1e-3
-DIST_MIN_AWAY = 0.95  # of the chains must stay away from the accept boundary in every step
 DIST_CKPT = dict(num_samples=6, burn_in=2, checkpoint_every=2)  # three segments, stopped after one
 DIST_ESS_RUN = dict(num_chains=1024, burn_in=50, num_samples=50)
 DIST_DIR = SMOKE_DATA.parent / "smoke_dist"
@@ -1385,18 +1394,76 @@ def distributed_rank(out: str) -> None:
 
 
 def compare_to_one_process(label: str, samples: np.ndarray, margin: np.ndarray, ref: dict) -> dict:
-    """Chains away from the accept boundary in both runs: the same decisions
-    and positions within DIST_TOL; the rest counted."""
-    away = np.minimum(margin, ref["margin"]) > DIST_MARGIN
-    n_away = int(away.sum())
-    check(n_away >= DIST_MIN_AWAY * NUM_CHAINS, f"{label}: only {n_away} chains stayed away from the accept boundary")
-    moved = lambda smp: (smp[:, 1:] != smp[:, :-1]).any(-1)  # noqa: E731
-    check(bool((moved(samples)[away] == moved(ref["samples"])[away]).all()), f"{label}: accept decisions differ")
+    """Every chain against the one-process run: the same accept decisions and
+    positions within DIST_TOL, unless its decisions came within DIST_MARGIN
+    of the boundary in either run (then it may part, and is counted).  Prints
+    the largest ratio of a difference to its tolerance, atol + rtol |ref|,
+    over the chains that did not part."""
     rtol, atol = DIST_TOL
-    diff = np.abs(samples[away] - ref["samples"][away])
-    worst = float((diff - (atol + rtol * np.abs(ref["samples"][away]))).max())
-    check(worst <= 0, f"{label}: positions differ from the one-process run by up to {float(diff.max())}")
-    return {"away_from_boundary": n_away, "max_abs_diff": float(diff.max()), "tolerance": {"rtol": rtol, "atol": atol}}
+    moved = lambda smp: (smp[:, 1:] != smp[:, :-1]).any(-1)  # noqa: E731
+    diff = np.abs(samples - ref["samples"])
+    ratio = (diff / (atol + rtol * np.abs(ref["samples"]))).max(axis=(1, 2))
+    kept = (moved(samples) == moved(ref["samples"])).all(axis=1) & (ratio <= 1.0)
+    near = np.minimum(margin, ref["margin"]) <= DIST_MARGIN
+    stray = ~kept & ~near
+    check(not stray.any(), f"{label}: {int(stray.sum())} chains away from the accept boundary part from the "
+                           f"one-process run (worst ratio to the tolerance {float(ratio.max())})")
+    parted = ~kept
+    return {"chains": int(samples.shape[0]), "parted_near_boundary": int(parted.sum()),
+            "near_boundary": int(near.sum()),
+            "largest_margin_of_parted": float(np.minimum(margin, ref["margin"])[parted].max()) if parted.any() else None,
+            "max_abs_diff": float(diff[kept].max()), "worst_ratio_to_tolerance": float(ratio[kept].max()),
+            "tolerance": {"rtol": rtol, "atol": atol}}
+
+
+def local_mesh(index: int, k: int):
+    """Rank ``index`` of a k-rank chain axis in one process, without a process
+    group: the runner slices the chains and the noise as that rank does."""
+    return rt.parallel.Mesh((CHAIN_AXIS,), {CHAIN_AXIS: k}, {CHAIN_AXIS: index}, {})
+
+
+def batch_invariance(model, init: torch.Tensor) -> dict:
+    """Which part of an RMHMC transition gives a chain other bits in a batch of
+    half the rows: each op on all rows against the same op on each half."""
+    kernel = rmhmc.build(model)
+    noise = kernel.draw_noise(torch.Generator(device=DEVICE).manual_seed(DIST_SEED), init)
+    g = model.metric(init)
+    u = noise.eps
+    flat = lambda *ts: torch.cat([t.reshape(t.shape[0], -1) for t in ts], dim=1)  # noqa: E731
+    ops = {
+        "logits w @ X^T": (model._logits, (init,)),
+        "grad resid @ X": (model.grad, (init,)),
+        "metric terms v @ F": (model.metric, (init,)),
+        "manifold_state": (lambda w: flat(*model.manifold_state(w)), (init,)),
+        "dg_trace": (model.dg_trace, (init, torch.linalg.inv(g))),
+        "dg_bilinear": (model.dg_bilinear, (init, u, u)),
+        "K1 cholesky": (hl.cholesky, (g,)),
+        "K2 chol_solve_logdet": (lambda a, b: flat(*hl.chol_solve_logdet(a, b)), (g, init)),
+        "transition": (lambda w, *leaves: kernel.transition(kernel.init(w), type(noise)(*leaves))[0].position,
+                       (init, *noise)),
+    }
+    out, h = {}, init.shape[0] // 2
+    for name, (fn, args) in ops.items():
+        whole = fn(*args)
+        diff = max(float((fn(*(a[sl] for a in args)) - whole[sl]).abs().max())
+                   for sl in (slice(0, h), slice(h, None)))
+        out[name] = {"bit_identical": diff == 0.0, "max_abs_diff": diff}
+    return out
+
+
+def host_profile(kernel, state, mesh) -> dict:
+    """The host's time by op over one transition (torch.profiler, CPU
+    activity only): the eight ops of largest self time."""
+    gen = torch.Generator(device=DEVICE).manual_seed(DIST_SEED)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        t0 = time.perf_counter()
+        rt.parallel.run(kernel, gen, None, num_samples=1, init_state=state, collect=False, mesh=mesh)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = sorted(prof.key_averages(), key=lambda e: e.self_cpu_time_total, reverse=True)[:8]
+    return {"s_per_transition_profiled": wall,
+            "top_self_cpu": [{"op": e.key, "calls": e.count, "self_us": e.self_cpu_time_total} for e in rows]}
 
 
 def phase_distributed(smi: str) -> dict:
@@ -1404,6 +1471,7 @@ def phase_distributed(smi: str) -> dict:
     two ranks sharing the card over Gloo."""
     shutil.rmtree(DIST_DIR, ignore_errors=True)
     DIST_DIR.mkdir(parents=True)
+    write_smoke_csvs()
     model = blr_model()
     init = rt.utils.default_init(model, torch.Generator(device=DEVICE).manual_seed(DIST_SEED), NUM_CHAINS)
     launches_by_path = {}
@@ -1414,8 +1482,9 @@ def phase_distributed(smi: str) -> dict:
         # BLR RMHMC at full width: a ("chains", "data") mesh of shape (1, 1) against no mesh.
         mesh = rt.parallel.make_mesh(1, (CHAIN_AXIS, "data"), (1, 1))
         burn, samples = DIST_BLR_RUN
-        plain = dist_run(rmhmc.build(model), init, None, burn, samples)
-        world1 = dist_run(rmhmc.build(model.with_sharding(mesh)), init, mesh, burn, samples)
+        plain_kernel, world1_kernel = rmhmc.build(model), rmhmc.build(model.with_sharding(mesh))
+        plain = dist_run(plain_kernel, init, None, burn, samples)
+        world1 = dist_run(world1_kernel, init, mesh, burn, samples)
         same = {k: torch.equal(plain[k], world1[k]) for k in ("samples", "accept", "div")}
         check(all(same.values()), f"distributed: world 1 differs from the run without a mesh: {same}")
         expected = blr_expected_launches(burn + samples)
@@ -1429,6 +1498,9 @@ def phase_distributed(smi: str) -> dict:
         say("distributed-times", run="world1-blr", card=smi, s_per_transition=world1["seconds"] / samples,
             no_mesh_s_per_transition=plain["seconds"] / samples,
             all_reduce_per_transition=world1["all_reduce"] / steps, no_mesh_all_reduce=plain["all_reduce"])
+        # Where the host's time goes with and without the mesh (what the all-reduces cost).
+        say("distributed-host-profile", run="world1-blr", card=smi,
+            world1=host_profile(world1_kernel, world1["state"], mesh), no_mesh=host_profile(plain_kernel, plain["state"], None))
 
         # LGC phmc at D = 4096: the operators' rows over a ("chains", "latent") mesh of shape (1, 1).
         y, _ = rt.models.lgc.generate_data(seed=LGC_SEED, n=LGC_N)
@@ -1478,12 +1550,18 @@ def phase_distributed(smi: str) -> dict:
     finally:
         dist.destroy_process_group()
 
-    # Two ranks sharing the card over Gloo, against the run without a mesh.
+    # Two ranks sharing the card over Gloo, against the run without a mesh and,
+    # for the chain split, against one process running each rank's half of
+    # the chains (the same batch size a rank's cuBLAS calls see).
     burn, samples = DIST_TWO_RANK_RUN
     np.save(DIST_DIR / "init.npy", init.cpu().numpy())
+    as_numpy = lambda run: {"samples": run["samples"].cpu().numpy(), "margin": run["state"].margin.cpu().numpy()}  # noqa: E731
     with torch.inference_mode():
-        ref = dist_run(with_margins(rmhmc.build(model)), init, None, burn, samples)
-    ref = {"samples": ref["samples"].cpu().numpy(), "margin": ref["state"].margin.cpu().numpy()}
+        ref = as_numpy(dist_run(with_margins(rmhmc.build(model)), init, None, burn, samples))
+        halves = [as_numpy(dist_run(with_margins(rmhmc.build(model)), init, local_mesh(i, 2), burn, samples))
+                  for i in range(2)]
+        invariance = batch_invariance(model, init)
+    say("distributed-batch-invariance", rows=NUM_CHAINS, half=NUM_CHAINS // 2, ops=invariance)
     t0 = time.perf_counter()
     spawn("chip_smoke:distributed_rank", 2, device=DEVICE, backend="gloo", args=[str(DIST_DIR)], timeout=DIST_TIMEOUT)
     launch_s = time.perf_counter() - t0
@@ -1497,11 +1575,16 @@ def phase_distributed(smi: str) -> dict:
             check(float(r[f"{label}_accept"]) == float(r0[f"{label}_accept"]), f"{label}: the ranks' acceptance differs")
         launches_by_path[f"distributed/2rank-{label}-per-rank"] = expected
         if label == "chains":
+            same = all(np.array_equal(r[f"chains_{k}"], half[k]) for r, half in zip((r0, r1), halves)
+                       for k in ("samples", "margin"))
+            check(same, "chain split: a rank differs from one process running its half of the chains")
             samples_, margin = (np.concatenate([r0[f"{label}_{k}"], r1[f"{label}_{k}"]]) for k in ("samples", "margin"))
         else:
             check(np.array_equal(r0["data_samples"], r1["data_samples"]), "data split: the ranks' positions differ")
             samples_, margin = r0["data_samples"], np.minimum(r0["data_margin"], r1["data_margin"])
         fields[label] = compare_to_one_process(f"2-rank {label}", samples_, margin, ref)
+        if label == "chains":
+            fields[label]["bit_identical_to_one_process_by_half"] = same
         fields[label]["s_per_transition"] = [float(r[f"{label}_s_per_transition"]) for r in (r0, r1)]
         fields[label]["all_reduce_per_transition"] = float(r0[f"{label}_all_reduce_per_transition"])
     check(bool(r0["ckpt_round_trip"]) and bool(r1["ckpt_round_trip"]), "two ranks: a checkpoint shard did not round-trip")
@@ -1515,17 +1598,19 @@ def phase_distributed(smi: str) -> dict:
     return launches_by_path
 
 
+PHASES = ("kernels", "transition", "main-path", "blr-samplers", "stochvol", "lgc", "lgc-joint", "fhn", "distributed")
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description="Drive the port's main path on one CUDA card and check it.")
-    ap.add_argument("--kernels-only", action="store_true",
-                    help="stop after phase 3 and print the whole ptxas report (no result lines: not a pass)")
-    ap.add_argument("--lgc-joint-only", action="store_true",
-                    help="phases 1-2 and 9 only (no result lines: not a pass)")
-    ap.add_argument("--fhn-only", action="store_true",
-                    help="phases 1-2, the FHN kernel's part of 3, and 10 only (no result lines: not a pass)")
-    ap.add_argument("--distributed-only", action="store_true",
-                    help="phases 1-2 and 11 only (no result lines: not a pass)")
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help=f"comma-separated subset of {','.join(PHASES)} (default: all).  The device and build "
+                         "phases always run; a subset prints the whole ptxas report and no result lines (not a pass)")
     args = ap.parse_args(argv)
+    phases = [p for p in args.phases.split(",") if p]
+    unknown = sorted(set(phases) - set(PHASES))
+    if unknown:
+        ap.error(f"unknown phases {unknown}; choose from {','.join(PHASES)}")
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         sys.exit(1)
@@ -1535,52 +1620,41 @@ def main(argv=None) -> None:
         nonlocal t0
         seconds[name], t0 = time.perf_counter() - t0, time.perf_counter()
 
+    by_path = {}
     with torch.inference_mode():
         smi = phase_device()
         phase_build()
         lap("device+build")
-        if args.lgc_joint_only:
-            phase_lgc_joint(smi)
-            lap("lgc-joint")
-            say("phase-seconds", **seconds)
-            return
-        if args.fhn_only:
-            phase_fhn(smi, phase_fhn_kernel(smi, {"cholesky": 0.0, "chol_solve_logdet": 0.0}))
-            lap("fhn")
-            say("phase-seconds", **seconds)
-            return
-        if args.distributed_only:
-            write_smoke_csvs()
-            phase_distributed(smi)
-            lap("distributed")
-            say("phase-seconds", **seconds)
-            return
-        kernels = phase_kernels(smi)
-        fhn_kernel = phase_fhn_kernel(smi, kernels["err"])
-        lap("kernels")
-        if args.kernels_only:
-            print((_build.build().parent / "ptxas.log").read_text(), flush=True)
-            say("phase-seconds", **seconds)
-            return
+        k_err = {"cholesky": 0.0, "chol_solve_logdet": 0.0}
+        if "kernels" in phases:
+            kernels = phase_kernels(smi)
+            k_err = kernels["err"]
+        if "kernels" in phases or "fhn" in phases:  # the FHN kernel's checks and times; phase 10 reports them
+            fhn_kernel = phase_fhn_kernel(smi, k_err)
+            lap("kernels")
         model = blr_model()
-        phase_transition(model)
-        lap("transition")
-        launches = phase_main_path(model, smi)
-        lap("main-path")
-        by_path = phase_blr_samplers(smi)
-        lap("blr-samplers")
-        by_path.update(phase_stochvol(smi))
-        lap("stochvol")
-        by_path.update(phase_lgc(smi))
-        lap("lgc")
-        by_path.update(phase_lgc_joint(smi))
-        lap("lgc-joint")
-        fhn = phase_fhn(smi, fhn_kernel)
-        by_path.update(fhn["k_by_path"])
-        lap("fhn")
-        by_path.update(phase_distributed(smi))
-        lap("distributed")
+        if "transition" in phases:
+            phase_transition(model)
+            lap("transition")
+        if "main-path" in phases:
+            launches = phase_main_path(model, smi)
+            lap("main-path")
+        for name, phase in (("blr-samplers", phase_blr_samplers), ("stochvol", phase_stochvol), ("lgc", phase_lgc),
+                            ("lgc-joint", phase_lgc_joint)):
+            if name in phases:
+                by_path.update(phase(smi))
+                lap(name)
+        if "fhn" in phases:
+            fhn = phase_fhn(smi, fhn_kernel)
+            by_path.update(fhn["k_by_path"])
+            lap("fhn")
+        if "distributed" in phases:
+            by_path.update(phase_distributed(smi))
+            lap("distributed")
     say("phase-seconds", **seconds)
+    if set(phases) != set(PHASES):
+        print((_build.build().parent / "ptxas.log").read_text(), flush=True)
+        return
 
     # Top-level times: the main path's shape (C 4096, D 15); every timed shape under "shapes".
     summary = []

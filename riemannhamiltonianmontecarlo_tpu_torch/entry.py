@@ -101,7 +101,7 @@ def _dryrun_rank(device: str) -> None:
               f"accept={accept2:.3f}", flush=True)
 
 
-def dryrun_multichip(n: int, device: str = "cpu") -> str:
+def dryrun_multichip(n: int, device: str = "cuda") -> str:
     """The sharded steps on ``n`` ranks (Gloo on the CPU, NCCL on cards);
     raises if a rank fails or the launch outlasts 120 s; returns rank 0's report."""
     _device(device)

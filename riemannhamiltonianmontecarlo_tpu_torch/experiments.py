@@ -264,25 +264,28 @@ def run_experiment(
     dev_samples = torch.cat([res_a.samples, res_b.samples], dim=1)  # (C, S, D)
     num_kept = dev_samples.shape[1]
 
-    if mesh is not None:
-        ess, rhat_max, flat_mean, flat_std, geweke_max = _global_summary(dev_samples, ess_mode, mesh)
-        samples = dev_samples.cpu().numpy() if keep_samples else None
-    elif ess_mode == "device":
-        # ESS, R-hat and moments on the device (alias-free ACF): only small
-        # arrays and an 8-chain slice for Geweke reach the host.
-        ess = diagnostics.ess_geyer_device(dev_samples).cpu().numpy()
-        rhat_max = float(diagnostics.split_rhat_device(dev_samples).max())
-        flat_mean = dev_samples.mean(dim=(0, 1)).cpu().numpy()
-        flat_std = dev_samples.std(dim=(0, 1), correction=0).cpu().numpy()
-        geweke_max = float(np.abs(diagnostics.geweke_z(dev_samples[:8].cpu().numpy())).max())
-        samples = dev_samples.cpu().numpy() if keep_samples else None
+    # Every figure is over the chains of every rank: ESS and the moments are
+    # sums over chains, all-reduced over the chain group (None without a mesh:
+    # the local sums), and R-hat pools its chain means and variances the same
+    # way.  Only the ESS engine depends on ``ess_mode``; "device" keeps the
+    # samples on the device unless they are asked for.
+    group = None if mesh is None else mesh.group(parallel.CHAIN_AXIS)
+    samples = dev_samples.cpu().numpy() if keep_samples or ess_mode != "device" else None
+    if ess_mode == "device":
+        ess = diagnostics.ess_geyer_device(dev_samples)
     else:
-        samples = dev_samples.cpu().numpy()
-        ess = _host_ess(samples, ess_mode)
-        rhat_max = float(diagnostics.split_rhat(samples).max())
-        geweke_max = float(np.abs(diagnostics.geweke_z(samples[:8])).max())
-        flat = samples.reshape(-1, samples.shape[-1])
-        flat_mean, flat_std = flat.mean(axis=0), flat.std(axis=0)
+        ess = torch.from_numpy(_host_ess(samples, ess_mode)).to(dev_samples.device)
+    ess = parallel.collectives.all_reduce(ess.to(torch.float64), group).cpu().numpy()
+    stats = dev_samples.to(torch.float64)
+    rhat_max = float(diagnostics.split_rhat_device(stats, group).max())
+    flat = stats.reshape(-1, stats.shape[-1])
+    mean = parallel.cross_chain_mean(flat, group)
+    flat_mean = mean.cpu().numpy()
+    flat_std = torch.sqrt(parallel.cross_chain_mean((flat - mean) ** 2, group)).cpu().numpy()
+    # Geweke on the run's first 8 chains, the chain group's first rank's.
+    first = mesh is None or mesh.index(parallel.CHAIN_AXIS) == 0
+    geweke = np.abs(diagnostics.geweke_z(dev_samples[:8].cpu().numpy())).max() if first else 0.0
+    geweke_max = float(parallel.collectives.all_reduce(torch.tensor(geweke, dtype=torch.float64, device=dev_samples.device), group))
 
     return ExperimentResult(
         sampler=sampler,
@@ -310,31 +313,6 @@ def _host_ess(samples: np.ndarray, ess_mode: str) -> np.ndarray:
     if ess_mode == "native":
         return diagnostics.native.ess_geyer_native(samples)
     return diagnostics.ess_multichain(samples, nfft_mode=ess_mode)
-
-
-def _global_summary(dev_samples: torch.Tensor, ess_mode: str, mesh) -> tuple:
-    """ESS, max R-hat, posterior mean and sd, max |Geweke z| of the chains of
-    every rank, from this rank's (C_local, S, D) samples: each a sum over
-    chains, all-reduced over the mesh's chain group (Geweke: the first 8
-    chains, those of the group's first rank)."""
-    group = mesh.group(parallel.CHAIN_AXIS)
-
-    def total(x) -> torch.Tensor:
-        return parallel.collectives.all_reduce(torch.as_tensor(x, dtype=torch.float64, device=dev_samples.device), group)
-
-    if ess_mode == "device":
-        local_ess = diagnostics.ess_geyer_device(dev_samples)
-    else:
-        local_ess = _host_ess(dev_samples.cpu().numpy(), ess_mode)
-    ess = total(local_ess).cpu().numpy()
-    rhat_max = float(diagnostics.split_rhat_device(dev_samples, group).max())
-    x = dev_samples.to(torch.float64).reshape(-1, dev_samples.shape[-1])
-    count = x.shape[0] * parallel.collectives.group_size(group)
-    mean = total(x.sum(dim=0)) / count
-    std = torch.sqrt(total(((x - mean) ** 2).sum(dim=0)) / count)
-    first = mesh.index(parallel.CHAIN_AXIS) == 0
-    geweke = float(np.abs(diagnostics.geweke_z(dev_samples[:8].cpu().numpy())).max()) if first else 0.0
-    return ess, rhat_max, mean.cpu().numpy(), std.cpu().numpy(), float(total(geweke))
 
 
 def aggregate(results: list[ExperimentResult]) -> dict[str, tuple[float, float]]:

@@ -177,7 +177,7 @@ def rank_chain_axis(out: str) -> None:
 
 LGC_RUN = dict(step_size=0.05, num_leapfrog=3)
 LGC_PHMC = dict(step_size=0.5, num_leapfrog=10)
-EXPERIMENT = dict(device="cpu", num_chains=16, num_samples=20, burn_in=10, ess_mode="exact",
+EXPERIMENT = dict(device="cpu", num_chains=16, num_samples=40, burn_in=10, ess_mode="exact",
                   sampler_overrides={"num_leapfrog": 10, "step_size": 0.1})
 EXPERIMENT_FIELDS = ("ess_min", "ess_median", "ess_max", "accept_rate", "divergences", "posterior_mean",
                      "posterior_std", "rhat_max", "geweke_max_abs_z")
@@ -426,7 +426,8 @@ def test_torch_run_experiment_over_the_chain_axis_matches_single_process(chain_r
         np.testing.assert_allclose(got["posterior_mean"], single.posterior_mean, rtol=rel, atol=1e-5)
         np.testing.assert_allclose(got["posterior_std"], single.posterior_std, rtol=rel, atol=1e-5)
         np.testing.assert_allclose(got["rhat_max"], single.rhat_max, rtol=rel)
-        np.testing.assert_allclose(got["geweke_max_abs_z"], single.geweke_max_abs_z, rtol=rel)  # nan on both: a chain stuck
+        assert np.isfinite(single.geweke_max_abs_z)  # 40 samples: no chain of the 8 stuck through a Geweke segment
+        np.testing.assert_allclose(got["geweke_max_abs_z"], single.geweke_max_abs_z, rtol=rel)
         if adapt:
             assert float(rank["exp1_eps"]) == pytest.approx(single.adapted_step_size, rel=1e-4)
 
