@@ -131,9 +131,37 @@ It imports no jax.  Phases, each printing one line of findings:
    boundary may part (counted); the largest ratio of a difference to its
    tolerance is printed, with which ops of a transition give other bits at
    half the rows.  K1 / K2 launch counts per rank equal the formulas; the
-   checkpoint shards ``.p0`` / ``.p1`` round-trip.  Seconds per transition
+   checkpoint shards ``.p0`` / ``.p1`` round-trip.  Then, split (2, 1) over
+   the same two ranks, the four samplers the chain split took last, 5 + 5
+   each: AMH (BLR, 4096 chains; coordinate-major noise), Gibbs (BLR, 256
+   chains; the GIG rounds' exit test all-reduced over the ranks), StochVol
+   RMHMC (T = 2000, 64 chains) and joint LGC mMALA (n = 32, 4 chains), the
+   last two drawing their noise from a view of the state.  Each rank is
+   bit for bit one process running its half of the chains (Gibbs's given
+   the GIG exit flags the rank's all-reduces returned); against one process
+   running all chains the rule above holds (Gibbs at 1e-4 and joint LGC at
+   1e-3, ``DIST_SPLIT_TOL``, with the ratio to 1e-5 printed), a chain's
+   closeness to a decision boundary found by rerunning each step of that
+   run on the state with every entry moved by 1e-4 of random sign (these
+   samplers expose no one accept margin); K1 / K2 launch counts per rank
+   equal the formulas.  Seconds per transition
    (world 1 against no mesh, two ranks) and all-reduces per transition are
-   printed beside the card, without a gate.
+   printed beside the card, without a gate;
+12. tools: the results tools of ``riemannhamiltonianmontecarlo_tpu_torch/tools``
+   through their run functions at smoke depth: ``make_results`` (the rmhmc
+   and gibbs rows on phase 6's australian CSV, 256 chains, 50 + 50),
+   ``make_results_all`` (StochVol rmhmc, 64 chains, 20 + 20, the kept
+   samples streamed to pinned host memory and the ESS and R-hat through the
+   host-array route), ``ess_engine_bench`` (256 chains, 50 + 50, german CSV,
+   the C++ engine against NumPy within 1e-3), ``probe_scaling`` (FHN HMC at
+   two chain counts, 2 steps) and ``scaling_table`` (world sizes 1 and 2
+   over Gloo on the card, 5 + 5).  Each section is headed with the nvidia-smi line and holds the
+   expected number of rows of finite numbers; K1 / K2 launch counts of the
+   make_results, StochVol and ESS-engine rows equal the formulas; the rmhmc
+   row's acceptance is within 0.05 of phase 5's, the StochVol row's of
+   phase 7's (or, without those phases, in phase 5's window / within 0.05 of
+   the JAX package's); ``RESULTS.md`` is byte for byte what it was.  Seconds
+   per tool are printed.
 
 It ends with the nvidia-smi line, one JSON line per kernel summary
 (``{"kernels": [...]}``) and, as the last line,
@@ -141,9 +169,9 @@ It ends with the nvidia-smi line, one JSON line per kernel summary
 code is non-zero and the last line is not printed; so does a machine with
 no CUDA device.
 
-Phase 6 writes its CSVs under the git-ignored ``build/smoke_data`` and
-points ``RHMC_DATA_DIR`` there, before the port is imported; phase 11 writes
-under ``build/smoke_dist``.  ``--phases distributed`` (a comma-separated subset of
+Phase 6 (and phase 12) writes its CSVs under the git-ignored
+``build/smoke_data`` and points ``RHMC_DATA_DIR`` there, before the port is
+imported; phase 11 writes under ``build/smoke_dist``.  ``--phases distributed`` (a comma-separated subset of
 the phases' names, ``PHASES``) runs the device and build phases and that
 subset alone, and prints no result lines.
 """
@@ -151,7 +179,9 @@ subset alone, and prints no result lines.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import hashlib
 import json
 import os
 import re
@@ -160,6 +190,7 @@ import statistics
 import subprocess
 import sys
 import time
+import unittest.mock
 from datetime import timedelta
 from pathlib import Path
 from typing import NamedTuple
@@ -195,6 +226,7 @@ L, K = 6, 4  # reference constants (RMHMCConfig defaults)
 # Pallas tests (tests/test_pallas_linalg.py), |k - p| <= atol + rtol |p|.
 TOL = {"L": (2e-4, 2e-4), "x": (2e-3, 2e-3), "logdet": (2e-4, 2e-3)}
 ACCEPT_WINDOW = (0.85, 0.97)
+SEEN_ACCEPT: dict[str, float] = {}  # phase 5's and phase 7's RMHMC acceptance, for phase 12's gates
 MAX_DIVERGENT_FRACTION = 1e-4
 MAX_RHAT = 1.05
 Z_BOUND = 5.0  # posterior means, kernel run vs plain run, per coordinate
@@ -582,6 +614,7 @@ def phase_main_path(model, smi: str) -> dict:
     check(float(z.max()) < Z_BOUND, f"posterior means differ: max z {float(z.max())}")
 
     min_ess = float(kern["ess"].min())
+    SEEN_ACCEPT["rmhmc-main-path"] = kern["accept"]
     say("main-path", chains=NUM_CHAINS, burn_in=BURN_IN, samples=NUM_SAMPLES,
         launches=launches, accept_rate=kern["accept"], divergent=kern["divergent"],
         max_split_rhat=kern["rhat"], max_z_means_vs_plain=float(z.max()),
@@ -743,11 +776,12 @@ def phase_blr_samplers(smi: str) -> dict:
 
 SV_CHAINS, SV_OBS, SV_SEED = 1024, 2000, 0
 # (burn-in, samples) per method: the reference's 20000 samples cut to a smoke run.
-# hmc's sweep is ~1-1.4 s (100 hyper leapfrog steps, each a torch.func
+# hmc's sweep is ~1-1.8 s (100 hyper leapfrog steps, each a torch.func
 # gradient).  rmhmc, hmc and mmala ran 100 + 100, 30 + 30 and 200 + 200, then
 # rmhmc 60 + 60 and mmala 120 + 120, until the joint LGC and FHN phases needed
-# their seconds: the whole script keeps its time.
-SV_RUNS = {"rmhmc": (40, 40), "hmc": (20, 20), "mmala": (80, 80), "mala": (500, 200)}
+# their seconds, and hmc 20 + 20 until the results tools' phase did: the
+# whole script keeps its time.
+SV_RUNS = {"rmhmc": (40, 40), "hmc": (10, 10), "mmala": (80, 80), "mala": (500, 200)}
 # The JAX package at the same constants, depth, seed and data, on the CPU with
 # 64 chains (tests/reference_workload_jax.py --workload stochvol --chains 64
 # at each depth; mala as first measured, PERF.md): acceptance, and the mean and
@@ -755,7 +789,7 @@ SV_RUNS = {"rmhmc": (40, 40), "hmc": (20, 20), "mmala": (80, 80), "mala": (500, 
 SV_JAX_CHAINS = 64
 SV_JAX = {
     "rmhmc": {"accept": 0.97919, "mean": [0.57688, 0.39101, 0.90810], "sd": [0.022739, 0.076522, 0.033959]},
-    "hmc": {"accept": 0.76414, "mean": [0.55987, 0.62500, 0.77352], "sd": [0.037463, 0.22994, 0.12187]},
+    "hmc": {"accept": 0.73724, "mean": [0.54693, 0.71303, 0.71246], "sd": [0.040468, 0.26184, 0.14775]},
     "mmala": {"accept": 0.87643, "mean": [0.61066, 0.60137, 0.28221], "sd": [0.0071586, 0.026313, 0.083836]},
     "mala": {"accept": 0.81891, "mean": [0.63407, 0.54942, 0.11832], "sd": [0.0061821, 0.016158, 0.049598]},
 }
@@ -842,6 +876,7 @@ def phase_stochvol(smi: str) -> dict:
         means = hyper.reshape(-1, 3).mean(0)
         cm = hyper.mean(1)
         if method == "rmhmc":
+            SEEN_ACCEPT[label] = res.accept_rate
             rm = (cm.mean(0), cm.std(0, ddof=1))
             inside = all(lo < m < hi for m, (lo, hi) in zip(means, SV_BOXES))
             check(inside, f"{label}: hyper means {means} outside {SV_BOXES}")
@@ -1320,6 +1355,34 @@ DIST_MARGIN = 1e-3
 DIST_CKPT = dict(num_samples=6, burn_in=2, checkpoint_every=2)  # three segments, stopped after one
 DIST_ESS_RUN = dict(num_chains=1024, burn_in=50, num_samples=50)
 DIST_DIR = SMOKE_DATA.parent / "smoke_dist"
+# The samplers the chain split took last (AMH's and the Gibbs sweep's noise
+# coordinate-major, Gibbs's GIG rounds agreed over the ranks, the two-block
+# samplers' noise drawn from the state), two ranks, 5 + 5 each.
+DIST_SPLIT_RUN = (5, 5)
+DIST_GIBBS_CHAINS, DIST_SV_CHAINS, DIST_LGCJ_CHAINS = 256, 64, 4
+# These samplers expose no |log a - log u| per decision (AMH's are per
+# coordinate, the two-block samplers' per block, Gibbs's inside the GIG
+# rounds), so the one-process run finds the chains near a decision boundary
+# by probing: before each step every entry of the state is moved by a
+# relative PROBE_SCALE of random sign (and then of the opposite signs), ~100x
+# the float32 rounding a transition leaves, and the step rerun on the same
+# draws; a chain whose next state then moves by more than PROBE_JUMP (rtol,
+# atol) took a decision within reach of rounding, and may part.  Random
+# signs, not one scale for the whole state: Gibbs's GIG draw depends on
+# r = z - x beta, which a common scale only scales, while rounding can
+# change it by far more than its own relative error where it cancels.
+PROBE_SCALE = 1e-4
+PROBE_JUMP = (1e-3, 1e-3)
+# DIST_TOL is BLR RMHMC's rounding scale.  Two of these samplers carry the
+# batch-size rounding (another GEMM / batched-factorization M per rank)
+# through ill-conditioned algebra with no decision on the way, so their
+# chains part from one process's continuously by more than it: Gibbs through
+# the inverse of X^T Lambda^-1 X (a sum over the 690 rows), the 690-step
+# sequential z / B sweep and r = z - x beta into lambda; joint LGC through
+# K(beta)^-1 and its log-determinant at D = n^2 = 1024 and the hyper
+# metric's traces over D.  Their gates, with the ratio to DIST_TOL and the
+# chains beyond it printed beside (PERF.md):
+DIST_SPLIT_TOL = {"gibbs-blr": (1e-4, 1e-4), f"lgc-joint-mmala-n{LGCJ_SMALL_N}": (1e-3, 1e-3)}
 
 
 class MarginState(NamedTuple):
@@ -1345,6 +1408,101 @@ def with_margins(kernel):
         return transition(state, kernel.draw_noise(generator, state.position))
 
     return rt.samplers.Kernel(init, step, transition, kernel.draw_noise)
+
+
+class ProbeState(NamedTuple):
+    inner: object
+    near: torch.Tensor  # (C,) bool: a step of the run so far was within reach of rounding of a decision
+
+    @property
+    def position(self) -> torch.Tensor:
+        return self.inner.position
+
+
+def with_discontinuity_probe(kernel):
+    """``kernel`` that also marks, per chain, the steps whose outcome a change
+    of PROBE_SCALE in the state moves by more than PROBE_JUMP: each step runs
+    three times on the same draws (the generator rewound), on the state and
+    on it with every entry x moved to x (1 + PROBE_SCALE s) and x (1 -
+    PROBE_SCALE s), s a random sign per entry, and every per-chain leaf of
+    the next state is compared (a decision may show only there first: a GIG
+    draw changes lambda, and the position a step later).  One process, no
+    mesh."""
+    rtol, atol = PROBE_JUMP
+    tree_map = rt.samplers.base.tree_map
+    signs = torch.Generator(device=DEVICE).manual_seed(DIST_SEED + 1)
+
+    def moved(x: torch.Tensor, s: torch.Tensor, scale: float) -> torch.Tensor:
+        return x * (1.0 + scale * s) if x.is_floating_point() else x
+
+    def init(position):
+        return ProbeState(kernel.init(position), torch.zeros(position.shape[:1], dtype=torch.bool, device=position.device))
+
+    def step(generator, state):
+        before = generator.get_state()
+        inner, info = kernel.step(generator, state.inner)
+        after = generator.get_state()
+        c, near = inner.position.shape[0], [state.near]
+
+        def jump(a, b):
+            if a.ndim > 0 and a.is_floating_point():
+                moved = ~torch.isfinite(a) | ((a - b).abs() > atol + rtol * b.abs())
+                near.append(moved.reshape(c, -1).any(-1))
+
+        s = tree_map(lambda x: 2.0 * torch.randint(0, 2, x.shape, generator=signs, device=x.device) - 1.0, state.inner)
+        for scale in (PROBE_SCALE, -PROBE_SCALE):
+            generator.set_state(before)
+            probe, _ = kernel.step(generator, tree_map(lambda x, sx: moved(x, sx, scale), state.inner, s))
+            tree_map(jump, probe, inner)
+        generator.set_state(after)
+        return ProbeState(inner, torch.stack(near).any(0)), info
+
+    return rt.samplers.Kernel(init, step)
+
+
+@contextlib.contextmanager
+def min_flags(record: list | None = None, replay: list | None = None):
+    """The port's MIN all-reduces (the GIG rounds' exit test under a chain
+    split) recorded into ``record``, or answered in one process from
+    ``replay``: one process running a rank's half of the chains asks the
+    same exit tests the rank asked, and gets the rank's answers (a global
+    "all decided" only where its own chains are decided too)."""
+    real, answers = collectives.all_reduce, iter(replay or ())
+
+    def all_reduce(x, group, op=dist.ReduceOp.SUM):
+        if op != dist.ReduceOp.MIN:
+            return real(x, group, op)
+        if replay is None:
+            out = real(x, group, op)
+            record.append(int(out.min()))
+            return out
+        want = next(answers)
+        check(group is None and not (want and not bool(x.min())), "a replayed GIG exit flag disagrees with the rows")
+        return torch.full_like(x, want)
+
+    with unittest.mock.patch.object(collectives, "all_reduce", all_reduce):
+        yield
+    check(replay is None or next(answers, None) is None, "the one-process run asked fewer GIG exit tests than the rank")
+
+
+def split_runs(model) -> dict:
+    """label -> (kernel, global initial position, expected K1 / K2 launches
+    of a run of ``steps`` transitions) of the four samplers."""
+    steps = sum(DIST_SPLIT_RUN)
+    init = rt.utils.default_init(model, torch.Generator(device=DEVICE).manual_seed(DIST_SEED), NUM_CHAINS)
+    sv_kernel, sv_init, *_ = experiments.build_workload("stochvol", "rmhmc", device=DEVICE, seed=SV_SEED,
+                                                        stochvol_obs=SV_OBS)
+    lgcj_kernel, lgcj_init, *_ = experiments.build_workload("lgc", "mmala_joint", device=DEVICE, seed=LGCJ_SEED,
+                                                            lgc_n=LGCJ_SMALL_N)
+    return {
+        "metropolis-blr": (experiments.build_kernel("metropolis", model, "australian")[0], init,
+                           {"cholesky": 0, "chol_solve_logdet": 0}),
+        "gibbs-blr": (experiments.build_kernel("gibbs", model, "australian")[0], init[:DIST_GIBBS_CHAINS].clone(),
+                      BlrRun("gibbs", burn_in=steps, samples=0).expected_launches()),
+        "stochvol-rmhmc": (sv_kernel, sv_init(DIST_SV_CHAINS), sv_expected_launches("rmhmc", steps)),
+        f"lgc-joint-mmala-n{LGCJ_SMALL_N}": (lgcj_kernel, lgcj_init(DIST_LGCJ_CHAINS),
+                                              lgcj_expected_launches("mmala_joint", steps)),
+    }
 
 
 def dist_run(kernel, init, mesh, burn: int, samples: int) -> dict:
@@ -1389,31 +1547,54 @@ def distributed_rank(out: str) -> None:
     restored, step, _ = rt.utils.checkpoint.load_state(out / "ckpt.npz", template)
     arrays["ckpt_round_trip"] = step == 3 and all(torch.equal(a, b) for a, b in zip(
         rt.utils.checkpoint.tree_leaves(restored), rt.utils.checkpoint.tree_leaves(res.final_state)))
+    # The four samplers the chain split took last, with the GIG exit flags the rank was given.
+    mesh = rt.parallel.make_mesh(2, (CHAIN_AXIS, "data"), (2, 1))
+    with torch.inference_mode():
+        for label, (kernel, init, _) in split_runs(model).items():
+            flags = []
+            with min_flags(record=flags):
+                run = dist_run(kernel, init, mesh, *DIST_SPLIT_RUN)
+            arrays.update({f"{label}_samples": run["samples"], f"{label}_accept": run["accept"],
+                           f"{label}_div": run["div"], f"{label}_flags": np.asarray(flags, dtype=np.int64),
+                           f"{label}_s_per_transition": run["seconds"] / DIST_SPLIT_RUN[1],
+                           **{f"{label}_{k}": v for k, v in run["launches"].items()}})
     np.savez(out / f"two_rank.r{rank}.npz",
              **{k: v.cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v) for k, v in arrays.items()})
 
 
-def compare_to_one_process(label: str, samples: np.ndarray, margin: np.ndarray, ref: dict) -> dict:
+def compare_to_one_process(label: str, samples: np.ndarray, margin: np.ndarray | None, ref: dict,
+                           tol: tuple[float, float] = DIST_TOL) -> dict:
     """Every chain against the one-process run: the same accept decisions and
-    positions within DIST_TOL, unless its decisions came within DIST_MARGIN
-    of the boundary in either run (then it may part, and is counted).  Prints
-    the largest ratio of a difference to its tolerance, atol + rtol |ref|,
-    over the chains that did not part."""
-    rtol, atol = DIST_TOL
+    positions within ``tol``, unless its decisions came within DIST_MARGIN
+    of the boundary in either run (``margin``), or, where the sampler gives
+    no margin (None), the probe of the one-process run marked it
+    (``ref["near"]``): then it may part, and is counted.  Prints the largest
+    ratio of a difference to its tolerance, atol + rtol |ref|, over the
+    chains that did not part (and to DIST_TOL where ``tol`` is another)."""
+    rtol, atol = tol
     moved = lambda smp: (smp[:, 1:] != smp[:, :-1]).any(-1)  # noqa: E731
     diff = np.abs(samples - ref["samples"])
     ratio = (diff / (atol + rtol * np.abs(ref["samples"]))).max(axis=(1, 2))
     kept = (moved(samples) == moved(ref["samples"])).all(axis=1) & (ratio <= 1.0)
-    near = np.minimum(margin, ref["margin"]) <= DIST_MARGIN
+    near = ref["near"] if margin is None else np.minimum(margin, ref["margin"]) <= DIST_MARGIN
     stray = ~kept & ~near
     check(not stray.any(), f"{label}: {int(stray.sum())} chains away from the accept boundary part from the "
-                           f"one-process run (worst ratio to the tolerance {float(ratio.max())})")
+                           f"one-process run (worst ratio to the tolerance {float(ratio.max())}; "
+                           f"{int((~kept).sum())} parted, {int(near.sum())} near a boundary)")
     parted = ~kept
-    return {"chains": int(samples.shape[0]), "parted_near_boundary": int(parted.sum()),
-            "near_boundary": int(near.sum()),
-            "largest_margin_of_parted": float(np.minimum(margin, ref["margin"])[parted].max()) if parted.any() else None,
-            "max_abs_diff": float(diff[kept].max()), "worst_ratio_to_tolerance": float(ratio[kept].max()),
-            "tolerance": {"rtol": rtol, "atol": atol}}
+    out = {"chains": int(samples.shape[0]), "parted_near_boundary": int(parted.sum()),
+           "near_boundary": int(near.sum()),
+           "max_abs_diff": float(diff[kept].max()) if kept.any() else None,
+           "worst_ratio_to_tolerance": float(ratio[kept].max()) if kept.any() else None,
+           "tolerance": {"rtol": rtol, "atol": atol}}
+    if margin is not None:
+        out["largest_margin_of_parted"] = (float(np.minimum(margin, ref["margin"])[parted].max())
+                                           if parted.any() else None)
+    if tol != DIST_TOL and kept.any():
+        to_dist = (diff / (DIST_TOL[1] + DIST_TOL[0] * np.abs(ref["samples"]))).max(axis=(1, 2))
+        out["worst_ratio_to_dist_tol"] = float(to_dist[kept].max())
+        out["kept_beyond_dist_tol"] = int((to_dist[kept] > 1.0).sum())
+    return out
 
 
 def local_mesh(index: int, k: int):
@@ -1595,10 +1776,148 @@ def phase_distributed(smi: str) -> dict:
         **{f"split_{label}": {k: v for k, v in f.items() if k != "s_per_transition"} for label, f in fields.items()})
     say("distributed-times", run="2rank-gloo-blr", card=smi, launch_s=launch_s,
         **{f"split_{label}_s_per_transition": f["s_per_transition"] for label, f in fields.items()})
+
+    # The four samplers the chain split took last: each rank bit for bit one
+    # process running its half (given the rank's GIG exit flags), both
+    # against one process running all chains.
+    burn, samples = DIST_SPLIT_RUN
+    with torch.inference_mode():
+        for label, (kernel, init, expected) in split_runs(model).items():
+            for r in (r0, r1):
+                got = {k: int(r[f"{label}_{k}"]) for k in expected}
+                check(got == expected, f"distributed 2-rank {label}: launch counts {got} on a rank, expected {expected}")
+                check(float(r[f"{label}_accept"]) == float(r0[f"{label}_accept"]), f"{label}: the ranks' acceptance differs")
+            halves = []
+            for i, r in enumerate((r0, r1)):
+                with min_flags(replay=r[f"{label}_flags"].tolist()):
+                    halves.append(dist_run(kernel, init, local_mesh(i, 2), burn, samples)["samples"].cpu().numpy())
+            same = all(np.array_equal(r[f"{label}_samples"], h) for r, h in zip((r0, r1), halves))
+            check(same, f"{label}: a rank differs from one process running its half of the chains")
+            whole = dist_run(with_discontinuity_probe(kernel), init, None, burn, samples)
+            ref = {"samples": whole["samples"].cpu().numpy(), "near": whole["state"].near.cpu().numpy()}
+            got = np.concatenate([r0[f"{label}_samples"], r1[f"{label}_samples"]])
+            check(np.isfinite(got).all(), f"{label}: non-finite samples")
+            split = compare_to_one_process(f"2-rank {label}", got, None, ref, DIST_SPLIT_TOL.get(label, DIST_TOL))
+            launches_by_path[f"distributed/2rank-{label}-per-rank"] = expected
+            say("distributed", run=f"2rank-gloo-{label}", backend="gloo", chains=int(init.shape[0]), burn_in=burn,
+                samples=samples, bit_identical_to_one_process_by_half=same, launches_per_rank=expected,
+                gig_exit_tests_per_rank=len(r0[f"{label}_flags"]), accept_rate=float(r0[f"{label}_accept"]),
+                one_process_accept_rate=float(whole["accept"]), divergent=int(r0[f"{label}_div"]),
+                probe={"scale_random_sign": PROBE_SCALE, "jump": PROBE_JUMP}, split_chains=split)
+            say("distributed-times", run=f"2rank-gloo-{label}", card=smi,
+                s_per_transition=[float(r[f"{label}_s_per_transition"]) for r in (r0, r1)])
     return launches_by_path
 
 
-PHASES = ("kernels", "transition", "main-path", "blr-samplers", "stochvol", "lgc", "lgc-joint", "fhn", "distributed")
+# -- phase 12: the results tools at smoke depth ------------------------------------
+
+TOOLS_BLR = BlrRun("rmhmc", chains=256, burn_in=50, samples=50)  # make_results' rows: rmhmc, gibbs
+TOOLS_SV = dict(chains=64, samples=20, burn_in=20)  # make_results_all's StochVol rmhmc row
+TOOLS_ESS = BlrRun("rmhmc", dataset="german", chains=256, burn_in=50, samples=50)  # ess_engine_bench
+TOOLS_PROBE = dict(chains=(64, 256), steps=2)  # probe_scaling fhn (HMC, L 150 on the FHN kernel)
+TOOLS_SCALING = dict(ranks=(1, 2), chains_per_rank=64, samples=5, burn_in=5)
+RESULTS_MD = Path(__file__).resolve().parent / "RESULTS.md"
+NUMBER = re.compile(r"-?(?:\d+\.?\d*|\.\d+)(?:e[-+]?\d+)?")
+
+
+def table_rows(section: str) -> list[list[str]]:
+    """The cells of every table row of a section (header rows left out)."""
+    lines = section.splitlines()
+    heads = {i - 1 for i, line in enumerate(lines) if line.startswith("|---")}
+    return [[c.strip() for c in line.strip().strip("|").split("|")]
+            for i, line in enumerate(lines) if line.startswith("| ") and i not in heads]
+
+
+def check_section(label: str, section: str, smi: str, n_rows: int) -> list[list[str]]:
+    """A results tool's section: headed with the card, ``n_rows`` table rows whose
+    every cell after the first holds finite numbers."""
+    check(smi in section.splitlines()[0], f"{label}: the section is not headed with the card: {section.splitlines()[0]}")
+    rows = table_rows(section)
+    check(len(rows) == n_rows, f"{label}: {len(rows)} table rows, expected {n_rows}")
+    for row in rows:
+        numbers = [float(x) for cell in row[1:] for x in NUMBER.findall(cell.replace(",", ""))]
+        bad = any(w in cell.lower() for cell in row for w in ("nan", "inf", "failed"))
+        check(numbers and not bad and np.isfinite(numbers).all(), f"{label}: a row with other than finite numbers: {row}")
+    return rows
+
+
+def phase_tools(smi: str) -> dict:
+    """Phase 12: each results tool's run function at smoke depth, through
+    the kernels where its rows run them; RESULTS.md untouched."""
+    from riemannhamiltonianmontecarlo_tpu_torch.tools import (
+        ess_engine_bench,
+        make_results,
+        make_results_all,
+        probe_scaling,
+        scaling_table,
+    )
+
+    digest = hashlib.sha256(RESULTS_MD.read_bytes()).hexdigest()
+    write_smoke_csvs()
+    launches_by_path, seconds, accepts = {}, {}, {}
+
+    def timed(name: str, fn):
+        hl.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        seconds[name] = time.perf_counter() - t0
+        return out, hl.launch_counts()
+
+    main_accept = SEEN_ACCEPT.get("rmhmc-main-path")
+    for sampler in ("rmhmc", "gibbs"):
+        run = dataclasses.replace(TOOLS_BLR, sampler=sampler)
+        section, launches = timed(f"make_results-{sampler}", lambda: make_results.run_dataset(
+            "australian", device=DEVICE, chains=run.chains, samples=run.samples, burn_in=run.burn_in,
+            samplers=(sampler,)))
+        check(launches == run.expected_launches(),
+              f"tools/make_results {sampler}: launch counts {launches}, expected {run.expected_launches()}")
+        launches_by_path[f"tools/make_results-{sampler}"] = launches
+        (row,) = check_section(f"make_results {sampler}", section, smi, 1)
+        check(row[:3] == [sampler, str(run.chains), str(run.samples)], f"make_results {sampler}: row {row}")
+        accepts[sampler] = float(row[3])
+    if main_accept is None:
+        check(ACCEPT_WINDOW[0] <= accepts["rmhmc"] <= ACCEPT_WINDOW[1], f"make_results rmhmc: acceptance {accepts}")
+    else:
+        check(abs(accepts["rmhmc"] - main_accept) <= ACCEPT_TOL,
+              f"make_results rmhmc: acceptance {accepts['rmhmc']} vs phase 5's {main_accept} +- {ACCEPT_TOL}")
+    check(accepts["gibbs"] == 1.0, f"make_results gibbs: acceptance {accepts['gibbs']}")
+
+    sv_ref = SEEN_ACCEPT.get("stochvol/rmhmc", SV_JAX["rmhmc"]["accept"])
+    ((got, expected_rows), section), launches = timed("make_results_all-stochvol-rmhmc", lambda: (
+        make_results_all.run_stochvol(1, device=DEVICE, samplers=("rmhmc",), keep="host", **TOOLS_SV)))
+    sweeps = TOOLS_SV["burn_in"] + 2 * (TOOLS_SV["samples"] // 2)
+    check(launches == sv_expected_launches("rmhmc", sweeps),
+          f"tools/stochvol rmhmc: launch counts {launches}, expected {sv_expected_launches('rmhmc', sweeps)}")
+    launches_by_path["tools/make_results_all-stochvol-rmhmc-host"] = launches
+    rows = check_section("make_results_all stochvol", section, smi, 2)
+    check((got, expected_rows) == (2, 8), f"make_results_all stochvol: {got}/{expected_rows} rows recorded")
+    accepts["stochvol-rmhmc"] = float(rows[0][3])
+    check(abs(accepts["stochvol-rmhmc"] - sv_ref) <= ACCEPT_TOL,
+          f"make_results_all stochvol rmhmc: acceptance {accepts['stochvol-rmhmc']} vs {sv_ref} +- {ACCEPT_TOL}")
+
+    section, launches = timed("ess_engine_bench", lambda: ess_engine_bench.run_bench(
+        TOOLS_ESS.dataset, device=DEVICE, chains=TOOLS_ESS.chains, samples=TOOLS_ESS.samples,
+        burn_in=TOOLS_ESS.burn_in))
+    check(launches == TOOLS_ESS.expected_launches(),
+          f"tools/ess_engine_bench: launch counts {launches}, expected {TOOLS_ESS.expected_launches()}")
+    launches_by_path["tools/ess_engine_bench-rmhmc"] = launches
+    check_section("ess_engine_bench", section, smi, 2)
+
+    section, _ = timed("probe_scaling-fhn", lambda: probe_scaling.run_probe("fhn", device=DEVICE, **TOOLS_PROBE))
+    check_section("probe_scaling", section, smi, len(TOOLS_PROBE["chains"]))
+    section, _ = timed("scaling_table", lambda: scaling_table.run_scaling(device=DEVICE, **TOOLS_SCALING))
+    rows = check_section("scaling_table", section, smi, len(TOOLS_SCALING["ranks"]))
+    for row in rows:
+        check(abs(float(row[4]) - accepts["rmhmc"]) <= 0.1, f"scaling_table: acceptance {row[4]}")
+    check(hashlib.sha256(RESULTS_MD.read_bytes()).hexdigest() == digest, "a results tool changed RESULTS.md")
+    say("tools", accept_rates=accepts, main_path_accept=main_accept, stochvol_accept_ref=sv_ref,
+        accept_tol=ACCEPT_TOL, launches=launches_by_path, results_md_unchanged=True)
+    say("tools-times", card=smi, seconds=seconds)
+    return launches_by_path
+
+
+PHASES = ("kernels", "transition", "main-path", "blr-samplers", "stochvol", "lgc", "lgc-joint", "fhn", "distributed",
+          "tools")
 
 
 def main(argv=None) -> None:
@@ -1651,6 +1970,9 @@ def main(argv=None) -> None:
         if "distributed" in phases:
             by_path.update(phase_distributed(smi))
             lap("distributed")
+        if "tools" in phases:
+            by_path.update(phase_tools(smi))
+            lap("tools")
     say("phase-seconds", **seconds)
     if set(phases) != set(PHASES):
         print((_build.build().parent / "ptxas.log").read_text(), flush=True)

@@ -5,7 +5,7 @@ A NumPy-only copy of the host estimator of
 jax): ``nextpow2``, ``autocorrelation``, ``ess_geyer`` and ``ess_multichain``,
 unchanged, so both packages report the same ESS for the same samples; plus
 ``ess_geyer_device``, the same estimator in float32 on ``torch.fft`` for
-samples that stay on the device.  The
+samples on the device, or on the host and streamed to it a slab at a time.  The
 north-star metric (min-ESS/s) is *defined* by this estimator, a
 re-derivation of the reference's (``code/tools.py:21-74`` / MATLAB
 ``Results/CalculateESS.m``):
@@ -77,21 +77,42 @@ def ess_geyer(
     return n / mono
 
 
-def ess_geyer_device(samples: Tensor, max_lag: int | None = None, max_bytes: int = 1 << 29) -> Tensor:
-    """Geyer ESS on the samples' device (exact, alias-free ACF), in float32.
+def host_array(samples, device) -> np.ndarray | None:
+    """``samples`` as a float32 host array when they are to be streamed to
+    ``device`` a slab at a time: an ``np.ndarray``, or a CPU tensor with
+    another ``device``; else None (a tensor computed where it lies)."""
+    if isinstance(samples, np.ndarray):
+        return samples.astype(np.float32, copy=False)
+    if device is not None and samples.device != torch.device(device):
+        return samples.detach().cpu().numpy().astype(np.float32, copy=False)
+    return None
 
-    samples: (N, P) or (C, N, P) tensor -> (P,), summed over chains.  Equal
-    to ``ess_multichain(..., nfft_mode="exact")`` up to float32 precision.
+
+def ess_geyer_device(samples, max_lag: int | None = None, max_bytes: int = 1 << 29, device=None) -> Tensor:
+    """Geyer ESS on a device (exact, alias-free ACF), in float32.
+
+    samples: (N, P) or (C, N, P) -> (P,), summed over chains.  Equal to
+    ``ess_multichain(..., nfft_mode="exact")`` up to float32 precision.
     The parameter axis is processed in chunks so the complex FFT scratch
     (C x 2 nextpow2(N) x chunk complex64) stays under ``max_bytes``.
+
+    A tensor is computed on its own device.  Samples on the host -- an
+    ``np.ndarray``, or a CPU tensor with another ``device`` (kept samples
+    streamed off the card because the whole trajectory does not fit, as
+    StochVol's 64 x 20000 x 2003 does not twice) -- are demeaned and sliced
+    on the host, and one (C, N, chunk) slab at a time goes to ``device``
+    (default: the CPU); the result lies on ``device``.
     """
-    x = samples if samples.ndim == 3 else samples[None]
+    host = host_array(samples, device)
+    x = samples if host is None else host
+    multichain = x.ndim == 3
+    if not multichain:
+        x = x[None]
     c, n, p = x.shape
     if max_lag is None:
         max_lag = n - 1
     nfft = 2 * nextpow2(n)
     half = (max_lag + 1) // 2
-    xc = x - x.mean(dim=1, keepdim=True)
 
     def chunk_ess(xc_chunk: Tensor) -> Tensor:
         f = torch.fft.fft(xc_chunk, n=nfft, dim=1)
@@ -103,8 +124,16 @@ def ess_geyer_device(samples: Tensor, max_lag: int | None = None, max_bytes: int
         return n / torch.clamp(mono, min=1.0)  # (C, chunk)
 
     chunk = max(int(max_bytes // (8 * c * nfft)), 1)
-    ess = torch.cat([chunk_ess(xc[:, :, lo : lo + chunk]) for lo in range(0, p, chunk)], dim=1)
-    return ess.sum(dim=0) if samples.ndim == 3 else ess[0]
+    if host is None:
+        xc = x - x.mean(dim=1, keepdim=True)
+        slabs = (xc[:, :, lo : lo + chunk] for lo in range(0, p, chunk))
+    else:
+        target = torch.device("cpu" if device is None else device)
+        xc = x - x.mean(axis=1, keepdims=True)
+        slabs = (torch.from_numpy(np.ascontiguousarray(xc[:, :, lo : lo + chunk])).to(target)
+                 for lo in range(0, p, chunk))
+    ess = torch.cat([chunk_ess(slab) for slab in slabs], dim=1)
+    return ess.sum(dim=0) if multichain else ess[0]
 
 
 def ess_multichain(

@@ -3,8 +3,9 @@
 A NumPy-only copy of ``split_rhat`` from
 ``riemannhamiltonianmontecarlo_tpu/diagnostics/rhat.py`` (whose module
 imports jax), unchanged; and ``split_rhat_device``, the same formula in
-torch on the samples' device, over the chains of every rank of a process
-group when one is given (as the JAX package gets it under GSPMD).
+torch on the samples' device (or on host samples streamed to a device a
+slab at a time), over the chains of every rank of a process group when one
+is given (as the JAX package gets it under GSPMD).
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ import numpy as np
 import torch
 from torch import Tensor
 
+from riemannhamiltonianmontecarlo_tpu_torch.diagnostics.ess import host_array
 from riemannhamiltonianmontecarlo_tpu_torch.parallel import collectives
 
 
@@ -31,14 +33,26 @@ def split_rhat(samples: np.ndarray) -> np.ndarray:
     return np.sqrt(var_plus / w)
 
 
-def split_rhat_device(samples: Tensor, group=None) -> Tensor:
-    """Split R-hat on the samples' device.  samples: (C, N, P) -> (P,).
+def split_rhat_device(samples, group=None, *, device=None, max_bytes: int = 1 << 29) -> Tensor:
+    """Split R-hat on a device.  samples: (C, N, P) -> (P,).
 
     With a ``group`` the samples are this rank's chains and the result is
     the R-hat of the chains of every rank of the group, the same on each:
     the half-chain means and variances are pooled by two all-reduces (the
     mean of the means first, then the spread around it).
+
+    A tensor is computed on its own device.  Samples on the host (an
+    ``np.ndarray``, or a CPU tensor with another ``device``) go to
+    ``device`` (default: the CPU) in (C, N, chunk) slabs of at most
+    ``max_bytes``, as ``ess_geyer_device`` streams them.
     """
+    host = host_array(samples, device)
+    if host is not None:
+        c, n, p = host.shape
+        chunk = max(int(max_bytes // (host.itemsize * c * n)), 1)
+        target = torch.device("cpu" if device is None else device)
+        return torch.cat([split_rhat_device(torch.from_numpy(np.ascontiguousarray(host[:, :, lo : lo + chunk]))
+                                            .to(target), group) for lo in range(0, p, chunk)])
     half = samples.shape[1] // 2
     halves = torch.cat([samples[:, :half], samples[:, half : 2 * half]], dim=0)
     s = halves.shape[1]

@@ -359,29 +359,60 @@ WORKLOAD_SAMPLERS = {
 }
 
 
+def _stream_to_host(kernel, gen, state, *, steps: int, segment: int, collect_fn, out, offset: int):
+    """``steps`` steps in runs of ``segment``, each run's samples copied into
+    columns offset.. of the host tensors ``out``: the samples of one run of
+    ``steps``, as the runs draw from one generator in turn.  Returns
+    (state, mean acceptance, divergences)."""
+    accept, div = 0.0, 0
+    for lo in range(0, steps, segment):
+        n = min(segment, steps - lo)
+        r = parallel.run(kernel, gen, None, num_samples=n, init_state=state, collect_fn=collect_fn)
+        tree_map(lambda buf, x: buf[:, offset + lo : offset + lo + n].copy_(x), out, r.samples)
+        state, accept, div = r.final_state, accept + float(r.accept_rate) * n, div + int(r.divergences)
+    return state, accept / steps, div
+
+
 def timed_sampling(kernel, init, *, device: torch.device, burn_in: int, num_samples: int, seed: int = 0,
-                   collect_fn=None, warmup_kernel=None):
+                   collect_fn=None, warmup_kernel=None, init_state=None, host_segment: int | None = None):
     """Burn-in, then the two-half steady-state timing protocol (module docstring).
 
-    ``warmup_kernel`` (or None) steps the burn-in.  Returns (samples,
-    accept_rate, divergences, sampling_time_s); samples concatenates both
-    halves along the sample axis (a tree, as ``collect_fn`` returns).
+    ``warmup_kernel`` (or None) steps the burn-in; ``init_state`` (with
+    ``init`` None) starts it from a state instead of a position.  Returns
+    (samples, accept_rate, divergences, sampling_time_s); samples holds both
+    halves along the sample axis (a tree, as ``collect_fn`` returns), on
+    the device.  With ``host_segment`` the samples go to host tensors
+    instead (pinned on a card), copied there every ``host_segment`` steps:
+    the same samples, for runs whose kept samples do not fit on the device
+    twice (the halves and their concatenation); the timed half then
+    includes its copies.
     """
     gen = torch.Generator(device=device).manual_seed(seed)
     warm = parallel.run(kernel, gen, init, num_samples=0, burn_in=max(burn_in, 1), collect=False,
-                        warmup_kernel=warmup_kernel)
+                        warmup_kernel=warmup_kernel, init_state=init_state)
     _synchronize(device)
     half = max(num_samples // 2, 1)
-    res_a = parallel.run(kernel, gen, None, num_samples=half, init_state=warm.final_state, collect_fn=collect_fn)
+    if host_segment is None:
+        res_a = parallel.run(kernel, gen, None, num_samples=half, init_state=warm.final_state, collect_fn=collect_fn)
+        _synchronize(device)
+        t0 = time.perf_counter()
+        res_b = parallel.run(kernel, gen, None, num_samples=half, init_state=res_a.final_state, collect_fn=collect_fn)
+        _synchronize(device)
+        t = 2.0 * (time.perf_counter() - t0)
+        samples = tree_map(lambda a, b: torch.cat([a, b], dim=1), res_a.samples, res_b.samples)
+        accept = 0.5 * (float(res_a.accept_rate) + float(res_b.accept_rate))
+        return samples, accept, int(res_a.divergences) + int(res_b.divergences), t
+
+    pin = device.type == "cuda"
+    out = tree_map(lambda x: torch.empty((x.shape[0], 2 * half, *x.shape[1:]), dtype=x.dtype, pin_memory=pin),
+                   (collect_fn or (lambda st: st.position))(warm.final_state))
+    kw = dict(steps=half, segment=host_segment, collect_fn=collect_fn, out=out)
+    state, acc_a, div_a = _stream_to_host(kernel, gen, warm.final_state, offset=0, **kw)
     _synchronize(device)
     t0 = time.perf_counter()
-    res_b = parallel.run(kernel, gen, None, num_samples=half, init_state=res_a.final_state, collect_fn=collect_fn)
+    _, acc_b, div_b = _stream_to_host(kernel, gen, state, offset=half, **kw)
     _synchronize(device)
-    t = 2.0 * (time.perf_counter() - t0)
-    samples = tree_map(lambda a, b: torch.cat([a, b], dim=1), res_a.samples, res_b.samples)
-    accept = 0.5 * (float(res_a.accept_rate) + float(res_b.accept_rate))
-    div = int(res_a.divergences) + int(res_b.divergences)
-    return samples, accept, div, t
+    return out, 0.5 * (acc_a + acc_b), div_a + div_b, 2.0 * (time.perf_counter() - t0)
 
 
 def build_workload(workload: str, sampler: str, *, device: str | torch.device = "cuda",

@@ -21,14 +21,29 @@ the elements whose result it decides (not yet accepted, on its side of
 result for those.  Each round draws from the ``generator``
 passed in: predrawing 64 rounds at (C, N) would not fit in memory at the
 chain counts the sampler runs.
+
+Under a chain split (``parallel.chain_sliced``) the draws are ``GigDraws``
+with this rank's ``ChainRows``: every round draws the candidates and
+uniforms of all chains and keeps this rank's rows, and the rounds stop when
+every chain of every rank is decided -- the local "all decided" flag is
+all-reduced (MIN) over the chain group -- so each rank's generator advances
+as one process's does.  The squeeze series draw nothing and freeze each
+element once decided, so they stop on the local elements alone.  Without a
+split nothing changes: no collective and no extra draw.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
+from typing import TYPE_CHECKING
 
 import torch
+import torch.distributed as dist
 from torch import Tensor
+
+if TYPE_CHECKING:
+    from riemannhamiltonianmontecarlo_tpu_torch.samplers.base import ChainRows
 
 _TWO_STEPS_PER_BODY = 2  # each body consumes one subtract + one add term
 ROUNDS_PER_CHECK = 4
@@ -103,34 +118,69 @@ def _leftmost_accept(u: Tensor, lam: Tensor, active: Tensor, max_bodies: int) ->
     return _run_squeeze(body, u, active, max_bodies)
 
 
+@dataclasses.dataclass(frozen=True)
+class GigDraws:
+    """What the rejection rounds draw from: ``generator`` and, under a chain
+    split, this rank's ``rows`` of the chain axis (the leading axis of r2)."""
+
+    generator: torch.Generator
+    rows: ChainRows | None = None
+
+    def split_chains(self, rows: ChainRows) -> "GigDraws":
+        return dataclasses.replace(self, rows=rows)
+
+
+def _all_decided(ok: Tensor, rows: ChainRows | None) -> bool:
+    """Every element decided: on this process's rows, or on every rank's."""
+    if rows is None:
+        return bool(ok.all())
+    from riemannhamiltonianmontecarlo_tpu_torch.parallel import collectives
+
+    flag = ok.all().to(torch.int32).reshape(1)
+    return bool(collectives.all_reduce(flag, rows.group, op=dist.ReduceOp.MIN)[0])
+
+
 def sample_gig_half(
-    generator: torch.Generator,
+    draws: torch.Generator | GigDraws,
     r2: Tensor,
     *,
     max_rejection_rounds: int = 64,
     max_series_bodies: int = 32,
 ) -> Tensor:
-    """lambda ~ GIG(1/2, 1, r^2), elementwise over ``r2``."""
+    """lambda ~ GIG(1/2, 1, r^2), elementwise over ``r2``.
+
+    ``draws``: a generator, or ``GigDraws`` (a generator and, under a chain
+    split, this rank's rows of ``r2``'s leading axis).
+    """
+    if not isinstance(draws, GigDraws):
+        draws = GigDraws(draws)
+    rows = draws.rows
     r = torch.sqrt(torch.clamp(r2, min=1e-16))
-    kw = dict(generator=generator, dtype=r.dtype, device=r.device)
+    kw = dict(generator=draws.generator, dtype=r.dtype, device=r.device)
+    shape = r.shape if rows is None else (rows.total, *r.shape[1:])
+
+    def draw(fn) -> Tensor:
+        x = fn(shape, **kw)
+        return x if rows is None else x[rows.lo : rows.hi]
+
     lam = torch.ones_like(r)
     ok = torch.zeros(r.shape, dtype=torch.bool, device=r.device)
     tries = 0
     while tries < max_rejection_rounds:
         for _ in range(min(ROUNDS_PER_CHECK, max_rejection_rounds - tries)):
-            y0 = torch.randn(r.shape, **kw) ** 2
+            y0 = draw(torch.randn) ** 2
             # The reference's y = 1 + (y0 - sqrt(y0 (4r + y0))) / (2r) cancels
             # catastrophically for small r in float32; the rationalized form
             # y = 4 r y0 / (y0 + sqrt(y0 (y0 + 4r)))^2 does not.
             root = y0 + torch.sqrt(y0 * (y0 + 4.0 * r))
             y = 4.0 * r * y0 / torch.clamp(root * root, min=1e-30)
-            u_side = torch.rand(r.shape, **kw)
+            u_side = draw(torch.rand)
             lam_cand = torch.where(u_side <= 1.0 / (1.0 + y), r / y, r * y)
             # Guards: y -> 0 numerically; y0 = 0 exactly (torch.randn can
             # return 0, jax.random.normal cannot) gives lambda = r / 0 = inf,
             # which must not be accepted: a measure-zero candidate, redrawn.
             lam_cand = torch.clamp(lam_cand, min=1e-12)
-            u = torch.rand(r.shape, **kw)
+            u = draw(torch.rand)
             right = lam_cand > 4.0 / 3.0
             # Each series runs for the pending elements on its own side only.
             dec_r, acc_r = _rightmost_accept(u, lam_cand, ~ok & right, max_series_bodies)
@@ -139,6 +189,6 @@ def sample_gig_half(
             lam = torch.where(~ok & accept, lam_cand, lam)
             ok = ok | accept
             tries += 1
-        if bool(ok.all()):
+        if _all_decided(ok, rows):
             break
     return lam

@@ -20,7 +20,9 @@ Two things JAX gives for free are explicit here:
   the same seed give the same chains however the chain axis is split;
   Philox does not (a rank drawing (C/k, D) does not get rows of a (C, D)
   draw).  ``chain_sliced`` wraps a kernel so that every rank draws the
-  noise of all chains from the shared generator and keeps its own rows.
+  noise of all chains from the shared generator and keeps its own rows;
+  where a transition draws a data-dependent number of times (Gibbs's GIG
+  rounds) the ranks agree on that number by an all-reduce.
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ import torch
 import torch.distributed as dist
 from torch import Tensor
 
-from riemannhamiltonianmontecarlo_tpu_torch.samplers.base import Kernel, tree_map
+from riemannhamiltonianmontecarlo_tpu_torch.samplers.base import ChainRows, Kernel, tree_map
 
 CHAIN_AXIS = "chains"
 
@@ -141,47 +143,98 @@ def _sampler_name(kernel: Kernel) -> str:
     return fn.__module__.rsplit(".", 1)[-1]
 
 
-def _check_leading_chain_axis(draw_noise, name: str, tail: tuple[int, ...], dtype: torch.dtype) -> None:
-    """Every noise leaf grows with the chain count along its axis 0 (probed
-    at 2 and 3 chains on the CPU), or the noise cannot be split by rows."""
-    probe = [draw_noise(torch.Generator().manual_seed(0), torch.empty((), dtype=dtype).expand(c, *tail)) for c in (2, 3)]
-    try:
-        shapes = []
-        tree_map(lambda a, b: shapes.append((tuple(a.shape), tuple(b.shape))), *probe)
-    except TypeError as e:  # a leaf that is not a tensor (a generator the transition draws from)
-        raise ValueError(f"{name}: its noise holds a leaf that is not a tensor ({e}): it cannot be split over chains") from e
-    for a, b in shapes:
-        if not (a and b and a[0] == 2 and b[0] == 3 and a[1:] == b[1:]):
-            raise ValueError(f"{name}: a noise leaf of shape {a} at 2 chains and {b} at 3 does not lead with the "
-                             f"chain axis: it cannot be split over chains")
+def _map_leaves(fn, tree, *rest):
+    """``tree_map`` that also hands ``fn`` the leaves that are not tensors
+    (an object a transition draws from, ``ops.gig.GigDraws``)."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _map_leaves(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        out = [_map_leaves(fn, *leaves) for leaves in zip(tree, *rest, strict=True)]
+        return type(tree)(*out) if hasattr(tree, "_fields") else type(tree)(out)
+    return fn(tree, *rest)
+
+
+def _global_view(tree, chains: int, total: int, name: str, device=None):
+    """Zero-stride views of ``tree``'s leaves with ``total`` rows in place of
+    the ``chains`` of their leading axis (0-dim leaves as they are), on
+    ``device`` (default: each leaf's own)."""
+
+    def view(x: Tensor) -> Tensor:
+        if x.ndim == 0:
+            return x if device is None else torch.empty((), dtype=x.dtype, device=device)
+        if x.shape[0] != chains:
+            raise ValueError(f"{name}: a state leaf of shape {tuple(x.shape)} does not lead with the {chains} chains")
+        return torch.empty((), dtype=x.dtype, device=device or x.device).expand(total, *x.shape[1:])
+
+    return tree_map(view, tree)
+
+
+def _noise_chain_axes(kernel: Kernel, name: str, arg):
+    """The chain axis of every noise leaf: the one axis whose length follows
+    the chain count, probed by drawing at 2 and 3 chains on the CPU (None
+    for a leaf that splits itself, ``split_chains``).  A leaf that is
+    neither, or has no such axis, cannot be split over chains: it raises."""
+    c = arg.shape[0] if isinstance(arg, Tensor) else arg.position.shape[0]
+    probe = [kernel.draw_noise(torch.Generator().manual_seed(0), _global_view(arg, c, n, name, "cpu")) for n in (2, 3)]
+
+    def axis(a, b):
+        if not isinstance(a, Tensor):
+            if hasattr(a, "split_chains"):
+                return None
+            raise ValueError(f"{name}: its noise holds a leaf that is not a tensor ({type(a).__name__}): "
+                             "it cannot be split over chains")
+        moved = [ax for ax, (m, n) in enumerate(zip(a.shape, b.shape)) if m != n]
+        if a.ndim != b.ndim or len(moved) != 1 or (a.shape[moved[0]], b.shape[moved[0]]) != (2, 3):
+            raise ValueError(f"{name}: a noise leaf of shape {tuple(a.shape)} at 2 chains and {tuple(b.shape)} at 3 "
+                             "has no chain axis: it cannot be split over chains")
+        return moved[0]
+
+    return _map_leaves(axis, *probe)
 
 
 def chain_sliced(kernel: Kernel, mesh: Mesh) -> Kernel:
     """``kernel`` with a step that advances this rank's rows of the chains.
 
     Each step draws the noise of all chains, ``draw_noise`` on a zero-stride
-    (C_global, ...) view of the local position (the noise reads only its
-    shape, dtype and device), keeps rows lo:hi of every leaf and calls the
-    pure ``transition``.  Every rank draws from the same generator, so the
-    same seed gives the same chains however the chain axis is split.  A
-    kernel without ``transition`` and ``draw_noise``, or whose noise holds a
-    leaf that does not lead with the chain axis, raises, naming the sampler.
-    The returned kernel has no ``draw_noise``: it is not split again.
+    view of the local position (or state, ``Kernel.noise_from_state``) with
+    C_global rows (the noise reads only shapes, dtypes and the device),
+    keeps rows lo:hi of every leaf along its chain axis (probed once per
+    state shape: AMH's and the Gibbs sweep's noise are coordinate-major) and
+    calls the pure ``transition``.  A leaf that draws inside the transition
+    (Gibbs's GIG rounds) is given this rank's ``ChainRows``.  Every rank
+    draws from the same generator, so the same seed gives the same chains
+    however the chain axis is split.  A kernel without ``transition`` and
+    ``draw_noise``, or whose noise holds a leaf with no chain axis, raises,
+    naming the sampler.  The returned kernel has no ``draw_noise``: it is
+    not split again.
     """
     name = _sampler_name(kernel)
     if kernel.transition is None or kernel.draw_noise is None:
-        raise ValueError(f"{name}: the kernel has no pure transition and draw_noise(generator, position): "
-                         "it cannot be split over chains")
+        raise ValueError(f"{name}: the kernel has no pure transition and draw_noise: it cannot be split over chains")
     k, i = mesh.size(CHAIN_AXIS), mesh.index(CHAIN_AXIS)
-    checked: set[tuple] = set()
+    group = mesh.group(CHAIN_AXIS)
+    axes_by_shape: dict[tuple, Any] = {}
 
     def step(generator: torch.Generator, state):
-        local = state.position
-        c, tail = local.shape[0], tuple(local.shape[1:])
-        if tail not in checked:
-            _check_leading_chain_axis(kernel.draw_noise, name, tail, local.dtype)
-            checked.add(tail)
-        noise = kernel.draw_noise(generator, local.new_empty(()).expand(c * k, *tail))
-        return kernel.transition(state, tree_map(lambda leaf: leaf[i * c : (i + 1) * c], noise))
+        arg = state if kernel.noise_from_state else state.position
+        c = state.position.shape[0]
+        shapes = tuple(tuple(x.shape) for x in _leaves(arg))
+        if shapes not in axes_by_shape:
+            axes_by_shape[shapes] = _noise_chain_axes(kernel, name, arg)
+        rows = ChainRows(i * c, (i + 1) * c, c * k, group)
+        noise = kernel.draw_noise(generator, _global_view(arg, c, c * k, name))
+
+        def take(leaf, axis):
+            return leaf.split_chains(rows) if axis is None else leaf.narrow(axis, rows.lo, c)
+
+        return kernel.transition(state, _map_leaves(take, noise, axes_by_shape[shapes]))
 
     return Kernel(kernel.init, step, kernel.transition)
+
+
+def _leaves(tree) -> list[Tensor]:
+    out: list[Tensor] = []
+    tree_map(out.append, tree)
+    return out

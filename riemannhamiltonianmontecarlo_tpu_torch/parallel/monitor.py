@@ -64,7 +64,12 @@ def monitor(kernel: Kernel, every: int = 50, label: str = "mcmc") -> Kernel:
     def step(generator: torch.Generator, state: MonitorState) -> tuple[MonitorState, Info]:
         return finish(state, *kernel.step(generator, state.inner))
 
-    return Kernel(init, step, transition if kernel.transition else None, kernel.draw_noise)
+    draw_noise = kernel.draw_noise
+    if kernel.noise_from_state and draw_noise is not None:
+        def draw_noise(generator: torch.Generator, state: MonitorState):
+            return kernel.draw_noise(generator, state.inner)
+
+    return Kernel(init, step, transition if kernel.transition else None, draw_noise, kernel.noise_from_state)
 
 
 @contextlib.contextmanager

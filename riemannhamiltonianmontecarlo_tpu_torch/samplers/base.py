@@ -9,11 +9,16 @@ a set of plain functions on *batched* chain states (leading chain axis C):
 * ``transition(state, noise) -> (State, Info)``, the pure part: the same
   state and noise always give the same result, so a test can feed it the
   JAX package's draws;
-* ``draw_noise(generator, position) -> Noise``, where the noise is a
-  function of the position's shape, dtype and device alone: the parallel
-  layer draws the noise of every chain and keeps its own rows
-  (``parallel.mesh.chain_sliced``).  Samplers whose noise depends on more
-  of the state (Gibbs, the two-block samplers) leave it None.
+* ``draw_noise(generator, position) -> Noise``, or
+  ``draw_noise(generator, state)`` where ``Kernel.noise_from_state`` is
+  set (Gibbs and the two-block samplers, whose noise has the shapes of more
+  than the position).  The noise is a function of the shapes, dtypes and
+  device of its argument alone, never of its values: the parallel layer
+  passes a zero-stride view of every chain's position or state, draws the
+  noise of every chain and keeps its own rows, along each leaf's chain axis
+  (``parallel.mesh.chain_sliced``).  A noise leaf that is not a tensor
+  (Gibbs's GIG draws, ``ops.gig.GigDraws``) has a ``split_chains(rows)``
+  method that takes this rank's ``ChainRows``.
 
 Divergence policy as in the JAX package: a non-finite proposal rejects that
 chain's move and sets ``Info.divergent`` without disturbing the rest.
@@ -45,7 +50,18 @@ class Kernel(NamedTuple):
     init: Callable[[Tensor], Any]
     step: Callable[[torch.Generator, Any], tuple[Any, Info]]
     transition: Callable[[Any, Any], tuple[Any, Info]] | None = None
-    draw_noise: Callable[[torch.Generator, Tensor], Any] | None = None
+    draw_noise: Callable[[torch.Generator, Any], Any] | None = None
+    noise_from_state: bool = False  # draw_noise takes the state, not the position
+
+
+class ChainRows(NamedTuple):
+    """A rank's rows lo:hi of a chain axis of ``total`` chains split over the
+    ranks of ``group`` (None: emulated in one process, no collective)."""
+
+    lo: int
+    hi: int
+    total: int
+    group: Any = None
 
 
 def metropolis_accept(u: Tensor, ratio: Tensor, divergent: Tensor | None = None) -> tuple[Tensor, Tensor]:

@@ -19,8 +19,10 @@ to 1, as the JAX package does.
 
 The randomness: ``transition(state, noise)`` takes every uniform of the
 sweep, predrawn as (N, C) tensors in one call, and beta's normal draw; the
-GIG rounds draw from ``noise.gig``, a generator, because the number of
-rounds is data-dependent and 64 predrawn rounds at (C, N) would not fit.
+GIG rounds draw from ``noise.gig`` (``ops.gig.GigDraws``: a generator, and
+under a chain split this rank's rows), because the number of rounds is
+data-dependent and 64 predrawn rounds at (C, N) would not fit.
+``draw_noise`` reads the state's shapes (``Kernel.noise_from_state``).
 On a CUDA batch K1 runs twice per step: once inside ``ops.inv_psd`` and
 once for chol(V).
 """
@@ -35,6 +37,7 @@ import torch
 from torch import Tensor
 
 from riemannhamiltonianmontecarlo_tpu_torch import ops
+from riemannhamiltonianmontecarlo_tpu_torch.ops import gig as gig_mod
 from riemannhamiltonianmontecarlo_tpu_torch.ops import truncnorm
 from riemannhamiltonianmontecarlo_tpu_torch.samplers.base import Info, Kernel
 
@@ -54,7 +57,7 @@ class GibbsState(NamedTuple):
 class GibbsNoise(NamedTuple):
     sweep: truncnorm.TruncNormNoise  # (N, C) raw uniforms of the z_j draws, j-major
     beta: Tensor  # (C, D) N(0, 1): beta = B + chol(V) @ beta
-    gig: torch.Generator  # the GIG rejection rounds draw from it
+    gig: torch.Generator | gig_mod.GigDraws  # the GIG rejection rounds draw from it
 
 
 class Conditionals(NamedTuple):
@@ -72,7 +75,7 @@ def draw_noise(generator: torch.Generator, state: GibbsState) -> GibbsNoise:
     z = state.z
     sweep = truncnorm.draw_noise(generator, (n, c), dtype=z.dtype, device=z.device)
     beta = torch.randn(state.position.shape, generator=generator, dtype=z.dtype, device=z.device)
-    return GibbsNoise(sweep, beta, generator)
+    return GibbsNoise(sweep, beta, gig_mod.GigDraws(generator))
 
 
 def conditionals(model, state: GibbsState, prior_variance: float = GibbsConfig.prior_variance) -> Conditionals:
@@ -155,4 +158,4 @@ def build(model, config: GibbsConfig = GibbsConfig()) -> Kernel:
     def step(generator: torch.Generator, state: GibbsState) -> tuple[GibbsState, Info]:
         return transition(state, draw_noise(generator, state))
 
-    return Kernel(init, step, transition)
+    return Kernel(init, step, transition, draw_noise, noise_from_state=True)

@@ -24,7 +24,9 @@ position fixed-point round, three times a sweep; mMALA takes K1 twice
 (``init`` and the proposal) and no K2.
 
 The step is split as elsewhere in the port: ``transition(state, noise)`` is
-pure and takes a ``LGCJointNoise``; ``step(generator, state)`` draws it.
+pure and takes a ``LGCJointNoise``; ``step(generator, state)`` draws it with
+``draw_noise``, which reads only the state's shapes, so the chain split
+(``parallel.chain_sliced``) can draw the noise of every chain.
 The latent leapfrog runs the full L steps under a per-chain mask; a
 factorization that fails (a proposed beta whose K is not PD in float32)
 gives non-finite numbers and a masked reject, never an exception.
@@ -217,7 +219,10 @@ def build(model, config: LGCJointConfig = LGCJointConfig()) -> Kernel:
         )
         return LGCJointState(torch.exp(theta), theta, lat.x), info
 
-    def step(generator: torch.Generator, state: LGCJointState) -> tuple[LGCJointState, Info]:
-        return transition(state, draw_noise(generator, state, config.method))
+    def noise(generator: torch.Generator, state: LGCJointState) -> LGCJointNoise:
+        return draw_noise(generator, state, config.method)
 
-    return Kernel(init, step, transition)
+    def step(generator: torch.Generator, state: LGCJointState) -> tuple[LGCJointState, Info]:
+        return transition(state, noise(generator, state))
+
+    return Kernel(init, step, transition, noise, noise_from_state=True)

@@ -21,7 +21,9 @@ in ``init`` and one per proposal (2 per sweep, since the hyper kernel is
 rebuilt and re-initialized every sweep).
 
 The step is split as elsewhere in the port: ``transition(state, noise)`` is
-pure and takes a ``StochVolNoise``; ``step(generator, state)`` draws it.
+pure and takes a ``StochVolNoise``; ``step(generator, state)`` draws it with
+``draw_noise``, which reads only the state's shapes, so the chain split
+(``parallel.chain_sliced``) can draw the noise of every chain.
 Initialization per the reference: x = y, (beta, sigma, phi) = 0.5
 (``StochVol_RMHMC.m:86-89``).
 """
@@ -241,7 +243,10 @@ def build(model, config: StochVolConfig = StochVolConfig()) -> Kernel:
         )
         return StochVolState(position, theta, lat.x), info
 
-    def step(generator: torch.Generator, state: StochVolState) -> tuple[StochVolState, Info]:
-        return transition(state, draw_noise(generator, state, config.method))
+    def noise(generator: torch.Generator, state: StochVolState) -> StochVolNoise:
+        return draw_noise(generator, state, config.method)
 
-    return Kernel(init, step, transition)
+    def step(generator: torch.Generator, state: StochVolState) -> tuple[StochVolState, Info]:
+        return transition(state, noise(generator, state))
+
+    return Kernel(init, step, transition, noise, noise_from_state=True)

@@ -43,7 +43,6 @@ Differences from the JAX package's tool:
 from __future__ import annotations
 
 import argparse
-import subprocess
 import time
 from pathlib import Path
 
@@ -56,6 +55,7 @@ from riemannhamiltonianmontecarlo_tpu_torch.experiments import resolve_device
 from riemannhamiltonianmontecarlo_tpu_torch.models import lgc
 from riemannhamiltonianmontecarlo_tpu_torch.models.datasets import find_data_file
 from riemannhamiltonianmontecarlo_tpu_torch.samplers import lgc_joint
+from riemannhamiltonianmontecarlo_tpu_torch.tools.common import device_line, fmt, synchronize
 from riemannhamiltonianmontecarlo_tpu_torch.utils import checkpoint as ckpt
 
 PAPER_SECONDS_PER_SAMPLE = 324000.0 / 5000.0  # ~90 h / 5000 samples, the article's CPU
@@ -68,11 +68,6 @@ HEADER = ("| sampler | chains | samples | accept | divergent | block | total ESS
 
 def _collect_theta_x(st):
     return (st.position, st.x)
-
-
-def _synchronize(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 def run_segmented(kernel, init, *, burn_in, num_samples, seg, seed, ckpt_dir, tag, _stop_after_segments=None):
@@ -113,13 +108,13 @@ def run_segmented(kernel, init, *, burn_in, num_samples, seg, seed, ckpt_dir, ta
         lo, hi = i * seg, min((i + 1) * seg, total)
         n = hi - lo
         collecting = hi > burn_in
-        _synchronize(device)
+        synchronize(device)
         t0 = time.perf_counter()
         r = parallel.run(kernel, parallel.segment_generator(seed, i, device), init if state is None else None,
                          num_samples=n, collect=collecting, init_state=state,
                          collect_fn=_collect_theta_x if collecting else None)
         state = r.final_state
-        _synchronize(device)
+        synchronize(device)
         dt = time.perf_counter() - t0
         if collecting:
             keep = max(burn_in - lo, 0)  # drop any burn-in inside the segment
@@ -144,10 +139,6 @@ def run_segmented(kernel, init, *, burn_in, num_samples, seg, seed, ckpt_dir, ta
     return theta, x, accept, int(stats["divergences"].sum()), t_sampling
 
 
-def fmt(v: float) -> str:
-    return f"{v:.3g}" if abs(v) < 1000 else f"{v:,.0f}"
-
-
 def ess_stats(samples_np: np.ndarray, device: torch.device) -> tuple[float, float, float]:
     with torch.inference_mode():
         ess = ess_geyer_device(torch.from_numpy(samples_np).to(device)).cpu().numpy()
@@ -167,16 +158,6 @@ def result_rows(method: str, theta: np.ndarray, x: np.ndarray, accept: float, n_
             f"({fmt(mn)}, {fmt(md)}, {fmt(mx)}) | {spm:.3g} | {t:.1f} | {s_per_sample:.3g} | "
             f"{PAPER_SECONDS_PER_SAMPLE:.1f} | {PAPER_SECONDS_PER_SAMPLE / s_per_sample:,.0f}x |")
     return rows
-
-
-def device_line(device: torch.device) -> str:
-    """What the numbers were taken on: the card's name and power limit, or the CPU."""
-    if device.type != "cuda":
-        return f"torch {torch.__version__} on the CPU ({torch.get_num_threads()} threads)"
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
-    index = device.index or 0
-    return f"{smi.splitlines()[index]} (torch {torch.__version__}, CUDA {torch.version.cuda})"
 
 
 def main(argv=None) -> None:
@@ -215,11 +196,11 @@ def main(argv=None) -> None:
         if args.calibrate:
             r = parallel.run(kernel, parallel.segment_generator(args.seed, 0, device), init, num_samples=4,
                              collect=False)
-            _synchronize(device)
+            synchronize(device)
             t0 = time.perf_counter()
             r = parallel.run(kernel, parallel.segment_generator(args.seed, 1, device), None, num_samples=4,
                              collect=False, init_state=r.final_state)
-            _synchronize(device)
+            synchronize(device)
             dt = (time.perf_counter() - t0) / 4
             theta_f = r.final_state.theta.cpu().numpy()
             print(f"[calibrate {method}] {dt:.3f} s/sweep ({args.chains} chains, {device_line(device)}), "

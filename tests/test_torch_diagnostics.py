@@ -59,3 +59,24 @@ def test_torch_plots_return_figures(tmp_path):
         assert fig.axes
         fig.savefig(tmp_path / f"fig{i}.png")
         assert (tmp_path / f"fig{i}.png").stat().st_size > 0
+
+
+def test_torch_ess_geyer_device_on_a_host_array_matches_jax_and_the_tensor_path():
+    """A (C, N, P) host array streamed in >= 3 slabs of P (``max_bytes``) gives
+    the JAX package's host-array ESS within 1e-4 rel and the port's tensor
+    path within 1e-5 rel; split R-hat's host route gives its tensor path."""
+    import torch
+
+    from riemannhamiltonianmontecarlo_tpu.diagnostics import ess_geyer_device as jax_ess_geyer_device
+    from riemannhamiltonianmontecarlo_tpu_torch.diagnostics import ess_geyer_device, split_rhat_device
+
+    rng = np.random.default_rng(3)
+    x = np.stack([ar1(rng, 500, 7, rho) for rho in (0.3, 0.6, 0.9, 0.95)]).astype(np.float32)  # (4, 500, 7)
+    c, n, p = x.shape
+    max_bytes = 8 * c * 2 * 512 * 2  # two coordinates a slab: four slabs for seven coordinates
+    host = ess_geyer_device(x, max_bytes=max_bytes, device="cpu")
+    assert isinstance(host, torch.Tensor) and host.shape == (p,)
+    np.testing.assert_allclose(host.numpy(), np.asarray(jax_ess_geyer_device(x, max_bytes=max_bytes)), rtol=1e-4)
+    np.testing.assert_allclose(host.numpy(), ess_geyer_device(torch.from_numpy(x)).numpy(), rtol=1e-5)
+    rhat_host = split_rhat_device(x, device="cpu", max_bytes=c * n * 4 * 2)
+    np.testing.assert_allclose(rhat_host.numpy(), split_rhat_device(torch.from_numpy(x)).numpy(), rtol=1e-6)

@@ -15,16 +15,20 @@ The parent holds them against the JAX package and the single-process port:
 * LGC latent axis, k = 2, n = 8 (D = 64): six phmc steps sharded against
   unsharded within 1e-3 (``tests/test_sharding.py:85-89``), one phmc and one
   pmala transition on replayed JAX draws (``test_torch_lgc.py``'s checks);
-* chain axis, k = 2: HMC and RMHMC, 20 steps, the ranks' samples together
-  against the single-process run within 1e-5 with the same accept
-  decisions, global acceptance and R-hat equal on both ranks, the ``.p0`` /
-  ``.p1`` checkpoint shards round-tripping, a stopped run resumed bit for
+* chain axis, k = 2: HMC, RMHMC, AMH (coordinate-major noise), Gibbs (GIG
+  rounds agreed over the ranks), StochVol RMHMC and joint LGC mMALA (noise
+  drawn from the state), 20 steps: each rank's samples bit for bit one
+  process running its half of the chains (Gibbs given the rank's GIG exit
+  flags), the ranks' samples together against the single-process run within
+  1e-5 with the same accept decisions, global acceptance and R-hat equal on
+  both ranks, the ``.p0`` / ``.p1`` checkpoint shards (of an RMHMC and a
+  two-block StochVol state) round-tripping, a stopped run resumed bit for
   bit, and ``run_experiment(mesh=)`` (plain and adaptive) against the
   single-process experiment;
 * ``dryrun_multichip(4)`` (the 2-axis LGC path) and ``entry(device="cpu")``.
 
 In one process: every sampler's chain-sliced step against rows of the whole
-step (the samplers the parallel layer refuses raise with their name), the
+step, a noise leaf without a chain axis refused with the sampler's name, the
 monitor's windows against the runner's acceptance, and the profiler trace.
 """
 
@@ -39,9 +43,10 @@ import torch.distributed as dist
 from riemannhamiltonianmontecarlo_tpu_torch import entry, experiments, interop, parallel
 from riemannhamiltonianmontecarlo_tpu_torch.diagnostics import split_rhat_device
 from riemannhamiltonianmontecarlo_tpu_torch.models import lgc, synthetic_logreg
+from riemannhamiltonianmontecarlo_tpu_torch.parallel import collectives
 from riemannhamiltonianmontecarlo_tpu_torch.parallel.launch import spawn
 from riemannhamiltonianmontecarlo_tpu_torch.parallel.mesh import Mesh
-from riemannhamiltonianmontecarlo_tpu_torch.samplers import hmc, phmc, pmala, rmhmc
+from riemannhamiltonianmontecarlo_tpu_torch.samplers import Kernel, gibbs, hmc, metropolis, phmc, pmala, rmhmc
 from riemannhamiltonianmontecarlo_tpu_torch.utils import checkpoint, default_init
 
 torch.set_num_threads(1)
@@ -145,14 +150,19 @@ def rank_chain_axis(out: str) -> None:
     mesh = parallel.make_mesh()
     group = mesh.group(parallel.CHAIN_AXIS)
     arrays = {}
-    for name, kernel in chain_kernels().items():
-        res = parallel.run(kernel, torch.Generator().manual_seed(2), chain_init(), num_samples=CHAIN_STEPS,
-                           burn_in=2, mesh=mesh)
+    for name, (kernel, init) in chain_runs().items():
+        res, flags = recording_min_flags(lambda: parallel.run(
+            kernel, torch.Generator().manual_seed(2), init, num_samples=CHAIN_STEPS, burn_in=2, mesh=mesh))
+        # One process running this rank's half of the chains (a mesh without
+        # process groups), given the GIG exit flags the rank's all-reduces gave.
+        half = replaying_min_flags(flags, lambda: parallel.run(
+            kernel, torch.Generator().manual_seed(2), init, num_samples=CHAIN_STEPS, burn_in=2,
+            mesh=fake_mesh(dist.get_rank())))
         with torch.inference_mode():
             rhat = split_rhat_device(res.samples, group)
         arrays.update({f"{name}_samples": res.samples, f"{name}_accept": res.accept_rate,
                        f"{name}_warm_accept": res.warmup_accept_rate, f"{name}_div": res.divergences,
-                       f"{name}_rhat": rhat})
+                       f"{name}_rhat": rhat, f"{name}_half": half.samples, f"{name}_flags": len(flags)})
     # Checkpoint shards: a run stopped after one segment and resumed, against one not stopped.
     kernel, ck = chain_kernels()["hmc"], Path(out) / "ckpt"
     kw = dict(num_samples=12, burn_in=2, checkpoint_every=4, mesh=mesh)
@@ -165,6 +175,15 @@ def rank_chain_axis(out: str) -> None:
     arrays.update(ckpt_samples=full.samples, ckpt_resumed=resumed.samples, ckpt_accept=full.accept_rate,
                   ckpt_resumed_accept=resumed.accept_rate, ckpt_step=step,
                   ckpt_restored_equal=all(torch.equal(a, b) for a, b in zip(restored, full.final_state)))
+    # A two-block state's shards: StochVol's (position, theta, x).
+    kernel, init = chain_runs()["stochvol"]
+    kw = dict(num_samples=4, burn_in=2, checkpoint_every=2, mesh=mesh)
+    sv_full = parallel.run_checkpointed(kernel, 5, init, checkpoint_path=ck / "sv.npz", **kw)
+    with torch.inference_mode():
+        template = kernel.init(parallel.shard_chains(mesh, init))
+    restored, step, _ = checkpoint.load_state(ck / "sv.npz", template)
+    pairs = zip(checkpoint.tree_leaves(restored), checkpoint.tree_leaves(sv_full.final_state))
+    arrays.update(sv_ckpt_step=step, sv_ckpt_restored_equal=all(torch.equal(a, b) for a, b in pairs))
     for adapt in (False, True):
         res = experiments.run_experiment("hmc", "australian", mesh=mesh, adapt=adapt, **EXPERIMENT)
         arrays.update({f"exp{int(adapt)}_{k}": getattr(res, k) for k in EXPERIMENT_FIELDS})
@@ -200,6 +219,55 @@ def chain_kernels() -> dict:
 
 def chain_init() -> torch.Tensor:
     return default_init(chain_model(), torch.Generator().manual_seed(1), CHAIN_C)
+
+
+def chain_runs() -> dict:
+    """name -> (kernel, global initial position) of the chain-axis runs."""
+    runs = {name: (kernel, chain_init()) for name, kernel in chain_kernels().items()}
+    model = chain_model()
+    runs["metropolis"] = (metropolis.build(model, metropolis.AMHConfig(init_proposal_sd=0.3)), chain_init())
+    runs["gibbs"] = (gibbs.build(model), chain_init())
+    for name, workload, sampler, size in (("stochvol", "stochvol", "rmhmc", dict(stochvol_obs=20)),
+                                          ("lgc_joint", "lgc", "mmala_joint", dict(lgc_n=4))):
+        kernel, init_fn, *_ = experiments.build_workload(workload, sampler, device="cpu", **size)
+        runs[name] = (kernel, init_fn(CHAIN_C))
+    return runs
+
+
+def recording_min_flags(fn):
+    """``fn()`` with the flags of the port's MIN all-reduces (the GIG rounds'
+    exit test) recorded: (result, flags)."""
+    flags, all_reduce = [], collectives.all_reduce
+
+    def logged(x, group, op=dist.ReduceOp.SUM):
+        out = all_reduce(x, group, op)
+        if op == dist.ReduceOp.MIN:
+            flags.append(out.clone())
+        return out
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(collectives, "all_reduce", logged)
+        return fn(), flags
+
+
+def replaying_min_flags(flags, fn):
+    """``fn()`` in one process with each MIN all-reduce answered by the next
+    recorded flag, which may say "not decided" only where this process's own
+    flag does too (a global MIN is at most the local one)."""
+    answers, all_reduce = iter(flags), collectives.all_reduce
+
+    def replay(x, group, op=dist.ReduceOp.SUM):
+        if op != dist.ReduceOp.MIN:
+            return all_reduce(x, group, op)
+        want = next(answers)
+        assert group is None and not (bool(want.min()) and not bool(x.min()))
+        return want.clone()
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(collectives, "all_reduce", replay)
+        out = fn()
+    assert next(answers, None) is None, "the one-process run asked fewer exit tests than the rank"
+    return out
 
 
 # -- BLR data axis -----------------------------------------------------------------
@@ -378,14 +446,17 @@ def moved(samples: np.ndarray) -> np.ndarray:
     return (samples[:, 1:] != samples[:, :-1]).any(axis=-1)
 
 
-@pytest.mark.parametrize("name", ["hmc", "rmhmc"])
+@pytest.mark.parametrize("name", ["hmc", "rmhmc", "metropolis", "gibbs", "stochvol", "lgc_joint"])
 def test_torch_chain_axis_matches_single_process(chain_ranks, name):
     r0, r1 = chain_ranks["ranks"]
-    whole = parallel.run(chain_kernels()[name], torch.Generator().manual_seed(2), chain_init(),
-                         num_samples=CHAIN_STEPS, burn_in=2)
+    kernel, init = chain_runs()[name]
+    whole = parallel.run(kernel, torch.Generator().manual_seed(2), init, num_samples=CHAIN_STEPS, burn_in=2)
     ref = whole.samples.numpy()
     got = np.concatenate([r0[f"{name}_samples"], r1[f"{name}_samples"]])
-    assert r0[f"{name}_samples"].shape == (CHAIN_C // 2, CHAIN_STEPS, 4)
+    assert r0[f"{name}_samples"].shape == (CHAIN_C // 2, CHAIN_STEPS, init.shape[1])
+    for rank in (r0, r1):  # bit for bit one process running the rank's half
+        np.testing.assert_array_equal(rank[f"{name}_samples"], rank[f"{name}_half"])
+    assert (int(r0[f"{name}_flags"]) > 0) == (name == "gibbs")  # only the GIG rounds agree over the ranks
     np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)
     np.testing.assert_array_equal(moved(got), moved(ref))
     for key in ("accept", "warm_accept", "div", "rhat"):
@@ -397,11 +468,12 @@ def test_torch_chain_axis_matches_single_process(chain_ranks, name):
 
 def test_torch_chain_axis_checkpoint_shards_round_trip(chain_ranks):
     out = chain_ranks["out"] / "ckpt"
-    for base in ("full.npz", "cut.npz"):
+    for base, last in (("full.npz", 2), ("cut.npz", 2), ("sv.npz", 1)):
         assert (out / f"{base}.p0").exists() and (out / f"{base}.p1").exists() and not (out / base).exists()
-        assert (out / f"{base}.seg0.p0").exists() and (out / f"{base}.seg2.p1").exists()
+        assert (out / f"{base}.seg0.p0").exists() and (out / f"{base}.seg{last}.p1").exists()
     for rank in chain_ranks["ranks"]:
         assert bool(rank["ckpt_restored_equal"]) and int(rank["ckpt_step"]) == 3
+        assert bool(rank["sv_ckpt_restored_equal"]) and int(rank["sv_ckpt_step"]) == 2
         assert rank["ckpt_samples"].shape == (CHAIN_C // 2, 12, 4)
         np.testing.assert_array_equal(rank["ckpt_resumed"], rank["ckpt_samples"])
     r0, r1 = chain_ranks["ranks"]
@@ -468,35 +540,31 @@ def sliced_kernels() -> dict:
     kernels["lgc/pmala"] = pmala.build(lgc_model, lgc_model.metric_chol, lgc_model.metric_inv)
     for sampler in experiments.WORKLOAD_SAMPLERS["fhn"]:
         kernels[f"fhn/{sampler}"] = experiments.build_workload("fhn", sampler, device="cpu", fhn_obs=10, fhn_substeps=2)[0]
-    kernels["stochvol/rmhmc"] = experiments.build_workload("stochvol", "rmhmc", device="cpu", stochvol_obs=20)[0]
+    for sampler in ("rmhmc", "mmala"):
+        kernels[f"stochvol/{sampler}"] = experiments.build_workload("stochvol", sampler, device="cpu",
+                                                                    stochvol_obs=20)[0]
+    for sampler in ("rmhmc_joint", "mmala_joint"):
+        kernels[f"lgc/{sampler}"] = experiments.build_workload("lgc", sampler, device="cpu", lgc_n=4)[0]
     return kernels
 
 
-# Refused by the chain-sliced step (ROADMAP.md, item 17): AMH draws its noise
-# coordinate-major, (D, C); Gibbs draws inside its transition (GIG rejection
-# rounds); the two-block samplers draw from their state, not a position.
-REFUSED = {"blr/metropolis": ("metropolis", "does not lead with the chain axis"),
-           "fhn/metropolis": ("metropolis", "does not lead with the chain axis"),
-           "blr/gibbs": ("gibbs", "no pure transition"), "stochvol/rmhmc": ("stochvol", "no pure transition")}
-
-
 SLICED = ([f"blr/{n}" for n in experiments.SAMPLERS] + ["lgc/rmhmc", "lgc/mmala", "lgc/pmala"]
-          + [f"fhn/{n}" for n in experiments.WORKLOAD_SAMPLERS["fhn"]] + ["stochvol/rmhmc"])
+          + ["lgc/rmhmc_joint", "lgc/mmala_joint"]
+          + [f"fhn/{n}" for n in experiments.WORKLOAD_SAMPLERS["fhn"]] + ["stochvol/rmhmc", "stochvol/mmala"])
 
 
 @pytest.mark.parametrize("name", SLICED)
 def test_torch_chain_sliced_step_is_rows_of_the_whole_step(name):
     """Rank i of a 2-rank chain axis: its sliced step on rows 3i:3i+3 gives
-    those rows of the step of all 6 chains, from the same generator."""
+    those rows of the step of all 6 chains, from the same generator: AMH's
+    and the Gibbs sweep's coordinate-major noise sliced along its chain axis,
+    Gibbs's GIG rounds drawing every chain's candidates, the two-block
+    samplers' noise drawn from a view of the state."""
     kernel = sliced_kernels()[name]
-    dim = {"blr": 4, "lgc": 16, "fhn": 3, "stochvol": 3}[name.split("/")[0]]
+    dim = 2 if name.endswith("_joint") else {"blr": 4, "lgc": 16, "fhn": 3, "stochvol": 3}[name.split("/")[0]]
     gen = torch.Generator().manual_seed(0)
-    position = 1.0 + 0.05 * torch.randn((6, dim), generator=gen)
-    if name in REFUSED:
-        module, reason = REFUSED[name]
-        with pytest.raises(ValueError, match=f"^{module}: .*{reason}"):
-            parallel.chain_sliced(kernel, fake_mesh(0)).step(torch.Generator().manual_seed(1), kernel.init(position[:3]))
-        return
+    center = 0.5 if name.startswith("stochvol") else 1.0  # (beta, sigma, phi) inside the support
+    position = center + 0.05 * torch.randn((6, dim), generator=gen)
     with torch.inference_mode():
         whole, info = kernel.step(torch.Generator().manual_seed(1), kernel.init(position))
         for i in range(2):
@@ -505,6 +573,25 @@ def test_torch_chain_sliced_step_is_rows_of_the_whole_step(name):
                 torch.Generator().manual_seed(1), kernel.init(position[rows]))
             torch.testing.assert_close(part.position, whole.position[rows], rtol=1e-5, atol=1e-5)
             assert torch.equal(part_info.accepted, info.accepted[rows])
+
+
+@pytest.mark.parametrize("leaf", ["shared draw", "generator"])
+def test_torch_chain_sliced_refuses_a_noise_leaf_without_a_chain_axis(leaf):
+    """A noise leaf whose shape does not follow the chain count (a draw shared
+    by every chain), or that is neither a tensor nor splits itself, cannot be
+    split over chains: the step raises, naming the sampler."""
+    inner = sliced_kernels()["blr/hmc"]
+    extra = {"shared draw": lambda g: torch.rand((5,), generator=g), "generator": lambda g: g}[leaf]
+
+    @functools.wraps(inner.draw_noise)  # the sampler's name: hmc
+    def draw_noise(g, position):
+        return inner.draw_noise(g, position), extra(g)
+
+    kernel = Kernel(inner.init, inner.step, lambda state, noise: inner.transition(state, noise[0]), draw_noise)
+    reason = {"shared draw": "has no chain axis", "generator": "not a tensor"}[leaf]
+    with pytest.raises(ValueError, match=f"^hmc: .*{reason}"):
+        parallel.chain_sliced(kernel, fake_mesh(0)).step(torch.Generator().manual_seed(1),
+                                                         inner.init(torch.zeros((3, 4))))
 
 
 def test_torch_monitor_windows_equal_the_runner_acceptance(capsys):

@@ -19,6 +19,8 @@ import chip_smoke  # noqa: F401
 import riemannhamiltonianmontecarlo_tpu_torch.step_profile  # noqa: F401
 import riemannhamiltonianmontecarlo_tpu_torch.kernel_ab  # noqa: F401
 import riemannhamiltonianmontecarlo_tpu_torch.tools.run_lgc_joint  # noqa: F401
+from riemannhamiltonianmontecarlo_tpu_torch.tools import (  # noqa: F401
+    common, ess_engine_bench, make_results, make_results_adaptive, make_results_all, probe_scaling, scaling_table)
 import riemannhamiltonianmontecarlo_tpu_torch.models.fhn  # noqa: F401
 import riemannhamiltonianmontecarlo_tpu_torch.ops.fhn_sens  # noqa: F401
 import riemannhamiltonianmontecarlo_tpu_torch.entry  # noqa: F401
@@ -38,6 +40,8 @@ state, info = kern.step(gen, kern.init(rt.utils.default_init(model, gen, 4)))
 assert torch.isfinite(state.position).all() and info.accept_prob.shape == (4,)
 loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
 assert not loaded, loaded
+jax_package = sorted(m for m in sys.modules if m.split(".")[0] == "riemannhamiltonianmontecarlo_tpu")
+assert not jax_package, jax_package
 print("no-jax-ok")
 """
 
