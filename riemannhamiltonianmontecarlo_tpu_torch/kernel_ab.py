@@ -1,13 +1,14 @@
-"""Time the K1 / K2 kernels of two checkouts in turns on one CUDA card.
+"""Time the hand-written kernels of two checkouts in turns on one CUDA card.
 
-    python -m riemannhamiltonianmontecarlo_tpu_torch.kernel_ab --parent DIR [--out FILE]
+    python -m riemannhamiltonianmontecarlo_tpu_torch.kernel_ab --parent DIR [--kernels linalg,fhn] [--out FILE]
 
 ``DIR`` holds another checkout of the repository (for example an earlier
 commit unpacked with ``git archive`` under the git-ignored ``build/``); this
 checkout is the change.  The two are measured in the order parent, change,
 change, parent, each turn in a process of its own that imports the port
 from that checkout, builds its kernels there and times them with this
-checkout's ``chip_smoke.py`` helpers at ``chip_smoke.TIMED_SHAPES``:
+checkout's ``chip_smoke.py`` helpers.  ``--kernels linalg`` (the default)
+times K1 / K2 at ``chip_smoke.TIMED_SHAPES``:
 
 * ``ms``: median CUDA-event time of one wrapper call (50 calls);
 * ``burst_ms``: 200 wrapper calls back to back, over the count;
@@ -18,6 +19,14 @@ checkout's ``chip_smoke.py`` helpers at ``chip_smoke.TIMED_SHAPES``:
 
 A checkout whose wrappers take chains-last (D, D, C) operands (no
 ``hopper_linalg.launch_geometry``) gets its launches on such operands.
+
+``--kernels fhn`` times the FitzHugh-Nagumo sensitivity kernel
+(``fhn_sens.fhn_sensitivities_cuda``) at orders 0-2 on ``FHN_CHAINS``
+chains at chip_smoke's 200 observations x 5 substeps, theta seeded around
+the truth (the same in every turn): ``device_us`` (torch.profiler, 20
+launches), ``burst_ms``, ``ms``, the roofline ``bound_us`` and this
+checkout's ``latency_bound_us`` at the card's maximum SM clock, with each
+share of ``device_us``.
 Prints one JSON line per turn, kernel and shape, with the card's name and
 power limit.  Needs a CUDA device and nvcc; there is no CPU path.
 """
@@ -33,20 +42,32 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[1]
 TURNS = ("parent", "change", "change", "parent")
+KERNELS = ("linalg", "fhn")
+FHN_CHAINS = (256, 4224)  # the FHN samplers' chain count; one warp on each SM at one lane per chain
 
 
-def _measure(root: Path) -> list[dict]:
+def _measure(root: Path, kernels: list[str]) -> list[dict]:
     """Runs in the child: import the port from ``root`` and time its kernels."""
     sys.path.insert(0, str(root))
     spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
     sys.modules["chip_smoke"] = smoke  # dataclasses looks a class's module up there
     spec.loader.exec_module(smoke)  # imports the port: from root, first on sys.path
+    for module in (smoke.hl, smoke.fhn_sens):
+        if Path(module.__file__).resolve().parents[2] != root.resolve():
+            raise RuntimeError(f"imported the port from {module.__file__}, not from {root}")
+    rows = []
+    if "linalg" in kernels:
+        rows += _measure_linalg(smoke)
+    if "fhn" in kernels:
+        rows += _measure_fhn(smoke)
+    return rows
+
+
+def _measure_linalg(smoke) -> list[dict]:
     import torch
 
     hl = smoke.hl
-    if Path(hl.__file__).resolve().parents[2] != root.resolve():
-        raise RuntimeError(f"imported the port from {hl.__file__}, not from {root}")
     public_layout = hasattr(hl, "launch_geometry")
     lib, card, rows = hl._lib(), smoke.smi_line(), []
     with torch.inference_mode():
@@ -75,25 +96,63 @@ def _measure(root: Path) -> list[dict]:
     return rows
 
 
+def _measure_fhn(smoke) -> list[dict]:
+    import torch
+
+    fs, data, card, rows = smoke.fhn_sens, smoke.fhn_data(), smoke.smi_line(), []
+    truth = torch.tensor(smoke.rt.models.fhn.THETA_TRUE, device=smoke.DEVICE)
+    with torch.inference_mode():
+        for c in FHN_CHAINS:
+            gen = torch.Generator(device=smoke.DEVICE).manual_seed(c)
+            theta = truth * (1.0 + 0.05 * torch.randn((c, 3), generator=gen, device=smoke.DEVICE))
+            for order in fs.ORDERS:
+                def launch():
+                    return fs.fhn_sensitivities_cuda(theta, data, order, **smoke.fhn_constants())
+                dev = smoke.device_us(launch, launches=20, name_part=smoke.FHN_KERNEL_NAME)
+                bound, _, _ = smoke.fhn_bound_us(order, c)
+                rows.append({
+                    "kernel": "fhn_sensitivities", "C": c, "order": order, "num_obs": smoke.FHN_OBS,
+                    "substeps": smoke.FHN_SUBSTEPS, "device_us": dev["us"], "device_us_source": dev["source"],
+                    "events_per_call": dev["events_per_call"], "burst_ms": smoke.burst_ms(launch),
+                    "ms": smoke.median_ms(launch, reps=20), "bound_us": bound, "share_of_bound": bound / dev["us"],
+                    "sm_clock_max_mhz": smoke.sm_clock_max_mhz(), "card": card,
+                })
+    return rows
+
+
+def _with_latency_bound(row: dict) -> dict:
+    """An FHN row with this checkout's latency bound, the same yardstick for both checkouts."""
+    from riemannhamiltonianmontecarlo_tpu_torch.ops import fhn_sens
+
+    bound = fhn_sens.latency_bound_us(row["num_obs"], row["substeps"], row["sm_clock_max_mhz"])
+    return {**row, "latency_bound_us": bound, "share_of_latency_bound": bound / row["device_us"]}
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--parent", type=Path, help="the other checkout")
+    ap.add_argument("--kernels", default="linalg", help=f"comma-separated subset of {','.join(KERNELS)}")
     ap.add_argument("--out", default=None, help="also write the JSON lines here")
     ap.add_argument("--measure", type=Path, default=None, help=argparse.SUPPRESS)  # the child's mode
     args = ap.parse_args(argv)
+    kernels = [k for k in args.kernels.split(",") if k]
+    if not kernels or set(kernels) - set(KERNELS):
+        ap.error(f"--kernels takes a comma-separated subset of {','.join(KERNELS)}, got {args.kernels!r}")
     if args.measure is not None:
-        print(json.dumps(_measure(args.measure)), flush=True)
+        print(json.dumps(_measure(args.measure, kernels)), flush=True)
         return
     if args.parent is None:
         ap.error("--parent is required")
     roots = {"parent": args.parent.resolve(), "change": REPO}
     lines = []
     for turn, which in enumerate(TURNS):
-        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--measure", str(roots[which])],
-                              capture_output=True, text=True, check=False, timeout=900)
+        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--measure", str(roots[which]),
+                               "--kernels", args.kernels], capture_output=True, text=True, check=False, timeout=900)
         if proc.returncode != 0:
             raise RuntimeError(f"turn {turn} ({which}) failed:\n{proc.stdout}\n{proc.stderr}")
         for row in json.loads(proc.stdout.strip().splitlines()[-1]):
+            if row["kernel"] == "fhn_sensitivities":
+                row = _with_latency_bound(row)
             lines.append(json.dumps({"turn": turn, "which": which, **row}))
             print(lines[-1], flush=True)
     if args.out:

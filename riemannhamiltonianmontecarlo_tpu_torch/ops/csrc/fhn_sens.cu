@@ -4,8 +4,8 @@
 // Replaces the JAX package's autodiff through its fixed-step RK4 lax.scan,
 // riemannhamiltonianmontecarlo_tpu/models/fhn.py: integrate_rk4 (:55-85) under
 // jax.grad (:149-156), jacfwd (:129-134) and jacfwd of jacfwd (:169-182).
-// There is no Pallas kernel behind it.  Python wrapper, checks and the
-// plain-PyTorch twin: ops/fhn_sens.py.
+// There is no Pallas kernel behind it.  Python wrapper, checks, the launch
+// geometry's mirror and the plain-PyTorch twin: ops/fhn_sens.py.
 //
 // What it computes, for theta = (a, b, c) and y = (V, R):
 //   dV/dt = c (V - V^3/3 + R),   dR/dt = -(V - a + b R) / c,   y(t0) = (v0, r0),
@@ -29,28 +29,43 @@
 // What bounds it on an H100: neither bytes nor operations.  It reads 12
 // bytes of theta and 8 * num_obs bytes of data and writes at most 160 bytes
 // a chain; its operations at 200 x 5 and 256 chains are 0.23 GFLOP at order
-// 2 (860 an RK4 step and 186 an observation a chain, counted from this
-// source by ops/fhn_sens.py::operations), 3.4 us at 67 TFLOP/s.  What binds
-// is the one sequence of 995 RK4 steps each chain has to walk: a chain of
-// dependent operations through V and R at every stage (orders 0 and 1), and
-// at order 2 also the issue of one thread's instructions.  On the H100 a
-// call takes 0.07 / 0.13 / 0.52 ms at orders 0 / 1 / 2 whether it holds 32
-// chains or 4,224 (one warp on each SM), 115-255 times its FLOP bound
-// (chip_smoke.py phase 10).  What the design does about it:
-//   * one thread per chain, its augmented state (2 numbers at order 0, 8 at
-//     order 1, 20 at order 2) and its running sums in registers for the
-//     whole integration: no memory traffic inside the loop but the data;
-//   * the order is a template parameter, so an order-0 or order-1 call does
+// 2 (3.4 us at 67 TFLOP/s).  Each chain walks one sequence of 995 RK4 steps,
+// and a step's longest chain of dependent operations runs through V: 25 of
+// them (ops/fhn_sens.py::_CHAIN_PER_STEP), ~50 us at 4 cycles each and 1.98
+// GHz, whatever the chain count.  One thread per chain (the first form) sat
+// near that floor at order 0 (67 us) but not above it: at orders 1 and 2 one
+// thread issued every instruction of y, S and T (~270 and ~860 operations a
+// step), so a warp waited on its own issue (122 and 507 us, H100).
+// What the design does about it:
+//   * a chain is a group of lanes of one warp, a power of two wide, so a
+//     group is a fixed slice of its warp and shuffles take a static mask:
+//       order 0: 1 lane, y alone (nothing to split);
+//       order 1: 4 lanes; lane j < 3 integrates y and the column S_j, lane 3
+//         repeats lane 2's work and writes nothing (the observation sums are
+//         ~1% of the work, so giving them to lane 3 would save nothing);
+//       order 2, layout (a): 4 lanes; lane k < 3 integrates y, all of S and
+//         the column T[., k] (the pairs (q, k)), and sums dG[k] by itself;
+//         lane 3 repeats lane 2 and writes nothing.
+//     A lane issues about a third (order 1) or two fifths (order 2) of what
+//     one thread did, and y is replicated, computed by the same instructions
+//     in every lane of a group, so the lanes agree on it bit for bit;
+//   * the lanes talk only at observation times, at order 1: each column
+//     passes to the lane before it (G[j][j+1]); order 2 needs no shuffle;
+//   * which lane writes which output entry is owner() below, one lane each,
+//     mirrored in Python (ops/fhn_sens.py::lane_outputs) and held against
+//     this source on the card (chip_smoke.py phase 2);
+//   * the order is the template parameter, so an order-0 or order-1 call does
 //     none of the higher orders' work and holds none of their registers;
 //   * the (num_obs, 2) data is staged once per block in shared memory; all
-//     threads read the same observation at the same time (a broadcast);
-//   * blocks of 32 threads, so a few hundred chains spread over that many
-//     SMs and no two warps of a batch of up to 4,224 chains share one;
+//     lanes read the same observation at the same time (a broadcast);
+//   * blocks of one warp (32, 8 or 4 chains by order), so 256 chains spread
+//     over 8, 32 or 32 SMs;
 //   * every step is taken: no early exit on a non-finite state, so a chain
 //     that overflows gives the same non-finite entries as the twin, and no
-//     data-dependent branch anywhere, masks only.
-// Spreading one chain's sensitivity columns over several lanes would cut
-// the instructions a thread issues; not done here.
+//     data-dependent branch anywhere, masks only.  A lane past the last
+//     chain integrates the last chain again and writes nothing, so every
+//     lane of a warp takes part in every shuffle and no shuffle leaves its
+//     chain's group: a chain's outputs do not depend on its neighbours.
 //
 // No division inside the loop.  An IEEE float division checks its operands
 // and calls a slow-path routine for a NaN or infinite one; a chain whose
@@ -61,9 +76,11 @@
 // chip_smoke.py phase 10).
 // So V^3/3 is V*V*V times float(1/3), and every /c a product with 1/c,
 // computed once per chain; each differs from the division by at most one
-// rounding.  The step constants are the JAX model's (h, h/2 and h/6 in
-// double, then rounded to float).  nvcc contracts multiply-adds into FMAs
-// (no fast-math), so results differ from the twin in the last bits.
+// rounding.  A term that only some lanes' columns have is chosen by a
+// select, never multiplied by 0, so an infinite state gives the twin's
+// NaNs.  The step constants are the JAX model's (h, h/2 and h/6 in double,
+// then rounded to float).  nvcc contracts multiply-adds into FMAs (no
+// fast-math), so results differ from the twin in the last bits.
 //
 // C interface (bound with ctypes): launches on the given stream, allocates
 // nothing, does not synchronise, and returns cudaGetLastError().
@@ -73,25 +90,68 @@
 
 namespace {
 
-constexpr int kThreads = 32;
+constexpr int kThreads = 32;   // one warp a block
 constexpr int kMaxObs = 6144;  // 2 * 4 * 6144 bytes = 48 KB of shared data
 constexpr int kPairs = 6;      // (i, j), i <= j: 00 01 02 11 12 22
+constexpr int kEntries = 40;   // a chain's output entries: logp, grad 3, G 9, dG 27
+constexpr unsigned kWarpMask = 0xffffffffu;
 constexpr float kThird = 1.0f / 3.0f;
 
 __host__ __device__ constexpr int pair_of(int i, int j) {
   return i > j ? pair_of(j, i) : i == 0 ? j : i == 1 ? 2 + j : 5;
 }
+__host__ __device__ constexpr int pair_first(int p) { return p < 3 ? 0 : p < 5 ? 1 : 2; }
+__host__ __device__ constexpr int pair_second(int p) { return p < 3 ? p : p < 5 ? p - 2 : 2; }
 
-// The augmented state: y, then S (order >= 1), then T (order 2).
+// Lanes of a chain's group, and how many of them own work, by order.
+__host__ __device__ constexpr int lanes_per_chain(int order) { return order == 0 ? 1 : 4; }
+__host__ __device__ constexpr int working_lanes(int order) { return order == 0 ? 1 : 3; }
+
+// The lane of a chain's group that writes output entry e, -1 for an entry
+// past the order.  Entries: logp 0, grad[i] 1 + i, G[i][j] 4 + 3 i + j,
+// dG[k][i][j] 13 + 9 k + 3 i + j.  Order 1: lane j writes grad[j], G[j][j]
+// and G[j][j+1 mod 3] both ways; order 2: lane p = (i, j) writes G and every
+// dG[k] at (i, j) and (j, i), and grad[i] where i == j.
+__host__ __device__ constexpr int owner(int order, int e) {
+  if (e == 0) return 0;
+  if (order == 0 || (order == 1 && e >= 13)) return -1;
+  if (e < 4) return e - 1;
+  const int i = e < 13 ? (e - 4) / 3 : (e - 13) % 9 / 3, j = (e - 4) % 3;
+  if (order == 2) return e < 13 ? i : (e - 13) / 9;
+  return i == j || j == (i + 1) % 3 ? i : j;
+}
+
+struct Geometry {
+  int lanes, chains_per_block, blocks;
+  size_t shared_bytes;
+};
+
+__host__ __device__ constexpr Geometry geometry(int order, int num_chains, int num_obs) {
+  const int lanes = lanes_per_chain(order), chains = kThreads / lanes;
+  return {lanes, chains, (num_chains + chains - 1) / chains, sizeof(float) * 2 * num_obs};
+}
+
+// What one lane integrates: y, then the sensitivity columns it owns (order 1:
+// S_j; order 2: S_i and S_j of its pair), then its second sensitivity T_ij.
+// Layout (a) of order 2: lane k < 3 integrates y, all of S and T[., k].
+__host__ __device__ constexpr int columns(int order) { return order == 0 ? 0 : order == 1 ? 1 : 3; }
 template <int Order>
 struct Aug {
   float v, r;
-  float sv[Order >= 1 ? 3 : 1], sr[Order >= 1 ? 3 : 1];
-  float tv[Order >= 2 ? kPairs : 1], tr[Order >= 2 ? kPairs : 1];
+  float sv[Order >= 1 ? columns(Order) : 1], sr[Order >= 1 ? columns(Order) : 1];
+  float tv[3], tr[3];  // order 2: T_(q, k), q = 0..2
 };
 
 struct Theta {
   float a, b, c, inv_c, inv_c2, inv_c3;
+};
+
+// A lane's place in its chain: the theta index of each column it integrates
+// and, at order 2, its pair.  The same for every step: the selects on it
+// choose among values, never branch.
+struct Role {
+  int col[2];
+  int pair;
 };
 
 // out = y + s * k, field by field.
@@ -99,13 +159,11 @@ template <int Order>
 __device__ __forceinline__ void axpy(const Aug<Order>& y, float s, const Aug<Order>& k, Aug<Order>& out) {
   out.v = y.v + s * k.v;
   out.r = y.r + s * k.r;
-  if constexpr (Order >= 1) {
 #pragma unroll
-    for (int j = 0; j < 3; ++j) out.sv[j] = y.sv[j] + s * k.sv[j], out.sr[j] = y.sr[j] + s * k.sr[j];
-  }
-  if constexpr (Order >= 2) {
+  for (int q = 0; q < columns(Order); ++q) out.sv[q] = y.sv[q] + s * k.sv[q], out.sr[q] = y.sr[q] + s * k.sr[q];
+  if constexpr (Order == 2) {
 #pragma unroll
-    for (int p = 0; p < kPairs; ++p) out.tv[p] = y.tv[p] + s * k.tv[p], out.tr[p] = y.tr[p] + s * k.tr[p];
+    for (int q = 0; q < 3; ++q) out.tv[q] = y.tv[q] + s * k.tv[q], out.tr[q] = y.tr[q] + s * k.tr[q];
   }
 }
 
@@ -115,9 +173,9 @@ __device__ __forceinline__ void accumulate(Aug<Order>& acc, float w, const Aug<O
   axpy<Order>(acc, w, k, acc);
 }
 
-// k = the augmented right-hand side at y.
+// k = the lane's part of the augmented right-hand side at y.
 template <int Order>
-__device__ __forceinline__ void rhs(const Theta& th, const Aug<Order>& y, Aug<Order>& k) {
+__device__ __forceinline__ void rhs(const Theta& th, const Role& role, const Aug<Order>& y, Aug<Order>& k) {
   const float v = y.v, r = y.r;
   const float v2 = v * v;
   const float cubic = v - v * v * v * kThird + r;
@@ -127,92 +185,97 @@ __device__ __forceinline__ void rhs(const Theta& th, const Aug<Order>& y, Aug<Or
   if constexpr (Order >= 1) {
     // Jacobian df/dy = [[c (1 - V^2), c], [-1/c, -b/c]]; df/dtheta = [[0, 0, cubic], [1/c, -R/c, lin/c^2]].
     const float jvv = th.c * (1.0f - v2), jrr = -th.b * th.inv_c;
-    const float fr[3] = {th.inv_c, -r * th.inv_c, lin * th.inv_c2};
+    const float fr_b = -r * th.inv_c, fr_c = lin * th.inv_c2;
 #pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      k.sv[j] = jvv * y.sv[j] + th.c * y.sr[j] + (j == 2 ? cubic : 0.0f);
-      k.sr[j] = -th.inv_c * y.sv[j] + jrr * y.sr[j] + fr[j];
+    for (int q = 0; q < columns(Order); ++q) {
+      const int j = Order == 2 ? q : role.col[q];
+      k.sv[q] = jvv * y.sv[q] + th.c * y.sr[q] + (j == 2 ? cubic : 0.0f);
+      k.sr[q] = -th.inv_c * y.sv[q] + jrr * y.sr[q] + (j == 0 ? th.inv_c : j == 1 ? fr_b : fr_c);
     }
-    if constexpr (Order >= 2) {
-      // V: d2f/dV2 = -2 c V; d2f/(dy dc) . S_j = (1 - V^2) SV_j + SR_j (0 for a, b).
-      // R: d2f/(dy dtheta_i) . S_j = 0, -SR_j / c, (SV_j + b SR_j) / c^2 for i = a, b, c;
-      //    d2f/dtheta2 = -1/c^2 at (a, c), R/c^2 at (b, c), -2 lin / c^3 at (c, c).
+    if constexpr (Order == 2) {
+      // The pairs (q, k), q = 0..2, k = col[0]; S_q is column q, S_k picked.
+      const int k2 = role.col[0];
       const float fvv = -2.0f * th.c * v;
-      float q[3], row_b[3], row_c[3];
+      float qv[3], row_b[3], row_c[3];
 #pragma unroll
-      for (int j = 0; j < 3; ++j) {
-        q[j] = (1.0f - v2) * y.sv[j] + y.sr[j];
-        row_b[j] = -y.sr[j] * th.inv_c;
-        row_c[j] = (y.sv[j] + th.b * y.sr[j]) * th.inv_c2;
+      for (int q = 0; q < 3; ++q) {
+        qv[q] = (1.0f - v2) * y.sv[q] + y.sr[q];
+        row_b[q] = -y.sr[q] * th.inv_c;
+        row_c[q] = (y.sv[q] + th.b * y.sr[q]) * th.inv_c2;
       }
-      const float hess_r[kPairs] = {0.0f, 0.0f, -th.inv_c2, 0.0f, r * th.inv_c2, -2.0f * lin * th.inv_c3};
+      const float sv_k = k2 == 0 ? y.sv[0] : k2 == 1 ? y.sv[1] : y.sv[2];
+      const float q_k = k2 == 0 ? qv[0] : k2 == 1 ? qv[1] : qv[2];
+      const float rb_k = k2 == 0 ? row_b[0] : k2 == 1 ? row_b[1] : row_b[2];
+      const float rc_k = k2 == 0 ? row_c[0] : k2 == 1 ? row_c[1] : row_c[2];
 #pragma unroll
-      for (int i = 0; i < 3; ++i) {
-#pragma unroll
-        for (int j = i; j < 3; ++j) {
-          const int p = pair_of(i, j);
-          // mix(i, j) + mix(j, i): only the terms whose theta index is a parameter the row depends on
-          const float mix_v = (j == 2 ? (i == 2 ? q[2] + q[2] : q[i]) : 0.0f);
-          const float mix_r = (i == 0 ? 0.0f : i == 1 ? row_b[j] : row_c[j]) +
-                              (j == 0 ? 0.0f : j == 1 ? row_b[i] : row_c[i]);
-          k.tv[p] = jvv * y.tv[p] + th.c * y.tr[p] + fvv * y.sv[i] * y.sv[j] + mix_v;
-          k.tr[p] = -th.inv_c * y.tv[p] + jrr * y.tr[p] + mix_r + hess_r[p];
-        }
+      for (int q = 0; q < 3; ++q) {
+        const float mix_v = (k2 == 2 ? qv[q] : 0.0f) + (q == 2 ? q_k : 0.0f);
+        const float mix_r = (q == 0 ? 0.0f : q == 1 ? rb_k : rc_k) + (k2 == 0 ? 0.0f : k2 == 1 ? row_b[q] : row_c[q]);
+        const int p = pair_of(q, k2);
+        const float hess_r = p == 2 ? -th.inv_c2 : p == 4 ? r * th.inv_c2 : p == 5 ? -2.0f * lin * th.inv_c3 : 0.0f;
+        k.tv[q] = jvv * y.tv[q] + th.c * y.tr[q] + fvv * y.sv[q] * sv_k + mix_v;
+        k.tr[q] = -th.inv_c * y.tv[q] + jrr * y.tr[q] + mix_r + hess_r;
       }
     }
   }
 }
 
 template <int Order>
-__device__ __forceinline__ void rk4_step(const Theta& th, Aug<Order>& y, float h, float half_h, float sixth_h) {
+__device__ __forceinline__ void rk4_step(const Theta& th, const Role& role, Aug<Order>& y, float h, float half_h,
+                                         float sixth_h) {
   Aug<Order> k, stage, acc;
-  rhs<Order>(th, y, k);  // k1
+  rhs<Order>(th, role, y, k);  // k1
   acc = k;
   axpy<Order>(y, half_h, k, stage);
-  rhs<Order>(th, stage, k);  // k2
+  rhs<Order>(th, role, stage, k);  // k2
   accumulate<Order>(acc, 2.0f, k);
   axpy<Order>(y, half_h, k, stage);
-  rhs<Order>(th, stage, k);  // k3
+  rhs<Order>(th, role, stage, k);  // k3
   accumulate<Order>(acc, 2.0f, k);
   axpy<Order>(y, h, k, stage);
-  rhs<Order>(th, stage, k);  // k4
+  rhs<Order>(th, role, stage, k);  // k4
   accumulate<Order>(acc, 1.0f, k);
   axpy<Order>(y, sixth_h, acc, y);
 }
 
-// Running sums over the observation times, in registers.
+// A lane's running sums over the observation times, in registers.
+//   order 1: grad = sum e . S_j, g = sum S_j . S_j, g_next = sum S_j . S_{j+1};
+//   order 2: grad = sum e . S_i, g = sum S_i . S_j, part[c] = sum T_ij . S_c.
 template <int Order>
 struct Sums {
   float sq = 0.0f;
   bool finite = true;
-  float grad[3] = {0.0f, 0.0f, 0.0f};
-  float g[kPairs] = {};
-  float dg[Order >= 2 ? 3 : 1][kPairs] = {};
+  float grad = 0.0f, g = 0.0f, g_next = 0.0f;
+  float g3[3] = {}, part[Order == 2 ? 3 : 1][3] = {};  // order 2: sum S_k . S_c; sum T_qk . S_c
 
-  __device__ __forceinline__ void observe(const Aug<Order>& y, float data_v, float data_r) {
+  __device__ __forceinline__ void observe(const Aug<Order>& y, const Role& role, int lanes, float data_v,
+                                         float data_r) {
     const float ev = data_v - y.v, er = data_r - y.r;
     sq += ev * ev + er * er;
     finite = finite && isfinite(y.v) && isfinite(y.r);
-    if constexpr (Order >= 1) {
-#pragma unroll
-      for (int i = 0; i < 3; ++i) grad[i] += ev * y.sv[i] + er * y.sr[i];
-#pragma unroll
-      for (int i = 0; i < 3; ++i)
-#pragma unroll
-        for (int j = i; j < 3; ++j) g[pair_of(i, j)] += y.sv[i] * y.sv[j] + y.sr[i] * y.sr[j];
+    if constexpr (Order == 1) {
+      grad += ev * y.sv[0] + er * y.sr[0];
+      g += y.sv[0] * y.sv[0] + y.sr[0] * y.sr[0];
+      const int next = (role.col[0] + 1) % 3;
+      const float nv = __shfl_sync(kWarpMask, y.sv[0], next, lanes), nr = __shfl_sync(kWarpMask, y.sr[0], next, lanes);
+      g_next += y.sv[0] * nv + y.sr[0] * nr;
     }
-    if constexpr (Order >= 2) {
+    if constexpr (Order == 2) {
+      const int k = role.col[0];
+      const float sv_k = k == 0 ? y.sv[0] : k == 1 ? y.sv[1] : y.sv[2];
+      const float sr_k = k == 0 ? y.sr[0] : k == 1 ? y.sr[1] : y.sr[2];
+      grad += ev * sv_k + er * sr_k;
 #pragma unroll
-      for (int k = 0; k < 3; ++k)
+      for (int c = 0; c < 3; ++c) {
+        g3[c] += sv_k * y.sv[c] + sr_k * y.sr[c];
 #pragma unroll
-        for (int i = 0; i < 3; ++i)
-#pragma unroll
-          for (int j = i; j < 3; ++j)
-            dg[k][pair_of(i, j)] += y.tv[pair_of(i, k)] * y.sv[j] + y.sv[i] * y.tv[pair_of(j, k)] +
-                                    y.tr[pair_of(i, k)] * y.sr[j] + y.sr[i] * y.tr[pair_of(j, k)];
+        for (int q = 0; q < 3; ++q) part[q][c] += y.tv[q] * y.sv[c] + y.tr[q] * y.sr[c];
+      }
     }
   }
 };
+
+__device__ __forceinline__ float pick(const float (&x)[3], int i) { return i == 0 ? x[0] : i == 1 ? x[1] : x[2]; }
 
 template <int Order>
 __global__ void __launch_bounds__(kThreads)
@@ -220,56 +283,70 @@ __global__ void __launch_bounds__(kThreads)
                              int num_obs, int substeps, float h, float half_h, float sixth_h, float noise_var,
                              float gamma_scale, float v0, float r0, float* __restrict__ logp,
                              float* __restrict__ grad, float* __restrict__ metric, float* __restrict__ dmetric) {
+  constexpr int kLanes = lanes_per_chain(Order);
   extern __shared__ float obs[];  // (num_obs, 2), the block's copy of the data
   for (int e = threadIdx.x; e < 2 * num_obs; e += kThreads) obs[e] = data[e];
   __syncthreads();
-  const int chain = blockIdx.x * kThreads + threadIdx.x;
-  if (chain >= num_chains) return;  // no barrier or shuffle follows
+  const int lane = threadIdx.x % kLanes;
+  const int slot = (blockIdx.x * kThreads + threadIdx.x) / kLanes;
+  // A group past the last chain integrates the last chain again and writes
+  // nothing: no lane leaves before the shuffles.
+  const bool live = slot < num_chains;
+  const int chain = live ? slot : num_chains - 1;
 
   const float a = theta[3 * chain], b = theta[3 * chain + 1], c = theta[3 * chain + 2];
   const float inv_c = 1.0f / c, inv_c2 = inv_c * inv_c;
   const Theta th{a, b, c, inv_c, inv_c2, inv_c2 * inv_c};
+  const int work = lane < working_lanes(Order) ? lane : working_lanes(Order) - 1;  // spare lanes repeat the last
+  const Role role{{work, work}, 0};
 
   Aug<Order> y;
   y.v = v0, y.r = r0;
-  if constexpr (Order >= 1) {
 #pragma unroll
-    for (int j = 0; j < 3; ++j) y.sv[j] = 0.0f, y.sr[j] = 0.0f;
-  }
-  if constexpr (Order >= 2) {
+  for (int q = 0; q < columns(Order); ++q) y.sv[q] = 0.0f, y.sr[q] = 0.0f;
 #pragma unroll
-    for (int p = 0; p < kPairs; ++p) y.tv[p] = 0.0f, y.tr[p] = 0.0f;
-  }
+  for (int q = 0; q < 3; ++q) y.tv[q] = 0.0f, y.tr[q] = 0.0f;
 
   Sums<Order> sums;
-  sums.observe(y, obs[0], obs[1]);
+  sums.observe(y, role, kLanes, obs[0], obs[1]);
   for (int t = 1; t < num_obs; ++t) {
-    for (int s = 0; s < substeps; ++s) rk4_step<Order>(th, y, h, half_h, sixth_h);
-    sums.observe(y, obs[2 * t], obs[2 * t + 1]);
+    for (int s = 0; s < substeps; ++s) rk4_step<Order>(th, role, y, h, half_h, sixth_h);
+    sums.observe(y, role, kLanes, obs[2 * t], obs[2 * t + 1]);
   }
 
+  // Every lane of the group decides these from the same y and theta.
   const bool valid = a > 0.0f && b > 0.0f && c > 0.0f && sums.finite;
-  logp[chain] = valid ? -0.5f * sums.sq / noise_var - (a + b + c) / gamma_scale : -CUDART_INF_F;
+  const bool writes = live && lane < working_lanes(Order);
+  if (writes && owner(Order, 0) == lane)
+    logp[chain] = valid ? -0.5f * sums.sq / noise_var - (a + b + c) / gamma_scale : -CUDART_INF_F;
   if constexpr (Order >= 1) {
     const float t3[3] = {a, b, c};
+    const int i = role.col[0];
+    const float gi = sums.grad / noise_var - 1.0f / gamma_scale;
+    const float ti = pick(t3, i);
+    const float g_ii = sums.g / noise_var + 2.0f / (ti * ti);
+    const float g_off = sums.g_next / noise_var;
 #pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      const float gi = sums.grad[i] / noise_var - 1.0f / gamma_scale;
-      grad[3 * chain + i] = valid && isfinite(gi) ? gi : 0.0f;
+    for (int e = 1; e < 4; ++e)
+      if (writes && owner(Order, e) == lane) grad[3 * chain + e - 1] = valid && isfinite(gi) ? gi : 0.0f;
+    if constexpr (Order == 1) {
 #pragma unroll
-      for (int j = 0; j < 3; ++j)
-        metric[9 * chain + 3 * i + j] = sums.g[pair_of(i, j)] / noise_var + (i == j ? 2.0f / (t3[i] * t3[i]) : 0.0f);
+      for (int e = 4; e < 13; ++e)
+        if (writes && owner(Order, e) == lane) metric[9 * chain + e - 4] = (e - 4) % 4 == 0 ? g_ii : g_off;
     }
-    if constexpr (Order >= 2) {
+    if constexpr (Order == 2) {
+      // lane k: G[k][c], dG[k][p][q] = sum T_pk S_q + sum T_qk S_p
 #pragma unroll
-      for (int k = 0; k < 3; ++k)
+      for (int e = 4; e < 13; ++e)
+        if (writes && owner(Order, e) == lane)
+          metric[9 * chain + e - 4] = sums.g3[(e - 4) % 3] / noise_var + ((e - 4) % 4 == 0 ? 2.0f / (ti * ti) : 0.0f);
 #pragma unroll
-        for (int i = 0; i < 3; ++i)
-#pragma unroll
-          for (int j = 0; j < 3; ++j)
-            dmetric[27 * chain + 9 * k + 3 * i + j] =
-                sums.dg[k][pair_of(i, j)] / noise_var +
-                (i == k && j == k ? -4.0f / (t3[k] * t3[k] * t3[k]) : 0.0f);
+      for (int e = 13; e < kEntries; ++e) {
+        const int p = (e - 13) % 9 / 3, q = (e - 13) % 3;
+        if (writes && owner(Order, e) == lane)
+          dmetric[27 * chain + e - 13] = (sums.part[p][q] + sums.part[q][p]) / noise_var +
+                                         (p == i && q == i ? -4.0f / (ti * ti * ti) : 0.0f);
+      }
     }
   }
 }
@@ -278,12 +355,15 @@ template <int Order>
 cudaError_t launch(const float* theta, const float* data, int num_chains, int num_obs, int substeps, double h,
                    float noise_var, float gamma_scale, float v0, float r0, float* logp, float* grad,
                    float* metric, float* dmetric, cudaStream_t stream) {
-  const int blocks = (num_chains + kThreads - 1) / kThreads;
-  const size_t shared = sizeof(float) * 2 * num_obs;
-  fhn_sensitivities_kernel<Order><<<blocks, kThreads, shared, stream>>>(
+  const Geometry geo = geometry(Order, num_chains, num_obs);
+  fhn_sensitivities_kernel<Order><<<geo.blocks, kThreads, geo.shared_bytes, stream>>>(
       theta, data, num_chains, num_obs, substeps, static_cast<float>(h), static_cast<float>(0.5 * h),
       static_cast<float>(h / 6.0), noise_var, gamma_scale, v0, r0, logp, grad, metric, dmetric);
   return cudaGetLastError();
+}
+
+bool bad_call(int order, int num_chains, int num_obs) {
+  return order < 0 || order > 2 || num_chains < 1 || num_obs < 2 || num_obs > kMaxObs;
 }
 
 }  // namespace
@@ -293,9 +373,8 @@ extern "C" int rhmc_fhn_sensitivities(int order, const void* theta, const void* 
                                       int num_obs, int substeps, double h, float noise_var, float gamma_scale,
                                       float v0, float r0, void* logp, void* grad, void* metric, void* dmetric,
                                       void* stream) {
-  if (num_chains < 1 || num_obs < 2 || num_obs > kMaxObs || substeps < 1) return cudaErrorInvalidValue;
-  if (order < 0 || order > 2 || !logp || (order >= 1 && (!grad || !metric)) || (order == 2 && !dmetric))
-    return cudaErrorInvalidValue;
+  if (bad_call(order, num_chains, num_obs) || substeps < 1) return cudaErrorInvalidValue;
+  if (!logp || (order >= 1 && (!grad || !metric)) || (order == 2 && !dmetric)) return cudaErrorInvalidValue;
   const auto* th = static_cast<const float*>(theta);
   const auto* d = static_cast<const float*>(data);
   auto* lp = static_cast<float*>(logp);
@@ -308,4 +387,23 @@ extern "C" int rhmc_fhn_sensitivities(int order, const void* theta, const void* 
     case 1: return launch<1>(th, d, num_chains, num_obs, substeps, h, noise_var, gamma_scale, v0, r0, lp, gr, g, dg, s);
     default: return launch<2>(th, d, num_chains, num_obs, substeps, h, noise_var, gamma_scale, v0, r0, lp, gr, g, dg, s);
   }
+}
+
+// out[0..4]: lanes per chain, chains per block, threads per block, blocks,
+// shared bytes.  No launch; for the wrapper's mirror.
+extern "C" int rhmc_fhn_launch_geometry(int order, int num_chains, int num_obs, int* out) {
+  if (bad_call(order, num_chains, num_obs)) return cudaErrorInvalidValue;
+  const Geometry geo = geometry(order, num_chains, num_obs);
+  out[0] = geo.lanes, out[1] = geo.chains_per_block, out[2] = kThreads, out[3] = geo.blocks;
+  out[4] = static_cast<int>(geo.shared_bytes);
+  return cudaSuccess;
+}
+
+// out[0..39]: the lane of a chain's group that writes each output entry
+// (logp, grad, G, dG flattened in that order), -1 past the order.  For the
+// wrapper's mirror.
+extern "C" int rhmc_fhn_output_owners(int order, int* out) {
+  if (order < 0 || order > 2) return cudaErrorInvalidValue;
+  for (int e = 0; e < kEntries; ++e) out[e] = owner(order, e);
+  return cudaSuccess;
 }

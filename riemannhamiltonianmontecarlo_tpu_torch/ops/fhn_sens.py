@@ -11,8 +11,11 @@ second sensitivities T = d2y/dtheta2 (2 x 6, symmetric in the two theta
 indices), each stage's right-hand side differentiated by hand.  An explicit
 Runge-Kutta step applied to the augmented system is the exact derivative of
 the step applied to the state, so the result is ``jacfwd`` through the
-integrator up to rounding.  The sums over the observation times run inside
-the integration, so one launch returns, for every chain,
+integrator up to rounding.  A chain is a group of lanes of one warp (1, 4 or
+8 by order: ``launch_geometry``); each lane integrates y and its share of S
+and T, and ``lane_outputs`` says which lane writes which output entry.  The
+sums over the observation times run inside the integration, so one launch
+returns, for every chain,
 
 * order 0: ``logp``;
 * order 1: ``logp``, ``grad`` and the metric ``G``;
@@ -95,6 +98,105 @@ def operations(order: int, num_chains: int, num_obs: int, substeps: int) -> int:
     _check_order(order)
     steps = (num_obs - 1) * substeps
     return num_chains * (steps * _OPS_PER_STEP[order] + num_obs * _OPS_PER_OBS[order])
+
+
+# The longest chain of dependent operations, read from csrc/fhn_sens.cu as
+# nvcc contracts it, the same at every order (y does not depend on S or T, and
+# their own chains are shorter).  A step: at each of the four stages V -> V*V
+# -> *V -> FMA with -1/3 -> +R -> *c (k.v), then the stage's FMA into the next
+# stage's V (the fourth stage's into the RK4 sum instead), then y += h/6 sum:
+# 4 x 5 + 3 + 2 = 25.  An observation: e = data - V, then two FMAs into the
+# sum of squares: 3; every observation but the last overlaps the steps after it.
+_CHAIN_PER_STEP = 25
+_CHAIN_PER_OBS = 3
+
+
+# Hopper's latency of a float32 add, multiply or FMA: cycles from its issue
+# to the issue of an operation that reads its result.
+FP32_DEPENDENT_CYCLES = 4
+
+
+def dependent_operations(num_obs: int, substeps: int) -> int:
+    """Length of a chain's longest sequence of dependent operations in one call."""
+    return (num_obs - 1) * substeps * _CHAIN_PER_STEP + _CHAIN_PER_OBS
+
+
+def latency_bound_us(num_obs: int, substeps: int, sm_clock_mhz: float) -> float:
+    """The least time any layout of the kernel can take, at any order and chain
+    count: ``dependent_operations`` one after another at the card's latency
+    and the given SM clock.  No spread over lanes or SMs shortens it."""
+    return dependent_operations(num_obs, substeps) * FP32_DEPENDENT_CYCLES / sm_clock_mhz
+
+
+# -- the launch geometry and which lane writes what, mirrored from csrc/fhn_sens.cu --
+
+THREADS_PER_BLOCK = 32  # a block is one warp
+LANES_PER_CHAIN = {0: 1, 1: 4, 2: 4}  # a power of two, so a chain's lanes are a fixed slice of a warp
+WORKING_LANES = {0: 1, 1: DIM, 2: DIM}  # order 1: a column of S each; order 2: a column of T each
+
+
+class LaunchGeometry(NamedTuple):
+    """How the kernel lays C chains out on the card (csrc: ``geometry``)."""
+
+    lanes_per_chain: int
+    chains_per_block: int
+    threads_per_block: int
+    blocks: int
+    shared_bytes: int  # the block's copy of the (num_obs, 2) float32 data
+
+
+def launch_geometry(order: int, num_chains: int, num_obs: int = MAX_OBS) -> LaunchGeometry:
+    """The source's launch geometry for one call, mirrored in Python.
+
+    ``rhmc_fhn_launch_geometry`` of the built library gives the source's own
+    answer; ``chip_smoke.py`` holds the two against each other on the card.
+    """
+    _check_order(order)
+    if num_chains < 1 or not 2 <= num_obs <= MAX_OBS:
+        raise ValueError(f"need num_chains >= 1 and 2 <= num_obs <= {MAX_OBS}, got {num_chains}, {num_obs}")
+    lanes = LANES_PER_CHAIN[order]
+    chains = THREADS_PER_BLOCK // lanes
+    return LaunchGeometry(lanes, chains, THREADS_PER_BLOCK, -(-num_chains // chains), 4 * 2 * num_obs)
+
+
+# A chain's output entries, flattened in the order the C mirror numbers them.
+ENTRIES = (("logp",), *(("grad", i) for i in range(DIM)),
+           *(("G", i, j) for i in range(DIM) for j in range(DIM)),
+           *(("dG", k, i, j) for k in range(DIM) for i in range(DIM) for j in range(DIM)))
+
+
+def lane_outputs(order: int) -> tuple[tuple[int, ...], ...]:
+    """The entries of ``ENTRIES`` that each lane of a chain's group writes.
+
+    Order 1: lane j integrates S_j and writes grad[j], G[j][j] and G[j][j+1
+    mod 3] both ways.  Order 2: lane k integrates all of S and T[., k] and
+    writes grad[k], G[k][.] and dG[k].  Lane 0 writes logp; spare lanes
+    write nothing.
+    """
+    _check_order(order)
+    entry = {name: e for e, name in enumerate(ENTRIES)}
+    lanes = [[] for _ in range(LANES_PER_CHAIN[order])]
+    lanes[0].append(entry[("logp",)])
+    if order == 1:
+        for j in range(DIM):
+            n = (j + 1) % DIM
+            lanes[j] += [entry[("grad", j)], entry[("G", j, j)], entry[("G", j, n)], entry[("G", n, j)]]
+    elif order == 2:  # layout (a): lane k integrates T[., k] and writes grad[k], G[k][.], dG[k]
+        for k in range(DIM):
+            lanes[k] += [entry[("grad", k)], *(entry[("G", k, j)] for j in range(DIM)),
+                         *(entry[("dG", k, i, j)] for i in range(DIM) for j in range(DIM))]
+    return tuple(map(tuple, lanes))
+
+
+def output_owners(order: int) -> tuple[int, ...]:
+    """``lane_outputs`` by entry: the lane that writes each entry, -1 past the order."""
+    owners = [-1] * len(ENTRIES)
+    for lane, entries in enumerate(lane_outputs(order)):
+        for e in entries:
+            if owners[e] != -1:
+                raise RuntimeError(f"order {order}: lanes {owners[e]} and {lane} both write {ENTRIES[e]}")
+            owners[e] = lane
+    return tuple(owners)
 
 
 def _check_order(order: int) -> None:
@@ -220,7 +322,29 @@ def _lib() -> ctypes.CDLL:
     lib.rhmc_fhn_sensitivities.argtypes = [i32, ptr, ptr, i32, i32, i32, f64, f32, f32, f32, f32,
                                            ptr, ptr, ptr, ptr, ptr]
     lib.rhmc_fhn_sensitivities.restype = i32
+    lib.rhmc_fhn_launch_geometry.argtypes = [i32, i32, i32, ctypes.POINTER(i32)]
+    lib.rhmc_fhn_launch_geometry.restype = i32
+    lib.rhmc_fhn_output_owners.argtypes = [i32, ctypes.POINTER(i32)]
+    lib.rhmc_fhn_output_owners.restype = i32
     return lib
+
+
+def built_launch_geometry(order: int, num_chains: int, num_obs: int = MAX_OBS) -> LaunchGeometry:
+    """The built library's own geometry (builds the library: needs the toolkit)."""
+    out = (ctypes.c_int * len(LaunchGeometry._fields))()
+    err = _lib().rhmc_fhn_launch_geometry(order, num_chains, num_obs, out)
+    if err != 0:
+        raise RuntimeError(f"rhmc_fhn_launch_geometry({order}, {num_chains}, {num_obs}) failed with CUDA error {err}")
+    return LaunchGeometry(*out)
+
+
+def built_output_owners(order: int) -> tuple[int, ...]:
+    """The built library's own ``output_owners`` (builds the library: needs the toolkit)."""
+    out = (ctypes.c_int * len(ENTRIES))()
+    err = _lib().rhmc_fhn_output_owners(order, out)
+    if err != 0:
+        raise RuntimeError(f"rhmc_fhn_output_owners({order}) failed with CUDA error {err}")
+    return tuple(out)
 
 
 def _check(theta: Tensor, data: Tensor, order: int, substeps: int) -> None:
