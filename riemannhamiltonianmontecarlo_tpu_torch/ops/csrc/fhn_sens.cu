@@ -152,7 +152,16 @@ struct Theta {
 struct Role {
   int col[2];
   int pair;
+  unsigned is[3];  // all ones where the lane's column k is 0, 1, 2
 };
+
+__device__ __forceinline__ unsigned all_if(bool b) { return b ? ~0u : 0u; }
+// x where mask is all ones, +0.0f where it is zero: a select by bits, never a branch.
+__device__ __forceinline__ unsigned bits(float x, unsigned mask) { return __float_as_uint(x) & mask; }
+__device__ __forceinline__ float keep(float x, unsigned mask) { return __uint_as_float(bits(x, mask)); }
+__device__ __forceinline__ float of_k(const Role& role, float x0, float x1, float x2) {
+  return __uint_as_float(bits(x0, role.is[0]) | bits(x1, role.is[1]) | bits(x2, role.is[2]));
+}
 
 // out = y + s * k, field by field.
 template <int Order>
@@ -194,7 +203,6 @@ __device__ __forceinline__ void rhs(const Theta& th, const Role& role, const Aug
     }
     if constexpr (Order == 2) {
       // The pairs (q, k), q = 0..2, k = col[0]; S_q is column q, S_k picked.
-      const int k2 = role.col[0];
       const float fvv = -2.0f * th.c * v;
       float qv[3], row_b[3], row_c[3];
 #pragma unroll
@@ -203,16 +211,18 @@ __device__ __forceinline__ void rhs(const Theta& th, const Role& role, const Aug
         row_b[q] = -y.sr[q] * th.inv_c;
         row_c[q] = (y.sv[q] + th.b * y.sr[q]) * th.inv_c2;
       }
-      const float sv_k = k2 == 0 ? y.sv[0] : k2 == 1 ? y.sv[1] : y.sv[2];
-      const float q_k = k2 == 0 ? qv[0] : k2 == 1 ? qv[1] : qv[2];
-      const float rb_k = k2 == 0 ? row_b[0] : k2 == 1 ? row_b[1] : row_b[2];
-      const float rc_k = k2 == 0 ? row_c[0] : k2 == 1 ? row_c[1] : row_c[2];
+      const float sv_k = of_k(role, y.sv[0], y.sv[1], y.sv[2]);
+      const float q_k = of_k(role, qv[0], qv[1], qv[2]);
+      const float rb_k = of_k(role, row_b[0], row_b[1], row_b[2]);
+      const float rc_k = of_k(role, row_c[0], row_c[1], row_c[2]);
+      const float h_ac = -th.inv_c2, h_bc = r * th.inv_c2, h_cc = -2.0f * lin * th.inv_c3;
 #pragma unroll
       for (int q = 0; q < 3; ++q) {
-        const float mix_v = (k2 == 2 ? qv[q] : 0.0f) + (q == 2 ? q_k : 0.0f);
-        const float mix_r = (q == 0 ? 0.0f : q == 1 ? rb_k : rc_k) + (k2 == 0 ? 0.0f : k2 == 1 ? row_b[q] : row_c[q]);
-        const int p = pair_of(q, k2);
-        const float hess_r = p == 2 ? -th.inv_c2 : p == 4 ? r * th.inv_c2 : p == 5 ? -2.0f * lin * th.inv_c3 : 0.0f;
+        const float mix_v = keep(qv[q], role.is[2]) + (q == 2 ? q_k : 0.0f);
+        const float mix_r = (q == 0 ? 0.0f : q == 1 ? rb_k : rc_k) + of_k(role, 0.0f, row_b[q], row_c[q]);
+        // pairs (0, 2) and (2, 0): -1/c^2; (1, 2), (2, 1): R/c^2; (2, 2): -2 lin/c^3
+        const float hess_r = q == 0 ? of_k(role, 0.0f, 0.0f, h_ac) : q == 1 ? of_k(role, 0.0f, 0.0f, h_bc)
+                                                                       : of_k(role, h_ac, h_bc, h_cc);
         k.tv[q] = jvv * y.tv[q] + th.c * y.tr[q] + fvv * y.sv[q] * sv_k + mix_v;
         k.tr[q] = -th.inv_c * y.tv[q] + jrr * y.tr[q] + mix_r + hess_r;
       }
@@ -261,9 +271,8 @@ struct Sums {
       g_next += y.sv[0] * nv + y.sr[0] * nr;
     }
     if constexpr (Order == 2) {
-      const int k = role.col[0];
-      const float sv_k = k == 0 ? y.sv[0] : k == 1 ? y.sv[1] : y.sv[2];
-      const float sr_k = k == 0 ? y.sr[0] : k == 1 ? y.sr[1] : y.sr[2];
+      const float sv_k = of_k(role, y.sv[0], y.sv[1], y.sv[2]);
+      const float sr_k = of_k(role, y.sr[0], y.sr[1], y.sr[2]);
       grad += ev * sv_k + er * sr_k;
 #pragma unroll
       for (int c = 0; c < 3; ++c) {
@@ -298,7 +307,7 @@ __global__ void __launch_bounds__(kThreads)
   const float inv_c = 1.0f / c, inv_c2 = inv_c * inv_c;
   const Theta th{a, b, c, inv_c, inv_c2, inv_c2 * inv_c};
   const int work = lane < working_lanes(Order) ? lane : working_lanes(Order) - 1;  // spare lanes repeat the last
-  const Role role{{work, work}, 0};
+  const Role role{{work, work}, 0, {all_if(work == 0), all_if(work == 1), all_if(work == 2)}};
 
   Aug<Order> y;
   y.v = v0, y.r = r0;
