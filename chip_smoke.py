@@ -50,9 +50,10 @@ It imports no jax.  Phases, each printing one line of findings:
    output within 1e-4 of its largest finite entry, the same non-finite
    entries, logp -inf and a zero gradient in both special chains, the other
    chains' outputs bit for bit those of a batch without the special ones;
-   per order its device time beside its bound (the roofline) and its
-   latency bound (a chain's longest sequence of dependent operations at 4
-   cycles each and the card's maximum SM clock) and the twin's time; then K1
+   per order its device time beside its bound (the roofline) and the
+   source's critical path (a chain's longest sequence of dependent
+   operations at 4 cycles each and the card's maximum SM clock; printed on
+   the times line, not in the kernels line) and the twin's time; then K1
    and K2 against their twins on the metrics it returns at 256 chains (the
    matrices the FHN samplers factor).  A timed kernel that torch.profiler
    does not see fails the run;
@@ -215,7 +216,6 @@ import riemannhamiltonianmontecarlo_tpu_torch as rt  # noqa: E402
 from riemannhamiltonianmontecarlo_tpu_torch import experiments  # noqa: E402
 from riemannhamiltonianmontecarlo_tpu_torch._precision import precision_flags  # noqa: E402
 from riemannhamiltonianmontecarlo_tpu_torch.ops import _build  # noqa: E402
-from riemannhamiltonianmontecarlo_tpu_torch.ops import fhn_sens  # noqa: E402
 from riemannhamiltonianmontecarlo_tpu_torch.ops import hopper_linalg as hl  # noqa: E402
 from riemannhamiltonianmontecarlo_tpu_torch.parallel import collectives  # noqa: E402
 from riemannhamiltonianmontecarlo_tpu_torch.parallel.launch import free_port, spawn  # noqa: E402
@@ -381,6 +381,8 @@ def phase_build() -> None:
     spills = [int(s) for s in re.findall(r"(\d+) bytes spill stores", log)]
     stack = [int(s) for s in re.findall(r"(\d+) bytes stack frame", log)]
     check(regs, "ptxas report names no kernel")
+    for source in (SOURCE, FHN_SOURCE):  # the kernels line's "source" fields
+        check((Path(__file__).resolve().parent / source).is_file(), f"kernel source {source} is not in the checkout")
     # Registers per kernel and width, from the mangled names: K1 / K2, the rows
     # the instantiation is unrolled for, "rt" where the width comes at run time.
     per_kernel = {
@@ -392,24 +394,25 @@ def phase_build() -> None:
     # spill stores (none expected), exactly one instantiation per order.
     fhn_found = re.findall(rf"{FHN_KERNEL_NAME}ILi(\d)EE.*?(\d+) bytes spill stores.*?Used (\d+) registers", log, re.S)
     orders = sorted(int(order) for order, _, _ in fhn_found)
-    check(orders == list(fhn_sens.ORDERS),
-          f"ptxas report names FHN kernel orders {orders}, expected one each of {fhn_sens.ORDERS}")
+    check(orders == list(rt.ops.fhn_sens.ORDERS),
+          f"ptxas report names FHN kernel orders {orders}, expected one each of {rt.ops.fhn_sens.ORDERS}")
     fhn_regs = {f"fhn<{order}>": {"registers": int(r), "spill_store_bytes": int(sp)} for order, sp, r in fhn_found}
     for d in range(1, hl.MAX_DIM + 1):
         mirror, built = hl.launch_geometry(d), hl.built_launch_geometry(d)
         check(mirror == built, f"launch geometry at D={d}: Python mirror {mirror}, built library {built}")
-    for order in fhn_sens.ORDERS:
+    for order in rt.ops.fhn_sens.ORDERS:
         for c in FHN_GEOMETRY_CHAINS:
-            mirror = fhn_sens.launch_geometry(order, c, FHN_OBS)
-            built = fhn_sens.built_launch_geometry(order, c, FHN_OBS)
+            mirror = rt.ops.fhn_sens.launch_geometry(order, c, FHN_OBS)
+            built = rt.ops.fhn_sens.built_launch_geometry(order, c, FHN_OBS)
             check(mirror == built, f"FHN launch geometry at order {order}, C={c}: Python {mirror}, built {built}")
-        mirror, built = fhn_sens.output_owners(order), fhn_sens.built_output_owners(order)
+        mirror, built = rt.ops.fhn_sens.output_owners(order), rt.ops.fhn_sens.built_output_owners(order)
         check(mirror == built, f"FHN output owners at order {order}: Python {mirror}, built {built}")
     say("build", seconds=seconds, library=str(lib_path), kernels=len(regs),
         max_registers=max(regs), max_spill_store_bytes=max(spills, default=0),
         max_stack_frame_bytes=max(stack, default=0), registers=per_kernel, fhn_kernel=fhn_regs,
         geometry={d: tuple(hl.launch_geometry(d)) for d in (3, 10, 15, 25, 48)},
-        fhn_geometry={order: tuple(fhn_sens.launch_geometry(order, FHN_CHAINS, FHN_OBS)) for order in fhn_sens.ORDERS})
+        fhn_geometry={order: tuple(rt.ops.fhn_sens.launch_geometry(order, FHN_CHAINS, FHN_OBS))
+                      for order in rt.ops.fhn_sens.ORDERS})
 
 
 # Device kernels by the name torch.profiler shows them under.
@@ -1156,15 +1159,15 @@ def check_fhn_kernel(c: int, order: int, data, err: dict) -> float:
     """The kernel against its twin at one (C, order); returns the twin's ms."""
     theta, special = fhn_thetas(c)
     at = f"(C={c}, order {order})"
-    k = fhn_sens.fhn_sensitivities_cuda(theta, data, order, **fhn_constants())
+    k = rt.ops.fhn_sens.fhn_sensitivities_cuda(theta, data, order, **fhn_constants())
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    p = fhn_sens.fhn_sensitivities_plain(theta, data, order, **fhn_constants())
+    p = rt.ops.fhn_sens.fhn_sensitivities_plain(theta, data, order, **fhn_constants())
     torch.cuda.synchronize()
     plain_ms = 1e3 * (time.perf_counter() - t0)
     keep = torch.ones(c, dtype=torch.bool, device=DEVICE)
     keep[special] = False
-    alone = fhn_sens.fhn_sensitivities_cuda(theta[keep].contiguous(), data, order, **fhn_constants())
+    alone = rt.ops.fhn_sens.fhn_sensitivities_cuda(theta[keep].contiguous(), data, order, **fhn_constants())
     torch.cuda.synchronize()
     for name, kt, pt, at_ in zip(k._fields, k, p, alone):
         if kt is None:
@@ -1191,7 +1194,7 @@ def fhn_bound_us(order: int, c: int) -> tuple[float, str, float]:
     source at 67 TFLOP/s."""
     outputs = {0: 1, 1: 1 + 3 + 9, 2: 1 + 3 + 9 + 27}[order]
     nbytes = 4 * (3 * c + 2 * FHN_OBS + outputs * c)
-    ops = fhn_sens.operations(order, c, FHN_OBS, FHN_SUBSTEPS)
+    ops = rt.ops.fhn_sens.operations(order, c, FHN_OBS, FHN_SUBSTEPS)
     by_bytes, by_ops = 1e6 * nbytes / HBM_BYTES_PER_S, 1e6 * ops / FP32_OPS_PER_S
     return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations", ops
 
@@ -1210,7 +1213,7 @@ def check_kernels_on_fhn_metrics(data, k_err: dict) -> dict:
     gen = torch.Generator(device=DEVICE).manual_seed(3)
     truth = torch.tensor(rt.models.fhn.THETA_TRUE, device=DEVICE)
     theta = truth * (1.0 + 0.1 * torch.randn((FHN_CHAINS, 3), generator=gen, device=DEVICE))
-    g = fhn_sens.fhn_sensitivities_cuda(theta, data, 2, **fhn_constants()).metric
+    g = rt.ops.fhn_sens.fhn_sensitivities_cuda(theta, data, 2, **fhn_constants()).metric
     g = g + FHN_JITTER * torch.eye(3, device=DEVICE)
     check(bool(torch.isfinite(g).all()), "FHN metrics around the truth not finite")
     lp = hl.cholesky_plain(g)
@@ -1233,7 +1236,7 @@ def phase_fhn_kernel(smi: str, k_err: dict) -> dict:
     data = fhn_data()
     err, plain_ms = {}, {}
     for c in (FHN_CHAINS, FHN_CHAINS + 1):
-        for order in fhn_sens.ORDERS:
+        for order in rt.ops.fhn_sens.ORDERS:
             ms = check_fhn_kernel(c, order, data, err)
             if c == FHN_CHAINS:  # the timed batch: the twin's one call there is its time
                 plain_ms[order] = ms
@@ -1243,22 +1246,22 @@ def phase_fhn_kernel(smi: str, k_err: dict) -> dict:
         **check_kernels_on_fhn_metrics(data, k_err))
     theta, _ = fhn_thetas(FHN_CHAINS)
     clock_mhz = sm_clock_max_mhz()
-    latency_bound = fhn_sens.latency_bound_us(FHN_OBS, FHN_SUBSTEPS, clock_mhz)
+    critical_path = rt.ops.fhn_sens.critical_path_us(FHN_OBS, FHN_SUBSTEPS, clock_mhz)
     times = {}
-    for order in fhn_sens.ORDERS:
+    for order in rt.ops.fhn_sens.ORDERS:
         def launch():
-            return fhn_sens.fhn_sensitivities_cuda(theta, data, order, **fhn_constants())
+            return rt.ops.fhn_sens.fhn_sensitivities_cuda(theta, data, order, **fhn_constants())
         dev = device_us(launch, launches=20, name_part=FHN_KERNEL_NAME)
         check(dev["events_per_call"] == 1, f"fhn: {dev['events_per_call']} device kernels per launch")
         bound, bound_by, ops = fhn_bound_us(order, FHN_CHAINS)
         times[order] = {"ms": median_ms(launch, reps=20), "device_us": dev["us"], "device_us_source": dev["source"],
                         "profiler_sessions": dev["sessions"],
                         "plain_ms": plain_ms[order], "bound_us": bound, "bound_by": bound_by, "operations": ops,
-                        "share_of_bound": bound / dev["us"], "latency_bound_us": latency_bound,
-                        "share_of_latency_bound": latency_bound / dev["us"], "sm_clock_max_mhz": clock_mhz,
-                        "geometry": fhn_sens.launch_geometry(order, FHN_CHAINS, FHN_OBS)._asdict()}
+                        "share_of_bound": bound / dev["us"]}
         say("fhn-kernel-times", order=order, C=FHN_CHAINS, num_obs=FHN_OBS, substeps=FHN_SUBSTEPS, card=smi,
-            **times[order], library="none: no single PyTorch call integrates an ODE with its sensitivities")
+            **times[order], critical_path_us=critical_path, share_of_critical_path=critical_path / dev["us"],
+            sm_clock_max_mhz=clock_mhz, geometry=rt.ops.fhn_sens.launch_geometry(order, FHN_CHAINS, FHN_OBS)._asdict(),
+            library="none: no single PyTorch call integrates an ODE with its sensitivities")
     say("fhn-kernel-scaling", card=smi, **fhn_scaling(data))
     return {"err": max(err.values()), "err_by_output": err, "times": times}
 
@@ -1274,15 +1277,15 @@ def fhn_scaling(data) -> dict:
     truth = torch.tensor(rt.models.fhn.THETA_TRUE, device=DEVICE)
     gen = torch.Generator(device=DEVICE).manual_seed(7)
     out = {}
-    for order in fhn_sens.ORDERS:
+    for order in rt.ops.fhn_sens.ORDERS:
         row = {}
         for c in FHN_SCALING_CHAINS:
             theta = truth * (1.0 + 0.05 * torch.randn((c, 3), generator=gen, device=DEVICE))
-            row[str(c)] = burst_ms(lambda: fhn_sens.fhn_sensitivities_cuda(theta, data, order, **fhn_constants()),
+            row[str(c)] = burst_ms(lambda: rt.ops.fhn_sens.fhn_sensitivities_cuda(theta, data, order, **fhn_constants()),
                                    launches=10, warmup=2)
         special, _ = fhn_thetas(FHN_CHAINS)
         row[f"{FHN_CHAINS}_with_special_chains"] = burst_ms(
-            lambda: fhn_sens.fhn_sensitivities_cuda(special, data, order, **fhn_constants()), launches=10, warmup=2)
+            lambda: rt.ops.fhn_sens.fhn_sensitivities_cuda(special, data, order, **fhn_constants()), launches=10, warmup=2)
         out[f"order{order}_ms_by_chains"] = row
     return out
 
@@ -1316,12 +1319,12 @@ def phase_fhn(smi: str, kernel: dict) -> dict:
     fhn_by_path, k_by_path = {}, {}
     for sampler, (burn, samples) in FHN_RUNS.items():
         label = f"fhn/{sampler}"
-        fhn_sens.reset_launch_counts()
+        rt.ops.fhn_sens.reset_launch_counts()
         hl.reset_launch_counts()
         res = experiments.run_workload("fhn", sampler, device=DEVICE, num_chains=FHN_CHAINS, num_samples=samples,
                                        burn_in=burn, seed=FHN_SEED, keep_samples=True, fhn_obs=FHN_OBS,
                                        fhn_substeps=FHN_SUBSTEPS)
-        fhn_launches, k_launches = fhn_sens.launch_counts(), hl.launch_counts()
+        fhn_launches, k_launches = rt.ops.fhn_sens.launch_counts(), hl.launch_counts()
         fhn_expected, k_expected = fhn_expected_launches(sampler, burn + 2 * (samples // 2))
         check(fhn_launches == fhn_expected, f"{label}: FHN kernel launches {fhn_launches}, expected {fhn_expected}")
         check(k_launches == k_expected, f"{label}: K1 / K2 launches {k_launches}, expected {k_expected}")
@@ -1358,9 +1361,7 @@ def fhn_summary(fhn: dict, smi: str) -> dict:
         "launches": total, "max_abs_err": fhn["kernel"]["err"], "max_abs_err_is": "of each output's scale",
         "ms": top["ms"], "plain_ms": top["plain_ms"], "bound_ms": top["bound_us"] / 1e3, "bound_by": top["bound_by"],
         "library_ms": None, "library_note": "no single PyTorch call integrates an ODE with its sensitivities",
-        "device_us": top["device_us"], "share_of_bound": top["share_of_bound"],
-        "latency_bound_us": top["latency_bound_us"], "share_of_latency_bound": top["share_of_latency_bound"],
-        "card": smi,
+        "device_us": top["device_us"], "share_of_bound": top["share_of_bound"], "card": smi,
         "shape": {"C": FHN_CHAINS, "num_obs": FHN_OBS, "substeps": FHN_SUBSTEPS, "order": 2},
         "orders": {str(order): row for order, row in times.items()},
         "launches_by_path": {label: {str(o): n for o, n in counts.items()}

@@ -25,8 +25,11 @@ A checkout whose wrappers take chains-last (D, D, C) operands (no
 chains at chip_smoke's 200 observations x 5 substeps, theta seeded around
 the truth (the same in every turn): ``device_us`` (torch.profiler, 20
 launches), ``burst_ms``, ``ms``, the roofline ``bound_us`` and this
-checkout's ``latency_bound_us`` at the card's maximum SM clock, with each
-share of ``device_us``.
+checkout's ``critical_path_us`` (``fhn_sens.critical_path_us`` at the
+card's maximum SM clock), with each share of ``device_us``; and, per turn,
+the kernel's RK4 step loop as each checkout's build compiled it
+(``fhn_rk4_loop``, from ``cuobjdump -sass``): RK4 steps per loop pass, SASS
+instructions per step and the branches inside the loop.
 Prints one JSON line per turn, kernel and shape, with the card's name and
 power limit.  Needs a CUDA device and nvcc; there is no CPU path.
 """
@@ -36,6 +39,7 @@ from __future__ import annotations
 import argparse
 import importlib.util
 import json
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -53,7 +57,7 @@ def _measure(root: Path, kernels: list[str]) -> list[dict]:
     smoke = importlib.util.module_from_spec(spec)
     sys.modules["chip_smoke"] = smoke  # dataclasses looks a class's module up there
     spec.loader.exec_module(smoke)  # imports the port: from root, first on sys.path
-    for module in (smoke.hl, smoke.fhn_sens):
+    for module in (smoke.hl, smoke.rt.ops.fhn_sens):
         if Path(module.__file__).resolve().parents[2] != root.resolve():
             raise RuntimeError(f"imported the port from {module.__file__}, not from {root}")
     rows = []
@@ -99,7 +103,7 @@ def _measure_linalg(smoke) -> list[dict]:
 def _measure_fhn(smoke) -> list[dict]:
     import torch
 
-    fs, data, card, rows = smoke.fhn_sens, smoke.fhn_data(), smoke.smi_line(), []
+    fs, data, card, rows = smoke.rt.ops.fhn_sens, smoke.fhn_data(), smoke.smi_line(), []
     truth = torch.tensor(smoke.rt.models.fhn.THETA_TRUE, device=smoke.DEVICE)
     with torch.inference_mode():
         for c in FHN_CHAINS:
@@ -117,15 +121,50 @@ def _measure_fhn(smoke) -> list[dict]:
                     "ms": smoke.median_ms(launch, reps=20), "bound_us": bound, "share_of_bound": bound / dev["us"],
                     "sm_clock_max_mhz": smoke.sm_clock_max_mhz(), "card": card,
                 })
+    rows.append({"kernel": "fhn_rk4_loop", "card": card, **_fhn_rk4_loop(smoke)})
     return rows
 
 
-def _with_latency_bound(row: dict) -> dict:
-    """An FHN row with this checkout's latency bound, the same yardstick for both checkouts."""
+def _fhn_rk4_loop(smoke) -> dict:
+    """Per order, the FHN kernel's RK4 step loop in the built library's SASS:
+    the innermost loop (a backward branch) with the most FFMAs, the RK4 steps
+    it takes per pass (its multiplies by 1/3, one per right-hand side, over
+    4: nvcc may unroll it), its instructions per step, and the branch and
+    reconvergence instructions inside it bar the loop's own (none expected:
+    the lanes of a chain hold different roles, so a branch on the role runs
+    each side in turn).  ``{"error": ...}`` where cuobjdump is missing or fails."""
+    cuobjdump = Path(smoke._build._nvcc()).parent / "cuobjdump"
+    if not cuobjdump.exists():
+        return {"error": f"no {cuobjdump}"}
+    proc = subprocess.run([str(cuobjdump), "-sass", str(smoke._build.build())], capture_output=True, text=True,
+                          check=False, timeout=300)
+    if proc.returncode != 0:
+        return {"error": f"cuobjdump exited {proc.returncode}: {proc.stderr[-500:]}"}
+    out = {}
+    name = smoke.FHN_KERNEL_NAME
+    for order, body in re.findall(rf"Function : \S*{name}ILi(\d)EE\S*(.*?)(?=Function :|\Z)", proc.stdout, re.S):
+        code = [(int(addr, 16), op.split(".")[0], rest) for addr, op, rest in
+                re.findall(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);", body)]
+        loops = [(int(target, 16), addr) for addr, op, rest in code if op == "BRA"
+                 for target in re.findall(r"0x([0-9a-f]+)", rest) if int(target, 16) < addr]
+        innermost = [(lo, hi) for lo, hi in loops if not any(lo <= a < b <= hi and (a, b) != (lo, hi) for a, b in loops)]
+        bodies = [[(op, rest) for addr, op, rest in code if lo <= addr <= hi] for lo, hi in innermost]
+        if not bodies:
+            continue
+        inside = max(bodies, key=lambda b: sum(op == "FFMA" for op, _ in b))
+        steps = sum("0.333333" in rest for _, rest in inside) / 4
+        out[f"fhn<{order}>"] = {
+            "steps_per_pass": steps, "instructions_per_step": len(inside) / steps if steps else None,
+            "branches": sum(op in ("BRA", "BSSY", "BSYNC", "WARPSYNC") for op, _ in inside) - 1}
+    return out
+
+
+def _with_critical_path(row: dict) -> dict:
+    """An FHN row with this checkout's critical path, the same yardstick for both checkouts."""
     from riemannhamiltonianmontecarlo_tpu_torch.ops import fhn_sens
 
-    bound = fhn_sens.latency_bound_us(row["num_obs"], row["substeps"], row["sm_clock_max_mhz"])
-    return {**row, "latency_bound_us": bound, "share_of_latency_bound": bound / row["device_us"]}
+    path = fhn_sens.critical_path_us(row["num_obs"], row["substeps"], row["sm_clock_max_mhz"])
+    return {**row, "critical_path_us": path, "share_of_critical_path": path / row["device_us"]}
 
 
 def main(argv=None) -> None:
@@ -152,7 +191,7 @@ def main(argv=None) -> None:
             raise RuntimeError(f"turn {turn} ({which}) failed:\n{proc.stdout}\n{proc.stderr}")
         for row in json.loads(proc.stdout.strip().splitlines()[-1]):
             if row["kernel"] == "fhn_sensitivities":
-                row = _with_latency_bound(row)
+                row = _with_critical_path(row)
             lines.append(json.dumps({"turn": turn, "which": which, **row}))
             print(lines[-1], flush=True)
     if args.out:

@@ -30,12 +30,17 @@
 // bytes of theta and 8 * num_obs bytes of data and writes at most 160 bytes
 // a chain; its operations at 200 x 5 and 256 chains are 0.23 GFLOP at order
 // 2 (3.4 us at 67 TFLOP/s).  Each chain walks one sequence of 995 RK4 steps,
-// and a step's longest chain of dependent operations runs through V: 25 of
-// them (ops/fhn_sens.py::_CHAIN_PER_STEP), ~50 us at 4 cycles each and 1.98
-// GHz, whatever the chain count.  One thread per chain (the first form) sat
-// near that floor at order 0 (67 us) but not above it: at orders 1 and 2 one
-// thread issued every instruction of y, S and T (~270 and ~860 operations a
-// step), so a warp waited on its own issue (122 and 507 us, H100).
+// and a step's longest chain of dependent operations in this source runs
+// through V: 25 of them (ops/fhn_sens.py::_CHAIN_PER_STEP), 50.3 us at 4
+// cycles each and 1,980 MHz, whatever the chain count or the layout (the
+// source's critical path; the cubic written as FMAs would shorten it).
+// With one thread per chain (the earlier design) order 0 sat at 0.75 of that
+// path (67 us), but at orders 1 and 2 one thread issued every instruction of
+// y, S and T, 170 and 541 a step (SASS), and its warp, alone on its
+// scheduler, waited on its own issue (122 and 507 us).  Spread over lanes, a
+// lane's step is 114 and 306 instructions: 84 and 223 us at 256 chains (0.59
+// and 0.22 of the critical path; H100, kernel_ab.py).  Order 2 is still bound
+// by one warp's issue.
 // What the design does about it:
 //   * a chain is a group of lanes of one warp, a power of two wide, so a
 //     group is a fixed slice of its warp and shuffles take a static mask:
@@ -43,14 +48,19 @@
 //       order 1: 4 lanes; lane j < 3 integrates y and the column S_j, lane 3
 //         repeats lane 2's work and writes nothing (the observation sums are
 //         ~1% of the work, so giving them to lane 3 would save nothing);
-//       order 2, layout (a): 4 lanes; lane k < 3 integrates y, all of S and
-//         the column T[., k] (the pairs (q, k)), and sums dG[k] by itself;
-//         lane 3 repeats lane 2 and writes nothing.
-//     A lane issues about a third (order 1) or two fifths (order 2) of what
-//     one thread did, and y is replicated, computed by the same instructions
-//     in every lane of a group, so the lanes agree on it bit for bit;
-//   * the lanes talk only at observation times, at order 1: each column
-//     passes to the lane before it (G[j][j+1]); order 2 needs no shuffle;
+//       order 2: 8 lanes; lane p < 6 owns the pair (i, j) = PAIRS[p] of T and
+//         integrates y, S_i, S_j (all T_ij's right-hand side reads) and T_ij;
+//         lanes 6 and 7 repeat lane 5 and write nothing.  (The other layout
+//         measured, 4 lanes with lane k integrating y, all of S and T[., k],
+//         issues 500 instructions a step: 332 us at 256 chains, 335 at
+//         4,224, where this one's 8 warps an SM share 4 schedulers: 397.)
+//     y is replicated, computed by the same instructions in every lane of a
+//     group, so the lanes agree on it bit for bit;
+//   * the lanes talk only at observation times: order 1 passes each column
+//     to the lane before it (G[j][j+1]); order 2 broadcasts S_0, S_1, S_2
+//     from the lanes of (0,0), (1,1), (2,2), and lane (i, j) sums T_ij S_c.
+//     dG[k][i][j] = sum T_ik S_j + sum T_jk S_i is put together from those
+//     sums by shuffles once, after the integration;
 //   * which lane writes which output entry is owner() below, one lane each,
 //     mirrored in Python (ops/fhn_sens.py::lane_outputs) and held against
 //     this source on the card (chip_smoke.py phase 2);
@@ -59,7 +69,7 @@
 //   * the (num_obs, 2) data is staged once per block in shared memory; all
 //     lanes read the same observation at the same time (a broadcast);
 //   * blocks of one warp (32, 8 or 4 chains by order), so 256 chains spread
-//     over 8, 32 or 32 SMs;
+//     over 8, 32 or 64 SMs;
 //   * every step is taken: no early exit on a non-finite state, so a chain
 //     that overflows gives the same non-finite entries as the twin, and no
 //     data-dependent branch anywhere, masks only.  A lane past the last
@@ -76,9 +86,18 @@
 // chip_smoke.py phase 10).
 // So V^3/3 is V*V*V times float(1/3), and every /c a product with 1/c,
 // computed once per chain; each differs from the division by at most one
-// rounding.  A term that only some lanes' columns have is chosen by a
-// select, never multiplied by 0, so an infinite state gives the twin's
-// NaNs.  The step constants are the JAX model's (h, h/2 and h/6 in double,
+// rounding.
+//
+// No branch inside the loop either.  A term that only some lanes' columns or
+// pairs have is chosen by the lane's role masks (bits() / keep() below): a
+// logic operation on the float's bits, never a multiplication by 0 (0 * inf
+// is NaN where the twin adds 0) and never a ternary on the role, which nvcc
+// compiled into branches inside the RK4 loop (21 of them at order 2): the
+// lanes of a group hold different roles, so the warp ran every side in turn
+// and the scheduler lost the instruction-level parallelism across the
+// branches (order 2: 511-515 us against 226-228 with the masks, H100,
+// kernel_ab.py).
+// The step constants are the JAX model's (h, h/2 and h/6 in double,
 // then rounded to float).  nvcc contracts multiply-adds into FMAs (no
 // fast-math), so results differ from the twin in the last bits.
 //
@@ -104,8 +123,8 @@ __host__ __device__ constexpr int pair_first(int p) { return p < 3 ? 0 : p < 5 ?
 __host__ __device__ constexpr int pair_second(int p) { return p < 3 ? p : p < 5 ? p - 2 : 2; }
 
 // Lanes of a chain's group, and how many of them own work, by order.
-__host__ __device__ constexpr int lanes_per_chain(int order) { return order == 0 ? 1 : 4; }
-__host__ __device__ constexpr int working_lanes(int order) { return order == 0 ? 1 : 3; }
+__host__ __device__ constexpr int lanes_per_chain(int order) { return order == 0 ? 1 : order == 1 ? 4 : 8; }
+__host__ __device__ constexpr int working_lanes(int order) { return order == 0 ? 1 : order == 1 ? 3 : kPairs; }
 
 // The lane of a chain's group that writes output entry e, -1 for an entry
 // past the order.  Entries: logp 0, grad[i] 1 + i, G[i][j] 4 + 3 i + j,
@@ -115,9 +134,9 @@ __host__ __device__ constexpr int working_lanes(int order) { return order == 0 ?
 __host__ __device__ constexpr int owner(int order, int e) {
   if (e == 0) return 0;
   if (order == 0 || (order == 1 && e >= 13)) return -1;
-  if (e < 4) return e - 1;
+  if (e < 4) return order == 1 ? e - 1 : pair_of(e - 1, e - 1);
   const int i = e < 13 ? (e - 4) / 3 : (e - 13) % 9 / 3, j = (e - 4) % 3;
-  if (order == 2) return e < 13 ? i : (e - 13) / 9;
+  if (order == 2) return pair_of(i, j);
   return i == j || j == (i + 1) % 3 ? i : j;
 }
 
@@ -133,13 +152,11 @@ __host__ __device__ constexpr Geometry geometry(int order, int num_chains, int n
 
 // What one lane integrates: y, then the sensitivity columns it owns (order 1:
 // S_j; order 2: S_i and S_j of its pair), then its second sensitivity T_ij.
-// Layout (a) of order 2: lane k < 3 integrates y, all of S and T[., k].
-__host__ __device__ constexpr int columns(int order) { return order == 0 ? 0 : order == 1 ? 1 : 3; }
 template <int Order>
 struct Aug {
   float v, r;
-  float sv[Order >= 1 ? columns(Order) : 1], sr[Order >= 1 ? columns(Order) : 1];
-  float tv[3], tr[3];  // order 2: T_(q, k), q = 0..2
+  float sv[Order >= 1 ? Order : 1], sr[Order >= 1 ? Order : 1];
+  float tv, tr;  // order 2
 };
 
 struct Theta {
@@ -147,21 +164,25 @@ struct Theta {
 };
 
 // A lane's place in its chain: the theta index of each column it integrates
-// and, at order 2, its pair.  The same for every step: the selects on it
-// choose among values, never branch.
+// (order 2: its pair (i, j), i <= j) and the masks that choose its terms.
 struct Role {
   int col[2];
-  int pair;
-  unsigned is[3];  // all ones where the lane's column k is 0, 1, 2
+  // all ones where the column is theta_a / _b / _c, else zero; all ones where
+  // the pair is (a, c), (b, c), (c, c): the terms of d2f_R/dtheta2
+  unsigned is_a[2], is_b[2], is_c[2];
+  unsigned hess_ac, hess_bc, hess_cc;
 };
 
 __device__ __forceinline__ unsigned all_if(bool b) { return b ? ~0u : 0u; }
-// x where mask is all ones, +0.0f where it is zero: a select by bits, never a branch.
+__device__ __forceinline__ Role make_role(int i, int j) {
+  return {{i, j}, {all_if(i == 0), all_if(j == 0)}, {all_if(i == 1), all_if(j == 1)}, {all_if(i == 2), all_if(j == 2)},
+          all_if(i == 0 && j == 2), all_if(i == 1 && j == 2), all_if(i == 2 && j == 2)};
+}
+
+// The bits of x where mask is all ones, +0.0f where it is zero: a select by
+// the lane's role that is one logic operation, never a branch.
 __device__ __forceinline__ unsigned bits(float x, unsigned mask) { return __float_as_uint(x) & mask; }
 __device__ __forceinline__ float keep(float x, unsigned mask) { return __uint_as_float(bits(x, mask)); }
-__device__ __forceinline__ float of_k(const Role& role, float x0, float x1, float x2) {
-  return __uint_as_float(bits(x0, role.is[0]) | bits(x1, role.is[1]) | bits(x2, role.is[2]));
-}
 
 // out = y + s * k, field by field.
 template <int Order>
@@ -169,11 +190,8 @@ __device__ __forceinline__ void axpy(const Aug<Order>& y, float s, const Aug<Ord
   out.v = y.v + s * k.v;
   out.r = y.r + s * k.r;
 #pragma unroll
-  for (int q = 0; q < columns(Order); ++q) out.sv[q] = y.sv[q] + s * k.sv[q], out.sr[q] = y.sr[q] + s * k.sr[q];
-  if constexpr (Order == 2) {
-#pragma unroll
-    for (int q = 0; q < 3; ++q) out.tv[q] = y.tv[q] + s * k.tv[q], out.tr[q] = y.tr[q] + s * k.tr[q];
-  }
+  for (int q = 0; q < Order; ++q) out.sv[q] = y.sv[q] + s * k.sv[q], out.sr[q] = y.sr[q] + s * k.sr[q];
+  if constexpr (Order == 2) out.tv = y.tv + s * k.tv, out.tr = y.tr + s * k.tr;
 }
 
 // acc = acc + w * k (w = 1 or 2: the RK4 weights k1 + 2 k2 + 2 k3 + k4).
@@ -196,36 +214,29 @@ __device__ __forceinline__ void rhs(const Theta& th, const Role& role, const Aug
     const float jvv = th.c * (1.0f - v2), jrr = -th.b * th.inv_c;
     const float fr_b = -r * th.inv_c, fr_c = lin * th.inv_c2;
 #pragma unroll
-    for (int q = 0; q < columns(Order); ++q) {
-      const int j = Order == 2 ? q : role.col[q];
-      k.sv[q] = jvv * y.sv[q] + th.c * y.sr[q] + (j == 2 ? cubic : 0.0f);
-      k.sr[q] = -th.inv_c * y.sv[q] + jrr * y.sr[q] + (j == 0 ? th.inv_c : j == 1 ? fr_b : fr_c);
+    for (int q = 0; q < Order; ++q) {
+      const float fr =
+          __uint_as_float(bits(th.inv_c, role.is_a[q]) | bits(fr_b, role.is_b[q]) | bits(fr_c, role.is_c[q]));
+      k.sv[q] = jvv * y.sv[q] + th.c * y.sr[q] + keep(cubic, role.is_c[q]);
+      k.sr[q] = -th.inv_c * y.sv[q] + jrr * y.sr[q] + fr;
     }
     if constexpr (Order == 2) {
-      // The pairs (q, k), q = 0..2, k = col[0]; S_q is column q, S_k picked.
+      // The pair (i, j) = (col[0], col[1]); S_i and S_j are columns 0 and 1.
+      // V: d2f/dV2 = -2 c V; d2f/(dy dc) . S_j = (1 - V^2) SV_j + SR_j (0 for a, b).
+      // R: d2f/(dy dtheta_i) . S_j = 0, -SR_j / c, (SV_j + b SR_j) / c^2 for i = a, b, c;
+      //    d2f/dtheta2 = -1/c^2 at (a, c), R/c^2 at (b, c), -2 lin / c^3 at (c, c).
       const float fvv = -2.0f * th.c * v;
-      float qv[3], row_b[3], row_c[3];
-#pragma unroll
-      for (int q = 0; q < 3; ++q) {
-        qv[q] = (1.0f - v2) * y.sv[q] + y.sr[q];
-        row_b[q] = -y.sr[q] * th.inv_c;
-        row_c[q] = (y.sv[q] + th.b * y.sr[q]) * th.inv_c2;
-      }
-      const float sv_k = of_k(role, y.sv[0], y.sv[1], y.sv[2]);
-      const float q_k = of_k(role, qv[0], qv[1], qv[2]);
-      const float rb_k = of_k(role, row_b[0], row_b[1], row_b[2]);
-      const float rc_k = of_k(role, row_c[0], row_c[1], row_c[2]);
-      const float h_ac = -th.inv_c2, h_bc = r * th.inv_c2, h_cc = -2.0f * lin * th.inv_c3;
-#pragma unroll
-      for (int q = 0; q < 3; ++q) {
-        const float mix_v = keep(qv[q], role.is[2]) + (q == 2 ? q_k : 0.0f);
-        const float mix_r = (q == 0 ? 0.0f : q == 1 ? rb_k : rc_k) + of_k(role, 0.0f, row_b[q], row_c[q]);
-        // pairs (0, 2) and (2, 0): -1/c^2; (1, 2), (2, 1): R/c^2; (2, 2): -2 lin/c^3
-        const float hess_r = q == 0 ? of_k(role, 0.0f, 0.0f, h_ac) : q == 1 ? of_k(role, 0.0f, 0.0f, h_bc)
-                                                                       : of_k(role, h_ac, h_bc, h_cc);
-        k.tv[q] = jvv * y.tv[q] + th.c * y.tr[q] + fvv * y.sv[q] * sv_k + mix_v;
-        k.tr[q] = -th.inv_c * y.tv[q] + jrr * y.tr[q] + mix_r + hess_r;
-      }
+      const float q_i = (1.0f - v2) * y.sv[0] + y.sr[0], q_j = (1.0f - v2) * y.sv[1] + y.sr[1];
+      const float row_b_i = -y.sr[0] * th.inv_c, row_c_i = (y.sv[0] + th.b * y.sr[0]) * th.inv_c2;
+      const float row_b_j = -y.sr[1] * th.inv_c, row_c_j = (y.sv[1] + th.b * y.sr[1]) * th.inv_c2;
+      // mix(i, j) + mix(j, i): only the terms whose theta index is a parameter the row depends on
+      const float mix_v = keep(q_i, role.is_c[1]) + keep(q_j, role.is_c[0]);
+      const float mix_r = __uint_as_float(bits(row_b_j, role.is_b[0]) | bits(row_c_j, role.is_c[0])) +
+                          __uint_as_float(bits(row_b_i, role.is_b[1]) | bits(row_c_i, role.is_c[1]));
+      const float hess_r = __uint_as_float(bits(-th.inv_c2, role.hess_ac) | bits(r * th.inv_c2, role.hess_bc) |
+                                           bits(-2.0f * lin * th.inv_c3, role.hess_cc));
+      k.tv = jvv * y.tv + th.c * y.tr + fvv * y.sv[0] * y.sv[1] + mix_v;
+      k.tr = -th.inv_c * y.tv + jrr * y.tr + mix_r + hess_r;
     }
   }
 }
@@ -256,29 +267,30 @@ struct Sums {
   float sq = 0.0f;
   bool finite = true;
   float grad = 0.0f, g = 0.0f, g_next = 0.0f;
-  float g3[3] = {}, part[Order == 2 ? 3 : 1][3] = {};  // order 2: sum S_k . S_c; sum T_qk . S_c
+  float part[Order == 2 ? 3 : 1] = {};
 
   __device__ __forceinline__ void observe(const Aug<Order>& y, const Role& role, int lanes, float data_v,
                                          float data_r) {
     const float ev = data_v - y.v, er = data_r - y.r;
     sq += ev * ev + er * er;
     finite = finite && isfinite(y.v) && isfinite(y.r);
-    if constexpr (Order == 1) {
+    if constexpr (Order >= 1) {
       grad += ev * y.sv[0] + er * y.sr[0];
-      g += y.sv[0] * y.sv[0] + y.sr[0] * y.sr[0];
+      g += y.sv[0] * y.sv[Order - 1] + y.sr[0] * y.sr[Order - 1];
+    }
+    if constexpr (Order == 1) {
+      // S_{j+1 mod 3} from the lane that integrates it (lane 3 takes lane 0's and ignores it)
       const int next = (role.col[0] + 1) % 3;
       const float nv = __shfl_sync(kWarpMask, y.sv[0], next, lanes), nr = __shfl_sync(kWarpMask, y.sr[0], next, lanes);
       g_next += y.sv[0] * nv + y.sr[0] * nr;
     }
     if constexpr (Order == 2) {
-      const float sv_k = of_k(role, y.sv[0], y.sv[1], y.sv[2]);
-      const float sr_k = of_k(role, y.sr[0], y.sr[1], y.sr[2]);
-      grad += ev * sv_k + er * sr_k;
+      // S_c from the lane of the pair (c, c), which integrates it as its column 0
 #pragma unroll
       for (int c = 0; c < 3; ++c) {
-        g3[c] += sv_k * y.sv[c] + sr_k * y.sr[c];
-#pragma unroll
-        for (int q = 0; q < 3; ++q) part[q][c] += y.tv[q] * y.sv[c] + y.tr[q] * y.sr[c];
+        const float sv = __shfl_sync(kWarpMask, y.sv[0], pair_of(c, c), lanes);
+        const float sr = __shfl_sync(kWarpMask, y.sr[0], pair_of(c, c), lanes);
+        part[c] += y.tv * sv + y.tr * sr;
       }
     }
   }
@@ -307,14 +319,13 @@ __global__ void __launch_bounds__(kThreads)
   const float inv_c = 1.0f / c, inv_c2 = inv_c * inv_c;
   const Theta th{a, b, c, inv_c, inv_c2, inv_c2 * inv_c};
   const int work = lane < working_lanes(Order) ? lane : working_lanes(Order) - 1;  // spare lanes repeat the last
-  const Role role{{work, work}, 0, {all_if(work == 0), all_if(work == 1), all_if(work == 2)}};
+  const Role role = Order == 2 ? make_role(pair_first(work), pair_second(work)) : make_role(work, work);
 
   Aug<Order> y;
   y.v = v0, y.r = r0;
 #pragma unroll
-  for (int q = 0; q < columns(Order); ++q) y.sv[q] = 0.0f, y.sr[q] = 0.0f;
-#pragma unroll
-  for (int q = 0; q < 3; ++q) y.tv[q] = 0.0f, y.tr[q] = 0.0f;
+  for (int q = 0; q < Order; ++q) y.sv[q] = 0.0f, y.sr[q] = 0.0f;
+  y.tv = 0.0f, y.tr = 0.0f;
 
   Sums<Order> sums;
   sums.observe(y, role, kLanes, obs[0], obs[1]);
@@ -334,28 +345,33 @@ __global__ void __launch_bounds__(kThreads)
     const float gi = sums.grad / noise_var - 1.0f / gamma_scale;
     const float ti = pick(t3, i);
     const float g_ii = sums.g / noise_var + 2.0f / (ti * ti);
-    const float g_off = sums.g_next / noise_var;
+    // off the diagonal, order 1: G[i][i+1] (both ways); order 2: G[i][j] (both ways)
+    const float g_off = (Order == 1 ? sums.g_next : sums.g) / noise_var;
 #pragma unroll
     for (int e = 1; e < 4; ++e)
       if (writes && owner(Order, e) == lane) grad[3 * chain + e - 1] = valid && isfinite(gi) ? gi : 0.0f;
-    if constexpr (Order == 1) {
 #pragma unroll
-      for (int e = 4; e < 13; ++e)
-        if (writes && owner(Order, e) == lane) metric[9 * chain + e - 4] = (e - 4) % 4 == 0 ? g_ii : g_off;
-    }
+    for (int e = 4; e < 13; ++e)
+      if (writes && owner(Order, e) == lane) metric[9 * chain + e - 4] = (e - 4) % 4 == 0 ? g_ii : g_off;
     if constexpr (Order == 2) {
-      // lane k: G[k][c], dG[k][p][q] = sum T_pk S_q + sum T_qk S_p
+      // dG[k][i][j] = sum T_ik S_j + sum T_jk S_i: part[j] of the lane of (i, k) plus part[i] of the lane of (j, k).
+      const int j = role.col[1];
+      float dg[3];
 #pragma unroll
-      for (int e = 4; e < 13; ++e)
-        if (writes && owner(Order, e) == lane)
-          metric[9 * chain + e - 4] = sums.g3[(e - 4) % 3] / noise_var + ((e - 4) % 4 == 0 ? 2.0f / (ti * ti) : 0.0f);
+      for (int k = 0; k < 3; ++k) {
+        const int from_i = pair_of(i, k), from_j = pair_of(j, k);
+        float at_i[3], at_j[3];
 #pragma unroll
-      for (int e = 13; e < kEntries; ++e) {
-        const int p = (e - 13) % 9 / 3, q = (e - 13) % 3;
-        if (writes && owner(Order, e) == lane)
-          dmetric[27 * chain + e - 13] = (sums.part[p][q] + sums.part[q][p]) / noise_var +
-                                         (p == i && q == i ? -4.0f / (ti * ti * ti) : 0.0f);
+        for (int q = 0; q < 3; ++q) {
+          at_i[q] = __shfl_sync(kWarpMask, sums.part[q], from_i, kLanes);
+          at_j[q] = __shfl_sync(kWarpMask, sums.part[q], from_j, kLanes);
+        }
+        const float tk = t3[k];
+        dg[k] = (pick(at_i, j) + pick(at_j, i)) / noise_var + (i == k && j == k ? -4.0f / (tk * tk * tk) : 0.0f);
       }
+#pragma unroll
+      for (int e = 13; e < kEntries; ++e)
+        if (writes && owner(Order, e) == lane) dmetric[27 * chain + e - 13] = dg[(e - 13) / 9];
     }
   }
 }

@@ -100,13 +100,16 @@ def operations(order: int, num_chains: int, num_obs: int, substeps: int) -> int:
     return num_chains * (steps * _OPS_PER_STEP[order] + num_obs * _OPS_PER_OBS[order])
 
 
-# The longest chain of dependent operations, read from csrc/fhn_sens.cu as
-# nvcc contracts it, the same at every order (y does not depend on S or T, and
+# The longest chain of dependent operations in csrc/fhn_sens.cu as nvcc
+# contracts it, the same at every order (y does not depend on S or T, and
 # their own chains are shorter).  A step: at each of the four stages V -> V*V
 # -> *V -> FMA with -1/3 -> +R -> *c (k.v), then the stage's FMA into the next
 # stage's V (the fourth stage's into the RK4 sum instead), then y += h/6 sum:
 # 4 x 5 + 3 + 2 = 25.  An observation: e = data - V, then two FMAs into the
 # sum of squares: 3; every observation but the last overlaps the steps after it.
+# It is this source's chain, not the function's: the same RK4 step with the
+# cubic c (V - V^3/3 + R) written as FMAs has a shorter one (17 with three
+# FMAs a stage, fewer by evaluating the cubic as two halves in parallel).
 _CHAIN_PER_STEP = 25
 _CHAIN_PER_OBS = 3
 
@@ -121,18 +124,19 @@ def dependent_operations(num_obs: int, substeps: int) -> int:
     return (num_obs - 1) * substeps * _CHAIN_PER_STEP + _CHAIN_PER_OBS
 
 
-def latency_bound_us(num_obs: int, substeps: int, sm_clock_mhz: float) -> float:
-    """The least time any layout of the kernel can take, at any order and chain
-    count: ``dependent_operations`` one after another at the card's latency
-    and the given SM clock.  No spread over lanes or SMs shortens it."""
+def critical_path_us(num_obs: int, substeps: int, sm_clock_mhz: float) -> float:
+    """The source's critical path: ``dependent_operations`` one after another
+    at the card's latency and the given SM clock.  No spread of this source
+    over lanes or SMs takes less, at any order and chain count; a shorter
+    chain of arithmetic for the same function would (see ``_CHAIN_PER_STEP``)."""
     return dependent_operations(num_obs, substeps) * FP32_DEPENDENT_CYCLES / sm_clock_mhz
 
 
 # -- the launch geometry and which lane writes what, mirrored from csrc/fhn_sens.cu --
 
 THREADS_PER_BLOCK = 32  # a block is one warp
-LANES_PER_CHAIN = {0: 1, 1: 4, 2: 4}  # a power of two, so a chain's lanes are a fixed slice of a warp
-WORKING_LANES = {0: 1, 1: DIM, 2: DIM}  # order 1: a column of S each; order 2: a column of T each
+LANES_PER_CHAIN = {0: 1, 1: 4, 2: 8}  # a power of two, so a chain's lanes are a fixed slice of a warp
+WORKING_LANES = {0: 1, 1: DIM, 2: len(PAIRS)}  # order 1: a column of S each; order 2: a pair of T each
 
 
 class LaunchGeometry(NamedTuple):
@@ -169,9 +173,9 @@ def lane_outputs(order: int) -> tuple[tuple[int, ...], ...]:
     """The entries of ``ENTRIES`` that each lane of a chain's group writes.
 
     Order 1: lane j integrates S_j and writes grad[j], G[j][j] and G[j][j+1
-    mod 3] both ways.  Order 2: lane k integrates all of S and T[., k] and
-    writes grad[k], G[k][.] and dG[k].  Lane 0 writes logp; spare lanes
-    write nothing.
+    mod 3] both ways.  Order 2: lane p integrates the pair (i, j) = PAIRS[p]
+    of T (and S_i, S_j) and writes G and every dG[k] at (i, j) and (j, i),
+    and grad[i] where i == j.  Lane 0 writes logp; spare lanes write nothing.
     """
     _check_order(order)
     entry = {name: e for e, name in enumerate(ENTRIES)}
@@ -181,10 +185,12 @@ def lane_outputs(order: int) -> tuple[tuple[int, ...], ...]:
         for j in range(DIM):
             n = (j + 1) % DIM
             lanes[j] += [entry[("grad", j)], entry[("G", j, j)], entry[("G", j, n)], entry[("G", n, j)]]
-    elif order == 2:  # layout (a): lane k integrates T[., k] and writes grad[k], G[k][.], dG[k]
-        for k in range(DIM):
-            lanes[k] += [entry[("grad", k)], *(entry[("G", k, j)] for j in range(DIM)),
-                         *(entry[("dG", k, i, j)] for i in range(DIM) for j in range(DIM))]
+    elif order == 2:
+        for p, (i, j) in enumerate(PAIRS):
+            if i == j:
+                lanes[p].append(entry[("grad", i)])
+            lanes[p] += sorted({entry[("G", i, j)], entry[("G", j, i)]})
+            lanes[p] += sorted({entry[("dG", k, x, y)] for k in range(DIM) for x, y in ((i, j), (j, i))})
     return tuple(map(tuple, lanes))
 
 
