@@ -63,7 +63,10 @@ It imports no jax.  Phases, each printing one line of findings:
 5. the main path: MAP + jitter init, burn-in, timed sampling run, with the
    kernels' launch counts, acceptance, divergences, split R-hat, and the
    posterior means against a plain-linalg run under another seed; prints
-   seconds per transition and min-ESS/s;
+   seconds per transition and min-ESS/s.  The counts are the kernels'
+   device counters (``ops.launches``), which the step's CUDA graph adds to
+   at each replay; three more replays of that graph under torch.profiler
+   must show as many K1 / K2 device events as the counters count;
 6. blr-samplers: the experiment entry point
    ``experiments.run_experiment(..., device="cuda")`` for all nine BLR
    samplers on a synthetic CSV of australian's shape (N=690, D=15), mMALA
@@ -169,7 +172,30 @@ It imports no jax.  Phases, each printing one line of findings:
    row's acceptance is within 0.05 of phase 5's, the StochVol row's of
    phase 7's (or, without those phases, in phase 5's window / within 0.05 of
    the JAX package's); ``RESULTS.md`` is byte for byte what it was.  Seconds
-   per tool are printed.
+   per tool are printed;
+13. graphs: the runner's CUDA graphs (``parallel.graphs``).  RMHMC's
+   ``draw_noise`` alone replayed 8 times against 8 eager calls from one
+   seed; BLR RMHMC at phase 5's configuration (4096 chains, 20 + 20) run
+   with ``capture=False`` and ``capture=True`` from one seed: samples,
+   final state, acceptance and divergences equal bit for bit, K1 / K2
+   launch counts of the captured run equal to ``blr_expected_launches``,
+   one capture for both phases; then every other capturable sampler (the
+   BLR ones and adaptive RMHMC at 4096 chains, LGC phmc / pmala / mMALA /
+   whitened MALA at D = 4096, the six FHN samplers at 200 x 5 and 256
+   chains), 3 + 3, eager against captured, bit for bit, with equal launch
+   counts, after one eager step of each of the run's kernels under
+   ``torch.cuda.set_sync_debug_mode("error")``; where a run launched a
+   hand-written kernel (and for the main path), three replays of its graph
+   under torch.profiler, the counters against the device's kernel events;
+   ``capture=True`` refused for Gibbs; ``timed_sampling``
+   capturing once before its timed half (which raises on a capture); a
+   captured ``run_checkpointed`` stopped after one segment and resumed, bit
+   for bit the run not stopped and the eager one.  Then the walls: BLR
+   RMHMC, FHN RMHMC and HMC, LGC phmc, eager and captured in turns E C C E
+   (``step_profile.profile_run``): wall and device-busy ms a step, idle
+   share, launches, the capture's seconds and its graph pool's bytes.
+   Phases 5-12 run the captured path wherever the kernel declares it, as
+   ``parallel.run`` does by default on a card.
 
 It ends with the nvidia-smi line, one JSON line per kernel summary
 (``{"kernels": [...]}``) and, as the last line,
@@ -324,6 +350,51 @@ def device_us(fn, launches: int = 50, name_part: str | None = None, sessions: in
     per_call = max(1, round(len(spans) / launches))
     return {"us": per_call * sum(spans) / len(spans), "events_per_call": per_call, "source": "torch.profiler",
             "sessions": session}
+
+
+GRAPH_REPLAYS = 3  # replays of a captured step under torch.profiler: the launch counters against the device's events
+LAUNCHES_COUNTED_BY = ("each wrapper's device counter (ops.launches), added to beside its launch, so inside the "
+                       "step's CUDA graph at every replay; replays held against torch.profiler's device events "
+                       "(phases 5 and 13)")
+
+
+def replay_launches(kernel, state, replays: int = GRAPH_REPLAYS, sessions: int = 3) -> dict:
+    """``replays`` replays of the graph the runner captured for ``kernel``'s
+    step on states like ``state``, under torch.profiler: the launches of the
+    hand-written kernels that their device counters counted, and those
+    kernels' device events that the profiler saw.  Each session has a
+    warm-up cycle of one replay, whose events are dropped: late in a long
+    process, sessions without one saw fewer device events than the counters
+    counted (PERF.md, PR 10).  A session whose events still differ from the counters is run
+    again, up to ``sessions`` in all (the profiler now and then drops an
+    event, as in ``device_us``); every session's events are returned.  Fails
+    where no graph was captured."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    entry = rt.parallel.graphs.lookup(kernel.step, None, state)
+    check(entry is not None, "no captured graph of the step: the run did not take the captured path")
+    names = {**KERNEL_NAMES, "fhn_sensitivities": FHN_KERNEL_NAME}
+    gen = torch.Generator(device=DEVICE).manual_seed(GRAPH_SEED)
+    seen = []
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            entry.scan(gen, state, 1, False)  # the warm-up cycle
+            hl.reset_launch_counts()
+            rt.ops.fhn_sens.reset_launch_counts()
+            torch.cuda.synchronize()
+            prof.step()
+            entry.scan(gen, state, replays, False)
+            torch.cuda.synchronize()
+            prof.step()
+        counted = {**hl.launch_counts(), "fhn_sensitivities": sum(rt.ops.fhn_sens.launch_counts().values())}
+        device = [e.name for e in prof.events() or () if e.device_type == torch.autograd.DeviceType.CUDA]
+        seen.append({name: sum(part in event for event in device) for name, part in names.items()})
+        if seen[-1] == counted:
+            break
+    hl.reset_launch_counts()
+    rt.ops.fhn_sens.reset_launch_counts()
+    return {"replays": replays, "counted": counted, "profiler_seen": seen, "equal": seen[-1] == counted}
 
 
 # The card's published peaks (NVIDIA H100 SXM data sheet): device memory
@@ -603,6 +674,7 @@ def sample(model, method, seed: int, burn_in: int = BURN_IN, num_samples: int = 
         "ess": ess,
         "ess_exact": rt.diagnostics.ess_multichain(samples, nfft_mode="exact"),
         "rhat": float(rt.diagnostics.split_rhat(samples).max()),
+        "kernel": kern, "final_state": res.final_state,
     }
 
 
@@ -627,6 +699,13 @@ def phase_main_path(model, smi: str) -> dict:
 
     plain = sample(model, "unrolled", seed=2, burn_in=PLAIN_BURN_IN, num_samples=PLAIN_SAMPLES)
     check(hl.launch_counts() == launches, "the plain-linalg run launched a kernel")
+    # The counts came from the kernels' device counters, which the step's graph adds to at each replay;
+    # a few more replays of that graph under torch.profiler hold them against the device's own events.
+    replays = replay_launches(kern["kernel"], kern["final_state"])
+    per_replay = {name: n - blr_expected_launches(0)[name] for name, n in blr_expected_launches(1).items()}
+    check(replays["counted"] == {**{k: n * GRAPH_REPLAYS for k, n in per_replay.items()}, "fhn_sensitivities": 0},
+          f"main path: {GRAPH_REPLAYS} replays counted {replays['counted']}, expected {per_replay} each")
+    check(replays["equal"], f"main path: the counters and torch.profiler's device events differ: {replays}")
     for run in (kern, plain):
         s = run["samples"].reshape(-1, DIM)
         run["mean"], run["var"] = s.mean(0), s.var(0)
@@ -637,7 +716,7 @@ def phase_main_path(model, smi: str) -> dict:
     min_ess = float(kern["ess"].min())
     SEEN_ACCEPT["rmhmc-main-path"] = kern["accept"]
     say("main-path", chains=NUM_CHAINS, burn_in=BURN_IN, samples=NUM_SAMPLES,
-        launches=launches, accept_rate=kern["accept"], divergent=kern["divergent"],
+        launches=launches, replays_under_profiler=replays, accept_rate=kern["accept"], divergent=kern["divergent"],
         max_split_rhat=kern["rhat"], max_z_means_vs_plain=float(z.max()),
         plain_burn_in=PLAIN_BURN_IN, plain_samples=PLAIN_SAMPLES,
         plain_accept_rate=plain["accept"], plain_divergent=plain["divergent"])
@@ -1358,7 +1437,8 @@ def fhn_summary(fhn: dict, smi: str) -> dict:
     total = sum(sum(counts.values()) for counts in fhn["fhn_by_path"].values())
     return {
         "name": "fhn_sensitivities", "route": "cuda", "source": FHN_SOURCE, "replaces": FHN_REPLACES,
-        "launches": total, "max_abs_err": fhn["kernel"]["err"], "max_abs_err_is": "of each output's scale",
+        "launches": total, "launches_counted_by": LAUNCHES_COUNTED_BY, "max_abs_err": fhn["kernel"]["err"],
+        "max_abs_err_is": "of each output's scale",
         "ms": top["ms"], "plain_ms": top["plain_ms"], "bound_ms": top["bound_us"] / 1e3, "bound_by": top["bound_by"],
         "library_ms": None, "library_note": "no single PyTorch call integrates an ODE with its sensitivities",
         "device_us": top["device_us"], "share_of_bound": top["share_of_bound"], "card": smi,
@@ -1948,8 +2028,258 @@ def phase_tools(smi: str) -> dict:
     return launches_by_path
 
 
+# -- phase 13: the runner's CUDA graphs ----------------------------------------------
+
+GRAPH_SEED = 31
+GRAPH_RUN = (20, 20)  # BLR RMHMC at the main path's width, eager against captured: (burn-in, samples)
+GRAPH_SMALL_RUN = (3, 3)  # every other capturable sampler, eager against captured, at its phase's width
+GRAPH_NOISE_STEPS = 8  # draw_noise alone: replays against eager calls
+GRAPH_CKPT = dict(num_samples=6, burn_in=2, checkpoint_every=2)  # three segments, stopped after one
+GRAPH_TIMED = dict(burn_in=4, num_samples=8)  # timed_sampling: its timed half captures nothing
+# The walls and idle shares of PERF.md section 5, eager (E) and captured (C) in turns E C C E:
+# (workload, sampler, chains); step_profile.profile_run at these depths.
+GRAPH_PROFILES = (("blr", "rmhmc", NUM_CHAINS), ("fhn", "rmhmc", 256), ("fhn", "hmc", 256), ("lgc", "rmhmc", 64))
+GRAPH_PROFILE_DEPTH = dict(warm=3, steps=10, profiled=3)
+INT_OF = {torch.float32: torch.int32, torch.float64: torch.int64}
+
+
+def bits(x: torch.Tensor) -> torch.Tensor:
+    """A tensor's bit patterns: a NaN equals a NaN of the same bits."""
+    return x.contiguous().view(INT_OF[x.dtype]) if x.dtype in INT_OF else x
+
+
+def differing_leaves(a, b) -> list[int]:
+    """Indices of the leaves of two trees that are not equal bit for bit."""
+    la, lb = [], []
+    rt.samplers.base.tree_map(la.append, a)
+    rt.samplers.base.tree_map(lb.append, b)
+    check(len(la) == len(lb), f"trees of {len(la)} and {len(lb)} leaves")
+    return [i for i, (x, y) in enumerate(zip(la, lb)) if x.dtype != y.dtype or not torch.equal(bits(x), bits(y))]
+
+
+def run_differences(eager, captured) -> dict:
+    """What differs between two RunResults (empty: bit for bit the same)."""
+    out = {}
+    for field in ("samples", "final_state", "accept_rate", "divergences", "warmup_accept_rate"):
+        leaves = differing_leaves(getattr(eager, field), getattr(captured, field))
+        if leaves:
+            out[field] = leaves
+    return out
+
+
+class NoiseState(NamedTuple):
+    """RMHMC's five draws of one step, the first under the name the runner reads."""
+
+    position: torch.Tensor
+    chi_normal: torch.Tensor
+    u_len: torch.Tensor
+    u_dir: torch.Tensor
+    u_acc: torch.Tensor
+
+
+def noise_step(gen, state):
+    noise = NoiseState(*rmhmc.draw_noise(gen, state.position))
+    c = state.position.shape[0]
+    no = torch.zeros((c,), dtype=torch.bool, device=state.position.device)
+    return noise, rt.samplers.base.Info(noise.u_acc, no, no)
+
+
+def check_graph_noise(init: torch.Tensor) -> dict:
+    """The first check on the card: RMHMC's draw_noise alone, replayed
+    GRAPH_NOISE_STEPS times against as many eager calls from one seed."""
+    state = NoiseState(init, *(init[:, 0] for _ in range(4)))
+    fn = tuple  # every draw is collected
+    eager = rt.parallel.runner._scan_phase(noise_step, torch.Generator(device=DEVICE).manual_seed(GRAPH_SEED), state,
+                                           GRAPH_NOISE_STEPS, True, fn)
+    entry = rt.parallel.graphs.StepGraph(noise_step, fn, state)
+    entry.capture()
+    captured = entry.scan(torch.Generator(device=DEVICE).manual_seed(GRAPH_SEED), state, GRAPH_NOISE_STEPS, True)
+    first = None
+    for step in range(GRAPH_NOISE_STEPS):
+        for k, name in enumerate(NoiseState._fields):
+            if first is None and not torch.equal(bits(eager[1][k][step]), bits(captured[1][k][step])):
+                first = {"step": step, "draw": name}
+    return {"steps": GRAPH_NOISE_STEPS, "equal": first is None, "first_difference": first}
+
+
+def graph_pair(label: str, kernel, init, burn: int, samples: int, warmup_kernel=None) -> dict:
+    """One run eager and one captured from the same seed, their launch counts
+    and what differs; one eager step first under the sync debug mode."""
+    gen = torch.Generator(device=DEVICE).manual_seed(GRAPH_SEED)
+    state = (warmup_kernel or kernel).init(init)
+    torch.cuda.synchronize()
+    sync = {}
+    for name, k in (("warmup_kernel", warmup_kernel), ("kernel", kernel)):
+        if k is None:
+            continue
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            k.step(gen, state)
+        except RuntimeError as err:  # a host sync inside the step: the capture would refuse it
+            sync[name] = str(err).splitlines()[0]
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    out, counts = {}, {}
+    for path, capture in (("eager", False), ("captured", True)):
+        hl.reset_launch_counts()
+        rt.ops.fhn_sens.reset_launch_counts()
+        captures = rt.parallel.graphs.capture_count()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[path] = rt.parallel.run(kernel, torch.Generator(device=DEVICE).manual_seed(GRAPH_SEED), init,
+                                    num_samples=samples, burn_in=burn, warmup_kernel=warmup_kernel, capture=capture)
+        torch.cuda.synchronize()
+        counts[path] = {"seconds": time.perf_counter() - t0, "k1_k2": hl.launch_counts(),
+                        "fhn": rt.ops.fhn_sens.launch_counts(),
+                        "captures": rt.parallel.graphs.capture_count() - captures}
+    # The entries the captured run made (looked up: a miss captures nothing, and fails the pair).
+    entries = [rt.parallel.graphs.lookup(k.step, None, state)
+               for k in dict.fromkeys([warmup_kernel or kernel, kernel]) if burn or k is kernel]
+    check(all(e is not None for e in entries), f"{label}: the captured run left no graph of a step")
+    return {
+        "run": label, "burn_in": burn, "samples": samples, "host_sync_in_step": sync or None,
+        "differs": run_differences(out["eager"], out["captured"]),
+        "launches_equal": counts["eager"]["k1_k2"] == counts["captured"]["k1_k2"]
+        and counts["eager"]["fhn"] == counts["captured"]["fhn"],
+        "eager": counts["eager"], "captured": counts["captured"],
+        "capture_s": [e.capture_s for e in entries], "graph_pool_bytes": [e.pool_bytes for e in entries],
+        "accept_rate": float(out["captured"].accept_rate), "result": out,
+    }
+
+
+def graph_small_runs() -> list[tuple]:
+    """(label, kernel, init, warmup_kernel) of every capturable sampler but the main path's."""
+    model = blr_model()
+    init = rt.utils.default_init(model, torch.Generator(device=DEVICE).manual_seed(GRAPH_SEED), NUM_CHAINS)
+    runs = []
+    for sampler in ("rmhmc_studentt", "hmc", "mala", "mmala", "mmala_simplified", "metropolis", "iwls"):
+        kernel, warm = experiments.build_kernel(sampler, model, "australian")
+        runs.append((f"blr/{sampler}", kernel, init, warm))
+    cfg = rmhmc.RMHMCConfig()
+    runs.append(("blr/rmhmc-adapt", rt.parallel.adaptive(rmhmc.build, model, cfg), init, None))
+    for sampler, chains, _, _ in LGC_RUNS:
+        kernel, init_fn, *_ = experiments.build_workload("lgc", sampler, device=DEVICE, seed=LGC_SEED, lgc_n=LGC_N)
+        runs.append((f"lgc/{sampler}", kernel, init_fn(chains), None))
+    y, _ = rt.models.lgc.generate_data(seed=LGC_SEED, n=LGC_N)
+    lgc = rt.interop.lgc_from_numpy(y, LGC_N, device=DEVICE)
+    runs.append(("lgc/pmala", pmala.build(lgc, lgc.metric_chol, lgc.metric_inv), lgc.prior_mean().expand(64, -1).clone(),
+                 None))
+    for sampler in FHN_RUNS:
+        kernel, init_fn, *_ = experiments.build_workload("fhn", sampler, device=DEVICE, seed=FHN_SEED,
+                                                         fhn_obs=FHN_OBS, fhn_substeps=FHN_SUBSTEPS)
+        runs.append((f"fhn/{sampler}", kernel, init_fn(FHN_CHAINS), None))
+    return runs
+
+
+def phase_graphs(smi: str) -> dict:
+    """Eager against captured on the card, launch counts, what stays eager, and the walls."""
+    from riemannhamiltonianmontecarlo_tpu_torch import step_profile
+
+    failures = []
+    model = blr_model()
+    init = rt.utils.default_init(model, torch.Generator(device=DEVICE).manual_seed(GRAPH_SEED), NUM_CHAINS)
+    noise = check_graph_noise(init)
+    say("graphs-noise", **noise)
+    if not noise["equal"]:
+        failures.append(f"draw_noise: {noise['first_difference']}")
+
+    # The main path's configuration: K1 / K2 counts exact on the captured run.
+    burn, samples = GRAPH_RUN
+    main_kernel = rmhmc.build(model)
+    try:
+        main = graph_pair("blr/rmhmc", main_kernel, init, burn, samples)
+        main["replays_under_profiler"] = replay_launches(main_kernel, main["result"]["captured"].final_state)
+    except Exception as err:  # noqa: BLE001 -- the other samplers are still tried; the phase fails below
+        failures.append(f"blr/rmhmc: {type(err).__name__}: {err}")
+        say("graphs", run="blr/rmhmc", error=failures[-1])
+        main = {"captured": {"k1_k2": None, "captures": 1}, "differs": {}, "replays_under_profiler": {"equal": True}}
+    if not main["replays_under_profiler"]["equal"]:
+        failures.append(f"blr/rmhmc: the counters and torch.profiler's device events differ: "
+                        f"{main['replays_under_profiler']}")
+    expected = blr_expected_launches(burn + samples)
+    if main["captured"]["k1_k2"] != expected:
+        failures.append(f"blr/rmhmc: captured launch counts {main['captured']['k1_k2']}, expected {expected}")
+    if main["differs"]:
+        failures.append(f"blr/rmhmc: eager and captured differ in {main['differs']}")
+    if main["captured"]["captures"] != 1:
+        failures.append(f"blr/rmhmc: {main['captured']['captures']} captures, expected one for both phases")
+    if "run" in main:
+        say("graphs", **{k: v for k, v in main.items() if k != "result"})
+    launches_by_path = {"graphs/blr-rmhmc-captured": main["captured"]["k1_k2"]}
+
+    for label, kernel, run_init, warm in graph_small_runs():
+        check(kernel.capturable, f"{label}: the kernel does not declare itself capturable")
+        try:
+            pair = graph_pair(label, kernel, run_init, *GRAPH_SMALL_RUN, warmup_kernel=warm)
+            if any(pair["captured"]["k1_k2"].values()) or any(pair["captured"]["fhn"].values()):
+                pair["replays_under_profiler"] = replay_launches(kernel, pair["result"]["captured"].final_state)
+        except Exception as err:  # noqa: BLE001 -- every sampler is tried; the phase fails below, naming each
+            failures.append(f"{label}: {type(err).__name__}: {str(err).splitlines()[0] if str(err) else ''}")
+            say("graphs", run=label, error=failures[-1])
+            continue
+        replays = pair.get("replays_under_profiler", {"equal": True, "counted": {"any": 1}})
+        if (pair["differs"] or not pair["launches_equal"] or pair["host_sync_in_step"] or not replays["equal"]
+                or not any(replays["counted"].values())):
+            failures.append(f"{label}: differs {pair['differs']}, launches equal {pair['launches_equal']}, "
+                            f"host sync {pair['host_sync_in_step']}, replays under the profiler {replays}")
+        say("graphs", **{k: v for k, v in pair.items() if k != "result"})
+
+    # What stays eager: capture=True refused for Gibbs.
+    gibbs = rt.samplers.gibbs.build(model)
+    try:
+        rt.parallel.run(gibbs, torch.Generator(device=DEVICE).manual_seed(0), init[:8], num_samples=1, capture=True)
+        failures.append("gibbs: capture=True was not refused")
+    except ValueError as err:
+        say("graphs-refused", run="blr/gibbs", error=str(err))
+
+    # timed_sampling: the first half captures, the timed half replays (it raises on a capture).
+    captures = rt.parallel.graphs.capture_count()
+    experiments.timed_sampling(rmhmc.build(model), init, device=torch.device(DEVICE), seed=GRAPH_SEED, **GRAPH_TIMED)
+    untimed = rt.parallel.graphs.capture_count() - captures
+    if untimed != 1:
+        failures.append(f"timed_sampling captured {untimed} graphs, expected one, before its timed half")
+    say("graphs-timed-sampling", captures_before_timed_half=untimed, captures_in_timed_half=0)
+
+    # run_checkpointed, captured: stopped after one segment and resumed, bit for bit the run not stopped.
+    ckpt_dir = SMOKE_DATA.parent / "smoke_graph_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    ckpt_dir.mkdir(parents=True)
+    kernel = rmhmc.build(model)
+    whole = rt.parallel.run_checkpointed(kernel, GRAPH_SEED, init, checkpoint_path=ckpt_dir / "whole", capture=True,
+                                         **GRAPH_CKPT)
+    rt.parallel.run_checkpointed(kernel, GRAPH_SEED, init, checkpoint_path=ckpt_dir / "cut", capture=True,
+                                 _stop_after_segments=1, **GRAPH_CKPT)
+    resumed = rt.parallel.run_checkpointed(kernel, GRAPH_SEED, init, checkpoint_path=ckpt_dir / "cut", capture=True,
+                                           **GRAPH_CKPT)
+    eager = rt.parallel.run_checkpointed(kernel, GRAPH_SEED, init, checkpoint_path=ckpt_dir / "eager", capture=False,
+                                         **GRAPH_CKPT)
+    # A resumed run's rates cover the segments it ran: its samples and state are compared.
+    resumed_differs = {f: leaves for f, leaves in run_differences(whole, resumed).items()
+                       if f in ("samples", "final_state")}
+    eager_differs = run_differences(whole, eager)
+    for name, differs in (("resumed", resumed_differs), ("eager", eager_differs)):
+        if differs:
+            failures.append(f"run_checkpointed: the captured run and the {name} one differ in {differs}")
+    say("graphs-checkpoint", **GRAPH_CKPT, resumed_equal=not resumed_differs, eager_equal=not eager_differs)
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+    # Walls and idle shares, E C C E.
+    for workload, sampler, chains in GRAPH_PROFILES:
+        rows = [step_profile.profile_run(workload, sampler, chains, captured=captured, **GRAPH_PROFILE_DEPTH)
+                for captured in (False, True, True, False)]
+        keys = ("wall_ms_per_step", "device_busy_ms_per_step", "idle_share", "kernel_launches_per_step")
+        say("graphs-times", run=f"{workload}/{sampler}", chains=chains, card=smi, order="E C C E",
+            **{f"{path}_{key}": [row[key] for row in rows if row["path"] == path]
+               for path in ("eager", "captured") for key in keys},
+            capture_s=[rows[1]["capture_s"], rows[2]["capture_s"]],
+            graph_pool_bytes=[rows[1]["graph_pool_bytes"], rows[2]["graph_pool_bytes"]])
+    check(not failures, "graphs: " + "; ".join(failures))
+    return launches_by_path
+
+
 PHASES = ("kernels", "transition", "main-path", "blr-samplers", "stochvol", "lgc", "lgc-joint", "fhn", "distributed",
-          "tools")
+          "tools", "graphs")
 
 
 def main(argv=None) -> None:
@@ -1977,12 +2307,13 @@ def main(argv=None) -> None:
         phase_build()
         lap("device+build")
         k_err = {"cholesky": 0.0, "chol_solve_logdet": 0.0}
-        if "kernels" in phases:
-            kernels = phase_kernels(smi)
-            k_err = kernels["err"]
-        if "kernels" in phases or "fhn" in phases:  # the FHN kernel's checks and times; phase 10 reports them
-            fhn_kernel = phase_fhn_kernel(smi, k_err)
-            lap("kernels")
+        with rt.ops.launches.paused():  # launches that compare and time a kernel are not the run's
+            if "kernels" in phases:
+                kernels = phase_kernels(smi)
+                k_err = kernels["err"]
+            if "kernels" in phases or "fhn" in phases:  # the FHN kernel's checks and times; phase 10 reports them
+                fhn_kernel = phase_fhn_kernel(smi, k_err)
+                lap("kernels")
         model = blr_model()
         if "transition" in phases:
             phase_transition(model)
@@ -2005,6 +2336,9 @@ def main(argv=None) -> None:
         if "tools" in phases:
             by_path.update(phase_tools(smi))
             lap("tools")
+        if "graphs" in phases:
+            by_path.update(phase_graphs(smi))
+            lap("graphs")
     say("phase-seconds", **seconds)
     if set(phases) != set(PHASES):
         print((_build.build().parent / "ptxas.log").read_text(), flush=True)
@@ -2016,7 +2350,7 @@ def main(argv=None) -> None:
         main_shape = kernels["times"][NUM_CHAINS, DIM][name]
         summary.append({
             "name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
-            "launches": launches[name], "max_abs_err": kernels["err"][name],
+            "launches": launches[name], "launches_counted_by": LAUNCHES_COUNTED_BY, "max_abs_err": kernels["err"][name],
             "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
             "bound_ms": main_shape["bound_us"] / 1e3, "bound_by": main_shape["bound_by"],
             "library_ms": main_shape.get("library_ms"),

@@ -16,7 +16,9 @@ sampling-phase wall clock, time per min-ESS -- ``code/main.py:70-79``,
 Timing protocol: only the post-burn-in sampling phase is timed.  It runs as
 two identical half-scans; the reported time is twice the *second* half, a
 steady-state measurement, with ``torch.cuda.synchronize()`` at both ends on
-a CUDA device.
+a CUDA device.  On a card the first half also captures the step's CUDA graph
+(``parallel.graphs``), which the second replays: a capture inside the timed
+half raises.
 
 The device is explicit.  A CUDA request on a machine without CUDA raises;
 nothing falls back to the CPU.
@@ -170,6 +172,12 @@ def adaptive_parts(name: str, dataset: str, overrides: dict[str, Any] | None = N
     raise KeyError(f"sampler '{name}' has no adaptable step size")
 
 
+def _check_no_capture(captures: int) -> None:
+    """Raise if a CUDA graph was captured since ``captures`` (inside a timed half)."""
+    if parallel.graphs.capture_count() != captures:
+        raise RuntimeError("a CUDA graph was captured inside the timed half: the time would include the capture")
+
+
 def resolve_device(device: str | torch.device) -> torch.device:
     """The device to run on; a CUDA request without CUDA raises."""
     device = torch.device(device)
@@ -254,10 +262,12 @@ def run_experiment(
 
     res_a = parallel.run(kernel, gen, None, num_samples=half, init_state=warm_state, mesh=mesh)
     _synchronize(device)
+    captures = parallel.graphs.capture_count()
     t0 = time.perf_counter()
     res_b = parallel.run(kernel, gen, None, num_samples=half, init_state=res_a.final_state, mesh=mesh)
     _synchronize(device)
     sampling_time = 2.0 * (time.perf_counter() - t0)
+    _check_no_capture(captures)
 
     accept = 0.5 * (float(res_a.accept_rate) + float(res_b.accept_rate))
     div = int(res_a.divergences) + int(res_b.divergences)
@@ -389,16 +399,18 @@ def timed_sampling(kernel, init, *, device: torch.device, burn_in: int, num_samp
     """
     gen = torch.Generator(device=device).manual_seed(seed)
     warm = parallel.run(kernel, gen, init, num_samples=0, burn_in=max(burn_in, 1), collect=False,
-                        warmup_kernel=warmup_kernel, init_state=init_state)
+                        warmup_kernel=warmup_kernel, init_state=init_state, collect_fn=collect_fn)
     _synchronize(device)
     half = max(num_samples // 2, 1)
     if host_segment is None:
         res_a = parallel.run(kernel, gen, None, num_samples=half, init_state=warm.final_state, collect_fn=collect_fn)
         _synchronize(device)
+        captures = parallel.graphs.capture_count()
         t0 = time.perf_counter()
         res_b = parallel.run(kernel, gen, None, num_samples=half, init_state=res_a.final_state, collect_fn=collect_fn)
         _synchronize(device)
         t = 2.0 * (time.perf_counter() - t0)
+        _check_no_capture(captures)
         samples = tree_map(lambda a, b: torch.cat([a, b], dim=1), res_a.samples, res_b.samples)
         accept = 0.5 * (float(res_a.accept_rate) + float(res_b.accept_rate))
         return samples, accept, int(res_a.divergences) + int(res_b.divergences), t
@@ -409,10 +421,13 @@ def timed_sampling(kernel, init, *, device: torch.device, burn_in: int, num_samp
     kw = dict(steps=half, segment=host_segment, collect_fn=collect_fn, out=out)
     state, acc_a, div_a = _stream_to_host(kernel, gen, warm.final_state, offset=0, **kw)
     _synchronize(device)
+    captures = parallel.graphs.capture_count()
     t0 = time.perf_counter()
     _, acc_b, div_b = _stream_to_host(kernel, gen, state, offset=half, **kw)
     _synchronize(device)
-    return out, 0.5 * (acc_a + acc_b), div_a + div_b, 2.0 * (time.perf_counter() - t0)
+    t = 2.0 * (time.perf_counter() - t0)
+    _check_no_capture(captures)
+    return out, 0.5 * (acc_a + acc_b), div_a + div_b, t
 
 
 def build_workload(workload: str, sampler: str, *, device: str | torch.device = "cuda",

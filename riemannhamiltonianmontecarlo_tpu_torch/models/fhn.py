@@ -96,6 +96,8 @@ class FHNModel(nn.Module):
     leading axes.
     """
 
+    capturable = True  # samplers.base.model_capturable
+
     def __init__(self, data: Tensor, noise_sd: float = 0.5, substeps: int = 5, gamma_scale: float = 3.0,
                  dim: int = 3):
         super().__init__()

@@ -108,6 +108,8 @@ class LGCModel(nn.Module):
     constants).  All per-position methods are batched over leading chain axes.
     """
 
+    capturable = True  # samplers.base.model_capturable; a sharded copy is not
+
     def __init__(
         self,
         y: Tensor,
@@ -158,6 +160,7 @@ class LGCModel(nn.Module):
         for name in self.OPERATORS:  # no longer buffers: nn.Module refuses a non-tensor under a buffer's name
             full = sharded._buffers.pop(name)
             object.__setattr__(sharded, name, collectives.RowShards.of(full, lo, hi, mesh.group(axis)))
+        sharded.capturable = False  # its products are all-reduced
         return sharded
 
     def logp(self, x: Tensor) -> Tensor:
@@ -246,6 +249,7 @@ class WhitenedLGC:
         self.model = model
         self.chol = chol
         self.dim = model.dim
+        self.capturable = model.capturable
 
     def to_x(self, gamma: Tensor) -> Tensor:
         return self.model.mu + torch.matmul(gamma, self.chol.T)

@@ -51,6 +51,8 @@ class LogisticRegression(nn.Module):
         removes its ``softplus(0) = log 2`` term from logp.
     """
 
+    capturable = True  # samplers.base.model_capturable; a sharded copy is not
+
     def __init__(self, X: Tensor, t: Tensor, alpha: float = 100.0, mask: Tensor | None = None):
         super().__init__()
         self.alpha = float(alpha)
@@ -95,6 +97,7 @@ class LogisticRegression(nn.Module):
         rows = slice(i * per, (i + 1) * per)
         sharded = LogisticRegression(x[rows].clone(), t[rows].clone(), self.alpha, mask[rows].clone())
         sharded.group = mesh.group(axis)
+        sharded.capturable = False  # its sums are all-reduced
         return sharded
 
     def _sum_over_data(self, w: Tensor, *partials: Tensor) -> tuple[Tensor, ...]:

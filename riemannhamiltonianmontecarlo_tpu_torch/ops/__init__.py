@@ -2,7 +2,7 @@
 batched tridiagonal algebra (StochVol), the FitzHugh-Nagumo sensitivity
 kernel, the truncated-normal and GIG samplers of the Gibbs sampler."""
 
-from riemannhamiltonianmontecarlo_tpu_torch.ops import fhn_sens, hopper_linalg, tridiag
+from riemannhamiltonianmontecarlo_tpu_torch.ops import fhn_sens, hopper_linalg, launches, tridiag
 from riemannhamiltonianmontecarlo_tpu_torch.ops.gig import sample_gig_half
 from riemannhamiltonianmontecarlo_tpu_torch.ops.truncnorm import truncated_normal_onesided
 from riemannhamiltonianmontecarlo_tpu_torch.ops.linalg import (
@@ -20,6 +20,7 @@ from riemannhamiltonianmontecarlo_tpu_torch.ops.linalg import (
 __all__ = [
     "fhn_sens",
     "hopper_linalg",
+    "launches",
     "tridiag",
     "cholesky",
     "cho_solve",

@@ -44,7 +44,7 @@ from typing import NamedTuple
 import torch
 from torch import Tensor
 
-from riemannhamiltonianmontecarlo_tpu_torch.ops import _build
+from riemannhamiltonianmontecarlo_tpu_torch.ops import _build, launches
 
 ORDERS = (0, 1, 2)
 DIM = 3  # (a, b, c)
@@ -58,17 +58,19 @@ PAIRS = ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2))
 # PAIR_OF[i][j]: the storage slot of (i, j) for any order of i and j.
 PAIR_OF = ((0, 1, 2), (1, 3, 4), (2, 4, 5))
 
-# Launch counts of the CUDA kernel by order, so a run can show it went through it.
-_LAUNCHES = {order: 0 for order in ORDERS}
+def _counted(order: int) -> str:
+    """The kernel's name in ``ops.launches`` at ``order``."""
+    return f"fhn_sensitivities/{order}"
 
 
 def launch_counts() -> dict[int, int]:
-    return dict(_LAUNCHES)
+    """Launches of the kernel by order since the last reset (``ops.launches``)."""
+    counts = launches.counts(tuple(_counted(order) for order in ORDERS))
+    return {order: counts[_counted(order)] for order in ORDERS}
 
 
 def reset_launch_counts() -> None:
-    for order in _LAUNCHES:
-        _LAUNCHES[order] = 0
+    launches.reset(tuple(_counted(order) for order in ORDERS))
 
 
 class FHNSensitivities(NamedTuple):
@@ -391,7 +393,7 @@ def fhn_sensitivities_cuda(theta: Tensor, data: Tensor, order: int, *, substeps:
                 step_size(num_obs, substeps), noise_sd**2, gamma_scale, *INIT, *ptrs, stream)
         if err != 0:
             raise RuntimeError(f"fhn_sensitivities kernel launch failed with CUDA error {err}")
-        _LAUNCHES[order] += 1
+        launches.count(_counted(order), theta.device)
     return FHNSensitivities(logp, grad, metric, dmetric)
 
 

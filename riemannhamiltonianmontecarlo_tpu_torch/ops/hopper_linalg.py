@@ -40,7 +40,7 @@ from typing import NamedTuple
 import torch
 from torch import Tensor
 
-from riemannhamiltonianmontecarlo_tpu_torch.ops import _build
+from riemannhamiltonianmontecarlo_tpu_torch.ops import _build, launches
 
 MAX_DIM = 48  # ops.linalg.UNROLL_MAX_DIM; the kernels' widest instantiation
 THREADS_PER_BLOCK = 128
@@ -51,17 +51,16 @@ CAPACITIES = (4, 8, 16, 32, 48)
 STATIC_SHARED_LIMIT = 48 * 1024  # bytes of shared memory a block gets without opting in
 _KERNEL_DEVICE = "cuda"  # the only device type the wrappers launch on
 
-# Launch counts of the CUDA kernels, so a run can show it went through them.
-_LAUNCHES = {"cholesky": 0, "chol_solve_logdet": 0}
+_COUNTED = ("cholesky", "chol_solve_logdet")  # their names in ops.launches
 
 
 def launch_counts() -> dict[str, int]:
-    return dict(_LAUNCHES)
+    """Launches of K1 and K2 since the last reset (``ops.launches``)."""
+    return launches.counts(_COUNTED)
 
 
 def reset_launch_counts() -> None:
-    for name in _LAUNCHES:
-        _LAUNCHES[name] = 0
+    launches.reset(_COUNTED)
 
 
 class LaunchGeometry(NamedTuple):
@@ -138,7 +137,7 @@ def _launch(name: str, fn, tensors: tuple[Tensor, ...], c: int, d: int) -> None:
         err = fn(*(t.data_ptr() for t in tensors), c, d, stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed with CUDA error {err}")
-    _LAUNCHES[name] += 1
+    launches.count(name, device)
 
 
 # -- K1: Cholesky ------------------------------------------------------------

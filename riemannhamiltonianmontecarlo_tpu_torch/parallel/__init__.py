@@ -1,5 +1,5 @@
-"""Execution layer: the chain runner (plain and checkpointed), step-size
-adaptation, the mesh and collectives of ``torch.distributed``, monitoring."""
+"""Execution layer: the chain runner (plain and checkpointed) and its CUDA
+graphs, step-size adaptation, the mesh and collectives of ``torch.distributed``, monitoring."""
 
 from riemannhamiltonianmontecarlo_tpu_torch.parallel.mesh import (
     CHAIN_AXIS,
@@ -10,7 +10,7 @@ from riemannhamiltonianmontecarlo_tpu_torch.parallel.mesh import (
     make_mesh,
     shard_chains,
 )
-from riemannhamiltonianmontecarlo_tpu_torch.parallel import collectives
+from riemannhamiltonianmontecarlo_tpu_torch.parallel import collectives, graphs
 from riemannhamiltonianmontecarlo_tpu_torch.parallel.collectives import cross_chain_mean, cross_chain_sum
 from riemannhamiltonianmontecarlo_tpu_torch.parallel.adaptation import (
     AdaptationConfig,

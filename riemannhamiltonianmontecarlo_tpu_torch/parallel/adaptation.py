@@ -105,7 +105,7 @@ def adaptive(
     acceptance is pooled over the chains of every rank.
     """
     group = None if mesh is None else mesh.group(CHAIN_AXIS)
-    draw_noise = build_fn(model, config).draw_noise
+    probe = build_fn(model, config)
 
     def init(position: Tensor) -> AdaptiveState:
         inner = build_fn(model, config).init(position)
@@ -126,9 +126,11 @@ def adaptive(
         return AdaptiveState(inner, da), info
 
     def step(generator: torch.Generator, state: AdaptiveState) -> tuple[AdaptiveState, Info]:
-        return transition(state, draw_noise(generator, state.position))
+        return transition(state, probe.draw_noise(generator, state.position))
 
-    return Kernel(init, step, transition, draw_noise)
+    # The rebuild of the inner kernel is host work, captured once; the pooled
+    # acceptance is a collective with a mesh, which keeps the step eager.
+    return Kernel(init, step, transition, probe.draw_noise, capturable=probe.capturable and group is None)
 
 
 def frozen_step_size(state: AdaptiveState) -> float:

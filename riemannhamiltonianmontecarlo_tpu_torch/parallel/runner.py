@@ -2,12 +2,16 @@
 
 Port of ``run`` and ``run_checkpointed`` from
 ``riemannhamiltonianmontecarlo_tpu/parallel/runner.py``.
-The JAX package's jitted ``lax.scan`` becomes a Python loop over steps, run
-under ``torch.inference_mode()``: samples go into one preallocated
-(S, C, D) tensor on the chains' device, and the acceptance and divergence
-sums stay on the device (no host sync per step).  The burn-in / sampling
-split mirrors the reference convention of timing only the post-burn-in
-phase (``code/hmc.py:92-96``).
+The JAX package's jitted ``lax.scan`` becomes, on a CUDA device, the replay
+of a captured CUDA graph of one step (``parallel.graphs``), for every
+kernel that declares its step capturable (``Kernel.capturable``); elsewhere
+(the CPU, a kernel that cannot be captured, a run with a mesh) it is a
+Python loop over steps (``_scan_phase``).  Either runs under
+``torch.inference_mode()``: samples go into one preallocated (S, C, D)
+tensor on the chains' device, and the acceptance and divergence sums stay
+on the device (no host sync per step).  The two give the same chains from
+the same generator.  The burn-in / sampling split mirrors the reference
+convention of timing only the post-burn-in phase (``code/hmc.py:92-96``).
 
 Sharding: pass a ``parallel.mesh.Mesh`` and the chains are split over its
 ``"chains"`` axis: each rank advances rows lo:hi of the global initial
@@ -16,6 +20,7 @@ the same seed gives the same chains however the axis is split, and keeps
 its own (C_local, S, D) samples, as JAX keeps addressable shards.  The
 acceptance and divergence figures are global (``collectives``); a step
 itself communicates only where the model is split along another axis.
+Runs with a mesh are not captured.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ import torch
 import torch.distributed as dist
 from torch import Tensor
 
+from riemannhamiltonianmontecarlo_tpu_torch.parallel import graphs
 from riemannhamiltonianmontecarlo_tpu_torch.parallel.collectives import all_reduce, cross_chain_mean, cross_chain_sum
 from riemannhamiltonianmontecarlo_tpu_torch.parallel.mesh import CHAIN_AXIS, Mesh, chain_sliced, shard_chains
 from riemannhamiltonianmontecarlo_tpu_torch.samplers.base import Kernel, tree_map
@@ -43,13 +49,9 @@ class RunResult:
     warmup_accept_rate: Tensor  # () mean accept probability during warmup
 
 
-def _position_of(state) -> Tensor:
-    return state.position
-
-
 def _scan_phase(step, generator: torch.Generator, state, num_steps: int, collect: bool, collect_fn=None):
     """Advance ``num_steps`` steps; returns (state, outputs (S, ...) or None, accept, divergences)."""
-    fn = collect_fn or _position_of
+    fn = collect_fn or graphs.position_of
     device = state.position.device
     accept_sum = torch.zeros((), device=device)
     div_sum = torch.zeros((), dtype=torch.int64, device=device)
@@ -65,6 +67,15 @@ def _scan_phase(step, generator: torch.Generator, state, num_steps: int, collect
     return state, out, accept_sum / max(num_steps, 1), div_sum
 
 
+def _phase(kernel: Kernel, generator: torch.Generator, state, num_steps: int, collect: bool, collect_fn,
+           graph: bool):
+    """One phase: replayed from the step's CUDA graph where ``graph``, else ``_scan_phase``."""
+    if graph and num_steps > 0:
+        entry = graphs.step_graph(kernel.step, collect_fn, state)
+        return entry.scan(generator, state, num_steps, collect)
+    return _scan_phase(kernel.step, generator, state, num_steps, collect, collect_fn)
+
+
 def run(
     kernel: Kernel,
     generator: torch.Generator,
@@ -78,6 +89,7 @@ def run(
     init_state=None,
     collect_fn=None,
     mesh: Mesh | None = None,
+    capture: bool | None = None,
 ) -> RunResult:
     """Run ``burn_in`` warmup steps then collect ``num_samples`` samples.
 
@@ -91,7 +103,17 @@ def run(
     a previous run's ``final_state`` (``init_position`` is then ignored).
     All randomness comes from ``generator``, which lives on the chains'
     device.
+    ``capture``: None replays a CUDA graph of each phase's step where the
+    chains are on a CUDA device and the phase's kernel declares itself
+    capturable, and runs the eager loop elsewhere; True requires the graph
+    (raises on the CPU, with a mesh, or for a kernel that cannot be
+    captured); False runs the eager loop.
     """
+    if mesh is not None and capture:
+        raise ValueError("capture=True: runs with a mesh are not captured")
+    device = (init_position if init_state is None else init_state.position).device
+    graph = mesh is None and graphs.wants_capture(kernel, device, capture)
+    warm_graph = mesh is None and burn_in > 0 and graphs.wants_capture(warmup_kernel or kernel, device, capture)
     group = None
     if mesh is not None:
         group = mesh.group(CHAIN_AXIS)
@@ -105,12 +127,11 @@ def run(
 
         warm_accept = torch.zeros((), device=state.position.device)
         if burn_in > 0:
-            warm_step = (warmup_kernel or kernel).step
-            state, _, warm_accept, _ = _scan_phase(warm_step, generator, state, burn_in, False)
+            # collect_fn as in sampling, so that one graph serves both phases of one kernel.
+            state, _, warm_accept, _ = _phase(warmup_kernel or kernel, generator, state, burn_in, False, collect_fn,
+                                              warm_graph)
 
-        state, positions, accept, div = _scan_phase(
-            kernel.step, generator, state, num_samples, collect, collect_fn
-        )
+        state, positions, accept, div = _phase(kernel, generator, state, num_samples, collect, collect_fn, graph)
         samples = None
         if positions is not None:
             # (S, C, D) -> (C, S, D); thinning keeps every thin-th sample.
@@ -163,6 +184,7 @@ def run_checkpointed(
     collect_fn=None,
     warmup_kernel: Kernel | None = None,
     mesh: Mesh | None = None,
+    capture: bool | None = None,
     _stop_after_segments: int | None = None,
 ) -> RunResult:
     """``run`` in ``checkpoint_every``-step segments with resume.
@@ -175,7 +197,8 @@ def run_checkpointed(
     ``segment_generator(seed, 0)`` and sampling segment i from
     ``segment_generator(seed, i + 1)``, on ``init_position``'s device, so an
     interrupted-and-resumed run is bit-identical to an uninterrupted one.
-    ``_stop_after_segments`` simulates a crash (tests only).
+    ``capture`` as in ``run``: the segments replay one graph, whatever
+    their generators.  ``_stop_after_segments`` simulates a crash (tests only).
 
     With a ``mesh`` the chains are split as in ``run``; when the job has more
     than one rank each file is the rank's own shard, ``<path>.p<rank>``
@@ -206,7 +229,8 @@ def run_checkpointed(
         warm_accept = torch.zeros((), device=device)
     else:
         warm = run(kernel, segment_generator(seed, 0, device), init_position, num_samples=0,
-                   burn_in=max(burn_in, 1), collect=False, warmup_kernel=warmup_kernel, mesh=mesh)
+                   burn_in=max(burn_in, 1), collect=False, warmup_kernel=warmup_kernel, collect_fn=collect_fn,
+                   mesh=mesh, capture=capture)
         state, start_seg, warm_accept = warm.final_state, 0, warm.warmup_accept_rate
         ckpt.save_state(path, state, step=0)
 
@@ -215,7 +239,7 @@ def run_checkpointed(
         if _stop_after_segments is not None and i - start_seg >= _stop_after_segments:
             break
         res = run(kernel, segment_generator(seed, i + 1, device), None, num_samples=sizes[i],
-                  init_state=state, collect_fn=collect_fn, mesh=mesh)
+                  init_state=state, collect_fn=collect_fn, mesh=mesh, capture=capture)
         state = res.final_state
         accepts.append(float(res.accept_rate) * sizes[i])
         divs.append(int(res.divergences))
@@ -234,7 +258,7 @@ def run_checkpointed(
         merged = [torch.from_numpy(np.concatenate([p[j] for p in parts], axis=1)).to(device)
                   for j in range(len(parts[0]))]
         # The collect_fn tree's structure, from a probe of the final state.
-        samples = ckpt.tree_unflatten((collect_fn or _position_of)(state), merged)
+        samples = ckpt.tree_unflatten((collect_fn or graphs.position_of)(state), merged)
 
     total = sum(sizes[start_seg : start_seg + len(accepts)]) or 1
     return RunResult(

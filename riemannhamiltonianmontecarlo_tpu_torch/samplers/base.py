@@ -20,6 +20,9 @@ a set of plain functions on *batched* chain states (leading chain axis C):
   (Gibbs's GIG draws, ``ops.gig.GigDraws``) has a ``split_chains(rows)``
   method that takes this rank's ``ChainRows``.
 
+A sampler sets ``Kernel.capturable`` where its step on the given model has
+been held, eager against captured, on the card (``model_capturable``).
+
 Divergence policy as in the JAX package: a non-finite proposal rejects that
 chain's move and sets ``Info.divergent`` without disturbing the rest.
 """
@@ -52,6 +55,17 @@ class Kernel(NamedTuple):
     transition: Callable[[Any, Any], tuple[Any, Info]] | None = None
     draw_noise: Callable[[torch.Generator, Any], Any] | None = None
     noise_from_state: bool = False  # draw_noise takes the state, not the position
+    # The step can be captured as a CUDA graph (``parallel.graphs``): no host
+    # sync, no host-side branch on device values, no collective.  ``run``
+    # replays a graph of it on a CUDA device by default.
+    capturable: bool = False
+
+
+def model_capturable(model) -> bool:
+    """Whether a model's methods may run inside a CUDA graph: those that
+    say so (``capturable = True``); not those that differentiate through
+    ``models.base.with_autograd`` or communicate (a sharded model)."""
+    return bool(getattr(model, "capturable", False))
 
 
 class ChainRows(NamedTuple):

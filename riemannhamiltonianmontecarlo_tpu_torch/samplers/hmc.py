@@ -25,7 +25,7 @@ from typing import NamedTuple
 import torch
 from torch import Tensor
 
-from riemannhamiltonianmontecarlo_tpu_torch.samplers.base import Info, Kernel, metropolis_accept, tree_where
+from riemannhamiltonianmontecarlo_tpu_torch.samplers.base import Info, Kernel, metropolis_accept, model_capturable, tree_where
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,4 +96,4 @@ def build(model, config: HMCConfig = HMCConfig()) -> Kernel:
     def step(generator: torch.Generator, state: HMCState) -> tuple[HMCState, Info]:
         return transition(state, draw_noise(generator, state.position))
 
-    return Kernel(init, step, transition, draw_noise)
+    return Kernel(init, step, transition, draw_noise, capturable=model_capturable(model))

@@ -23,7 +23,7 @@ from typing import NamedTuple
 import torch
 from torch import Tensor
 
-from riemannhamiltonianmontecarlo_tpu_torch.samplers.base import Info, Kernel, metropolis_accept, tree_where
+from riemannhamiltonianmontecarlo_tpu_torch.samplers.base import Info, Kernel, metropolis_accept, model_capturable, tree_where
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,4 +87,4 @@ def build(model, config: MALAConfig = MALAConfig()) -> Kernel:
     def step(generator: torch.Generator, state: MALAState) -> tuple[MALAState, Info]:
         return transition(state, draw_noise(generator, state.position))
 
-    return Kernel(init, step, transition, draw_noise)
+    return Kernel(init, step, transition, draw_noise, capturable=model_capturable(model))

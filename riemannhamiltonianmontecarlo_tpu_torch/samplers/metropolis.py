@@ -24,7 +24,7 @@ from typing import NamedTuple
 import torch
 from torch import Tensor
 
-from riemannhamiltonianmontecarlo_tpu_torch.samplers.base import Info, Kernel
+from riemannhamiltonianmontecarlo_tpu_torch.samplers.base import Info, Kernel, model_capturable
 
 
 @dataclasses.dataclass(frozen=True)
@@ -115,4 +115,4 @@ def build(model, config: AMHConfig = AMHConfig()) -> Kernel:
     def step(generator: torch.Generator, state: AMHState) -> tuple[AMHState, Info]:
         return transition(state, draw_noise(generator, state.position))
 
-    return Kernel(init, step, transition, draw_noise)
+    return Kernel(init, step, transition, draw_noise, capturable=model_capturable(model))

@@ -34,7 +34,7 @@ import torch
 from torch import Tensor
 
 from riemannhamiltonianmontecarlo_tpu_torch import ops
-from riemannhamiltonianmontecarlo_tpu_torch.samplers.base import Info, Kernel, metropolis_accept, tree_where
+from riemannhamiltonianmontecarlo_tpu_torch.samplers.base import Info, Kernel, metropolis_accept, model_capturable, tree_where
 
 
 @dataclasses.dataclass(frozen=True)
@@ -119,4 +119,4 @@ def build(model, config: MMALAConfig = MMALAConfig()) -> Kernel:
     def step(generator: torch.Generator, state: MMALAState) -> tuple[MMALAState, Info]:
         return transition(state, draw_noise(generator, state.position))
 
-    return Kernel(init, step, transition, draw_noise)
+    return Kernel(init, step, transition, draw_noise, capturable=model_capturable(model))

@@ -34,7 +34,7 @@ from torch import Tensor
 
 from riemannhamiltonianmontecarlo_tpu_torch._precision import tf32_matmuls
 from riemannhamiltonianmontecarlo_tpu_torch.parallel.collectives import RowShards, matmul, matmul_t
-from riemannhamiltonianmontecarlo_tpu_torch.samplers.base import Info, Kernel, metropolis_accept, tree_where
+from riemannhamiltonianmontecarlo_tpu_torch.samplers.base import Info, Kernel, metropolis_accept, model_capturable, tree_where
 
 PRECISIONS = ("highest", "high", "default")
 
@@ -121,4 +121,4 @@ def build(model, mass_chol: Tensor | RowShards, mass_inv: Tensor | RowShards, co
     def step(generator: torch.Generator, state: PHMCState) -> tuple[PHMCState, Info]:
         return transition(state, draw_noise(generator, state.position))
 
-    return Kernel(init, step, transition, draw_noise)
+    return Kernel(init, step, transition, draw_noise, capturable=model_capturable(model))

@@ -27,7 +27,7 @@ import torch
 from torch import Tensor
 
 from riemannhamiltonianmontecarlo_tpu_torch.parallel.collectives import RowShards, gather_rows, matmul
-from riemannhamiltonianmontecarlo_tpu_torch.samplers.base import Info, Kernel, metropolis_accept, tree_where
+from riemannhamiltonianmontecarlo_tpu_torch.samplers.base import Info, Kernel, metropolis_accept, model_capturable, tree_where
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,4 +100,4 @@ def build(model, mass_chol: Tensor | RowShards, mass_inv: Tensor | RowShards,
     def step(generator: torch.Generator, state: PMALAState) -> tuple[PMALAState, Info]:
         return transition(state, draw_noise(generator, state.position))
 
-    return Kernel(init, step, transition, draw_noise)
+    return Kernel(init, step, transition, draw_noise, capturable=model_capturable(model))

@@ -11,10 +11,18 @@ allocated device memory.  The idle share is 1 - busy / wall.  For StochVol it al
 times the bidiagonal Cholesky scan (``ops.tridiag.cholesky``, run once per
 sweep by rmhmc, hmc and mmala) inside the sweep, for its share of a sweep.
 
+Each run whose kernel declares itself capturable gets two rows: ``eager``
+(the step launched from the host, as ``run(..., capture=False)``) and
+``captured`` (replays of the step's CUDA graph, ``parallel.graphs``, as
+``run`` does by default on a card), the captured row with the capture's
+seconds and the bytes of device memory its graph pool reserved.  The BLR
+row is RMHMC at the reference constants on synthetic data of australian's
+shape (N = 690, D = 15), 4096 chains.
+
     python -m riemannhamiltonianmontecarlo_tpu_torch.step_profile [--out FILE] \\
         [--only lgc/rmhmc_joint fhn/rmhmc]
 
-Prints one JSON line per run (and writes them to FILE).  Needs a CUDA
+Prints one JSON line per row (and writes them to FILE).  Needs a CUDA
 device; there is no CPU path.
 """
 
@@ -28,12 +36,14 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from riemannhamiltonianmontecarlo_tpu_torch import experiments, models, parallel
+from riemannhamiltonianmontecarlo_tpu_torch import experiments, interop, models, parallel, utils
 from riemannhamiltonianmontecarlo_tpu_torch.ops import tridiag
-from riemannhamiltonianmontecarlo_tpu_torch.samplers import pmala
+from riemannhamiltonianmontecarlo_tpu_torch.parallel import graphs
+from riemannhamiltonianmontecarlo_tpu_torch.samplers import pmala, rmhmc
 
 # (workload, sampler, chains): the chip-smoke configurations.
 RUNS = (
+    ("blr", "rmhmc", 4096),
     ("stochvol", "rmhmc", 1024), ("stochvol", "hmc", 1024), ("stochvol", "mala", 1024), ("stochvol", "mmala", 1024),
     ("lgc", "rmhmc", 64), ("lgc", "pmala", 64), ("lgc", "mmala", 8), ("lgc", "mala_stationary", 16),
     ("lgc", "rmhmc_joint", 4), ("lgc", "mmala_joint", 4),
@@ -46,6 +56,10 @@ FHN = re.compile(r"fhn_sensitivities")
 
 
 def _kernel(workload: str, sampler: str, device: torch.device):
+    if workload == "blr":  # chip_smoke.py's main path
+        ds = models.synthetic_logreg(seed=0, n=690, d=15)
+        model = interop.logreg_from_numpy(ds.X, ds.t, device=device)
+        return rmhmc.build(model), lambda c: utils.default_init(model, torch.Generator(device=device).manual_seed(0), c)
     if sampler == "pmala":  # constant-metric mMALA, built on the model's metric (RESULTS.md:78)
         y, _ = models.lgc.generate_data(seed=0, n=64)
         model = experiments.interop.lgc_from_numpy(y, 64, device=device)
@@ -63,39 +77,51 @@ def _wall_ms(fn, reps: int) -> float:
     return 1e3 * (time.perf_counter() - t0) / reps
 
 
-def profile_run(workload: str, sampler: str, chains: int, *, warm: int, steps: int, profiled: int) -> dict:
+def profile_run(workload: str, sampler: str, chains: int, *, warm: int, steps: int, profiled: int,
+                captured: bool = False) -> dict:
     device = torch.device("cuda")
     kernel, init_fn = _kernel(workload, sampler, device)
     gen = torch.Generator(device=device).manual_seed(0)
     with torch.inference_mode():
-        state = parallel.run(kernel, gen, init_fn(chains), num_samples=0, burn_in=warm, collect=False).final_state
+        state = parallel.run(kernel, gen, init_fn(chains), num_samples=0, burn_in=warm, collect=False,
+                             capture=captured).final_state
         box = [state]
+        if captured:  # the runner's own graph of this step (captured by the burn-in above)
+            entry = graphs.lookup(kernel.step, None, state)
+            if entry is None:
+                raise RuntimeError(f"{workload}/{sampler}: the burn-in left no captured graph of the step")
 
-        def one_step():
-            box[0], _ = kernel.step(gen, box[0])
+            def run_steps(n: int) -> None:
+                box[0] = entry.scan(gen, box[0], n, False)[0]
+        else:
+            def run_steps(n: int) -> None:
+                for _ in range(n):
+                    box[0], _ = kernel.step(gen, box[0])
 
-        wall = _wall_ms(one_step, steps)
+        wall = _wall_ms(lambda: run_steps(steps), 1) / steps
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(profiled):
-                one_step()
+            run_steps(profiled)
             torch.cuda.synchronize()
     # Device-side events (kernels, memcpy, memset) and their durations in ms per step.
     kernels = [(e.name, e.time_range.elapsed_us() / 1e3 / profiled) for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(ms for _, ms in kernels)
     out = {
-        "workload": workload, "sampler": sampler, "chains": chains, "wall_ms_per_step": wall,
-        "device_busy_ms_per_step": busy, "idle_share": 1.0 - busy / wall,
+        "workload": workload, "sampler": sampler, "chains": chains, "path": "captured" if captured else "eager",
+        "capturable": kernel.capturable,
+        "wall_ms_per_step": wall, "device_busy_ms_per_step": busy, "idle_share": 1.0 - busy / wall,
         "kernel_launches_per_step": len(kernels) / profiled,
         "gemm_share_of_device": sum(ms for name, ms in kernels if GEMM.search(name)) / busy,
         "factor_share_of_device": sum(ms for name, ms in kernels if FACTOR.search(name)) / busy,
         "trsm_share_of_device": sum(ms for name, ms in kernels if TRSM.search(name)) / busy,
         "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
     }
+    if captured:
+        out.update(capture_s=entry.capture_s, graph_pool_bytes=entry.pool_bytes)
     if workload == "fhn":
         out["fhn_kernel_share_of_device"] = sum(ms for name, ms in kernels if FHN.search(name)) / busy
     if workload == "stochvol" and sampler != "mala":
-        out.update(_scan_share(one_step, steps))
+        out.update(_scan_share(lambda: run_steps(1), steps))
     return out
 
 
@@ -141,10 +167,14 @@ def main(argv=None) -> None:
     for workload, sampler, chains in RUNS:
         if args.only and f"{workload}/{sampler}" not in args.only:
             continue
-        rec = profile_run(workload, sampler, chains, warm=args.warm, steps=args.steps, profiled=args.profiled)
-        rec["device"] = torch.cuda.get_device_name(0)
-        lines.append(json.dumps(rec))
-        print(lines[-1], flush=True)
+        for captured in (False, True):
+            rec = profile_run(workload, sampler, chains, warm=args.warm, steps=args.steps, profiled=args.profiled,
+                              captured=captured)
+            rec["device"] = torch.cuda.get_device_name(0)
+            lines.append(json.dumps(rec))
+            print(lines[-1], flush=True)
+            if not rec["capturable"]:
+                break
     if args.out:
         with open(args.out, "w") as f:
             f.write("\n".join(lines) + "\n")

@@ -1,0 +1,276 @@
+"""Port: the runner's CUDA-graph path (``parallel.graphs``), on the CPU.
+
+A CUDA graph cannot be captured here, so these tests hold the function the
+graph captures -- ``StepGraph.body``: static state in, step, slot write,
+sums, static state out -- run eagerly through ``StepGraph.scan``, against
+the runner's eager loop (``runner._scan_phase``): for every sampler that
+declares itself capturable, at small sizes, samples, final state, accept
+rate, divergences and the generator's state after the run are equal, bit for
+bit.  Then: the launch counters (each run of the captured function adds its
+launches, the warm-up none), the declarations, ``capture=True`` refused on
+the CPU, with a mesh and for a kernel that cannot be captured, and the
+posterior of RMHMC through the static-buffer step against the JAX runner's
+(as ``test_torch_slice.py``).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import riemannhamiltonianmontecarlo_tpu as rj
+import riemannhamiltonianmontecarlo_tpu_torch as rt
+from riemannhamiltonianmontecarlo_tpu_torch import experiments
+from riemannhamiltonianmontecarlo_tpu_torch.ops import fhn_sens, hopper_linalg, launches
+from riemannhamiltonianmontecarlo_tpu_torch.parallel import graphs
+from riemannhamiltonianmontecarlo_tpu_torch.parallel.graphs import position_of
+from riemannhamiltonianmontecarlo_tpu_torch.parallel.runner import _scan_phase
+from riemannhamiltonianmontecarlo_tpu_torch.samplers import hmc, pmala, rmhmc
+from riemannhamiltonianmontecarlo_tpu_torch.samplers.base import Info, Kernel, tree_map
+
+torch.set_num_threads(1)
+
+CHAINS, STEPS = 4, 3
+BLR = ("rmhmc", "rmhmc_studentt", "hmc", "mala", "mmala", "mmala_simplified", "metropolis", "iwls")
+LGC = ("rmhmc", "pmala", "mmala", "mala_transient", "mala_stationary")
+FHN = experiments.WORKLOAD_SAMPLERS["fhn"]
+CAPTURABLE = ([f"blr/{s}" for s in BLR] + ["blr/rmhmc-adapt", "blr/mala-transient"]
+              + [f"lgc/{s}" for s in LGC] + [f"fhn/{s}" for s in FHN])
+
+
+def blr_model(n=60, d=4):
+    ds = rt.models.synthetic_logreg(seed=0, n=n, d=d)
+    return rt.interop.logreg_from_numpy(ds.X, ds.t, device="cpu")
+
+
+def build(name: str):
+    """(kernel, (C, D) initial position) of a capturable sampler at a small size."""
+    workload, sampler = name.split("/")
+    gen = torch.Generator().manual_seed(5)
+    if workload == "blr":
+        model = blr_model()
+        init = rt.utils.default_init(model, gen, CHAINS)
+        if sampler == "rmhmc-adapt":
+            return rt.parallel.adaptive(rmhmc.build, model, rmhmc.RMHMCConfig(num_leapfrog=3)), init
+        kernel, warm = experiments.build_kernel(sampler.split("-")[0], model, "australian")
+        return (warm if sampler == "mala-transient" else kernel), init
+    if workload == "lgc" and sampler == "pmala":
+        y, _ = rt.models.lgc.generate_data(seed=0, n=4)
+        model = rt.interop.lgc_from_numpy(y, 4, device="cpu")
+        return pmala.build(model, model.metric_chol, model.metric_inv), model.prior_mean().expand(CHAINS, -1).clone()
+    size = dict(lgc_n=4) if workload == "lgc" else dict(fhn_obs=10, fhn_substeps=2)
+    kernel, init_fn, *_ = experiments.build_workload(workload, sampler, device="cpu", **size)
+    return kernel, init_fn(CHAINS)
+
+
+INT_OF = {torch.float32: torch.int32, torch.float64: torch.int64}
+
+
+def bits(x: torch.Tensor) -> torch.Tensor:
+    """The tensor's bit patterns (a NaN equals a NaN of the same bits)."""
+    return x.contiguous().view(INT_OF[x.dtype]) if x.dtype in INT_OF else x
+
+
+def assert_trees_equal(a, b):
+    flat_a, flat_b = [], []
+    tree_map(flat_a.append, a)
+    tree_map(flat_b.append, b)
+    assert len(flat_a) == len(flat_b)
+    for x, y in zip(flat_a, flat_b):
+        assert x.dtype == y.dtype and torch.equal(bits(x), bits(y))
+
+
+@pytest.mark.parametrize("name", CAPTURABLE)
+def test_torch_graph_body_equals_eager_loop(name):
+    """Two scans of one entry (static buffers reloaded, sums zeroed) against
+    two eager phases from the same generator: equal bit for bit."""
+    kernel, init = build(name)
+    assert kernel.capturable
+    with torch.inference_mode():
+        state = kernel.init(init)
+        gen_eager, gen_graph = (torch.Generator().manual_seed(9) for _ in range(2))
+        entry = graphs.StepGraph(kernel.step, position_of, state)
+        eager_state, graph_state = state, state
+        for collect in (True, False):
+            eager = _scan_phase(kernel.step, gen_eager, eager_state, STEPS, collect)
+            graph = entry.scan(gen_graph, graph_state, STEPS, collect)
+            (eager_state, eager_out, eager_acc, eager_div) = eager
+            (graph_state, graph_out, graph_acc, graph_div) = graph
+            assert_trees_equal(graph_state, eager_state)
+            assert (graph_out is None) == (not collect)
+            if collect:
+                assert_trees_equal(graph_out, eager_out)
+            assert torch.equal(bits(graph_acc), bits(eager_acc)) and torch.equal(graph_div, eager_div)
+            assert torch.equal(gen_graph.get_state(), gen_eager.get_state())
+        # what scan returned is the caller's: a later scan does not write into it
+        kept = tree_map(torch.clone, graph_state)
+        entry.scan(gen_graph, state, 1, True)
+        assert_trees_equal(graph_state, kept)
+
+
+def swap_step(generator, state):
+    """A step that passes one leaf through and swaps two others."""
+    s = state.position
+    return type(state)(s, state.b, state.a), Info(torch.ones(s.shape[0]), torch.ones(s.shape[0], dtype=torch.bool),
+                                                 torch.zeros(s.shape[0], dtype=torch.bool))
+
+
+def test_torch_graph_write_back_handles_aliases():
+    from typing import NamedTuple
+
+    class S(NamedTuple):
+        position: torch.Tensor
+        a: torch.Tensor
+        b: torch.Tensor
+
+    state = S(torch.arange(6.0).reshape(3, 2), torch.zeros(3), torch.ones(3))
+    entry = graphs.StepGraph(swap_step, position_of, state)
+    out, samples, acc, div = entry.scan(torch.Generator(), state, 3, True)
+    assert torch.equal(out.a, torch.ones(3)) and torch.equal(out.b, torch.zeros(3))  # three swaps
+    assert torch.equal(out.position, state.position) and samples.shape == (3, 3, 2)
+    assert float(acc) == 1.0 and int(div) == 0
+
+
+def test_torch_graph_warm_up_refuses_a_step_that_changes_the_state():
+    kernel, init = build("blr/rmhmc")
+    with torch.inference_mode():
+        state = kernel.init(init)
+        entry = graphs.StepGraph(kernel.step, position_of, state._replace(geo=None))
+        with pytest.raises(ValueError, match="structure, shapes and dtypes"):
+            entry._warm_up(1)
+
+
+def counting_step(counted: dict[str, int]):
+    """A step that counts ``counted`` launches as a wrapper does (here on
+    the CPU; on a card the addition is recorded into the graph)."""
+
+    def step(gen, state):
+        for name, n in counted.items():
+            for _ in range(n):
+                launches.count(name, state.position.device)
+        return hmc_kernel.step(gen, state)
+
+    return step
+
+
+hmc_kernel = hmc.build(blr_model(), hmc.HMCConfig(step_size=0.1, num_leapfrog=2))
+
+
+def test_torch_graph_launch_counts_are_per_replay():
+    """Each run of the captured function adds its launches to the device
+    counters; the warm-up before a capture adds none; the two wrappers'
+    modules read and reset their own kernels' counts."""
+    per_step = {"cholesky": 1, "chol_solve_logdet": 24, "fhn_sensitivities/2": 7}
+    launches.reset()
+    launches.count("cholesky", torch.device("cpu"))  # outside inference mode
+    init = rt.utils.default_init(blr_model(), torch.Generator().manual_seed(0), CHAINS)
+    with torch.inference_mode():
+        state = hmc_kernel.init(init)
+        entry = graphs.StepGraph(counting_step(per_step), position_of, state)
+        with launches.paused():
+            entry._warm_up(2)
+        assert launches.counts() == {**dict.fromkeys(launches.NAMES, 0), "cholesky": 1}
+        entry.scan(torch.Generator().manual_seed(0), state, 5, False)
+    assert hopper_linalg.launch_counts() == {"cholesky": 1 + 5, "chol_solve_logdet": 5 * 24}
+    assert fhn_sens.launch_counts() == {0: 0, 1: 0, 2: 5 * 7}
+    fhn_sens.reset_launch_counts()
+    assert hopper_linalg.launch_counts() == {"cholesky": 6, "chol_solve_logdet": 120}
+    assert fhn_sens.launch_counts() == {0: 0, 1: 0, 2: 0}
+    hopper_linalg.reset_launch_counts()
+    assert launches.counts() == dict.fromkeys(launches.NAMES, 0)
+
+
+def local_mesh(axis: str):
+    """A one-rank mesh without process groups (the layer runs no collective on it)."""
+    return rt.parallel.Mesh((axis,), {axis: 1}, {axis: 0}, {})
+
+
+def not_capturable() -> dict[str, Kernel]:
+    model = blr_model()
+    y, _ = rt.models.lgc.generate_data(seed=0, n=4)
+    lgc = rt.interop.lgc_from_numpy(y, 4, device="cpu").with_sharding(local_mesh("latent"), "latent")
+    return {
+        "blr/gibbs": rt.samplers.gibbs.build(model),
+        "stochvol/rmhmc": experiments.build_workload("stochvol", "rmhmc", device="cpu", stochvol_obs=20)[0],
+        "lgc/rmhmc_joint": experiments.build_workload("lgc", "rmhmc_joint", device="cpu", lgc_n=4)[0],
+        "monitor": rt.parallel.monitor(hmc.build(model), every=10),
+        "chain_sliced": rt.parallel.chain_sliced(hmc.build(model), local_mesh(rt.parallel.CHAIN_AXIS)),
+        # a chain group (a stand-in: building the kernel runs no collective)
+        "adaptive-pooled-over-ranks": rt.parallel.adaptive(hmc.build, model, hmc.HMCConfig(), mesh=rt.parallel.Mesh(
+            (rt.parallel.CHAIN_AXIS,), {rt.parallel.CHAIN_AXIS: 2}, {rt.parallel.CHAIN_AXIS: 0},
+            {rt.parallel.CHAIN_AXIS: "group"})),
+        "sharded-blr": hmc.build(model.with_sharding(local_mesh("data"), "data")),
+        "sharded-lgc": pmala.build(lgc, lgc.metric_chol, lgc.metric_inv),
+        "autodiff-model": hmc.build(rt.models.FunctionModel(2, lambda w: -0.5 * torch.sum(w * w))),
+    }
+
+
+def test_torch_graph_declarations():
+    for name, kernel in not_capturable().items():
+        assert not kernel.capturable, name
+        with pytest.raises(ValueError, match="declares that its step cannot be captured"):
+            graphs.wants_capture(kernel, torch.device("cuda"), True)
+        assert not graphs.wants_capture(kernel, torch.device("cuda"), None)
+    for name in CAPTURABLE:
+        kernel, _ = build(name)
+        assert graphs.wants_capture(kernel, torch.device("cuda"), None), name
+        assert not graphs.wants_capture(kernel, torch.device("cpu"), None), name
+        assert not graphs.wants_capture(kernel, torch.device("cuda"), False), name
+
+
+def test_torch_graph_capture_true_is_refused_on_the_cpu():
+    model = blr_model()
+    kernel = hmc.build(model, hmc.HMCConfig(step_size=0.1, num_leapfrog=3))
+    init = rt.utils.default_init(model, torch.Generator().manual_seed(0), CHAINS)
+    with pytest.raises(ValueError, match="needs the chains on a CUDA device"):
+        rt.parallel.run(kernel, torch.Generator().manual_seed(1), init, num_samples=2, capture=True)
+    with pytest.raises(ValueError, match="a CUDA graph needs a CUDA device"):
+        with torch.inference_mode():
+            graphs.step_graph(kernel.step, position_of, kernel.init(init))
+    with pytest.raises(ValueError, match="runs with a mesh are not captured"):
+        rt.parallel.run(kernel, torch.Generator().manual_seed(1), init, num_samples=2, capture=True,
+                        mesh=local_mesh(rt.parallel.CHAIN_AXIS))
+    for kernel in not_capturable().values():  # refused before the kernel's init runs
+        with pytest.raises(ValueError, match="needs the chains on a CUDA device"):
+            rt.parallel.run(kernel, torch.Generator().manual_seed(1), init, num_samples=1, capture=True)
+    # the default and capture=False run the eager loop here, the same chains
+    a = rt.parallel.run(kernel := hmc.build(model, hmc.HMCConfig(step_size=0.1, num_leapfrog=3)),
+                        torch.Generator().manual_seed(1), init, num_samples=3)
+    b = rt.parallel.run(kernel, torch.Generator().manual_seed(1), init, num_samples=3, capture=False)
+    assert torch.equal(a.samples, b.samples)
+    assert graphs.capture_count() == 0
+
+
+def test_torch_graph_posterior_matches_jax_run():
+    """RMHMC through the static-buffer step (burn-in and sampling scans of
+    one entry), 64 chains, 50 + 200, against the JAX runner's posterior
+    within Monte-Carlo error (the gates of test_torch_slice.py)."""
+    ds = rt.models.synthetic_logreg(seed=0, n=250, d=7)
+    x, t = ds.X.astype(np.float32), ds.t.astype(np.float32)
+    jm = rj.models.LogisticRegression(jnp.asarray(x), jnp.asarray(t))
+    tm = rt.interop.logreg_from_numpy(x, t, device="cpu")
+    c, burn, n = 64, 50, 200
+    jres = rj.parallel.run(
+        rj.samplers.rmhmc.build(jm), jax.random.key(1), rj.utils.default_init(jm, jax.random.key(0), c),
+        num_samples=n, burn_in=burn,
+    )
+    gen = torch.Generator().manual_seed(0)
+    kernel = rmhmc.build(tm)
+    with torch.inference_mode():
+        state = kernel.init(rt.utils.default_init(tm, gen, c))
+        entry = graphs.StepGraph(kernel.step, position_of, state)
+        state, _, _, _ = entry.scan(gen, state, burn, False)
+        _, out, acc, div = entry.scan(gen, state, n, True)
+    runs = []
+    for samples, a, d in ((np.asarray(jres.samples), jres.accept_rate, jres.divergences),
+                          (out.movedim(0, 1).numpy(), acc, div)):
+        flat = samples.reshape(-1, samples.shape[-1])
+        ess = rt.diagnostics.ess_multichain(samples, nfft_mode="exact")
+        runs.append((flat.mean(0), flat.var(0), ess, float(a), int(d)))
+        assert rt.diagnostics.split_rhat(samples).max() < 1.1
+    (mj, vj, ej, aj, dj), (mt, vt, et, at, dt) = runs
+    assert (np.abs(mt - mj) / np.sqrt(vj / ej + vt / et)).max() < 5.0
+    assert (np.abs(vt - vj) / np.sqrt(2 * vj**2 / ej + 2 * vt**2 / et)).max() < 5.0
+    assert abs(at - aj) < 0.03 and 0.8 < at < 0.99
+    assert dj <= 0.005 * c * n and dt <= 0.005 * c * n
