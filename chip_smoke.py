@@ -182,18 +182,27 @@ It imports no jax.  Phases, each printing one line of findings:
    one capture for both phases; then every other capturable sampler (the
    BLR ones and adaptive RMHMC at 4096 chains, LGC phmc / pmala / mMALA /
    whitened MALA at D = 4096, the six FHN samplers at 200 x 5 and 256
+   chains, StochVol's four methods at T = 2000 and 1024 chains, MALA with
+   its transient burn-in kernel, and the joint LGC pair at n = 32 with 16
    chains), 3 + 3, eager against captured, bit for bit, with equal launch
-   counts, after one eager step of each of the run's kernels under
+   counts (StochVol's and the joint pair's K1 / K2 counts equal to
+   ``sv_expected_launches`` / ``lgcj_expected_launches``) and one capture
+   per kernel of the run, after one eager step of each of the run's kernels under
    ``torch.cuda.set_sync_debug_mode("error")``; where a run launched a
    hand-written kernel (and for the main path), three replays of its graph
    under torch.profiler, the counters against the device's kernel events;
-   ``capture=True`` refused for Gibbs; ``timed_sampling``
+   a monitored BLR HMC eager and captured, the same window lines and chains;
+   ``tools/run_lgc_joint``'s segmented run (n = 32, 4 chains), captured,
+   stopped after one segment and resumed bit for bit;
+   ``capture=True`` refused for Gibbs and for a ``FunctionModel``; ``timed_sampling``
    capturing once before its timed half (which raises on a capture); a
    captured ``run_checkpointed`` stopped after one segment and resumed, bit
    for bit the run not stopped and the eager one.  Then the walls: BLR
    RMHMC, FHN RMHMC and HMC, LGC phmc, eager and captured in turns E C C E
    (``step_profile.profile_run``): wall and device-busy ms a step, idle
-   share, launches, the capture's seconds and its graph pool's bytes.
+   share, launches, the capture's seconds and its graph pool's bytes
+   (StochVol's and the joint pair's rows: ``python -m
+   riemannhamiltonianmontecarlo_tpu_torch.step_profile``).
    Phases 5-12 run the captured path wherever the kernel declares it, as
    ``parallel.run`` does by default on a card.
 
@@ -216,6 +225,7 @@ import argparse
 import contextlib
 import dataclasses
 import hashlib
+import io
 import json
 import os
 import re
@@ -2038,8 +2048,12 @@ GRAPH_CKPT = dict(num_samples=6, burn_in=2, checkpoint_every=2)  # three segment
 GRAPH_TIMED = dict(burn_in=4, num_samples=8)  # timed_sampling: its timed half captures nothing
 # The walls and idle shares of PERF.md section 5, eager (E) and captured (C) in turns E C C E:
 # (workload, sampler, chains); step_profile.profile_run at these depths.
+# StochVol's and the joint pair's rows are step_profile's own (its main): profiling their eager
+# sweeps (30,000-65,000 launches each) took most of ten minutes, too long for this script.
 GRAPH_PROFILES = (("blr", "rmhmc", NUM_CHAINS), ("fhn", "rmhmc", 256), ("fhn", "hmc", 256), ("lgc", "rmhmc", 64))
 GRAPH_PROFILE_DEPTH = dict(warm=3, steps=10, profiled=3)
+GRAPH_MONITOR = dict(every=2, label="smoke-monitor")  # BLR HMC at 4096 chains, GRAPH_SMALL_RUN, eager against captured
+GRAPH_TOOL = dict(burn_in=2, num_samples=4, seg=2)  # tools/run_lgc_joint's segmented run, n = 32, 4 chains
 INT_OF = {torch.float32: torch.int32, torch.float64: torch.int64}
 
 
@@ -2149,27 +2163,85 @@ def graph_pair(label: str, kernel, init, burn: int, samples: int, warmup_kernel=
 
 
 def graph_small_runs() -> list[tuple]:
-    """(label, kernel, init, warmup_kernel) of every capturable sampler but the main path's."""
+    """(label, kernel, init, warmup_kernel, expected K1 / K2 launches or None)
+    of every capturable sampler but the main path's."""
     model = blr_model()
     init = rt.utils.default_init(model, torch.Generator(device=DEVICE).manual_seed(GRAPH_SEED), NUM_CHAINS)
     runs = []
     for sampler in ("rmhmc_studentt", "hmc", "mala", "mmala", "mmala_simplified", "metropolis", "iwls"):
         kernel, warm = experiments.build_kernel(sampler, model, "australian")
-        runs.append((f"blr/{sampler}", kernel, init, warm))
+        runs.append((f"blr/{sampler}", kernel, init, warm, None))
     cfg = rmhmc.RMHMCConfig()
-    runs.append(("blr/rmhmc-adapt", rt.parallel.adaptive(rmhmc.build, model, cfg), init, None))
+    runs.append(("blr/rmhmc-adapt", rt.parallel.adaptive(rmhmc.build, model, cfg), init, None, None))
     for sampler, chains, _, _ in LGC_RUNS:
         kernel, init_fn, *_ = experiments.build_workload("lgc", sampler, device=DEVICE, seed=LGC_SEED, lgc_n=LGC_N)
-        runs.append((f"lgc/{sampler}", kernel, init_fn(chains), None))
+        runs.append((f"lgc/{sampler}", kernel, init_fn(chains), None, None))
     y, _ = rt.models.lgc.generate_data(seed=LGC_SEED, n=LGC_N)
     lgc = rt.interop.lgc_from_numpy(y, LGC_N, device=DEVICE)
     runs.append(("lgc/pmala", pmala.build(lgc, lgc.metric_chol, lgc.metric_inv), lgc.prior_mean().expand(64, -1).clone(),
-                 None))
+                 None, None))
     for sampler in FHN_RUNS:
         kernel, init_fn, *_ = experiments.build_workload("fhn", sampler, device=DEVICE, seed=FHN_SEED,
                                                          fhn_obs=FHN_OBS, fhn_substeps=FHN_SUBSTEPS)
-        runs.append((f"fhn/{sampler}", kernel, init_fn(FHN_CHAINS), None))
+        runs.append((f"fhn/{sampler}", kernel, init_fn(FHN_CHAINS), None, None))
+    sweeps = sum(GRAPH_SMALL_RUN)
+    # StochVol at phase 7's width (MALA with its transient burn-in kernel) and the joint pair at phase 9's n = 32.
+    for method in SV_RUNS:
+        kernel, init_fn, _, _, warm = experiments.build_workload("stochvol", method, device=DEVICE, seed=SV_SEED,
+                                                                 stochvol_obs=SV_OBS)
+        runs.append((f"stochvol/{method}", kernel, init_fn(SV_CHAINS), warm, sv_expected_launches(method, sweeps)))
+    for sampler in LGCJ_JAX:
+        kernel, init_fn, *_ = experiments.build_workload("lgc", sampler, device=DEVICE, seed=LGCJ_SEED,
+                                                         lgc_n=LGCJ_SMALL_N)
+        runs.append((f"lgc/{sampler}-n{LGCJ_SMALL_N}", kernel, init_fn(LGCJ_SMALL_CHAINS), None,
+                     lgcj_expected_launches(sampler, sweeps)))
     return runs
+
+
+def graph_monitor(model, init) -> dict:
+    """A monitored kernel eager and captured from one seed: the same window
+    lines (printed by the host after the replays), the same chains."""
+    kernel = rt.parallel.monitor(rt.samplers.hmc.build(model), **GRAPH_MONITOR)
+    out, lines, captures = {}, {}, {}
+    for path, capture in (("eager", False), ("captured", True)):
+        buf, before = io.StringIO(), rt.parallel.graphs.capture_count()
+        with contextlib.redirect_stdout(buf):
+            out[path] = rt.parallel.run(kernel, torch.Generator(device=DEVICE).manual_seed(GRAPH_SEED), init,
+                                        num_samples=GRAPH_SMALL_RUN[1], burn_in=GRAPH_SMALL_RUN[0], capture=capture)
+        lines[path] = buf.getvalue().splitlines()
+        captures[path] = rt.parallel.graphs.capture_count() - before
+    expected = [f"[{GRAPH_MONITOR['label']}] step {s}" for s in range(GRAPH_MONITOR["every"], sum(GRAPH_SMALL_RUN) + 1,
+                                                                       GRAPH_MONITOR["every"])]
+    return {"run": "blr/hmc-monitor", "capturable": kernel.capturable, "lines": lines, "captures": captures,
+            "windows_expected": [line.split(":")[0] for line in lines["eager"]] == expected,
+            "same_lines": lines["eager"] == lines["captured"],
+            "differs": run_differences(out["eager"], out["captured"])}
+
+
+def graph_lgc_joint_tool() -> dict:
+    """tools/run_lgc_joint's segmented run, captured by default on the card:
+    stopped after one segment and resumed, against the run not stopped."""
+    from riemannhamiltonianmontecarlo_tpu_torch.tools import run_lgc_joint
+
+    ckpt_dir = SMOKE_DATA.parent / "smoke_graph_tool"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    model = rt.interop.lgc_joint_from_numpy(rt.models.lgc.generate_data(seed=LGCJ_SEED, n=LGCJ_SMALL_N)[0],
+                                            LGCJ_SMALL_N, device=DEVICE)
+    kernel = rt.samplers.lgc_joint.build(model)
+    init = torch.tensor([model.init_sigma_sq, model.init_beta], device=DEVICE).expand(LGCJ_CHAINS, -1).clone()
+    kw = dict(seed=GRAPH_SEED, ckpt_dir=ckpt_dir, **GRAPH_TOOL)
+    before = rt.parallel.graphs.capture_count()
+    with contextlib.redirect_stdout(io.StringIO()):
+        whole = run_lgc_joint.run_segmented(kernel, init, tag="whole", **kw)
+        captures = rt.parallel.graphs.capture_count() - before
+        stopped = run_lgc_joint.run_segmented(kernel, init, tag="cut", _stop_after_segments=1, **kw)
+        resumed = run_lgc_joint.run_segmented(kernel, init, tag="cut", **kw)
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    same = {name: bool(np.array_equal(a, b)) for name, a, b in (("theta", whole[0], resumed[0]),
+                                                               ("x", whole[1], resumed[1]))}
+    return {"run": f"tools/run_lgc_joint-rmhmc-n{LGCJ_SMALL_N}", "chains": LGCJ_CHAINS, **GRAPH_TOOL,
+            "captures": captures, "stopped_returned": stopped, "bit_identical": same,
+            "accept": [whole[2], resumed[2]], "divergences": [whole[3], resumed[3]]}
 
 
 def phase_graphs(smi: str) -> dict:
@@ -2208,7 +2280,7 @@ def phase_graphs(smi: str) -> dict:
         say("graphs", **{k: v for k, v in main.items() if k != "result"})
     launches_by_path = {"graphs/blr-rmhmc-captured": main["captured"]["k1_k2"]}
 
-    for label, kernel, run_init, warm in graph_small_runs():
+    for label, kernel, run_init, warm, expected in graph_small_runs():
         check(kernel.capturable, f"{label}: the kernel does not declare itself capturable")
         try:
             pair = graph_pair(label, kernel, run_init, *GRAPH_SMALL_RUN, warmup_kernel=warm)
@@ -2219,11 +2291,39 @@ def phase_graphs(smi: str) -> dict:
             say("graphs", run=label, error=failures[-1])
             continue
         replays = pair.get("replays_under_profiler", {"equal": True, "counted": {"any": 1}})
+        # one capture per kernel of the run: the sampling kernel's, and the burn-in kernel's where it has its own
+        pair["captures_expected"] = len({id(k) for k in (warm or kernel, kernel)})
+        pair["k1_k2_expected"] = expected
         if (pair["differs"] or not pair["launches_equal"] or pair["host_sync_in_step"] or not replays["equal"]
-                or not any(replays["counted"].values())):
+                or not any(replays["counted"].values()) or pair["captured"]["captures"] != pair["captures_expected"]
+                or (expected is not None and pair["captured"]["k1_k2"] != expected)):
             failures.append(f"{label}: differs {pair['differs']}, launches equal {pair['launches_equal']}, "
-                            f"host sync {pair['host_sync_in_step']}, replays under the profiler {replays}")
+                            f"host sync {pair['host_sync_in_step']}, replays under the profiler {replays}, "
+                            f"captures {pair['captured']['captures']} of {pair['captures_expected']}, "
+                            f"K1 / K2 {pair['captured']['k1_k2']} against {expected}")
+        if expected is not None:
+            launches_by_path[f"graphs/{label}-captured"] = pair["captured"]["k1_k2"]
         say("graphs", **{k: v for k, v in pair.items() if k != "result"})
+
+    # The monitor over a capturable kernel: the same window lines and chains eager and captured.
+    try:
+        mon = graph_monitor(model, init)
+        if (not mon["capturable"] or not mon["windows_expected"] or not mon["same_lines"] or mon["differs"]
+                or mon["captures"] != {"eager": 0, "captured": 1}):
+            failures.append(f"monitor: {mon}")
+        say("graphs-monitor", **mon)
+    except Exception as err:  # noqa: BLE001 -- the phase fails below
+        failures.append(f"monitor: {type(err).__name__}: {err}")
+
+    # tools/run_lgc_joint, captured by default, resumed bit for bit.
+    try:
+        tool = graph_lgc_joint_tool()
+        if tool["stopped_returned"] is not None or not all(tool["bit_identical"].values()) or tool["captures"] < 1:
+            failures.append(f"tools/run_lgc_joint: {tool}")
+        tool.pop("stopped_returned")
+        say("graphs-lgc-joint-tool", **tool)
+    except Exception as err:  # noqa: BLE001 -- the phase fails below
+        failures.append(f"tools/run_lgc_joint: {type(err).__name__}: {err}")
 
     # What stays eager: capture=True refused for Gibbs.
     gibbs = rt.samplers.gibbs.build(model)
@@ -2232,6 +2332,14 @@ def phase_graphs(smi: str) -> dict:
         failures.append("gibbs: capture=True was not refused")
     except ValueError as err:
         say("graphs-refused", run="blr/gibbs", error=str(err))
+    # A FunctionModel stays eager: a user's logp may read the device.
+    fm = rt.models.FunctionModel(2, lambda w: -0.5 * torch.sum(w * w))
+    try:
+        rt.parallel.run(rt.samplers.hmc.build(fm), torch.Generator(device=DEVICE).manual_seed(0),
+                        torch.zeros((8, 2), device=DEVICE), num_samples=1, capture=True)
+        failures.append("FunctionModel: capture=True was not refused")
+    except ValueError as err:
+        say("graphs-refused", run="hmc-on-FunctionModel", error=str(err))
 
     # timed_sampling: the first half captures, the timed half replays (it raises on a capture).
     captures = rt.parallel.graphs.capture_count()

@@ -80,7 +80,11 @@ def with_autograd(fn: Callable[..., Tensor]) -> Callable[..., Tensor]:
 
     Inside ``torch.inference_mode()`` it runs under ``inference_mode(False)``
     on clones of the inference-tensor arguments, which autograd may then
-    save; elsewhere it runs as it is.
+    save; elsewhere it runs as it is.  It moves no number between the host
+    and the device, so a CUDA graph can capture it: the clones come from the
+    graph's pool, and the backward pass, which autograd runs on its own
+    device thread, is recorded on the capturing stream as the forward is
+    (the StochVol hyper block runs it captured).
     """
 
     def run(*args: Tensor) -> Tensor:

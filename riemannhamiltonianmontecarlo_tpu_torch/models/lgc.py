@@ -146,10 +146,12 @@ class LGCModel(nn.Module):
         section 5): each operator becomes a ``collectives.RowShards``, D / k
         rows a rank.  Positions stay whole on every rank of the axis; each
         (C, D) x (D, D) product is a local partial product and an all-reduce
-        (``collectives.matmul``).  The sharded model serves the
-        constant-metric samplers (``phmc``, ``pmala``, which take the
-        operators through the same seam); the dense position-dependent
-        metric of mMALA needs the whole Sigma^{-1}.
+        (``collectives.matmul``).  Every sampler of the model runs on it, as
+        GSPMD partitions any sampler in the JAX package: the constant-metric
+        ones (``phmc``, ``pmala``) take the operators through the same seam,
+        and mMALA's position-dependent ``metric`` gathers the whole
+        Sigma^{-1} (``collectives.gather_rows``, an all-reduce) at each call,
+        since each chain's dense (D, D) metric is factored whole.
         """
         k, i = mesh.size(axis), mesh.index(axis)
         if self.dim % k:
@@ -204,9 +206,13 @@ class LGCModel(nn.Module):
     def metric(self, x: Tensor) -> Tensor:
         """G(x) = Sigma^{-1} + diag(m e^x).  (..., D) -> (..., D, D).
 
-        Materializes a dense (D, D) per chain (64 MB at D = 4096): use few chains.
+        Materializes a dense (D, D) per chain (64 MB at D = 4096): use few
+        chains.  On a sharded model Sigma^{-1} is gathered whole first.
         """
-        return self.sigma_inv + torch.diag_embed(self.m * torch.exp(x))
+        sigma_inv = self.sigma_inv
+        if isinstance(sigma_inv, collectives.RowShards):
+            sigma_inv = collectives.gather_rows(sigma_inv)
+        return sigma_inv + torch.diag_embed(self.m * torch.exp(x))
 
     def dg_cache(self, x: Tensor) -> Tensor:
         """(..., D) diagonal weights m e^x;  dG_d = m e^{x_d} E_dd."""
@@ -294,6 +300,10 @@ class LGCJointModel(nn.Module):
     the Jacobian's derivative (+1 per coordinate) that the reference's own
     Hamiltonian includes and its gradient omits.
     """
+
+    # samplers.base.model_capturable: the joint samplers take the closed form
+    # (``hyper_geometry``); the ``use_autodiff`` oracle is a test tool.
+    capturable = True
 
     def __init__(
         self,

@@ -70,6 +70,8 @@ class StochVolModel(nn.Module):
     theta~ = (beta, log sigma, atanh phi) throughout.  ``y`` is a buffer.
     """
 
+    capturable = True  # samplers.base.model_capturable: torch.func under capture, held in chip_smoke.py phase 13
+
     def __init__(self, y: Tensor):
         super().__init__()
         self.register_buffer("y", y.reshape(-1))

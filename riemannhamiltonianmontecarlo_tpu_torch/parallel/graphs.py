@@ -32,6 +32,12 @@ addition beside the kernel and every replay counts its launches on the
 device; the warm-up's launches are not counted (``launches.paused``) and
 the capture itself executes nothing.
 
+Host work between steps (``Kernel.after_step``: the monitor's count and
+prints) is not in the graph: ``scan`` runs it after each replay on the
+static state, which it may zero in place or whose host leaves it may
+replace; a leaf that the step passes through (the monitor's host step
+count) is left out of the graph by the write-back.
+
 ``step_graph`` caches entries by the step function (weakly: an entry dies
 with its kernel), the collect function and the state's structure, shapes,
 dtypes and device, as the JAX package's jit cache does; a kernel rebuilt
@@ -179,9 +185,12 @@ class StepGraph:
                 raise ValueError("a captured step must return a state of the structure, shapes and dtypes it was "
                                  f"given: got {_signature(scratch)} from {_signature(self.state)}")
 
-    def scan(self, generator: torch.Generator, state, num_steps: int, collect: bool):
+    def scan(self, generator: torch.Generator, state, num_steps: int, collect: bool, after_step=None):
         """``num_steps`` steps from ``state``, as ``runner._scan_phase``:
-        (state, outputs (S, ...) or None, mean accept, divergences), all new tensors."""
+        (state, outputs (S, ...) or None, mean accept, divergences), all new
+        tensors.  ``after_step`` (``Kernel.after_step``, or None) runs on the
+        host after each replay, on the static state, as the eager loop runs
+        it after each step."""
         tree_map(Tensor.copy_, self.state, state)
         self.accept_sum.zero_()
         self.div_sum.zero_()
@@ -191,6 +200,8 @@ class StepGraph:
         self.generator.set_state(generator.get_state())
         for i in range(num_steps):
             self._advance()
+            if after_step is not None:
+                self.state = after_step(self.state)
             if out is not None:
                 tree_map(lambda buf, x: buf[i].copy_(x), out, self.slot)
         generator.set_state(self.generator.get_state())

@@ -231,7 +231,7 @@ def chain_sliced(kernel: Kernel, mesh: Mesh) -> Kernel:
 
         return kernel.transition(state, _map_leaves(take, noise, axes_by_shape[shapes]))
 
-    return Kernel(kernel.init, step, kernel.transition)
+    return Kernel(kernel.init, step, kernel.transition, after_step=kernel.after_step)
 
 
 def _leaves(tree) -> list[Tensor]:

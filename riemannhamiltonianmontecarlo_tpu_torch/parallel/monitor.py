@@ -24,7 +24,7 @@ class MonitorState(NamedTuple):
     inner: Any
     accept_sum: Tensor  # () window sum of the per-step mean accept probability, on the chains' device
     divergence_sum: Tensor  # () window divergence count, on the chains' device
-    step: Tensor  # () steps taken, a host (CPU) tensor: the print decision never waits for the device
+    step: Tensor  # () steps taken, a host (CPU) tensor that the step passes through and ``after_step`` advances
 
     @property
     def position(self) -> Tensor:  # runner collection passthrough
@@ -34,13 +34,18 @@ class MonitorState(NamedTuple):
 def monitor(kernel: Kernel, every: int = 50, label: str = "mcmc") -> Kernel:
     """Wrap a kernel to print windowed acceptance and divergences.
 
-    The window's sums stay on the device; every ``every`` steps the wrapper
-    prints ``[label] step s: window accept a, divergences d`` and resets
-    them.  The print reads the device, so it is a host sync, the only one:
-    CUDA-graph capture of the step loop (ROADMAP item 6b) must leave it
-    outside the graph.  The wrapper keeps the inner kernel's ``transition``
-    / ``draw_noise`` split, so the runner can split its chains; the window
-    is then this rank's chains.
+    The step adds each step's mean accept probability and divergence count
+    to the window's sums, which stay on the device, and does nothing else,
+    so it is capturable where ``kernel`` is.  The count of steps and the
+    print live on the host, in ``Kernel.after_step``, which the runner calls
+    after every eager step and every replay of the step's CUDA graph: after
+    every ``every``-th step of the state (counted across phases) it prints
+    ``[label] step s: window accept a, divergences d`` and zeroes the sums.
+    The print reads the device, one sync a window, the only one.  Eager and
+    captured runs print the same lines; a graph's warm-up and its capture
+    print nothing.  The wrapper keeps the inner kernel's ``transition`` /
+    ``draw_noise`` split, so the runner can split its chains; the window is
+    then this rank's chains.
     """
 
     def init(position: Tensor) -> MonitorState:
@@ -51,12 +56,18 @@ def monitor(kernel: Kernel, every: int = 50, label: str = "mcmc") -> Kernel:
     def finish(state: MonitorState, inner, info: Info) -> tuple[MonitorState, Info]:
         acc = state.accept_sum + info.accept_prob.mean()
         div = state.divergence_sum + info.divergent.sum()
+        return MonitorState(inner, acc, div, state.step), info
+
+    def after_step(state: MonitorState) -> MonitorState:
+        if kernel.after_step is not None:
+            state = state._replace(inner=kernel.after_step(state.inner))
         step_no = state.step + 1
         if int(step_no) % every == 0:
-            print(f"[{label}] step {int(step_no)}: window accept {float(acc) / every:.3f}, divergences {int(div)}",
-                  flush=True)
-            acc, div = torch.zeros_like(acc), torch.zeros_like(div)
-        return MonitorState(inner, acc, div, step_no), info
+            print(f"[{label}] step {int(step_no)}: window accept {float(state.accept_sum) / every:.3f}, "
+                  f"divergences {int(state.divergence_sum)}", flush=True)
+            state.accept_sum.zero_()
+            state.divergence_sum.zero_()
+        return state._replace(step=step_no)
 
     def transition(state: MonitorState, noise) -> tuple[MonitorState, Info]:
         return finish(state, *kernel.transition(state.inner, noise))
@@ -69,7 +80,8 @@ def monitor(kernel: Kernel, every: int = 50, label: str = "mcmc") -> Kernel:
         def draw_noise(generator: torch.Generator, state: MonitorState):
             return kernel.draw_noise(generator, state.inner)
 
-    return Kernel(init, step, transition if kernel.transition else None, draw_noise, kernel.noise_from_state)
+    return Kernel(init, step, transition if kernel.transition else None, draw_noise, kernel.noise_from_state,
+                  capturable=kernel.capturable, after_step=after_step)
 
 
 @contextlib.contextmanager

@@ -49,8 +49,11 @@ class RunResult:
     warmup_accept_rate: Tensor  # () mean accept probability during warmup
 
 
-def _scan_phase(step, generator: torch.Generator, state, num_steps: int, collect: bool, collect_fn=None):
-    """Advance ``num_steps`` steps; returns (state, outputs (S, ...) or None, accept, divergences)."""
+def _scan_phase(step, generator: torch.Generator, state, num_steps: int, collect: bool, collect_fn=None,
+                after_step=None):
+    """Advance ``num_steps`` steps, each followed by the host's ``after_step``
+    (``Kernel.after_step``, or None); returns (state, outputs (S, ...) or
+    None, accept, divergences)."""
     fn = collect_fn or graphs.position_of
     device = state.position.device
     accept_sum = torch.zeros((), device=device)
@@ -60,6 +63,8 @@ def _scan_phase(step, generator: torch.Generator, state, num_steps: int, collect
         out = tree_map(lambda x: x.new_empty((num_steps, *x.shape)), fn(state))
     for i in range(num_steps):
         state, info = step(generator, state)
+        if after_step is not None:
+            state = after_step(state)
         if out is not None:
             tree_map(lambda buf, x: buf[i].copy_(x), out, fn(state))
         accept_sum += info.accept_prob.mean()
@@ -72,8 +77,8 @@ def _phase(kernel: Kernel, generator: torch.Generator, state, num_steps: int, co
     """One phase: replayed from the step's CUDA graph where ``graph``, else ``_scan_phase``."""
     if graph and num_steps > 0:
         entry = graphs.step_graph(kernel.step, collect_fn, state)
-        return entry.scan(generator, state, num_steps, collect)
-    return _scan_phase(kernel.step, generator, state, num_steps, collect, collect_fn)
+        return entry.scan(generator, state, num_steps, collect, kernel.after_step)
+    return _scan_phase(kernel.step, generator, state, num_steps, collect, collect_fn, kernel.after_step)
 
 
 def run(

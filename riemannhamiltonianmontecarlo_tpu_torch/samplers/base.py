@@ -59,12 +59,20 @@ class Kernel(NamedTuple):
     # sync, no host-side branch on device values, no collective.  ``run``
     # replays a graph of it on a CUDA device by default.
     capturable: bool = False
+    # Host work after every step, outside the step and so outside its graph:
+    # ``after_step(state) -> state``, called by the runner after each eager
+    # step or replay (``parallel.monitor``'s prints).  It may zero device
+    # leaves in place and replace host leaves, and nothing more.
+    after_step: Callable[[Any], Any] | None = None
 
 
 def model_capturable(model) -> bool:
     """Whether a model's methods may run inside a CUDA graph: those that
-    say so (``capturable = True``); not those that differentiate through
-    ``models.base.with_autograd`` or communicate (a sharded model)."""
+    say so (``capturable = True``), each held eager against captured on the
+    card (``chip_smoke.py`` phase 13), ``torch.func`` derivatives through
+    ``models.base.with_autograd`` included (the StochVol hyper block); not a
+    sharded model (its products are all-reduced) nor a
+    ``models.FunctionModel`` (a user's ``logp`` may read the device)."""
     return bool(getattr(model, "capturable", False))
 
 

@@ -29,7 +29,10 @@ pure and takes a ``LGCJointNoise``; ``step(generator, state)`` draws it with
 (``parallel.chain_sliced``) can draw the noise of every chain.
 The latent leapfrog runs the full L steps under a per-chain mask; a
 factorization that fails (a proposed beta whose K is not PD in float32)
-gives non-finite numbers and a masked reject, never an exception.
+gives non-finite numbers and a masked reject, never an exception.  The
+sweep takes the closed-form hyper geometry and reads nothing back to the
+host, so on a card the runner replays it as one CUDA graph
+(``Kernel.capturable``).
 """
 
 from __future__ import annotations
@@ -43,7 +46,7 @@ from torch import Tensor
 from riemannhamiltonianmontecarlo_tpu_torch import ops
 from riemannhamiltonianmontecarlo_tpu_torch.samplers import mmala as mmala_mod
 from riemannhamiltonianmontecarlo_tpu_torch.samplers import rmhmc as rmhmc_mod
-from riemannhamiltonianmontecarlo_tpu_torch.samplers.base import Info, Kernel, LatentResult, finish_latent
+from riemannhamiltonianmontecarlo_tpu_torch.samplers.base import Info, Kernel, LatentResult, finish_latent, model_capturable
 
 METHODS = ("rmhmc", "mmala")
 
@@ -225,4 +228,4 @@ def build(model, config: LGCJointConfig = LGCJointConfig()) -> Kernel:
     def step(generator: torch.Generator, state: LGCJointState) -> tuple[LGCJointState, Info]:
         return transition(state, noise(generator, state))
 
-    return Kernel(init, step, transition, noise, noise_from_state=True)
+    return Kernel(init, step, transition, noise, noise_from_state=True, capturable=model_capturable(model))

@@ -7,14 +7,19 @@ number of kernel launches and the share of device time in GEMMs (kernel
 names with gemm / cutlass / xmma) and in the library factorizations
 (potrf / trsm; the trsm part also on its own) and, for FitzHugh-Nagumo,
 in the sensitivity kernel (``fhn_sensitivities_kernel``), and the peak of
-allocated device memory.  The idle share is 1 - busy / wall.  For StochVol it also
-times the bidiagonal Cholesky scan (``ops.tridiag.cholesky``, run once per
-sweep by rmhmc, hmc and mmala) inside the sweep, for its share of a sweep.
+allocated device memory.  The idle share is 1 - busy / wall.  For StochVol
+(rmhmc, hmc and mmala, which run the bidiagonal Cholesky scan
+``ops.tridiag.cholesky`` once a sweep) it also gives the scan's device time
+and launches (a CUDA graph of the scan alone at the sweep's shapes,
+replayed under torch.profiler) and its share of the sweep's device time,
+and on the eager row the scan's wall time inside the sweep, for its share
+of the sweep's wall.
 
-Each run whose kernel declares itself capturable gets two rows: ``eager``
-(the step launched from the host, as ``run(..., capture=False)``) and
-``captured`` (replays of the step's CUDA graph, ``parallel.graphs``, as
-``run`` does by default on a card), the captured row with the capture's
+Each run whose kernel declares itself capturable gets four rows, in turns
+E C C E (both paths on either side of a drift in the card's state):
+``eager`` (the step launched from the host, as ``run(..., capture=False)``)
+and ``captured`` (replays of the step's CUDA graph, ``parallel.graphs``, as
+``run`` does by default on a card), the captured rows with the capture's
 seconds and the bytes of device memory its graph pool reserved.  The BLR
 row is RMHMC at the reference constants on synthetic data of australian's
 shape (N = 690, D = 15), 4096 chains.
@@ -121,8 +126,33 @@ def profile_run(workload: str, sampler: str, chains: int, *, warm: int, steps: i
     if workload == "fhn":
         out["fhn_kernel_share_of_device"] = sum(ms for name, ms in kernels if FHN.search(name)) / busy
     if workload == "stochvol" and sampler != "mala":
-        out.update(_scan_share(lambda: run_steps(1), steps))
+        scan = _scan_device(box[0].x)
+        out.update(scan, tridiag_scan_share_of_device=scan["tridiag_scan_device_ms_per_step"] / busy)
+        if not captured:  # a replay runs no Python: the wall share is the eager step's
+            out.update(_scan_share(lambda: run_steps(1), steps))
     return out
+
+
+def _scan_device(x: torch.Tensor, replays: int = 3) -> dict:
+    """The bidiagonal scan's device ms and launches per call at ``x``'s
+    (C, T): a CUDA graph of ``tridiag.cholesky`` alone (on an SPD
+    tridiagonal G like the latent metric's), replays under torch.profiler."""
+    diag, off = torch.full_like(x, 2.5), torch.full_like(x[:, 1:], -1.0)
+    with torch.inference_mode():
+        tridiag.cholesky(diag, off)  # warm
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            tridiag.cholesky(diag, off)
+        graph.replay()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(replays):
+                graph.replay()
+            torch.cuda.synchronize()
+    events = [e.time_range.elapsed_us() for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return {"tridiag_scan_device_ms_per_step": sum(events) / 1e3 / replays,
+            "tridiag_scan_launches": len(events) / replays}
 
 
 def _scan_share(one_step, steps: int) -> dict:
@@ -167,7 +197,7 @@ def main(argv=None) -> None:
     for workload, sampler, chains in RUNS:
         if args.only and f"{workload}/{sampler}" not in args.only:
             continue
-        for captured in (False, True):
+        for captured in (False, True, True, False):
             rec = profile_run(workload, sampler, chains, warm=args.warm, steps=args.steps, profiled=args.profiled,
                               captured=captured)
             rec["device"] = torch.cuda.get_device_name(0)

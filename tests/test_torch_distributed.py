@@ -13,8 +13,10 @@ The parent holds them against the JAX package and the single-process port:
   transition on replayed JAX draws within ``test_torch_rmhmc.py``'s
   tolerances, and a data-split run whose two ranks hold the same bits;
 * LGC latent axis, k = 2, n = 8 (D = 64): six phmc steps sharded against
-  unsharded within 1e-3 (``tests/test_sharding.py:85-89``), one phmc and one
-  pmala transition on replayed JAX draws (``test_torch_lgc.py``'s checks);
+  unsharded within 1e-3 (``tests/test_sharding.py:85-89``), one phmc, one
+  pmala and one position-dependent mMALA transition (its metric built from
+  the gathered Sigma^{-1}) on replayed JAX draws, the JAX steps on the
+  unsharded model (``test_torch_lgc.py``'s checks);
 * chain axis, k = 2: HMC, RMHMC, AMH (coordinate-major noise), Gibbs (GIG
   rounds agreed over the ranks), StochVol RMHMC and joint LGC mMALA (noise
   drawn from the state), 20 steps: each rank's samples bit for bit one
@@ -46,7 +48,7 @@ from riemannhamiltonianmontecarlo_tpu_torch.models import lgc, synthetic_logreg
 from riemannhamiltonianmontecarlo_tpu_torch.parallel import collectives
 from riemannhamiltonianmontecarlo_tpu_torch.parallel.launch import spawn
 from riemannhamiltonianmontecarlo_tpu_torch.parallel.mesh import Mesh
-from riemannhamiltonianmontecarlo_tpu_torch.samplers import Kernel, gibbs, hmc, metropolis, phmc, pmala, rmhmc
+from riemannhamiltonianmontecarlo_tpu_torch.samplers import Kernel, gibbs, hmc, metropolis, mmala, phmc, pmala, rmhmc
 from riemannhamiltonianmontecarlo_tpu_torch.utils import checkpoint, default_init
 
 torch.set_num_threads(1)
@@ -132,6 +134,7 @@ def rank_lgc_latent(out: str) -> None:
     run_kernel = phmc.build(sharded, sharded.metric_chol, sharded.metric_inv, phmc.PHMCConfig(**LGC_RUN))
     phmc_kernel = phmc.build(sharded, sharded.metric_chol, sharded.metric_inv, phmc.PHMCConfig(**LGC_PHMC))
     pmala_kernel = pmala.build(sharded, sharded.metric_chol, sharded.metric_inv, pmala.PMALAConfig(step_size=0.5))
+    mmala_kernel = mmala.build(sharded, mmala.MMALAConfig(**LGC_MMALA))
     pos = torch.from_numpy(inp["pos"])
     with torch.inference_mode():
         res = parallel.run(run_kernel, torch.Generator().manual_seed(0), lgc_init(model), num_samples=6, mesh=mesh)
@@ -139,10 +142,13 @@ def rank_lgc_latent(out: str) -> None:
             *(torch.from_numpy(inp[f"phmc_{k}"]) for k in phmc.PHMCNoise._fields)))
         ms, mi = pmala_kernel.transition(pmala_kernel.init(pos), pmala.PMALANoise(
             *(torch.from_numpy(inp[f"pmala_{k}"]) for k in pmala.PMALANoise._fields)))
+        gs, gi = mmala_kernel.transition(mmala_kernel.init(pos), mmala.MMALANoise(
+            *(torch.from_numpy(inp[f"mmala_{k}"]) for k in mmala.MMALANoise._fields)))
     save(out, "lgc", rows=[tuple(getattr(sharded, n).rows.shape) for n in lgc.LGCModel.OPERATORS],
          run_samples=res.samples, run_accept=res.accept_rate,
          **{f"phmc_{k}": v for k, v in {**ps._asdict(), **pi._asdict()}.items()},
-         **{f"pmala_{k}": v for k, v in {**ms._asdict(), **mi._asdict()}.items()})
+         **{f"pmala_{k}": v for k, v in {**ms._asdict(), **mi._asdict()}.items()},
+         **{f"mmala_{k}": v for k, v in {**gs._asdict(), **gi._asdict()}.items()})
 
 
 def rank_chain_axis(out: str) -> None:
@@ -196,6 +202,7 @@ def rank_chain_axis(out: str) -> None:
 
 LGC_RUN = dict(step_size=0.05, num_leapfrog=3)
 LGC_PHMC = dict(step_size=0.5, num_leapfrog=10)
+LGC_MMALA = dict(step_size=0.3, jitter=1e-5)  # test_torch_lgc.py's position-dependent mMALA
 EXPERIMENT = dict(device="cpu", num_chains=16, num_samples=40, burn_in=10, ess_mode="exact",
                   sampler_overrides={"num_leapfrog": 10, "step_size": 0.1})
 EXPERIMENT_FIELDS = ("ess_min", "ess_median", "ess_max", "accept_rate", "divergences", "posterior_mean",
@@ -366,6 +373,7 @@ def lgc_ranks(tmp_path_factory):
     import jax.numpy as jnp
 
     from riemannhamiltonianmontecarlo_tpu.models import lgc as jlgc
+    from riemannhamiltonianmontecarlo_tpu.samplers import mmala as jmmala
     from riemannhamiltonianmontecarlo_tpu.samplers import phmc as jphmc
     from riemannhamiltonianmontecarlo_tpu.samplers import pmala as jpmala
 
@@ -380,17 +388,25 @@ def lgc_ranks(tmp_path_factory):
     k_noise, k_acc2 = jax.random.split(k_pmala)
     pmala_noise = dict(z=jax.random.normal(k_noise, (LGC_C, LGC_D), jnp.float32),
                        u_acc=jax.random.uniform(k_acc2, (LGC_C,), jnp.float32))
+    k_mmala = jax.random.key(43)
+    k_prop, k_acc3 = jax.random.split(k_mmala)
+    mmala_noise = dict(eps=jax.random.normal(k_prop, (LGC_C, LGC_D), jnp.float32),
+                       u_acc=jax.random.uniform(k_acc3, (LGC_C,), jnp.float32))
     ops = {name: np.asarray(getattr(jm, name)) for name in lgc.LGCModel.OPERATORS}
     np.savez(out / "lgc_inputs.npz", y=y, pos=pos, **ops, **{f"phmc_{k}": np.asarray(v) for k, v in phmc_noise.items()},
-             **{f"pmala_{k}": np.asarray(v) for k, v in pmala_noise.items()})
+             **{f"pmala_{k}": np.asarray(v) for k, v in pmala_noise.items()},
+             **{f"mmala_{k}": np.asarray(v) for k, v in mmala_noise.items()})
     jk = jphmc.build(jm, jm.metric_chol, jm.metric_inv, jphmc.PHMCConfig(**LGC_PHMC))
     jp = jpmala.build(jm, jm.metric_chol, jm.metric_inv, jpmala.PMALAConfig(step_size=0.5))
+    jg = jmmala.build(jm, jmmala.MMALAConfig(**LGC_MMALA))  # the unsharded model
     steps = {"phmc": jax.jit(jk.step)(k_phmc, jk.init(jnp.asarray(pos))),
-             "pmala": jax.jit(jp.step)(k_pmala, jp.init(jnp.asarray(pos)))}
+             "pmala": jax.jit(jp.step)(k_pmala, jp.init(jnp.asarray(pos))),
+             "mmala": jax.jit(jg.step)(k_mmala, jg.init(jnp.asarray(pos)))}
     launch("rank_lgc_latent", out)
     model = interop.lgc_from_numpy(y, LGC_N, *ops.values(), device="cpu")
     return {"ranks": load(out, "lgc"), "model": model, "jax_steps": steps,
-            "u_acc": {"phmc": np.asarray(phmc_noise["u_acc"]), "pmala": np.asarray(pmala_noise["u_acc"])}}
+            "u_acc": {name: np.asarray(noise["u_acc"]) for name, noise in
+                      (("phmc", phmc_noise), ("pmala", pmala_noise), ("mmala", mmala_noise))}}
 
 
 def test_torch_lgc_latent_axis_six_phmc_steps_match_unsharded(lgc_ranks):
@@ -404,7 +420,7 @@ def test_torch_lgc_latent_axis_six_phmc_steps_match_unsharded(lgc_ranks):
         assert float(rank["run_accept"]) == pytest.approx(float(whole.accept_rate), abs=1e-3)
 
 
-@pytest.mark.parametrize("sampler", ["phmc", "pmala"])
+@pytest.mark.parametrize("sampler", ["phmc", "pmala", "mmala"])
 def test_torch_lgc_latent_axis_transition_matches_jax(lgc_ranks, sampler):
     js, ji = lgc_ranks["jax_steps"][sampler]
     ap = np.asarray(ji.accept_prob)

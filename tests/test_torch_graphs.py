@@ -35,8 +35,11 @@ CHAINS, STEPS = 4, 3
 BLR = ("rmhmc", "rmhmc_studentt", "hmc", "mala", "mmala", "mmala_simplified", "metropolis", "iwls")
 LGC = ("rmhmc", "pmala", "mmala", "mala_transient", "mala_stationary")
 FHN = experiments.WORKLOAD_SAMPLERS["fhn"]
+STOCHVOL = experiments.WORKLOAD_SAMPLERS["stochvol"]
 CAPTURABLE = ([f"blr/{s}" for s in BLR] + ["blr/rmhmc-adapt", "blr/mala-transient"]
-              + [f"lgc/{s}" for s in LGC] + [f"fhn/{s}" for s in FHN])
+              + [f"lgc/{s}" for s in LGC] + [f"fhn/{s}" for s in FHN]
+              + [f"stochvol/{s}" for s in STOCHVOL] + ["stochvol/mala-transient", "lgc/rmhmc_joint", "lgc/mmala_joint"])
+SIZES = {"lgc": dict(lgc_n=4), "fhn": dict(fhn_obs=10, fhn_substeps=2), "stochvol": dict(stochvol_obs=20)}
 
 
 def blr_model(n=60, d=4):
@@ -59,9 +62,9 @@ def build(name: str):
         y, _ = rt.models.lgc.generate_data(seed=0, n=4)
         model = rt.interop.lgc_from_numpy(y, 4, device="cpu")
         return pmala.build(model, model.metric_chol, model.metric_inv), model.prior_mean().expand(CHAINS, -1).clone()
-    size = dict(lgc_n=4) if workload == "lgc" else dict(fhn_obs=10, fhn_substeps=2)
-    kernel, init_fn, *_ = experiments.build_workload(workload, sampler, device="cpu", **size)
-    return kernel, init_fn(CHAINS)
+    kernel, init_fn, _, _, warm = experiments.build_workload(workload, sampler.split("-")[0], device="cpu",
+                                                             **SIZES[workload])
+    return (warm if sampler.endswith("-transient") else kernel), init_fn(CHAINS)
 
 
 INT_OF = {torch.float32: torch.int32, torch.float64: torch.int64}
@@ -107,6 +110,34 @@ def test_torch_graph_body_equals_eager_loop(name):
         kept = tree_map(torch.clone, graph_state)
         entry.scan(gen_graph, state, 1, True)
         assert_trees_equal(graph_state, kept)
+
+
+def test_torch_graph_monitor_prints_the_eager_windows(capsys):
+    """A monitored kernel is capturable where its inner kernel is; through
+    ``StepGraph.scan`` (burn-in and sampling scans of one entry, a warm-up
+    first) it prints the window lines of the runner's eager run, counted
+    across both phases, and gives the same chains; the warm-up prints nothing."""
+    inner, init = build("blr/hmc")
+    kernel = rt.parallel.monitor(inner, every=2, label="watch")
+    assert kernel.capturable and kernel.after_step is not None
+    burn, n = 3, 5
+    capsys.readouterr()
+    eager = rt.parallel.run(kernel, torch.Generator().manual_seed(9), init, num_samples=n, burn_in=burn)
+    eager_lines = capsys.readouterr().out.splitlines()
+    assert [line.split(":")[0] for line in eager_lines] == [f"[watch] step {s}" for s in (2, 4, 6, 8)]
+    with torch.inference_mode():
+        state = kernel.init(init)
+        entry = graphs.StepGraph(kernel.step, position_of, state)
+        entry._warm_up(2)
+        assert capsys.readouterr().out == ""
+        gen = torch.Generator().manual_seed(9)
+        warm_state, _, warm_acc, _ = entry.scan(gen, state, burn, False, kernel.after_step)
+        final, out, acc, div = entry.scan(gen, warm_state, n, True, kernel.after_step)
+    assert capsys.readouterr().out.splitlines() == eager_lines
+    assert_trees_equal(final, eager.final_state)
+    assert torch.equal(out.movedim(0, 1), eager.samples)
+    assert torch.equal(bits(acc), bits(eager.accept_rate)) and torch.equal(div, eager.divergences)
+    assert torch.equal(bits(warm_acc), bits(eager.warmup_accept_rate))
 
 
 def swap_step(generator, state):
@@ -192,9 +223,7 @@ def not_capturable() -> dict[str, Kernel]:
     lgc = rt.interop.lgc_from_numpy(y, 4, device="cpu").with_sharding(local_mesh("latent"), "latent")
     return {
         "blr/gibbs": rt.samplers.gibbs.build(model),
-        "stochvol/rmhmc": experiments.build_workload("stochvol", "rmhmc", device="cpu", stochvol_obs=20)[0],
-        "lgc/rmhmc_joint": experiments.build_workload("lgc", "rmhmc_joint", device="cpu", lgc_n=4)[0],
-        "monitor": rt.parallel.monitor(hmc.build(model), every=10),
+        "monitor-of-gibbs": rt.parallel.monitor(rt.samplers.gibbs.build(model), every=10),
         "chain_sliced": rt.parallel.chain_sliced(hmc.build(model), local_mesh(rt.parallel.CHAIN_AXIS)),
         # a chain group (a stand-in: building the kernel runs no collective)
         "adaptive-pooled-over-ranks": rt.parallel.adaptive(hmc.build, model, hmc.HMCConfig(), mesh=rt.parallel.Mesh(
