@@ -13,7 +13,8 @@ It imports no jax.  Phases, each printing one line of findings:
 2. build: compiles ``ops/csrc/*.cu`` with nvcc (cached by source hash under
    the git-ignored ``build/``; one nvcc per source, all started together),
    prints the build seconds and the ptxas register / spill report (K1 / K2
-   per width, the FHN kernel per order: exactly one instantiation each), and
+   per width, the FHN kernel per order, G1 per width 1..48 and G2: exactly
+   one instantiation each), and
    holds ``hopper_linalg.launch_geometry`` (lanes per chain, chains per
    block, shared-memory tile) against the built library's own answer for
    every width 1..48, and ``fhn_sens.launch_geometry`` (lanes per chain,
@@ -55,8 +56,24 @@ It imports no jax.  Phases, each printing one line of findings:
    operations at 4 cycles each and the card's maximum SM clock; printed on
    the times line, not in the kernels line) and the twin's time; then K1
    and K2 against their twins on the metrics it returns at 256 chains (the
-   matrices the FHN samplers factor).  A timed kernel that torch.profiler
-   does not see fails the run;
+   matrices the FHN samplers factor).  Then the Gibbs step's kernels
+   (``ops/csrc/gibbs.cu``): G1, the sequential z / B sweep, against
+   ``samplers.gibbs.gibbs_sweep_plain`` at (C, N, D) = (1024, 690, 15),
+   (1024, 1000, 25), (1025, 690, 15) and (257, 200, 40), on a state one plain step from
+   init, and at (1024, 690, 15) on that state with z scaled by 8 (the tail
+   case: some steps' bound a > 3, which must take each of the tail's three
+   Rayleigh rounds): every z_j and B entry within rtol / atol 1e-4 except in
+   the chains that parted (a value within rounding of a branch threshold, or
+   a u within 1e-4 of 1, where ndtri's slope turns one ulp of u into more
+   than the tolerance), counted and at most 3% of them; G2, one GIG rejection round, against
+   ``ops.gig.gig_round_plain`` on the same draws at (1024, 690), r^2
+   log-uniform over [1e-4, 25] and 64 exact zeros among the normal draws,
+   a first round and a second from its flags: the elements whose decision
+   differs counted and at most 1e-4 of them, no zero-draw candidate
+   accepted, an accepted element unchanged.  For each, its device time
+   beside its byte bound (G1 also beside the source's critical path), the
+   plain version's time, and the wrapper's.  A timed kernel that
+   torch.profiler does not see fails the run;
 4. one RMHMC transition through the kernels against one through the plain
    linalg, on the same state and noise (BLR, synthetic data of the
    australian shape N=690, D=15, 4096 chains);
@@ -76,8 +93,10 @@ It imports no jax.  Phases, each printing one line of findings:
    right shape, acceptance in a window from RESULTS.md or the JAX
    package's tests, divergences, posterior means against the RMHMC run on
    the same data (z < 5 from exact-mode ESS), and K1 / K2 launch counts
-   equal to the formulas the samplers' code gives; prints seconds per
-   transition and min-ESS/s beside the nvidia-smi line;
+   (Gibbs's: and G1 once, G2 64 times a step; its run, 1024 chains, replays
+   a CUDA graph as every capturable run does) equal to the formulas the
+   samplers' code gives; prints seconds per transition and min-ESS/s beside
+   the nvidia-smi line;
 7. stochvol: ``experiments.run_workload("stochvol", m, device="cuda")`` for
    m in {rmhmc, hmc, mala, mmala} at T = 2000 latents and 1024 chains (the
    hyper block runs K1 / K2 at D = 3): finite hyper and latent samples of
@@ -145,11 +164,11 @@ It imports no jax.  Phases, each printing one line of findings:
    checkpoint shards ``.p0`` / ``.p1`` round-trip.  Then, split (2, 1) over
    the same two ranks, the four samplers the chain split took last, 5 + 5
    each: AMH (BLR, 4096 chains; coordinate-major noise), Gibbs (BLR, 256
-   chains; the GIG rounds' exit test all-reduced over the ranks), StochVol
+   chains; its fixed GIG rounds draw every chain's candidates), StochVol
    RMHMC (T = 2000, 64 chains) and joint LGC mMALA (n = 32, 4 chains), the
    last two drawing their noise from a view of the state.  Each rank is
-   bit for bit one process running its half of the chains (Gibbs's given
-   the GIG exit flags the rank's all-reduces returned); against one process
+   bit for bit one process running its half of the chains, and no rank
+   makes a MIN all-reduce (no exit test agreed over the ranks); against one process
    running all chains the rule above holds (Gibbs at 1e-4 and joint LGC at
    1e-3, ``DIST_SPLIT_TOL``, with the ratio to 1e-5 printed), a chain's
    closeness to a decision boundary found by rerunning each step of that
@@ -180,7 +199,8 @@ It imports no jax.  Phases, each printing one line of findings:
    final state, acceptance and divergences equal bit for bit, K1 / K2
    launch counts of the captured run equal to ``blr_expected_launches``,
    one capture for both phases; then every other capturable sampler (the
-   BLR ones and adaptive RMHMC at 4096 chains, LGC phmc / pmala / mMALA /
+   BLR ones and adaptive RMHMC at 4096 chains, Gibbs at 1024 with its G1 /
+   G2 counts equal to phase 6's formula, LGC phmc / pmala / mMALA /
    whitened MALA at D = 4096, the six FHN samplers at 200 x 5 and 256
    chains, StochVol's four methods at T = 2000 and 1024 chains, MALA with
    its transient burn-in kernel, and the joint LGC pair at n = 32 with 16
@@ -191,14 +211,16 @@ It imports no jax.  Phases, each printing one line of findings:
    ``torch.cuda.set_sync_debug_mode("error")``; where a run launched a
    hand-written kernel (and for the main path), three replays of its graph
    under torch.profiler, the counters against the device's kernel events;
-   a monitored BLR HMC eager and captured, the same window lines and chains;
+   a monitored BLR HMC (4096 chains) and Gibbs (1024) eager and captured,
+   the same window lines and chains;
    ``tools/run_lgc_joint``'s segmented run (n = 32, 4 chains), captured,
    stopped after one segment and resumed bit for bit;
-   ``capture=True`` refused for Gibbs and for a ``FunctionModel``; ``timed_sampling``
+   ``capture=True`` refused for a ``FunctionModel``; ``timed_sampling``
    capturing once before its timed half (which raises on a capture); a
    captured ``run_checkpointed`` stopped after one segment and resumed, bit
    for bit the run not stopped and the eager one.  Then the walls: BLR
-   RMHMC, FHN RMHMC and HMC, LGC phmc, eager and captured in turns E C C E
+   RMHMC, BLR Gibbs (1024 chains), FHN RMHMC and HMC, LGC phmc, eager and
+   captured in turns E C C E
    (``step_profile.profile_run``): wall and device-busy ms a step, idle
    share, launches, the capture's seconds and its graph pool's bytes
    (StochVol's and the joint pair's rows: ``python -m
@@ -227,6 +249,7 @@ import dataclasses
 import hashlib
 import io
 import json
+import math
 import os
 import re
 import shutil
@@ -256,7 +279,8 @@ from riemannhamiltonianmontecarlo_tpu_torch.ops import hopper_linalg as hl  # no
 from riemannhamiltonianmontecarlo_tpu_torch.parallel import collectives  # noqa: E402
 from riemannhamiltonianmontecarlo_tpu_torch.parallel.launch import free_port, spawn  # noqa: E402
 from riemannhamiltonianmontecarlo_tpu_torch.parallel.mesh import CHAIN_AXIS  # noqa: E402
-from riemannhamiltonianmontecarlo_tpu_torch.samplers import pmala, rmhmc  # noqa: E402
+from riemannhamiltonianmontecarlo_tpu_torch.ops import gig, truncnorm  # noqa: E402
+from riemannhamiltonianmontecarlo_tpu_torch.samplers import gibbs, pmala, rmhmc  # noqa: E402
 
 DEVICE = "cuda"
 NUM_CHAINS = 4096
@@ -280,6 +304,18 @@ REPLACES = {
     "cholesky": "riemannhamiltonianmontecarlo_tpu/ops/pallas_linalg.py:116",
     "chol_solve_logdet": "riemannhamiltonianmontecarlo_tpu/ops/pallas_linalg.py:150",
 }
+
+
+# The Gibbs step's two kernels (csrc/gibbs.cu): no Pallas kernel behind either.
+GIBBS_SOURCE = "riemannhamiltonianmontecarlo_tpu_torch/ops/csrc/gibbs.cu"
+GIBBS_REPLACES = {
+    "gibbs_sweep": "riemannhamiltonianmontecarlo_tpu/samplers/gibbs.py:102-124 (the z / B sweep's lax.scan; no pallas_call)",
+    "gig_round": "riemannhamiltonianmontecarlo_tpu/ops/gig.py:143-168 (one round of the rejection lax.while_loop, "
+                 "series :42-115; no pallas_call)",
+}
+GIBBS_KERNEL_NAMES = {"gibbs_sweep": "gibbs_sweep_kernel", "gig_round": "gig_round_kernel"}
+GIBBS_COUNTED = tuple(GIBBS_KERNEL_NAMES)
+GIG_ROUNDS = gibbs.GibbsConfig().max_rejection_rounds  # 64 G2 launches a Gibbs step
 
 
 class SmokeFailure(RuntimeError):
@@ -383,27 +419,26 @@ def replay_launches(kernel, state, replays: int = GRAPH_REPLAYS, sessions: int =
 
     entry = rt.parallel.graphs.lookup(kernel.step, None, state)
     check(entry is not None, "no captured graph of the step: the run did not take the captured path")
-    names = {**KERNEL_NAMES, "fhn_sensitivities": FHN_KERNEL_NAME}
+    names = {**KERNEL_NAMES, "fhn_sensitivities": FHN_KERNEL_NAME, **GIBBS_KERNEL_NAMES}
     gen = torch.Generator(device=DEVICE).manual_seed(GRAPH_SEED)
     seen = []
     for _ in range(sessions):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                      schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
             entry.scan(gen, state, 1, False)  # the warm-up cycle
-            hl.reset_launch_counts()
-            rt.ops.fhn_sens.reset_launch_counts()
+            rt.ops.launches.reset()
             torch.cuda.synchronize()
             prof.step()
             entry.scan(gen, state, replays, False)
             torch.cuda.synchronize()
             prof.step()
-        counted = {**hl.launch_counts(), "fhn_sensitivities": sum(rt.ops.fhn_sens.launch_counts().values())}
+        counted = {**hl.launch_counts(), "fhn_sensitivities": sum(rt.ops.fhn_sens.launch_counts().values()),
+                   **rt.ops.launches.counts(GIBBS_COUNTED)}
         device = [e.name for e in prof.events() or () if e.device_type == torch.autograd.DeviceType.CUDA]
         seen.append({name: sum(part in event for event in device) for name, part in names.items()})
         if seen[-1] == counted:
             break
-    hl.reset_launch_counts()
-    rt.ops.fhn_sens.reset_launch_counts()
+    rt.ops.launches.reset()
     return {"replays": replays, "counted": counted, "profiler_seen": seen, "equal": seen[-1] == counted}
 
 
@@ -462,7 +497,7 @@ def phase_build() -> None:
     spills = [int(s) for s in re.findall(r"(\d+) bytes spill stores", log)]
     stack = [int(s) for s in re.findall(r"(\d+) bytes stack frame", log)]
     check(regs, "ptxas report names no kernel")
-    for source in (SOURCE, FHN_SOURCE):  # the kernels line's "source" fields
+    for source in (SOURCE, FHN_SOURCE, GIBBS_SOURCE):  # the kernels line's "source" fields
         check((Path(__file__).resolve().parent / source).is_file(), f"kernel source {source} is not in the checkout")
     # Registers per kernel and width, from the mangled names: K1 / K2, the rows
     # the instantiation is unrolled for, "rt" where the width comes at run time.
@@ -478,6 +513,14 @@ def phase_build() -> None:
     check(orders == list(rt.ops.fhn_sens.ORDERS),
           f"ptxas report names FHN kernel orders {orders}, expected one each of {rt.ops.fhn_sens.ORDERS}")
     fhn_regs = {f"fhn<{order}>": {"registers": int(r), "spill_store_bytes": int(sp)} for order, sp, r in fhn_found}
+    # G1 per width of B (one instantiation for each D <= 48) and G2: registers and spill stores.
+    gibbs_found = re.findall(r"(gibbs_sweep_kernel|gig_round_kernel)(?:ILi(\d+)EE)?.*?(\d+) bytes spill stores"
+                             r".*?Used (\d+) registers", log, re.S)
+    gibbs_regs = {f"{name}<{width}>" if width else name: {"registers": int(r), "spill_store_bytes": int(sp)}
+                  for name, width, sp, r in gibbs_found}
+    expected = [*(f"gibbs_sweep_kernel<{d}>" for d in range(1, hl.MAX_DIM + 1)), "gig_round_kernel"]
+    check(len(gibbs_found) == len(expected) and sorted(gibbs_regs) == sorted(expected),
+          f"ptxas report names Gibbs kernels {sorted(gibbs_regs)}, expected one each of {expected}")
     for d in range(1, hl.MAX_DIM + 1):
         mirror, built = hl.launch_geometry(d), hl.built_launch_geometry(d)
         check(mirror == built, f"launch geometry at D={d}: Python mirror {mirror}, built library {built}")
@@ -491,7 +534,7 @@ def phase_build() -> None:
     say("build", seconds=seconds, library=str(lib_path), kernels=len(regs),
         max_registers=max(regs), max_spill_store_bytes=max(spills, default=0),
         max_stack_frame_bytes=max(stack, default=0), registers=per_kernel, fhn_kernel=fhn_regs,
-        geometry={d: tuple(hl.launch_geometry(d)) for d in (3, 10, 15, 25, 48)},
+        gibbs_kernels=gibbs_regs, geometry={d: tuple(hl.launch_geometry(d)) for d in (3, 10, 15, 25, 48)},
         fhn_geometry={order: tuple(rt.ops.fhn_sens.launch_geometry(order, FHN_CHAINS, FHN_OBS))
                       for order in rt.ops.fhn_sens.ORDERS})
 
@@ -627,6 +670,289 @@ def phase_kernels(smi: str) -> dict:
     return {"err": err, "times": times}
 
 
+# -- phase 3, the Gibbs step's kernels: G1 (the sweep) and G2 (a GIG round) ------
+
+# G1 against its plain version at (C, N, D): phase 6's australian shape, german's, an odd C, and
+# a width no BLR dataset has (40) on a ragged last block.
+SWEEP_SHAPES = ((1024, 690, 15), (1024, 1000, 25), (1025, 690, 15), (257, 200, 40))
+# The tail case: phase 6's shape with the state's z scaled by SWEEP_TAIL_Z_SCALE
+# before its conditionals, so that B and the conditional means are that much
+# larger and a chain's misfit points sit more than 3 std on the wrong side
+# (a > 3: the tail's Rayleigh rounds, which the other shapes' states one
+# plain step from init never take).  It must take the tail at some steps,
+# and from each of its three rounds.
+SWEEP_TAIL_Z_SCALE = 8.0
+# |k - p| <= atol + rtol |p| on every z_j and every entry of B.  1e-4 / 1e-4 is
+# the CPU tests' tolerance on one truncated normal (tests/test_torch_gibbs.py);
+# the sweep carries each step's rounding (the dot's order is cuBLAS's in the
+# plain version) into B and every later step, a sum over the 690-1000 steps of
+# terms of B's size, ~1e-6 relative.  A step whose value lies within rounding
+# of a branch threshold (a = 3, the tail's u <= a / z) can take the other
+# branch and change that chain from there on: such a chain may part, and the
+# chains that do are counted, at most SWEEP_MAX_PARTED of them.  So can a
+# step whose u = ndtr(a) + u' (1 - ndtr(a)) lies within 1e-4 of 1: ndtri's
+# slope there, 1 / phi(z) > 7e3, turns one ulp of u into more than the
+# tolerance on that one z_j (and B's share of it); ~1% of the chains of a
+# sweep at (1024, 690, 15) and (1024, 1000, 25), one z_j each, u between
+# 0.99994 and 0.999998 (PERF.md).
+SWEEP_TOL = (1e-4, 1e-4)
+SWEEP_MAX_PARTED = 0.03  # of the chains
+# G2 against its plain version on the same draws at (C, N), r^2 log-uniform
+# over [1e-4, 25] (both series), GIG_ZERO_DRAWS exact zeros among the normal
+# draws (the y0 = 0 guard).  The accept decisions compare a float32 partial sum
+# with a uniform: an element may take the other decision where they lie within
+# rounding (at most GIG_MAX_DIFFERING of the elements, counted); every other
+# element's lambda and flag equal the plain version's.
+GIG_SHAPE = (1024, 690)
+GIG_ZERO_DRAWS = 64
+GIG_MAX_DIFFERING = 1e-4  # of the elements
+GIG_OPS_PER_PENDING = 22  # the proposal (14) and one series body (8), each library call one operation
+
+
+def gibbs_inputs(c: int, n: int, d: int, seed: int, z_scale: float = 1.0):
+    """BLR data of (N, D), a Gibbs state one step from init taken through the
+    plain versions (so that lambda and z are a step's; z then scaled by
+    ``z_scale``), its conditionals and the next sweep's uniforms: (model,
+    state, conditionals, noise)."""
+    ds = rt.models.synthetic_logreg(seed=seed, n=n, d=d)
+    model = rt.interop.logreg_from_numpy(ds.X, ds.t, device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    state = gibbs.build(model).init(rt.utils.default_init(model, gen, c))
+    cond = gibbs.conditionals(model, state)
+    noise = gibbs.draw_noise(gen, state)
+    b, z = gibbs.gibbs_sweep_plain(model.X, model.t, state.lam, cond.h, state.z, cond.s, cond.b, noise.sweep)
+    beta = b + rt.ops.mvn_sample(cond.chol_v, noise.beta)
+    r = torch.sqrt(torch.clamp((z - beta @ model.X.T) ** 2, min=1e-16))
+    lam, ok = torch.ones_like(r), torch.zeros(r.shape, dtype=torch.bool, device=DEVICE)
+    for _ in range(8):
+        gig.gig_round_plain(r, torch.randn(r.shape, generator=gen, device=DEVICE),
+                            torch.rand(r.shape, generator=gen, device=DEVICE),
+                            torch.rand(r.shape, generator=gen, device=DEVICE), lam, ok)
+    state = gibbs.GibbsState(beta, z_scale * z, lam)
+    return model, state, gibbs.conditionals(model, state), truncnorm.draw_noise(gen, (n, c), device=DEVICE)
+
+
+def sweep_bounds(args, z: torch.Tensor) -> torch.Tensor:
+    """Each step's truncation bound a = -sign m / std (C, N), recomputed from
+    the plain version's z: B before step j is B_0 plus the updates of the
+    steps before it."""
+    x, t, lam, h, z_old, s, b0, _ = args
+    delta = (z - z_old) / lam
+    update = s * delta[:, None, :]  # (C, D, N)
+    b_before = b0[:, :, None] + torch.cumsum(update, dim=2) - update
+    dot = torch.einsum("cdn,nd->cn", b_before, x)
+    w = h / torch.clamp(lam - h, min=1e-12)
+    sd = torch.sqrt(lam * (w + 1.0))
+    return -((1.0 + w) * dot - w * z_old) / torch.where(t == 1.0, sd, -sd)
+
+
+def sweep_bound_us(c: int, n: int, d: int, tail_steps: int) -> dict:
+    """G1's bounds: bytes once (S, lambda, h, z_old, the central uniform, z out,
+    x, the labels, B in and out, and the six tail uniforms of the steps that
+    took the tail) at 3.35 TB/s against 4 D + 30 operations a chain and step
+    (the dot and the update, the step's scalar arithmetic, each library call
+    one) at 67 TFLOP/s; and the latency of the source's dependent chain."""
+    nbytes = 4 * (c * d * n + 5 * c * n + 6 * tail_steps + n * d + n + 2 * c * d)
+    ops = c * n * (4 * d + 30)
+    by_bytes, by_ops = 1e6 * nbytes / HBM_BYTES_PER_S, 1e6 * ops / FP32_OPS_PER_S
+    return {"bound_us": max(by_bytes, by_ops), "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "bytes": nbytes, "operations": ops, "tail_steps": tail_steps}
+
+
+# G1's bound as a sequence (csrc/gibbs.cu): the longest chain of dependent
+# operations through one step of a chain, on the central path (a <= 3, u in
+# ndtri's central interval), with each library call (erff, an IEEE division)
+# counted as one operation, so a lower bound on the source's chain.  From B to
+# B: the dot's ceil(D / 4) FMAs and 2 adds of its partial sums; the mean (2),
+# a (1), the branch test (1), the clamp (2), the ndtr (erf argument, erff, +1,
+# x0.5: 4), u (3), its clamp (2), ndtri's central branch (its test, y - 0.5,
+# y^2, 9 Horner FMAs of Q0, the division, an FMA, x sqrt(2 pi): 15), the max
+# with a_c (1), z_j (2), the update's factor (2) and B's product and sum (2).
+SWEEP_CHAIN_PER_STEP = 39  # plus the dot's ceil(D / 4)
+
+
+def sweep_dependent_operations(num_data: int, dim: int) -> int:
+    """Length of a chain's longest sequence of dependent operations through G1's sweep."""
+    return num_data * (SWEEP_CHAIN_PER_STEP + -(-dim // 4))
+
+
+def sweep_critical_path_us(num_data: int, dim: int, sm_clock_mhz: float) -> float:
+    """G1's latency bound: ``sweep_dependent_operations`` one after another at
+    4 cycles each and the given SM clock, whatever the chain count."""
+    return sweep_dependent_operations(num_data, dim) * rt.ops.fhn_sens.FP32_DEPENDENT_CYCLES / sm_clock_mhz
+
+
+def tail_rounds(a: torch.Tensor, noise: truncnorm.TruncNormNoise) -> dict:
+    """Which of the tail's three Rayleigh rounds gives z_j at the steps with
+    a > 3, by the plain version's formulas on this sweep's uniforms: the
+    first or second round's accepted candidate, else the last round's
+    candidate, whether it was accepted or not."""
+    tail = (a > truncnorm.TAIL_SPLIT).T  # (N, C), as the uniforms
+    a_t = torch.clamp(a, min=truncnorm.TAIL_SPLIT).T
+    cand = torch.sqrt(torch.addcmul(truncnorm.prepare(noise).neg2_log_e, a_t, a_t))
+    acc = noise.u_tail <= a_t / cand
+    first, second = acc[0], ~acc[0] & acc[1]
+    last = ~acc[0] & ~acc[1]
+    return {"tail_steps": int(tail.sum()), "round_1": int((tail & first).sum()), "round_2": int((tail & second).sum()),
+            "round_3": int((tail & last).sum()), "round_3_rejected_taken": int((tail & last & ~acc[2]).sum())}
+
+
+def check_sweep(c: int, n: int, d: int, timed: bool, z_scale: float = 1.0) -> dict:
+    """G1 against its plain version at one shape, on a state whose z is scaled
+    by ``z_scale`` (``gibbs_inputs``); its times where ``timed``."""
+    model, state, cond, noise = gibbs_inputs(c, n, d, seed=c + n + d, z_scale=z_scale)
+    args = (model.X, model.t, state.lam, cond.h, state.z, cond.s, cond.b, noise)
+    (bk, zk), (bp, zp) = gibbs.gibbs_sweep_cuda(*args), gibbs.gibbs_sweep_plain(*args)
+    torch.cuda.synchronize()
+    at = f"(C={c}, N={n}, D={d}, z x {z_scale})"
+    check(bk.shape == (c, d) and zk.shape == (c, n), f"G1 {at}: shapes {tuple(bk.shape)}, {tuple(zk.shape)}")
+    check(bool(torch.isfinite(bk).all() and torch.isfinite(zk).all()), f"G1 {at}: non-finite output")
+    rtol, atol = SWEEP_TOL
+    # z_j = m + s max(ndtri(u), a) is 0 up to rounding where ndtri(u) fell below the bound a (u near ndtr(a)):
+    # the side of 0 is checked where the plain version's z_j is clear of it.
+    sign = torch.where(model.t == 1.0, 1.0, -1.0).expand(c, n)
+    clear = zp.abs() > atol
+    wrong = int(((zk * sign <= 0) & clear).sum())
+    over_z = (zk - zp).abs() > atol + rtol * zp.abs()
+    over_b = (bk - bp).abs() > atol + rtol * bp.abs()
+    parted = over_z.any(1) | over_b.any(1)
+    kept = ~parted
+    n_parted = int(parted.sum())
+    err = max(float((zk - zp)[kept].abs().max()), float((bk - bp)[kept].abs().max())) if bool(kept.any()) else 0.0
+    ratio = max(float(((zk - zp).abs() / (atol + rtol * zp.abs()))[kept].max()),
+                float(((bk - bp).abs() / (atol + rtol * bp.abs()))[kept].max())) if bool(kept.any()) else 0.0
+    # The central path's u = ndtr(a) + u' (1 - ndtr(a)) at the z_j beyond tolerance.
+    bound_a = sweep_bounds(args, zp)
+    lo = torch.special.ndtr(torch.clamp(bound_a, -12.0, truncnorm.TAIL_SPLIT))
+    u = lo + noise.u_central.T * (1.0 - lo)
+    u_over = u[over_z]
+    tail = tail_rounds(bound_a, noise)
+    out = {"C": c, "N": n, "D": d, "z_scale": z_scale, **tail, "max_abs_err_kept_chains": err,
+           "worst_ratio_to_tolerance_kept_chains": ratio,
+           "u_at_z_beyond_tolerance_min_max": [float(u_over.min()), float(u_over.max())] if u_over.numel() else None,
+           "chains_parted": n_parted,
+           "z_at_zero_within_rounding": int((~clear).sum()), "z_wrong_side": wrong,
+           "elements_beyond_tolerance": int(over_z.sum()) + int(over_b.sum()), "first_parted_chains":
+           parted.nonzero().flatten()[:5].tolist()}
+    say("gibbs-sweep-check", **out)
+    check(wrong == 0, f"G1 {at}: {wrong} z_j clear of 0 on the wrong side")
+    check(n_parted <= SWEEP_MAX_PARTED * c,
+          f"G1 vs plain {at}: {n_parted} chains beyond rtol / atol {SWEEP_TOL}, more than {SWEEP_MAX_PARTED} of {c}")
+    if z_scale == SWEEP_TAIL_Z_SCALE:
+        check(min(tail["round_1"], tail["round_2"], tail["round_3"]) > 0,
+              f"G1 {at}: the tail case did not take each of the tail's rounds: {tail}")
+    if timed:
+        ins = [a.contiguous() for a in (*args[:7], *noise)]
+        b_out, z_out = torch.empty_like(bk), torch.empty_like(zk)
+        lib = gibbs._lib()
+
+        def launch():
+            lib.rhmc_gibbs_sweep(*(a.data_ptr() for a in ins), c, n, d, b_out.data_ptr(), z_out.data_ptr(),
+                                 torch.cuda.current_stream().cuda_stream)
+
+        dev = device_us(launch, launches=20, name_part=GIBBS_KERNEL_NAMES["gibbs_sweep"])
+        check(dev["events_per_call"] == 1, f"G1: {dev['events_per_call']} device kernels per launch")
+        bound = sweep_bound_us(c, n, d, tail["tail_steps"])
+        clock = sm_clock_max_mhz()
+        critical = sweep_critical_path_us(n, d, clock)
+        out.update(ms=median_ms(lambda: gibbs.gibbs_sweep_cuda(*args), reps=20),
+                   plain_ms=median_ms(lambda: gibbs.gibbs_sweep_plain(*args), reps=3, warmup=1),
+                   device_us=dev["us"], device_us_source=dev["source"], profiler_sessions=dev["sessions"], **bound,
+                   share_of_bound=bound["bound_us"] / dev["us"], critical_path_us=critical,
+                   share_of_critical_path=critical / dev["us"], sm_clock_max_mhz=clock,
+                   dependent_operations=sweep_dependent_operations(n, d))
+    return out
+
+
+def gig_inputs(seed: int):
+    """(r, y0 normal draws with GIG_ZERO_DRAWS exact zeros, u_side, u) at GIG_SHAPE."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    shape = GIG_SHAPE
+    r2 = torch.exp(torch.empty(shape, device=DEVICE).uniform_(math.log(1e-4), math.log(25.0), generator=gen))
+    y0 = torch.randn(shape, generator=gen, device=DEVICE)
+    y0.view(-1)[:: y0.numel() // GIG_ZERO_DRAWS][:GIG_ZERO_DRAWS] = 0.0
+    return (torch.sqrt(torch.clamp(r2, min=1e-16)), y0, torch.rand(shape, generator=gen, device=DEVICE),
+            torch.rand(shape, generator=gen, device=DEVICE))
+
+
+def compare_gig_round(draws, lam0, ok0, label: str) -> dict:
+    """One round of G2 and of its plain version from the same (lam, ok)."""
+    (lk, okk), (lp, okp) = (lam0.clone(), ok0.clone()), (lam0.clone(), ok0.clone())
+    gig.gig_round_cuda(*draws, lk, okk)
+    gig.gig_round_plain(*draws, lp, okp)
+    torch.cuda.synchronize()
+    differ = (okk != okp) | (lk != lp)
+    n_differ = int(differ.sum())
+    check(n_differ <= GIG_MAX_DIFFERING * lk.numel(),
+          f"G2 vs plain, {label}: {n_differ} elements differ, more than {GIG_MAX_DIFFERING} of {lk.numel()}")
+    check(bool(torch.equal(lk[ok0], lam0[ok0]) and okk[ok0].all()), f"G2, {label}: an accepted element changed")
+    check(bool(torch.isfinite(lk).all() and (lk > 0).all()), f"G2, {label}: lambda not finite and positive")
+    same = ~differ
+    err = float((lk - lp)[same].abs().max()) if bool(same.any()) else 0.0
+    return {"round": label, "accepted": int(okk.sum()), "elements_differing": n_differ, "max_abs_err_same": err,
+            "lam": lk, "ok": okk}
+
+
+def check_gig_round() -> dict:
+    """G2 against its plain version on two rounds of the same draws, then its times."""
+    c, n = GIG_SHAPE
+    draws = gig_inputs(seed=5)
+    lam0, ok0 = torch.ones(GIG_SHAPE, device=DEVICE), torch.zeros(GIG_SHAPE, dtype=torch.bool, device=DEVICE)
+    first = compare_gig_round(draws, lam0, ok0, "first (no element accepted)")
+    zero = draws[1] == 0.0
+    check(int(zero.sum()) == GIG_ZERO_DRAWS and not bool(first["ok"][zero].any()),
+          "G2: a candidate from a zero normal draw (lambda = inf) was accepted")
+    second = compare_gig_round(gig_inputs(seed=6), first["lam"], first["ok"], "second (from the first's flags)")
+    right = float((first["lam"][first["ok"]] > 4.0 / 3.0).float().mean())  # accepted by the rightmost series
+    check(0.0 < right < 1.0, f"G2: the first round's acceptances came from one series only (right share {right})")
+    lib = gig._lib()
+
+    def launch(lam, ok):
+        lib.rhmc_gig_round(*(a.data_ptr() for a in (*draws, lam, ok)), c * n, 32, torch.cuda.current_stream().cuda_stream)
+
+    fresh = lambda: launch(lam0.clone(), ok0.clone())  # noqa: E731 -- every element pending, as a step's first round
+    done = torch.ones(GIG_SHAPE, dtype=torch.bool, device=DEVICE)
+    dev = device_us(fresh, launches=20, name_part=GIBBS_KERNEL_NAMES["gig_round"])
+    late = device_us(lambda: launch(lam0.clone(), done), launches=20, name_part=GIBBS_KERNEL_NAMES["gig_round"])
+    check(dev["events_per_call"] == 1, f"G2: {dev['events_per_call']} device kernels per launch")
+    pending, accepted = c * n, first["accepted"]
+    nbytes = c * n + 16 * pending + 5 * accepted
+    ops = GIG_OPS_PER_PENDING * pending
+    by_bytes, by_ops = 1e6 * nbytes / HBM_BYTES_PER_S, 1e6 * ops / FP32_OPS_PER_S
+    bound = max(by_bytes, by_ops)
+    times = {"C": c, "N": n, "ms": median_ms(lambda: gig.gig_round_cuda(*draws, lam0.clone(), ok0.clone()), reps=20),
+             "plain_ms": median_ms(lambda: gig.gig_round_plain(*draws, lam0.clone(), ok0.clone()), reps=5),
+             "device_us": dev["us"], "device_us_source": dev["source"], "profiler_sessions": dev["sessions"],
+             "bound_us": bound, "bound_by": "bytes" if by_bytes >= by_ops else "operations", "bytes": nbytes,
+             "operations": ops, "share_of_bound": bound / dev["us"],
+             "all_accepted_round_device_us": late["us"], "all_accepted_round_bound_us": 1e6 * c * n / HBM_BYTES_PER_S}
+    rounds = [{k: v for k, v in r.items() if k not in ("lam", "ok")} for r in (first, second)]
+    return {"rounds": rounds, "rightmost_share_of_first_round_accepts": right,
+            "zero_normal_draws": GIG_ZERO_DRAWS, "times": times,
+            "err": max(r["max_abs_err_same"] for r in rounds),
+            "elements_differing": sum(r["elements_differing"] for r in rounds)}
+
+
+def phase_gibbs_kernels(smi: str) -> dict:
+    """G1 and G2 against their plain versions on the card, and their times."""
+    sweeps = [check_sweep(c, n, d, timed=(c, n, d) == SWEEP_SHAPES[0]) for c, n, d in SWEEP_SHAPES]
+    sweeps.append(check_sweep(*SWEEP_SHAPES[0], timed=False, z_scale=SWEEP_TAIL_Z_SCALE))
+    say("gibbs-sweep-kernel", checked=[{k: v for k, v in row.items() if k in (
+        "C", "N", "D", "z_scale", "max_abs_err_kept_chains", "chains_parted", "elements_beyond_tolerance",
+        "first_parted_chains", "z_at_zero_within_rounding", "tail_steps", "round_1", "round_2", "round_3",
+        "round_3_rejected_taken")}
+        for row in sweeps], tolerance_rtol_atol=SWEEP_TOL, max_parted_share=SWEEP_MAX_PARTED)
+    top = sweeps[0]
+    say("gibbs-sweep-kernel-times", card=smi, **{k: v for k, v in top.items() if k not in ("first_parted_chains",)},
+        library="none: no PyTorch call runs a sequential truncated-normal sweep")
+    rounds = check_gig_round()
+    say("gig-round-kernel", rounds=rounds["rounds"],
+        rightmost_share_of_first_round_accepts=rounds["rightmost_share_of_first_round_accepts"],
+        zero_normal_draws=GIG_ZERO_DRAWS, max_differing_share=GIG_MAX_DIFFERING)
+    say("gig-round-kernel-times", card=smi, **rounds["times"], library="none: no PyTorch call samples the GIG")
+    return {"sweep": sweeps, "gig": rounds}
+
+
 def blr_model():
     ds = rt.models.synthetic_logreg(seed=0, n=N_DATA, d=DIM)
     return rt.interop.logreg_from_numpy(ds.X, ds.t, device=DEVICE)
@@ -694,6 +1020,18 @@ def blr_expected_launches(steps: int) -> dict:
     return {"cholesky": 1 + L * steps, "chol_solve_logdet": L * K * steps}
 
 
+def blr_launches() -> dict:
+    """K1 / K2 launches since the last reset, and G1 / G2's where they launched
+    (a Gibbs run): a run of another sampler that launched one shows the key."""
+    gibbs_counts = {name: n for name, n in rt.ops.launches.counts(GIBBS_COUNTED).items() if n}
+    return {**hl.launch_counts(), **gibbs_counts}
+
+
+def reset_blr_launches() -> None:
+    hl.reset_launch_counts()
+    rt.ops.launches.reset(GIBBS_COUNTED)
+
+
 def phase_main_path(model, smi: str) -> dict:
     steps = BURN_IN + NUM_SAMPLES
     hl.reset_launch_counts()
@@ -713,7 +1051,8 @@ def phase_main_path(model, smi: str) -> dict:
     # a few more replays of that graph under torch.profiler hold them against the device's own events.
     replays = replay_launches(kern["kernel"], kern["final_state"])
     per_replay = {name: n - blr_expected_launches(0)[name] for name, n in blr_expected_launches(1).items()}
-    check(replays["counted"] == {**{k: n * GRAPH_REPLAYS for k, n in per_replay.items()}, "fhn_sensitivities": 0},
+    check(replays["counted"] == {**{k: n * GRAPH_REPLAYS for k, n in per_replay.items()}, "fhn_sensitivities": 0,
+                                 **dict.fromkeys(GIBBS_COUNTED, 0)},
           f"main path: {GRAPH_REPLAYS} replays counted {replays['counted']}, expected {per_replay} each")
     check(replays["equal"], f"main path: the counters and torch.profiler's device events differ: {replays}")
     for run in (kern, plain):
@@ -778,12 +1117,13 @@ class BlrRun:
         return self.burn_in + 2 * (self.samples // 2)
 
     def expected_launches(self) -> dict:
-        """K1 / K2 launches, read from the samplers' code (init + per step)."""
+        """K1 / K2 launches (and Gibbs's G1 / G2), read from the samplers' code (init + per step)."""
         k1, k2 = 0, 0
         if self.sampler in ("mmala", "mmala_simplified", "iwls"):
             k1 = 1 + self.steps  # one factorization in init, one per proposal
-        elif self.sampler == "gibbs":
-            k1 = 2 * self.steps  # ops.inv_psd and chol(V), no factorization in init
+        elif self.sampler == "gibbs":  # ops.inv_psd and chol(V), no factorization in init; G1 once, G2 each GIG round
+            return {"cholesky": 2 * self.steps, "chol_solve_logdet": 0, "gibbs_sweep": self.steps,
+                    "gig_round": GIG_ROUNDS * self.steps}
         elif self.sampler in ("rmhmc", "rmhmc_studentt"):
             k1, k2 = 1 + L * self.steps, L * K * self.steps  # as phase 5
         return {"cholesky": k1, "chol_solve_logdet": k2}
@@ -836,12 +1176,12 @@ def phase_blr_samplers(smi: str) -> dict:
     refs, launches_by_path = {}, {}
     for run in BLR_RUNS:
         n, d, _ = SHAPES[run.dataset]
-        hl.reset_launch_counts()
+        reset_blr_launches()
         res = experiments.run_experiment(
             run.sampler, run.dataset, device=DEVICE, num_chains=run.chains, num_samples=run.samples,
             burn_in=run.burn_in, seed=7, adapt=run.adapt, keep_samples=True,
         )
-        launches = hl.launch_counts()
+        launches = blr_launches()
         expected = run.expected_launches()
         check(launches == expected, f"{run.label}: launch counts {launches}, expected {expected}")
         launches_by_path[run.label] = launches
@@ -1478,7 +1818,7 @@ DIST_CKPT = dict(num_samples=6, burn_in=2, checkpoint_every=2)  # three segments
 DIST_ESS_RUN = dict(num_chains=1024, burn_in=50, num_samples=50)
 DIST_DIR = SMOKE_DATA.parent / "smoke_dist"
 # The samplers the chain split took last (AMH's and the Gibbs sweep's noise
-# coordinate-major, Gibbs's GIG rounds agreed over the ranks, the two-block
+# coordinate-major, Gibbs's GIG rounds drawing every chain's candidates, the two-block
 # samplers' noise drawn from the state), two ranks, 5 + 5 each.
 DIST_SPLIT_RUN = (5, 5)
 DIST_GIBBS_CHAINS, DIST_SV_CHAINS, DIST_LGCJ_CHAINS = 256, 64, 4
@@ -1583,28 +1923,19 @@ def with_discontinuity_probe(kernel):
 
 
 @contextlib.contextmanager
-def min_flags(record: list | None = None, replay: list | None = None):
-    """The port's MIN all-reduces (the GIG rounds' exit test under a chain
-    split) recorded into ``record``, or answered in one process from
-    ``replay``: one process running a rank's half of the chains asks the
-    same exit tests the rank asked, and gets the rank's answers (a global
-    "all decided" only where its own chains are decided too)."""
-    real, answers = collectives.all_reduce, iter(replay or ())
+def min_all_reduces(record: list):
+    """Each MIN all-reduce the port makes inside (an exit test agreed over the
+    ranks) appended to ``record``.  None is expected: Gibbs's GIG rounds, the
+    one such test before, are a fixed count."""
+    real = collectives.all_reduce
 
     def all_reduce(x, group, op=dist.ReduceOp.SUM):
-        if op != dist.ReduceOp.MIN:
-            return real(x, group, op)
-        if replay is None:
-            out = real(x, group, op)
-            record.append(int(out.min()))
-            return out
-        want = next(answers)
-        check(group is None and not (want and not bool(x.min())), "a replayed GIG exit flag disagrees with the rows")
-        return torch.full_like(x, want)
+        if op == dist.ReduceOp.MIN:
+            record.append(1)
+        return real(x, group, op)
 
     with unittest.mock.patch.object(collectives, "all_reduce", all_reduce):
         yield
-    check(replay is None or next(answers, None) is None, "the one-process run asked fewer GIG exit tests than the rank")
 
 
 def split_runs(model) -> dict:
@@ -1631,7 +1962,7 @@ def dist_run(kernel, init, mesh, burn: int, samples: int) -> dict:
     """Burn-in and a timed sampling run through ``parallel.run(..., mesh=)``,
     with the K1 / K2 launches and the all-reduces it made."""
     gen = torch.Generator(device=DEVICE).manual_seed(DIST_SEED)
-    hl.reset_launch_counts()
+    reset_blr_launches()
     collectives.reset_call_counts()
     warm = rt.parallel.run(kernel, gen, init, num_samples=burn, collect=False, mesh=mesh)
     torch.cuda.synchronize()
@@ -1639,7 +1970,7 @@ def dist_run(kernel, init, mesh, burn: int, samples: int) -> dict:
     res = rt.parallel.run(kernel, gen, None, num_samples=samples, init_state=warm.final_state, mesh=mesh)
     torch.cuda.synchronize()
     return {"samples": res.samples, "accept": res.accept_rate, "div": res.divergences + warm.divergences,
-            "seconds": time.perf_counter() - t0, "launches": hl.launch_counts(),
+            "seconds": time.perf_counter() - t0, "launches": blr_launches(),
             "all_reduce": collectives.call_counts()["all_reduce"], "state": res.final_state}
 
 
@@ -1669,15 +2000,15 @@ def distributed_rank(out: str) -> None:
     restored, step, _ = rt.utils.checkpoint.load_state(out / "ckpt.npz", template)
     arrays["ckpt_round_trip"] = step == 3 and all(torch.equal(a, b) for a, b in zip(
         rt.utils.checkpoint.tree_leaves(restored), rt.utils.checkpoint.tree_leaves(res.final_state)))
-    # The four samplers the chain split took last, with the GIG exit flags the rank was given.
+    # The four samplers the chain split took last, and the MIN all-reduces each made (none).
     mesh = rt.parallel.make_mesh(2, (CHAIN_AXIS, "data"), (2, 1))
     with torch.inference_mode():
         for label, (kernel, init, _) in split_runs(model).items():
-            flags = []
-            with min_flags(record=flags):
+            tests = []
+            with min_all_reduces(tests):
                 run = dist_run(kernel, init, mesh, *DIST_SPLIT_RUN)
             arrays.update({f"{label}_samples": run["samples"], f"{label}_accept": run["accept"],
-                           f"{label}_div": run["div"], f"{label}_flags": np.asarray(flags, dtype=np.int64),
+                           f"{label}_div": run["div"], f"{label}_min_all_reduces": len(tests),
                            f"{label}_s_per_transition": run["seconds"] / DIST_SPLIT_RUN[1],
                            **{f"{label}_{k}": v for k, v in run["launches"].items()}})
     np.savez(out / f"two_rank.r{rank}.npz",
@@ -1900,7 +2231,7 @@ def phase_distributed(smi: str) -> dict:
         **{f"split_{label}_s_per_transition": f["s_per_transition"] for label, f in fields.items()})
 
     # The four samplers the chain split took last: each rank bit for bit one
-    # process running its half (given the rank's GIG exit flags), both
+    # process running its half, with no exit test agreed over the ranks, both
     # against one process running all chains.
     burn, samples = DIST_SPLIT_RUN
     with torch.inference_mode():
@@ -1909,10 +2240,8 @@ def phase_distributed(smi: str) -> dict:
                 got = {k: int(r[f"{label}_{k}"]) for k in expected}
                 check(got == expected, f"distributed 2-rank {label}: launch counts {got} on a rank, expected {expected}")
                 check(float(r[f"{label}_accept"]) == float(r0[f"{label}_accept"]), f"{label}: the ranks' acceptance differs")
-            halves = []
-            for i, r in enumerate((r0, r1)):
-                with min_flags(replay=r[f"{label}_flags"].tolist()):
-                    halves.append(dist_run(kernel, init, local_mesh(i, 2), burn, samples)["samples"].cpu().numpy())
+                check(int(r[f"{label}_min_all_reduces"]) == 0, f"{label}: a rank agreed an exit test over the ranks")
+            halves = [dist_run(kernel, init, local_mesh(i, 2), burn, samples)["samples"].cpu().numpy() for i in range(2)]
             same = all(np.array_equal(r[f"{label}_samples"], h) for r, h in zip((r0, r1), halves))
             check(same, f"{label}: a rank differs from one process running its half of the chains")
             whole = dist_run(with_discontinuity_probe(kernel), init, None, burn, samples)
@@ -1923,7 +2252,7 @@ def phase_distributed(smi: str) -> dict:
             launches_by_path[f"distributed/2rank-{label}-per-rank"] = expected
             say("distributed", run=f"2rank-gloo-{label}", backend="gloo", chains=int(init.shape[0]), burn_in=burn,
                 samples=samples, bit_identical_to_one_process_by_half=same, launches_per_rank=expected,
-                gig_exit_tests_per_rank=len(r0[f"{label}_flags"]), accept_rate=float(r0[f"{label}_accept"]),
+                min_all_reduces_per_rank=int(r0[f"{label}_min_all_reduces"]), accept_rate=float(r0[f"{label}_accept"]),
                 one_process_accept_rate=float(whole["accept"]), divergent=int(r0[f"{label}_div"]),
                 probe={"scale_random_sign": PROBE_SCALE, "jump": PROBE_JUMP}, split_chains=split)
             say("distributed-times", run=f"2rank-gloo-{label}", card=smi,
@@ -1979,11 +2308,11 @@ def phase_tools(smi: str) -> dict:
     launches_by_path, seconds, accepts = {}, {}, {}
 
     def timed(name: str, fn):
-        hl.reset_launch_counts()
+        reset_blr_launches()
         t0 = time.perf_counter()
         out = fn()
         seconds[name] = time.perf_counter() - t0
-        return out, hl.launch_counts()
+        return out, blr_launches()
 
     main_accept = SEEN_ACCEPT.get("rmhmc-main-path")
     for sampler in ("rmhmc", "gibbs"):
@@ -2050,9 +2379,11 @@ GRAPH_TIMED = dict(burn_in=4, num_samples=8)  # timed_sampling: its timed half c
 # (workload, sampler, chains); step_profile.profile_run at these depths.
 # StochVol's and the joint pair's rows are step_profile's own (its main): profiling their eager
 # sweeps (30,000-65,000 launches each) took most of ten minutes, too long for this script.
-GRAPH_PROFILES = (("blr", "rmhmc", NUM_CHAINS), ("fhn", "rmhmc", 256), ("fhn", "hmc", 256), ("lgc", "rmhmc", 64))
+GRAPH_PROFILES = (("blr", "rmhmc", NUM_CHAINS), ("blr", "gibbs", 1024), ("fhn", "rmhmc", 256), ("fhn", "hmc", 256),
+                  ("lgc", "rmhmc", 64))
 GRAPH_PROFILE_DEPTH = dict(warm=3, steps=10, profiled=3)
 GRAPH_MONITOR = dict(every=2, label="smoke-monitor")  # BLR HMC at 4096 chains, GRAPH_SMALL_RUN, eager against captured
+GRAPH_GIBBS_CHAINS = 1024  # phase 6's Gibbs width
 GRAPH_TOOL = dict(burn_in=2, num_samples=4, seg=2)  # tools/run_lgc_joint's segmented run, n = 32, 4 chains
 INT_OF = {torch.float32: torch.int32, torch.float64: torch.int64}
 
@@ -2136,15 +2467,14 @@ def graph_pair(label: str, kernel, init, burn: int, samples: int, warmup_kernel=
     torch.cuda.synchronize()
     out, counts = {}, {}
     for path, capture in (("eager", False), ("captured", True)):
-        hl.reset_launch_counts()
-        rt.ops.fhn_sens.reset_launch_counts()
+        rt.ops.launches.reset()
         captures = rt.parallel.graphs.capture_count()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out[path] = rt.parallel.run(kernel, torch.Generator(device=DEVICE).manual_seed(GRAPH_SEED), init,
                                     num_samples=samples, burn_in=burn, warmup_kernel=warmup_kernel, capture=capture)
         torch.cuda.synchronize()
-        counts[path] = {"seconds": time.perf_counter() - t0, "k1_k2": hl.launch_counts(),
+        counts[path] = {"seconds": time.perf_counter() - t0, "k1_k2": blr_launches(),
                         "fhn": rt.ops.fhn_sens.launch_counts(),
                         "captures": rt.parallel.graphs.capture_count() - captures}
     # The entries the captured run made (looked up: a miss captures nothing, and fails the pair).
@@ -2173,6 +2503,9 @@ def graph_small_runs() -> list[tuple]:
         runs.append((f"blr/{sampler}", kernel, init, warm, None))
     cfg = rmhmc.RMHMCConfig()
     runs.append(("blr/rmhmc-adapt", rt.parallel.adaptive(rmhmc.build, model, cfg), init, None, None))
+    gibbs_run = BlrRun("gibbs", burn_in=sum(GRAPH_SMALL_RUN), samples=0)  # its launches over the run's steps
+    runs.append((f"blr/gibbs-{GRAPH_GIBBS_CHAINS}", experiments.build_kernel("gibbs", model, "australian")[0],
+                 init[:GRAPH_GIBBS_CHAINS].clone(), None, gibbs_run.expected_launches()))
     for sampler, chains, _, _ in LGC_RUNS:
         kernel, init_fn, *_ = experiments.build_workload("lgc", sampler, device=DEVICE, seed=LGC_SEED, lgc_n=LGC_N)
         runs.append((f"lgc/{sampler}", kernel, init_fn(chains), None, None))
@@ -2198,10 +2531,10 @@ def graph_small_runs() -> list[tuple]:
     return runs
 
 
-def graph_monitor(model, init) -> dict:
-    """A monitored kernel eager and captured from one seed: the same window
-    lines (printed by the host after the replays), the same chains."""
-    kernel = rt.parallel.monitor(rt.samplers.hmc.build(model), **GRAPH_MONITOR)
+def graph_monitor(model, init, sampler: str) -> dict:
+    """A monitored BLR ``sampler`` eager and captured from one seed: the same
+    window lines (printed by the host after the replays), the same chains."""
+    kernel = rt.parallel.monitor(experiments.build_kernel(sampler, model, "australian")[0], **GRAPH_MONITOR)
     out, lines, captures = {}, {}, {}
     for path, capture in (("eager", False), ("captured", True)):
         buf, before = io.StringIO(), rt.parallel.graphs.capture_count()
@@ -2212,7 +2545,8 @@ def graph_monitor(model, init) -> dict:
         captures[path] = rt.parallel.graphs.capture_count() - before
     expected = [f"[{GRAPH_MONITOR['label']}] step {s}" for s in range(GRAPH_MONITOR["every"], sum(GRAPH_SMALL_RUN) + 1,
                                                                        GRAPH_MONITOR["every"])]
-    return {"run": "blr/hmc-monitor", "capturable": kernel.capturable, "lines": lines, "captures": captures,
+    return {"run": f"blr/{sampler}-monitor", "chains": int(init.shape[0]), "capturable": kernel.capturable,
+            "lines": lines, "captures": captures,
             "windows_expected": [line.split(":")[0] for line in lines["eager"]] == expected,
             "same_lines": lines["eager"] == lines["captured"],
             "differs": run_differences(out["eager"], out["captured"])}
@@ -2306,14 +2640,15 @@ def phase_graphs(smi: str) -> dict:
         say("graphs", **{k: v for k, v in pair.items() if k != "result"})
 
     # The monitor over a capturable kernel: the same window lines and chains eager and captured.
-    try:
-        mon = graph_monitor(model, init)
-        if (not mon["capturable"] or not mon["windows_expected"] or not mon["same_lines"] or mon["differs"]
-                or mon["captures"] != {"eager": 0, "captured": 1}):
-            failures.append(f"monitor: {mon}")
-        say("graphs-monitor", **mon)
-    except Exception as err:  # noqa: BLE001 -- the phase fails below
-        failures.append(f"monitor: {type(err).__name__}: {err}")
+    for sampler, chains in (("hmc", NUM_CHAINS), ("gibbs", GRAPH_GIBBS_CHAINS)):
+        try:
+            mon = graph_monitor(model, init[:chains].clone(), sampler)
+            if (not mon["capturable"] or not mon["windows_expected"] or not mon["same_lines"] or mon["differs"]
+                    or mon["captures"] != {"eager": 0, "captured": 1}):
+                failures.append(f"monitor of {sampler}: {mon}")
+            say("graphs-monitor", **mon)
+        except Exception as err:  # noqa: BLE001 -- the phase fails below
+            failures.append(f"monitor of {sampler}: {type(err).__name__}: {err}")
 
     # tools/run_lgc_joint, captured by default, resumed bit for bit.
     try:
@@ -2325,14 +2660,7 @@ def phase_graphs(smi: str) -> dict:
     except Exception as err:  # noqa: BLE001 -- the phase fails below
         failures.append(f"tools/run_lgc_joint: {type(err).__name__}: {err}")
 
-    # What stays eager: capture=True refused for Gibbs.
-    gibbs = rt.samplers.gibbs.build(model)
-    try:
-        rt.parallel.run(gibbs, torch.Generator(device=DEVICE).manual_seed(0), init[:8], num_samples=1, capture=True)
-        failures.append("gibbs: capture=True was not refused")
-    except ValueError as err:
-        say("graphs-refused", run="blr/gibbs", error=str(err))
-    # A FunctionModel stays eager: a user's logp may read the device.
+    # What stays eager: a FunctionModel, whose user's logp may read the device.
     fm = rt.models.FunctionModel(2, lambda w: -0.5 * torch.sum(w * w))
     try:
         rt.parallel.run(rt.samplers.hmc.build(fm), torch.Generator(device=DEVICE).manual_seed(0),
@@ -2376,7 +2704,9 @@ def phase_graphs(smi: str) -> dict:
     for workload, sampler, chains in GRAPH_PROFILES:
         rows = [step_profile.profile_run(workload, sampler, chains, captured=captured, **GRAPH_PROFILE_DEPTH)
                 for captured in (False, True, True, False)]
-        keys = ("wall_ms_per_step", "device_busy_ms_per_step", "idle_share", "kernel_launches_per_step")
+        keys = ("wall_ms_per_step", "device_busy_ms_per_step", "idle_share", "kernel_launches_per_step",
+                *(k for k in rows[0] if k in ("gibbs_sweep_kernel_share_of_device", "gig_round_kernel_share_of_device",
+                                              "draws_share_of_device")))
         say("graphs-times", run=f"{workload}/{sampler}", chains=chains, card=smi, order="E C C E",
             **{f"{path}_{key}": [row[key] for row in rows if row["path"] == path]
                for path in ("eager", "captured") for key in keys},
@@ -2384,6 +2714,38 @@ def phase_graphs(smi: str) -> dict:
             graph_pool_bytes=[rows[1]["graph_pool_bytes"], rows[2]["graph_pool_bytes"]])
     check(not failures, "graphs: " + "; ".join(failures))
     return launches_by_path
+
+
+def gibbs_summary(kernels: dict, by_path: dict, smi: str) -> list[dict]:
+    """G1's and G2's entries of the kernels line: times at phase 6's shapes
+    ((1024, 690, 15) and one round at (1024, 690) with every element pending),
+    ``launches`` phase 6's Gibbs run, every path's count under
+    ``launches_by_path``."""
+    sweep, rounds = kernels["sweep"][0], kernels["gig"]
+    rows = {"gibbs_sweep": (sweep, max(row["max_abs_err_kept_chains"] for row in kernels["sweep"]),
+                            {"chains_parted": [row["chains_parted"] for row in kernels["sweep"]],
+                             "elements_beyond_tolerance": [row["elements_beyond_tolerance"] for row in kernels["sweep"]],
+                             "shapes_CND_zscale": [[row["C"], row["N"], row["D"], row["z_scale"]]
+                                                   for row in kernels["sweep"]],
+                             "tail_steps": [row["tail_steps"] for row in kernels["sweep"]],
+                             "critical_path_us": sweep["critical_path_us"],
+                             "share_of_critical_path": sweep["share_of_critical_path"]}),
+            "gig_round": (rounds["times"], rounds["err"],
+                          {"elements_differing": rounds["elements_differing"], "shape_CN": list(GIG_SHAPE),
+                           "all_accepted_round_device_us": rounds["times"]["all_accepted_round_device_us"]})}
+    out = []
+    for name, (row, err, extra) in rows.items():
+        paths = {label: counts[name] for label, counts in by_path.items() if name in counts}
+        out.append({
+            "name": name, "route": "cuda", "source": GIBBS_SOURCE, "replaces": GIBBS_REPLACES[name],
+            "launches": paths["gibbs/australian"], "launches_counted_by": LAUNCHES_COUNTED_BY, "max_abs_err": err,
+            "max_abs_err_is": "over the elements that took the plain version's branches (the others counted)",
+            "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_us"] / 1e3, "bound_by": row["bound_by"],
+            "library_ms": None, "library_note": "no single PyTorch call computes it",
+            "device_us": row["device_us"], "share_of_bound": row["share_of_bound"], "card": smi,
+            **extra, "launches_by_path": paths,
+        })
+    return out
 
 
 PHASES = ("kernels", "transition", "main-path", "blr-samplers", "stochvol", "lgc", "lgc-joint", "fhn", "distributed",
@@ -2419,6 +2781,7 @@ def main(argv=None) -> None:
             if "kernels" in phases:
                 kernels = phase_kernels(smi)
                 k_err = kernels["err"]
+                gibbs_kernels = phase_gibbs_kernels(smi)
             if "kernels" in phases or "fhn" in phases:  # the FHN kernel's checks and times; phase 10 reports them
                 fhn_kernel = phase_fhn_kernel(smi, k_err)
                 lap("kernels")
@@ -2470,6 +2833,7 @@ def main(argv=None) -> None:
                                  **{label: counts[name] for label, counts in by_path.items()}},
         })
     summary.append(fhn_summary(fhn, smi))
+    summary += gibbs_summary(gibbs_kernels, by_path, smi)
     print(smi, flush=True)
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,6 @@
 """Time the hand-written kernels of two checkouts in turns on one CUDA card.
 
-    python -m riemannhamiltonianmontecarlo_tpu_torch.kernel_ab --parent DIR [--kernels linalg,fhn] [--out FILE]
+    python -m riemannhamiltonianmontecarlo_tpu_torch.kernel_ab --parent DIR [--kernels linalg,fhn,gibbs] [--out FILE]
 
 ``DIR`` holds another checkout of the repository (for example an earlier
 commit unpacked with ``git archive`` under the git-ignored ``build/``); this
@@ -30,6 +30,13 @@ card's maximum SM clock), with each share of ``device_us``; and, per turn,
 the kernel's RK4 step loop as each checkout's build compiled it
 (``fhn_rk4_loop``, from ``cuobjdump -sass``): RK4 steps per loop pass, SASS
 instructions per step and the branches inside the loop.
+``--kernels gibbs`` times the Gibbs sweep kernel G1
+(``samplers.gibbs.gibbs_sweep_cuda``) on ``chip_smoke.gibbs_inputs`` at
+N = 690 and D in ``GIBBS_DIMS``, the inputs of 1024 chains cut or repeated
+along the chains to each of ``GIBBS_CHAINS``: ``device_us``
+(torch.profiler, 20 launches) and ``burst_ms`` (CUDA events over 5
+launches).  A time that stays flat while each warp has a scheduler of its
+own says a chain's sequence of steps is what bounds the kernel.
 Prints one JSON line per turn, kernel and shape, with the card's name and
 power limit.  Needs a CUDA device and nvcc; there is no CPU path.
 """
@@ -47,8 +54,11 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[1]
 TURNS = ("parent", "change", "change", "parent")
-KERNELS = ("linalg", "fhn")
+KERNELS = ("linalg", "fhn", "gibbs")
 FHN_CHAINS = (256, 4224)  # the FHN samplers' chain count; one warp on each SM at one lane per chain
+GIBBS_DATA = 690  # australian's N
+GIBBS_DIMS = (15, 40)  # australian's D; a width no BLR dataset has
+GIBBS_CHAINS = (32, 1024, 4224, 8448)  # a warp; phase 6's; a warp on each of 528 schedulers; two
 
 
 def _measure(root: Path, kernels: list[str]) -> list[dict]:
@@ -69,6 +79,8 @@ def _measure(root: Path, kernels: list[str]) -> list[dict]:
             rows += _measure_linalg(smoke)
         if "fhn" in kernels:
             rows += _measure_fhn(smoke)
+        if "gibbs" in kernels:
+            rows += _measure_gibbs(smoke)
     return rows
 
 
@@ -126,6 +138,33 @@ def _measure_fhn(smoke) -> list[dict]:
                     "sm_clock_max_mhz": smoke.sm_clock_max_mhz(), "card": card,
                 })
     rows.append({"kernel": "fhn_rk4_loop", "card": card, **_fhn_rk4_loop(smoke)})
+    return rows
+
+
+def _measure_gibbs(smoke) -> list[dict]:
+    import torch
+
+    gibbs, truncnorm, card, rows = smoke.gibbs, smoke.truncnorm, smoke.smi_line(), []
+    with torch.inference_mode():
+        for d in GIBBS_DIMS:
+            model, state, cond, noise = smoke.gibbs_inputs(1024, GIBBS_DATA, d, seed=d)
+            for c in GIBBS_CHAINS:
+                reps = -(-c // 1024)
+
+                def chains(a, axis: int = 0):
+                    return torch.cat([a] * reps, dim=axis).narrow(axis, 0, c).contiguous()
+
+                args = (model.X, model.t, chains(state.lam), chains(cond.h), chains(state.z), chains(cond.s),
+                        chains(cond.b), truncnorm.TruncNormNoise(*(chains(u, u.dim() - 1) for u in noise)))
+
+                def launch():
+                    return gibbs.gibbs_sweep_cuda(*args)
+                dev = smoke.device_us(launch, launches=20, name_part=smoke.GIBBS_KERNEL_NAMES["gibbs_sweep"])
+                rows.append({
+                    "kernel": "gibbs_sweep", "C": c, "N": GIBBS_DATA, "D": d, "device_us": dev["us"],
+                    "device_us_source": dev["source"], "events_per_call": dev["events_per_call"],
+                    "burst_ms": smoke.burst_ms(launch, launches=5, warmup=1), "card": card,
+                })
     return rows
 
 

@@ -21,8 +21,8 @@ Two things JAX gives for free are explicit here:
   Philox does not (a rank drawing (C/k, D) does not get rows of a (C, D)
   draw).  ``chain_sliced`` wraps a kernel so that every rank draws the
   noise of all chains from the shared generator and keeps its own rows;
-  where a transition draws a data-dependent number of times (Gibbs's GIG
-  rounds) the ranks agree on that number by an all-reduce.
+  a transition that draws inside (Gibbs's GIG rounds, a fixed count of
+  them) draws every chain's noise too.
 """
 
 from __future__ import annotations

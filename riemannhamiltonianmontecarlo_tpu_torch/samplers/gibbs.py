@@ -8,11 +8,14 @@ same contract (``code/gibbs_sampler.py:73-139`` / MATLAB
 * per step: V = (X^T Lambda^{-1} X + I/v)^{-1}, L = chol(V), S = V X^T,
   B = S Lambda^{-1} z;
 * a sequential sweep over the N data points updating z_j from its full
-  conditional and B by a rank-one correction -- a true serial dependency,
-  a Python loop over j with all chains in lockstep;
+  conditional and B by a rank-one correction -- a true serial dependency
+  (``sweep``): on a CUDA batch one launch of the hand-written kernel G1
+  (``csrc/gibbs.cu``, one thread per chain walking the N steps with B in
+  registers), on a CPU batch its plain version ``gibbs_sweep_plain``, a
+  Python loop over j with all chains in lockstep;
 * beta = B + L T, T ~ N(0, I);
 * mixing weights lambda_j ~ GIG(1/2, 1, r_j^2) by batched rejection
-  (``ops/gig.py``).
+  (``ops/gig.py``: a fixed 64 rounds, each one launch of kernel G2 on CUDA).
 
 ``init`` sets z to the truncated normal's mean (+-sqrt(2/pi)) and lambda
 to 1, as the JAX package does.
@@ -20,16 +23,18 @@ to 1, as the JAX package does.
 The randomness: ``transition(state, noise)`` takes every uniform of the
 sweep, predrawn as (N, C) tensors in one call, and beta's normal draw; the
 GIG rounds draw from ``noise.gig`` (``ops.gig.GigDraws``: a generator, and
-under a chain split this rank's rows), because the number of rounds is
-data-dependent and 64 predrawn rounds at (C, N) would not fit.
-``draw_noise`` reads the state's shapes (``Kernel.noise_from_state``).
-On a CUDA batch K1 runs twice per step: once inside ``ops.inv_psd`` and
-once for chol(V).
+under a chain split this rank's rows), because 64 predrawn rounds at (C, N)
+would not fit.  ``draw_noise`` reads the state's shapes
+(``Kernel.noise_from_state``).  A step reads nothing on the device, so on a
+card the runner replays it as a CUDA graph (``Kernel.capturable``): K1 twice
+(inside ``ops.inv_psd`` and for chol(V)), G1 once and G2 64 times a step.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+import functools
 import math
 from typing import NamedTuple
 
@@ -37,9 +42,10 @@ import torch
 from torch import Tensor
 
 from riemannhamiltonianmontecarlo_tpu_torch import ops
+from riemannhamiltonianmontecarlo_tpu_torch.ops import _build, launches, truncnorm
 from riemannhamiltonianmontecarlo_tpu_torch.ops import gig as gig_mod
-from riemannhamiltonianmontecarlo_tpu_torch.ops import truncnorm
-from riemannhamiltonianmontecarlo_tpu_torch.samplers.base import Info, Kernel
+from riemannhamiltonianmontecarlo_tpu_torch.ops.hopper_linalg import MAX_DIM
+from riemannhamiltonianmontecarlo_tpu_torch.samplers.base import Info, Kernel, model_capturable
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,38 +99,92 @@ def conditionals(model, state: GibbsState, prior_variance: float = GibbsConfig.p
     return Conditionals(v, chol_v, s, b, h)
 
 
-def sweep(model, state: GibbsState, cond: Conditionals, noise: truncnorm.TruncNormNoise) -> tuple[Tensor, Tensor]:
-    """The sequential z / B sweep (``code/gibbs_sampler.py:109-126``).
+def gibbs_sweep_plain(x: Tensor, t: Tensor, lam: Tensor, h: Tensor, z_old: Tensor, s: Tensor, b: Tensor,
+                      noise: truncnorm.TruncNormNoise) -> tuple[Tensor, Tensor]:
+    """The sequential z / B sweep (``code/gibbs_sampler.py:109-126``), kernel G1's plain version.
 
-    ``noise`` holds (N, C) uniforms, j-major.  Returns (B after the sweep
-    (C, D), z (C, N)).  What does not depend on the running B is computed
-    for all j at once before the loop, which leaves some 30 launches per j:
-    with m_j = B x_j, the conditional mean is m_j (1 + w_j) - w_j z_j and
-    the truncated draw is mean + sign_j std_j TN_above(-sign_j mean / std_j).
+    ``x`` (N, D) and the labels ``t`` (N,); ``lam``, ``h``, ``z_old`` (C, N);
+    ``s`` = V X^T (C, D, N); ``b`` (C, D); ``noise`` holds (N, C) uniforms,
+    j-major.  Returns (B after the sweep (C, D), z (C, N)).  What does not
+    depend on the running B is computed for all j at once before the loop,
+    which leaves some 30 launches per j: with m_j = B x_j, the conditional
+    mean is m_j (1 + w_j) - w_j z_j and the truncated draw is
+    mean + sign_j std_j TN_above(-sign_j mean / std_j).
     """
-    positive = (model.t == 1.0)[:, None]  # (N, 1)
-    lam_t = state.lam.T  # (N, C)
-    h_t = cond.h.T
+    positive = (t == 1.0)[:, None]  # (N, 1)
+    lam_t = lam.T  # (N, C)
+    h_t = h.T
     # lambda_j > h_j holds exactly (V^{-1} >= x_j x_j^T / lambda_j); clamp
     # the gap against float32 rounding.
     w_t = h_t / torch.clamp(lam_t - h_t, min=1e-12)
     std_t = torch.sqrt(lam_t * (w_t + 1.0))
-    z_old_t = state.z.T
+    z_old_t = z_old.T
     one_plus_w, neg_w_z_old = 1.0 + w_t, -w_t * z_old_t
     signed_std = torch.where(positive, std_t, -std_t)
     bound_scale = -1.0 / signed_std  # a = -sign m / std
     inv_lam = 1.0 / lam_t
     terms = truncnorm.prepare(noise)
-    s_t = cond.s.permute(2, 0, 1)  # (N, C, D)
-    x, b = model.X, cond.b
+    s_t = s.permute(2, 0, 1)  # (N, C, D)
     z_new = []
     for j in range(x.shape[0]):
         m = torch.addcmul(neg_w_z_old[j], one_plus_w[j], torch.mv(b, x[j]))
-        z_std = truncnorm.std_truncnorm_above(m * bound_scale[j], truncnorm.TailTerms(*(t[..., j, :] for t in terms)))
+        z_std = truncnorm.std_truncnorm_above(m * bound_scale[j], truncnorm.TailTerms(*(u[..., j, :] for u in terms)))
         z_j = torch.addcmul(m, signed_std[j], z_std)
         b = torch.addcmul(b, ((z_j - z_old_t[j]) * inv_lam[j])[:, None], s_t[j])
         z_new.append(z_j)
     return b, torch.stack(z_new, dim=1)
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = _build.load_library()
+    lib.rhmc_gibbs_sweep.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3
+    lib.rhmc_gibbs_sweep.restype = ctypes.c_int
+    return lib
+
+
+def gibbs_sweep_cuda(x: Tensor, t: Tensor, lam: Tensor, h: Tensor, z_old: Tensor, s: Tensor, b: Tensor,
+                     noise: truncnorm.TruncNormNoise) -> tuple[Tensor, Tensor]:
+    """Kernel G1 on the card: the arguments of ``gibbs_sweep_plain``, float32
+    on one CUDA device, D <= 48 (one instantiation of the kernel per D).
+    Returns (B (C, D), z (C, N)), new tensors.  An operand that is not
+    contiguous (a rank's columns of the (N, C) uniforms under a chain split)
+    is copied once."""
+    n, d = x.shape
+    c = lam.shape[0]
+    if not 1 <= d <= MAX_DIM:
+        raise ValueError(f"the CUDA kernel takes 1 <= D <= {MAX_DIM}, got D = {d}")
+    shapes = {"x": (x, (n, d)), "t": (t, (n,)), "lam": (lam, (c, n)), "h": (h, (c, n)), "z_old": (z_old, (c, n)),
+              "s": (s, (c, d, n)), "b": (b, (c, d)), "u_central": (noise.u_central, (n, c)),
+              "u_e": (noise.u_e, (truncnorm.RETRY_ROUNDS, n, c)), "u_tail": (noise.u_tail, (truncnorm.RETRY_ROUNDS, n, c))}
+    for name, (tensor, shape) in shapes.items():
+        if tensor.device.type != "cuda" or tensor.device != x.device:
+            raise ValueError(f"gibbs_sweep: the CUDA kernel needs every tensor on x's CUDA device, got {name} on "
+                             f"{tensor.device}")
+        if tensor.dtype != torch.float32:
+            raise TypeError(f"gibbs_sweep: the CUDA kernel takes float32, got {name} as {tensor.dtype}")
+        if tuple(tensor.shape) != shape:
+            raise ValueError(f"gibbs_sweep: {name} has shape {tuple(tensor.shape)}, expected {shape}")
+    ins = [tensor.contiguous() for tensor, _ in shapes.values()]  # themselves unless the caller's are strided
+    b_out, z = torch.empty_like(ins[6]), torch.empty_like(ins[2])
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = _lib().rhmc_gibbs_sweep(*(tensor.data_ptr() for tensor in ins), c, n, d, b_out.data_ptr(),
+                                      z.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"gibbs_sweep kernel launch failed with CUDA error {err}")
+    launches.count("gibbs_sweep", x.device)
+    return b_out, z
+
+
+def sweep(model, state: GibbsState, cond: Conditionals, noise: truncnorm.TruncNormNoise) -> tuple[Tensor, Tensor]:
+    """The sequential z / B sweep (``code/gibbs_sampler.py:109-126``): the
+    plain version for a CPU batch, G1 for a CUDA one.  Returns (B after the
+    sweep (C, D), z (C, N))."""
+    args = (model.X, model.t, state.lam, cond.h, state.z, cond.s, cond.b, noise)
+    if state.z.device.type == "cpu":
+        return gibbs_sweep_plain(*args)
+    return gibbs_sweep_cuda(*args)
 
 
 def build(model, config: GibbsConfig = GibbsConfig()) -> Kernel:
@@ -158,4 +218,4 @@ def build(model, config: GibbsConfig = GibbsConfig()) -> Kernel:
     def step(generator: torch.Generator, state: GibbsState) -> tuple[GibbsState, Info]:
         return transition(state, draw_noise(generator, state))
 
-    return Kernel(init, step, transition, draw_noise, noise_from_state=True)
+    return Kernel(init, step, transition, draw_noise, noise_from_state=True, capturable=model_capturable(model))

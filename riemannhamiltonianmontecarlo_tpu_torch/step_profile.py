@@ -6,8 +6,9 @@ from unprofiled steps (``torch.cuda.synchronize()`` at both ends), then
 number of kernel launches and the share of device time in GEMMs (kernel
 names with gemm / cutlass / xmma) and in the library factorizations
 (potrf / trsm; the trsm part also on its own) and, for FitzHugh-Nagumo,
-in the sensitivity kernel (``fhn_sensitivities_kernel``), and the peak of
-allocated device memory.  The idle share is 1 - busy / wall.  For StochVol
+in the sensitivity kernel (``fhn_sensitivities_kernel``), for BLR Gibbs in
+its sweep kernel G1, its GIG round kernel G2 and the random draws (kernel
+names with ``distribution``), and the peak of allocated device memory.  The idle share is 1 - busy / wall.  For StochVol
 (rmhmc, hmc and mmala, which run the bidiagonal Cholesky scan
 ``ops.tridiag.cholesky`` once a sweep) it also gives the scan's device time
 and launches (a CUDA graph of the scan alone at the sweep's shapes,
@@ -21,8 +22,8 @@ E C C E (both paths on either side of a drift in the card's state):
 and ``captured`` (replays of the step's CUDA graph, ``parallel.graphs``, as
 ``run`` does by default on a card), the captured rows with the capture's
 seconds and the bytes of device memory its graph pool reserved.  The BLR
-row is RMHMC at the reference constants on synthetic data of australian's
-shape (N = 690, D = 15), 4096 chains.
+rows are RMHMC at the reference constants (4096 chains) and Gibbs (1024) on
+synthetic data of australian's shape (N = 690, D = 15).
 
     python -m riemannhamiltonianmontecarlo_tpu_torch.step_profile [--out FILE] \\
         [--only lgc/rmhmc_joint fhn/rmhmc]
@@ -48,7 +49,7 @@ from riemannhamiltonianmontecarlo_tpu_torch.samplers import pmala, rmhmc
 
 # (workload, sampler, chains): the chip-smoke configurations.
 RUNS = (
-    ("blr", "rmhmc", 4096),
+    ("blr", "rmhmc", 4096), ("blr", "gibbs", 1024),
     ("stochvol", "rmhmc", 1024), ("stochvol", "hmc", 1024), ("stochvol", "mala", 1024), ("stochvol", "mmala", 1024),
     ("lgc", "rmhmc", 64), ("lgc", "pmala", 64), ("lgc", "mmala", 8), ("lgc", "mala_stationary", 16),
     ("lgc", "rmhmc_joint", 4), ("lgc", "mmala_joint", 4),
@@ -58,13 +59,16 @@ GEMM = re.compile(r"gemm|cutlass|xmma|gemv", re.IGNORECASE)
 FACTOR = re.compile(r"potrf|trsm|chol", re.IGNORECASE)
 TRSM = re.compile(r"trsm", re.IGNORECASE)  # the triangular solves' part of FACTOR
 FHN = re.compile(r"fhn_sensitivities")
+GIBBS = {"gibbs_sweep_kernel": re.compile(r"gibbs_sweep_kernel"), "gig_round_kernel": re.compile(r"gig_round_kernel"),
+         "draws": re.compile(r"distribution")}
 
 
 def _kernel(workload: str, sampler: str, device: torch.device):
-    if workload == "blr":  # chip_smoke.py's main path
+    if workload == "blr":  # chip_smoke.py's main path (rmhmc) and phase 6's samplers
         ds = models.synthetic_logreg(seed=0, n=690, d=15)
         model = interop.logreg_from_numpy(ds.X, ds.t, device=device)
-        return rmhmc.build(model), lambda c: utils.default_init(model, torch.Generator(device=device).manual_seed(0), c)
+        kernel = rmhmc.build(model) if sampler == "rmhmc" else experiments.build_kernel(sampler, model, "australian")[0]
+        return kernel, lambda c: utils.default_init(model, torch.Generator(device=device).manual_seed(0), c)
     if sampler == "pmala":  # constant-metric mMALA, built on the model's metric (RESULTS.md:78)
         y, _ = models.lgc.generate_data(seed=0, n=64)
         model = experiments.interop.lgc_from_numpy(y, 64, device=device)
@@ -125,6 +129,9 @@ def profile_run(workload: str, sampler: str, chains: int, *, warm: int, steps: i
         out.update(capture_s=entry.capture_s, graph_pool_bytes=entry.pool_bytes)
     if workload == "fhn":
         out["fhn_kernel_share_of_device"] = sum(ms for name, ms in kernels if FHN.search(name)) / busy
+    if sampler == "gibbs":
+        out.update({f"{part}_share_of_device": sum(ms for name, ms in kernels if pattern.search(name)) / busy
+                    for part, pattern in GIBBS.items()})
     if workload == "stochvol" and sampler != "mala":
         scan = _scan_device(box[0].x)
         out.update(scan, tridiag_scan_share_of_device=scan["tridiag_scan_device_ms_per_step"] / busy)

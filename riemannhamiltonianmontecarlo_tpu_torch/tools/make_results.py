@@ -8,7 +8,9 @@ ESS on the device (alias-free ACF) summed over chains.  Paper columns:
 main_article.pdf Tables 3-7, single-chain MATLAB s/minESS (BASELINE.md).
 The ``rmhmc``, ``rmhmc_studentt``, ``mmala``, ``mmala_simplified``,
 ``iwls`` and ``gibbs`` rows factor their metrics with the hand-written
-Cholesky (K1) and fused solve (K2) kernels on a card.
+Cholesky (K1) and fused solve (K2) kernels on a card; the ``gibbs`` row's
+sweep and GIG rounds run as the kernels G1 and G2 (``ops/csrc/gibbs.cu``),
+and like every other row it replays a captured CUDA graph of the step.
 
 Usage::
 

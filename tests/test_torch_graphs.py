@@ -32,7 +32,7 @@ from riemannhamiltonianmontecarlo_tpu_torch.samplers.base import Info, Kernel, t
 torch.set_num_threads(1)
 
 CHAINS, STEPS = 4, 3
-BLR = ("rmhmc", "rmhmc_studentt", "hmc", "mala", "mmala", "mmala_simplified", "metropolis", "iwls")
+BLR = ("rmhmc", "rmhmc_studentt", "hmc", "mala", "mmala", "mmala_simplified", "metropolis", "iwls", "gibbs")
 LGC = ("rmhmc", "pmala", "mmala", "mala_transient", "mala_stationary")
 FHN = experiments.WORKLOAD_SAMPLERS["fhn"]
 STOCHVOL = experiments.WORKLOAD_SAMPLERS["stochvol"]
@@ -192,7 +192,7 @@ def test_torch_graph_launch_counts_are_per_replay():
     """Each run of the captured function adds its launches to the device
     counters; the warm-up before a capture adds none; the two wrappers'
     modules read and reset their own kernels' counts."""
-    per_step = {"cholesky": 1, "chol_solve_logdet": 24, "fhn_sensitivities/2": 7}
+    per_step = {"cholesky": 1, "chol_solve_logdet": 24, "fhn_sensitivities/2": 7, "gibbs_sweep": 1, "gig_round": 64}
     launches.reset()
     launches.count("cholesky", torch.device("cpu"))  # outside inference mode
     init = rt.utils.default_init(blr_model(), torch.Generator().manual_seed(0), CHAINS)
@@ -205,6 +205,8 @@ def test_torch_graph_launch_counts_are_per_replay():
         entry.scan(torch.Generator().manual_seed(0), state, 5, False)
     assert hopper_linalg.launch_counts() == {"cholesky": 1 + 5, "chol_solve_logdet": 5 * 24}
     assert fhn_sens.launch_counts() == {0: 0, 1: 0, 2: 5 * 7}
+    assert launches.counts(("gibbs_sweep", "gig_round")) == {"gibbs_sweep": 5, "gig_round": 5 * 64}
+    launches.reset(("gibbs_sweep", "gig_round"))
     fhn_sens.reset_launch_counts()
     assert hopper_linalg.launch_counts() == {"cholesky": 6, "chol_solve_logdet": 120}
     assert fhn_sens.launch_counts() == {0: 0, 1: 0, 2: 0}
@@ -222,8 +224,6 @@ def not_capturable() -> dict[str, Kernel]:
     y, _ = rt.models.lgc.generate_data(seed=0, n=4)
     lgc = rt.interop.lgc_from_numpy(y, 4, device="cpu").with_sharding(local_mesh("latent"), "latent")
     return {
-        "blr/gibbs": rt.samplers.gibbs.build(model),
-        "monitor-of-gibbs": rt.parallel.monitor(rt.samplers.gibbs.build(model), every=10),
         "chain_sliced": rt.parallel.chain_sliced(hmc.build(model), local_mesh(rt.parallel.CHAIN_AXIS)),
         # a chain group (a stand-in: building the kernel runs no collective)
         "adaptive-pooled-over-ranks": rt.parallel.adaptive(hmc.build, model, hmc.HMCConfig(), mesh=rt.parallel.Mesh(
