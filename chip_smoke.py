@@ -13,8 +13,9 @@ It imports no jax.  Phases, each printing one line of findings:
 2. build: compiles ``ops/csrc/*.cu`` with nvcc (cached by source hash under
    the git-ignored ``build/``; one nvcc per source, all started together),
    prints the build seconds and the ptxas register / spill report (K1 / K2
-   per width, the FHN kernel per order, G1 per width 1..48 and G2: exactly
-   one instantiation each), and
+   per width, the FHN kernel per order, G1 per count 1..48 of B's entries
+   a lane holds, G2 and the single GIG round: exactly one instantiation
+   each), holds G1's scratch size against the library's, and
    holds ``hopper_linalg.launch_geometry`` (lanes per chain, chains per
    block, shared-memory tile) against the built library's own answer for
    every width 1..48, and ``fhn_sens.launch_geometry`` (lanes per chain,
@@ -58,21 +59,27 @@ It imports no jax.  Phases, each printing one line of findings:
    and K2 against their twins on the metrics it returns at 256 chains (the
    matrices the FHN samplers factor).  Then the Gibbs step's kernels
    (``ops/csrc/gibbs.cu``): G1, the sequential z / B sweep, against
-   ``samplers.gibbs.gibbs_sweep_plain`` at (C, N, D) = (1024, 690, 15),
+   ``samplers.gibbs.gibbs_sweep_plain`` at (C, N, D) = (1024, 690, 15) (at
+   the wrapper's lanes a chain and at each of ``SWEEP_LANES``),
    (1024, 1000, 25), (1025, 690, 15) and (257, 200, 40), on a state one plain step from
    init, and at (1024, 690, 15) on that state with z scaled by 8 (the tail
    case: some steps' bound a > 3, which must take each of the tail's three
    Rayleigh rounds): every z_j and B entry within rtol / atol 1e-4 except in
    the chains that parted (a value within rounding of a branch threshold, or
    a u within 1e-4 of 1, where ndtri's slope turns one ulp of u into more
-   than the tolerance), counted and at most 3% of them; G2, one GIG rejection round, against
+   than the tolerance), counted and at most 3% of them; the single GIG
+   rejection round (``gig_round_kernel``, off the Gibbs path) against
    ``ops.gig.gig_round_plain`` on the same draws at (1024, 690), r^2
    log-uniform over [1e-4, 25] and 64 exact zeros among the normal draws,
    a first round and a second from its flags: the elements whose decision
    differs counted and at most 1e-4 of them, no zero-draw candidate
-   accepted, an accepted element unchanged.  For each, its device time
-   beside its byte bound (G1 also beside the source's critical path), the
-   plain version's time, and the wrapper's.  A timed kernel that
+   accepted, an accepted element unchanged; G2, the whole GIG draw with its
+   Philox numbers made inside, against ``ops.gig.sample_gig_half_plain``
+   from one key at (1024, 690) and on rows 512: of a chain split (global
+   indices), at most 1e-4 of the elements differing, the split's rows the
+   whole call's bit for bit, the rounds the elements ran (mean, maximum).
+   For each, its device time beside its bound (G1 also beside the source's
+   critical path), the plain version's time, and the wrapper's.  A timed kernel that
    torch.profiler does not see fails the run;
 4. one RMHMC transition through the kernels against one through the plain
    linalg, on the same state and noise (BLR, synthetic data of the
@@ -93,7 +100,7 @@ It imports no jax.  Phases, each printing one line of findings:
    right shape, acceptance in a window from RESULTS.md or the JAX
    package's tests, divergences, posterior means against the RMHMC run on
    the same data (z < 5 from exact-mode ESS), and K1 / K2 launch counts
-   (Gibbs's: and G1 once, G2 64 times a step; its run, 1024 chains, replays
+   (Gibbs's: and G1 and G2 once a step; its run, 1024 chains, replays
    a CUDA graph as every capturable run does) equal to the formulas the
    samplers' code gives; prints seconds per transition and min-ESS/s beside
    the nvidia-smi line;
@@ -164,7 +171,7 @@ It imports no jax.  Phases, each printing one line of findings:
    checkpoint shards ``.p0`` / ``.p1`` round-trip.  Then, split (2, 1) over
    the same two ranks, the four samplers the chain split took last, 5 + 5
    each: AMH (BLR, 4096 chains; coordinate-major noise), Gibbs (BLR, 256
-   chains; its fixed GIG rounds draw every chain's candidates), StochVol
+   chains; its GIG's Philox counters indexed by the global element), StochVol
    RMHMC (T = 2000, 64 chains) and joint LGC mMALA (n = 32, 4 chains), the
    last two drawing their noise from a view of the state.  Each rank is
    bit for bit one process running its half of the chains, and no rank
@@ -309,13 +316,15 @@ REPLACES = {
 # The Gibbs step's two kernels (csrc/gibbs.cu): no Pallas kernel behind either.
 GIBBS_SOURCE = "riemannhamiltonianmontecarlo_tpu_torch/ops/csrc/gibbs.cu"
 GIBBS_REPLACES = {
-    "gibbs_sweep": "riemannhamiltonianmontecarlo_tpu/samplers/gibbs.py:102-124 (the z / B sweep's lax.scan; no pallas_call)",
+    "gibbs_sweep": "riemannhamiltonianmontecarlo_tpu/samplers/gibbs.py:112-124 (the z / B sweep's lax.scan; no pallas_call)",
+    "gig_half": "riemannhamiltonianmontecarlo_tpu/ops/gig.py:125-176 (the rejection lax.while_loop, body :143-168, "
+                "series :42-115; no pallas_call)",
     "gig_round": "riemannhamiltonianmontecarlo_tpu/ops/gig.py:143-168 (one round of the rejection lax.while_loop, "
                  "series :42-115; no pallas_call)",
 }
-GIBBS_KERNEL_NAMES = {"gibbs_sweep": "gibbs_sweep_kernel", "gig_round": "gig_round_kernel"}
+GIBBS_KERNEL_NAMES = {"gibbs_sweep": "gibbs_sweep_kernel", "gig_half": "gig_half_kernel",
+                      "gig_round": "gig_round_kernel"}
 GIBBS_COUNTED = tuple(GIBBS_KERNEL_NAMES)
-GIG_ROUNDS = gibbs.GibbsConfig().max_rejection_rounds  # 64 G2 launches a Gibbs step
 
 
 class SmokeFailure(RuntimeError):
@@ -513,14 +522,22 @@ def phase_build() -> None:
     check(orders == list(rt.ops.fhn_sens.ORDERS),
           f"ptxas report names FHN kernel orders {orders}, expected one each of {rt.ops.fhn_sens.ORDERS}")
     fhn_regs = {f"fhn<{order}>": {"registers": int(r), "spill_store_bytes": int(sp)} for order, sp, r in fhn_found}
-    # G1 per width of B (one instantiation for each D <= 48) and G2: registers and spill stores.
-    gibbs_found = re.findall(r"(gibbs_sweep_kernel|gig_round_kernel)(?:ILi(\d+)EE)?.*?(\d+) bytes spill stores"
-                             r".*?Used (\d+) registers", log, re.S)
-    gibbs_regs = {f"{name}<{width}>" if width else name: {"registers": int(r), "spill_store_bytes": int(sp)}
-                  for name, width, sp, r in gibbs_found}
-    expected = [*(f"gibbs_sweep_kernel<{d}>" for d in range(1, hl.MAX_DIM + 1)), "gig_round_kernel"]
+    # G1 per count of B's entries a lane holds (one instantiation for each of 1..48, and for 1 and 2 the
+    # prologue's, a chain on a whole warp), G2 and the single round: registers and spill stores.
+    gibbs_found = re.findall(r"(gibbs_sweep_kernel|gig_half_kernel|gig_round_kernel)(?:ILi(\d+)ELb([01])EE)?"
+                             r".*?(\d+) bytes spill stores.*?Used (\d+) registers", log, re.S)
+    gibbs_regs = {(f"{name}<{ent}>" if pro == "0" else f"{name}<{ent},prologue>")
+                  if ent else name: {"registers": int(r), "spill_store_bytes": int(sp)}
+                  for name, ent, pro, sp, r in gibbs_found}
+    expected = [*(f"gibbs_sweep_kernel<{e}>" for e in range(1, hl.MAX_DIM + 1)),
+                *(f"gibbs_sweep_kernel<{e},prologue>" for e in (1, 2)), "gig_half_kernel", "gig_round_kernel"]
     check(len(gibbs_found) == len(expected) and sorted(gibbs_regs) == sorted(expected),
           f"ptxas report names Gibbs kernels {sorted(gibbs_regs)}, expected one each of {expected}")
+    for c, n in ((1, 1), (1025, 690), (8448, 1000)):
+        for lanes in gibbs.SWEEP_LANES:
+            mirror = gibbs.sweep_scratch_numel(c, n, lanes)
+            built = gibbs._lib().rhmc_gibbs_sweep_scratch_floats(c, n, lanes)
+            check(mirror == built, f"G1 scratch at C={c}, N={n}, {lanes} lanes: Python {mirror}, built {built}")
     for d in range(1, hl.MAX_DIM + 1):
         mirror, built = hl.launch_geometry(d), hl.built_launch_geometry(d)
         check(mirror == built, f"launch geometry at D={d}: Python mirror {mirror}, built library {built}")
@@ -707,6 +724,16 @@ GIG_SHAPE = (1024, 690)
 GIG_ZERO_DRAWS = 64
 GIG_MAX_DIFFERING = 1e-4  # of the elements
 GIG_OPS_PER_PENDING = 22  # the proposal (14) and one series body (8), each library call one operation
+# The whole GIG draw (kernel gig_half_kernel) against ``sample_gig_half_plain``
+# at GIG_SHAPE from one key: every element, then the rows of a chain split
+# from GIG_SPLIT_ROW on (global indices from GIG_SPLIT_ROW x N), which must
+# also be the whole call's rows bit for bit.  Operations per element and round
+# run: the Philox block (10 rounds of 2 multiplies, 2 high halves, 4 xors, 2
+# key additions: 100), the four words' maps to uniforms (4 x 4), Box-Muller
+# (6), the proposal (14) and one series body (8).
+GIG_SPLIT_ROW = 512
+GIG_HALF_OPS_PER_ROUND = 100 + 16 + 6 + GIG_OPS_PER_PENDING
+GIG_KEY_SEED = 13
 
 
 def gibbs_inputs(c: int, n: int, d: int, seed: int, z_scale: float = 1.0):
@@ -762,24 +789,26 @@ def sweep_bound_us(c: int, n: int, d: int, tail_steps: int) -> dict:
 # G1's bound as a sequence (csrc/gibbs.cu): the longest chain of dependent
 # operations through one step of a chain, on the central path (a <= 3, u in
 # ndtri's central interval), with each library call (erff, an IEEE division)
-# counted as one operation, so a lower bound on the source's chain.  From B to
-# B: the dot's ceil(D / 4) FMAs and 2 adds of its partial sums; the mean (2),
-# a (1), the branch test (1), the clamp (2), the ndtr (erf argument, erff, +1,
-# x0.5: 4), u (3), its clamp (2), ndtri's central branch (its test, y - 0.5,
-# y^2, 9 Horner FMAs of Q0, the division, an FMA, x sqrt(2 pi): 15), the max
-# with a_c (1), z_j (2), the update's factor (2) and B's product and sum (2).
-SWEEP_CHAIN_PER_STEP = 39  # plus the dot's ceil(D / 4)
+# counted as one operation, so a lower bound on the source's chain.  From p_j
+# to p_{j+1}: the mean (2), a (1), the tail branch's test (1), the clamp (2),
+# the ndtr (erf argument, erff, +1, x0.5: 4), u (3), its clamp (2), ndtri's
+# central branch (its test, y - 0.5, y^2, 9 Horner FMAs of Q0, the division,
+# an FMA, x sqrt(2 pi): 15), the max with a_c (1), z_j (2), delta (2) and
+# p_{j+1} = R + delta Q (1).  The dot and B's update are off the chain (the
+# look-ahead), so D does not enter (one thread a chain with the dot on the
+# chain counted 39 + ceil(D / 4)).
+SWEEP_CHAIN_PER_STEP = 36
 
 
-def sweep_dependent_operations(num_data: int, dim: int) -> int:
+def sweep_dependent_operations(num_data: int) -> int:
     """Length of a chain's longest sequence of dependent operations through G1's sweep."""
-    return num_data * (SWEEP_CHAIN_PER_STEP + -(-dim // 4))
+    return num_data * SWEEP_CHAIN_PER_STEP
 
 
-def sweep_critical_path_us(num_data: int, dim: int, sm_clock_mhz: float) -> float:
+def sweep_critical_path_us(num_data: int, sm_clock_mhz: float) -> float:
     """G1's latency bound: ``sweep_dependent_operations`` one after another at
     4 cycles each and the given SM clock, whatever the chain count."""
-    return sweep_dependent_operations(num_data, dim) * rt.ops.fhn_sens.FP32_DEPENDENT_CYCLES / sm_clock_mhz
+    return sweep_dependent_operations(num_data) * rt.ops.fhn_sens.FP32_DEPENDENT_CYCLES / sm_clock_mhz
 
 
 def tail_rounds(a: torch.Tensor, noise: truncnorm.TruncNormNoise) -> dict:
@@ -797,70 +826,84 @@ def tail_rounds(a: torch.Tensor, noise: truncnorm.TruncNormNoise) -> dict:
             "round_3": int((tail & last).sum()), "round_3_rejected_taken": int((tail & last & ~acc[2]).sum())}
 
 
-def check_sweep(c: int, n: int, d: int, timed: bool, z_scale: float = 1.0) -> dict:
+def wrapper_lanes(c: int) -> int:
+    """The lanes a chain that G1's wrapper takes for ``c`` chains on this card."""
+    return gibbs.sweep_lanes(c, torch.cuda.get_device_properties(0).multi_processor_count)
+
+
+def check_sweep(c: int, n: int, d: int, timed: bool, z_scale: float = 1.0, lanes_checked=(None,)) -> dict:
     """G1 against its plain version at one shape, on a state whose z is scaled
-    by ``z_scale`` (``gibbs_inputs``); its times where ``timed``."""
+    by ``z_scale`` (``gibbs_inputs``), at the wrapper's lanes (None) and any
+    other of ``lanes_checked``; its times where ``timed``."""
     model, state, cond, noise = gibbs_inputs(c, n, d, seed=c + n + d, z_scale=z_scale)
     args = (model.X, model.t, state.lam, cond.h, state.z, cond.s, cond.b, noise)
-    (bk, zk), (bp, zp) = gibbs.gibbs_sweep_cuda(*args), gibbs.gibbs_sweep_plain(*args)
-    torch.cuda.synchronize()
-    at = f"(C={c}, N={n}, D={d}, z x {z_scale})"
-    check(bk.shape == (c, d) and zk.shape == (c, n), f"G1 {at}: shapes {tuple(bk.shape)}, {tuple(zk.shape)}")
-    check(bool(torch.isfinite(bk).all() and torch.isfinite(zk).all()), f"G1 {at}: non-finite output")
+    bp, zp = gibbs.gibbs_sweep_plain(*args)
     rtol, atol = SWEEP_TOL
     # z_j = m + s max(ndtri(u), a) is 0 up to rounding where ndtri(u) fell below the bound a (u near ndtr(a)):
     # the side of 0 is checked where the plain version's z_j is clear of it.
     sign = torch.where(model.t == 1.0, 1.0, -1.0).expand(c, n)
     clear = zp.abs() > atol
-    wrong = int(((zk * sign <= 0) & clear).sum())
-    over_z = (zk - zp).abs() > atol + rtol * zp.abs()
-    over_b = (bk - bp).abs() > atol + rtol * bp.abs()
-    parted = over_z.any(1) | over_b.any(1)
-    kept = ~parted
-    n_parted = int(parted.sum())
-    err = max(float((zk - zp)[kept].abs().max()), float((bk - bp)[kept].abs().max())) if bool(kept.any()) else 0.0
-    ratio = max(float(((zk - zp).abs() / (atol + rtol * zp.abs()))[kept].max()),
-                float(((bk - bp).abs() / (atol + rtol * bp.abs()))[kept].max())) if bool(kept.any()) else 0.0
-    # The central path's u = ndtr(a) + u' (1 - ndtr(a)) at the z_j beyond tolerance.
     bound_a = sweep_bounds(args, zp)
-    lo = torch.special.ndtr(torch.clamp(bound_a, -12.0, truncnorm.TAIL_SPLIT))
-    u = lo + noise.u_central.T * (1.0 - lo)
-    u_over = u[over_z]
     tail = tail_rounds(bound_a, noise)
-    out = {"C": c, "N": n, "D": d, "z_scale": z_scale, **tail, "max_abs_err_kept_chains": err,
-           "worst_ratio_to_tolerance_kept_chains": ratio,
-           "u_at_z_beyond_tolerance_min_max": [float(u_over.min()), float(u_over.max())] if u_over.numel() else None,
-           "chains_parted": n_parted,
-           "z_at_zero_within_rounding": int((~clear).sum()), "z_wrong_side": wrong,
-           "elements_beyond_tolerance": int(over_z.sum()) + int(over_b.sum()), "first_parted_chains":
-           parted.nonzero().flatten()[:5].tolist()}
-    say("gibbs-sweep-check", **out)
-    check(wrong == 0, f"G1 {at}: {wrong} z_j clear of 0 on the wrong side")
-    check(n_parted <= SWEEP_MAX_PARTED * c,
-          f"G1 vs plain {at}: {n_parted} chains beyond rtol / atol {SWEEP_TOL}, more than {SWEEP_MAX_PARTED} of {c}")
+    by_lanes = {}
+    for lanes in lanes_checked:
+        bk, zk = gibbs.gibbs_sweep_cuda(*args, lanes=lanes)
+        torch.cuda.synchronize()
+        lanes = wrapper_lanes(c) if lanes is None else lanes
+        at = f"(C={c}, N={n}, D={d}, z x {z_scale}, {lanes} lanes)"
+        check(bk.shape == (c, d) and zk.shape == (c, n), f"G1 {at}: shapes {tuple(bk.shape)}, {tuple(zk.shape)}")
+        check(bool(torch.isfinite(bk).all() and torch.isfinite(zk).all()), f"G1 {at}: non-finite output")
+        wrong = int(((zk * sign <= 0) & clear).sum())
+        over_z = (zk - zp).abs() > atol + rtol * zp.abs()
+        over_b = (bk - bp).abs() > atol + rtol * bp.abs()
+        parted = over_z.any(1) | over_b.any(1)
+        kept = ~parted
+        n_parted = int(parted.sum())
+        err = max(float((zk - zp)[kept].abs().max()), float((bk - bp)[kept].abs().max())) if bool(kept.any()) else 0.0
+        ratio = max(float(((zk - zp).abs() / (atol + rtol * zp.abs()))[kept].max()),
+                    float(((bk - bp).abs() / (atol + rtol * bp.abs()))[kept].max())) if bool(kept.any()) else 0.0
+        # The central path's u = ndtr(a) + u' (1 - ndtr(a)) at the z_j beyond tolerance.
+        lo = torch.special.ndtr(torch.clamp(bound_a, -12.0, truncnorm.TAIL_SPLIT))
+        u_over = (lo + noise.u_central.T * (1.0 - lo))[over_z]
+        by_lanes[lanes] = {
+            "lanes": lanes, "max_abs_err_kept_chains": err, "worst_ratio_to_tolerance_kept_chains": ratio,
+            "u_at_z_beyond_tolerance_min_max": [float(u_over.min()), float(u_over.max())] if u_over.numel() else None,
+            "chains_parted": n_parted, "z_wrong_side": wrong,
+            "elements_beyond_tolerance": int(over_z.sum()) + int(over_b.sum()),
+            "first_parted_chains": parted.nonzero().flatten()[:5].tolist()}
+        say("gibbs-sweep-check", C=c, N=n, D=d, z_scale=z_scale, **tail, **by_lanes[lanes],
+            z_at_zero_within_rounding=int((~clear).sum()))
+        check(wrong == 0, f"G1 {at}: {wrong} z_j clear of 0 on the wrong side")
+        check(n_parted <= SWEEP_MAX_PARTED * c, f"G1 vs plain {at}: {n_parted} chains beyond rtol / atol {SWEEP_TOL}, "
+                                                f"more than {SWEEP_MAX_PARTED} of {c}")
+    out = {"C": c, "N": n, "D": d, "z_scale": z_scale, **tail, **by_lanes[wrapper_lanes(c)],
+           "z_at_zero_within_rounding": int((~clear).sum()),
+           "other_lanes": {k: v for k, v in by_lanes.items() if k != wrapper_lanes(c)}}
     if z_scale == SWEEP_TAIL_Z_SCALE:
         check(min(tail["round_1"], tail["round_2"], tail["round_3"]) > 0,
-              f"G1 {at}: the tail case did not take each of the tail's rounds: {tail}")
+              f"G1 (C={c}, N={n}, D={d}, z x {z_scale}): the tail case did not take each of the tail's rounds: {tail}")
     if timed:
         ins = [a.contiguous() for a in (*args[:7], *noise)]
-        b_out, z_out = torch.empty_like(bk), torch.empty_like(zk)
+        b_out, z_out = torch.empty_like(bp), torch.empty_like(zp)
+        lanes = wrapper_lanes(c)
+        scratch = torch.empty(gibbs.sweep_scratch_numel(c, n, lanes), device=DEVICE)
         lib = gibbs._lib()
 
         def launch():
-            lib.rhmc_gibbs_sweep(*(a.data_ptr() for a in ins), c, n, d, b_out.data_ptr(), z_out.data_ptr(),
-                                 torch.cuda.current_stream().cuda_stream)
+            lib.rhmc_gibbs_sweep(*(a.data_ptr() for a in ins), c, n, d, lanes, scratch.data_ptr(), b_out.data_ptr(),
+                                 z_out.data_ptr(), torch.cuda.current_stream().cuda_stream)
 
         dev = device_us(launch, launches=20, name_part=GIBBS_KERNEL_NAMES["gibbs_sweep"])
         check(dev["events_per_call"] == 1, f"G1: {dev['events_per_call']} device kernels per launch")
         bound = sweep_bound_us(c, n, d, tail["tail_steps"])
         clock = sm_clock_max_mhz()
-        critical = sweep_critical_path_us(n, d, clock)
+        critical = sweep_critical_path_us(n, clock)
         out.update(ms=median_ms(lambda: gibbs.gibbs_sweep_cuda(*args), reps=20),
                    plain_ms=median_ms(lambda: gibbs.gibbs_sweep_plain(*args), reps=3, warmup=1),
                    device_us=dev["us"], device_us_source=dev["source"], profiler_sessions=dev["sessions"], **bound,
                    share_of_bound=bound["bound_us"] / dev["us"], critical_path_us=critical,
                    share_of_critical_path=critical / dev["us"], sm_clock_max_mhz=clock,
-                   dependent_operations=sweep_dependent_operations(n, d))
+                   dependent_operations=sweep_dependent_operations(n), lanes=lanes)
     return out
 
 
@@ -933,24 +976,83 @@ def check_gig_round() -> dict:
             "elements_differing": sum(r["elements_differing"] for r in rounds)}
 
 
+def compare_gig_half(r: torch.Tensor, key: torch.Tensor, first: int, label: str) -> dict:
+    """The fused kernel against its plain version on ``r`` from global index ``first``."""
+    lk = gig.sample_gig_half_cuda(r, key, first)
+    lp, ran = gig.gig_half_plain_rounds(r, key, first)
+    torch.cuda.synchronize()
+    differ = lk != lp
+    n_differ = int(differ.sum())
+    check(bool(torch.isfinite(lk).all() and (lk > 0).all()), f"G2, {label}: lambda not finite and positive")
+    check(n_differ <= GIG_MAX_DIFFERING * lk.numel(),
+          f"G2 vs plain, {label}: {n_differ} elements differ, more than {GIG_MAX_DIFFERING} of {lk.numel()}")
+    same = ~differ
+    ran = ran.double()
+    return {"part": label, "elements": lk.numel(), "elements_differing": n_differ,
+            "max_abs_err_same": float((lk - lp)[same].abs().max()) if bool(same.any()) else 0.0,
+            "rounds_mean": float(ran.mean()), "rounds_max": int(ran.max()),
+            "never_accepted": int((lp == 1.0).sum()), "element_rounds": int(ran.sum()), "lam": lk}
+
+
+def check_gig_half() -> dict:
+    """The whole GIG draw (G2) against its plain version, whole and at a chain
+    split's row offset, then its times."""
+    c, n = GIG_SHAPE
+    r = gig_inputs(seed=7)[0]
+    key = torch.randint(*gig.KEY_RANGE, (1,), generator=torch.Generator(device=DEVICE).manual_seed(GIG_KEY_SEED),
+                        dtype=torch.int64, device=DEVICE)
+    whole = compare_gig_half(r, key, 0, "whole")
+    split = compare_gig_half(r[GIG_SPLIT_ROW:].contiguous(), key, GIG_SPLIT_ROW * n, f"rows {GIG_SPLIT_ROW}:{c}")
+    check(bool(torch.equal(split["lam"], whole["lam"][GIG_SPLIT_ROW:])),
+          "G2: a chain split's rows differ from the whole call's rows")
+    lam = torch.empty_like(r)
+    lib = gig._lib()
+
+    def launch():
+        lib.rhmc_gig_half(r.data_ptr(), key.data_ptr(), 0, c * n, gibbs.GibbsConfig().max_rejection_rounds, 32,
+                          lam.data_ptr(), torch.cuda.current_stream().cuda_stream)
+
+    dev = device_us(launch, launches=20, name_part=GIBBS_KERNEL_NAMES["gig_half"])
+    check(dev["events_per_call"] == 1, f"G2: {dev['events_per_call']} device kernels per launch")
+    nbytes = 8 * c * n + 8  # r in, lambda out, the key
+    ops = GIG_HALF_OPS_PER_ROUND * whole["element_rounds"]
+    by_bytes, by_ops = 1e6 * nbytes / HBM_BYTES_PER_S, 1e6 * ops / FP32_OPS_PER_S
+    bound = max(by_bytes, by_ops)
+    times = {"C": c, "N": n, "ms": median_ms(lambda: gig.sample_gig_half_cuda(r, key), reps=20),
+             "plain_ms": median_ms(lambda: gig.sample_gig_half_plain(r, key), reps=3, warmup=1),
+             "device_us": dev["us"], "device_us_source": dev["source"], "profiler_sessions": dev["sessions"],
+             "bound_us": bound, "bound_by": "bytes" if by_bytes >= by_ops else "operations", "bytes": nbytes,
+             "operations": ops, "share_of_bound": bound / dev["us"],
+             "rounds_mean": whole["rounds_mean"], "rounds_max": whole["rounds_max"]}
+    parts = [{k: v for k, v in part.items() if k != "lam"} for part in (whole, split)]
+    return {"parts": parts, "times": times, "err": max(part["max_abs_err_same"] for part in parts),
+            "elements_differing": sum(part["elements_differing"] for part in parts)}
+
+
 def phase_gibbs_kernels(smi: str) -> dict:
     """G1 and G2 against their plain versions on the card, and their times."""
-    sweeps = [check_sweep(c, n, d, timed=(c, n, d) == SWEEP_SHAPES[0]) for c, n, d in SWEEP_SHAPES]
+    sweeps = [check_sweep(c, n, d, timed=(c, n, d) == SWEEP_SHAPES[0],
+                          lanes_checked=(None, *gibbs.SWEEP_LANES) if (c, n, d) == SWEEP_SHAPES[0] else (None,))
+              for c, n, d in SWEEP_SHAPES]
     sweeps.append(check_sweep(*SWEEP_SHAPES[0], timed=False, z_scale=SWEEP_TAIL_Z_SCALE))
     say("gibbs-sweep-kernel", checked=[{k: v for k, v in row.items() if k in (
-        "C", "N", "D", "z_scale", "max_abs_err_kept_chains", "chains_parted", "elements_beyond_tolerance",
+        "C", "N", "D", "z_scale", "lanes", "max_abs_err_kept_chains", "chains_parted", "elements_beyond_tolerance",
         "first_parted_chains", "z_at_zero_within_rounding", "tail_steps", "round_1", "round_2", "round_3",
         "round_3_rejected_taken")}
         for row in sweeps], tolerance_rtol_atol=SWEEP_TOL, max_parted_share=SWEEP_MAX_PARTED)
     top = sweeps[0]
-    say("gibbs-sweep-kernel-times", card=smi, **{k: v for k, v in top.items() if k not in ("first_parted_chains",)},
+    say("gibbs-sweep-kernel-times", card=smi,
+        **{k: v for k, v in top.items() if k not in ("first_parted_chains", "other_lanes")},
         library="none: no PyTorch call runs a sequential truncated-normal sweep")
     rounds = check_gig_round()
     say("gig-round-kernel", rounds=rounds["rounds"],
         rightmost_share_of_first_round_accepts=rounds["rightmost_share_of_first_round_accepts"],
         zero_normal_draws=GIG_ZERO_DRAWS, max_differing_share=GIG_MAX_DIFFERING)
     say("gig-round-kernel-times", card=smi, **rounds["times"], library="none: no PyTorch call samples the GIG")
-    return {"sweep": sweeps, "gig": rounds}
+    half = check_gig_half()
+    say("gig-half-kernel", parts=half["parts"], max_differing_share=GIG_MAX_DIFFERING, split_row=GIG_SPLIT_ROW)
+    say("gig-half-kernel-times", card=smi, **half["times"], library="none: no PyTorch call samples the GIG")
+    return {"sweep": sweeps, "gig": rounds, "gig_half": half}
 
 
 def blr_model():
@@ -1121,9 +1223,9 @@ class BlrRun:
         k1, k2 = 0, 0
         if self.sampler in ("mmala", "mmala_simplified", "iwls"):
             k1 = 1 + self.steps  # one factorization in init, one per proposal
-        elif self.sampler == "gibbs":  # ops.inv_psd and chol(V), no factorization in init; G1 once, G2 each GIG round
+        elif self.sampler == "gibbs":  # ops.inv_psd and chol(V), no factorization in init; G1 and G2 once a step
             return {"cholesky": 2 * self.steps, "chol_solve_logdet": 0, "gibbs_sweep": self.steps,
-                    "gig_round": GIG_ROUNDS * self.steps}
+                    "gig_half": self.steps}
         elif self.sampler in ("rmhmc", "rmhmc_studentt"):
             k1, k2 = 1 + L * self.steps, L * K * self.steps  # as phase 5
         return {"cholesky": k1, "chol_solve_logdet": k2}
@@ -1818,12 +1920,12 @@ DIST_CKPT = dict(num_samples=6, burn_in=2, checkpoint_every=2)  # three segments
 DIST_ESS_RUN = dict(num_chains=1024, burn_in=50, num_samples=50)
 DIST_DIR = SMOKE_DATA.parent / "smoke_dist"
 # The samplers the chain split took last (AMH's and the Gibbs sweep's noise
-# coordinate-major, Gibbs's GIG rounds drawing every chain's candidates, the two-block
+# coordinate-major, Gibbs's GIG counters indexed by the global element, the two-block
 # samplers' noise drawn from the state), two ranks, 5 + 5 each.
 DIST_SPLIT_RUN = (5, 5)
 DIST_GIBBS_CHAINS, DIST_SV_CHAINS, DIST_LGCJ_CHAINS = 256, 64, 4
 # These samplers expose no |log a - log u| per decision (AMH's are per
-# coordinate, the two-block samplers' per block, Gibbs's inside the GIG
+# coordinate, the two-block samplers' per block, Gibbs's inside the GIG's
 # rounds), so the one-process run finds the chains near a decision boundary
 # by probing: before each step every entry of the state is moved by a
 # relative PROBE_SCALE of random sign (and then of the opposite signs), ~100x
@@ -1925,8 +2027,8 @@ def with_discontinuity_probe(kernel):
 @contextlib.contextmanager
 def min_all_reduces(record: list):
     """Each MIN all-reduce the port makes inside (an exit test agreed over the
-    ranks) appended to ``record``.  None is expected: Gibbs's GIG rounds, the
-    one such test before, are a fixed count."""
+    ranks) appended to ``record``.  None is expected: Gibbs's GIG, the one
+    such test once, exits per element inside its kernel."""
     real = collectives.all_reduce
 
     def all_reduce(x, group, op=dist.ReduceOp.SUM):
@@ -2705,7 +2807,7 @@ def phase_graphs(smi: str) -> dict:
         rows = [step_profile.profile_run(workload, sampler, chains, captured=captured, **GRAPH_PROFILE_DEPTH)
                 for captured in (False, True, True, False)]
         keys = ("wall_ms_per_step", "device_busy_ms_per_step", "idle_share", "kernel_launches_per_step",
-                *(k for k in rows[0] if k in ("gibbs_sweep_kernel_share_of_device", "gig_round_kernel_share_of_device",
+                *(k for k in rows[0] if k in ("gibbs_sweep_kernel_share_of_device", "gig_half_kernel_share_of_device",
                                               "draws_share_of_device")))
         say("graphs-times", run=f"{workload}/{sampler}", chains=chains, card=smi, order="E C C E",
             **{f"{path}_{key}": [row[key] for row in rows if row["path"] == path]
@@ -2717,11 +2819,13 @@ def phase_graphs(smi: str) -> dict:
 
 
 def gibbs_summary(kernels: dict, by_path: dict, smi: str) -> list[dict]:
-    """G1's and G2's entries of the kernels line: times at phase 6's shapes
-    ((1024, 690, 15) and one round at (1024, 690) with every element pending),
+    """G1's, G2's and the single round's entries of the kernels line: times at
+    phase 6's shapes ((1024, 690, 15), the whole GIG draw at (1024, 690) and
+    one round there with every element pending; the single round is off the
+    Gibbs path since G2 draws its own numbers, so its launches there are 0),
     ``launches`` phase 6's Gibbs run, every path's count under
     ``launches_by_path``."""
-    sweep, rounds = kernels["sweep"][0], kernels["gig"]
+    sweep, rounds, half = kernels["sweep"][0], kernels["gig"], kernels["gig_half"]
     rows = {"gibbs_sweep": (sweep, max(row["max_abs_err_kept_chains"] for row in kernels["sweep"]),
                             {"chains_parted": [row["chains_parted"] for row in kernels["sweep"]],
                              "elements_beyond_tolerance": [row["elements_beyond_tolerance"] for row in kernels["sweep"]],
@@ -2730,15 +2834,20 @@ def gibbs_summary(kernels: dict, by_path: dict, smi: str) -> list[dict]:
                              "tail_steps": [row["tail_steps"] for row in kernels["sweep"]],
                              "critical_path_us": sweep["critical_path_us"],
                              "share_of_critical_path": sweep["share_of_critical_path"]}),
+            "gig_half": (half["times"], half["err"],
+                         {"elements_differing": half["elements_differing"], "shape_CN": list(GIG_SHAPE),
+                          "rounds_mean": half["times"]["rounds_mean"], "rounds_max": half["times"]["rounds_max"]}),
             "gig_round": (rounds["times"], rounds["err"],
                           {"elements_differing": rounds["elements_differing"], "shape_CN": list(GIG_SHAPE),
-                           "all_accepted_round_device_us": rounds["times"]["all_accepted_round_device_us"]})}
+                           "all_accepted_round_device_us": rounds["times"]["all_accepted_round_device_us"],
+                           "on_the_main_path": False})}
     out = []
     for name, (row, err, extra) in rows.items():
         paths = {label: counts[name] for label, counts in by_path.items() if name in counts}
         out.append({
             "name": name, "route": "cuda", "source": GIBBS_SOURCE, "replaces": GIBBS_REPLACES[name],
-            "launches": paths["gibbs/australian"], "launches_counted_by": LAUNCHES_COUNTED_BY, "max_abs_err": err,
+            "launches": paths.get("gibbs/australian", 0) if name == "gig_round" else paths["gibbs/australian"],
+            "launches_counted_by": LAUNCHES_COUNTED_BY, "max_abs_err": err,
             "max_abs_err_is": "over the elements that took the plain version's branches (the others counted)",
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_us"] / 1e3, "bound_by": row["bound_by"],
             "library_ms": None, "library_note": "no single PyTorch call computes it",

@@ -34,9 +34,15 @@ instructions per step and the branches inside the loop.
 (``samplers.gibbs.gibbs_sweep_cuda``) on ``chip_smoke.gibbs_inputs`` at
 N = 690 and D in ``GIBBS_DIMS``, the inputs of 1024 chains cut or repeated
 along the chains to each of ``GIBBS_CHAINS``: ``device_us``
-(torch.profiler, 20 launches) and ``burst_ms`` (CUDA events over 5
-launches).  A time that stays flat while each warp has a scheduler of its
-own says a chain's sequence of steps is what bounds the kernel.
+(torch.profiler, 10 launches), and ``burst_ms`` (CUDA events over 5
+launches) at the wrapper's own layout; in a checkout whose G1 spreads a
+chain over lanes, at every lane count (``lanes``).  A time that stays flat
+while each warp has a scheduler of its own says a chain's sequence of
+steps is what bounds the kernel.  Then the GIG draw of a step as each checkout runs it
+(``ops.sample_gig_half`` at (1024, 690): 64 rounds and 192 draws, or one
+launch), its device time and CUDA-event times; and per turn G1's step loop
+in each build's SASS (``gibbs_sweep_loop``): instructions once through,
+branches, shuffles, MUFU instructions and loads.
 Prints one JSON line per turn, kernel and shape, with the card's name and
 power limit.  Needs a CUDA device and nvcc; there is no CPU path.
 """
@@ -141,6 +147,12 @@ def _measure_fhn(smoke) -> list[dict]:
     return rows
 
 
+def _sweep_layouts(gibbs) -> list[int | None]:
+    """The lanes a chain at which to time G1: a checkout whose G1 takes no
+    lanes, its one kernel; this one, every lane count it takes."""
+    return list(gibbs.SWEEP_LANES) if hasattr(gibbs, "SWEEP_LANES") else [None]
+
+
 def _measure_gibbs(smoke) -> list[dict]:
     import torch
 
@@ -156,16 +168,95 @@ def _measure_gibbs(smoke) -> list[dict]:
 
                 args = (model.X, model.t, chains(state.lam), chains(cond.h), chains(state.z), chains(cond.s),
                         chains(cond.b), truncnorm.TruncNormNoise(*(chains(u, u.dim() - 1) for u in noise)))
+                for lanes in _sweep_layouts(gibbs):
+                    kw = {} if lanes is None else {"lanes": lanes}
 
-                def launch():
-                    return gibbs.gibbs_sweep_cuda(*args)
-                dev = smoke.device_us(launch, launches=20, name_part=smoke.GIBBS_KERNEL_NAMES["gibbs_sweep"])
-                rows.append({
-                    "kernel": "gibbs_sweep", "C": c, "N": GIBBS_DATA, "D": d, "device_us": dev["us"],
-                    "device_us_source": dev["source"], "events_per_call": dev["events_per_call"],
-                    "burst_ms": smoke.burst_ms(launch, launches=5, warmup=1), "card": card,
-                })
+                    def launch():
+                        return gibbs.gibbs_sweep_cuda(*args, **kw)
+                    dev = smoke.device_us(launch, launches=10, name_part=smoke.GIBBS_KERNEL_NAMES["gibbs_sweep"])
+                    row = {"kernel": "gibbs_sweep", "C": c, "N": GIBBS_DATA, "D": d, "lanes": lanes,
+                           "device_us": dev["us"], "device_us_source": dev["source"],
+                           "events_per_call": dev["events_per_call"], "card": card}
+                    if lanes is None or lanes == smoke.wrapper_lanes(c):
+                        row.update(wrapper_lanes=True, burst_ms=smoke.burst_ms(launch, launches=5, warmup=1))
+                    rows.append(row)
+        rows += _measure_gig(smoke)
+    rows.append({"kernel": "gibbs_sweep_loop", "card": card, **_gibbs_sweep_loop(smoke)})
     return rows
+
+
+def _measure_gig(smoke) -> list[dict]:
+    """The GIG draw of a Gibbs step as each checkout runs it (``ops.sample_gig_half``
+    at chip_smoke's GIG_SHAPE, r^2 log-uniform over [1e-4, 25]): one call's
+    device time (every device event: the draws, the rounds, the key) and its
+    CUDA-event time, one call and a burst."""
+    import torch
+
+    r = smoke.gig_inputs(seed=7)[0]
+    r2 = r * r
+    gen = torch.Generator(device=smoke.DEVICE).manual_seed(0)
+
+    def call():
+        return smoke.gig.sample_gig_half(gen, r2)
+    dev = smoke.device_us(call, launches=5)
+    return [{"kernel": "gig", "C": r.shape[0], "N": r.shape[1], "device_us": dev["us"],
+             "device_events_per_call": dev["events_per_call"], "ms": smoke.median_ms(call, reps=10, warmup=2),
+             "burst_ms": smoke.burst_ms(call, launches=10, warmup=2), "card": smoke.smi_line()}]
+
+
+def _sass(smoke) -> str | dict:
+    """The built library's SASS (``cuobjdump -sass``), or ``{"error": ...}``."""
+    cuobjdump = Path(smoke._build._nvcc()).parent / "cuobjdump"
+    if not cuobjdump.exists():
+        return {"error": f"no {cuobjdump}"}
+    proc = subprocess.run([str(cuobjdump), "-sass", str(smoke._build.build())], capture_output=True, text=True,
+                          check=False, timeout=600)
+    if proc.returncode != 0:
+        return {"error": f"cuobjdump exited {proc.returncode}: {proc.stderr[-500:]}"}
+    return proc.stdout
+
+
+def _loops(body: str):
+    """A function's SASS as (address, opcode, operands) and its loops as (first, last) addresses."""
+    code = [(int(addr, 16), op.split(".")[0], op + rest) for addr, op, rest in
+            re.findall(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);", body)]
+    loops = [(int(target, 16), addr) for addr, op, rest in code if op == "BRA"
+             for target in re.findall(r"0x([0-9a-f]+)", rest) if int(target, 16) < addr]
+    return code, loops
+
+
+GIBBS_LOOP_ENTRIES = (1, 2, 3, 4, 5, 8, 10, 15, 20, 40)  # D 15 and 40 on 32 to 1 lanes a chain
+_CONTROL = ("BRA", "BSSY", "BSYNC", "WARPSYNC", "CALL", "BRX", "JMP")  # branch and reconvergence opcodes
+
+
+def _gibbs_sweep_loop(smoke) -> dict:
+    """G1's step loop as each build compiled it: per instantiation at the
+    entries of GIBBS_LOOP_ENTRIES, the loop over the steps (the largest
+    loop), its SASS instructions once through (the tail's
+    rounds and the group's shuffle loop included, each once), the branch and
+    reconvergence instructions inside bar the loop's own, its shuffles and its
+    MUFU (logarithm, square root, reciprocal, exponential) instructions."""
+    text = _sass(smoke)
+    if isinstance(text, dict):
+        return text
+    out = {}
+    for name, body in re.findall(r"Function : (\S*gibbs_sweep_kernel\S*)(.*?)(?=Function :|\Z)", text, re.S):
+        found = re.search(r"gibbs_sweep_kernelILi(\d+)E(?:Lb([01])E)?E", name)
+        if not found or int(found.group(1)) not in GIBBS_LOOP_ENTRIES:
+            continue
+        ent, pro = found.groups()
+        key = f"<{ent}>" if pro in (None, "0") else f"<{ent},prologue>"  # prologue: a chain on a whole warp
+        code, loops = _loops(body)
+        if not loops:
+            continue
+        lo, hi = max(loops, key=lambda span: span[1] - span[0])
+        inside = [(op, text_) for a, op, text_ in code if lo <= a <= hi]
+        out[key] = {"instructions": len(inside),
+                    "branches": sum(op in _CONTROL for op, _ in inside) - 1,
+                    "shuffles": sum(op == "SHFL" for op, _ in inside),
+                    "mufu": sum(op == "MUFU" for op, _ in inside),
+                    "loads": sum(op in ("LDG", "LD", "LDS") for op, _ in inside)}
+    return out
 
 
 def _fhn_rk4_loop(smoke) -> dict:

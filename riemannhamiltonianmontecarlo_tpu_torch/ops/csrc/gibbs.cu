@@ -4,14 +4,18 @@
 // riemannhamiltonianmontecarlo_tpu/samplers/gibbs.py and ops/gig.py, so that
 // a Gibbs step is a fixed sequence of launches that a CUDA graph can hold.
 //   G1 rhmc_gibbs_sweep <- the sequential z / B sweep, a lax.scan over the N
-//      data points (samplers/gibbs.py:102-124).  Python wrapper, checks and
+//      data points (samplers/gibbs.py:112-124).  Python wrapper, checks and
 //      plain-PyTorch version: samplers/gibbs.py (gibbs_sweep_cuda,
 //      gibbs_sweep_plain).
-//   G2 rhmc_gig_round   <- one round of the GIG rejection sampler, the body of
-//      a lax.while_loop with both squeeze series (ops/gig.py:42-115, :143-168).
-//      Wrapper and plain version: ops/gig.py (gig_round_cuda, gig_round_plain).
+//   G2 rhmc_gig_half    <- the whole GIG draw, the rejection lax.while_loop
+//      with both squeeze series (ops/gig.py:125-176, body :143-168, series
+//      :42-115).  Wrapper and plain version: ops/gig.py (sample_gig_half_cuda,
+//      sample_gig_half_plain).
+//   rhmc_gig_round, one rejection round from given draws (gig_round_cuda,
+//      gig_round_plain), shares G2's round function and is off the Gibbs
+//      step: it checks the round's arithmetic on its own.
 //
-// Both mirror their plain versions operation by operation as PyTorch's CUDA
+// All mirror their plain versions operation by operation as PyTorch's CUDA
 // kernels round them: every product and sum that the plain version computes
 // as its own tensor op is rounded on its own here too (__fmul_rn / __fadd_rn
 // / __fsub_rn, which nvcc never contracts into an FMA), a tensor divided by a
@@ -20,60 +24,69 @@
 // the tensor's reciprocal times the scalar (Tensor.__rtruediv__), ndtr is
 // (1 + erf(x sqrt(1/2))) / 2 (torch.special.ndtr) and ndtri is the Cephes
 // polynomial of ATen's calc_ndtri, copied below.  Only the sweep's dot
-// product B . x_j is summed in another order (the plain version's is
-// cuBLAS's gemv).  So results agree with the plain version to rounding,
-// except where a value within rounding of a threshold takes the other branch
-// (chip_smoke.py phase 3 counts such elements).
+// products are summed in another order (the plain version's B . x_j is
+// cuBLAS's gemv; here B_j . x_{j+1} + delta_j S_j . x_{j+1}, below).  So
+// results agree with the plain version to rounding, except where a value
+// within rounding of a threshold takes the other branch (chip_smoke.py
+// phase 3 counts such elements).
 //
 // G1, what bounds it on an H100: the sequence.  Each chain walks N dependent
 // steps (z_j's mean reads B, which every earlier step updated), and a step's
-// longest chain of dependent operations -- the dot, the conditional mean, the
-// truncated normal's ndtr and ndtri, the rank-one update of B -- is 43
-// operations on the central path at D = 15 (chip_smoke.py::
-// sweep_dependent_operations, each library call counted as one): ~60 us at
-// N = 690 and 1,980 MHz, against ~17 us to move its bytes once at 3.35 TB/s
-// (1024 chains, D = 15).  Measured, a step takes ~0.9 us (0.63 ms a sweep
-// at (1024, 690, 15) on an H100): the library calls (erff, logf, sqrtf, the
-// IEEE divisions) are tens of dependent instructions each, and the lanes of
-// a warp that take ndtri's two branches run them one after the other.  The
-// step's memory traffic is not what it waits on: against the first form
-// (below), a variant reading chain-minor copies of its inputs (every load one
-// 128-byte line) took the same time, and one staging chunks of steps in
-// shared memory with cp.async, double-buffered, took longer, its copies
-// issued by the same warp that runs the chain (PERF.md).  What the design
-// does:
-//   * one thread per chain, B in registers, D a compile-time constant for
-//     every D <= 48, so nothing is masked: 0.63 ms a sweep at (1024, 690,
-//     15) where a first form, D at run time with every entry of a capacity
-//     of 16 masked by it, took 1.11 ms (PERF.md).  A group
-//     of lanes per chain would make the D-long dot a shuffle tree (~5 shuffles
-//     at ~30 cycles each) where one thread's tree of 4 partial sums is ~6
-//     FMAs; the truncated normal is one lane's work either way;
-//   * blocks of one warp, so 1024 chains are 32 warps on 32 SMs, each warp
-//     with a scheduler and an L1 of its own.  A sweep takes about as long
-//     for 32 chains as for 4,224, a warp on each of the card's 528
-//     schedulers (kernel_ab.py --kernels gibbs, PERF.md);
-//   * the public layouts as they are, no copy: S (C, D, N), lambda, h and
-//     z_old (C, N), the uniforms (N, C).  A thread's rows are contiguous in
-//     j, so a 32-byte sector serves 8 consecutive steps from L1;
-//   * the next step's x_j row, lambda, h and z_old and the central uniform
-//     are loaded into registers while the current step computes, S's and
-//     the rows' sectors 8 steps ahead are prefetched into L1 and the
-//     uniforms' lines 4 steps ahead into L2, so their latency leaves the
-//     dependent chain (without the prefetches a sweep took longer, most
-//     at D = 25);
-//   * the two paths of the truncated normal are branches: a chain takes the
-//     tail path (a > 3, three Rayleigh rounds) at few steps of a sweep, if
-//     any, so only those pay for the tail's logs and square roots.
-// No thread talks to another, so a thread past the last chain returns.
+// chain of dependent operations -- the conditional mean, the truncated
+// normal's ndtr and ndtri, delta -- is 36 operations on the central path
+// (chip_smoke.py::sweep_dependent_operations, each library call counted as
+// one): ~50 us at N = 690 and 1,980 MHz, against ~17 us to move its bytes
+// once at 3.35 TB/s (1024 chains, D = 15).  A warp issues in order, so what
+// it runs between two of the chain's operations adds to the step unless the
+// compiler can interleave it, and it can only within a basic block: every
+// IEEE division and square root (a slow path behind a branch), every branch
+// of ndtri and every loop closes one.  One thread a chain, the dot on the
+// chain, took ~1,800 cycles a step, its loop 671 SASS instructions with 73
+// branches at D = 15 (kernel_ab.py --kernels gibbs, PERF.md).  What the
+// design does:
+//   * a chain on a group of `lanes` lanes of one warp (the wrapper chooses:
+//     the most that keep the launch within two warps a scheduler, so 32 at
+//     1024 chains, 8 at 4,224, 4 at 8,448 on an H100), B's entries spread
+//     over the group, D at compile time as entries a lane (one instantiation
+//     for each of 1..48); the scalar chain runs in every lane of the group
+//     with the same bits, so no lane waits on another for it;
+//   * the dot off the chain, by looking ahead: while step j's chain runs, the
+//     group sums R = B_j . x_{j+1} and Q = S[:, j] . x_{j+1}, neither of which
+//     reads z_j, over straight-line shuffles (a loop of them was a block the
+//     warp waited on), and after it p_{j+1} = R + delta_j Q is one FMA; B's
+//     update is off the chain too;
+//   * every input of a step in registers a step before its use (S's column,
+//     x_{j+1}, the uniform, the step's constants), the constants computed a
+//     step ahead from inputs loaded two ahead (an empty asm keeps their
+//     divisions there: nvcc would sink them onto the next step's chain); on
+//     a whole warp a chain, a prologue writes the chain's constants for
+//     every step to a scratch first, 32 steps at once, and a step reads its
+//     six from one line (at 1024 chains ~20% faster than computing them in
+//     the loop; with fewer lanes, more chains, their scratch outgrew L2 and
+//     was slower);
+//   * S's row sectors prefetched into L1 once every 8 steps (a prefetch a
+//     step, each a lookup per lane's line, made 8,448 chains wait on L1),
+//     the uniforms' lines 4 steps ahead into L2;
+//   * ndtri with one branch, the central path against the tail: its early
+//     returns, which cannot fire on the clamped u, left out, and the tail's
+//     two rational functions one set of FMAs with the coefficients chosen.
+//     Computing both paths and selecting was slower: the tail's two logs,
+//     square root and three divisions on every step cost more than a branch
+//     that a chain takes at ~27% of its steps;
+//   * the truncated normal's Rayleigh tail (a > 3) a branch: few steps take it.
+// A group past the last chain runs the last chain and writes nothing.
 //
-// G2, what bounds it: bytes.  A round reads every element's `ok` flag and,
-// for an element not yet accepted, its r and three draws, and writes lambda
-// and `ok` where it accepts; an accepted element returns at once, so the
-// rounds after most elements are decided (most of a step's 64) read little
-// more than the flags.  One thread per element, blocks of 256; each thread
-// runs its own squeeze series until it decides or reaches the cap of bodies,
-// so no element waits for another's series.
+// G2, what bounds it: operations, and how many rounds an element runs.  An
+// element runs rejection rounds until its first accepted candidate (at most
+// 64), each a Philox4x32-10 block (counter: the element's global index and
+// the round; key: one int64 the caller drew), Box-Muller, the proposal and
+// its squeeze series; its bytes are r in and lambda out (8 B an element:
+// 1.7 us at (1024, 690) and 3.35 TB/s, against ~4.3 us for ~144 operations
+// an element-round at 67 TFLOP/s, chip_smoke.py phase 3).  Elements take 1 to
+// ~40 rounds (mean ~2.8 at r^2 log-uniform on [1e-4, 25]), so a warp of one
+// element a lane would run as long as its slowest: a lane whose element is
+// decided takes the warp's next (32 x 8 elements a warp), so the lanes stay
+// busy.  No element waits for another's series, nothing is read by the host.
 //
 // C interface (bound with ctypes): launches on the given stream, allocates
 // nothing, does not synchronise, and returns cudaGetLastError().
@@ -85,11 +98,11 @@
 
 namespace {
 
-constexpr int kSweepThreads = 32;  // G1: one warp a block, one chain a thread
-constexpr int kRoundThreads = 256;  // G2: one element a thread
+constexpr int kSweepThreads = 32;  // G1: one warp a block, a chain on 1 to 32 of its lanes
+constexpr int kRoundThreads = 256;  // G2 and the single round: threads a block
 constexpr int kMaxDim = 48;  // ops/hopper_linalg.py::MAX_DIM
 constexpr int kTailRounds = 3;  // ops/truncnorm.py::RETRY_ROUNDS
-constexpr int kRowAhead = 8;  // G1: steps ahead of the L1 prefetch of the (C, N) and (C, D, N) rows
+constexpr int kRowAhead = 8;  // G1: steps ahead of the L1 prefetch of S's (C, D, N) rows, one sector
 constexpr int kUniformAhead = 4;  // G1: steps ahead of the L2 prefetch of the (N, C) uniforms
 
 // Constants as the plain versions' Python doubles reach a float32 tensor op.
@@ -147,29 +160,41 @@ __device__ __forceinline__ float polevl(float x, const float (&a)[Len]) {
   return result;
 }
 
+// polevl with the coefficients of a or b, chosen per lane: the same FMAs as polevl(x, a) or polevl(x, b).
+template <int Len>
+__device__ __forceinline__ float polevl_either(float x, bool first, const float (&a)[Len], const float (&b)[Len]) {
+  float result = 0.0f;
+#pragma unroll
+  for (int i = 0; i < Len; ++i) result = result * x + (first ? a[i] : b[i]);
+  return result;
+}
+
+// double constants rounded to float, as the template's T{...} rounds them
+constexpr float kS2Pi = static_cast<float>(2.50662827463100050242E0);
+constexpr float kExpM2 = static_cast<float>(0.13533528323661269189);  // exp(-2)
+
+// ATen's calc_ndtri for y0 in (0, 1) or NaN, all that the sweep passes it (u clamped to [1e-30, 1 - 1e-7]):
+// its three early returns (0, 1 and outside [0, 1]) left out, which changes no result there, and the
+// tail's two rational functions (x < 8 and x >= 8) one polevl_either each, the same FMAs as either.
+// What is left is one branch, the central path against the tail.
 __device__ __forceinline__ float ndtri(float y0) {
-  // double constants rounded to float, as the template's T{...} rounds them
-  constexpr float s2pi = static_cast<float>(2.50662827463100050242E0);
-  constexpr float exp_m2 = static_cast<float>(0.13533528323661269189);  // exp(-2)
-  if (y0 == 0.0f) return -CUDART_INF_F;
-  if (y0 == 1.0f) return CUDART_INF_F;
-  if (y0 < 0.0f || y0 > 1.0f) return CUDART_NAN_F;
   bool code = true;
   float y = y0;
-  if (y > 1.0f - exp_m2) {
+  if (y > 1.0f - kExpM2) {
     y = 1.0f - y;
     code = false;
   }
-  if (y > exp_m2) {
+  if (y > kExpM2) {
     y = y - 0.5f;
     const float y2 = y * y;
     const float x = y + y * (y2 * polevl(y2, kP0) / polevl(y2, kQ0));
-    return x * s2pi;
+    return x * kS2Pi;
   }
   float x = sqrtf(-2.0f * logf(y));
   const float x0 = x - logf(x) / x;
   const float z = 1.0f / x;
-  const float x1 = x < 8.0f ? z * polevl(z, kP1) / polevl(z, kQ1) : z * polevl(z, kP2) / polevl(z, kQ2);
+  const bool near = x < 8.0f;
+  const float x1 = z * polevl_either(z, near, kP1, kP2) / polevl_either(z, near, kQ1, kQ2);
   x = x0 - x1;
   return code ? -x : x;
 }
@@ -177,108 +202,214 @@ __device__ __forceinline__ float ndtri(float y0) {
 // -- G1: the sweep -----------------------------------------------------------------
 
 // z ~ N(0, 1) conditioned on z > a, from the step's uniforms: ops/truncnorm.py::std_truncnorm_above.
-__device__ __forceinline__ float std_truncnorm_above(float a, float u_central, const float* __restrict__ u_e,
-                                                     const float* __restrict__ u_tail, size_t round_stride) {
+// The central path (inverse CDF on [ndtr(a), 1)) is computed for every lane; a lane with a > 3 then
+// takes the tail's Rayleigh candidates sqrt(a^2 - 2 log e), the first accepted one, else the last.
+__device__ __forceinline__ float std_truncnorm_above(float a, float u_central, const float* u_e, const float* u_tail,
+                                                     size_t round_stride) {
+  const float a_c = clamp(a, kLowClamp, kTailSplit);
+  const float lo = mul(add(1.0f, erff(mul(a_c, kSqrtHalf))), 0.5f);
+  float z = maximum(ndtri(clamp(add(lo, mul(u_central, sub(1.0f, lo))), kUMin, kUMax)), a_c);
   if (a > kTailSplit) {
-    // Tail: Rayleigh candidates sqrt(a^2 - 2 log e), the first accepted one wins, else the last.
     const float a_t = clamp_min(a, kTailSplit);
     for (int r = 0;; ++r) {
       const float e = clamp_min(add(mul(__ldg(u_e + r * round_stride), kEScale), kEMin), kEMin);
       const float cand = sqrtf(add(mul(-2.0f, logf(e)), mul(a_t, a_t)));
-      if (r == kTailRounds - 1 || __ldg(u_tail + r * round_stride) <= a_t / cand) return cand;
+      if (r == kTailRounds - 1 || __ldg(u_tail + r * round_stride) <= a_t / cand) {
+        z = cand;
+        break;
+      }
     }
   }
-  // Central: inverse CDF on [ndtr(a), 1).
-  const float a_c = clamp(a, kLowClamp, kTailSplit);
-  const float lo = mul(add(1.0f, erff(mul(a_c, kSqrtHalf))), 0.5f);
-  const float u = add(lo, mul(u_central, sub(1.0f, lo)));
-  return maximum(ndtri(clamp(u, kUMin, kUMax)), a_c);
+  return z;
 }
 
 __device__ __forceinline__ void prefetch_l1(const float* p) { asm volatile("prefetch.global.L1 [%0];" ::"l"(p)); }
 __device__ __forceinline__ void prefetch_l2(const float* p) { asm volatile("prefetch.global.L2 [%0];" ::"l"(p)); }
 
+// The step constants of one chain and step, as gibbs_sweep_plain computes them before its loop:
+// w = h / max(lambda - h, 1e-12), std = sqrt(lambda (w + 1)), s = +-std by the label.
+enum StepField { kOnePlusW, kNegWZOld, kBoundScale, kSignedSd, kInvLam, kZOld, kSweepFields };
+
+__device__ __forceinline__ void step_constants(float lam_j, float h_j, float z_old_j, float t_j,
+                                               float (&k)[kSweepFields]) {
+  const float w = h_j / clamp_min(sub(lam_j, h_j), kGapMin);
+  const float sd = sqrtf(mul(lam_j, add(w, 1.0f)));
+  const float signed_sd = t_j == 1.0f ? sd : -sd;
+  k[kOnePlusW] = add(1.0f, w);
+  k[kNegWZOld] = mul(-w, z_old_j);
+  k[kBoundScale] = -(1.0f / signed_sd);
+  k[kSignedSd] = signed_sd;
+  k[kInvLam] = 1.0f / lam_j;
+  k[kZOld] = z_old_j;
+}
+
+// The sum of v over a group of `lanes` lanes (a power of 2, the group aligned), in every lane of it.
+// Each level adds two partial sums, which commute, so every lane holds the same bits.  The five
+// levels are straight-line code, a level past the group adding 0 (v + 0 is v), so that the compiler
+// can interleave the shuffles with the step's chain: a loop would be a block of its own, waited for.
+__device__ __forceinline__ float group_sum(float v, int lanes) {
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float other = __shfl_xor_sync(0xffffffffu, v, off);
+    v += off < lanes ? other : 0.0f;
+  }
+  return v;
+}
+
 // Per chain c, for j = 0..N-1 in order (samplers/gibbs.py::gibbs_sweep_plain):
-//   w = h_j / max(lambda_j - h_j, 1e-12), std = sqrt(lambda_j (w + 1)), s = +-std by the label,
-//   m = (1 + w) (B . x_j) - w z_old_j, z_j = m + s TN_above(-m / s), B += (z_j - z_old_j) / lambda_j S[c, :, j].
-template <int Dim>
+//   m = (1 + w_j) p_j - w_j z_old_j, z_j = m + s_j TN_above(-m / s_j), delta_j = (z_j - z_old_j) / lambda_j,
+//   B += delta_j S[c, :, j],
+// where p_j = B . x_j, B before step j.  A chain runs on a group of `lanes` lanes of one warp; lane l
+// of the group holds B's entries l, l + lanes, ... (Ent of them; past D they are 0) and every lane of
+// the group runs the step's scalar chain with the same bits.  The dot leaves the chain by looking
+// one step ahead: while step j's chain runs, the group sums R = B_j . x_{j+1} and Q = S[:, j] . x_{j+1}
+// (neither depends on z_j), and after it p_{j+1} = R + delta_j Q, one FMA.  Blocks are one warp.
+// Every input of a step is loaded a step before it is used, and the step constants are computed a
+// step ahead from inputs loaded two steps ahead.  With Prologue (a chain on the whole warp, the block's
+// one chain) the warp instead first writes the chain's step constants of every step into `scratch`,
+// [chain][j][field], 32 steps at once, and a step reads its six from one line.
+template <int Ent, bool Prologue>
 __global__ void __launch_bounds__(kSweepThreads) gibbs_sweep_kernel(
     const float* __restrict__ x, const float* __restrict__ t, const float* __restrict__ lam,
     const float* __restrict__ h, const float* __restrict__ z_old, const float* __restrict__ s,
     const float* __restrict__ b_in, const float* __restrict__ u_central, const float* __restrict__ u_e,
-    const float* __restrict__ u_tail, int num_chains, int num_data, float* __restrict__ b_out,
-    float* __restrict__ z_out) {
-  const int c = blockIdx.x * kSweepThreads + threadIdx.x;
-  if (c >= num_chains) return;
-  const size_t n = num_data, cn = static_cast<size_t>(num_chains);
+    const float* __restrict__ u_tail, int num_chains, int num_data, int dim, int lanes, float* scratch,
+    float* __restrict__ b_out, float* __restrict__ z_out) {
+  const int per_block = kSweepThreads / lanes;
+  const int lane = threadIdx.x % lanes;
+  const int c_first = blockIdx.x * per_block;
+  const int c_group = c_first + static_cast<int>(threadIdx.x) / lanes;
+  const bool owner = c_group < num_chains;  // a group past the last chain runs the last chain, writes nothing
+  const int c = owner ? c_group : num_chains - 1;
+  const size_t n = num_data, cn = num_chains;
+  const size_t round_stride = n * cn;  // between the tail rounds of u_e / u_tail
+  const int last = num_data - 1;
   const float* lam_c = lam + c * n;
   const float* h_c = h + c * n;
   const float* z_old_c = z_old + c * n;
-  const float* s_c = s + c * Dim * n;
-  float* z_c = z_out + c * n;
-  const size_t round_stride = n * cn;  // between the tail rounds of u_e / u_tail
-
-  float b[Dim], x_next[Dim], s_j[Dim];
+  float* k_c = Prologue ? scratch + c * n * kSweepFields : nullptr;  // the chain's constants, [j][field]
+  if constexpr (Prologue) {
+    static_assert(Ent <= (kMaxDim + kSweepThreads - 1) / kSweepThreads, "a chain on a whole warp");
+    for (int j = threadIdx.x; j < num_data; j += kSweepThreads) {
+      float k[kSweepFields];
+      step_constants(__ldg(lam_c + j), __ldg(h_c + j), __ldg(z_old_c + j), __ldg(t + j), k);
 #pragma unroll
-  for (int i = 0; i < Dim; ++i) {
-    b[i] = b_in[c * Dim + i];
-    x_next[i] = __ldg(x + i);
+      for (int f = 0; f < kSweepFields; ++f) k_c[j * kSweepFields + f] = k[f];
+    }
+    __syncwarp();  // orders the warp's writes before its reads (the block is the warp)
   }
-  float lam_next = __ldg(lam_c), h_next = __ldg(h_c), z_old_next = __ldg(z_old_c);
-  float uc_next = __ldg(u_central + c), t_next = __ldg(t);
+  const float* s_c = s + static_cast<size_t>(c) * dim * n;
+  // Entry e of a lane is B's lane + e lanes; Ent = ceil(D / lanes), so only the last can lie past D.
+  const bool last_valid = lane + (Ent - 1) * lanes < dim;
+  auto valid = [&](int e) { return e < Ent - 1 || last_valid; };
+  auto load_s = [&](int j, float (&v)[Ent]) {
+#pragma unroll
+    for (int e = 0; e < Ent; ++e) v[e] = valid(e) ? __ldg(s_c + (lane + e * lanes) * n + j) : 0.0f;
+  };
+  auto load_x = [&](int j, float (&v)[Ent]) {
+#pragma unroll
+    for (int e = 0; e < Ent; ++e) v[e] = valid(e) ? __ldg(x + static_cast<size_t>(j) * dim + lane + e * lanes) : 0.0f;
+  };
+  // The step inputs the constants come from (lambda, h, z_old, t), or the constants themselves.
+  constexpr int kRaw = Prologue ? kSweepFields : 4;
+  auto load_raw = [&](int j, float (&v)[kRaw]) {
+    if constexpr (Prologue) {
+#pragma unroll
+      for (int f = 0; f < kSweepFields; ++f) v[f] = k_c[j * kSweepFields + f];
+    } else {
+      v[0] = __ldg(lam_c + j), v[1] = __ldg(h_c + j), v[2] = __ldg(z_old_c + j), v[3] = __ldg(t + j);
+    }
+  };
+  auto constants = [&](const float (&v)[kRaw], float (&k)[kSweepFields]) {
+    if constexpr (Prologue) {
+#pragma unroll
+      for (int f = 0; f < kSweepFields; ++f) k[f] = v[f];
+    } else {
+      step_constants(v[0], v[1], v[2], v[3], k);
+    }
+  };
+
+  float b[Ent], s_j[Ent], x_next[Ent];
+#pragma unroll
+  for (int e = 0; e < Ent; ++e) b[e] = valid(e) ? b_in[static_cast<size_t>(c) * dim + lane + e * lanes] : 0.0f;
+  load_x(0, x_next);
+  float p = 0.0f;  // p_0 = B_0 . x_0
+#pragma unroll
+  for (int e = 0; e < Ent; ++e) p = fmaf(b[e], x_next[e], p);
+  p = group_sum(p, lanes);
+  float raw[kRaw], k[kSweepFields];
+  load_raw(0, raw);
+  constants(raw, k);
+  load_raw(min(1, last), raw);
+  load_s(0, s_j);
+  load_x(min(1, last), x_next);
+  float uc = __ldg(u_central + c);
 
   for (int j = 0; j < num_data; ++j) {
-    // B . x_j: four partial sums (the D-long dot is on the dependent chain)
-    float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    const int j1 = min(j + 1, last), j2 = min(j + 2, last);
+    // Step j + 1's constants from the inputs loaded last step; its inputs, S[:, j + 1], x_{j + 2} and
+    // its uniform loaded now.  The empty asm keeps the constants' divisions in this step: left to
+    // itself the compiler moves them down to their use, onto the next step's chain.
+    float k_next[kSweepFields];
+    constants(raw, k_next);
 #pragma unroll
-    for (int i = 0; i < Dim; ++i) part[i % 4] = fmaf(b[i], x_next[i], part[i % 4]);
-    const float dot = (part[0] + part[1]) + (part[2] + part[3]);
-    const float lam_j = lam_next, h_j = h_next, z_old_j = z_old_next, uc_j = uc_next, t_j = t_next;
-
-    // What step j+1 starts from, and S[c, :, j] for the end of this step.
-    const int jn = j + 1 < num_data ? j + 1 : j;
+    for (int f = 0; f < kSweepFields; ++f) asm volatile("" : "+f"(k_next[f]));
+    load_raw(j2, raw);
+    float s_next[Ent], x_after[Ent];
+    load_s(j1, s_next);
+    load_x(j2, x_after);
+    const float uc_next = __ldg(u_central + j1 * cn + c);
+    // S's rows one 32-byte sector (8 steps) ahead, once every 8 steps: a prefetch takes as many L1
+    // lookups as the lanes' lines, and one a step made a sweep of many chains wait on them.
+    const bool sector_start = (j & (kRowAhead - 1)) == 0;
 #pragma unroll
-    for (int i = 0; i < Dim; ++i) {
-      x_next[i] = __ldg(x + jn * Dim + i);
-      s_j[i] = __ldg(s_c + i * n + j);
+    for (int e = 0; e < Ent; ++e)
+      if (sector_start && valid(e)) prefetch_l1(s_c + (lane + e * lanes) * n + min(j + kRowAhead, last));
+    prefetch_l2(u_central + min(j + kUniformAhead, last) * cn + c);
+    // Off the chain: R = B_j . x_{j+1} and Q = S[:, j] . x_{j+1} over the group.
+    float r_part = 0.0f, q_part = 0.0f;
+#pragma unroll
+    for (int e = 0; e < Ent; ++e) {
+      r_part = fmaf(b[e], x_next[e], r_part);
+      q_part = fmaf(s_j[e], x_next[e], q_part);
     }
-    lam_next = __ldg(lam_c + jn), h_next = __ldg(h_c + jn), z_old_next = __ldg(z_old_c + jn);
-    uc_next = __ldg(u_central + jn * cn + c), t_next = __ldg(t + jn);
-    if (j + kRowAhead < num_data) {
-      prefetch_l1(lam_c + j + kRowAhead), prefetch_l1(h_c + j + kRowAhead), prefetch_l1(z_old_c + j + kRowAhead);
-#pragma unroll
-      for (int i = 0; i < Dim; ++i) prefetch_l1(s_c + i * n + j + kRowAhead);
-    }
-    if (j + kUniformAhead < num_data) prefetch_l2(u_central + (j + kUniformAhead) * cn + c);
+    const float r_sum = group_sum(r_part, lanes), q_sum = group_sum(q_part, lanes);
 
-    // The step's constants (none of them on B's chain).
-    const float w = h_j / clamp_min(sub(lam_j, h_j), kGapMin);
-    const float sd = sqrtf(mul(lam_j, add(w, 1.0f)));
-    const float signed_sd = t_j == 1.0f ? sd : -sd;
-    const float bound_scale = -(1.0f / signed_sd);
-    const float neg_w_z_old = mul(-w, z_old_j);
-
-    const float m = add(neg_w_z_old, mul(add(1.0f, w), dot));
-    const float z_std = std_truncnorm_above(mul(m, bound_scale), uc_j, u_e + j * cn + c, u_tail + j * cn + c,
+    // The chain.
+    const float m = add(k[kNegWZOld], mul(k[kOnePlusW], p));
+    const float z_std = std_truncnorm_above(mul(m, k[kBoundScale]), uc, u_e + j * cn + c, u_tail + j * cn + c,
                                             round_stride);
-    const float z_j = add(m, mul(signed_sd, z_std));
-    z_c[j] = z_j;
-    const float delta = mul(sub(z_j, z_old_j), 1.0f / lam_j);
+    const float z_j = add(m, mul(k[kSignedSd], z_std));
+    if (owner && lane == 0) z_out[c * n + j] = z_j;
+    const float delta = mul(sub(z_j, k[kZOld]), k[kInvLam]);
 #pragma unroll
-    for (int i = 0; i < Dim; ++i) b[i] = add(b[i], mul(delta, s_j[i]));
+    for (int e = 0; e < Ent; ++e) {
+      b[e] = add(b[e], mul(delta, s_j[e]));
+      s_j[e] = s_next[e];
+      x_next[e] = x_after[e];
+    }
+    p = fmaf(delta, q_sum, r_sum);  // B_{j+1} . x_{j+1}
+#pragma unroll
+    for (int f = 0; f < kSweepFields; ++f) k[f] = k_next[f];
+    uc = uc_next;
   }
+  if (owner) {
 #pragma unroll
-  for (int i = 0; i < Dim; ++i) b_out[c * Dim + i] = b[i];
+    for (int e = 0; e < Ent; ++e)
+      if (valid(e)) b_out[static_cast<size_t>(c) * dim + lane + e * lanes] = b[e];
+  }
 }
 
-// Calls f(std::integral_constant<int, d>) for 1 <= d <= kMaxDim: one instantiation of G1 per width.
-template <int Dim = 1, typename F>
-cudaError_t with_sweep_width(int d, F&& f) {
-  if constexpr (Dim < kMaxDim) {
-    if (d != Dim) return with_sweep_width<Dim + 1>(d, f);
+// Calls f(std::integral_constant<int, e>) for 1 <= e <= kMaxDim: one instantiation of G1 per count of
+// B's entries a lane holds.
+template <int Ent = 1, typename F>
+cudaError_t with_entries(int e, F&& f) {
+  if constexpr (Ent < kMaxDim) {
+    if (e != Ent) return with_entries<Ent + 1>(e, f);
   }
-  return f(std::integral_constant<int, Dim>{});
+  return f(std::integral_constant<int, Ent>{});
 }
+
 
 // -- G2: one GIG rejection round ------------------------------------------------------
 
@@ -325,30 +456,116 @@ __device__ __forceinline__ bool leftmost_accept(float u, float lam, int max_bodi
   return false;
 }
 
-// ops/gig.py::gig_round_plain for one element: a candidate from the round's three
-// draws, accepted where its squeeze series decides to accept and it is finite.
-__global__ void __launch_bounds__(kRoundThreads) gig_round_kernel(
-    const float* __restrict__ r, const float* __restrict__ y0_normal, const float* __restrict__ u_side,
-    const float* __restrict__ u, float* __restrict__ lam, unsigned char* __restrict__ ok, long long count,
-    int max_bodies) {
-  const long long e = blockIdx.x * static_cast<long long>(kRoundThreads) + threadIdx.x;
-  if (e >= count || ok[e]) return;
-  const float r_e = r[e], n_e = y0_normal[e];
+// One rejection round of one element (ops/gig.py::gig_round_plain): a candidate from the round's
+// normal draw and two uniforms, accepted where its squeeze series decides to accept and it is finite.
+__device__ __forceinline__ bool gig_try(float r_e, float n_e, float u_side, float u, int max_bodies, float* cand_out) {
   const float y0 = mul(n_e, n_e);
   const float four_r = mul(4.0f, r_e);
   // y = 4 r y0 / (y0 + sqrt(y0 (y0 + 4r)))^2, the rationalized proposal (no cancellation at small r)
   const float root = add(y0, sqrtf(mul(y0, add(y0, four_r))));
   const float y = mul(four_r, y0) / clamp_min(mul(root, root), kRootSqMin);
   // y0 = 0 gives y = 0 and lambda = r / 0 = inf: rejected below as not finite, redrawn next round.
-  float cand = u_side[e] <= 1.0f / add(1.0f, y) ? r_e / y : mul(r_e, y);
+  float cand = u_side <= 1.0f / add(1.0f, y) ? r_e / y : mul(r_e, y);
   cand = clamp_min(cand, kLamMin);
   bool decided = false;
-  const float u_e = u[e];
-  const bool accepted = cand > kFourThirds ? rightmost_accept(u_e, cand, max_bodies, &decided)
-                                           : leftmost_accept(u_e, cand, max_bodies, &decided);
-  if (decided && accepted && isfinite(cand)) {
+  const bool accepted = cand > kFourThirds ? rightmost_accept(u, cand, max_bodies, &decided)
+                                           : leftmost_accept(u, cand, max_bodies, &decided);
+  *cand_out = cand;
+  return decided && accepted && isfinite(cand);
+}
+
+// One round over given draws (kept to check the round's arithmetic on its own; no Gibbs step calls it).
+__global__ void __launch_bounds__(kRoundThreads) gig_round_kernel(
+    const float* __restrict__ r, const float* __restrict__ y0_normal, const float* __restrict__ u_side,
+    const float* __restrict__ u, float* __restrict__ lam, unsigned char* __restrict__ ok, long long count,
+    int max_bodies) {
+  const long long e = blockIdx.x * static_cast<long long>(kRoundThreads) + threadIdx.x;
+  if (e >= count || ok[e]) return;
+  float cand;
+  if (gig_try(r[e], y0_normal[e], u_side[e], u[e], max_bodies, &cand)) {
     lam[e] = cand;
     ok[e] = 1;
+  }
+}
+
+// -- Philox4x32-10 (Salmon et al. 2011; ops/gig.py::philox4x32) ----------------------------
+
+constexpr unsigned kPhiloxM0 = 0xD2511F53u, kPhiloxM1 = 0xCD9E8D57u;
+constexpr unsigned kPhiloxW0 = 0x9E3779B9u, kPhiloxW1 = 0xBB67AE85u;
+constexpr int kPhiloxRounds = 10;
+constexpr float kTwoPi = static_cast<float>(2.0 * kPi);
+
+__device__ __forceinline__ uint4 philox4x32(uint4 c, unsigned k0, unsigned k1) {
+#pragma unroll
+  for (int i = 0; i < kPhiloxRounds; ++i) {
+    if (i) k0 += kPhiloxW0, k1 += kPhiloxW1;
+    const unsigned hi0 = __umulhi(kPhiloxM0, c.x), lo0 = kPhiloxM0 * c.x;
+    const unsigned hi1 = __umulhi(kPhiloxM1, c.z), lo1 = kPhiloxM1 * c.z;
+    c = make_uint4(hi1 ^ c.y ^ k0, lo1, hi0 ^ c.w ^ k1, lo0);
+  }
+  return c;
+}
+
+// A word's top 23 bits k as (2k + 1) 2^-24: exact, in (0, 1) (ops/gig.py::unit_uniform).
+__device__ __forceinline__ float unit_uniform(unsigned w) {
+  return static_cast<float>(((w >> 9) << 1) | 1u) * 0x1p-24f;
+}
+
+// -- G2: the whole GIG draw ---------------------------------------------------------------
+
+constexpr int kHalfPerLane = 8;  // G2: elements a warp takes, per lane
+
+// lambda ~ GIG(1/2, 1, r^2) for each element (ops/gig.py::sample_gig_half_plain): rounds 0, 1, ... until
+// the first accepted candidate, at most max_rounds, else 1.  Round k's numbers are the Philox words
+// of the counter (global index, k) under the call's key: the normal by Box-Muller from words 0 and 1
+// (sqrt(-2 log u1) cos(2 pi u2), each operation rounded as the plain version's tensor ops), u_side
+// from word 2 and u from word 3.  An element's rounds depend on nothing but its index, so any thread
+// may run them: each warp owns 32 kHalfPerLane consecutive elements, and a lane whose element is
+// decided takes the warp's next one, so the lanes stay busy until the warp's elements run out (a warp
+// running one element a lane would wait on its slowest element's rounds).
+__global__ void __launch_bounds__(kRoundThreads) gig_half_kernel(const float* __restrict__ r,
+                                                                 const long long* __restrict__ key,
+                                                                 long long first_index, long long count,
+                                                                 int max_rounds, int max_bodies,
+                                                                 float* __restrict__ lam) {
+  const unsigned lane = threadIdx.x % 32;
+  const long long warp_first =
+      (blockIdx.x * static_cast<long long>(kRoundThreads) + threadIdx.x) / 32 * (32 * kHalfPerLane);
+  if (warp_first >= count) return;  // the whole warp
+  const long long warp_end = min(warp_first + 32 * kHalfPerLane, count);
+  const unsigned long long k = static_cast<unsigned long long>(__ldg(key));
+  long long next = warp_first + 32;  // the warp's first element no lane has taken (the same in every lane)
+  long long e = warp_first + lane;
+  bool busy = e < warp_end;
+  float r_e = busy ? r[e] : 0.0f;
+  int round = 0;
+  while (__any_sync(0xffffffffu, busy)) {
+    bool done = false;
+    if (busy) {
+      const unsigned long long g = static_cast<unsigned long long>(first_index + e);
+      const uint4 w = philox4x32(make_uint4(static_cast<unsigned>(g), static_cast<unsigned>(g >> 32),
+                                            static_cast<unsigned>(round), 0u),
+                                 static_cast<unsigned>(k), static_cast<unsigned>(k >> 32));
+      const float normal = mul(sqrtf(mul(-2.0f, logf(unit_uniform(w.x)))), cosf(mul(unit_uniform(w.y), kTwoPi)));
+      float cand;
+      if (gig_try(r_e, normal, unit_uniform(w.z), unit_uniform(w.w), max_bodies, &cand)) {
+        lam[e] = cand;
+        done = true;
+      } else if (++round == max_rounds) {
+        lam[e] = 1.0f;
+        done = true;
+      }
+    }
+    const unsigned finished = __ballot_sync(0xffffffffu, done);
+    if (finished) {  // the same in every lane: the decided lanes take the next elements in lane order
+      if (done) {
+        e = next + __popc(finished & ((1u << lane) - 1u));
+        busy = e < warp_end;
+        round = 0;
+        if (busy) r_e = r[e];
+      }
+      next += __popc(finished);
+    }
   }
 }
 
@@ -356,22 +573,53 @@ __global__ void __launch_bounds__(kRoundThreads) gig_round_kernel(
 
 // B (C, D) and z (C, N) after the sweep.  x (N, D); t (N,) labels; lambda, h,
 // z_old (C, N); s (C, D, N); b_in (C, D); u_central (N, C); u_e, u_tail (3, N, C).
+// lanes: 1, 2, 4, 8, 16 or 32 lanes a chain; on 32, the step constants come from the warp's prologue.
+// scratch: the floats that rhmc_gibbs_sweep_scratch_floats names, written and read by this launch alone.
 extern "C" int rhmc_gibbs_sweep(const void* x, const void* t, const void* lam, const void* h, const void* z_old,
                                 const void* s, const void* b_in, const void* u_central, const void* u_e,
-                                const void* u_tail, int num_chains, int num_data, int dim, void* b_out, void* z_out,
-                                void* stream) {
+                                const void* u_tail, int num_chains, int num_data, int dim, int lanes, void* scratch,
+                                void* b_out, void* z_out, void* stream) {
   if (num_chains < 1 || num_data < 1 || dim < 1 || dim > kMaxDim) return cudaErrorInvalidValue;
+  if (lanes < 1 || lanes > kSweepThreads || (lanes & (lanes - 1)) != 0) return cudaErrorInvalidValue;
+  const int ent = (dim + lanes - 1) / lanes;
   const auto f = [](const void* p) { return static_cast<const float*>(p); };
   auto* st = static_cast<cudaStream_t>(stream);
+  auto* k = static_cast<float*>(scratch);
   auto* bo = static_cast<float*>(b_out);
   auto* zo = static_cast<float*>(z_out);
-  const int blocks = (num_chains + kSweepThreads - 1) / kSweepThreads;
-  return with_sweep_width(dim, [&](auto width) {
-    gibbs_sweep_kernel<decltype(width)::value><<<blocks, kSweepThreads, 0, st>>>(
-        f(x), f(t), f(lam), f(h), f(z_old), f(s), f(b_in), f(u_central), f(u_e), f(u_tail), num_chains, num_data, bo,
-        zo);
-    return cudaGetLastError();
+  const int per_block = kSweepThreads / lanes;
+  const int blocks = (num_chains + per_block - 1) / per_block;
+  return with_entries(ent, [&](auto entries) {
+    constexpr int E = decltype(entries)::value;
+    const auto launch = [&](auto kernel) {
+      kernel<<<blocks, kSweepThreads, 0, st>>>(f(x), f(t), f(lam), f(h), f(z_old), f(s), f(b_in), f(u_central),
+                                               f(u_e), f(u_tail), num_chains, num_data, dim, lanes, k, bo, zo);
+      return cudaGetLastError();
+    };
+    if constexpr (E <= (kMaxDim + kSweepThreads - 1) / kSweepThreads) {
+      if (lanes == kSweepThreads) return launch(gibbs_sweep_kernel<E, true>);
+    }
+    return launch(gibbs_sweep_kernel<E, false>);
   });
+}
+
+// The floats of G1's scratch for a launch on `lanes` lanes a chain: on 32, every chain's step constants.
+extern "C" long long rhmc_gibbs_sweep_scratch_floats(int num_chains, int num_data, int lanes) {
+  if (num_chains < 1 || num_data < 1 || lanes < 1 || lanes > kSweepThreads) return -1;
+  return lanes == kSweepThreads ? static_cast<long long>(kSweepFields) * num_data * num_chains : 0;
+}
+
+// lambda for `count` elements of r, their global indices first_index, first_index + 1, ...; key one int64.
+extern "C" int rhmc_gig_half(const void* r, const void* key, long long first_index, long long count, int max_rounds,
+                             int max_bodies, void* lam, void* stream) {
+  if (count < 1 || max_rounds < 1 || max_bodies < 1 || first_index < 0) return cudaErrorInvalidValue;
+  constexpr long long per_block = static_cast<long long>(kRoundThreads) * kHalfPerLane;
+  const long long blocks = (count + per_block - 1) / per_block;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  gig_half_kernel<<<static_cast<unsigned>(blocks), kRoundThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(r), static_cast<const long long*>(key), first_index, count, max_rounds, max_bodies,
+      static_cast<float*>(lam));
+  return cudaGetLastError();
 }
 
 // One rejection round over `count` elements: lambda and ok (bool, one byte) updated in place.

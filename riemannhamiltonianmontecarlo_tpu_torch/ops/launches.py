@@ -23,9 +23,9 @@ import torch
 from torch import Tensor
 
 # The counted kernels: ops.hopper_linalg's K1 and K2, ops.fhn_sens's kernel by order, the Gibbs sweep
-# (samplers.gibbs) and one GIG rejection round (ops.gig).
+# (samplers.gibbs), the whole GIG draw and one GIG rejection round from given draws (ops.gig).
 NAMES = ("cholesky", "chol_solve_logdet", "fhn_sensitivities/0", "fhn_sensitivities/1", "fhn_sensitivities/2",
-         "gibbs_sweep", "gig_round")
+         "gibbs_sweep", "gig_half", "gig_round")
 _SLOT = {name: i for i, name in enumerate(NAMES)}
 _COUNTS: dict[torch.device, Tensor] = {}
 _PAUSED = [0]

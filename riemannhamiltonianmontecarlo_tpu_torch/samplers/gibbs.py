@@ -10,24 +10,25 @@ same contract (``code/gibbs_sampler.py:73-139`` / MATLAB
 * a sequential sweep over the N data points updating z_j from its full
   conditional and B by a rank-one correction -- a true serial dependency
   (``sweep``): on a CUDA batch one launch of the hand-written kernel G1
-  (``csrc/gibbs.cu``, one thread per chain walking the N steps with B in
-  registers), on a CPU batch its plain version ``gibbs_sweep_plain``, a
-  Python loop over j with all chains in lockstep;
+  (``csrc/gibbs.cu``, a chain on a group of lanes of one warp walking the
+  N steps with B in their registers), on a CPU batch its plain version
+  ``gibbs_sweep_plain``, a Python loop over j with all chains in lockstep;
 * beta = B + L T, T ~ N(0, I);
-* mixing weights lambda_j ~ GIG(1/2, 1, r_j^2) by batched rejection
-  (``ops/gig.py``: a fixed 64 rounds, each one launch of kernel G2 on CUDA).
+* mixing weights lambda_j ~ GIG(1/2, 1, r_j^2) by rejection (``ops/gig.py``:
+  on CUDA one launch of kernel G2, each element running its own rounds
+  from a counter-based generator keyed by one draw).
 
 ``init`` sets z to the truncated normal's mean (+-sqrt(2/pi)) and lambda
 to 1, as the JAX package does.
 
 The randomness: ``transition(state, noise)`` takes every uniform of the
 sweep, predrawn as (N, C) tensors in one call, and beta's normal draw; the
-GIG rounds draw from ``noise.gig`` (``ops.gig.GigDraws``: a generator, and
-under a chain split this rank's rows), because 64 predrawn rounds at (C, N)
-would not fit.  ``draw_noise`` reads the state's shapes
-(``Kernel.noise_from_state``).  A step reads nothing on the device, so on a
-card the runner replays it as a CUDA graph (``Kernel.capturable``): K1 twice
-(inside ``ops.inv_psd`` and for chol(V)), G1 once and G2 64 times a step.
+GIG draws its key from ``noise.gig`` (``ops.gig.GigDraws``: a generator, and
+under a chain split this rank's rows).  ``draw_noise`` reads the state's
+shapes (``Kernel.noise_from_state``).  A step reads nothing on the device,
+so on a card the runner replays it as a CUDA graph (``Kernel.capturable``):
+K1 twice (inside ``ops.inv_psd`` and for chol(V)), G1 once and G2 once a
+step.
 """
 
 from __future__ import annotations
@@ -63,7 +64,7 @@ class GibbsState(NamedTuple):
 class GibbsNoise(NamedTuple):
     sweep: truncnorm.TruncNormNoise  # (N, C) raw uniforms of the z_j draws, j-major
     beta: Tensor  # (C, D) N(0, 1): beta = B + chol(V) @ beta
-    gig: torch.Generator | gig_mod.GigDraws  # the GIG rejection rounds draw from it
+    gig: torch.Generator | gig_mod.GigDraws  # the GIG draws its key from it
 
 
 class Conditionals(NamedTuple):
@@ -135,21 +136,49 @@ def gibbs_sweep_plain(x: Tensor, t: Tensor, lam: Tensor, h: Tensor, z_old: Tenso
     return b, torch.stack(z_new, dim=1)
 
 
+SWEEP_THREADS = 32  # csrc/gibbs.cu::kSweepThreads: G1's blocks are one warp
+SWEEP_FIELDS = 6  # csrc/gibbs.cu::kSweepFields: the step constants G1's prologue writes per chain and step
+SWEEP_LANES = (1, 2, 4, 8, 16, 32)  # the lanes a chain may take in G1
+SWEEP_WARPS_PER_SM = 8  # two a scheduler: as many lanes a chain as keep G1's warps within this
+H100_SMS = 132
+
+
+def sweep_lanes(num_chains: int, sm_count: int = H100_SMS) -> int:
+    """The lanes of a warp that G1 gives each chain: the most (up to a warp) that keep the launch
+    within SWEEP_WARPS_PER_SM warps an SM, two a scheduler; at least one.  On an H100 (132 SMs):
+    32 up to 1,056 chains, 8 up to 4,224, 4 up to 8,448 (kernel_ab.py --kernels gibbs, PERF.md)."""
+    budget = SWEEP_WARPS_PER_SM * sm_count * SWEEP_THREADS  # lanes x chains
+    lanes = SWEEP_THREADS
+    while lanes > 1 and lanes * num_chains > budget:
+        lanes //= 2
+    return lanes
+
+
+def sweep_scratch_numel(num_chains: int, num_data: int, lanes: int) -> int:
+    """Floats of G1's scratch (csrc/gibbs.cu::rhmc_gibbs_sweep_scratch_floats): on a whole warp a
+    chain, every chain's step constants; else none."""
+    return SWEEP_FIELDS * num_data * num_chains if lanes == SWEEP_THREADS else 0
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load_library()
-    lib.rhmc_gibbs_sweep.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3
+    ptr = ctypes.c_void_p
+    lib.rhmc_gibbs_sweep.argtypes = [ptr] * 10 + [ctypes.c_int] * 4 + [ptr] * 4
     lib.rhmc_gibbs_sweep.restype = ctypes.c_int
+    lib.rhmc_gibbs_sweep_scratch_floats.argtypes = [ctypes.c_int] * 3
+    lib.rhmc_gibbs_sweep_scratch_floats.restype = ctypes.c_longlong
     return lib
 
 
 def gibbs_sweep_cuda(x: Tensor, t: Tensor, lam: Tensor, h: Tensor, z_old: Tensor, s: Tensor, b: Tensor,
-                     noise: truncnorm.TruncNormNoise) -> tuple[Tensor, Tensor]:
+                     noise: truncnorm.TruncNormNoise, *, lanes: int | None = None) -> tuple[Tensor, Tensor]:
     """Kernel G1 on the card: the arguments of ``gibbs_sweep_plain``, float32
-    on one CUDA device, D <= 48 (one instantiation of the kernel per D).
-    Returns (B (C, D), z (C, N)), new tensors.  An operand that is not
-    contiguous (a rank's columns of the (N, C) uniforms under a chain split)
-    is copied once."""
+    on one CUDA device, D <= 48.  Returns (B (C, D), z (C, N)), new tensors.
+    An operand that is not contiguous (a rank's columns of the (N, C)
+    uniforms under a chain split) is copied once.  ``lanes`` (default
+    ``sweep_lanes`` for the device) is for checking and timing the
+    kernel's layouts against each other."""
     n, d = x.shape
     c = lam.shape[0]
     if not 1 <= d <= MAX_DIM:
@@ -165,12 +194,17 @@ def gibbs_sweep_cuda(x: Tensor, t: Tensor, lam: Tensor, h: Tensor, z_old: Tensor
             raise TypeError(f"gibbs_sweep: the CUDA kernel takes float32, got {name} as {tensor.dtype}")
         if tuple(tensor.shape) != shape:
             raise ValueError(f"gibbs_sweep: {name} has shape {tuple(tensor.shape)}, expected {shape}")
+    if lanes is None:
+        lanes = sweep_lanes(c, torch.cuda.get_device_properties(x.device).multi_processor_count)
+    if lanes not in SWEEP_LANES:
+        raise ValueError(f"gibbs_sweep: {lanes} lanes a chain; the kernel takes {SWEEP_LANES}")
     ins = [tensor.contiguous() for tensor, _ in shapes.values()]  # themselves unless the caller's are strided
     b_out, z = torch.empty_like(ins[6]), torch.empty_like(ins[2])
+    scratch = torch.empty(sweep_scratch_numel(c, n, lanes), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _lib().rhmc_gibbs_sweep(*(tensor.data_ptr() for tensor in ins), c, n, d, b_out.data_ptr(),
-                                      z.data_ptr(), stream)
+        err = _lib().rhmc_gibbs_sweep(*(tensor.data_ptr() for tensor in ins), c, n, d, lanes, scratch.data_ptr(),
+                                      b_out.data_ptr(), z.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"gibbs_sweep kernel launch failed with CUDA error {err}")
     launches.count("gibbs_sweep", x.device)

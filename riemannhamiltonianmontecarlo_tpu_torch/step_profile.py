@@ -7,7 +7,7 @@ number of kernel launches and the share of device time in GEMMs (kernel
 names with gemm / cutlass / xmma) and in the library factorizations
 (potrf / trsm; the trsm part also on its own) and, for FitzHugh-Nagumo,
 in the sensitivity kernel (``fhn_sensitivities_kernel``), for BLR Gibbs in
-its sweep kernel G1, its GIG round kernel G2 and the random draws (kernel
+its sweep kernel G1, its GIG kernel G2 and PyTorch's random draws (kernel
 names with ``distribution``), and the peak of allocated device memory.  The idle share is 1 - busy / wall.  For StochVol
 (rmhmc, hmc and mmala, which run the bidiagonal Cholesky scan
 ``ops.tridiag.cholesky`` once a sweep) it also gives the scan's device time
@@ -59,7 +59,7 @@ GEMM = re.compile(r"gemm|cutlass|xmma|gemv", re.IGNORECASE)
 FACTOR = re.compile(r"potrf|trsm|chol", re.IGNORECASE)
 TRSM = re.compile(r"trsm", re.IGNORECASE)  # the triangular solves' part of FACTOR
 FHN = re.compile(r"fhn_sensitivities")
-GIBBS = {"gibbs_sweep_kernel": re.compile(r"gibbs_sweep_kernel"), "gig_round_kernel": re.compile(r"gig_round_kernel"),
+GIBBS = {"gibbs_sweep_kernel": re.compile(r"gibbs_sweep_kernel"), "gig_half_kernel": re.compile(r"gig_half_kernel"),
          "draws": re.compile(r"distribution")}
 
 

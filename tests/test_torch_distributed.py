@@ -18,7 +18,7 @@ The parent holds them against the JAX package and the single-process port:
   the gathered Sigma^{-1}) on replayed JAX draws, the JAX steps on the
   unsharded model (``test_torch_lgc.py``'s checks);
 * chain axis, k = 2: HMC, RMHMC, AMH (coordinate-major noise), Gibbs (its
-  fixed GIG rounds drawing every chain's candidates), StochVol RMHMC and
+  GIG's Philox counters indexed by the global element), StochVol RMHMC and
   joint LGC mMALA (noise drawn from the state), 20 steps: each rank's samples
   bit for bit one process running its half of the chains, no sampler agreeing
   a flag over the ranks (no MIN all-reduce), the ranks' samples together
@@ -451,7 +451,7 @@ def test_torch_chain_axis_matches_single_process(chain_ranks, name):
     assert r0[f"{name}_samples"].shape == (CHAIN_C // 2, CHAIN_STEPS, init.shape[1])
     for rank in (r0, r1):  # bit for bit one process running the rank's half
         np.testing.assert_array_equal(rank[f"{name}_samples"], rank[f"{name}_half"])
-    assert int(r0[f"{name}_flags"]) == 0  # no sampler agrees a flag over the ranks: Gibbs's GIG rounds are fixed
+    assert int(r0[f"{name}_flags"]) == 0  # no sampler agrees a flag over the ranks: Gibbs's GIG exits per element
     np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)
     np.testing.assert_array_equal(moved(got), moved(ref))
     for key in ("accept", "warm_accept", "div", "rhat"):
@@ -553,7 +553,7 @@ def test_torch_chain_sliced_step_is_rows_of_the_whole_step(name):
     """Rank i of a 2-rank chain axis: its sliced step on rows 3i:3i+3 gives
     those rows of the step of all 6 chains, from the same generator: AMH's
     and the Gibbs sweep's coordinate-major noise sliced along its chain axis,
-    Gibbs's GIG rounds drawing every chain's candidates, the two-block
+    Gibbs's GIG counters indexed by the global element, the two-block
     samplers' noise drawn from a view of the state."""
     kernel = sliced_kernels()[name]
     dim = 2 if name.endswith("_joint") else {"blr": 4, "lgc": 16, "fhn": 3, "stochvol": 3}[name.split("/")[0]]

@@ -4,7 +4,7 @@
   splits (central and tail paths, both signs): rtol 1e-4 / atol 1e-4, the
   float32 ``ndtr`` / ``ndtri`` of two libraries.
 * ``sample_gig_half`` is a data-dependent rejection loop with its own
-  stream, so it is compared in distribution: a two-sample KS test
+  stream (Philox words, not JAX's), so it is compared in distribution: a two-sample KS test
   (p > 1e-3) and the first two moments within 5 standard errors, at
   r^2 in {1e-4, 1, 25}.
 * One Gibbs step's deterministic part given the replayed sweep and beta
@@ -26,7 +26,7 @@ import riemannhamiltonianmontecarlo_tpu_torch as rt
 from riemannhamiltonianmontecarlo_tpu.ops.gig import sample_gig_half as jax_gig
 from riemannhamiltonianmontecarlo_tpu.ops.truncnorm import truncated_normal_onesided as jax_truncnorm
 from riemannhamiltonianmontecarlo_tpu_torch import interop
-from riemannhamiltonianmontecarlo_tpu_torch.ops import truncnorm
+from riemannhamiltonianmontecarlo_tpu_torch.ops import gig, truncnorm
 from riemannhamiltonianmontecarlo_tpu_torch.ops.gig import sample_gig_half
 from riemannhamiltonianmontecarlo_tpu_torch.samplers import gibbs
 
@@ -81,17 +81,22 @@ def test_torch_gig_matches_jax_in_distribution(r2):
 
 
 def test_torch_gig_zero_normal_draw_is_redrawn(monkeypatch):
-    """torch.randn can return exactly 0 (jax.random.normal cannot): y0 = 0
-    makes the candidate r / 0 = inf, which must be redrawn, not accepted."""
-    randn = torch.randn
+    """A normal draw of exactly 0 (jax.random.normal cannot return one)
+    makes the candidate r / 0 = inf, which must be redrawn, not accepted:
+    the Box-Muller transform patched to give 0 to a quarter of each round's
+    elements, one process's rounds never give an infinite lambda."""
+    transform = gig.box_muller
+    zeroed = []
 
-    def zero_first(*args, **kwargs):
-        out = randn(*args, **kwargs)
-        out[:64] = 0.0
+    def zero_some(u1, u2):
+        out = transform(u1, u2)
+        out[..., ::4] = 0.0
+        zeroed.append(out.shape[-1])
         return out
 
-    monkeypatch.setattr(torch, "randn", zero_first)
+    monkeypatch.setattr(gig, "box_muller", zero_some)
     lam = sample_gig_half(torch.Generator().manual_seed(3), torch.full((256,), 1.0))
+    assert zeroed and zeroed[0] == 256  # the patch was applied to the first round's draws
     assert torch.isfinite(lam).all() and (lam > 0).all()
 
 

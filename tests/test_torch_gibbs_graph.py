@@ -1,19 +1,23 @@
 """Port: the Gibbs step as a fixed sequence of launches, on the CPU.
 
 On a card a Gibbs step is K1 twice, the sweep kernel G1 once and the GIG
-round kernel G2 ``max_rejection_rounds`` times, with no read of the device,
-so the runner replays it as a CUDA graph.  Here the kernels' plain versions
-run, and these tests hold what makes that so:
+kernel G2 once, with no read of the device, so the runner replays it as a
+CUDA graph.  Here the kernels' plain versions run, and these tests hold
+what makes that so:
 
-* ``sample_gig_half`` runs exactly ``max_rejection_rounds`` rounds of three
-  draws (the generator's state afterwards is that of one that drew them) and
-  returns, bit for bit, the ``lam`` of the early-exit loop it replaced
-  (``parent_sample_gig_half`` below, a copy kept as the reference) from the
-  same generator state, at r^2 in {1e-4, 1, 25} and on a mixed batch;
+* Philox4x32-10, the GIG's counter-based generator, gives Random123's
+  known answers;
+* ``sample_gig_half`` draws exactly one key from the generator and returns,
+  bit for bit, the ``lam`` of the early-exit loop that the port ran before
+  (``parent_sample_gig_half`` below, a copy kept as the reference) fed the
+  same counter draws, at r^2 in {1e-4, 1, 25} and on a mixed batch; the
+  rows of a chain split are one process's rows, bit for bit;
 * ``gig_round_plain`` is one round of that loop, in place: elements already
   accepted keep their lambda;
 * ``gibbs.sweep`` on the CPU is ``gibbs_sweep_plain`` (held against the
-  JAX package's sweep in ``tests/test_torch_gibbs.py``);
+  JAX package's sweep in ``tests/test_torch_gibbs.py``), and G1's
+  look-ahead algebra (p_{j+1} = B_j x_{j+1} + delta_j S_j x_{j+1}) in
+  float64 is the plain sweep;
 * one Gibbs step (and its monitored kernel's) reads nothing on the host:
   ``Tensor.__bool__``, ``.item`` and ``.tolist`` patched to raise (the
   parent's loop does raise under the patch);
@@ -33,6 +37,7 @@ import torch
 import riemannhamiltonianmontecarlo_tpu_torch as rt
 from riemannhamiltonianmontecarlo_tpu_torch.ops import gig, truncnorm
 from riemannhamiltonianmontecarlo_tpu_torch.samplers import gibbs
+from riemannhamiltonianmontecarlo_tpu_torch.samplers.base import ChainRows
 
 torch.set_num_threads(1)
 
@@ -89,20 +94,30 @@ def _parent_leftmost(u, lam, active, max_bodies):
     return _parent_run_squeeze(body, u, active, max_bodies)
 
 
-def parent_sample_gig_half(generator, r2, max_rejection_rounds=64, max_series_bodies=32):
+def counter_draws(key: int, shape):
+    """Round k's normal, u_side and u of every element: the Philox words of
+    (flat index, k) under ``key``, as ``sample_gig_half`` draws them."""
+    index = torch.arange(math.prod(shape))
+
+    def draw(k):
+        return [d[0].reshape(shape) for d in gig.round_draws(torch.tensor(key), index, torch.tensor([k]))]
+
+    return draw
+
+
+def parent_sample_gig_half(draw, r2, max_rejection_rounds=64, max_series_bodies=32):
+    """The port's early-exit GIG loop before its kernel, fed round k's draws by ``draw(k)``."""
     r = torch.sqrt(torch.clamp(r2, min=1e-16))
-    kw = dict(generator=generator, dtype=r.dtype, device=r.device)
     lam = torch.ones_like(r)
     ok = torch.zeros(r.shape, dtype=torch.bool)
     tries = 0
     while tries < max_rejection_rounds:
         for _ in range(min(4, max_rejection_rounds - tries)):
-            y0 = torch.randn(r.shape, **kw) ** 2
+            normal, u_side, u = draw(tries)
+            y0 = normal**2
             root = y0 + torch.sqrt(y0 * (y0 + 4.0 * r))
             y = 4.0 * r * y0 / torch.clamp(root * root, min=1e-30)
-            u_side = torch.rand(r.shape, **kw)
             lam_cand = torch.clamp(torch.where(u_side <= 1.0 / (1.0 + y), r / y, r * y), min=1e-12)
-            u = torch.rand(r.shape, **kw)
             right = lam_cand > 4.0 / 3.0
             dec_r, acc_r = _parent_rightmost(u, lam_cand, ~ok & right, max_series_bodies)
             dec_l, acc_l = _parent_leftmost(u, lam_cand, ~ok & ~right, max_series_bodies)
@@ -125,28 +140,76 @@ def r2_batch(case: str) -> torch.Tensor:
 R2_CASES = ["1e-4", "1.0", "25.0", "mixed"]
 
 
+def call_key(seed: int) -> int:
+    """The key ``sample_gig_half`` draws from a generator seeded with ``seed``."""
+    return int(torch.randint(*gig.KEY_RANGE, (1,), generator=torch.Generator().manual_seed(seed)))
+
+
+# Random123's known answers for philox4x32-10: key (k0, k1), counter (c0..c3) -> the four output words.
+PHILOX_KAT = [
+    ((0x0, 0x0), (0x0, 0x0, 0x0, 0x0), (0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8)),
+    ((0xFFFFFFFF,) * 2, (0xFFFFFFFF,) * 4, (0x408F276D, 0x41C83B0E, 0xA20BC7C6, 0x6D5451FD)),
+    ((0xA4093822, 0x299F31D0), (0x243F6A88, 0x85A308D3, 0x13198A2E, 0x03707344),
+     (0xD16CFE09, 0x94FDCCEB, 0x5001E420, 0x24126EA1)),
+]
+
+
+@pytest.mark.parametrize("key, counter, want", PHILOX_KAT, ids=["zeros", "ones", "pi"])
+def test_torch_gig_philox_known_answers(key, counter, want):
+    words = gig.philox4x32(tuple(torch.tensor([c]) for c in counter), tuple(torch.tensor(k) for k in key))
+    assert [int(w) for w in words] == list(want)
+    assert all(w.dtype == torch.int64 for w in words)
+
+
+def test_torch_gig_uniforms_and_normal_of_the_words():
+    """A word's top 23 bits k give (2k + 1) 2^-24 exactly, never 0 or 1; the
+    draws of a round are Box-Muller's normal of words 0 and 1 and the
+    uniforms of words 2 and 3."""
+    words = torch.tensor([0, 511, 512, 0xFFFFFFFF, 0x80000000])
+    u = gig.unit_uniform(words)
+    assert u.dtype == torch.float32
+    assert u.tolist() == [2.0**-24, 2.0**-24, 3 * 2.0**-24, 1.0 - 2.0**-24, 0.5 + 2.0**-24]
+    key, index, rounds = torch.tensor(-12345678901), torch.tensor([0, 7, 2**33 + 5]), torch.tensor([0, 3])
+    normal, u_side, u_acc = gig.round_draws(key, index, rounds)
+    w = gig.philox4x32((index & 0xFFFFFFFF, index >> 32, rounds[:, None], torch.zeros_like(index)),
+                       (key & 0xFFFFFFFF, (key >> 32) & 0xFFFFFFFF))
+    assert torch.equal(normal, gig.box_muller(gig.unit_uniform(w[0]), gig.unit_uniform(w[1])))
+    assert torch.equal(u_side, gig.unit_uniform(w[2])) and torch.equal(u_acc, gig.unit_uniform(w[3]))
+    assert normal.shape == (2, 3) and not torch.equal(normal[0], normal[1])
+
+
 @pytest.mark.parametrize("case", R2_CASES)
 def test_torch_gig_fixed_rounds_return_the_early_exit_loops_lambda(case):
     r2 = r2_batch(case)
     fixed = gig.sample_gig_half(torch.Generator().manual_seed(7), r2)
-    early = parent_sample_gig_half(torch.Generator().manual_seed(7), r2)
+    early = parent_sample_gig_half(counter_draws(call_key(7), r2.shape), r2)
     assert torch.isfinite(fixed).all() and (fixed > 0).all()
     assert torch.equal(fixed, early)
 
 
 def test_torch_gig_fixed_rounds_draw_exactly_the_cap():
-    """64 rounds of randn, rand, rand at r2's shape, whatever was decided
-    (every element is accepted within the first rounds here)."""
+    """A call draws exactly one key from the generator, whatever was decided
+    and however many rounds its elements ran (up to 21 here)."""
     r2 = r2_batch("mixed")
     gen = torch.Generator().manual_seed(3)
     gig.sample_gig_half(gen, r2, max_rejection_rounds=64)
     ref = torch.Generator().manual_seed(3)
-    for _ in range(64):
-        torch.randn(r2.shape, generator=ref), torch.rand(r2.shape, generator=ref), torch.rand(r2.shape, generator=ref)
+    torch.randint(*gig.KEY_RANGE, (1,), generator=ref)
     assert torch.equal(gen.get_state(), ref.get_state())
-    early = torch.Generator().manual_seed(3)
-    parent_sample_gig_half(early, r2)
-    assert not torch.equal(early.get_state(), ref.get_state())  # the early exit drew fewer
+    ran = gig.gig_half_plain_rounds(torch.sqrt(r2), torch.tensor([call_key(3)]))[1]
+    assert int(ran.min()) == 1 and int(ran.max()) > 8  # elements ran different numbers of rounds
+
+
+def test_torch_gig_rank_rows_are_one_process_rows():
+    """Under a chain split a rank's rows of lambda are, bit for bit, those
+    rows of one process's call from the same generator state."""
+    r2 = r2_batch("mixed")
+    whole = gig.sample_gig_half(torch.Generator().manual_seed(9), r2)
+    for lo, hi in ((0, 11), (11, 32), (5, 6)):
+        rows = ChainRows(lo, hi, r2.shape[0])
+        part = gig.sample_gig_half(gig.GigDraws(torch.Generator().manual_seed(9), rows), r2[lo:hi])
+        assert torch.equal(part, whole[lo:hi])
+    assert not torch.equal(gig.sample_gig_half(torch.Generator().manual_seed(9), r2[11:32]), whole[11:32])
 
 
 def test_torch_gig_round_plain_updates_in_place_and_keeps_the_accepted():
@@ -155,7 +218,7 @@ def test_torch_gig_round_plain_updates_in_place_and_keeps_the_accepted():
     draws = [torch.randn(r.shape, generator=gen), torch.rand(r.shape, generator=gen), torch.rand(r.shape, generator=gen)]
     lam, ok = torch.ones_like(r), torch.zeros(r.shape, dtype=torch.bool)
     lam_ptr, ok_ptr = lam.data_ptr(), ok.data_ptr()
-    gig.gig_round(r, *draws, lam, ok)
+    gig.gig_round_plain(r, *draws, lam, ok)
     assert lam.data_ptr() == lam_ptr and ok.data_ptr() == ok_ptr
     assert 0 < int(ok.sum()) < ok.numel()  # some accepted, some not, in one round
     assert torch.equal(lam[~ok], torch.ones_like(lam[~ok]))
@@ -165,12 +228,14 @@ def test_torch_gig_round_plain_updates_in_place_and_keeps_the_accepted():
     assert torch.equal(lam[kept_ok], kept_lam[kept_ok]) and bool(ok[kept_ok].all())
 
 
-@pytest.mark.parametrize("wrapper", ["gig_round_cuda", "gibbs_sweep_cuda"])
+@pytest.mark.parametrize("wrapper", ["gig_round_cuda", "gibbs_sweep_cuda", "sample_gig_half_cuda"])
 def test_torch_gibbs_kernel_wrappers_refuse_cpu_tensors(wrapper):
     r = torch.ones((4, 6))
     with pytest.raises(ValueError, match="CUDA"):
         if wrapper == "gig_round_cuda":
             gig.gig_round_cuda(r, r, r, r, r.clone(), torch.zeros(r.shape, dtype=torch.bool))
+        elif wrapper == "sample_gig_half_cuda":
+            gig.sample_gig_half_cuda(r, torch.zeros(1, dtype=torch.int64))
         else:
             c, n, d = 4, 6, 3
             noise = truncnorm.draw_noise(torch.Generator().manual_seed(0), (n, c))
@@ -222,7 +287,7 @@ def test_torch_gibbs_step_reads_nothing_on_the_host(gibbs_setup, monitored, requ
         request.getfixturevalue("no_host_reads")
         out, info = kernel.step(torch.Generator().manual_seed(4), start)
         with pytest.raises(RuntimeError, match="read the device"):  # the patch bites: the parent's loop is caught
-            parent_sample_gig_half(torch.Generator().manual_seed(0), torch.ones(4))
+            parent_sample_gig_half(counter_draws(0, (4,)), torch.ones(4))
     out_state = out.inner if monitored else out
     assert out_state.z.shape == state.z.shape and out_state.lam.shape == state.lam.shape
     assert np.isfinite(out_state.position.numpy()).all() and np.isfinite(out_state.lam.numpy()).all()
@@ -252,3 +317,69 @@ def test_torch_gibbs_sweep_kernel_takes_widths_1_to_48(dim):
         call(dim)
     with pytest.raises(ValueError, match="CUDA device"):
         call(48)
+
+
+def lookahead_sweep(x, t, lam, h, z_old, s, b, noise, lanes):
+    """G1's algorithm (csrc/gibbs.cu::gibbs_sweep_kernel) in float64: lane l of
+    a chain's group holds B's entries l, l + lanes, ...; with p_0 = B_0 x_0,
+    step j's chain reads p_j, while the group sums R = B_j x_{j+1} and
+    Q = S[:, j] x_{j+1} over its lanes' partial sums; then
+    p_{j+1} = R + delta_j Q and B += delta_j S[:, j]."""
+    n, d = x.shape
+    owner = [list(range(lane, d, lanes)) for lane in range(lanes)]  # the entries of each lane
+    w = h / torch.clamp(lam - h, min=1e-12)
+    sd = torch.sqrt(lam * (w + 1.0))
+    signed = torch.where(t == 1.0, sd, -sd)
+    terms = truncnorm.prepare(noise)
+    b = b.clone()
+
+    def group_dot(u, j_next):  # each lane's partial sum over its entries, then the group's sum
+        return sum((u[:, e] * x[j_next, e]).sum(dim=1) for e in owner)
+
+    p = group_dot(b, 0)
+    z = torch.empty_like(z_old)
+    for j in range(n):
+        jn = min(j + 1, n - 1)
+        r_sum, q_sum = group_dot(b, jn), group_dot(s[:, :, j], jn)
+        m = (1.0 + w[:, j]) * p - w[:, j] * z_old[:, j]
+        a = -m / signed[:, j]
+        z_std = truncnorm.std_truncnorm_above(a, truncnorm.TailTerms(*(u[..., j, :] for u in terms)))
+        z[:, j] = m + signed[:, j] * z_std
+        delta = (z[:, j] - z_old[:, j]) / lam[:, j]
+        b = b + delta[:, None] * s[:, :, j]
+        p = r_sum + delta * q_sum
+    return b, z
+
+
+@pytest.mark.parametrize("lanes", [1, 4, 8])
+def test_torch_gibbs_sweep_lookahead_algebra_is_the_sweep(gibbs_setup, lanes):
+    """The look-ahead dot of G1, in float64, gives the plain sweep's B and z
+    (float64) to 1e-9: the reordering changes only the rounding."""
+    model, _, state = gibbs_setup
+    c, n = state.z.shape
+    state64 = gibbs.GibbsState(*(a.double() for a in state))
+    with torch.inference_mode():
+        cond = gibbs.conditionals(model, state)
+        noise = truncnorm.draw_noise(torch.Generator().manual_seed(6), (n, c), dtype=torch.float64)
+        x, t = model.X.double(), model.t.double()
+        args = (x, t, state64.lam, cond.h.double(), state64.z, cond.s.double(), cond.b.double(), noise)
+        bp, zp = gibbs.gibbs_sweep_plain(*args)
+        bl, zl = lookahead_sweep(*args, lanes=lanes)
+    assert bp.dtype == torch.float64
+    torch.testing.assert_close(zl, zp, rtol=1e-9, atol=1e-9)
+    torch.testing.assert_close(bl, bp, rtol=1e-9, atol=1e-9)
+
+
+@pytest.mark.parametrize("chains", [1, 31, 1024, 1057, 4224, 8448, 40000])
+def test_torch_gibbs_sweep_layout(chains):
+    """G1's lanes a chain: the most of the kernel's lane counts that keep its
+    warps within two a scheduler (8 an SM), one past that; its scratch only
+    where a chain takes a whole warp (csrc/gibbs.cu)."""
+    budget = gibbs.SWEEP_WARPS_PER_SM * gibbs.H100_SMS * gibbs.SWEEP_THREADS
+    lanes = gibbs.sweep_lanes(chains)
+    assert lanes in gibbs.SWEEP_LANES
+    assert lanes == 1 or lanes * chains <= budget
+    assert lanes == gibbs.SWEEP_THREADS or 2 * lanes * chains > budget
+    assert gibbs.sweep_lanes(chains, sm_count=2 * gibbs.H100_SMS) >= lanes
+    numel = gibbs.sweep_scratch_numel(chains, 690, lanes)
+    assert numel == (gibbs.SWEEP_FIELDS * 690 * chains if lanes == gibbs.SWEEP_THREADS else 0)
