@@ -144,46 +144,63 @@ It imports no jax.  Phases, each printing one line of findings:
    within z < 5 of its (``FHN_JAX``, measured on the CPU by
    ``tests/reference_workload_jax.py``); divergences and ``RESULTS.md``'s
    acceptance printed beside them, without a gate;
-11. distributed: the parallel layer on ``torch.distributed``.  In this
+11. distributed: the parallel layer on ``torch.distributed``; runs with a
+   mesh replay the step's CUDA graph wherever the kernel declares it (a
+   chain split on any backend, a step's all-reduces over NCCL).  In this
    process, a process group of one rank over NCCL (a TCP store on a free
    local port, torn down at the end): BLR RMHMC at full width (4096 chains,
    20 + 20) through ``parallel.run(..., mesh=)`` on a ("chains", "data")
    mesh of shape (1, 1) with the model from ``with_sharding``, and LGC phmc
    at D = 4096 (64 chains, 20 + 20) on a ("chains", "latent") mesh, each
-   ``torch.equal`` to the same run without a mesh, with K1 / K2 launch
-   counts equal to the formulas, and the host's time by op (torch.profiler)
-   of two BLR transitions with and without the mesh; ``run_checkpointed``
-   with the mesh stopped after one segment and resumed, bit for bit, its
-   files without a ``.p`` suffix; ``run_experiment("rmhmc",
-   ess_mode="native", mesh=)`` on phase 6's CSV, its min-ESS equal to the
-   exact-mode ESS of its samples to 1e-10.  Then two ranks sharing the card
-   over Gloo on CUDA tensors (``parallel.launch.spawn``, plain subprocesses
-   with a timeout): BLR RMHMC at full width, 10 + 10, chains split (2, 1)
-   and rows split (1, 2).  Under the chain split each rank is bit for bit
-   one process running that rank's half of the chains (the same noise, the
-   same batch size); under the row split the ranks' positions are
-   bit-identical.  Both against the one-process run of all chains: every
-   chain takes the same accept decisions with positions within 1e-5 abs /
-   1e-5 rel, except that a chain whose decisions came within 1e-3 of the
-   boundary may part (counted); the largest ratio of a difference to its
+   captured and ``torch.equal`` to the same mesh run eager and to the
+   captured run without a mesh, one capture in the burn-in and none in the
+   timed run, with K1 / K2 launch counts equal to the formulas and the
+   all-reduces counted on the device equal to those the eager run issued
+   (72 a BLR step, 66 an LGC step); three replays of each graph: the device
+   count against one eager step's issued all-reduces, and the NCCL kernels
+   torch.profiler sees in them against those it sees for as many eager
+   all-reduces (NCCL's one-rank in-place sum launches none); the host's
+   time by op (torch.profiler) of an eager BLR transition with and without
+   the mesh; ``run_checkpointed`` with the mesh, captured (one capture for
+   three runs), stopped after one segment and resumed, bit for bit the run
+   not stopped and the eager one, its files without a ``.p`` suffix;
+   ``run_experiment("rmhmc", adapt=True, mesh=)`` (the adaptive kernel
+   pooled over the chain group, 4096 chains, 3 + 6), captured (two
+   captures, none in the timed half) and bit for bit the same run with the
+   graphs refused; ``run_experiment("rmhmc", ess_mode="native", mesh=)`` on
+   phase 6's CSV, its min-ESS equal to the exact-mode ESS of its samples to
+   1e-10.  Then two ranks sharing the card over Gloo on CUDA tensors
+   (``parallel.launch.spawn``, plain subprocesses with a timeout): BLR RMHMC
+   at full width, 10 + 10, chains split (2, 1) on the whole model, captured
+   and bit for bit each rank's eager run, and rows split (1, 2) on the
+   model from ``with_sharding``, eager (its all-reduces are Gloo's), with
+   ``capture=True`` refused naming Gloo.  Under the chain split each rank is
+   bit for bit one process running that rank's half of the chains (the same
+   noise, the same batch size); under the row split the ranks' positions
+   are bit-identical.  Both against the one-process run of all chains:
+   every chain takes the same accept decisions with positions within 1e-5
+   abs / 1e-5 rel, except that a chain whose decisions came within 1e-3 of
+   the boundary may part (counted); the largest ratio of a difference to its
    tolerance is printed, with which ops of a transition give other bits at
    half the rows.  K1 / K2 launch counts per rank equal the formulas; the
    checkpoint shards ``.p0`` / ``.p1`` round-trip.  Then, split (2, 1) over
    the same two ranks, the four samplers the chain split took last, 5 + 5
-   each: AMH (BLR, 4096 chains; coordinate-major noise), Gibbs (BLR, 256
-   chains; its GIG's Philox counters indexed by the global element), StochVol
-   RMHMC (T = 2000, 64 chains) and joint LGC mMALA (n = 32, 4 chains), the
-   last two drawing their noise from a view of the state.  Each rank is
-   bit for bit one process running its half of the chains, and no rank
-   makes a MIN all-reduce (no exit test agreed over the ranks); against one process
+   each, captured and bit for bit each rank's eager run: AMH (BLR, 4096
+   chains; coordinate-major noise), Gibbs (BLR, 256 chains; G1 and G2, its
+   GIG's Philox counters indexed by the global element), StochVol RMHMC
+   (T = 2000, 64 chains) and joint LGC mMALA (n = 32, 4 chains), the last
+   two drawing their noise from a view of the state.  Each rank is bit for
+   bit one process running its half of the chains, and no rank makes a MIN
+   all-reduce (no exit test agreed over the ranks); against one process
    running all chains the rule above holds (Gibbs at 1e-4 and joint LGC at
    1e-3, ``DIST_SPLIT_TOL``, with the ratio to 1e-5 printed), a chain's
    closeness to a decision boundary found by rerunning each step of that
    run on the state with every entry moved by 1e-4 of random sign (these
    samplers expose no one accept margin); K1 / K2 launch counts per rank
-   equal the formulas.  Seconds per transition
-   (world 1 against no mesh, two ranks) and all-reduces per transition are
-   printed beside the card, without a gate;
+   equal the formulas.  Seconds per transition (world 1 with the mesh
+   captured and eager against no mesh captured, two ranks captured and
+   eager) and all-reduces per transition are printed beside the card,
+   without a gate;
 12. tools: the results tools of ``riemannhamiltonianmontecarlo_tpu_torch/tools``
    through their run functions at smoke depth: ``make_results`` (the rmhmc
    and gibbs rows on phase 6's australian CSV, 256 chains, 50 + 50),
@@ -192,7 +209,7 @@ It imports no jax.  Phases, each printing one line of findings:
    host-array route), ``ess_engine_bench`` (256 chains, 50 + 50, german CSV,
    the C++ engine against NumPy within 1e-3), ``probe_scaling`` (FHN HMC at
    two chain counts, 2 steps) and ``scaling_table`` (world sizes 1 and 2
-   over Gloo on the card, 5 + 5).  Each section is headed with the nvidia-smi line and holds the
+   over Gloo on the card, 5 + 5, every rank replaying its chain-split step's graph).  Each section is headed with the nvidia-smi line and holds the
    expected number of rows of finite numbers; K1 / K2 launch counts of the
    make_results, StochVol and ESS-engine rows equal the formulas; the rmhmc
    row's acceptance is within 0.05 of phase 5's, the StochVol row's of
@@ -233,7 +250,8 @@ It imports no jax.  Phases, each printing one line of findings:
    (StochVol's and the joint pair's rows: ``python -m
    riemannhamiltonianmontecarlo_tpu_torch.step_profile``).
    Phases 5-12 run the captured path wherever the kernel declares it, as
-   ``parallel.run`` does by default on a card.
+   ``parallel.run`` does by default on a card, runs with a mesh included
+   (phase 11).
 
 It ends with the nvidia-smi line, one JSON line per kernel summary
 (``{"kernels": [...]}``) and, as the last line,
@@ -1918,6 +1936,7 @@ DIST_TOL = (1e-5, 1e-5)  # (rtol, atol): two-rank positions against the one-proc
 DIST_MARGIN = 1e-3
 DIST_CKPT = dict(num_samples=6, burn_in=2, checkpoint_every=2)  # three segments, stopped after one
 DIST_ESS_RUN = dict(num_chains=1024, burn_in=50, num_samples=50)
+DIST_ADAPT_RUN = dict(num_chains=NUM_CHAINS, burn_in=3, num_samples=6)  # adaptive RMHMC, captured against eager
 DIST_DIR = SMOKE_DATA.parent / "smoke_dist"
 # The samplers the chain split took last (AMH's and the Gibbs sweep's noise
 # coordinate-major, Gibbs's GIG counters indexed by the global element, the two-block
@@ -1971,7 +1990,7 @@ def with_margins(kernel):
     def step(generator, state):
         return transition(state, kernel.draw_noise(generator, state.position))
 
-    return rt.samplers.Kernel(init, step, transition, kernel.draw_noise)
+    return rt.samplers.Kernel(init, step, transition, kernel.draw_noise, capturable=kernel.capturable)
 
 
 class ProbeState(NamedTuple):
@@ -2060,26 +2079,100 @@ def split_runs(model) -> dict:
     }
 
 
-def dist_run(kernel, init, mesh, burn: int, samples: int) -> dict:
+@contextlib.contextmanager
+def issued_all_reduces(record: list):
+    """Each ``dist.all_reduce`` the port issues inside appended to ``record``:
+    the host's count, against which the device counter is held."""
+    real = dist.all_reduce
+
+    def all_reduce(*args, **kwargs):
+        record.append(1)
+        return real(*args, **kwargs)
+
+    with unittest.mock.patch.object(dist, "all_reduce", all_reduce):
+        yield
+
+
+def dist_run(kernel, init, mesh, burn: int, samples: int, capture: bool | None = None) -> dict:
     """Burn-in and a timed sampling run through ``parallel.run(..., mesh=)``,
-    with the K1 / K2 launches and the all-reduces it made."""
+    with the K1 / K2 launches, the all-reduces it made (device-counted, and
+    issued on the host: the warm-up before a capture issues uncounted ones),
+    the graphs captured in the burn-in and in the timed run (none)."""
     gen = torch.Generator(device=DEVICE).manual_seed(DIST_SEED)
     reset_blr_launches()
     collectives.reset_call_counts()
-    warm = rt.parallel.run(kernel, gen, init, num_samples=burn, collect=False, mesh=mesh)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    res = rt.parallel.run(kernel, gen, None, num_samples=samples, init_state=warm.final_state, mesh=mesh)
-    torch.cuda.synchronize()
+    issued, captures = [], rt.parallel.graphs.capture_count()
+    with issued_all_reduces(issued):
+        warm = rt.parallel.run(kernel, gen, init, num_samples=burn, collect=False, mesh=mesh, capture=capture)
+        torch.cuda.synchronize()
+        timed_captures = rt.parallel.graphs.capture_count()
+        t0 = time.perf_counter()
+        res = rt.parallel.run(kernel, gen, None, num_samples=samples, init_state=warm.final_state, mesh=mesh,
+                              capture=capture)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
     return {"samples": res.samples, "accept": res.accept_rate, "div": res.divergences + warm.divergences,
-            "seconds": time.perf_counter() - t0, "launches": blr_launches(),
-            "all_reduce": collectives.call_counts()["all_reduce"], "state": res.final_state}
+            "seconds": seconds, "launches": blr_launches(),
+            "all_reduce": collectives.call_counts()["all_reduce"], "all_reduce_issued": len(issued),
+            "captures": timed_captures - captures,
+            "timed_captures": rt.parallel.graphs.capture_count() - timed_captures, "state": res.final_state}
+
+
+def same_run(a: dict, b: dict) -> dict:
+    return {k: torch.equal(a[k], b[k]) for k in ("samples", "accept", "div")}
+
+
+def replay_all_reduces(kernel, state, group, replays: int = GRAPH_REPLAYS) -> dict:
+    """The all-reduces of ``kernel``'s step: issued by one eager step (the
+    host's count), counted on the device over ``replays`` replays of the
+    graph the runner captured, and the NCCL kernels torch.profiler sees in
+    those replays, against those it sees for as many eager all-reduces on
+    ``group`` (NCCL's one-rank in-place sum launches none)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def nccl_events(fn) -> int:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return sum("nccl" in e.name.lower() for e in prof.events() or ()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+
+    entry = rt.parallel.graphs.lookup(kernel.step, None, state)
+    check(entry is not None, "no captured graph of the step: the run with the mesh did not take the captured path")
+    gen = torch.Generator(device=DEVICE).manual_seed(GRAPH_SEED)
+    issued = []
+    with issued_all_reduces(issued), rt.ops.launches.paused():
+        kernel.step(gen, rt.samplers.base.tree_map(torch.clone, state))
+    entry.scan(gen, state, 1, False)  # warm
+    collectives.reset_call_counts()
+    replayed = nccl_events(lambda: entry.scan(gen, state, replays, False))
+    counted = collectives.call_counts()["all_reduce"]
+    probe = torch.zeros(8, device=DEVICE)
+    with rt.ops.launches.paused():
+        eager = nccl_events(lambda: [dist.all_reduce(probe, group=group) for _ in range(counted)])
+    return {"replays": replays, "issued_per_eager_step": len(issued), "counted_on_device": counted,
+            "profiler_nccl_kernels_replayed": replayed, "profiler_nccl_kernels_eager_same_count": eager,
+            "equal": counted == replays * len(issued) and replayed == eager}
+
+
+def captured_and_eager(label: str, kernel, init, mesh, burn: int, samples: int) -> tuple[dict, dict]:
+    """``dist_run`` captured (the default on a card) and eager: whether the
+    two are bit for bit the same, and the captures each made."""
+    run = dist_run(kernel, init, mesh, burn, samples)
+    eager = dist_run(kernel, init, mesh, burn, samples, capture=False)
+    same = same_run(run, eager)
+    return run, {f"{label}_capturable": kernel.capturable, f"{label}_eager_equal": all(same.values()),
+                 f"{label}_captures": [run["captures"], run["timed_captures"], eager["captures"] + eager["timed_captures"]],
+                 f"{label}_eager_s_per_transition": eager["seconds"] / samples}
 
 
 def distributed_rank(out: str) -> None:
     """One of two ranks sharing the card over Gloo (run by ``parallel.launch``):
-    BLR RMHMC at full width with the chains split, then with the rows split,
-    and checkpoint shards; writes ``two_rank.r<rank>.npz`` under ``out``."""
+    BLR RMHMC at full width with the chains split (captured, and eager), then
+    with the rows split (eager: its all-reduces are Gloo's; ``capture=True``
+    refused), and checkpoint shards; writes ``two_rank.r<rank>.npz`` under
+    ``out``."""
     rank, out = dist.get_rank(), Path(out)
     model = blr_model()
     init = torch.from_numpy(np.load(out / "init.npy")).to(DEVICE)
@@ -2088,7 +2181,21 @@ def distributed_rank(out: str) -> None:
     with torch.inference_mode():
         for label, shape in (("chains", (2, 1)), ("data", (1, 2))):
             mesh = rt.parallel.make_mesh(2, (CHAIN_AXIS, "data"), shape)
-            run = dist_run(with_margins(rmhmc.build(model.with_sharding(mesh))), init, mesh, burn, samples)
+            # The chain split on the whole model (a step with no collective); the row split on the sharded one.
+            kernel = with_margins(rmhmc.build(model if label == "chains" else model.with_sharding(mesh)))
+            if label == "chains":
+                run, fields = captured_and_eager(label, kernel, init, mesh, burn, samples)
+                arrays.update(fields)
+            else:
+                run = dist_run(kernel, init, mesh, burn, samples)
+                arrays.update({f"{label}_capturable": kernel.capturable, f"{label}_captures": [run["captures"],
+                                                                                              run["timed_captures"]]})
+                try:
+                    rt.parallel.run(kernel, torch.Generator(device=DEVICE).manual_seed(DIST_SEED), init,
+                                    num_samples=1, mesh=mesh, capture=True)
+                    arrays["data_refused"] = ""
+                except ValueError as err:
+                    arrays["data_refused"] = str(err)
             arrays.update({f"{label}_samples": run["samples"], f"{label}_margin": run["state"].margin,
                            f"{label}_accept": run["accept"], f"{label}_div": run["div"],
                            f"{label}_s_per_transition": run["seconds"] / samples,
@@ -2108,7 +2215,8 @@ def distributed_rank(out: str) -> None:
         for label, (kernel, init, _) in split_runs(model).items():
             tests = []
             with min_all_reduces(tests):
-                run = dist_run(kernel, init, mesh, *DIST_SPLIT_RUN)
+                run, fields = captured_and_eager(label, kernel, init, mesh, *DIST_SPLIT_RUN)
+            arrays.update(fields)
             arrays.update({f"{label}_samples": run["samples"], f"{label}_accept": run["accept"],
                            f"{label}_div": run["div"], f"{label}_min_all_reduces": len(tests),
                            f"{label}_s_per_transition": run["seconds"] / DIST_SPLIT_RUN[1],
@@ -2188,13 +2296,13 @@ def batch_invariance(model, init: torch.Tensor) -> dict:
 
 
 def host_profile(kernel, state, mesh) -> dict:
-    """The host's time by op over one transition (torch.profiler, CPU
+    """The host's time by op over one eager transition (torch.profiler, CPU
     activity only): the eight ops of largest self time."""
     gen = torch.Generator(device=DEVICE).manual_seed(DIST_SEED)
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
         t0 = time.perf_counter()
-        rt.parallel.run(kernel, gen, None, num_samples=1, init_state=state, collect=False, mesh=mesh)
+        rt.parallel.run(kernel, gen, None, num_samples=1, init_state=state, collect=False, mesh=mesh, capture=False)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     rows = sorted(prof.key_averages(), key=lambda e: e.self_cpu_time_total, reverse=True)[:8]
@@ -2204,7 +2312,7 @@ def host_profile(kernel, state, mesh) -> dict:
 
 def phase_distributed(smi: str) -> dict:
     """Phase 11: the parallel layer: world 1 over NCCL in this process, then
-    two ranks sharing the card over Gloo."""
+    two ranks sharing the card over Gloo; captured wherever declared."""
     shutil.rmtree(DIST_DIR, ignore_errors=True)
     DIST_DIR.mkdir(parents=True)
     write_smoke_csvs()
@@ -2215,27 +2323,46 @@ def phase_distributed(smi: str) -> dict:
                                        rank=0, timeout=timedelta(seconds=DIST_TIMEOUT))
     try:
         check(dist.get_backend() == "nccl", f"world 1 runs over {dist.get_backend()}, not NCCL")
-        # BLR RMHMC at full width: a ("chains", "data") mesh of shape (1, 1) against no mesh.
+        # BLR RMHMC at full width: a ("chains", "data") mesh of shape (1, 1), captured (its all-reduces are
+        # NCCL's), against the same run eager and the captured run without a mesh.
         mesh = rt.parallel.make_mesh(1, (CHAIN_AXIS, "data"), (1, 1))
         burn, samples = DIST_BLR_RUN
         plain_kernel, world1_kernel = rmhmc.build(model), rmhmc.build(model.with_sharding(mesh))
+        check(world1_kernel.capturable, "distributed: the model sharded over NCCL does not declare itself capturable")
         plain = dist_run(plain_kernel, init, None, burn, samples)
         world1 = dist_run(world1_kernel, init, mesh, burn, samples)
-        same = {k: torch.equal(plain[k], world1[k]) for k in ("samples", "accept", "div")}
-        check(all(same.values()), f"distributed: world 1 differs from the run without a mesh: {same}")
+        world1_eager = dist_run(world1_kernel, init, mesh, burn, samples, capture=False)
+        same, same_eager = same_run(plain, world1), same_run(world1_eager, world1)
+        check(all(same.values()), f"distributed: world 1 captured differs from the run without a mesh: {same}")
+        check(all(same_eager.values()), f"distributed: world 1 captured differs from world 1 eager: {same_eager}")
         expected = blr_expected_launches(burn + samples)
-        for run in (plain, world1):
+        for run in (plain, world1, world1_eager):
             check(run["launches"] == expected, f"distributed: launch counts {run['launches']}, expected {expected}")
+        captures = {"no_mesh": (plain["captures"], plain["timed_captures"]),
+                    "world1": (world1["captures"], world1["timed_captures"]),
+                    "world1_eager": (world1_eager["captures"], world1_eager["timed_captures"])}
+        check(captures == {"no_mesh": (1, 0), "world1": (1, 0), "world1_eager": (0, 0)},
+              f"distributed: (captures in the burn-in, in the timed run) {captures}")
+        check(world1["all_reduce"] == world1_eager["all_reduce"] == world1_eager["all_reduce_issued"] > 0,
+              f"distributed: all-reduces counted captured {world1['all_reduce']}, eager {world1_eager['all_reduce']}, "
+              f"issued eager {world1_eager['all_reduce_issued']}")
+        replayed = replay_all_reduces(world1_kernel, world1["state"], mesh.group("data"))
+        check(replayed["equal"], f"distributed: the step's all-reduces replayed {replayed}")
         launches_by_path["distributed/world1-blr"] = world1["launches"]
         steps = burn + samples
         say("distributed", run="world1-blr", backend="nccl", mesh={CHAIN_AXIS: 1, "data": 1}, chains=NUM_CHAINS,
-            burn_in=burn, samples=samples, bit_identical_to_no_mesh=same, launches=world1["launches"],
-            accept_rate=float(world1["accept"]), divergent=int(world1["div"]))
-        say("distributed-times", run="world1-blr", card=smi, s_per_transition=world1["seconds"] / samples,
-            no_mesh_s_per_transition=plain["seconds"] / samples,
-            all_reduce_per_transition=world1["all_reduce"] / steps, no_mesh_all_reduce=plain["all_reduce"])
-        # Where the host's time goes with and without the mesh (what the all-reduces cost).
-        say("distributed-host-profile", run="world1-blr", card=smi,
+            burn_in=burn, samples=samples, captured=True, bit_identical_to_no_mesh=same,
+            bit_identical_to_eager=same_eager, captures=captures, launches=world1["launches"],
+            all_reduce_counted=world1["all_reduce"], all_reduce_issued_captured=world1["all_reduce_issued"],
+            all_reduce_replays=replayed, accept_rate=float(world1["accept"]), divergent=int(world1["div"]))
+        say("distributed-times", run="world1-blr", card=smi, captured_s_per_transition=world1["seconds"] / samples,
+            eager_s_per_transition=world1_eager["seconds"] / samples,
+            no_mesh_captured_s_per_transition=plain["seconds"] / samples,
+            all_reduce_per_transition=world1["all_reduce"] / steps,
+            in_step_all_reduce_per_transition=replayed["issued_per_eager_step"],
+            no_mesh_all_reduce=plain["all_reduce"])
+        # Where the host's time goes in the eager step with and without the mesh (what the all-reduces cost).
+        say("distributed-host-profile", run="world1-blr", card=smi, path="eager",
             world1=host_profile(world1_kernel, world1["state"], mesh), no_mesh=host_profile(plain_kernel, plain["state"], None))
 
         # LGC phmc at D = 4096: the operators' rows over a ("chains", "latent") mesh of shape (1, 1).
@@ -2246,34 +2373,75 @@ def phase_distributed(smi: str) -> dict:
         cfg = rt.samplers.phmc.PHMCConfig(step_size=0.1, num_leapfrog=30)  # the lgc "rmhmc" preset
         lgc_init = lgc_model.prior_mean().expand(DIST_LGC_CHAINS, -1).clone()
         burn, samples = DIST_LGC_RUN
+        lgc_kernel = rt.samplers.phmc.build(sharded, sharded.metric_chol, sharded.metric_inv, cfg)
+        check(lgc_kernel.capturable, "distributed: LGC sharded over NCCL does not declare itself capturable")
         lgc_plain = dist_run(rt.samplers.phmc.build(lgc_model, lgc_model.metric_chol, lgc_model.metric_inv, cfg),
                              lgc_init, None, burn, samples)
-        lgc_world1 = dist_run(rt.samplers.phmc.build(sharded, sharded.metric_chol, sharded.metric_inv, cfg),
-                              lgc_init, latent, burn, samples)
-        same = {k: torch.equal(lgc_plain[k], lgc_world1[k]) for k in ("samples", "accept", "div")}
-        check(all(same.values()), f"distributed: LGC world 1 differs from the run without a mesh: {same}")
+        lgc_world1 = dist_run(lgc_kernel, lgc_init, latent, burn, samples)
+        lgc_eager = dist_run(lgc_kernel, lgc_init, latent, burn, samples, capture=False)
+        same, same_eager = same_run(lgc_plain, lgc_world1), same_run(lgc_eager, lgc_world1)
+        check(all(same.values()), f"distributed: LGC world 1 captured differs from the run without a mesh: {same}")
+        check(all(same_eager.values()), f"distributed: LGC world 1 captured differs from eager: {same_eager}")
         check(lgc_world1["launches"] == {"cholesky": 0, "chol_solve_logdet": 0}, "distributed: a kernel launched at D=4096")
         check(float(lgc_world1["accept"]) > 0.5, f"distributed: LGC acceptance {float(lgc_world1['accept'])}")
+        captures = {"world1": (lgc_world1["captures"], lgc_world1["timed_captures"]),
+                    "world1_eager": (lgc_eager["captures"], lgc_eager["timed_captures"])}
+        check(captures == {"world1": (1, 0), "world1_eager": (0, 0)}, f"distributed: LGC captures {captures}")
+        check(lgc_world1["all_reduce"] == lgc_eager["all_reduce"] == lgc_eager["all_reduce_issued"] > 0,
+              f"distributed: LGC all-reduces counted captured {lgc_world1['all_reduce']}, eager "
+              f"{lgc_eager['all_reduce']}, issued eager {lgc_eager['all_reduce_issued']}")
+        replayed = replay_all_reduces(lgc_kernel, lgc_world1["state"], latent.group("latent"))
+        check(replayed["equal"], f"distributed: the LGC step's all-reduces replayed {replayed}")
         say("distributed", run="world1-lgc-phmc", backend="nccl", mesh={CHAIN_AXIS: 1, "latent": 1},
-            D=LGC_N * LGC_N, chains=DIST_LGC_CHAINS, burn_in=burn, samples=samples, bit_identical_to_no_mesh=same,
+            D=LGC_N * LGC_N, chains=DIST_LGC_CHAINS, burn_in=burn, samples=samples, captured=True,
+            bit_identical_to_no_mesh=same, bit_identical_to_eager=same_eager, captures=captures,
+            all_reduce_counted=lgc_world1["all_reduce"], all_reduce_replays=replayed,
             accept_rate=float(lgc_world1["accept"]), divergent=int(lgc_world1["div"]))
-        say("distributed-times", run="world1-lgc-phmc", card=smi, s_per_transition=lgc_world1["seconds"] / samples,
-            no_mesh_s_per_transition=lgc_plain["seconds"] / samples,
-            all_reduce_per_transition=lgc_world1["all_reduce"] / (burn + samples))
+        say("distributed-times", run="world1-lgc-phmc", card=smi,
+            captured_s_per_transition=lgc_world1["seconds"] / samples,
+            eager_s_per_transition=lgc_eager["seconds"] / samples,
+            no_mesh_captured_s_per_transition=lgc_plain["seconds"] / samples,
+            all_reduce_per_transition=lgc_world1["all_reduce"] / (burn + samples),
+            in_step_all_reduce_per_transition=replayed["issued_per_eager_step"])
 
-        # run_checkpointed with the mesh: stopped after one segment and resumed, bit for bit; no .p suffix at world 1.
+        # run_checkpointed with the mesh, captured: stopped after one segment and resumed, bit for bit the run not
+        # stopped and the eager one; one capture for all three captured runs; no .p suffix at world 1.
         kernel = rmhmc.build(model.with_sharding(mesh))
         kw = dict(mesh=mesh, **DIST_CKPT)
+        captures = rt.parallel.graphs.capture_count()
         full = rt.parallel.run_checkpointed(kernel, DIST_SEED, init, checkpoint_path=DIST_DIR / "full.npz", **kw)
         rt.parallel.run_checkpointed(kernel, DIST_SEED, init, checkpoint_path=DIST_DIR / "cut.npz",
                                      _stop_after_segments=1, **kw)
         resumed = rt.parallel.run_checkpointed(kernel, DIST_SEED, init, checkpoint_path=DIST_DIR / "cut.npz", **kw)
+        captures = rt.parallel.graphs.capture_count() - captures
+        eager = rt.parallel.run_checkpointed(kernel, DIST_SEED, init, checkpoint_path=DIST_DIR / "eager.npz",
+                                             capture=False, **kw)
         same = {"samples": torch.equal(full.samples, resumed.samples),
-                "position": torch.equal(full.final_state.position, resumed.final_state.position)}
-        check(all(same.values()), f"distributed: the resumed run differs from the run not stopped: {same}")
+                "position": torch.equal(full.final_state.position, resumed.final_state.position),
+                "eager_samples": torch.equal(full.samples, eager.samples),
+                "eager_position": torch.equal(full.final_state.position, eager.final_state.position)}
+        check(all(same.values()), f"distributed: the resumed or eager run differs from the run not stopped: {same}")
+        check(captures == 1, f"distributed: the checkpointed runs captured {captures} graphs, expected one")
         files = sorted(f.name for f in DIST_DIR.iterdir())
         check("cut.npz" in files and not any(".p" in f for f in files), f"distributed: checkpoint files {files}")
-        say("distributed", run="world1-resume", **DIST_CKPT, stopped_after_segments=1, bit_identical=same, files=files)
+        say("distributed", run="world1-resume", **DIST_CKPT, captured=True, captures=captures,
+            stopped_after_segments=1, bit_identical=same, files=files)
+
+        # The pooled adaptive kernel through the experiment entry point, captured against eager.
+        kw = dict(device=DEVICE, adapt=True, keep_samples=True, ess_mode="exact", mesh=mesh, **DIST_ADAPT_RUN)
+        captures = rt.parallel.graphs.capture_count()
+        adapted = experiments.run_experiment("rmhmc", "australian", **kw)
+        captures = rt.parallel.graphs.capture_count() - captures
+        with unittest.mock.patch.object(rt.parallel.graphs, "wants_capture", lambda kernel, device, capture: False):
+            adapted_eager = experiments.run_experiment("rmhmc", "australian", **kw)
+        same = {"samples": np.array_equal(adapted.samples, adapted_eager.samples),
+                "step_size": adapted.adapted_step_size == adapted_eager.adapted_step_size,
+                "accept": adapted.accept_rate == adapted_eager.accept_rate}
+        check(all(same.values()), f"distributed: adaptive run_experiment captured differs from eager: {same}")
+        check(captures == 2, f"distributed: adaptive run_experiment captured {captures} graphs, expected two "
+                             "(the pooled adaptive kernel's and the frozen kernel's)")
+        say("distributed", run="world1-adaptive-experiment", **DIST_ADAPT_RUN, captured=True, captures=captures,
+            bit_identical_to_eager=same, adapted_step_size=adapted.adapted_step_size, accept_rate=adapted.accept_rate)
 
         # The native ESS engine through the experiment entry point, on phase 6's CSV.
         res = experiments.run_experiment("rmhmc", "australian", device=DEVICE, ess_mode="native", keep_samples=True,
@@ -2304,6 +2472,15 @@ def phase_distributed(smi: str) -> dict:
     r0, r1 = (np.load(DIST_DIR / f"two_rank.r{r}.npz") for r in range(2))
     expected = blr_expected_launches(burn + samples)
     fields = {}
+    for r in (r0, r1):  # the chain split captured, bit for bit eager; the row split eager, capture=True refused
+        check(bool(r["chains_capturable"]) and bool(r["chains_eager_equal"]) and list(r["chains_captures"]) == [1, 0, 0],
+              f"chain split: capturable {r['chains_capturable']}, equal to eager {r['chains_eager_equal']}, "
+              f"captures (burn-in, timed, eager) {r['chains_captures']}")
+        refused = str(r["data_refused"])
+        check(not bool(r["data_capturable"]) and list(r["data_captures"]) == [0, 0]
+              and "gloo" in refused and "over NCCL only" in refused,
+              f"row split over Gloo: capturable {r['data_capturable']}, captures {r['data_captures']}, "
+              f"capture=True gave {refused!r}")
     for label in ("chains", "data"):
         for r in (r0, r1):
             got = {k: int(r[f"{label}_{k}"]) for k in expected}
@@ -2327,10 +2504,13 @@ def phase_distributed(smi: str) -> dict:
     shards = sorted(f.name for f in DIST_DIR.iterdir() if f.name.startswith("ckpt.npz.p"))
     check("ckpt.npz.p0" in shards and "ckpt.npz.p1" in shards, f"two ranks: checkpoint shards {shards}")
     say("distributed", run="2rank-gloo-blr", backend="gloo", chains=NUM_CHAINS, burn_in=burn, samples=samples,
+        chain_split_captured=True, chain_split_bit_identical_to_eager=True, row_split_captured=False,
+        row_split_capture_true_refused=str(r0["data_refused"]),
         boundary_margin=DIST_MARGIN, launches_per_rank=expected, checkpoint_shards=shards,
         **{f"split_{label}": {k: v for k, v in f.items() if k != "s_per_transition"} for label, f in fields.items()})
     say("distributed-times", run="2rank-gloo-blr", card=smi, launch_s=launch_s,
-        **{f"split_{label}_s_per_transition": f["s_per_transition"] for label, f in fields.items()})
+        **{f"split_{label}_s_per_transition": f["s_per_transition"] for label, f in fields.items()},
+        split_chains_eager_s_per_transition=[float(r["chains_eager_s_per_transition"]) for r in (r0, r1)])
 
     # The four samplers the chain split took last: each rank bit for bit one
     # process running its half, with no exit test agreed over the ranks, both
@@ -2343,6 +2523,10 @@ def phase_distributed(smi: str) -> dict:
                 check(got == expected, f"distributed 2-rank {label}: launch counts {got} on a rank, expected {expected}")
                 check(float(r[f"{label}_accept"]) == float(r0[f"{label}_accept"]), f"{label}: the ranks' acceptance differs")
                 check(int(r[f"{label}_min_all_reduces"]) == 0, f"{label}: a rank agreed an exit test over the ranks")
+                check(bool(r[f"{label}_capturable"]) and bool(r[f"{label}_eager_equal"])
+                      and list(r[f"{label}_captures"]) == [1, 0, 0],
+                      f"{label}: capturable {r[f'{label}_capturable']}, captured equal to eager "
+                      f"{r[f'{label}_eager_equal']}, captures (burn-in, timed, eager) {r[f'{label}_captures']}")
             halves = [dist_run(kernel, init, local_mesh(i, 2), burn, samples)["samples"].cpu().numpy() for i in range(2)]
             same = all(np.array_equal(r[f"{label}_samples"], h) for r, h in zip((r0, r1), halves))
             check(same, f"{label}: a rank differs from one process running its half of the chains")
@@ -2353,12 +2537,14 @@ def phase_distributed(smi: str) -> dict:
             split = compare_to_one_process(f"2-rank {label}", got, None, ref, DIST_SPLIT_TOL.get(label, DIST_TOL))
             launches_by_path[f"distributed/2rank-{label}-per-rank"] = expected
             say("distributed", run=f"2rank-gloo-{label}", backend="gloo", chains=int(init.shape[0]), burn_in=burn,
-                samples=samples, bit_identical_to_one_process_by_half=same, launches_per_rank=expected,
+                samples=samples, captured=True, bit_identical_to_eager=True,
+                bit_identical_to_one_process_by_half=same, launches_per_rank=expected,
                 min_all_reduces_per_rank=int(r0[f"{label}_min_all_reduces"]), accept_rate=float(r0[f"{label}_accept"]),
                 one_process_accept_rate=float(whole["accept"]), divergent=int(r0[f"{label}_div"]),
                 probe={"scale_random_sign": PROBE_SCALE, "jump": PROBE_JUMP}, split_chains=split)
             say("distributed-times", run=f"2rank-gloo-{label}", card=smi,
-                s_per_transition=[float(r[f"{label}_s_per_transition"]) for r in (r0, r1)])
+                s_per_transition=[float(r[f"{label}_s_per_transition"]) for r in (r0, r1)],
+                eager_s_per_transition=[float(r[f"{label}_eager_s_per_transition"]) for r in (r0, r1)])
     return launches_by_path
 
 
@@ -2460,8 +2646,9 @@ def phase_tools(smi: str) -> dict:
     check_section("probe_scaling", section, smi, len(TOOLS_PROBE["chains"]))
     section, _ = timed("scaling_table", lambda: scaling_table.run_scaling(device=DEVICE, **TOOLS_SCALING))
     rows = check_section("scaling_table", section, smi, len(TOOLS_SCALING["ranks"]))
-    for row in rows:
-        check(abs(float(row[4]) - accepts["rmhmc"]) <= 0.1, f"scaling_table: acceptance {row[4]}")
+    for row in rows:  # every world size's ranks replay their chain-split step's graph
+        check(row[2].startswith("captured"), f"scaling_table: the ranks' step ran {row[2]}")
+        check(abs(float(row[5]) - accepts["rmhmc"]) <= 0.1, f"scaling_table: acceptance {row[5]}")
     check(hashlib.sha256(RESULTS_MD.read_bytes()).hexdigest() == digest, "a results tool changed RESULTS.md")
     say("tools", accept_rates=accepts, main_path_accept=main_accept, stochvol_accept_ref=sv_ref,
         accept_tol=ACCEPT_TOL, launches=launches_by_path, results_md_unchanged=True)

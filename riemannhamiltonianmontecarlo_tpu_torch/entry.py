@@ -10,7 +10,12 @@ Counterpart of the repository's root ``__graft_entry__.py``:
   5)`` with 4n chains, the explicit all-reduce of the acceptance (checked to
   be 1 on a vector of ones) and, for even n, the phmc step on the LGC field
   ``generate_data(seed=0, n=16)`` (D = 256) over an (n/2, 2) mesh of
-  ("chains", "latent") axes, whose operators hold D/2 rows a rank.
+  ("chains", "latent") axes, whose operators hold D/2 rows a rank; then
+  both through ``parallel.run(..., mesh=)``, 2 + 3 steps, by default and
+  with ``capture=False``: bit for bit the same, with the same all-reduces
+  counted on the device.  On cards the default replays each step's CUDA
+  graph, the latent axis's all-reduces NCCL's inside it; over Gloo the
+  LGC step runs eagerly.
 
     python -m riemannhamiltonianmontecarlo_tpu_torch.entry --ranks 4 --device cpu
 """
@@ -75,6 +80,8 @@ def _dryrun_rank(device: str) -> None:
         raise RuntimeError(f"rank {rank}: the all-reduced acceptance of ones is {rate}, not 1")
     if rank == 0:
         print(f"dryrun_multichip OK: {n} ranks, {chains} chains, accept={accept:.3f}", flush=True)
+    _dryrun_run("chains", rmhmc.build(model, rmhmc.RMHMCConfig(num_leapfrog=2, num_fixed_point=2)),
+                torch.zeros((chains, model.dim), device=device), mesh, device)
 
     if n % 2:
         return
@@ -99,6 +106,31 @@ def _dryrun_rank(device: str) -> None:
     if rank == 0:
         print(f"dryrun 2-axis OK: mesh {mesh2.shape}, LGC D={model2.dim}, operator rows a rank {rows}, "
               f"accept={accept2:.3f}", flush=True)
+    _dryrun_run("chains x latent", phmc.build(model2, model2.metric_chol, model2.metric_inv, phmc.PHMCConfig(
+        num_leapfrog=3)), model2.prior_mean().expand(c2, -1).clone(), mesh2, device)
+
+
+def _dryrun_run(label: str, kernel, init: torch.Tensor, mesh, device: torch.device) -> None:
+    """``kernel`` through the runner with ``mesh``, by default (captured on a
+    card) and eagerly: the same samples and device-counted all-reduces."""
+    out = {}
+    for capture in (None, False):
+        captures = parallel.graphs.capture_count()
+        parallel.collectives.reset_call_counts()
+        res = parallel.run(kernel, torch.Generator(device=device).manual_seed(2), init, num_samples=3, burn_in=2,
+                           mesh=mesh, capture=capture)
+        out[capture] = (res.samples, parallel.collectives.call_counts()["all_reduce"],
+                        parallel.graphs.capture_count() - captures)
+    (graph, graph_reduces, made), (eager, eager_reduces, _) = out[None], out[False]
+    if not torch.equal(graph, eager) or graph_reduces != eager_reduces:
+        raise RuntimeError(f"rank {torch.distributed.get_rank()}: {label}: the default run differs from the eager one "
+                           f"(all-reduces {graph_reduces} against {eager_reduces})")
+    if device.type == "cuda" and kernel.capturable and made != 1:
+        raise RuntimeError(f"rank {torch.distributed.get_rank()}: {label}: {made} captures on the card, expected one")
+    if torch.distributed.get_rank() == 0:
+        backends = {axis: parallel.collectives.backend(g) for axis, g in mesh.groups.items()}
+        print(f"dryrun runner OK: {label} mesh {mesh.shape} over {backends}, {'captured' if made else 'eager'}, "
+              f"bit for bit the eager run, {graph_reduces} all-reduces", flush=True)
 
 
 def dryrun_multichip(n: int, device: str = "cuda") -> str:

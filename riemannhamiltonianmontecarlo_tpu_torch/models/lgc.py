@@ -108,7 +108,7 @@ class LGCModel(nn.Module):
     constants).  All per-position methods are batched over leading chain axes.
     """
 
-    capturable = True  # samplers.base.model_capturable; a sharded copy is not
+    capturable = True  # samplers.base.model_capturable; a sharded copy where its group is NCCL's
 
     def __init__(
         self,
@@ -151,7 +151,9 @@ class LGCModel(nn.Module):
         ones (``phmc``, ``pmala``) take the operators through the same seam,
         and mMALA's position-dependent ``metric`` gathers the whole
         Sigma^{-1} (``collectives.gather_rows``, an all-reduce) at each call,
-        since each chain's dense (D, D) metric is factored whole.
+        since each chain's dense (D, D) metric is factored whole.  The copy
+        is capturable where the axis's group's collectives are
+        (``collectives.capturable``: NCCL, not Gloo).
         """
         k, i = mesh.size(axis), mesh.index(axis)
         if self.dim % k:
@@ -162,7 +164,7 @@ class LGCModel(nn.Module):
         for name in self.OPERATORS:  # no longer buffers: nn.Module refuses a non-tensor under a buffer's name
             full = sharded._buffers.pop(name)
             object.__setattr__(sharded, name, collectives.RowShards.of(full, lo, hi, mesh.group(axis)))
-        sharded.capturable = False  # its products are all-reduced
+        sharded.capturable = collectives.capturable(mesh.group(axis))  # its products are all-reduced in the step
         return sharded
 
     def logp(self, x: Tensor) -> Tensor:

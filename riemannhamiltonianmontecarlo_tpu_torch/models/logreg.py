@@ -51,7 +51,7 @@ class LogisticRegression(nn.Module):
         removes its ``softplus(0) = log 2`` term from logp.
     """
 
-    capturable = True  # samplers.base.model_capturable; a sharded copy is not
+    capturable = True  # samplers.base.model_capturable; a sharded copy where its group is NCCL's
 
     def __init__(self, X: Tensor, t: Tensor, alpha: float = 100.0, mask: Tensor | None = None):
         super().__init__()
@@ -86,6 +86,8 @@ class LogisticRegression(nn.Module):
         n is all-reduced over the axis's group before the prior is added, so
         each rank returns the whole model's values, up to the order of the
         sums.  ``quadratic_forms`` and the dG cache stay the rank's own rows.
+        The copy is capturable where the axis's group's collectives are
+        (``collectives.capturable``: NCCL, not Gloo).
         """
         k, i = mesh.size(axis), mesh.index(axis)
         n, d = self.X.shape
@@ -97,7 +99,7 @@ class LogisticRegression(nn.Module):
         rows = slice(i * per, (i + 1) * per)
         sharded = LogisticRegression(x[rows].clone(), t[rows].clone(), self.alpha, mask[rows].clone())
         sharded.group = mesh.group(axis)
-        sharded.capturable = False  # its sums are all-reduced
+        sharded.capturable = collectives.capturable(sharded.group)  # its sums are all-reduced in the step
         return sharded
 
     def _sum_over_data(self, w: Tensor, *partials: Tensor) -> tuple[Tensor, ...]:

@@ -1,4 +1,4 @@
-"""Launch counts of the hand-written kernels, kept on the device.
+"""Launch counts of the hand-written kernels and of the collectives, kept on the device.
 
 A run shows that it went through a kernel by its count.  Each wrapper calls
 ``count(name, device)`` right after it launches its kernel: one more is added
@@ -7,6 +7,8 @@ stream the kernel was launched on.  That addition is a device op, so when the
 call is captured into a CUDA graph (``parallel.graphs``) it is recorded with
 the kernel and runs at every replay: the count is of the launches the device
 made, eager or replayed, and nothing credits launches that no one saw.
+``parallel.collectives`` counts each all-reduce it issues the same way, on
+the reduced tensor's device (``collectives.call_counts``).
 
 ``paused()`` stops counting inside it: the runner's warm-up steps before a
 capture, and a check that launches a kernel to compare it with its plain
@@ -23,9 +25,10 @@ import torch
 from torch import Tensor
 
 # The counted kernels: ops.hopper_linalg's K1 and K2, ops.fhn_sens's kernel by order, the Gibbs sweep
-# (samplers.gibbs), the whole GIG draw and one GIG rejection round from given draws (ops.gig).
+# (samplers.gibbs), the whole GIG draw and one GIG rejection round from given draws (ops.gig); the
+# all-reduces of parallel.collectives.
 NAMES = ("cholesky", "chol_solve_logdet", "fhn_sensitivities/0", "fhn_sensitivities/1", "fhn_sensitivities/2",
-         "gibbs_sweep", "gig_half", "gig_round")
+         "gibbs_sweep", "gig_half", "gig_round", "all_reduce")
 _SLOT = {name: i for i, name in enumerate(NAMES)}
 _COUNTS: dict[torch.device, Tensor] = {}
 _PAUSED = [0]

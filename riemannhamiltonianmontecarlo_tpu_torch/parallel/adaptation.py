@@ -17,7 +17,8 @@ The pooled acceptance is ``collectives.cross_chain_mean`` over the mesh's
 chain group, so with chains split over ranks every rank adapts the same step
 size (a plain mean over the chain axis without a mesh).  The wrapped kernel
 keeps the sampler's ``transition`` / ``draw_noise`` split, so the runner can
-split its chains like any other.
+split its chains like any other; it is capturable where the sampler is and
+the chain group's all-reduce may be captured (NCCL, or no group).
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ from typing import Any, Callable, NamedTuple
 import torch
 from torch import Tensor
 
-from riemannhamiltonianmontecarlo_tpu_torch.parallel.collectives import cross_chain_mean
+from riemannhamiltonianmontecarlo_tpu_torch.parallel import collectives
 from riemannhamiltonianmontecarlo_tpu_torch.parallel.mesh import CHAIN_AXIS, Mesh
 from riemannhamiltonianmontecarlo_tpu_torch.parallel.runner import run
 from riemannhamiltonianmontecarlo_tpu_torch.samplers.base import Info, Kernel
@@ -117,7 +118,7 @@ def adaptive(
         inner, info = kernel.transition(state.inner, noise)
         da = da_update(
             state.da,
-            cross_chain_mean(info.accept_prob, group),
+            collectives.cross_chain_mean(info.accept_prob, group),
             adapt.target_accept,
             gamma=adapt.gamma,
             t0=adapt.t0,
@@ -129,8 +130,10 @@ def adaptive(
         return transition(state, probe.draw_noise(generator, state.position))
 
     # The rebuild of the inner kernel is host work, captured once; the pooled
-    # acceptance is a collective with a mesh, which keeps the step eager.
-    return Kernel(init, step, transition, probe.draw_noise, capturable=probe.capturable and group is None)
+    # acceptance is an all-reduce over the chain group with a mesh, which a
+    # graph may hold over NCCL only.
+    return Kernel(init, step, transition, probe.draw_noise,
+                  capturable=probe.capturable and collectives.capturable(group))
 
 
 def frozen_step_size(state: AdaptiveState) -> float:

@@ -24,8 +24,16 @@ a whole-width activation in two patterns, both here:
 With a plain tensor both are one ``torch.matmul``, so an unsharded caller
 computes what it computed before.
 
-Every all-reduce is counted (``call_counts`` / ``reset_call_counts``), so
-a run can report collectives per transition.
+Every all-reduce is counted on the device (``call_counts`` /
+``reset_call_counts``): one is added to a device counter on the current
+stream beside each ``dist.all_reduce`` (``ops.launches``), so a step captured
+into a CUDA graph counts its all-reduces at every replay, and the warm-up
+before a capture counts none (``launches.paused``).  Reading the count
+waits for the device.
+
+Which collectives a CUDA graph may hold (``capturable``): NCCL's, which are
+kernels and events on the device's streams, and none at all (a group of
+None); not Gloo's, which stage a CUDA tensor through the host.
 """
 
 from __future__ import annotations
@@ -36,24 +44,37 @@ import torch
 import torch.distributed as dist
 from torch import Tensor
 
-_COUNTS = {"all_reduce": 0}
+from riemannhamiltonianmontecarlo_tpu_torch.ops import launches
 
 
 def call_counts() -> dict[str, int]:
-    """All-reduces issued since the last reset."""
-    return dict(_COUNTS)
+    """All-reduces issued since the last reset, eager or replayed, counted on
+    the devices (waits for them)."""
+    return launches.counts(("all_reduce",))
 
 
 def reset_call_counts() -> None:
-    _COUNTS["all_reduce"] = 0
+    launches.reset(("all_reduce",))
 
 
 def all_reduce(x: Tensor, group, op=dist.ReduceOp.SUM) -> Tensor:
     """Reduce ``x`` in place over ``group`` (None: no-op) and return it."""
     if group is not None:
-        _COUNTS["all_reduce"] += 1
+        launches.count("all_reduce", x.device)
         dist.all_reduce(x, op=op, group=group)
     return x
+
+
+def backend(group) -> str:
+    """The backend of ``group``'s collectives ("none" for None)."""
+    return "none" if group is None else str(dist.get_backend(group))
+
+
+def capturable(group) -> bool:
+    """Whether collectives over ``group`` may run inside a CUDA graph: yes for
+    None (there are none) and for an NCCL group; no for Gloo, which stages
+    CUDA tensors through the host."""
+    return backend(group) in ("none", "nccl")
 
 
 def group_size(group) -> int:

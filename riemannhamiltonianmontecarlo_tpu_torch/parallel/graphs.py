@@ -41,7 +41,21 @@ count) is left out of the graph by the write-back.
 ``step_graph`` caches entries by the step function (weakly: an entry dies
 with its kernel), the collect function and the state's structure, shapes,
 dtypes and device, as the JAX package's jit cache does; a kernel rebuilt
-with another step size is another step function, so another entry.
+with another step size is another step function, so another entry.  A
+chain-split step (``mesh.chain_sliced``) is keyed by the step it splits and
+its mesh, so the wrap each ``run`` makes replays the first wrap's graph.
+
+Runs with a mesh.  A chain-split step makes no collective and is captured on
+any backend.  A step that all-reduces inside (a model split over ``"data"``
+or ``"latent"``, the adaptive kernel's pooled acceptance) is captured where
+its groups are NCCL's (``collectives.capturable``): the all-reduces are
+recorded with the step's kernels, on NCCL's stream joined to the capture's
+by events, and their device counter beside them.  The warm-up steps run
+before the capture, so they create the NCCL communicators and the counter
+outside it.  The runner is SPMD, so every rank of a group reaches the same
+capture at the same step, and replays its graph as often as the others do;
+the end-of-phase reductions (``runner.run``'s acceptance and divergences)
+stay eager collectives on the same communicators, after the replays.
 """
 
 from __future__ import annotations
@@ -57,7 +71,7 @@ from riemannhamiltonianmontecarlo_tpu_torch.ops import launches
 from riemannhamiltonianmontecarlo_tpu_torch.samplers.base import Kernel, tree_map
 
 WARMUP_STEPS = 2  # eager steps on a clone before capture
-_GRAPHS: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()  # step -> {(fn, signature): StepGraph}
+_GRAPHS: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()  # step -> {(mesh, fn, signature): StepGraph}
 _CAPTURES = [0]
 
 
@@ -209,9 +223,17 @@ class StepGraph:
         return final, out, self.accept_sum / max(num_steps, 1), self.div_sum.clone()
 
 
+def _keys(step: Callable, fn: Callable | None, state) -> tuple[Callable, tuple]:
+    """(the step that holds the entry weakly, the entry's key under it): a
+    chain-split step's are the step it splits and, in the key, its mesh."""
+    held, mesh = getattr(step, "sliced", (step, None))
+    return held, (mesh, fn or position_of, _signature(state))
+
+
 def lookup(step: Callable, fn: Callable | None, state) -> StepGraph | None:
     """The entry ``step_graph`` captured for these arguments, or None; never captures."""
-    return _GRAPHS.get(step, {}).get((fn or position_of, _signature(state)))
+    held, key = _keys(step, fn, state)
+    return _GRAPHS.get(held, {}).get(key)
 
 
 def step_graph(step: Callable, fn: Callable | None, state) -> StepGraph:
@@ -221,5 +243,6 @@ def step_graph(step: Callable, fn: Callable | None, state) -> StepGraph:
     if entry is None:
         entry = StepGraph(step, fn or position_of, state)
         entry.capture()
-        _GRAPHS.setdefault(step, {})[(fn or position_of, _signature(state))] = entry
+        held, key = _keys(step, fn, state)
+        _GRAPHS.setdefault(held, {})[key] = entry
     return entry

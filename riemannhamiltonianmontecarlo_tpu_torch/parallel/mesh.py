@@ -21,8 +21,13 @@ Two things JAX gives for free are explicit here:
   Philox does not (a rank drawing (C/k, D) does not get rows of a (C, D)
   draw).  ``chain_sliced`` wraps a kernel so that every rank draws the
   noise of all chains from the shared generator and keeps its own rows;
-  a transition that draws inside (Gibbs's GIG rounds, a fixed count of
-  them) draws every chain's noise too.
+  a transition that draws inside (Gibbs's GIG draw, Philox counters
+  indexed by the global element) draws every chain's noise too.
+
+A split step makes no collective, so the runner replays it as a CUDA graph
+wherever the kernel it splits is capturable, on any backend; a model split
+along another axis is capturable where its group's collectives are
+(``collectives.capturable``: NCCL).
 """
 
 from __future__ import annotations
@@ -203,12 +208,19 @@ def chain_sliced(kernel: Kernel, mesh: Mesh) -> Kernel:
     keeps rows lo:hi of every leaf along its chain axis (probed once per
     state shape: AMH's and the Gibbs sweep's noise are coordinate-major) and
     calls the pure ``transition``.  A leaf that draws inside the transition
-    (Gibbs's GIG rounds) is given this rank's ``ChainRows``.  Every rank
+    (Gibbs's GIG draw) is given this rank's ``ChainRows``.  Every rank
     draws from the same generator, so the same seed gives the same chains
     however the chain axis is split.  A kernel without ``transition`` and
     ``draw_noise``, or whose noise holds a leaf with no chain axis, raises,
     naming the sampler.  The returned kernel has no ``draw_noise``: it is
     not split again.
+
+    The split step makes no collective, so it is capturable where
+    ``kernel`` is.  The probe draws on the CPU: it runs at the first step of
+    a state shape, which under ``parallel.graphs`` is an eager warm-up step,
+    and raises inside a capture.  The step carries ``sliced = (kernel.step,
+    mesh)``: ``parallel.graphs`` keys a split step's graph by these, so the
+    wraps that each ``run`` makes of one kernel on one mesh replay one graph.
     """
     name = _sampler_name(kernel)
     if kernel.transition is None or kernel.draw_noise is None:
@@ -222,6 +234,9 @@ def chain_sliced(kernel: Kernel, mesh: Mesh) -> Kernel:
         c = state.position.shape[0]
         shapes = tuple(tuple(x.shape) for x in _leaves(arg))
         if shapes not in axes_by_shape:
+            if state.position.device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+                raise RuntimeError(f"{name}: the chain-axis probe of a new state shape is inside a CUDA graph "
+                                   "capture: it must run at an eager step first")
             axes_by_shape[shapes] = _noise_chain_axes(kernel, name, arg)
         rows = ChainRows(i * c, (i + 1) * c, c * k, group)
         noise = kernel.draw_noise(generator, _global_view(arg, c, c * k, name))
@@ -231,7 +246,8 @@ def chain_sliced(kernel: Kernel, mesh: Mesh) -> Kernel:
 
         return kernel.transition(state, _map_leaves(take, noise, axes_by_shape[shapes]))
 
-    return Kernel(kernel.init, step, kernel.transition, after_step=kernel.after_step)
+    step.sliced = (kernel.step, mesh)
+    return Kernel(kernel.init, step, kernel.transition, capturable=kernel.capturable, after_step=kernel.after_step)
 
 
 def _leaves(tree) -> list[Tensor]:

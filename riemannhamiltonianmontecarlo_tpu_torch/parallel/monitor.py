@@ -45,7 +45,9 @@ def monitor(kernel: Kernel, every: int = 50, label: str = "mcmc") -> Kernel:
     captured runs print the same lines; a graph's warm-up and its capture
     print nothing.  The wrapper keeps the inner kernel's ``transition`` /
     ``draw_noise`` split, so the runner can split its chains; the window is
-    then this rank's chains.
+    then this rank's chains.  Under a mesh it stays capturable where
+    ``kernel`` is (the chain split keeps ``after_step``), and the count and
+    prints stay host work between the replays.
     """
 
     def init(position: Tensor) -> MonitorState:

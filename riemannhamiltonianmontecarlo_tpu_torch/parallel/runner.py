@@ -4,9 +4,9 @@ Port of ``run`` and ``run_checkpointed`` from
 ``riemannhamiltonianmontecarlo_tpu/parallel/runner.py``.
 The JAX package's jitted ``lax.scan`` becomes, on a CUDA device, the replay
 of a captured CUDA graph of one step (``parallel.graphs``), for every
-kernel that declares its step capturable (``Kernel.capturable``); elsewhere
-(the CPU, a kernel that cannot be captured, a run with a mesh) it is a
-Python loop over steps (``_scan_phase``).  Either runs under
+kernel that declares its step capturable (``Kernel.capturable``), with a
+mesh or without; elsewhere (the CPU, a kernel that cannot be captured) it
+is a Python loop over steps (``_scan_phase``).  Either runs under
 ``torch.inference_mode()``: samples go into one preallocated (S, C, D)
 tensor on the chains' device, and the acceptance and divergence sums stay
 on the device (no host sync per step).  The two give the same chains from
@@ -18,9 +18,12 @@ Sharding: pass a ``parallel.mesh.Mesh`` and the chains are split over its
 position with the kernel's chain-sliced step (``mesh.chain_sliced``), so
 the same seed gives the same chains however the axis is split, and keeps
 its own (C_local, S, D) samples, as JAX keeps addressable shards.  The
-acceptance and divergence figures are global (``collectives``); a step
-itself communicates only where the model is split along another axis.
-Runs with a mesh are not captured.
+acceptance and divergence figures are global (``collectives``), reduced
+eagerly after each phase, outside the graph; a step itself communicates
+only where the model is split along another axis.  A chain-split step is
+captured on any backend (it makes no collective); a step that all-reduces
+inside is captured where its groups are NCCL's and runs eagerly over Gloo,
+as its kernel declares (``Kernel.capturable``).
 """
 
 from __future__ import annotations
@@ -34,7 +37,7 @@ import torch
 import torch.distributed as dist
 from torch import Tensor
 
-from riemannhamiltonianmontecarlo_tpu_torch.parallel import graphs
+from riemannhamiltonianmontecarlo_tpu_torch.parallel import collectives, graphs
 from riemannhamiltonianmontecarlo_tpu_torch.parallel.collectives import all_reduce, cross_chain_mean, cross_chain_sum
 from riemannhamiltonianmontecarlo_tpu_torch.parallel.mesh import CHAIN_AXIS, Mesh, chain_sliced, shard_chains
 from riemannhamiltonianmontecarlo_tpu_torch.samplers.base import Kernel, tree_map
@@ -111,14 +114,19 @@ def run(
     ``capture``: None replays a CUDA graph of each phase's step where the
     chains are on a CUDA device and the phase's kernel declares itself
     capturable, and runs the eager loop elsewhere; True requires the graph
-    (raises on the CPU, with a mesh, or for a kernel that cannot be
-    captured); False runs the eager loop.
+    (raises on the CPU, or for a kernel that cannot be captured, naming the
+    backends of the mesh's groups); False runs the eager loop.
     """
     if mesh is not None and capture:
-        raise ValueError("capture=True: runs with a mesh are not captured")
+        for k in (kernel, warmup_kernel or kernel):
+            if not k.capturable:
+                backends = {axis: collectives.backend(g) for axis, g in mesh.groups.items()}
+                raise ValueError("capture=True: the kernel declares that its step cannot be captured "
+                                 f"(Kernel.capturable); the mesh's groups run over {backends}, and a step's "
+                                 "collectives are captured over NCCL only")
     device = (init_position if init_state is None else init_state.position).device
-    graph = mesh is None and graphs.wants_capture(kernel, device, capture)
-    warm_graph = mesh is None and burn_in > 0 and graphs.wants_capture(warmup_kernel or kernel, device, capture)
+    graph = graphs.wants_capture(kernel, device, capture)
+    warm_graph = burn_in > 0 and graphs.wants_capture(warmup_kernel or kernel, device, capture)
     group = None
     if mesh is not None:
         group = mesh.group(CHAIN_AXIS)

@@ -56,8 +56,9 @@ class Kernel(NamedTuple):
     draw_noise: Callable[[torch.Generator, Any], Any] | None = None
     noise_from_state: bool = False  # draw_noise takes the state, not the position
     # The step can be captured as a CUDA graph (``parallel.graphs``): no host
-    # sync, no host-side branch on device values, no collective.  ``run``
-    # replays a graph of it on a CUDA device by default.
+    # sync, no host-side branch on device values, no collective but NCCL's
+    # (``parallel.collectives.capturable``).  ``run`` replays a graph of it on
+    # a CUDA device by default.
     capturable: bool = False
     # Host work after every step, outside the step and so outside its graph:
     # ``after_step(state) -> state``, called by the runner after each eager
@@ -70,9 +71,9 @@ def model_capturable(model) -> bool:
     """Whether a model's methods may run inside a CUDA graph: those that
     say so (``capturable = True``), each held eager against captured on the
     card (``chip_smoke.py`` phase 13), ``torch.func`` derivatives through
-    ``models.base.with_autograd`` included (the StochVol hyper block); not a
-    sharded model (its products are all-reduced) nor a
-    ``models.FunctionModel`` (a user's ``logp`` may read the device)."""
+    ``models.base.with_autograd`` included (the StochVol hyper block); a
+    sharded model where its group's all-reduces may be captured (NCCL); not
+    a ``models.FunctionModel`` (a user's ``logp`` may read the device)."""
     return bool(getattr(model, "capturable", False))
 
 

@@ -23,7 +23,11 @@ and ``captured`` (replays of the step's CUDA graph, ``parallel.graphs``, as
 ``run`` does by default on a card), the captured rows with the capture's
 seconds and the bytes of device memory its graph pool reserved.  The BLR
 rows are RMHMC at the reference constants (4096 chains) and Gibbs (1024) on
-synthetic data of australian's shape (N = 690, D = 15).
+synthetic data of australian's shape (N = 690, D = 15).  The ``blr-mesh``
+rows are that RMHMC run on a ("chains", "data") mesh of shape (1, 1) over
+NCCL in this process (world 1, a TCP store on a free local port), the model
+from ``with_sharding``: every row gives its all-reduces a step, counted on
+the device (``collectives.call_counts``).
 
     python -m riemannhamiltonianmontecarlo_tpu_torch.step_profile [--out FILE] \\
         [--only lgc/rmhmc_joint fhn/rmhmc]
@@ -44,12 +48,13 @@ from torch.profiler import ProfilerActivity, profile
 
 from riemannhamiltonianmontecarlo_tpu_torch import experiments, interop, models, parallel, utils
 from riemannhamiltonianmontecarlo_tpu_torch.ops import tridiag
-from riemannhamiltonianmontecarlo_tpu_torch.parallel import graphs
+from riemannhamiltonianmontecarlo_tpu_torch.parallel import collectives, graphs
+from riemannhamiltonianmontecarlo_tpu_torch.parallel.launch import free_port
 from riemannhamiltonianmontecarlo_tpu_torch.samplers import pmala, rmhmc
 
 # (workload, sampler, chains): the chip-smoke configurations.
 RUNS = (
-    ("blr", "rmhmc", 4096), ("blr", "gibbs", 1024),
+    ("blr", "rmhmc", 4096), ("blr-mesh", "rmhmc", 4096), ("blr", "gibbs", 1024),
     ("stochvol", "rmhmc", 1024), ("stochvol", "hmc", 1024), ("stochvol", "mala", 1024), ("stochvol", "mmala", 1024),
     ("lgc", "rmhmc", 64), ("lgc", "pmala", 64), ("lgc", "mmala", 8), ("lgc", "mala_stationary", 16),
     ("lgc", "rmhmc_joint", 4), ("lgc", "mmala_joint", 4),
@@ -63,18 +68,30 @@ GIBBS = {"gibbs_sweep_kernel": re.compile(r"gibbs_sweep_kernel"), "gig_half_kern
          "draws": re.compile(r"distribution")}
 
 
+def _world1_mesh() -> parallel.Mesh:
+    """A ("chains", "data") mesh of shape (1, 1) over a world of one NCCL rank
+    (joined here the first time; ``main`` leaves it)."""
+    parallel.initialize_distributed(device="cuda", init_method=f"tcp://localhost:{free_port()}", world_size=1, rank=0)
+    return parallel.make_mesh(1, (parallel.CHAIN_AXIS, "data"), (1, 1))
+
+
 def _kernel(workload: str, sampler: str, device: torch.device):
-    if workload == "blr":  # chip_smoke.py's main path (rmhmc) and phase 6's samplers
+    """(kernel, init_fn, mesh or None) of a run of RUNS."""
+    if workload in ("blr", "blr-mesh"):  # chip_smoke.py's main path (rmhmc) and phase 6's samplers
         ds = models.synthetic_logreg(seed=0, n=690, d=15)
         model = interop.logreg_from_numpy(ds.X, ds.t, device=device)
+        mesh = _world1_mesh() if workload == "blr-mesh" else None
+        if mesh is not None:
+            model = model.with_sharding(mesh)
         kernel = rmhmc.build(model) if sampler == "rmhmc" else experiments.build_kernel(sampler, model, "australian")[0]
-        return kernel, lambda c: utils.default_init(model, torch.Generator(device=device).manual_seed(0), c)
+        return kernel, lambda c: utils.default_init(model, torch.Generator(device=device).manual_seed(0), c), mesh
     if sampler == "pmala":  # constant-metric mMALA, built on the model's metric (RESULTS.md:78)
         y, _ = models.lgc.generate_data(seed=0, n=64)
         model = experiments.interop.lgc_from_numpy(y, 64, device=device)
-        return pmala.build(model, model.metric_chol, model.metric_inv), lambda c: model.prior_mean().expand(c, -1).clone()
+        return (pmala.build(model, model.metric_chol, model.metric_inv),
+                lambda c: model.prior_mean().expand(c, -1).clone(), None)
     kernel, init_fn, _, _, _ = experiments.build_workload(workload, sampler, device=device, seed=0)
-    return kernel, init_fn
+    return kernel, init_fn, None
 
 
 def _wall_ms(fn, reps: int) -> float:
@@ -89,11 +106,11 @@ def _wall_ms(fn, reps: int) -> float:
 def profile_run(workload: str, sampler: str, chains: int, *, warm: int, steps: int, profiled: int,
                 captured: bool = False) -> dict:
     device = torch.device("cuda")
-    kernel, init_fn = _kernel(workload, sampler, device)
+    kernel, init_fn, mesh = _kernel(workload, sampler, device)
     gen = torch.Generator(device=device).manual_seed(0)
     with torch.inference_mode():
         state = parallel.run(kernel, gen, init_fn(chains), num_samples=0, burn_in=warm, collect=False,
-                             capture=captured).final_state
+                             mesh=mesh, capture=captured).final_state
         box = [state]
         if captured:  # the runner's own graph of this step (captured by the burn-in above)
             entry = graphs.lookup(kernel.step, None, state)
@@ -107,7 +124,9 @@ def profile_run(workload: str, sampler: str, chains: int, *, warm: int, steps: i
                 for _ in range(n):
                     box[0], _ = kernel.step(gen, box[0])
 
+        collectives.reset_call_counts()
         wall = _wall_ms(lambda: run_steps(steps), 1) / steps
+        all_reduce = collectives.call_counts()["all_reduce"] / steps
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             run_steps(profiled)
             torch.cuda.synchronize()
@@ -119,7 +138,7 @@ def profile_run(workload: str, sampler: str, chains: int, *, warm: int, steps: i
         "workload": workload, "sampler": sampler, "chains": chains, "path": "captured" if captured else "eager",
         "capturable": kernel.capturable,
         "wall_ms_per_step": wall, "device_busy_ms_per_step": busy, "idle_share": 1.0 - busy / wall,
-        "kernel_launches_per_step": len(kernels) / profiled,
+        "kernel_launches_per_step": len(kernels) / profiled, "all_reduce_per_step": all_reduce,
         "gemm_share_of_device": sum(ms for name, ms in kernels if GEMM.search(name)) / busy,
         "factor_share_of_device": sum(ms for name, ms in kernels if FACTOR.search(name)) / busy,
         "trsm_share_of_device": sum(ms for name, ms in kernels if TRSM.search(name)) / busy,
@@ -212,6 +231,8 @@ def main(argv=None) -> None:
             print(lines[-1], flush=True)
             if not rec["capturable"]:
                 break
+    if torch.distributed.is_initialized():  # the blr-mesh rows' world of one rank
+        torch.distributed.destroy_process_group()
     if args.out:
         with open(args.out, "w") as f:
             f.write("\n".join(lines) + "\n")

@@ -5,7 +5,10 @@ Port of ``tools/scaling_table.py``.  For each world size the ranks are plain
 processes started by ``parallel.launch.spawn`` over Gloo, on the CPU
 (``--device cpu``) or sharing one card; each advances its rows of the chains
 with the chain-split step (``parallel.run(..., mesh=)``) through a burn-in,
-an untimed run and a timed one.  The time is the slowest rank's.
+an untimed run and a timed one.  The time is the slowest rank's.  On a card
+each rank replays a CUDA graph of its chain-split step (it makes no
+collective, so Gloo does not keep it eager), captured in the burn-in; the
+rows give the path and the captures each rank made.
 
 Indicative only: ranks that share one card, or one host's cores, cannot
 scale -- the table shows the harness and the split program end to end (the
@@ -62,6 +65,7 @@ def rank_run(out: str, device: str, chains_per_rank: int, samples: int, burn_in:
     chains = chains_per_rank * dist.get_world_size()
     init = utils.default_init(model, torch.Generator(device=device).manual_seed(7), chains)
     gen = torch.Generator(device=device).manual_seed(1)
+    captures = parallel.graphs.capture_count()
     warm = parallel.run(kernel, gen, init, num_samples=0, burn_in=burn_in, collect=False, mesh=mesh)
     pre = parallel.run(kernel, gen, None, num_samples=samples, collect=False, init_state=warm.final_state, mesh=mesh)
     synchronize(device)
@@ -70,11 +74,13 @@ def rank_run(out: str, device: str, chains_per_rank: int, samples: int, burn_in:
     res = parallel.run(kernel, gen, None, num_samples=samples, collect=False, init_state=pre.final_state, mesh=mesh)
     synchronize(device)
     seconds = time.perf_counter() - t0
-    slowest = parallel.collectives.all_reduce(torch.tensor([seconds], dtype=torch.float64), dist.group.WORLD,
-                                              op=dist.ReduceOp.MAX)
+    made = parallel.graphs.capture_count() - captures
+    slowest, most = (parallel.collectives.all_reduce(torch.tensor([x], dtype=torch.float64), dist.group.WORLD,
+                                                     op=dist.ReduceOp.MAX) for x in (seconds, made))
     if dist.get_rank() == 0:
+        path = "captured" if made else "eager"
         Path(out).write_text(json.dumps({"seconds": float(slowest[0]), "accept": float(res.accept_rate),
-                                         "device": str(device)}))
+                                         "device": str(device), "path": path, "captures": int(most[0])}))
 
 
 def run_scaling(*, device: str | torch.device = "cuda", ranks=(1, 2, 4, 8), chains_per_rank: int = 64,
@@ -92,14 +98,16 @@ def run_scaling(*, device: str | torch.device = "cuda", ranks=(1, 2, 4, 8), chai
             got = json.loads(out.read_text())
             chains = chains_per_rank * n
             rate = chains * samples / got["seconds"]
-            rows.append((n, chains, got["seconds"], rate, got["accept"]))
+            step = f"{got['path']} ({got['captures']} capture{'s' * (got['captures'] != 1)} a rank)"
+            rows.append((n, chains, step, got["seconds"], rate, got["accept"]))
             print(f"{n} rank(s): {chains} chains, {samples} steps in {got['seconds']:.2f}s = {rate:,.0f} "
-                  f"chain-samples/s (accept {got['accept']:.3f})", flush=True)
-    base = rows[0][3] / rows[0][0]
-    table = [f"| ranks | chains ({chains_per_rank}/rank) | time (s) | chain-samples/s | accept "
-             "| scaling (shared device -- NOT indicative) |", "|---|---|---|---|---|---|"]
-    for n, chains, t, rate, accept in rows:
-        table.append(f"| {n} | {chains} | {t:.2f} | {rate:,.0f} | {accept:.3f} | {rate / (base * n):.2f}x/linear |")
+                  f"chain-samples/s (accept {got['accept']:.3f}, step {step})", flush=True)
+    base = rows[0][4] / rows[0][0]
+    table = [f"| ranks | chains ({chains_per_rank}/rank) | step | time (s) | chain-samples/s | accept "
+             "| scaling (shared device -- NOT indicative) |", "|---|---|---|---|---|---|---|"]
+    for n, chains, step, t, rate, accept in rows:
+        table.append(f"| {n} | {chains} | {step} | {t:.2f} | {rate:,.0f} | {accept:.3f} "
+                     f"| {rate / (base * n):.2f}x/linear |")
     return (
         f"## Chain-split demonstration (ranks sharing one device -- not a scaling claim) -- BLR australian "
         f"RMHMC, weak scaling shape ({chains_per_rank} chains/rank), {device_line(device)}\n\n"

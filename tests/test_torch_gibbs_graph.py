@@ -293,11 +293,14 @@ def test_torch_gibbs_step_reads_nothing_on_the_host(gibbs_setup, monitored, requ
     assert np.isfinite(out_state.position.numpy()).all() and np.isfinite(out_state.lam.numpy()).all()
 
 
-def test_torch_gibbs_capturable_where_its_model_is(gibbs_setup):
+def test_torch_gibbs_capturable_where_its_model_is(gibbs_setup, monkeypatch):
+    """On a row-split model, where the group's all-reduces may be captured: NCCL, not Gloo."""
     model, kernel, _ = gibbs_setup
     assert kernel.capturable and rt.parallel.monitor(kernel, every=10).capturable
-    mesh = rt.parallel.Mesh(("data",), {"data": 1}, {"data": 0}, {})
-    assert not gibbs.build(model.with_sharding(mesh, "data")).capturable
+    mesh = rt.parallel.Mesh(("data",), {"data": 1}, {"data": 0}, {"data": "group"})  # a stand-in group
+    for backend in ("gloo", "nccl"):
+        monkeypatch.setattr(torch.distributed, "get_backend", lambda group=None, b=backend: b)
+        assert gibbs.build(model.with_sharding(mesh, "data")).capturable == (backend == "nccl")
 
 
 @pytest.mark.parametrize("dim", [0, 49])

@@ -7,8 +7,9 @@ the runner's eager loop (``runner._scan_phase``): for every sampler that
 declares itself capturable, at small sizes, samples, final state, accept
 rate, divergences and the generator's state after the run are equal, bit for
 bit.  Then: the launch counters (each run of the captured function adds its
-launches, the warm-up none), the declarations, ``capture=True`` refused on
-the CPU, with a mesh and for a kernel that cannot be captured, and the
+launches, the warm-up none), the declarations (a step that all-reduces
+inside is capturable over NCCL, not Gloo), ``capture=True`` refused on the
+CPU, over a Gloo group and for a kernel that cannot be captured, and the
 posterior of RMHMC through the static-buffer step against the JAX runner's
 (as ``test_torch_slice.py``).
 """
@@ -26,7 +27,7 @@ from riemannhamiltonianmontecarlo_tpu_torch.ops import fhn_sens, hopper_linalg, 
 from riemannhamiltonianmontecarlo_tpu_torch.parallel import graphs
 from riemannhamiltonianmontecarlo_tpu_torch.parallel.graphs import position_of
 from riemannhamiltonianmontecarlo_tpu_torch.parallel.runner import _scan_phase
-from riemannhamiltonianmontecarlo_tpu_torch.samplers import hmc, pmala, rmhmc
+from riemannhamiltonianmontecarlo_tpu_torch.samplers import hmc, phmc, pmala, rmhmc
 from riemannhamiltonianmontecarlo_tpu_torch.samplers.base import Info, Kernel, tree_map
 
 torch.set_num_threads(1)
@@ -220,28 +221,48 @@ def local_mesh(axis: str):
     return rt.parallel.Mesh((axis,), {axis: 1}, {axis: 0}, {})
 
 
-def not_capturable() -> dict[str, Kernel]:
+def stand_in_mesh(axis: str, k: int = 1):
+    """A mesh whose ``axis`` has a stand-in group (building a kernel on it runs
+    no collective; ``dist.get_backend`` is patched to name its backend)."""
+    return rt.parallel.Mesh((axis,), {axis: k}, {axis: 0}, {axis: "group"})
+
+
+def by_backend() -> dict[str, Kernel]:
+    """Kernels whose step all-reduces over a (stand-in) group: capturable where it is NCCL's."""
     model = blr_model()
     y, _ = rt.models.lgc.generate_data(seed=0, n=4)
-    lgc = rt.interop.lgc_from_numpy(y, 4, device="cpu").with_sharding(local_mesh("latent"), "latent")
+    lgc = rt.interop.lgc_from_numpy(y, 4, device="cpu").with_sharding(stand_in_mesh("latent"), "latent")
     return {
-        "chain_sliced": rt.parallel.chain_sliced(hmc.build(model), local_mesh(rt.parallel.CHAIN_AXIS)),
-        # a chain group (a stand-in: building the kernel runs no collective)
-        "adaptive-pooled-over-ranks": rt.parallel.adaptive(hmc.build, model, hmc.HMCConfig(), mesh=rt.parallel.Mesh(
-            (rt.parallel.CHAIN_AXIS,), {rt.parallel.CHAIN_AXIS: 2}, {rt.parallel.CHAIN_AXIS: 0},
-            {rt.parallel.CHAIN_AXIS: "group"})),
-        "sharded-blr": hmc.build(model.with_sharding(local_mesh("data"), "data")),
-        "sharded-lgc": pmala.build(lgc, lgc.metric_chol, lgc.metric_inv),
-        "autodiff-model": hmc.build(rt.models.FunctionModel(2, lambda w: -0.5 * torch.sum(w * w))),
+        "adaptive-pooled-over-ranks": rt.parallel.adaptive(hmc.build, model, hmc.HMCConfig(),
+                                                           mesh=stand_in_mesh(rt.parallel.CHAIN_AXIS, 2)),
+        "sharded-blr": hmc.build(model.with_sharding(stand_in_mesh("data"), "data")),
+        "sharded-lgc": phmc.build(lgc, lgc.metric_chol, lgc.metric_inv),
     }
 
 
-def test_torch_graph_declarations():
-    for name, kernel in not_capturable().items():
-        assert not kernel.capturable, name
-        with pytest.raises(ValueError, match="declares that its step cannot be captured"):
-            graphs.wants_capture(kernel, torch.device("cuda"), True)
-        assert not graphs.wants_capture(kernel, torch.device("cuda"), None)
+def not_capturable() -> dict[str, Kernel]:
+    model = rt.models.FunctionModel(2, lambda w: -0.5 * torch.sum(w * w))
+    return {
+        "autodiff-model": hmc.build(model),
+        "chain_sliced-autodiff-model": rt.parallel.chain_sliced(hmc.build(model), local_mesh(rt.parallel.CHAIN_AXIS)),
+    }
+
+
+def test_torch_graph_declarations(monkeypatch):
+    """A chain split keeps its kernel's declaration; a step that all-reduces
+    inside is capturable over NCCL and not over Gloo."""
+    for backend in ("gloo", "nccl"):
+        monkeypatch.setattr(torch.distributed, "get_backend", lambda group=None, b=backend: b)
+        kernels = by_backend()
+        for name, kernel in kernels.items():
+            assert kernel.capturable == (backend == "nccl"), (name, backend)
+        for name, kernel in [*not_capturable().items(), *(kernels.items() if backend == "gloo" else ())]:
+            assert not kernel.capturable, name
+            with pytest.raises(ValueError, match="declares that its step cannot be captured"):
+                graphs.wants_capture(kernel, torch.device("cuda"), True)
+            assert not graphs.wants_capture(kernel, torch.device("cuda"), None)
+    sliced = rt.parallel.chain_sliced(hmc.build(blr_model()), local_mesh(rt.parallel.CHAIN_AXIS))
+    assert sliced.capturable and graphs.wants_capture(sliced, torch.device("cuda"), None)
     for name in CAPTURABLE:
         kernel, _ = build(name)
         assert graphs.wants_capture(kernel, torch.device("cuda"), None), name
@@ -249,7 +270,7 @@ def test_torch_graph_declarations():
         assert not graphs.wants_capture(kernel, torch.device("cuda"), False), name
 
 
-def test_torch_graph_capture_true_is_refused_on_the_cpu():
+def test_torch_graph_capture_true_is_refused_on_the_cpu(monkeypatch):
     model = blr_model()
     kernel = hmc.build(model, hmc.HMCConfig(step_size=0.1, num_leapfrog=3))
     init = rt.utils.default_init(model, torch.Generator().manual_seed(0), CHAINS)
@@ -258,10 +279,16 @@ def test_torch_graph_capture_true_is_refused_on_the_cpu():
     with pytest.raises(ValueError, match="a CUDA graph needs a CUDA device"):
         with torch.inference_mode():
             graphs.step_graph(kernel.step, position_of, kernel.init(init))
-    with pytest.raises(ValueError, match="runs with a mesh are not captured"):
+    # A run with a mesh: refused where a step's group is Gloo's, naming it; a
+    # chain split is refused here only for want of a card.
+    monkeypatch.setattr(torch.distributed, "get_backend", lambda group=None: "gloo")
+    with pytest.raises(ValueError, match="'data': 'gloo'.*over NCCL only"):
+        rt.parallel.run(hmc.build(model.with_sharding(stand_in_mesh("data"), "data")), torch.Generator().manual_seed(1),
+                        init, num_samples=2, capture=True, mesh=stand_in_mesh("data"))
+    with pytest.raises(ValueError, match="needs the chains on a CUDA device"):
         rt.parallel.run(kernel, torch.Generator().manual_seed(1), init, num_samples=2, capture=True,
                         mesh=local_mesh(rt.parallel.CHAIN_AXIS))
-    for kernel in not_capturable().values():  # refused before the kernel's init runs
+    for kernel in [*not_capturable().values(), *by_backend().values()]:  # refused before the kernel's init runs
         with pytest.raises(ValueError, match="needs the chains on a CUDA device"):
             rt.parallel.run(kernel, torch.Generator().manual_seed(1), init, num_samples=1, capture=True)
     # the default and capture=False run the eager loop here, the same chains
