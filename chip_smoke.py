@@ -13,9 +13,11 @@ It imports no jax.  Phases, each printing one line of findings:
 2. build: compiles ``ops/csrc/*.cu`` with nvcc (cached by source hash under
    the git-ignored ``build/``; one nvcc per source, all started together),
    prints the build seconds and the ptxas register / spill report (K1 / K2
-   per width, the FHN kernel per order, G1 per count 1..48 of B's entries
-   a lane holds, G2 and the single GIG round: exactly one instantiation
-   each), holds G1's scratch size against the library's, and
+   per width, the FHN kernel per order, G1 per count 1..SWEEP_ENT_MAX of
+   B's entries a lane holds with and without its prologue and its wide
+   layout's two forms, G2 and the single GIG round: exactly one
+   instantiation each, G1's spilling in none), holds SWEEP_ENT_MAX and G1's
+   scratch size against the library's, and
    holds ``hopper_linalg.launch_geometry`` (lanes per chain, chains per
    block, shared-memory tile) against the built library's own answer for
    every width 1..48, and ``fhn_sens.launch_geometry`` (lanes per chain,
@@ -52,7 +54,9 @@ It imports no jax.  Phases, each printing one line of findings:
    output within 1e-4 of its largest finite entry, the same non-finite
    entries, logp -inf and a zero gradient in both special chains, the other
    chains' outputs bit for bit those of a batch without the special ones;
-   per order its device time beside its bound (the roofline) and the
+   the same past the first form's 6,144 observations at 16 chains and one
+   substep (the twin on the host's CPU): orders 0-2 at 8,192, order 0 at
+   50,000; per order its device time beside its bound (the roofline) and the
    source's critical path (a chain's longest sequence of dependent
    operations at 4 cycles each and the card's maximum SM clock; printed on
    the times line, not in the kernels line) and the twin's time; then K1
@@ -62,7 +66,13 @@ It imports no jax.  Phases, each printing one line of findings:
    ``samplers.gibbs.gibbs_sweep_plain`` at (C, N, D) = (1024, 690, 15) (at
    the wrapper's lanes a chain and at each of ``SWEEP_LANES``),
    (1024, 1000, 25), (1025, 690, 15) and (257, 200, 40), on a state one plain step from
-   init, and at (1024, 690, 15) on that state with z scaled by 8 (the tail
+   init, past K1's 48 at UCI Sonar's shape (256, 208, 61), UCI Musk v1's
+   (1024, 476, 167) and (64, 300, 2049), where the wide layout runs, and
+   at D = 32 x SWEEP_ENT_MAX on (64, 300) in both layouts (B in registers,
+   the wide one with B in shared memory and in the output buffer: the same
+   bits in all three), each timed; at D >= 1024 the conditionals come from
+   batched matmuls under a prior variance of 1e-2, not from a BLR model;
+   and at (1024, 690, 15) on that state with z scaled by 8 (the tail
    case: some steps' bound a > 3, which must take each of the tail's three
    Rayleigh rounds): every z_j and B entry within rtol / atol 1e-4 except in
    the chains that parted (a value within rounding of a branch threshold, or
@@ -96,7 +106,11 @@ It imports no jax.  Phases, each printing one line of findings:
    samplers on a synthetic CSV of australian's shape (N=690, D=15), mMALA
    and RMHMC once more on one of german's shape (N=1000, D=25: K1's and
    K2's spilling D=25 instantiations end to end), and adaptive RMHMC (K1
-   and K2 under a tensor step size).  Each run: finite samples of the
+   and K2 under a tensor step size); then Gibbs on UCI Musk v1's shape
+   (N=476, D=167: V and chol(V) from torch.linalg, G1 on 32 lanes of 6
+   entries), 1024 chains, 3 + 3 eager and captured: bit for bit, one
+   capture, G1 / G2 counted on the device 6 each and K1 / K2 0, three
+   replays under torch.profiler against the counters.  Each run: finite samples of the
    right shape, acceptance in a window from RESULTS.md or the JAX
    package's tests, divergences, posterior means against the RMHMC run on
    the same data (z < 5 from exact-mode ESS), and K1 / K2 launch counts
@@ -143,7 +157,10 @@ It imports no jax.  Phases, each printing one line of findings:
    package's at the same constants, depth, seed and data and chain means
    within z < 5 of its (``FHN_JAX``, measured on the CPU by
    ``tests/reference_workload_jax.py``); divergences and ``RESULTS.md``'s
-   acceptance printed beside them, without a gate;
+   acceptance printed beside them, without a gate; then RMHMC at 8,192
+   observations x 5 substeps, 256 chains, 3 + 3 eager and captured: bit for
+   bit, one capture, FHN-kernel and K1 / K2 launches counted on the device
+   equal to the formulas, three replays under torch.profiler;
 11. distributed: the parallel layer on ``torch.distributed``; runs with a
    mesh replay the step's CUDA graph wherever the kernel declares it (a
    chain split on any backend, a step's all-reduces over NCCL).  In this
@@ -271,6 +288,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import hashlib
 import io
 import json
@@ -340,7 +358,8 @@ GIBBS_REPLACES = {
     "gig_round": "riemannhamiltonianmontecarlo_tpu/ops/gig.py:143-168 (one round of the rejection lax.while_loop, "
                  "series :42-115; no pallas_call)",
 }
-GIBBS_KERNEL_NAMES = {"gibbs_sweep": "gibbs_sweep_kernel", "gig_half": "gig_half_kernel",
+# (G1's two kernels, the register layout's gibbs_sweep_kernel and gibbs_sweep_wide_kernel, share "gibbs_sweep")
+GIBBS_KERNEL_NAMES = {"gibbs_sweep": "gibbs_sweep", "gig_half": "gig_half_kernel",
                       "gig_round": "gig_round_kernel"}
 GIBBS_COUNTED = tuple(GIBBS_KERNEL_NAMES)
 
@@ -533,24 +552,41 @@ def phase_build() -> None:
         for name, n, exact, r in re.findall(
             r"(cholesky_kernel|chol_solve_logdet_kernel)INS_5WidthILi(\d+)ELb([01])E.*?Used (\d+) registers", log, re.S)
     }
-    # The FHN kernel per order (its one template parameter): registers and
-    # spill stores (none expected), exactly one instantiation per order.
-    fhn_found = re.findall(rf"{FHN_KERNEL_NAME}ILi(\d)EE.*?(\d+) bytes spill stores.*?Used (\d+) registers", log, re.S)
-    orders = sorted(int(order) for order, _, _ in fhn_found)
-    check(orders == list(rt.ops.fhn_sens.ORDERS),
-          f"ptxas report names FHN kernel orders {orders}, expected one each of {rt.ops.fhn_sens.ORDERS}")
-    fhn_regs = {f"fhn<{order}>": {"registers": int(r), "spill_store_bytes": int(sp)} for order, sp, r in fhn_found}
-    # G1 per count of B's entries a lane holds (one instantiation for each of 1..48, and for 1 and 2 the
-    # prologue's, a chain on a whole warp), G2 and the single round: registers and spill stores.
-    gibbs_found = re.findall(r"(gibbs_sweep_kernel|gig_half_kernel|gig_round_kernel)(?:ILi(\d+)ELb([01])EE)?"
-                             r".*?(\d+) bytes spill stores.*?Used (\d+) registers", log, re.S)
-    gibbs_regs = {(f"{name}<{ent}>" if pro == "0" else f"{name}<{ent},prologue>")
-                  if ent else name: {"registers": int(r), "spill_store_bytes": int(sp)}
-                  for name, ent, pro, sp, r in gibbs_found}
-    expected = [*(f"gibbs_sweep_kernel<{e}>" for e in range(1, hl.MAX_DIM + 1)),
-                *(f"gibbs_sweep_kernel<{e},prologue>" for e in (1, 2)), "gig_half_kernel", "gig_round_kernel"]
+    # The FHN kernel per order and data path (staged in shared memory, or streamed past STAGED_MAX_OBS):
+    # registers and spill stores (none expected), exactly one instantiation of each.
+    fhn_found = re.findall(rf"{FHN_KERNEL_NAME}ILi(\d)ELb([01])EE.*?(\d+) bytes spill stores.*?Used (\d+) registers",
+                           log, re.S)
+    fhn_kinds = sorted((int(order), int(kind)) for order, kind, _, _ in fhn_found)
+    check(fhn_kinds == [(order, kind) for order in rt.ops.fhn_sens.ORDERS for kind in (0, 1)],
+          f"ptxas report names FHN kernels {fhn_kinds}, expected one each of orders {rt.ops.fhn_sens.ORDERS} "
+          "staged and streamed")
+    fhn_regs = {f"fhn<{order}{'' if kind == '1' else ',streamed'}>": {"registers": int(r), "spill_store_bytes": int(sp)}
+                for order, kind, sp, r in fhn_found}
+    # G1 per count of B's entries a lane holds (one instantiation for each of 1..SWEEP_ENT_MAX, with and
+    # without the prologue of a chain on a whole warp), its wide layout (B in shared memory or in the output
+    # buffer), G2 and the single round: registers and spill stores.  G1 spills in none but G1_SPILLS:
+    # SWEEP_ENT_MAX is the most entries a lane holds in registers.
+    gibbs_found = re.findall(r"(gibbs_sweep_kernel|gibbs_sweep_wide_kernel|gig_half_kernel|gig_round_kernel)"
+                             r"(?:I(?:Li(\d+)E)?(?:Lb([01])E)?E)?.*?(\d+) bytes spill stores.*?Used (\d+) registers", log,
+                             re.S)
+    gibbs_names = {"0": "", "1": ",prologue"}
+    gibbs_regs = {
+        (f"{name}<{ent}{gibbs_names[flag]}>" if ent else f"{name}<{'shared' if flag == '1' else 'global'}>"
+         if flag else name): {"registers": int(r), "spill_store_bytes": int(sp)}
+        for name, ent, flag, sp, r in gibbs_found}
+    expected = [*(f"gibbs_sweep_kernel<{e}{pro}>" for e in range(1, gibbs.SWEEP_ENT_MAX + 1)
+                  for pro in gibbs_names.values()),
+                "gibbs_sweep_wide_kernel<shared>", "gibbs_sweep_wide_kernel<global>", "gig_half_kernel",
+                "gig_round_kernel"]
     check(len(gibbs_found) == len(expected) and sorted(gibbs_regs) == sorted(expected),
           f"ptxas report names Gibbs kernels {sorted(gibbs_regs)}, expected one each of {expected}")
+    g1_spills = {name: row["spill_store_bytes"] for name, row in gibbs_regs.items()
+                 if name.startswith("gibbs_sweep") and row["spill_store_bytes"]}
+    check(g1_spills == G1_SPILLS, f"G1 spills {g1_spills} at SWEEP_ENT_MAX = {gibbs.SWEEP_ENT_MAX}, "
+                                  f"expected {G1_SPILLS}")
+    built_ent_max = gibbs._lib().rhmc_gibbs_sweep_max_entries()
+    check(built_ent_max == gibbs.SWEEP_ENT_MAX,
+          f"G1's entries a lane: Python SWEEP_ENT_MAX {gibbs.SWEEP_ENT_MAX}, built {built_ent_max}")
     for c, n in ((1, 1), (1025, 690), (8448, 1000)):
         for lanes in gibbs.SWEEP_LANES:
             mirror = gibbs.sweep_scratch_numel(c, n, lanes)
@@ -574,6 +610,9 @@ def phase_build() -> None:
                       for order in rt.ops.fhn_sens.ORDERS})
 
 
+# G1's spill stores by instantiation, bytes: 25 entries a lane without the prologue spills 4 B at 168
+# registers, as in earlier builds of this loop; every other none.
+G1_SPILLS = {"gibbs_sweep_kernel<25>": 4}
 # Device kernels by the name torch.profiler shows them under.
 KERNEL_NAMES = {"cholesky": "cholesky_kernel", "chol_solve_logdet": "chol_solve_logdet_kernel"}
 # BLR australian, german; StochVol hyper; FHN; joint LGC hyper
@@ -710,6 +749,23 @@ def phase_kernels(smi: str) -> dict:
 # G1 against its plain version at (C, N, D): phase 6's australian shape, german's, an odd C, and
 # a width no BLR dataset has (40) on a ragged last block.
 SWEEP_SHAPES = ((1024, 690, 15), (1024, 1000, 25), (1025, 690, 15), (257, 200, 40))
+# Past K1's 48, each timed: UCI Sonar's shape (208 rows, 60 features and the intercept) and UCI Musk v1's
+# (476 rows, 166 features), B in registers; and a width past 32 lanes of SWEEP_ENT_MAX entries, where
+# the wide layout runs (SWEEP_DIRECT_MIN_DIM).
+SWEEP_WIDE_SHAPES = ((256, 208, 61), (1024, 476, 167), (64, 300, 2049))
+# Where both layouts take D, (C, N) and D = 32 lanes of SWEEP_ENT_MAX entries: B in registers against the
+# wide layout, B in shared memory and in the output buffer (SWEEP_BOTH_LAYOUTS), all three bit for bit
+# (the same sums in the same order), each against the plain version and timed.
+SWEEP_BOTH_CN = (64, 300)
+SWEEP_BOTH_LAYOUTS = (None, "wide", "wide-global")
+# From this D on, inputs come from the step's conditionals computed here by batched matmuls (V in
+# float64, then rounded), not from a BLR model, whose (N, D^2) outer features take N D^2 floats, under a
+# prior variance of SWEEP_DIRECT_PRIOR_VARIANCE, a ridge's shrinkage for more features than rows.  Under
+# the default 100 with N < D, x_j^T V x_j lies within ~1e-5 of lambda_j, and w_j = h_j / (lambda_j - h_j)
+# turns the float32 rounding of the dot into more than the tolerance (at N = 2 D, float32 against float64
+# plain sweeps came to 1.01 of it at D = 2049, N = 4096; at 1e-2, N = 300, to 0.056; on the CPU).
+SWEEP_DIRECT_MIN_DIM = 1024
+SWEEP_DIRECT_PRIOR_VARIANCE = 1e-2
 # The tail case: phase 6's shape with the state's z scaled by SWEEP_TAIL_Z_SCALE
 # before its conditionals, so that B and the conditional means are that much
 # larger and a chain's misfit points sit more than 3 std on the wrong side
@@ -754,16 +810,48 @@ GIG_HALF_OPS_PER_ROUND = 100 + 16 + 6 + GIG_OPS_PER_PENDING
 GIG_KEY_SEED = 13
 
 
+class SweepData(NamedTuple):
+    """The data G1 reads from a model: X (N, D) and the labels (N,)."""
+
+    X: torch.Tensor
+    t: torch.Tensor
+
+
+def direct_conditionals(data: SweepData, state, prior_variance: float = SWEEP_DIRECT_PRIOR_VARIANCE):
+    """``gibbs.conditionals`` without the model's (N, D^2) outer features:
+    X^T Lambda^{-1} X by a batched matmul, V by Cholesky in float64."""
+    x, d = data.X, data.X.shape[1]
+    prec = torch.matmul(x.T[None] / state.lam[:, None, :], x).double()
+    prec = prec + torch.eye(d, dtype=prec.dtype, device=DEVICE) / prior_variance
+    chol_prec = torch.linalg.cholesky(prec)
+    v = torch.cholesky_inverse(chol_prec)
+    chol_v = torch.linalg.cholesky(v).float()
+    v = v.float()
+    s = torch.matmul(v, x.T)
+    return gibbs.Conditionals(v, chol_v, s, torch.einsum("cdn,cn->cd", s, state.z / state.lam),
+                              torch.einsum("nd,cdn->cn", x, s))
+
+
 def gibbs_inputs(c: int, n: int, d: int, seed: int, z_scale: float = 1.0):
     """BLR data of (N, D), a Gibbs state one step from init taken through the
     plain versions (so that lambda and z are a step's; z then scaled by
     ``z_scale``), its conditionals and the next sweep's uniforms: (model,
-    state, conditionals, noise)."""
+    state, conditionals, noise).  At a shape of SWEEP_DIRECT the data alone
+    (``SweepData``) and ``direct_conditionals``, from init at 0."""
     ds = rt.models.synthetic_logreg(seed=seed, n=n, d=d)
-    model = rt.interop.logreg_from_numpy(ds.X, ds.t, device=DEVICE)
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
-    state = gibbs.build(model).init(rt.utils.default_init(model, gen, c))
-    cond = gibbs.conditionals(model, state)
+    if d >= SWEEP_DIRECT_MIN_DIM:
+        model = SweepData(torch.tensor(ds.X, dtype=torch.float32, device=DEVICE),
+                          torch.tensor(ds.t, dtype=torch.float32, device=DEVICE))
+        half_mean = math.sqrt(2.0 / math.pi)
+        z0 = torch.where(model.t == 1.0, half_mean, -half_mean).expand(c, n).clone()
+        state = gibbs.GibbsState(torch.zeros((c, d), device=DEVICE), z0, torch.ones((c, n), device=DEVICE))
+        conditionals = direct_conditionals
+    else:
+        model = rt.interop.logreg_from_numpy(ds.X, ds.t, device=DEVICE)
+        state = gibbs.build(model).init(rt.utils.default_init(model, gen, c))
+        conditionals = gibbs.conditionals
+    cond = conditionals(model, state)
     noise = gibbs.draw_noise(gen, state)
     b, z = gibbs.gibbs_sweep_plain(model.X, model.t, state.lam, cond.h, state.z, cond.s, cond.b, noise.sweep)
     beta = b + rt.ops.mvn_sample(cond.chol_v, noise.beta)
@@ -774,7 +862,7 @@ def gibbs_inputs(c: int, n: int, d: int, seed: int, z_scale: float = 1.0):
                             torch.rand(r.shape, generator=gen, device=DEVICE),
                             torch.rand(r.shape, generator=gen, device=DEVICE), lam, ok)
     state = gibbs.GibbsState(beta, z_scale * z, lam)
-    return model, state, gibbs.conditionals(model, state), truncnorm.draw_noise(gen, (n, c), device=DEVICE)
+    return model, state, conditionals(model, state), truncnorm.draw_noise(gen, (n, c), device=DEVICE)
 
 
 def sweep_bounds(args, z: torch.Tensor) -> torch.Tensor:
@@ -845,14 +933,35 @@ def tail_rounds(a: torch.Tensor, noise: truncnorm.TruncNormNoise) -> dict:
 
 
 def wrapper_lanes(c: int) -> int:
-    """The lanes a chain that G1's wrapper takes for ``c`` chains on this card."""
+    """The lanes a chain that G1's wrapper takes for ``c`` chains on this card (B in registers, D <= 32 at
+    any C)."""
     return gibbs.sweep_lanes(c, torch.cuda.get_device_properties(0).multi_processor_count)
 
 
-def check_sweep(c: int, n: int, d: int, timed: bool, z_scale: float = 1.0, lanes_checked=(None,)) -> dict:
+def layout_kwargs(layout) -> dict:
+    """``gibbs_sweep_cuda``'s keywords for a layout of check_sweep: None (the wrapper's own), a lane count
+    (B in registers), "wide" or "wide-global"."""
+    if layout is None:
+        return {}
+    if isinstance(layout, int):
+        return {"lanes": layout}
+    return {"wide": True, "b_global": layout == "wide-global"}
+
+
+def layout_name(c: int, d: int, layout) -> str:
+    """A layout of check_sweep by its lanes, or wide with where B lives."""
+    resolved, code = gibbs.launch_layout(c, d, torch.device(DEVICE), **layout_kwargs(layout))
+    return {gibbs.SWEEP_REGISTERS: f"{resolved.lanes} lanes", gibbs.SWEEP_WIDE_SHARED: "wide, B in shared memory",
+            gibbs.SWEEP_WIDE_GLOBAL: "wide, B in the output buffer"}[code]
+
+
+def check_sweep(c: int, n: int, d: int, timed: bool, z_scale: float = 1.0, lanes_checked=(None,),
+                same_bits: bool = False) -> dict:
     """G1 against its plain version at one shape, on a state whose z is scaled
-    by ``z_scale`` (``gibbs_inputs``), at the wrapper's lanes (None) and any
-    other of ``lanes_checked``; its times where ``timed``."""
+    by ``z_scale`` (``gibbs_inputs``), at the wrapper's layout (None) and any
+    other of ``lanes_checked`` (``layout_kwargs``), and where ``same_bits``
+    (layouts whose sums run in one order) every layout's output bit for bit
+    the wrapper's; its times where ``timed``, every layout's device time there."""
     model, state, cond, noise = gibbs_inputs(c, n, d, seed=c + n + d, z_scale=z_scale)
     args = (model.X, model.t, state.lam, cond.h, state.z, cond.s, cond.b, noise)
     bp, zp = gibbs.gibbs_sweep_plain(*args)
@@ -863,12 +972,13 @@ def check_sweep(c: int, n: int, d: int, timed: bool, z_scale: float = 1.0, lanes
     clear = zp.abs() > atol
     bound_a = sweep_bounds(args, zp)
     tail = tail_rounds(bound_a, noise)
-    by_lanes = {}
-    for lanes in lanes_checked:
-        bk, zk = gibbs.gibbs_sweep_cuda(*args, lanes=lanes)
+    by_lanes, outputs = {}, {}
+    for checked in lanes_checked:
+        bk, zk = gibbs.gibbs_sweep_cuda(*args, **layout_kwargs(checked))
         torch.cuda.synchronize()
-        lanes = wrapper_lanes(c) if lanes is None else lanes
-        at = f"(C={c}, N={n}, D={d}, z x {z_scale}, {lanes} lanes)"
+        lanes = layout_name(c, d, checked)
+        outputs[lanes] = (bk, zk)
+        at = f"(C={c}, N={n}, D={d}, z x {z_scale}, {lanes})"
         check(bk.shape == (c, d) and zk.shape == (c, n), f"G1 {at}: shapes {tuple(bk.shape)}, {tuple(zk.shape)}")
         check(bool(torch.isfinite(bk).all() and torch.isfinite(zk).all()), f"G1 {at}: non-finite output")
         wrong = int(((zk * sign <= 0) & clear).sum())
@@ -894,34 +1004,46 @@ def check_sweep(c: int, n: int, d: int, timed: bool, z_scale: float = 1.0, lanes
         check(wrong == 0, f"G1 {at}: {wrong} z_j clear of 0 on the wrong side")
         check(n_parted <= SWEEP_MAX_PARTED * c, f"G1 vs plain {at}: {n_parted} chains beyond rtol / atol {SWEEP_TOL}, "
                                                 f"more than {SWEEP_MAX_PARTED} of {c}")
-    out = {"C": c, "N": n, "D": d, "z_scale": z_scale, **tail, **by_lanes[wrapper_lanes(c)],
+    own = layout_name(c, d, None)
+    out = {"C": c, "N": n, "D": d, "z_scale": z_scale, **tail, **by_lanes[own],
            "z_at_zero_within_rounding": int((~clear).sum()),
-           "other_lanes": {k: v for k, v in by_lanes.items() if k != wrapper_lanes(c)}}
+           "other_lanes": {k: v for k, v in by_lanes.items() if k != own}}
+    if same_bits:
+        differ = [name for name, (bk, zk) in outputs.items()
+                  if not (torch.equal(bits(bk), bits(outputs[own][0])) and torch.equal(bits(zk), bits(outputs[own][1])))]
+        check(not differ, f"G1 (C={c}, N={n}, D={d}): {differ} differ from {own} in some bit")
+        out["layouts_bit_for_bit"] = sorted(outputs)
     if z_scale == SWEEP_TAIL_Z_SCALE:
         check(min(tail["round_1"], tail["round_2"], tail["round_3"]) > 0,
               f"G1 (C={c}, N={n}, D={d}, z x {z_scale}): the tail case did not take each of the tail's rounds: {tail}")
     if timed:
         ins = [a.contiguous() for a in (*args[:7], *noise)]
         b_out, z_out = torch.empty_like(bp), torch.empty_like(zp)
-        lanes = wrapper_lanes(c)
-        scratch = torch.empty(gibbs.sweep_scratch_numel(c, n, lanes), device=DEVICE)
         lib = gibbs._lib()
+        layout_us = {}
+        for checked in lanes_checked:
+            layout, code = gibbs.launch_layout(c, d, torch.device(DEVICE), **layout_kwargs(checked))
+            scratch = torch.empty(gibbs.sweep_scratch_numel(c, n, layout.lanes), device=DEVICE)
 
-        def launch():
-            lib.rhmc_gibbs_sweep(*(a.data_ptr() for a in ins), c, n, d, lanes, scratch.data_ptr(), b_out.data_ptr(),
-                                 z_out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+            def launch():
+                lib.rhmc_gibbs_sweep(*(a.data_ptr() for a in ins), c, n, d, layout.lanes, code, scratch.data_ptr(),
+                                     b_out.data_ptr(), z_out.data_ptr(), torch.cuda.current_stream().cuda_stream)
 
-        dev = device_us(launch, launches=20, name_part=GIBBS_KERNEL_NAMES["gibbs_sweep"])
-        check(dev["events_per_call"] == 1, f"G1: {dev['events_per_call']} device kernels per launch")
+            dev = device_us(launch, launches=20, name_part=GIBBS_KERNEL_NAMES["gibbs_sweep"])
+            check(dev["events_per_call"] == 1, f"G1: {dev['events_per_call']} device kernels per launch")
+            layout_us[layout_name(c, d, checked)] = dev["us"]
+            if checked is None:
+                own_dev, own_layout = dev, layout
         bound = sweep_bound_us(c, n, d, tail["tail_steps"])
         clock = sm_clock_max_mhz()
         critical = sweep_critical_path_us(n, clock)
         out.update(ms=median_ms(lambda: gibbs.gibbs_sweep_cuda(*args), reps=20),
                    plain_ms=median_ms(lambda: gibbs.gibbs_sweep_plain(*args), reps=3, warmup=1),
-                   device_us=dev["us"], device_us_source=dev["source"], profiler_sessions=dev["sessions"], **bound,
-                   share_of_bound=bound["bound_us"] / dev["us"], critical_path_us=critical,
-                   share_of_critical_path=critical / dev["us"], sm_clock_max_mhz=clock,
-                   dependent_operations=sweep_dependent_operations(n), lanes=lanes)
+                   device_us=own_dev["us"], device_us_source=own_dev["source"], profiler_sessions=own_dev["sessions"],
+                   **bound, share_of_bound=bound["bound_us"] / own_dev["us"], critical_path_us=critical,
+                   share_of_critical_path=critical / own_dev["us"], sm_clock_max_mhz=clock,
+                   dependent_operations=sweep_dependent_operations(n), lanes=own_layout.lanes,
+                   entries_a_lane=own_layout.entries, wide=own_layout.wide, device_us_by_layout=layout_us)
     return out
 
 
@@ -1053,6 +1175,14 @@ def phase_gibbs_kernels(smi: str) -> dict:
                           lanes_checked=(None, *gibbs.SWEEP_LANES) if (c, n, d) == SWEEP_SHAPES[0] else (None,))
               for c, n, d in SWEEP_SHAPES]
     sweeps.append(check_sweep(*SWEEP_SHAPES[0], timed=False, z_scale=SWEEP_TAIL_Z_SCALE))
+    wide = [check_sweep(c, n, d, timed=True) for c, n, d in SWEEP_WIDE_SHAPES]
+    wide.append(check_sweep(*SWEEP_BOTH_CN, gibbs.SWEEP_THREADS * gibbs.SWEEP_ENT_MAX, timed=True,
+                            lanes_checked=SWEEP_BOTH_LAYOUTS, same_bits=True))
+    for row in wide:
+        say("gibbs-sweep-kernel-times", card=smi,
+            **{k: v for k, v in row.items() if k not in ("first_parted_chains", "other_lanes")},
+            library="none: no PyTorch call runs a sequential truncated-normal sweep")
+    sweeps += wide
     say("gibbs-sweep-kernel", checked=[{k: v for k, v in row.items() if k in (
         "C", "N", "D", "z_scale", "lanes", "max_abs_err_kept_chains", "chains_parted", "elements_beyond_tolerance",
         "first_parted_chains", "z_at_zero_within_rounding", "tail_steps", "round_1", "round_2", "round_3",
@@ -1339,7 +1469,55 @@ def phase_blr_samplers(smi: str) -> dict:
             min_ess=res.ess_min, min_ess_per_s=res.ess_min / res.sampling_time_s,
             min_ess_exact=float(ess.min()), min_ess_exact_per_s=float(ess.min()) / res.sampling_time_s,
             sampling_s=res.sampling_time_s)
+    launches_by_path[MUSK_LABEL] = gibbs_musk(smi)
     return launches_by_path
+
+
+# Gibbs at UCI Musk v1's shape (476 rows, 166 features and the intercept: D = 167, past K1's 48, so that
+# ops.inv_psd and ops.cholesky take torch.linalg, as the JAX package's take jnp.linalg; G1 on 32 lanes of
+# 6 entries), 1024 chains, GRAPH_SMALL_RUN eager against captured.
+MUSK_SHAPE = (476, 167, 0)  # (N, D, synthetic seed)
+MUSK_CHAINS = 1024
+MUSK_LABEL = "gibbs-musk/captured"
+
+
+def captured_pair_checked(label: str, kernel, init, expected: dict, counted) -> dict:
+    """``graph_pair`` at GRAPH_SMALL_RUN: eager and captured bit for bit, one capture, the captured run's
+    launch counts (``counted`` of the pair's counts) equal to ``expected`` and to the eager run's, and three
+    replays of the step's graph under torch.profiler, the device counters against its kernel events."""
+    pair = graph_pair(label, kernel, init, *GRAPH_SMALL_RUN)
+    replays = replay_launches(kernel, pair["result"]["captured"].final_state)
+    samples = []
+    rt.samplers.base.tree_map(samples.append, pair["result"]["captured"].samples)
+    check(not pair["differs"], f"{label}: eager and captured differ in {pair['differs']}")
+    check(pair["launches_equal"] and counted(pair["captured"]) == expected,
+          f"{label}: captured launches {counted(pair['captured'])}, eager {counted(pair['eager'])}, expected {expected}")
+    check(pair["captured"]["captures"] == 1, f"{label}: {pair['captured']['captures']} captures, expected one")
+    check(pair["host_sync_in_step"] is None, f"{label}: a host sync inside the step: {pair['host_sync_in_step']}")
+    check(replays["equal"] and any(replays["counted"].values()),
+          f"{label}: the counters and torch.profiler's device events differ: {replays}")
+    check(samples and all(bool(torch.isfinite(leaf).all()) for leaf in samples), f"{label}: samples not finite")
+    pair["replays_under_profiler"] = replays
+    return pair
+
+
+def gibbs_musk(smi: str) -> dict:
+    """Gibbs on Musk-shaped data, captured against eager; returns the captured run's launch counts."""
+    n, d, seed = MUSK_SHAPE
+    ds = rt.models.synthetic_logreg(seed=seed, n=n, d=d)
+    model = rt.interop.logreg_from_numpy(ds.X, ds.t, device=DEVICE)
+    init = rt.utils.default_init(model, torch.Generator(device=DEVICE).manual_seed(GRAPH_SEED), MUSK_CHAINS)
+    steps = sum(GRAPH_SMALL_RUN)
+    expected = {"cholesky": 0, "chol_solve_logdet": 0, "gibbs_sweep": steps, "gig_half": steps}
+    pair = captured_pair_checked(MUSK_LABEL, gibbs.build(model), init, expected, lambda counts: counts["k1_k2"])
+    layout = gibbs.sweep_layout(MUSK_CHAINS, d, torch.cuda.get_device_properties(0).multi_processor_count)
+    say("blr-samplers", run=MUSK_LABEL, N=n, D=d, chains=MUSK_CHAINS, burn_in=GRAPH_SMALL_RUN[0],
+        samples=GRAPH_SMALL_RUN[1], g1_layout=layout._asdict(), launches=pair["captured"]["k1_k2"],
+        eager_and_captured_equal=True, replays_under_profiler=pair["replays_under_profiler"],
+        capture_s=pair["capture_s"], graph_pool_bytes=pair["graph_pool_bytes"])
+    say("blr-samplers-times", run=MUSK_LABEL, card=smi,
+        s_per_transition={path: pair[path]["seconds"] / steps for path in ("eager", "captured")})
+    return pair["captured"]["k1_k2"]
 
 
 # -- phase 7: stochastic volatility through the workload entry point -----------
@@ -1660,6 +1838,16 @@ FHN_GEOMETRY_CHAINS = (1, 31, 256, 257, 4224)  # a lone chain, ragged groups and
 # <= 1.9e-5 of each output's scale.
 FHN_TOL = 1e-4
 FHN_SPECIAL = ((-0.1, 0.2, 3.0), (0.2, 0.2, 100.0))  # outside the support; a trajectory that overflows
+# Past the 6,144 observations that the kernel's first form staged in 48 KB of shared memory: the kernel
+# against its twin at (num_obs, orders) on FHN_LONG_CHAINS chains and FHN_LONG_SUBSTEPS substeps, the twin
+# on the card's host CPU (its Python loop of ~30-300 operations a step: 1.9, 4.1 and 8.7 s for orders 0-2
+# at 8,192 observations, 9.2 s for order 0 at 50,000 on an H100 machine's host, where the card takes a
+# launch an operation), at FHN_TOL (float32 against float64 twins on a CPU: at most 1e-5 of each output's
+# scale).  Timed at 256 chains: FHN_LONG_TIMED (num_obs, substeps), phase 10's long run and the longest
+# grid, every order.  The data: fhn_long_data.
+FHN_LONG = ((8192, (0, 1, 2)), (50000, (0,)))
+FHN_LONG_CHAINS, FHN_LONG_SUBSTEPS = 16, 1
+FHN_LONG_TIMED = ((8192, 5), (50000, 1))
 # (burn-in, samples) per sampler, the reference's 5000 + 5000 (hmc 1000 + 5000) cut to a smoke run.
 FHN_RUNS = {"rmhmc": (50, 50), "mmala": (100, 100), "mmala_simplified": (100, 100), "mala": (200, 200),
             "metropolis": (200, 200), "hmc": (20, 20)}
@@ -1688,9 +1876,21 @@ def fhn_constants() -> dict:
     return dict(substeps=FHN_SUBSTEPS, noise_sd=0.5, gamma_scale=3.0)
 
 
-def fhn_data():
-    data, _ = rt.models.fhn.generate_data(seed=FHN_SEED if FHN_SEED > 0 else 1, num_obs=FHN_OBS)
+def fhn_data(num_obs: int = FHN_OBS):
+    data, _ = rt.models.fhn.generate_data(seed=FHN_SEED if FHN_SEED > 0 else 1, num_obs=num_obs)
     return torch.tensor(data, dtype=torch.float32, device=DEVICE)
+
+
+@functools.cache
+def fhn_long_data(num_obs: int):
+    """``generate_data``'s recipe at one RK4 step an observation interval in place of its 20: from ~4,000
+    observations on that step, 20 / (num_obs - 1), is finer than the recipe's at 200 observations, and
+    its Python loop of 20 steps an interval took ~150 s at 50,000 observations on the card's host."""
+    with torch.inference_mode():
+        clean = rt.models.fhn.integrate_rk4(torch.tensor(rt.models.fhn.THETA_TRUE), num_obs=num_obs,
+                                            substeps=1).numpy()
+    noisy = clean + np.random.default_rng(FHN_SEED if FHN_SEED > 0 else 1).normal(size=clean.shape) * 0.5
+    return torch.tensor(noisy, dtype=torch.float32, device=DEVICE)
 
 
 def fhn_thetas(c: int) -> tuple[torch.Tensor, list[int]]:
@@ -1704,23 +1904,28 @@ def fhn_thetas(c: int) -> tuple[torch.Tensor, list[int]]:
     return theta, special
 
 
-def check_fhn_kernel(c: int, order: int, data, err: dict) -> float:
-    """The kernel against its twin at one (C, order); returns the twin's ms."""
+def check_fhn_kernel(c: int, order: int, data, err: dict, substeps: int = FHN_SUBSTEPS,
+                     twin_device: str = DEVICE) -> float:
+    """The kernel against its twin at one (C, order), the twin run on ``twin_device``; returns the twin's ms.
+    The chain outside the support is masked at any grid; the chain with c = 100 overflows on the 200 x 5
+    grid (h = 0.02), and on a finer one, whose RK4 step is stable there, is held like any other."""
     theta, special = fhn_thetas(c)
-    at = f"(C={c}, order {order})"
-    k = rt.ops.fhn_sens.fhn_sensitivities_cuda(theta, data, order, **fhn_constants())
+    consts = {**fhn_constants(), "substeps": substeps}
+    at = f"(C={c}, order {order}, {data.shape[0]} x {substeps})"
+    k = rt.ops.fhn_sens.fhn_sensitivities_cuda(theta, data, order, **consts)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    p = rt.ops.fhn_sens.fhn_sensitivities_plain(theta, data, order, **fhn_constants())
+    p = rt.ops.fhn_sens.fhn_sensitivities_plain(theta.to(twin_device), data.to(twin_device), order, **consts)
     torch.cuda.synchronize()
     plain_ms = 1e3 * (time.perf_counter() - t0)
     keep = torch.ones(c, dtype=torch.bool, device=DEVICE)
     keep[special] = False
-    alone = rt.ops.fhn_sens.fhn_sensitivities_cuda(theta[keep].contiguous(), data, order, **fhn_constants())
+    alone = rt.ops.fhn_sens.fhn_sensitivities_cuda(theta[keep].contiguous(), data, order, **consts)
     torch.cuda.synchronize()
     for name, kt, pt, at_ in zip(k._fields, k, p, alone):
         if kt is None:
             continue
+        pt = pt.to(DEVICE)
         fin = torch.isfinite(pt)
         check(torch.equal(torch.isfinite(kt), fin), f"fhn {name} {at}: non-finite entries differ from the twin's")
         scale = float(pt[fin].abs().max())
@@ -1729,21 +1934,22 @@ def check_fhn_kernel(c: int, order: int, data, err: dict) -> float:
         err[name] = max(err.get(name, 0.0), e / scale)
         same = (kt[keep] == at_) | (torch.isnan(kt[keep]) & torch.isnan(at_))
         check(bool(same.all()), f"fhn {name} {at}: other chains' outputs change with the special chains")
-    check(bool((k.logp[special] == -torch.inf).all() and (p.logp[special] == -torch.inf).all()),
-          f"fhn logp {at}: not -inf at the special chains")
+    masked = special if (data.shape[0], substeps) == (FHN_OBS, FHN_SUBSTEPS) else special[:1]
+    check(bool((k.logp[masked] == -torch.inf).all() and (p.logp[masked] == -torch.inf).all()),
+          f"fhn logp {at}: not -inf at the chains {masked}")
     if order >= 1:
-        check(bool((k.grad[special] == 0).all() and (p.grad[special] == 0).all()),
-              f"fhn grad {at}: not 0 at the special chains")
+        check(bool((k.grad[masked] == 0).all() and (p.grad[masked] == 0).all()),
+              f"fhn grad {at}: not 0 at the chains {masked}")
     return plain_ms
 
 
-def fhn_bound_us(order: int, c: int) -> tuple[float, str, float]:
+def fhn_bound_us(order: int, c: int, num_obs: int = FHN_OBS, substeps: int = FHN_SUBSTEPS) -> tuple[float, str, float]:
     """(bound_us, bound_by, operations): bytes once (theta, data in; the
     order's outputs out) at 3.35 TB/s against the operations counted from the
     source at 67 TFLOP/s."""
     outputs = {0: 1, 1: 1 + 3 + 9, 2: 1 + 3 + 9 + 27}[order]
-    nbytes = 4 * (3 * c + 2 * FHN_OBS + outputs * c)
-    ops = rt.ops.fhn_sens.operations(order, c, FHN_OBS, FHN_SUBSTEPS)
+    nbytes = 4 * (3 * c + 2 * num_obs + outputs * c)
+    ops = rt.ops.fhn_sens.operations(order, c, num_obs, substeps)
     by_bytes, by_ops = 1e6 * nbytes / HBM_BYTES_PER_S, 1e6 * ops / FP32_OPS_PER_S
     return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations", ops
 
@@ -1812,7 +2018,46 @@ def phase_fhn_kernel(smi: str, k_err: dict) -> dict:
             sm_clock_max_mhz=clock_mhz, geometry=rt.ops.fhn_sens.launch_geometry(order, FHN_CHAINS, FHN_OBS)._asdict(),
             library="none: no single PyTorch call integrates an ODE with its sensitivities")
     say("fhn-kernel-scaling", card=smi, **fhn_scaling(data))
-    return {"err": max(err.values()), "err_by_output": err, "times": times}
+    long = fhn_long_series(smi, clock_mhz, err)
+    return {"err": max(err.values()), "err_by_output": err, "times": times, "long": long}
+
+
+def fhn_long_series(smi: str, clock_mhz: float, err: dict) -> dict:
+    """The kernel past 6,144 observations: against its twin (FHN_LONG, the twin on the host's CPU), then
+    its times at 256 chains (FHN_LONG_TIMED) beside the bound and the critical path: CUDA events around
+    5 launches back to back (milliseconds each, so the host's share is noise), since torch.profiler saw
+    no device event in four sessions of these launches late in the script."""
+    long_err, plain_ms = {}, {}
+    for num_obs, orders in FHN_LONG:
+        data = fhn_long_data(num_obs)
+        for order in orders:
+            plain_ms[f"{num_obs}x{FHN_LONG_SUBSTEPS}/order{order}"] = check_fhn_kernel(
+                FHN_LONG_CHAINS, order, data, long_err, substeps=FHN_LONG_SUBSTEPS, twin_device="cpu")
+    for name, e in long_err.items():
+        err[name] = max(err[name], e)
+    say("fhn-kernel-long", checked={str(num_obs): list(orders) for num_obs, orders in FHN_LONG}, C=FHN_LONG_CHAINS,
+        substeps=FHN_LONG_SUBSTEPS, twin="float32 on the host's CPU", max_err_of_scale=long_err,
+        tolerance_of_scale=FHN_TOL, twin_ms_cpu=plain_ms)
+    theta, _ = fhn_thetas(FHN_CHAINS)
+    times = {}
+    for num_obs, substeps in FHN_LONG_TIMED:
+        data = fhn_long_data(num_obs)
+        critical_path = rt.ops.fhn_sens.critical_path_us(num_obs, substeps, clock_mhz)
+        for order in rt.ops.fhn_sens.ORDERS:
+            def launch():
+                return rt.ops.fhn_sens.fhn_sensitivities_cuda(theta, data, order,
+                                                             **{**fhn_constants(), "substeps": substeps})
+            event_us = 1e3 * burst_ms(launch, launches=5, warmup=1)
+            bound, bound_by, ops = fhn_bound_us(order, FHN_CHAINS, num_obs, substeps)
+            row = {"ms": median_ms(launch, reps=5, warmup=1), "event_us": event_us,
+                   "event_us_source": "CUDA events, 5 launches back to back", "bound_us": bound, "bound_by": bound_by,
+                   "operations": ops, "share_of_bound": bound / event_us, "critical_path_us": critical_path,
+                   "share_of_critical_path": critical_path / event_us,
+                   "shared_bytes": rt.ops.fhn_sens.launch_geometry(order, FHN_CHAINS, num_obs).shared_bytes}
+            times[f"{num_obs}x{substeps}/order{order}"] = row
+            say("fhn-kernel-times", order=order, C=FHN_CHAINS, num_obs=num_obs, substeps=substeps, card=smi, **row,
+                sm_clock_max_mhz=clock_mhz)
+    return {"err_by_output": long_err, "twin_ms_cpu": plain_ms, "times": times}
 
 
 FHN_SCALING_CHAINS = (32, FHN_CHAINS, 4224, 16896, 33792)  # 4224: one warp on each SM; 16896: on each scheduler
@@ -1896,7 +2141,34 @@ def phase_fhn(smi: str, kernel: dict) -> dict:
             fhn_launches=fhn_launches, launches=k_launches)
         say("fhn-times", run=label, card=smi, s_per_transition=res.sampling_time_s / (2 * (samples // 2)),
             sampling_s=res.sampling_time_s, min_ess_per_s=float(res.ess["params"].min()) / res.sampling_time_s)
+    fhn_by_path[FHN_LONG_LABEL], k_by_path[FHN_LONG_LABEL] = fhn_long_rmhmc(smi)
     return {"kernel": kernel, "fhn_by_path": fhn_by_path, "k_by_path": k_by_path}
+
+
+# FHN RMHMC on a grid of 8,192 observations (past the 6,144 of the kernel's first form) at 5 substeps,
+# 256 chains, GRAPH_SMALL_RUN eager against captured.
+FHN_LONG_RUN = (8192, 5)  # (num_obs, substeps)
+FHN_LONG_LABEL = "fhn/rmhmc-8192x5-captured"
+
+
+def fhn_long_rmhmc(smi: str) -> tuple[dict, dict]:
+    """RMHMC at FHN_LONG_RUN, captured against eager; returns the captured run's FHN-kernel and K1 / K2
+    launch counts."""
+    num_obs, substeps = FHN_LONG_RUN
+    kernel, init_fn, *_ = experiments.build_workload("fhn", "rmhmc", device=DEVICE, seed=FHN_SEED, fhn_obs=num_obs,
+                                                     fhn_substeps=substeps)
+    fhn_expected, k_expected = fhn_expected_launches("rmhmc", sum(GRAPH_SMALL_RUN))
+    pair = captured_pair_checked(FHN_LONG_LABEL, kernel, init_fn(FHN_CHAINS), {"fhn": fhn_expected, **k_expected},
+                                 lambda counts: {"fhn": counts["fhn"], **counts["k1_k2"]})
+    say("fhn", run=FHN_LONG_LABEL, num_obs=num_obs, substeps=substeps, chains=FHN_CHAINS,
+        burn_in=GRAPH_SMALL_RUN[0], samples=GRAPH_SMALL_RUN[1], fhn_launches=pair["captured"]["fhn"],
+        launches=pair["captured"]["k1_k2"], eager_and_captured_equal=True,
+        accept_rate=pair["accept_rate"], replays_under_profiler=pair["replays_under_profiler"],
+        capture_s=pair["capture_s"], graph_pool_bytes=pair["graph_pool_bytes"])
+    steps = sum(GRAPH_SMALL_RUN)
+    say("fhn-times", run=FHN_LONG_LABEL, card=smi,
+        s_per_transition={path: pair[path]["seconds"] / steps for path in ("eager", "captured")})
+    return pair["captured"]["fhn"], pair["captured"]["k1_k2"]
 
 
 def fhn_summary(fhn: dict, smi: str) -> dict:
@@ -3020,7 +3292,12 @@ def gibbs_summary(kernels: dict, by_path: dict, smi: str) -> list[dict]:
                                                    for row in kernels["sweep"]],
                              "tail_steps": [row["tail_steps"] for row in kernels["sweep"]],
                              "critical_path_us": sweep["critical_path_us"],
-                             "share_of_critical_path": sweep["share_of_critical_path"]}),
+                             "share_of_critical_path": sweep["share_of_critical_path"],
+                             "shapes": {f"C{row['C']}_N{row['N']}_D{row['D']}": {
+                                 key: row[key] for key in ("device_us", "bound_us", "bound_by", "share_of_bound",
+                                                           "critical_path_us", "ms", "plain_ms", "lanes",
+                                                           "entries_a_lane", "wide", "device_us_by_layout")}
+                                 for row in kernels["sweep"] if "device_us" in row}}),
             "gig_half": (half["times"], half["err"],
                          {"elements_differing": half["elements_differing"], "shape_CN": list(GIG_SHAPE),
                           "rounds_mean": half["times"]["rounds_mean"], "rounds_max": half["times"]["rounds_max"]}),

@@ -29,7 +29,10 @@ checkout's ``critical_path_us`` (``fhn_sens.critical_path_us`` at the
 card's maximum SM clock), with each share of ``device_us``; and, per turn,
 the kernel's RK4 step loop as each checkout's build compiled it
 (``fhn_rk4_loop``, from ``cuobjdump -sass``): RK4 steps per loop pass, SASS
-instructions per step and the branches inside the loop.
+instructions per step and the branches inside the loop.  A checkout that
+takes any number of observations (no ``fhn_sens.MAX_OBS``) is also timed at
+``FHN_LONG`` (num_obs, substeps), 256 chains, every order (CUDA events over 5
+launches: milliseconds each).
 ``--kernels gibbs`` times the Gibbs sweep kernel G1
 (``samplers.gibbs.gibbs_sweep_cuda``) on ``chip_smoke.gibbs_inputs`` at
 N = 690 and D in ``GIBBS_DIMS``, the inputs of 1024 chains cut or repeated
@@ -38,7 +41,10 @@ along the chains to each of ``GIBBS_CHAINS``: ``device_us``
 launches) at the wrapper's own layout; in a checkout whose G1 spreads a
 chain over lanes, at every lane count (``lanes``).  A time that stays flat
 while each warp has a scheduler of its own says a chain's sequence of
-steps is what bounds the kernel.  Then the GIG draw of a step as each checkout runs it
+steps is what bounds the kernel.  A checkout whose G1 takes any D (a
+``sweep_layout``) is also timed at chip_smoke's ``SWEEP_WIDE_SHAPES`` and,
+B in registers on 32 lanes against the wide layout, at D = 32 x
+``SWEEP_ENT_MAX`` on (C, N) = ``SWEEP_BOTH_CN``.  Then the GIG draw of a step as each checkout runs it
 (``ops.sample_gig_half`` at (1024, 690): 64 rounds and 192 draws, or one
 launch), its device time and CUDA-event times; and per turn G1's step loop
 in each build's SASS (``gibbs_sweep_loop``): instructions once through,
@@ -62,6 +68,7 @@ REPO = Path(__file__).resolve().parents[1]
 TURNS = ("parent", "change", "change", "parent")
 KERNELS = ("linalg", "fhn", "gibbs")
 FHN_CHAINS = (256, 4224)  # the FHN samplers' chain count; one warp on each SM at one lane per chain
+FHN_LONG = ((8192, 5), (50000, 1))  # (num_obs, substeps) past the first form's 6,144 observations
 GIBBS_DATA = 690  # australian's N
 GIBBS_DIMS = (15, 40)  # australian's D; a width no BLR dataset has
 GIBBS_CHAINS = (32, 1024, 4224, 8448)  # a warp; phase 6's; a warp on each of 528 schedulers; two
@@ -143,14 +150,35 @@ def _measure_fhn(smoke) -> list[dict]:
                     "ms": smoke.median_ms(launch, reps=20), "bound_us": bound, "share_of_bound": bound / dev["us"],
                     "sm_clock_max_mhz": smoke.sm_clock_max_mhz(), "card": card,
                 })
+        if not hasattr(fs, "MAX_OBS"):  # a checkout that takes any number of observations
+            theta = truth * (1.0 + 0.05 * torch.randn((FHN_CHAINS[0], 3), generator=gen, device=smoke.DEVICE))
+            for num_obs, substeps in FHN_LONG:
+                data = smoke.fhn_long_data(num_obs)
+                for order in fs.ORDERS:
+                    def launch():
+                        return fs.fhn_sensitivities_cuda(theta, data, order,
+                                                         **{**smoke.fhn_constants(), "substeps": substeps})
+                    event_us = 1e3 * smoke.burst_ms(launch, launches=5, warmup=1)
+                    bound, _, _ = smoke.fhn_bound_us(order, FHN_CHAINS[0], num_obs, substeps)
+                    rows.append({
+                        "kernel": "fhn_sensitivities", "C": FHN_CHAINS[0], "order": order, "num_obs": num_obs,
+                        "substeps": substeps, "device_us": event_us,
+                        "device_us_source": "CUDA events, 5 launches back to back", "bound_us": bound,
+                        "share_of_bound": bound / event_us, "sm_clock_max_mhz": smoke.sm_clock_max_mhz(),
+                        "card": card})
     rows.append({"kernel": "fhn_rk4_loop", "card": card, **_fhn_rk4_loop(smoke)})
     return rows
 
 
-def _sweep_layouts(gibbs) -> list[int | None]:
-    """The lanes a chain at which to time G1: a checkout whose G1 takes no
-    lanes, its one kernel; this one, every lane count it takes."""
-    return list(gibbs.SWEEP_LANES) if hasattr(gibbs, "SWEEP_LANES") else [None]
+def _sweep_layouts(gibbs, d: int) -> list[int | None]:
+    """The lanes a chain at which to time G1 at width ``d``: a checkout whose
+    G1 takes no lanes, its one kernel; else every lane count it takes there
+    (B in registers: at most ``SWEEP_ENT_MAX`` entries a lane, where the
+    checkout has one)."""
+    if not hasattr(gibbs, "SWEEP_LANES"):
+        return [None]
+    most = getattr(gibbs, "SWEEP_ENT_MAX", None)
+    return [lanes for lanes in gibbs.SWEEP_LANES if most is None or -(-d // lanes) <= most]
 
 
 def _measure_gibbs(smoke) -> list[dict]:
@@ -168,7 +196,7 @@ def _measure_gibbs(smoke) -> list[dict]:
 
                 args = (model.X, model.t, chains(state.lam), chains(cond.h), chains(state.z), chains(cond.s),
                         chains(cond.b), truncnorm.TruncNormNoise(*(chains(u, u.dim() - 1) for u in noise)))
-                for lanes in _sweep_layouts(gibbs):
+                for lanes in _sweep_layouts(gibbs, d):
                     kw = {} if lanes is None else {"lanes": lanes}
 
                     def launch():
@@ -180,8 +208,34 @@ def _measure_gibbs(smoke) -> list[dict]:
                     if lanes is None or lanes == smoke.wrapper_lanes(c):
                         row.update(wrapper_lanes=True, burst_ms=smoke.burst_ms(launch, launches=5, warmup=1))
                     rows.append(row)
+        if hasattr(gibbs, "sweep_layout"):  # a checkout whose G1 takes any D
+            rows += _measure_gibbs_wide(smoke)
         rows += _measure_gig(smoke)
     rows.append({"kernel": "gibbs_sweep_loop", "card": card, **_gibbs_sweep_loop(smoke)})
+    return rows
+
+
+def _measure_gibbs_wide(smoke) -> list[dict]:
+    """G1 past K1's 48 at chip_smoke's SWEEP_WIDE_SHAPES on the wrapper's layout, and at D = 32 x
+    SWEEP_ENT_MAX (SWEEP_BOTH_CN) on 32 lanes of registers against the wide layout, B in shared memory
+    and in the output buffer: ``device_us`` (torch.profiler, 5 launches)."""
+    gibbs, rows = smoke.gibbs, []
+    both = (*smoke.SWEEP_BOTH_CN, gibbs.SWEEP_THREADS * gibbs.SWEEP_ENT_MAX)
+    runs = [(shape, None) for shape in smoke.SWEEP_WIDE_SHAPES] + [(both, kind) for kind in smoke.SWEEP_BOTH_LAYOUTS]
+    inputs = {}
+    for (c, n, d), kind in runs:
+        if (c, n, d) not in inputs:
+            inputs = {(c, n, d): smoke.gibbs_inputs(c, n, d, seed=c + n + d)}
+        model, state, cond, noise = inputs[c, n, d]
+        args = (model.X, model.t, state.lam, cond.h, state.z, cond.s, cond.b, noise)
+        kw = smoke.layout_kwargs(kind)
+
+        def launch():
+            return gibbs.gibbs_sweep_cuda(*args, **kw)
+        dev = smoke.device_us(launch, launches=5, name_part=smoke.GIBBS_KERNEL_NAMES["gibbs_sweep"])
+        rows.append({"kernel": "gibbs_sweep", "C": c, "N": n, "D": d, "layout": smoke.layout_name(c, d, kind),
+                     "device_us": dev["us"], "device_us_source": dev["source"],
+                     "events_per_call": dev["events_per_call"], "card": smoke.smi_line()})
     return rows
 
 
@@ -276,7 +330,8 @@ def _fhn_rk4_loop(smoke) -> dict:
         return {"error": f"cuobjdump exited {proc.returncode}: {proc.stderr[-500:]}"}
     out = {}
     name = smoke.FHN_KERNEL_NAME
-    for order, body in re.findall(rf"Function : \S*{name}ILi(\d)EE\S*(.*?)(?=Function :|\Z)", proc.stdout, re.S):
+    for order, kind, body in re.findall(rf"Function : \S*{name}ILi(\d)E(?:Lb([01])E)?E\S*(.*?)(?=Function :|\Z)",
+                                        proc.stdout, re.S):
         code = [(int(addr, 16), op.split(".")[0], rest) for addr, op, rest in
                 re.findall(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);", body)]
         loops = [(int(target, 16), addr) for addr, op, rest in code if op == "BRA"
@@ -287,7 +342,7 @@ def _fhn_rk4_loop(smoke) -> dict:
             continue
         inside = max(bodies, key=lambda b: sum(op == "FFMA" for op, _ in b))
         steps = sum("0.333333" in rest for _, rest in inside) / 4
-        out[f"fhn<{order}>"] = {
+        out[f"fhn<{order}>" if kind in ("", "1") else f"fhn<{order},streamed>"] = {
             "steps_per_pass": steps, "instructions_per_step": len(inside) / steps if steps else None,
             "branches": sum(op in ("BRA", "BSSY", "BSYNC", "WARPSYNC") for op, _ in inside) - 1}
     return out

@@ -66,8 +66,18 @@
 //     this source on the card (chip_smoke.py phase 2);
 //   * the order is the template parameter, so an order-0 or order-1 call does
 //     none of the higher orders' work and holds none of their registers;
-//   * the (num_obs, 2) data is staged once per block in shared memory; all
-//     lanes read the same observation at the same time (a broadcast);
+//   * up to kStagedMaxObs observations the (num_obs, 2) data is staged once
+//     per block in shared memory (8 num_obs bytes, at most 48 KB); all lanes
+//     read the same observation at the same time (a broadcast).  Past it the
+//     data streams from device memory (Staged = false): each observation is
+//     loaded (__ldg, one broadcast request a warp) an observation interval
+//     before the sums read it, its cache line prefetched into L1
+//     kPrefetchObs observations ahead, and a block takes no shared memory,
+//     whatever num_obs.  Streaming every series was 2-4% slower at 200
+//     observations, orders 1-2, and 27% at order 1 on 4,224 chains; a tile
+//     of 256 observations refilled as the integration crossed it, 4-8%
+//     slower there and 2-7% slower than streaming at 8,192 and 50,000
+//     (kernel_ab.py, PERF.md);
 //   * blocks of one warp (32, 8 or 4 chains by order), so 256 chains spread
 //     over 8, 32 or 64 SMs;
 //   * every step is taken: no early exit on a non-finite state, so a chain
@@ -109,8 +119,9 @@
 
 namespace {
 
-constexpr int kThreads = 32;   // one warp a block
-constexpr int kMaxObs = 6144;  // 2 * 4 * 6144 bytes = 48 KB of shared data
+constexpr int kThreads = 32;          // one warp a block
+constexpr int kStagedMaxObs = 6144;   // the most observations staged: 2 * 4 * 6144 bytes = 48 KB of shared data
+constexpr int kPrefetchObs = 32;      // streamed: observations ahead of the data's L1 prefetch, two 128-byte lines
 constexpr int kPairs = 6;      // (i, j), i <= j: 00 01 02 11 12 22
 constexpr int kEntries = 40;   // a chain's output entries: logp, grad 3, G 9, dG 27
 constexpr unsigned kWarpMask = 0xffffffffu;
@@ -142,12 +153,15 @@ __host__ __device__ constexpr int owner(int order, int e) {
 
 struct Geometry {
   int lanes, chains_per_block, blocks;
-  size_t shared_bytes;
+  size_t shared_bytes;  // the block's copy of the data where it is staged, else none
 };
+
+__host__ __device__ constexpr bool staged(int num_obs) { return num_obs <= kStagedMaxObs; }
 
 __host__ __device__ constexpr Geometry geometry(int order, int num_chains, int num_obs) {
   const int lanes = lanes_per_chain(order), chains = kThreads / lanes;
-  return {lanes, chains, (num_chains + chains - 1) / chains, sizeof(float) * 2 * num_obs};
+  return {lanes, chains, (num_chains + chains - 1) / chains,
+          staged(num_obs) ? sizeof(float) * 2 * num_obs : 0};
 }
 
 // What one lane integrates: y, then the sensitivity columns it owns (order 1:
@@ -298,16 +312,18 @@ struct Sums {
 
 __device__ __forceinline__ float pick(const float (&x)[3], int i) { return i == 0 ? x[0] : i == 1 ? x[1] : x[2]; }
 
-template <int Order>
+template <int Order, bool Staged>
 __global__ void __launch_bounds__(kThreads)
     fhn_sensitivities_kernel(const float* __restrict__ theta, const float* __restrict__ data, int num_chains,
                              int num_obs, int substeps, float h, float half_h, float sixth_h, float noise_var,
                              float gamma_scale, float v0, float r0, float* __restrict__ logp,
                              float* __restrict__ grad, float* __restrict__ metric, float* __restrict__ dmetric) {
   constexpr int kLanes = lanes_per_chain(Order);
-  extern __shared__ float obs[];  // (num_obs, 2), the block's copy of the data
-  for (int e = threadIdx.x; e < 2 * num_obs; e += kThreads) obs[e] = data[e];
-  __syncthreads();
+  extern __shared__ float obs[];  // (num_obs, 2), the block's copy of the data, where Staged
+  if constexpr (Staged) {
+    for (int e = threadIdx.x; e < 2 * num_obs; e += kThreads) obs[e] = data[e];
+    __syncthreads();
+  }
   const int lane = threadIdx.x % kLanes;
   const int slot = (blockIdx.x * kThreads + threadIdx.x) / kLanes;
   // A group past the last chain integrates the last chain again and writes
@@ -328,10 +344,25 @@ __global__ void __launch_bounds__(kThreads)
   y.tv = 0.0f, y.tr = 0.0f;
 
   Sums<Order> sums;
-  sums.observe(y, role, kLanes, obs[0], obs[1]);
-  for (int t = 1; t < num_obs; ++t) {
-    for (int s = 0; s < substeps; ++s) rk4_step<Order>(th, role, y, h, half_h, sixth_h);
-    sums.observe(y, role, kLanes, obs[2 * t], obs[2 * t + 1]);
+  if constexpr (Staged) {
+    sums.observe(y, role, kLanes, obs[0], obs[1]);
+    for (int t = 1; t < num_obs; ++t) {
+      for (int s = 0; s < substeps; ++s) rk4_step<Order>(th, role, y, h, half_h, sixth_h);
+      sums.observe(y, role, kLanes, obs[2 * t], obs[2 * t + 1]);
+    }
+  } else {
+    // Observation t + 1 is loaded while the steps to t run; its line comes into L1 kPrefetchObs earlier.
+    sums.observe(y, role, kLanes, __ldg(data), __ldg(data + 1));
+    const int last = num_obs - 1;
+    float next_v = __ldg(data + 2), next_r = __ldg(data + 3);
+    for (int t = 1; t < num_obs; ++t) {
+      const float obs_v = next_v, obs_r = next_r;
+      const size_t ahead = 2 * static_cast<size_t>(min(t + 1, last));
+      next_v = __ldg(data + ahead), next_r = __ldg(data + ahead + 1);
+      asm volatile("prefetch.global.L1 [%0];" ::"l"(data + 2 * static_cast<size_t>(min(t + kPrefetchObs, last))));
+      for (int s = 0; s < substeps; ++s) rk4_step<Order>(th, role, y, h, half_h, sixth_h);
+      sums.observe(y, role, kLanes, obs_v, obs_r);
+    }
   }
 
   // Every lane of the group decides these from the same y and theta.
@@ -381,14 +412,17 @@ cudaError_t launch(const float* theta, const float* data, int num_chains, int nu
                    float noise_var, float gamma_scale, float v0, float r0, float* logp, float* grad,
                    float* metric, float* dmetric, cudaStream_t stream) {
   const Geometry geo = geometry(Order, num_chains, num_obs);
-  fhn_sensitivities_kernel<Order><<<geo.blocks, kThreads, geo.shared_bytes, stream>>>(
-      theta, data, num_chains, num_obs, substeps, static_cast<float>(h), static_cast<float>(0.5 * h),
-      static_cast<float>(h / 6.0), noise_var, gamma_scale, v0, r0, logp, grad, metric, dmetric);
-  return cudaGetLastError();
+  const auto go = [&](auto kernel) {
+    kernel<<<geo.blocks, kThreads, geo.shared_bytes, stream>>>(
+        theta, data, num_chains, num_obs, substeps, static_cast<float>(h), static_cast<float>(0.5 * h),
+        static_cast<float>(h / 6.0), noise_var, gamma_scale, v0, r0, logp, grad, metric, dmetric);
+    return cudaGetLastError();
+  };
+  return staged(num_obs) ? go(fhn_sensitivities_kernel<Order, true>) : go(fhn_sensitivities_kernel<Order, false>);
 }
 
 bool bad_call(int order, int num_chains, int num_obs) {
-  return order < 0 || order > 2 || num_chains < 1 || num_obs < 2 || num_obs > kMaxObs;
+  return order < 0 || order > 2 || num_chains < 1 || num_obs < 2;
 }
 
 }  // namespace

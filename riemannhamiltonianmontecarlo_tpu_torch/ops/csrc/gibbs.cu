@@ -46,10 +46,12 @@
 // design does:
 //   * a chain on a group of `lanes` lanes of one warp (the wrapper chooses:
 //     the most that keep the launch within two warps a scheduler, so 32 at
-//     1024 chains, 8 at 4,224, 4 at 8,448 on an H100), B's entries spread
-//     over the group, D at compile time as entries a lane (one instantiation
-//     for each of 1..48); the scalar chain runs in every lane of the group
-//     with the same bits, so no lane waits on another for it;
+//     1024 chains, 8 at 4,224, 4 at 8,448 on an H100, and at least as many
+//     as keep B's entries a lane within kEntMax), B's entries spread over
+//     the group in registers, their count a lane at compile time (one
+//     instantiation for each of 1..kEntMax; D itself comes at run time); the
+//     scalar chain runs in every lane of the group with the same bits, so no
+//     lane waits on another for it;
 //   * the dot off the chain, by looking ahead: while step j's chain runs, the
 //     group sums R = B_j . x_{j+1} and Q = S[:, j] . x_{j+1}, neither of which
 //     reads z_j, over straight-line shuffles (a loop of them was a block the
@@ -75,6 +77,16 @@
 //     that a chain takes at ~27% of its steps;
 //   * the truncated normal's Rayleigh tail (a > 3) a branch: few steps take it.
 // A group past the last chain runs the last chain and writes nothing.
+// Past 32 kEntMax entries (32 lanes of kEntMax registers each), the wide
+// layout: a chain on a whole warp with B in the block's shared memory (past
+// the card's opt-in limit, in b_out itself), lane l owning entries l, l + 32,
+// ...; a step runs the chain, then one pass over B in chunks of 32 entries
+// that applies the step's update and sums the next step's R and Q, so the
+// pass adds to the step where the register layout's dot hides under the
+// chain.  Its sums run in the same order as the register layout's on 32
+// lanes, so where both take a D the two give the same bits; there (D 1,088)
+// it took 3.6x the register layout's time on an H100 (chip_smoke.py phase 3,
+// PERF.md).
 //
 // G2, what bounds it: operations, and how many rounds an element runs.  An
 // element runs rejection rounds until its first accepted candidate (at most
@@ -100,10 +112,15 @@ namespace {
 
 constexpr int kSweepThreads = 32;  // G1: one warp a block, a chain on 1 to 32 of its lanes
 constexpr int kRoundThreads = 256;  // G2 and the single round: threads a block
-constexpr int kMaxDim = 48;  // ops/hopper_linalg.py::MAX_DIM
+// G1: the most entries of B a lane holds in registers (samplers/gibbs.py::SWEEP_ENT_MAX): past it the
+// prologue's instantiations spill (8 B at 35 and 36, 254-255 registers), the others from 43 (ptxas
+// -Xptxas -v on sm_90a; chip_smoke.py phase 2 holds the report).
+constexpr int kEntMax = 34;
 constexpr int kTailRounds = 3;  // ops/truncnorm.py::RETRY_ROUNDS
 constexpr int kRowAhead = 8;  // G1: steps ahead of the L1 prefetch of S's (C, D, N) rows, one sector
 constexpr int kUniformAhead = 4;  // G1: steps ahead of the L2 prefetch of the (N, C) uniforms
+constexpr int kWideGroup = 32;  // G1's wide layout: chunks of 32 entries whose loads a lane issues together
+constexpr int kXAhead = 4;  // G1's wide layout: steps ahead of the L1 prefetch of a row of x
 
 // Constants as the plain versions' Python doubles reach a float32 tensor op.
 constexpr float kTailSplit = 3.0f;  // ops/truncnorm.py::TAIL_SPLIT
@@ -243,6 +260,29 @@ __device__ __forceinline__ void step_constants(float lam_j, float h_j, float z_o
   k[kZOld] = z_old_j;
 }
 
+// A chain's step constants of every step into k_c ([j][field]), the warp's 32 lanes 32 steps at once.
+__device__ __forceinline__ void write_step_constants(const float* lam_c, const float* h_c, const float* z_old_c,
+                                                     const float* t, int num_data, float* k_c) {
+  for (int j = threadIdx.x % kSweepThreads; j < num_data; j += kSweepThreads) {
+    float k[kSweepFields];
+    step_constants(__ldg(lam_c + j), __ldg(h_c + j), __ldg(z_old_c + j), __ldg(t + j), k);
+#pragma unroll
+    for (int f = 0; f < kSweepFields; ++f) k_c[j * kSweepFields + f] = k[f];
+  }
+  __syncwarp();  // orders the warp's writes before its reads (the block is the warp)
+}
+
+// One step's chain from p_j = B_j . x_j: the conditional mean m, z_j = m + s TN_above(-m / s), and
+// delta_j = (z_j - z_old_j) / lambda_j into *delta.  Returns z_j.
+__device__ __forceinline__ float chain_step(float p, const float (&k)[kSweepFields], float uc, const float* u_e_j,
+                                            const float* u_tail_j, size_t round_stride, float* delta) {
+  const float m = add(k[kNegWZOld], mul(k[kOnePlusW], p));
+  const float z_std = std_truncnorm_above(mul(m, k[kBoundScale]), uc, u_e_j, u_tail_j, round_stride);
+  const float z_j = add(m, mul(k[kSignedSd], z_std));
+  *delta = mul(sub(z_j, k[kZOld]), k[kInvLam]);
+  return z_j;
+}
+
 // The sum of v over a group of `lanes` lanes (a power of 2, the group aligned), in every lane of it.
 // Each level adds two partial sums, which commute, so every lane holds the same bits.  The five
 // levels are straight-line code, a level past the group adding 0 (v + 0 is v), so that the compiler
@@ -288,16 +328,7 @@ __global__ void __launch_bounds__(kSweepThreads) gibbs_sweep_kernel(
   const float* h_c = h + c * n;
   const float* z_old_c = z_old + c * n;
   float* k_c = Prologue ? scratch + c * n * kSweepFields : nullptr;  // the chain's constants, [j][field]
-  if constexpr (Prologue) {
-    static_assert(Ent <= (kMaxDim + kSweepThreads - 1) / kSweepThreads, "a chain on a whole warp");
-    for (int j = threadIdx.x; j < num_data; j += kSweepThreads) {
-      float k[kSweepFields];
-      step_constants(__ldg(lam_c + j), __ldg(h_c + j), __ldg(z_old_c + j), __ldg(t + j), k);
-#pragma unroll
-      for (int f = 0; f < kSweepFields; ++f) k_c[j * kSweepFields + f] = k[f];
-    }
-    __syncwarp();  // orders the warp's writes before its reads (the block is the warp)
-  }
+  if constexpr (Prologue) write_step_constants(lam_c, h_c, z_old_c, t, num_data, k_c);
   const float* s_c = s + static_cast<size_t>(c) * dim * n;
   // Entry e of a lane is B's lane + e lanes; Ent = ceil(D / lanes), so only the last can lie past D.
   const bool last_valid = lane + (Ent - 1) * lanes < dim;
@@ -376,12 +407,9 @@ __global__ void __launch_bounds__(kSweepThreads) gibbs_sweep_kernel(
     const float r_sum = group_sum(r_part, lanes), q_sum = group_sum(q_part, lanes);
 
     // The chain.
-    const float m = add(k[kNegWZOld], mul(k[kOnePlusW], p));
-    const float z_std = std_truncnorm_above(mul(m, k[kBoundScale]), uc, u_e + j * cn + c, u_tail + j * cn + c,
-                                            round_stride);
-    const float z_j = add(m, mul(k[kSignedSd], z_std));
+    float delta;
+    const float z_j = chain_step(p, k, uc, u_e + j * cn + c, u_tail + j * cn + c, round_stride, &delta);
     if (owner && lane == 0) z_out[c * n + j] = z_j;
-    const float delta = mul(sub(z_j, k[kZOld]), k[kInvLam]);
 #pragma unroll
     for (int e = 0; e < Ent; ++e) {
       b[e] = add(b[e], mul(delta, s_j[e]));
@@ -400,11 +428,123 @@ __global__ void __launch_bounds__(kSweepThreads) gibbs_sweep_kernel(
   }
 }
 
-// Calls f(std::integral_constant<int, e>) for 1 <= e <= kMaxDim: one instantiation of G1 per count of
-// B's entries a lane holds.
+// The wide layout, past 32 kEntMax entries: one warp a chain (a block each), lane l owning B's entries
+// l, l + 32, ..., which live in the block's dynamic shared memory (SharedB) or in b_out (the chain's
+// row of it, updated in place); no lane reads another's entries, so neither needs a barrier.  A step
+// reads S[:, j] for the update and S[:, j+1] for Q, each a load of 32 rows (32 cache lines) a chunk;
+// with SharedB the column S[:, j+1] read at step j is kept beside B for step j + 1, one such load a
+// chunk and step in place of two (B's form in b_out, past the card's shared memory, loads both).  The step
+// constants come from the warp's prologue, as on the register layout's 32 lanes.  Step j, with p_j,
+// R_j = B_j . x_{j+1} and Q_j = S[:, j] . x_{j+1} known: the chain gives delta_j, p_{j+1} = R_j +
+// delta_j Q_j, and one pass over B applies B += delta_j S[:, j] and sums R_{j+1} and Q_{j+1} from the
+// updated entries.  Each lane sums its entries in ascending order and the warp adds the lanes' sums
+// as group_sum does, which is the register layout's order on 32 lanes: the same bits where both run.
+template <bool SharedB>
+__global__ void __launch_bounds__(kSweepThreads) gibbs_sweep_wide_kernel(
+    const float* __restrict__ x, const float* __restrict__ t, const float* __restrict__ lam,
+    const float* __restrict__ h, const float* __restrict__ z_old, const float* __restrict__ s,
+    const float* __restrict__ b_in, const float* __restrict__ u_central, const float* __restrict__ u_e,
+    const float* __restrict__ u_tail, int num_chains, int num_data, int dim, float* scratch, float* b_out,
+    float* __restrict__ z_out) {
+  extern __shared__ float b_shared[];  // B, then the column S[:, j+1] (SharedB: 2 D floats)
+  const int lane = threadIdx.x;
+  const int c = blockIdx.x;
+  const size_t n = num_data, cn = num_chains;
+  const size_t round_stride = n * cn;
+  const int last = num_data - 1;
+  float* k_c = scratch + c * n * kSweepFields;
+  write_step_constants(lam + c * n, h + c * n, z_old + c * n, t, num_data, k_c);
+  const float* s_c = s + static_cast<size_t>(c) * dim * n;
+  float* b_c = SharedB ? b_shared : b_out + static_cast<size_t>(c) * dim;
+  float* s_col = b_shared + dim;  // SharedB only
+  const float* x1 = x + static_cast<size_t>(min(1, last)) * dim;
+  float p = 0.0f, r = 0.0f, q = 0.0f;  // B_0 . x_0, R_0, Q_0
+  for (int e = lane; e < dim; e += kSweepThreads) {
+    const float b = b_in[static_cast<size_t>(c) * dim + e];
+    const float s_0 = __ldg(s_c + e * n);
+    b_c[e] = b;
+    if constexpr (SharedB) s_col[e] = s_0;
+    p = fmaf(b, __ldg(x + e), p);
+    r = fmaf(b, __ldg(x1 + e), r);
+    q = fmaf(s_0, __ldg(x1 + e), q);
+  }
+  p = group_sum(p, kSweepThreads);
+  float r_sum = group_sum(r, kSweepThreads), q_sum = group_sum(q, kSweepThreads);
+  // A step's constants and uniform are loaded a step before their use.
+  float k[kSweepFields];
+#pragma unroll
+  for (int f = 0; f < kSweepFields; ++f) k[f] = k_c[f];
+  float uc = __ldg(u_central + c);
+  // The pass over B, kWideGroup chunks at a time: a group's loads first, all in flight together (a
+  // chunk's store to B would otherwise hold the next chunk's loads behind it, a cache round trip each),
+  // then its updates.  The step's first group is loaded before its chain, which hides those loads.
+  // S's rows one sector (8 steps) ahead into L1, once every 8 steps; the row of x kXAhead steps ahead,
+  // every step (each step reads a new row).
+  float b_g[kWideGroup], s_g[kWideGroup], s_next_g[kWideGroup], x_g[kWideGroup];
+  auto load_group = [&](int first, int j, int j1, const float* x2, const float* x_ahead, bool sector_start) {
+#pragma unroll
+    for (int g = 0; g < kWideGroup; ++g) {
+      const int e = first + g * kSweepThreads;
+      if (e < dim) {
+        const float* s_row = s_c + e * n;
+        b_g[g] = b_c[e], s_next_g[g] = __ldg(s_row + j1), x_g[g] = __ldg(x2 + e);
+        s_g[g] = SharedB ? s_col[e] : __ldg(s_row + j);
+        prefetch_l1(x_ahead + e);
+        if (sector_start) prefetch_l1(s_row + min(j + kRowAhead, last));
+      }
+    }
+  };
+  // B_{j+1} = B_j + delta_j S[:, j] over the group, and its terms of R_{j+1} = B_{j+1} . x_{j+2} and
+  // Q_{j+1} = S[:, j+1] . x_{j+2}.
+  auto update_group = [&](int first, float delta) {
+#pragma unroll
+    for (int g = 0; g < kWideGroup; ++g) {
+      const int e = first + g * kSweepThreads;
+      if (e < dim) {
+        const float b = add(b_g[g], mul(delta, s_g[g]));
+        b_c[e] = b;
+        if constexpr (SharedB) s_col[e] = s_next_g[g];
+        r = fmaf(b, x_g[g], r);
+        q = fmaf(s_next_g[g], x_g[g], q);
+      }
+    }
+  };
+  for (int j = 0; j < num_data; ++j) {
+    const int j1 = min(j + 1, last), j2 = min(j + 2, last);
+    const bool sector_start = (j & (kRowAhead - 1)) == 0;
+    const float* x2 = x + static_cast<size_t>(j2) * dim;
+    const float* x_ahead = x + static_cast<size_t>(min(j + kXAhead, last)) * dim;
+    load_group(lane, j, j1, x2, x_ahead, sector_start);
+    float k_next[kSweepFields];
+#pragma unroll
+    for (int f = 0; f < kSweepFields; ++f) k_next[f] = k_c[j1 * kSweepFields + f];
+    const float uc_next = __ldg(u_central + j1 * cn + c);
+    prefetch_l2(u_central + min(j + kUniformAhead, last) * cn + c);
+    float delta;
+    const float z_j = chain_step(p, k, uc, u_e + j * cn + c, u_tail + j * cn + c, round_stride, &delta);
+    if (lane == 0) z_out[c * n + j] = z_j;
+    p = fmaf(delta, q_sum, r_sum);  // B_{j+1} . x_{j+1}
+    r = 0.0f, q = 0.0f;
+    update_group(lane, delta);
+    for (int first = lane + kWideGroup * kSweepThreads; first < dim; first += kWideGroup * kSweepThreads) {
+      load_group(first, j, j1, x2, x_ahead, sector_start);
+      update_group(first, delta);
+    }
+    r_sum = group_sum(r, kSweepThreads), q_sum = group_sum(q, kSweepThreads);
+#pragma unroll
+    for (int f = 0; f < kSweepFields; ++f) k[f] = k_next[f];
+    uc = uc_next;
+  }
+  if constexpr (SharedB) {
+    for (int e = lane; e < dim; e += kSweepThreads) b_out[static_cast<size_t>(c) * dim + e] = b_c[e];
+  }
+}
+
+// Calls f(std::integral_constant<int, e>) for 1 <= e <= kEntMax: one instantiation of G1's register
+// layout per count of B's entries a lane holds.
 template <int Ent = 1, typename F>
 cudaError_t with_entries(int e, F&& f) {
-  if constexpr (Ent < kMaxDim) {
+  if constexpr (Ent < kEntMax) {
     if (e != Ent) return with_entries<Ent + 1>(e, f);
   }
   return f(std::integral_constant<int, Ent>{});
@@ -569,24 +709,67 @@ __global__ void __launch_bounds__(kRoundThreads) gig_half_kernel(const float* __
   }
 }
 
+// The wide layout's shared memory for B past the default 48 KB: raised to the card's opt-in limit once
+// a device, at an eager launch (an attribute is not set inside a stream capture).
+cudaError_t allow_wide_shared(size_t bytes, cudaStream_t stream) {
+  constexpr size_t kDefaultShared = 48 * 1024;
+  constexpr int kDevices = 64;
+  static bool raised[kDevices] = {};
+  if (bytes <= kDefaultShared) return cudaSuccess;
+  int device = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != cudaSuccess) return err;
+  if (device >= kDevices || bytes > static_cast<size_t>(optin)) return cudaErrorInvalidValue;
+  if (raised[device]) return cudaSuccess;
+  cudaStreamCaptureStatus capturing = cudaStreamCaptureStatusNone;
+  err = cudaStreamIsCapturing(stream, &capturing);
+  if (err != cudaSuccess) return err;
+  if (capturing != cudaStreamCaptureStatusNone) return cudaErrorStreamCaptureUnsupported;
+  err = cudaFuncSetAttribute(gibbs_sweep_wide_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+  if (err == cudaSuccess) raised[device] = true;
+  return err;
+}
+
 }  // namespace
+
+// G1's layouts (samplers/gibbs.py::SWEEP_REGISTERS, SWEEP_WIDE_SHARED, SWEEP_WIDE_GLOBAL).
+enum SweepLayout { kRegisters = 0, kWideShared = 1, kWideGlobal = 2 };
 
 // B (C, D) and z (C, N) after the sweep.  x (N, D); t (N,) labels; lambda, h,
 // z_old (C, N); s (C, D, N); b_in (C, D); u_central (N, C); u_e, u_tail (3, N, C).
-// lanes: 1, 2, 4, 8, 16 or 32 lanes a chain; on 32, the step constants come from the warp's prologue.
+// layout kRegisters: `lanes` (1, 2, 4, 8, 16 or 32) lanes a chain with ceil(D / lanes) <= kEntMax entries
+// a lane; on 32, the step constants come from the warp's prologue.  kWideShared / kWideGlobal: a warp a
+// chain (lanes 32), B in shared memory (with a column of S: 2 D floats a block, at most the card's opt-in
+// limit) or in b_out.
 // scratch: the floats that rhmc_gibbs_sweep_scratch_floats names, written and read by this launch alone.
 extern "C" int rhmc_gibbs_sweep(const void* x, const void* t, const void* lam, const void* h, const void* z_old,
                                 const void* s, const void* b_in, const void* u_central, const void* u_e,
-                                const void* u_tail, int num_chains, int num_data, int dim, int lanes, void* scratch,
-                                void* b_out, void* z_out, void* stream) {
-  if (num_chains < 1 || num_data < 1 || dim < 1 || dim > kMaxDim) return cudaErrorInvalidValue;
+                                const void* u_tail, int num_chains, int num_data, int dim, int lanes, int layout,
+                                void* scratch, void* b_out, void* z_out, void* stream) {
+  if (num_chains < 1 || num_data < 1 || dim < 1) return cudaErrorInvalidValue;
   if (lanes < 1 || lanes > kSweepThreads || (lanes & (lanes - 1)) != 0) return cudaErrorInvalidValue;
-  const int ent = (dim + lanes - 1) / lanes;
   const auto f = [](const void* p) { return static_cast<const float*>(p); };
   auto* st = static_cast<cudaStream_t>(stream);
   auto* k = static_cast<float*>(scratch);
   auto* bo = static_cast<float*>(b_out);
   auto* zo = static_cast<float*>(z_out);
+  if (layout == kWideShared || layout == kWideGlobal) {
+    if (lanes != kSweepThreads) return cudaErrorInvalidValue;
+    const size_t shared = layout == kWideShared ? 2 * sizeof(float) * dim : 0;
+    const cudaError_t err = allow_wide_shared(shared, st);
+    if (err != cudaSuccess) return err;
+    const auto launch = [&](auto kernel) {
+      kernel<<<num_chains, kSweepThreads, shared, st>>>(f(x), f(t), f(lam), f(h), f(z_old), f(s), f(b_in),
+                                                        f(u_central), f(u_e), f(u_tail), num_chains, num_data, dim, k,
+                                                        bo, zo);
+      return cudaGetLastError();
+    };
+    return layout == kWideShared ? launch(gibbs_sweep_wide_kernel<true>) : launch(gibbs_sweep_wide_kernel<false>);
+  }
+  if (layout != kRegisters) return cudaErrorInvalidValue;
+  const int ent = (dim + lanes - 1) / lanes;
+  if (ent > kEntMax) return cudaErrorInvalidValue;
   const int per_block = kSweepThreads / lanes;
   const int blocks = (num_chains + per_block - 1) / per_block;
   return with_entries(ent, [&](auto entries) {
@@ -596,12 +779,13 @@ extern "C" int rhmc_gibbs_sweep(const void* x, const void* t, const void* lam, c
                                                f(u_e), f(u_tail), num_chains, num_data, dim, lanes, k, bo, zo);
       return cudaGetLastError();
     };
-    if constexpr (E <= (kMaxDim + kSweepThreads - 1) / kSweepThreads) {
-      if (lanes == kSweepThreads) return launch(gibbs_sweep_kernel<E, true>);
-    }
+    if (lanes == kSweepThreads) return launch(gibbs_sweep_kernel<E, true>);
     return launch(gibbs_sweep_kernel<E, false>);
   });
 }
+
+// kEntMax, for the wrapper's mirror (SWEEP_ENT_MAX).
+extern "C" int rhmc_gibbs_sweep_max_entries() { return kEntMax; }
 
 // The floats of G1's scratch for a launch on `lanes` lanes a chain: on 32, every chain's step constants.
 extern "C" long long rhmc_gibbs_sweep_scratch_floats(int num_chains, int num_data, int lanes) {

@@ -48,7 +48,7 @@ from riemannhamiltonianmontecarlo_tpu_torch.ops import _build, launches
 
 ORDERS = (0, 1, 2)
 DIM = 3  # (a, b, c)
-MAX_OBS = 6144  # the (num_obs, 2) data is staged in 48 KB of shared memory
+STAGED_MAX_OBS = 6144  # csrc/fhn_sens.cu::kStagedMaxObs: to here the data is staged in shared memory, then streamed
 INIT = (-1.0, 1.0)  # (V, R) at t0, RunFHN_RMHMC.m
 T0, T1 = 0.0, 20.0
 _KERNEL_DEVICE = "cuda"
@@ -148,21 +148,22 @@ class LaunchGeometry(NamedTuple):
     chains_per_block: int
     threads_per_block: int
     blocks: int
-    shared_bytes: int  # the block's copy of the (num_obs, 2) float32 data
+    shared_bytes: int  # the block's copy of the (num_obs, 2) float32 data to STAGED_MAX_OBS, then none
 
 
-def launch_geometry(order: int, num_chains: int, num_obs: int = MAX_OBS) -> LaunchGeometry:
+def launch_geometry(order: int, num_chains: int, num_obs: int) -> LaunchGeometry:
     """The source's launch geometry for one call, mirrored in Python.
 
     ``rhmc_fhn_launch_geometry`` of the built library gives the source's own
     answer; ``chip_smoke.py`` holds the two against each other on the card.
     """
     _check_order(order)
-    if num_chains < 1 or not 2 <= num_obs <= MAX_OBS:
-        raise ValueError(f"need num_chains >= 1 and 2 <= num_obs <= {MAX_OBS}, got {num_chains}, {num_obs}")
+    if num_chains < 1 or num_obs < 2:
+        raise ValueError(f"need num_chains >= 1 and num_obs >= 2, got {num_chains}, {num_obs}")
     lanes = LANES_PER_CHAIN[order]
     chains = THREADS_PER_BLOCK // lanes
-    return LaunchGeometry(lanes, chains, THREADS_PER_BLOCK, -(-num_chains // chains), 4 * 2 * num_obs)
+    shared = 4 * 2 * num_obs if num_obs <= STAGED_MAX_OBS else 0
+    return LaunchGeometry(lanes, chains, THREADS_PER_BLOCK, -(-num_chains // chains), shared)
 
 
 # A chain's output entries, flattened in the order the C mirror numbers them.
@@ -337,7 +338,7 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def built_launch_geometry(order: int, num_chains: int, num_obs: int = MAX_OBS) -> LaunchGeometry:
+def built_launch_geometry(order: int, num_chains: int, num_obs: int) -> LaunchGeometry:
     """The built library's own geometry (builds the library: needs the toolkit)."""
     out = (ctypes.c_int * len(LaunchGeometry._fields))()
     err = _lib().rhmc_fhn_launch_geometry(order, num_chains, num_obs, out)
@@ -366,9 +367,8 @@ def _check(theta: Tensor, data: Tensor, order: int, substeps: int) -> None:
         raise ValueError(f"theta on {theta.device} and data on {data.device}")
     if theta.ndim != 2 or theta.shape[1] != DIM:
         raise ValueError(f"expected theta of shape (C, {DIM}), got {tuple(theta.shape)}")
-    if data.ndim != 2 or data.shape[1] != 2 or not 2 <= data.shape[0] <= MAX_OBS:
-        raise ValueError(f"expected data of shape (num_obs, 2) with 2 <= num_obs <= {MAX_OBS}, "
-                         f"got {tuple(data.shape)}")
+    if data.ndim != 2 or data.shape[1] != 2 or data.shape[0] < 2:
+        raise ValueError(f"expected data of shape (num_obs, 2) with num_obs >= 2, got {tuple(data.shape)}")
     if substeps < 1:
         raise ValueError(f"substeps must be >= 1, got {substeps}")
 

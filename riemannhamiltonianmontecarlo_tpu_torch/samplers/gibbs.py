@@ -11,8 +11,10 @@ same contract (``code/gibbs_sampler.py:73-139`` / MATLAB
   conditional and B by a rank-one correction -- a true serial dependency
   (``sweep``): on a CUDA batch one launch of the hand-written kernel G1
   (``csrc/gibbs.cu``, a chain on a group of lanes of one warp walking the
-  N steps with B in their registers), on a CPU batch its plain version
-  ``gibbs_sweep_plain``, a Python loop over j with all chains in lockstep;
+  N steps with B in their registers, or past 32 x ``SWEEP_ENT_MAX``
+  entries on a whole warp with B in shared memory: ``sweep_layout``), on a
+  CPU batch its plain version ``gibbs_sweep_plain``, a Python loop over j
+  with all chains in lockstep;
 * beta = B + L T, T ~ N(0, I);
 * mixing weights lambda_j ~ GIG(1/2, 1, r_j^2) by rejection (``ops/gig.py``:
   on CUDA one launch of kernel G2, each element running its own rounds
@@ -27,8 +29,8 @@ GIG draws its key from ``noise.gig`` (``ops.gig.GigDraws``: a generator, and
 under a chain split this rank's rows).  ``draw_noise`` reads the state's
 shapes (``Kernel.noise_from_state``).  A step reads nothing on the device,
 so on a card the runner replays it as a CUDA graph (``Kernel.capturable``):
-K1 twice (inside ``ops.inv_psd`` and for chol(V)), G1 once and G2 once a
-step.
+K1 twice (inside ``ops.inv_psd`` and for chol(V); at D > 48 ``torch.linalg``,
+as the JAX package's ``jnp.linalg``), G1 once and G2 once a step.
 """
 
 from __future__ import annotations
@@ -45,7 +47,6 @@ from torch import Tensor
 from riemannhamiltonianmontecarlo_tpu_torch import ops
 from riemannhamiltonianmontecarlo_tpu_torch.ops import _build, launches, truncnorm
 from riemannhamiltonianmontecarlo_tpu_torch.ops import gig as gig_mod
-from riemannhamiltonianmontecarlo_tpu_torch.ops.hopper_linalg import MAX_DIM
 from riemannhamiltonianmontecarlo_tpu_torch.samplers.base import Info, Kernel, model_capturable
 
 
@@ -140,7 +141,18 @@ SWEEP_THREADS = 32  # csrc/gibbs.cu::kSweepThreads: G1's blocks are one warp
 SWEEP_FIELDS = 6  # csrc/gibbs.cu::kSweepFields: the step constants G1's prologue writes per chain and step
 SWEEP_LANES = (1, 2, 4, 8, 16, 32)  # the lanes a chain may take in G1
 SWEEP_WARPS_PER_SM = 8  # two a scheduler: as many lanes a chain as keep G1's warps within this
+SWEEP_ENT_MAX = 34  # csrc/gibbs.cu::kEntMax: the most entries of B a lane holds in registers
+# csrc/gibbs.cu::SweepLayout: B in registers on `lanes` lanes a chain; a warp a chain with B in the block's
+# shared memory; the same with B in the output buffer (past the card's shared memory a block).
+SWEEP_REGISTERS, SWEEP_WIDE_SHARED, SWEEP_WIDE_GLOBAL = 0, 1, 2
 H100_SMS = 132
+H100_SHARED_OPTIN = 232_448  # bytes of shared memory a block may opt in to on an H100 (227 KB)
+
+
+class SweepLayout(NamedTuple):
+    lanes: int  # lanes of a warp a chain
+    entries: int  # B's entries each lane holds: in registers, or (wide) walks in chunks of 32
+    wide: bool  # a warp a chain with B in memory: past 32 lanes of SWEEP_ENT_MAX entries
 
 
 def sweep_lanes(num_chains: int, sm_count: int = H100_SMS) -> int:
@@ -154,6 +166,25 @@ def sweep_lanes(num_chains: int, sm_count: int = H100_SMS) -> int:
     return lanes
 
 
+def sweep_layout(num_chains: int, dim: int, sm_count: int = H100_SMS) -> SweepLayout:
+    """G1's layout for (C, D): the larger of ``sweep_lanes(C)`` and the fewest lanes that keep
+    ceil(D / lanes) <= SWEEP_ENT_MAX, B in registers; past 32 such lanes (D > 32 SWEEP_ENT_MAX), the wide
+    layout on a whole warp.  D takes no instantiation of its own: the kernel's entries a lane do."""
+    if num_chains < 1 or dim < 1:
+        raise ValueError(f"G1 takes C >= 1 and D >= 1, got C = {num_chains}, D = {dim}")
+    fewest = next((lanes for lanes in SWEEP_LANES if -(-dim // lanes) <= SWEEP_ENT_MAX), None)
+    if fewest is None:
+        return SweepLayout(SWEEP_THREADS, -(-dim // SWEEP_THREADS), True)
+    lanes = max(sweep_lanes(num_chains, sm_count), fewest)
+    return SweepLayout(lanes, -(-dim // lanes), False)
+
+
+def sweep_b_in_shared(dim: int, shared_optin: int = H100_SHARED_OPTIN) -> bool:
+    """Whether the wide layout holds a chain's B and a column of S (2 D floats) in its block's shared
+    memory (csrc/gibbs.cu::gibbs_sweep_wide_kernel)."""
+    return 8 * dim <= shared_optin
+
+
 def sweep_scratch_numel(num_chains: int, num_data: int, lanes: int) -> int:
     """Floats of G1's scratch (csrc/gibbs.cu::rhmc_gibbs_sweep_scratch_floats): on a whole warp a
     chain, every chain's step constants; else none."""
@@ -164,25 +195,53 @@ def sweep_scratch_numel(num_chains: int, num_data: int, lanes: int) -> int:
 def _lib() -> ctypes.CDLL:
     lib = _build.load_library()
     ptr = ctypes.c_void_p
-    lib.rhmc_gibbs_sweep.argtypes = [ptr] * 10 + [ctypes.c_int] * 4 + [ptr] * 4
+    lib.rhmc_gibbs_sweep.argtypes = [ptr] * 10 + [ctypes.c_int] * 5 + [ptr] * 4
     lib.rhmc_gibbs_sweep.restype = ctypes.c_int
+    lib.rhmc_gibbs_sweep_max_entries.argtypes = []
+    lib.rhmc_gibbs_sweep_max_entries.restype = ctypes.c_int
     lib.rhmc_gibbs_sweep_scratch_floats.argtypes = [ctypes.c_int] * 3
     lib.rhmc_gibbs_sweep_scratch_floats.restype = ctypes.c_longlong
     return lib
 
 
+def launch_layout(num_chains: int, dim: int, device: torch.device, *, lanes: int | None = None, wide: bool = False,
+                  b_global: bool = False) -> tuple[SweepLayout, int]:
+    """G1's layout on ``device`` and its code for the C entry (SWEEP_REGISTERS, SWEEP_WIDE_SHARED or
+    SWEEP_WIDE_GLOBAL): ``sweep_layout`` by default; B in registers on ``lanes`` lanes, or the wide
+    layout (``wide``), with B in the output buffer (``b_global``), where the caller asks."""
+    props = torch.cuda.get_device_properties(device)
+    if lanes is not None:
+        if wide or lanes not in SWEEP_LANES or -(-dim // lanes) > SWEEP_ENT_MAX:
+            raise ValueError(f"gibbs_sweep: B in registers on {lanes} lanes a chain at D = {dim}; the kernel takes "
+                             f"{SWEEP_LANES} lanes of at most {SWEEP_ENT_MAX} entries")
+        layout = SweepLayout(lanes, -(-dim // lanes), False)
+    elif wide:
+        layout = SweepLayout(SWEEP_THREADS, -(-dim // SWEEP_THREADS), True)
+    else:
+        layout = sweep_layout(num_chains, dim, props.multi_processor_count)
+    if b_global and not layout.wide:
+        raise ValueError("gibbs_sweep: B lies in the output buffer only on the wide layout")
+    if not layout.wide:
+        return layout, SWEEP_REGISTERS
+    shared = sweep_b_in_shared(dim, getattr(props, "shared_memory_per_block_optin", H100_SHARED_OPTIN))
+    return layout, SWEEP_WIDE_SHARED if shared and not b_global else SWEEP_WIDE_GLOBAL
+
+
 def gibbs_sweep_cuda(x: Tensor, t: Tensor, lam: Tensor, h: Tensor, z_old: Tensor, s: Tensor, b: Tensor,
-                     noise: truncnorm.TruncNormNoise, *, lanes: int | None = None) -> tuple[Tensor, Tensor]:
+                     noise: truncnorm.TruncNormNoise, *, lanes: int | None = None, wide: bool = False,
+                     b_global: bool = False) -> tuple[Tensor, Tensor]:
     """Kernel G1 on the card: the arguments of ``gibbs_sweep_plain``, float32
-    on one CUDA device, D <= 48.  Returns (B (C, D), z (C, N)), new tensors.
-    An operand that is not contiguous (a rank's columns of the (N, C)
-    uniforms under a chain split) is copied once.  ``lanes`` (default
-    ``sweep_lanes`` for the device) is for checking and timing the
-    kernel's layouts against each other."""
+    on one CUDA device, any D >= 1.  Returns (B (C, D), z (C, N)), new
+    tensors.  An operand that is not contiguous (a rank's columns of the
+    (N, C) uniforms under a chain split) is copied once.  The layout is
+    ``sweep_layout`` for the device's SMs, the wide one with B in shared
+    memory while its 2 D floats fit a block's.  ``lanes`` (B in registers on that
+    many lanes a chain), ``wide`` and ``b_global`` (B in the output buffer)
+    are for checking and timing the layouts against each other."""
     n, d = x.shape
     c = lam.shape[0]
-    if not 1 <= d <= MAX_DIM:
-        raise ValueError(f"the CUDA kernel takes 1 <= D <= {MAX_DIM}, got D = {d}")
+    if d < 1:
+        raise ValueError(f"the CUDA kernel takes D >= 1, got D = {d}")
     shapes = {"x": (x, (n, d)), "t": (t, (n,)), "lam": (lam, (c, n)), "h": (h, (c, n)), "z_old": (z_old, (c, n)),
               "s": (s, (c, d, n)), "b": (b, (c, d)), "u_central": (noise.u_central, (n, c)),
               "u_e": (noise.u_e, (truncnorm.RETRY_ROUNDS, n, c)), "u_tail": (noise.u_tail, (truncnorm.RETRY_ROUNDS, n, c))}
@@ -194,17 +253,14 @@ def gibbs_sweep_cuda(x: Tensor, t: Tensor, lam: Tensor, h: Tensor, z_old: Tensor
             raise TypeError(f"gibbs_sweep: the CUDA kernel takes float32, got {name} as {tensor.dtype}")
         if tuple(tensor.shape) != shape:
             raise ValueError(f"gibbs_sweep: {name} has shape {tuple(tensor.shape)}, expected {shape}")
-    if lanes is None:
-        lanes = sweep_lanes(c, torch.cuda.get_device_properties(x.device).multi_processor_count)
-    if lanes not in SWEEP_LANES:
-        raise ValueError(f"gibbs_sweep: {lanes} lanes a chain; the kernel takes {SWEEP_LANES}")
+    layout, code = launch_layout(c, d, x.device, lanes=lanes, wide=wide, b_global=b_global)
     ins = [tensor.contiguous() for tensor, _ in shapes.values()]  # themselves unless the caller's are strided
     b_out, z = torch.empty_like(ins[6]), torch.empty_like(ins[2])
-    scratch = torch.empty(sweep_scratch_numel(c, n, lanes), dtype=torch.float32, device=x.device)
+    scratch = torch.empty(sweep_scratch_numel(c, n, layout.lanes), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _lib().rhmc_gibbs_sweep(*(tensor.data_ptr() for tensor in ins), c, n, d, lanes, scratch.data_ptr(),
-                                      b_out.data_ptr(), z.data_ptr(), stream)
+        err = _lib().rhmc_gibbs_sweep(*(tensor.data_ptr() for tensor in ins), c, n, d, layout.lanes, code,
+                                      scratch.data_ptr(), b_out.data_ptr(), z.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"gibbs_sweep kernel launch failed with CUDA error {err}")
     launches.count("gibbs_sweep", x.device)

@@ -64,8 +64,8 @@ GEMM = re.compile(r"gemm|cutlass|xmma|gemv", re.IGNORECASE)
 FACTOR = re.compile(r"potrf|trsm|chol", re.IGNORECASE)
 TRSM = re.compile(r"trsm", re.IGNORECASE)  # the triangular solves' part of FACTOR
 FHN = re.compile(r"fhn_sensitivities")
-GIBBS = {"gibbs_sweep_kernel": re.compile(r"gibbs_sweep_kernel"), "gig_half_kernel": re.compile(r"gig_half_kernel"),
-         "draws": re.compile(r"distribution")}
+GIBBS = {"gibbs_sweep_kernel": re.compile(r"gibbs_sweep(_wide)?_kernel"),
+         "gig_half_kernel": re.compile(r"gig_half_kernel"), "draws": re.compile(r"distribution")}
 
 
 def _world1_mesh() -> parallel.Mesh:

@@ -53,16 +53,22 @@ def assert_close_to_scale(port, ref, name):
         np.testing.assert_allclose(port[finite], ref[finite], rtol=0, atol=TOL * max(scale, 1e-30), err_msg=name)
 
 
-@pytest.mark.parametrize("k", range(len(THETAS)), ids=THETA_IDS)
-def test_torch_fhn_integrator_matches_jax(k):
+# (theta row, num_obs, substeps): every theta at the small setting, and the truth on a grid of 6,145
+# observations and one substep, past the 6,144 that the first form of the kernel staged.
+INTEGRATOR_CASES = [pytest.param(k, NUM_OBS, SUBSTEPS, id=name) for k, name in enumerate(THETA_IDS)] + [
+    pytest.param(0, 6145, 1, id="truth-6145x1")]
+
+
+@pytest.mark.parametrize("k, num_obs, substeps", INTEGRATOR_CASES)
+def test_torch_fhn_integrator_matches_jax(k, num_obs, substeps):
     theta = THETAS[k]
-    ref = np.asarray(jfhn.integrate_rk4(jnp.asarray(theta), num_obs=NUM_OBS, substeps=SUBSTEPS))
-    port = fhn.integrate_rk4(torch.from_numpy(theta), num_obs=NUM_OBS, substeps=SUBSTEPS).numpy()
-    assert port.shape == ref.shape == (NUM_OBS, 2)
+    ref = np.asarray(jfhn.integrate_rk4(jnp.asarray(theta), num_obs=num_obs, substeps=substeps))
+    port = fhn.integrate_rk4(torch.from_numpy(theta), num_obs=num_obs, substeps=substeps).numpy()
+    assert port.shape == ref.shape == (num_obs, 2)
     assert_close_to_scale(port, ref, "trajectory")
     # batched over leading axes: each row as alone
-    batch = fhn.integrate_rk4(torch.from_numpy(THETAS).reshape(2, 2, 3), num_obs=NUM_OBS, substeps=SUBSTEPS)
-    np.testing.assert_array_equal(batch.reshape(4, NUM_OBS, 2)[k].numpy(), port)
+    batch = fhn.integrate_rk4(torch.from_numpy(THETAS).reshape(2, 2, 3), num_obs=num_obs, substeps=substeps)
+    np.testing.assert_array_equal(batch.reshape(4, num_obs, 2)[k].numpy(), port)
 
 
 def test_torch_fhn_generate_data_matches_jax():

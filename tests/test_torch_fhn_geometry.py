@@ -41,20 +41,32 @@ def test_torch_fhn_geometry_covers_every_chain_once(order, num_chains):
 
 @pytest.mark.parametrize("order", fhn_sens.ORDERS)
 def test_torch_fhn_geometry_lanes_and_shared_memory(order):
-    geo = fhn_sens.launch_geometry(order, 256)
+    geo = fhn_sens.launch_geometry(order, 256, 200)
     lanes = geo.lanes_per_chain
     assert lanes & (lanes - 1) == 0 and WARP % lanes == 0  # a power of two: a fixed slice of a warp
     assert fhn_sens.WORKING_LANES[order] <= lanes
-    assert geo.shared_bytes == 4 * 2 * fhn_sens.MAX_OBS <= 48 * 1024  # the data at MAX_OBS, without opting in
-    assert fhn_sens.launch_geometry(order, 256, 200).shared_bytes == 4 * 2 * 200
+    assert geo.shared_bytes == 4 * 2 * 200  # the whole series, within one tile
     if order == 0:
         assert lanes == 1 and geo.chains_per_block == geo.threads_per_block
 
 
-@pytest.mark.parametrize("args", [(3, 256, 200), (1, 0, 200), (1, 256, 1), (1, 256, fhn_sens.MAX_OBS + 1)])
+@pytest.mark.parametrize("args", [(3, 256, 200), (1, 0, 200), (1, 256, 1)])
 def test_torch_fhn_geometry_refuses_what_the_kernel_refuses(args):
     with pytest.raises(ValueError):
         fhn_sens.launch_geometry(*args)
+
+
+@pytest.mark.parametrize("num_obs", [6145, 50000])
+@pytest.mark.parametrize("order", fhn_sens.ORDERS)
+def test_torch_fhn_geometry_takes_any_number_of_observations(order, num_obs):
+    """Past the 6,144 observations that the first form staged in 48 KB (the
+    data then streams from device memory): the same lanes and blocks as at
+    200, and a block's shared memory bounded and independent of num_obs."""
+    geo, short = fhn_sens.launch_geometry(order, 256, num_obs), fhn_sens.launch_geometry(order, 256, 200)
+    assert geo._replace(shared_bytes=0) == short._replace(shared_bytes=0)
+    staged = fhn_sens.launch_geometry(order, 256, fhn_sens.STAGED_MAX_OBS).shared_bytes
+    assert geo.shared_bytes == 0 and staged == 4 * 2 * fhn_sens.STAGED_MAX_OBS <= 48 * 1024
+    assert geo.shared_bytes == fhn_sens.launch_geometry(order, 256, 2 * num_obs).shared_bytes
 
 
 @pytest.mark.parametrize("order", fhn_sens.ORDERS)

@@ -9,7 +9,9 @@
   r^2 in {1e-4, 1, 25}.
 * One Gibbs step's deterministic part given the replayed sweep and beta
   draws: V, chol(V), S, B, h (rtol 1e-4) and the swept z and beta
-  (atol 1e-3: 60 dependent float32 updates of B).
+  (atol 1e-3: 60 or 208 dependent float32 updates of B), at D = 5 and at
+  UCI Sonar's shape (208 rows, 60 features and the intercept: D = 61, past
+  the 48 of the hand-written Cholesky).
 * A short run against the JAX package's Gibbs run: posterior means within
   z < 5 from the exact-mode ESS of both runs.
 """
@@ -100,9 +102,14 @@ def test_torch_gig_zero_normal_draw_is_redrawn(monkeypatch):
     assert torch.isfinite(lam).all() and (lam > 0).all()
 
 
-@pytest.fixture(scope="module")
-def gibbs_target():
-    ds = rt.models.synthetic_logreg(seed=9, n=60, d=5)
+# (seed, N, D) of the synthetic data: a small target, and UCI Sonar's shape
+GIBBS_TARGETS = {"n60-d5": (9, 60, 5), "sonar-n208-d61": (0, 208, 61)}
+
+
+@pytest.fixture(scope="module", params=list(GIBBS_TARGETS.values()), ids=list(GIBBS_TARGETS))
+def gibbs_target(request):
+    seed, n, d = request.param
+    ds = rt.models.synthetic_logreg(seed=seed, n=n, d=d)
     x, t = ds.X.astype(np.float32), ds.t.astype(np.float32)
     return rj.models.LogisticRegression(jnp.asarray(x), jnp.asarray(t)), interop.logreg_from_numpy(x, t, device="cpu")
 

@@ -303,23 +303,18 @@ def test_torch_gibbs_capturable_where_its_model_is(gibbs_setup, monkeypatch):
         assert gibbs.build(model.with_sharding(mesh, "data")).capturable == (backend == "nccl")
 
 
-@pytest.mark.parametrize("dim", [0, 49])
-def test_torch_gibbs_sweep_kernel_takes_widths_1_to_48(dim):
-    """G1 is instantiated once for each D in 1..48 (csrc/gibbs.cu::with_sweep_width),
-    as K1 is capped: its wrapper refuses any other D, with K1's message, before
-    it looks at the device; at D = 48 it goes on to refuse a CPU tensor."""
+@pytest.mark.parametrize("dim", [0, 49, 2049])
+def test_torch_gibbs_sweep_kernel_refuses_no_width_but_zero(dim):
+    """G1 takes any D >= 1 (B in registers to 32 x SWEEP_ENT_MAX entries, the
+    wide layout past that): its wrapper refuses D = 0 before it looks at the
+    device, and goes on to refuse a CPU tensor at D = 49 and 2049, past K1's 48."""
     c, n = 4, 6
     noise = truncnorm.draw_noise(torch.Generator().manual_seed(0), (n, c))
     r = torch.ones((c, n))
-
-    def call(d):
-        gibbs.gibbs_sweep_cuda(torch.ones((n, d)), torch.ones(n), r, r, r, torch.ones((c, d, n)), torch.ones((c, d)),
-                               noise)
-
-    with pytest.raises(ValueError, match=f"the CUDA kernel takes 1 <= D <= 48, got D = {dim}"):
-        call(dim)
-    with pytest.raises(ValueError, match="CUDA device"):
-        call(48)
+    args = (torch.ones((n, dim)), torch.ones(n), r, r, r, torch.ones((c, dim, n)), torch.ones((c, dim)), noise)
+    match = "D >= 1, got D = 0" if dim == 0 else "CUDA device"
+    with pytest.raises(ValueError, match=match):
+        gibbs.gibbs_sweep_cuda(*args)
 
 
 def lookahead_sweep(x, t, lam, h, z_old, s, b, noise, lanes):
@@ -354,10 +349,53 @@ def lookahead_sweep(x, t, lam, h, z_old, s, b, noise, lanes):
     return b, z
 
 
-@pytest.mark.parametrize("lanes", [1, 4, 8])
-def test_torch_gibbs_sweep_lookahead_algebra_is_the_sweep(gibbs_setup, lanes):
+def chunked_sweep(x, t, lam, h, z_old, s, b, noise, lanes):
+    """G1's wide layout (csrc/gibbs.cu::gibbs_sweep_wide_kernel) in float64,
+    with ``lanes`` in place of the warp's 32: lane l owns B's entries l,
+    l + lanes, ..., kept in memory; p_0, R_0 = B_0 x_1 and Q_0 = S[:, 0] x_1
+    from one pass, then at step j the chain gives delta_j, p_{j+1} = R_j +
+    delta_j Q_j, and one pass over B in chunks of ``lanes`` entries applies
+    B += delta_j S[:, j] and sums R_{j+1} = B_{j+1} x_{j+2} and
+    Q_{j+1} = S[:, j+1] x_{j+2}, each lane over its entries in order."""
+    n, d = x.shape
+    c = b.shape[0]
+    w = h / torch.clamp(lam - h, min=1e-12)
+    sd = torch.sqrt(lam * (w + 1.0))
+    signed = torch.where(t == 1.0, sd, -sd)
+    terms = truncnorm.prepare(noise)
+    b = b.clone()
+    last = n - 1
+
+    def lane_sums(u_of, x_row):  # (C, lanes): each lane's sum over its entries, chunk by chunk
+        part = torch.zeros((c, lanes), dtype=x.dtype)
+        for chunk in range(0, d, lanes):
+            e = torch.arange(chunk, min(chunk + lanes, d))
+            part[:, e - chunk] += u_of(e) * x_row[e]
+        return part.sum(dim=1)
+
+    p = lane_sums(lambda e: b[:, e], x[0])
+    r_sum, q_sum = lane_sums(lambda e: b[:, e], x[min(1, last)]), lane_sums(lambda e: s[:, e, 0], x[min(1, last)])
+    z = torch.empty_like(z_old)
+    for j in range(n):
+        j1, j2 = min(j + 1, last), min(j + 2, last)
+        m = (1.0 + w[:, j]) * p - w[:, j] * z_old[:, j]
+        z_std = truncnorm.std_truncnorm_above(-m / signed[:, j], truncnorm.TailTerms(*(u[..., j, :] for u in terms)))
+        z[:, j] = m + signed[:, j] * z_std
+        delta = (z[:, j] - z_old[:, j]) / lam[:, j]
+        p = r_sum + delta * q_sum
+        for chunk in range(0, d, lanes):  # the pass
+            e = slice(chunk, min(chunk + lanes, d))
+            b[:, e] = b[:, e] + delta[:, None] * s[:, e, j]
+        r_sum, q_sum = lane_sums(lambda e: b[:, e], x[j2]), lane_sums(lambda e: s[:, e, j1], x[j2])
+    return b, z
+
+
+@pytest.mark.parametrize("layout, lanes", [("registers", 1), ("registers", 4), ("registers", 8), ("wide", 2),
+                                           ("wide", 32)], ids=["1", "4", "8", "wide-2", "wide-32"])
+def test_torch_gibbs_sweep_lookahead_algebra_is_the_sweep(gibbs_setup, layout, lanes):
     """The look-ahead dot of G1, in float64, gives the plain sweep's B and z
-    (float64) to 1e-9: the reordering changes only the rounding."""
+    (float64) to 1e-9: the reordering changes only the rounding.  So does
+    the wide layout's chunked pass over B (2 lanes: D = 5 in three chunks)."""
     model, _, state = gibbs_setup
     c, n = state.z.shape
     state64 = gibbs.GibbsState(*(a.double() for a in state))
@@ -367,7 +405,7 @@ def test_torch_gibbs_sweep_lookahead_algebra_is_the_sweep(gibbs_setup, lanes):
         x, t = model.X.double(), model.t.double()
         args = (x, t, state64.lam, cond.h.double(), state64.z, cond.s.double(), cond.b.double(), noise)
         bp, zp = gibbs.gibbs_sweep_plain(*args)
-        bl, zl = lookahead_sweep(*args, lanes=lanes)
+        bl, zl = (lookahead_sweep if layout == "registers" else chunked_sweep)(*args, lanes=lanes)
     assert bp.dtype == torch.float64
     torch.testing.assert_close(zl, zp, rtol=1e-9, atol=1e-9)
     torch.testing.assert_close(bl, bp, rtol=1e-9, atol=1e-9)
@@ -386,3 +424,30 @@ def test_torch_gibbs_sweep_layout(chains):
     assert gibbs.sweep_lanes(chains, sm_count=2 * gibbs.H100_SMS) >= lanes
     numel = gibbs.sweep_scratch_numel(chains, 690, lanes)
     assert numel == (gibbs.SWEEP_FIELDS * 690 * chains if lanes == gibbs.SWEEP_THREADS else 0)
+
+
+@pytest.mark.parametrize("chains", [1, 256, 1024, 8448, 40000])
+@pytest.mark.parametrize("dim", [1, 48, 49, 61, 167, 1088, 1089, 1280, 2049, 40000])
+def test_torch_gibbs_sweep_layout_takes_any_width(chains, dim):
+    """``sweep_layout``: B in registers on the larger of ``sweep_lanes(C)`` and
+    the fewest lanes that keep SWEEP_ENT_MAX entries a lane or fewer; the
+    wide layout exactly where 32 lanes do not (D > 32 SWEEP_ENT_MAX); either
+    way the lanes' entries cover D."""
+    layout = gibbs.sweep_layout(chains, dim)
+    assert layout.lanes in gibbs.SWEEP_LANES
+    assert layout.lanes * layout.entries >= dim > layout.lanes * (layout.entries - 1)
+    assert layout.wide == (-(-dim // gibbs.SWEEP_THREADS) > gibbs.SWEEP_ENT_MAX)
+    if layout.wide:
+        assert layout.lanes == gibbs.SWEEP_THREADS
+    else:
+        assert layout.entries <= gibbs.SWEEP_ENT_MAX
+        assert layout.lanes >= gibbs.sweep_lanes(chains)
+        # no fewer lanes would do: the chain count's own, or too many entries a lane
+        assert layout.lanes == gibbs.sweep_lanes(chains) or -(-dim // (layout.lanes // 2)) > gibbs.SWEEP_ENT_MAX
+    assert gibbs.sweep_b_in_shared(dim) == (8 * dim <= gibbs.H100_SHARED_OPTIN)
+
+
+@pytest.mark.parametrize("dims", [(0, 1), (1, 0)])
+def test_torch_gibbs_sweep_layout_refuses_no_chains_or_width(dims):
+    with pytest.raises(ValueError, match="C >= 1 and D >= 1"):
+        gibbs.sweep_layout(*dims)
