@@ -12,8 +12,8 @@ It imports no jax.  Phases, each printing one line of findings:
    versions, the fp32 precision flags;
 2. build: compiles ``ops/csrc/*.cu`` with nvcc (cached by source hash under
    the git-ignored ``build/``; one nvcc per source, all started together),
-   prints the build seconds and the ptxas register / spill report (K1 / K2
-   per width, the FHN kernel per order, G1 per count 1..SWEEP_ENT_MAX of
+   prints the build seconds and the ptxas register / spill report (K1 / K2 / K3
+   per width, T1, the FHN kernel per order, G1 per count 1..SWEEP_ENT_MAX of
    B's entries a lane holds with and without its prologue and its wide
    layout's two forms, G2 and the single GIG round: exactly one
    instantiation each, G1's spilling in none), holds SWEEP_ENT_MAX and G1's
@@ -25,7 +25,8 @@ It imports no jax.  Phases, each printing one line of findings:
    ``fhn_sens.output_owners`` (the lane of a chain's group that writes each
    output entry) against the library's for orders 0-2 at C in {1, 31, 256,
    257, 4224};
-3. kernels: K1 (Cholesky) and K2 (fused solve + log-det) against their
+3. kernels: K1 (Cholesky), K2 (fused solve + log-det) and K3 (factor,
+   inverse and half log-det: RMHMC's geometry) against their
    plain-PyTorch twins on the card, on seeded SPD batches at
    C in {4096, 4097} and D in {3, 7, 10, 15, 25}, at StochVol's
    C = 1024, D = 3, FHN's C = 256, D = 3 and at the joint LGC hyper block's (C, D) = (4, 2) and
@@ -34,7 +35,8 @@ It imports no jax.  Phases, each printing one line of findings:
    non-PD chains (the first, a middle and the last chain of a block, and
    the batch's last chain) giving non-finite output in those chains only;
    an operand that is not 16-byte aligned and one that is not contiguous
-   give the same bits as the aligned contiguous one.  Then, at
+   give the same bits as the aligned contiguous one; K3's factor is K1's
+   bit for bit and its inverse exactly symmetric.  Then, at
    (C, D) = (4096, 15), (4096, 25), (4096, 3), (1024, 3), (256, 3) and (4, 2), for
    each kernel: the wrapper's time (``ms``: median CUDA-event time of one call;
    ``burst_ms``: 200 calls back to back over the count), the launch alone
@@ -46,7 +48,15 @@ It imports no jax.  Phases, each printing one line of findings:
    and a library yardstick the port never calls on these shapes:
    ``torch.linalg.cholesky_ex`` for K1 (``library_ms``), and for K2, which
    no one call computes, the sequence cholesky_ex, cholesky_solve, log of
-   the diagonal (``library_seq_ms``: a sequence, for information only).
+   the diagonal (``library_seq_ms``: a sequence, for information only), for
+   K3 cholesky_ex, cholesky_inverse, log of the diagonal (the same).  Then
+   T1, StochVol's bidiagonal scan (``ops/csrc/tridiag.cu``), against its
+   twin (the loop of three launches a position) at (B, T) = (1024, 2000),
+   (1025, 2000), (3, 1), (3, 2) and (64, 7) on seeded StochVol metrics
+   (rtol / atol 1e-5, NaN exactly where the twin has it), with a chain
+   made indefinite at T / 2 (NaN from there on, in it alone) and HMC's
+   identity mass (ld 1, e 0 exactly), and its times at (1024, 2000): no
+   single PyTorch call computes it, so no library yardstick.
    Then the FitzHugh-Nagumo sensitivity kernel (``ops/csrc/fhn_sens.cu``)
    against its plain twin at (C, num_obs, substeps) = (256, 200, 5) and
    (257, 200, 5), orders 0, 1 and 2, on seeded theta around the truth with
@@ -100,34 +110,35 @@ It imports no jax.  Phases, each printing one line of findings:
    seconds per transition and min-ESS/s.  The counts are the kernels'
    device counters (``ops.launches``), which the step's CUDA graph adds to
    at each replay; three more replays of that graph under torch.profiler
-   must show as many K1 / K2 device events as the counters count;
+   must show as many K1 / K2 / K3 device events as the counters count;
 6. blr-samplers: the experiment entry point
    ``experiments.run_experiment(..., device="cuda")`` for all nine BLR
    samplers on a synthetic CSV of australian's shape (N=690, D=15), mMALA
    and RMHMC once more on one of german's shape (N=1000, D=25: K1's and
-   K2's spilling D=25 instantiations end to end), and adaptive RMHMC (K1
+   K2's spilling D=25 instantiations end to end), and adaptive RMHMC (K3
    and K2 under a tensor step size); then Gibbs on UCI Musk v1's shape
    (N=476, D=167: V and chol(V) from torch.linalg, G1 on 32 lanes of 6
    entries), 1024 chains, 3 + 3 eager and captured: bit for bit, one
-   capture, G1 / G2 counted on the device 6 each and K1 / K2 0, three
+   capture, G1 / G2 counted on the device 6 each and K1 / K2 / K3 0, three
    replays under torch.profiler against the counters.  Each run: finite samples of the
    right shape, acceptance in a window from RESULTS.md or the JAX
    package's tests, divergences, posterior means against the RMHMC run on
-   the same data (z < 5 from exact-mode ESS), and K1 / K2 launch counts
+   the same data (z < 5 from exact-mode ESS), and K1 / K2 / K3 launch counts
    (Gibbs's: and G1 and G2 once a step; its run, 1024 chains, replays
    a CUDA graph as every capturable run does) equal to the formulas the
    samplers' code gives; prints seconds per transition and min-ESS/s beside
    the nvidia-smi line;
 7. stochvol: ``experiments.run_workload("stochvol", m, device="cuda")`` for
    m in {rmhmc, hmc, mala, mmala} at T = 2000 latents and 1024 chains (the
-   hyper block runs K1 / K2 at D = 3): finite hyper and latent samples of
+   hyper block runs K1 / K2 / K3 at D = 3, the latent block T1 once a
+   sweep but under MALA): finite hyper and latent samples of
    the right shapes, acceptance in a window around the JAX package's at the
    same constants, depth, seed and data (measured on the CPU, PERF.md),
    divergences (no gate for hmc, whose reference rate is ~0.7%), hyper
    means against the JAX package's at the same depth from the same start
    (z < 5 over the chain means; only RMHMC has mixed at these depths) and
-   RMHMC's inside the boxes of tests/test_stochvol.py:77-79, and K1 / K2
-   launch counts equal to the formulas;
+   RMHMC's inside the boxes of tests/test_stochvol.py:77-79, and K1 / K2 / K3
+   and T1 launch counts equal to the formulas;
 8. lgc: ``run_workload("lgc", s, device="cuda")`` on the 64 x 64 grid
    (D = 4096) for constant-metric RMHMC (phmc, 64 chains), the
    position-dependent mMALA (8 chains, a (C, 4096, 4096) metric per step)
@@ -141,7 +152,7 @@ It imports no jax.  Phases, each printing one line of findings:
    device="cuda")`` on the 64 x 64 grid (D = 4096 latents + 2
    hyperparameters, 4 chains; the hyper block's (4, 2, 2) metric runs K1,
    and under RMHMC K2): positive finite hyper samples, finite latent
-   samples, K1 / K2 launch counts equal to the formulas, sweep-level
+   samples, K1 / K2 / K3 launch counts equal to the formulas, sweep-level
    acceptance within 0.12 of RESULTS.md:258-261 (another data set), no
    divergences; then the same two samplers at n = 32 (D = 1024, 16 chains) against the
    JAX package's acceptance (within 0.05) and hyper chain means (z < 5) at
@@ -153,13 +164,13 @@ It imports no jax.  Phases, each printing one line of findings:
    peak of allocated device memory are printed without a gate;
 10. fhn: ``run_workload("fhn", m, device="cuda")`` at 200 x 5 and 256 chains
    for the six samplers: finite samples, FHN-kernel launches by order and
-   K1 / K2 launches equal to the formulas, acceptance within 0.05 of the JAX
+   K1 / K2 / K3 launches equal to the formulas, acceptance within 0.05 of the JAX
    package's at the same constants, depth, seed and data and chain means
    within z < 5 of its (``FHN_JAX``, measured on the CPU by
    ``tests/reference_workload_jax.py``); divergences and ``RESULTS.md``'s
    acceptance printed beside them, without a gate; then RMHMC at 8,192
    observations x 5 substeps, 256 chains, 3 + 3 eager and captured: bit for
-   bit, one capture, FHN-kernel and K1 / K2 launches counted on the device
+   bit, one capture, FHN-kernel and K1 / K2 / K3 launches counted on the device
    equal to the formulas, three replays under torch.profiler;
 11. distributed: the parallel layer on ``torch.distributed``; runs with a
    mesh replay the step's CUDA graph wherever the kernel declares it (a
@@ -171,7 +182,7 @@ It imports no jax.  Phases, each printing one line of findings:
    at D = 4096 (64 chains, 20 + 20) on a ("chains", "latent") mesh, each
    captured and ``torch.equal`` to the same mesh run eager and to the
    captured run without a mesh, one capture in the burn-in and none in the
-   timed run, with K1 / K2 launch counts equal to the formulas and the
+   timed run, with K1 / K2 / K3 launch counts equal to the formulas and the
    all-reduces counted on the device equal to those the eager run issued
    (72 a BLR step, 66 an LGC step); three replays of each graph: the device
    count against one eager step's issued all-reduces, and the NCCL kernels
@@ -199,7 +210,7 @@ It imports no jax.  Phases, each printing one line of findings:
    abs / 1e-5 rel, except that a chain whose decisions came within 1e-3 of
    the boundary may part (counted); the largest ratio of a difference to its
    tolerance is printed, with which ops of a transition give other bits at
-   half the rows.  K1 / K2 launch counts per rank equal the formulas; the
+   half the rows.  K1 / K2 / K3 launch counts per rank equal the formulas; the
    checkpoint shards ``.p0`` / ``.p1`` round-trip.  Then, split (2, 1) over
    the same two ranks, the four samplers the chain split took last, 5 + 5
    each, captured and bit for bit each rank's eager run: AMH (BLR, 4096
@@ -213,7 +224,7 @@ It imports no jax.  Phases, each printing one line of findings:
    1e-3, ``DIST_SPLIT_TOL``, with the ratio to 1e-5 printed), a chain's
    closeness to a decision boundary found by rerunning each step of that
    run on the state with every entry moved by 1e-4 of random sign (these
-   samplers expose no one accept margin); K1 / K2 launch counts per rank
+   samplers expose no one accept margin); K1 / K2 / K3 launch counts per rank
    equal the formulas.  Seconds per transition (world 1 with the mesh
    captured and eager against no mesh captured, two ranks captured and
    eager) and all-reduces per transition are printed beside the card,
@@ -227,7 +238,7 @@ It imports no jax.  Phases, each printing one line of findings:
    the C++ engine against NumPy within 1e-3), ``probe_scaling`` (FHN HMC at
    two chain counts, 2 steps) and ``scaling_table`` (world sizes 1 and 2
    over Gloo on the card, 5 + 5, every rank replaying its chain-split step's graph).  Each section is headed with the nvidia-smi line and holds the
-   expected number of rows of finite numbers; K1 / K2 launch counts of the
+   expected number of rows of finite numbers; K1 / K2 / K3 launch counts of the
    make_results, StochVol and ESS-engine rows equal the formulas; the rmhmc
    row's acceptance is within 0.05 of phase 5's, the StochVol row's of
    phase 7's (or, without those phases, in phase 5's window / within 0.05 of
@@ -237,7 +248,7 @@ It imports no jax.  Phases, each printing one line of findings:
    ``draw_noise`` alone replayed 8 times against 8 eager calls from one
    seed; BLR RMHMC at phase 5's configuration (4096 chains, 20 + 20) run
    with ``capture=False`` and ``capture=True`` from one seed: samples,
-   final state, acceptance and divergences equal bit for bit, K1 / K2
+   final state, acceptance and divergences equal bit for bit, K1 / K2 / K3
    launch counts of the captured run equal to ``blr_expected_launches``,
    one capture for both phases; then every other capturable sampler (the
    BLR ones and adaptive RMHMC at 4096 chains, Gibbs at 1024 with its G1 /
@@ -246,7 +257,7 @@ It imports no jax.  Phases, each printing one line of findings:
    chains, StochVol's four methods at T = 2000 and 1024 chains, MALA with
    its transient burn-in kernel, and the joint LGC pair at n = 32 with 16
    chains), 3 + 3, eager against captured, bit for bit, with equal launch
-   counts (StochVol's and the joint pair's K1 / K2 counts equal to
+   counts (StochVol's and the joint pair's K1 / K2 / K3 counts equal to
    ``sv_expected_launches`` / ``lgcj_expected_launches``) and one capture
    per kernel of the run, after one eager step of each of the run's kernels under
    ``torch.cuda.set_sync_debug_mode("error")``; where a run launched a
@@ -335,7 +346,7 @@ PLAIN_BURN_IN, PLAIN_SAMPLES = 50, 50
 L, K = 6, 4  # reference constants (RMHMCConfig defaults)
 # Tolerances of the kernels against their twins: those of the JAX package's
 # Pallas tests (tests/test_pallas_linalg.py), |k - p| <= atol + rtol |p|.
-TOL = {"L": (2e-4, 2e-4), "x": (2e-3, 2e-3), "logdet": (2e-4, 2e-3)}
+TOL = {"L": (2e-4, 2e-4), "x": (2e-3, 2e-3), "logdet": (2e-4, 2e-3), "inv": (2e-4, 2e-4)}
 ACCEPT_WINDOW = (0.85, 0.97)
 SEEN_ACCEPT: dict[str, float] = {}  # phase 5's and phase 7's RMHMC acceptance, for phase 12's gates
 MAX_DIVERGENT_FRACTION = 1e-4
@@ -346,7 +357,24 @@ SOURCE = "riemannhamiltonianmontecarlo_tpu_torch/ops/csrc/hopper_linalg.cu"
 REPLACES = {
     "cholesky": "riemannhamiltonianmontecarlo_tpu/ops/pallas_linalg.py:116",
     "chol_solve_logdet": "riemannhamiltonianmontecarlo_tpu/ops/pallas_linalg.py:150",
+    "chol_inv_logdet": "riemannhamiltonianmontecarlo_tpu/samplers/rmhmc.py:111-118 (ops.cholesky, then "
+                       "ops/linalg.py:154-165 inv_psd_from_chol and logdet_from_chol; no pallas_call)",
 }
+LINALG_COUNTED = tuple(REPLACES)  # K1, K2, K3: hl.launch_counts()'s keys
+NO_LINALG = dict.fromkeys(LINALG_COUNTED, 0)  # a run at D = 4096, or of a sampler with no factorization
+INV_COND_TOL = 1e-5  # K3's inverse on FHN's ill-conditioned metrics: relative error per chain over its condition
+K3_LIBRARY_NOTE = "sequence cholesky_ex, cholesky_inverse, log of the diagonal: information only"
+
+# The StochVol latent block's bidiagonal scan T1 (csrc/tridiag.cu): no Pallas kernel behind it.
+BIDIAG = "bidiag_cholesky"  # its name in ops.launches
+BIDIAG_SOURCE = "riemannhamiltonianmontecarlo_tpu_torch/ops/csrc/tridiag.cu"
+BIDIAG_REPLACES = "riemannhamiltonianmontecarlo_tpu/ops/tridiag.py:37-58 (the factor's lax.scan; no pallas_call)"
+BIDIAG_KERNEL_NAME = "bidiag_scan_kernel"
+# T1 against its twin at (B, T): StochVol's 1024 chains at T = 2000, a ragged last block, T = 1 (no e), T = 2,
+# a few short chains; a non-PD chain and HMC's identity mass each at (1024, 2000).
+BIDIAG_SHAPES = ((1024, 2000), (1025, 2000), (3, 1), (3, 2), (64, 7))
+BIDIAG_TIMED = (1024, 2000)
+BIDIAG_TOL = (1e-5, 1e-5)  # (rtol, atol): the twin's operations in its order, d - e^2 rounded once in the kernel
 
 
 # The Gibbs step's two kernels (csrc/gibbs.cu): no Pallas kernel behind either.
@@ -362,6 +390,8 @@ GIBBS_REPLACES = {
 GIBBS_KERNEL_NAMES = {"gibbs_sweep": "gibbs_sweep", "gig_half": "gig_half_kernel",
                       "gig_round": "gig_round_kernel"}
 GIBBS_COUNTED = tuple(GIBBS_KERNEL_NAMES)
+# Counted kernels that a run's counts list only where they launched (a Gibbs or StochVol run).
+SOMETIMES_COUNTED = (*GIBBS_COUNTED, BIDIAG)
 
 
 class SmokeFailure(RuntimeError):
@@ -465,7 +495,7 @@ def replay_launches(kernel, state, replays: int = GRAPH_REPLAYS, sessions: int =
 
     entry = rt.parallel.graphs.lookup(kernel.step, None, state)
     check(entry is not None, "no captured graph of the step: the run did not take the captured path")
-    names = {**KERNEL_NAMES, "fhn_sensitivities": FHN_KERNEL_NAME, **GIBBS_KERNEL_NAMES}
+    names = {**KERNEL_NAMES, "fhn_sensitivities": FHN_KERNEL_NAME, **GIBBS_KERNEL_NAMES, BIDIAG: BIDIAG_KERNEL_NAME}
     gen = torch.Generator(device=DEVICE).manual_seed(GRAPH_SEED)
     seen = []
     for _ in range(sessions):
@@ -479,7 +509,7 @@ def replay_launches(kernel, state, replays: int = GRAPH_REPLAYS, sessions: int =
             torch.cuda.synchronize()
             prof.step()
         counted = {**hl.launch_counts(), "fhn_sensitivities": sum(rt.ops.fhn_sens.launch_counts().values()),
-                   **rt.ops.launches.counts(GIBBS_COUNTED)}
+                   **rt.ops.launches.counts(SOMETIMES_COUNTED)}
         device = [e.name for e in prof.events() or () if e.device_type == torch.autograd.DeviceType.CUDA]
         seen.append({name: sum(part in event for event in device) for name, part in names.items()})
         if seen[-1] == counted:
@@ -498,11 +528,22 @@ def bound_us(name: str, c: int, d: int) -> tuple[float, str]:
     """The least microseconds the card could take for kernel ``name`` on a
     (C, D, D) float32 batch, and which side gives it.  Bytes: each input read
     once, each output written once (K1: G in, L out; K2: G and b in, x and
-    log|G| out).  Operations: ~D^3/3 for the factor, 2 D^2 more for K2's two
-    substitutions, per chain."""
-    floats = {"cholesky": 2 * c * d * d, "chol_solve_logdet": c * d * d + 2 * c * d + c}[name]
-    ops = c * d**3 / 3 + (2 * c * d * d if name == "chol_solve_logdet" else 0)
+    log|G| out; K3: G in, L, G^-1 and 1/2 log|G| out).  Operations: ~D^3/3
+    for the factor, 2 D^2 more for K2's two substitutions, and for K3 ~D^3/3
+    more for L^-1 and ~D^3/3 for L^-T L^-1, per chain."""
+    floats = {"cholesky": 2 * c * d * d, "chol_solve_logdet": c * d * d + 2 * c * d + c,
+              "chol_inv_logdet": 3 * c * d * d + c}[name]
+    ops = c * d**3 / 3 * (3 if name == "chol_inv_logdet" else 1) + (2 * c * d * d if name == "chol_solve_logdet" else 0)
     by_bytes, by_ops = 1e6 * 4 * floats / HBM_BYTES_PER_S, 1e6 * ops / FP32_OPS_PER_S
+    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+
+
+def bidiag_bound_us(b: int, t: int) -> tuple[float, str]:
+    """T1's least microseconds on (B, T), and which side gives it.  Bytes: diag and off read once, ld and e
+    written once (2 B (2 T - 1) floats).  Operations: a division, a multiply-add and a square root a position
+    (3 B (T - 1) + B).  Neither sees that each chain's positions are one dependent sequence."""
+    by_bytes = 1e6 * 4 * 2 * b * (2 * t - 1) / HBM_BYTES_PER_S
+    by_ops = 1e6 * (3 * b * (t - 1) + b) / FP32_OPS_PER_S
     return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
 
 
@@ -543,15 +584,21 @@ def phase_build() -> None:
     spills = [int(s) for s in re.findall(r"(\d+) bytes spill stores", log)]
     stack = [int(s) for s in re.findall(r"(\d+) bytes stack frame", log)]
     check(regs, "ptxas report names no kernel")
-    for source in (SOURCE, FHN_SOURCE, GIBBS_SOURCE):  # the kernels line's "source" fields
+    for source in (SOURCE, FHN_SOURCE, GIBBS_SOURCE, BIDIAG_SOURCE):  # the kernels line's "source" fields
         check((Path(__file__).resolve().parent / source).is_file(), f"kernel source {source} is not in the checkout")
-    # Registers per kernel and width, from the mangled names: K1 / K2, the rows
+    # Registers and spill stores per kernel and width, from the mangled names: K1 / K2 / K3, the rows
     # the instantiation is unrolled for, "rt" where the width comes at run time.
-    per_kernel = {
-        f"{'K1' if name == 'cholesky_kernel' else 'K2'}<{n}{'' if exact == '1' else ',rt'}>": int(r)
-        for name, n, exact, r in re.findall(
-            r"(cholesky_kernel|chol_solve_logdet_kernel)INS_5WidthILi(\d+)ELb([01])E.*?Used (\d+) registers", log, re.S)
-    }
+    linalg_found = re.findall(r"(cholesky_kernel|chol_solve_logdet_kernel|chol_inv_logdet_kernel)INS_5WidthILi(\d+)"
+                              r"ELb([01])E.*?(\d+) bytes spill stores.*?Used (\d+) registers", log, re.S)
+    short = {"cholesky_kernel": "K1", "chol_solve_logdet_kernel": "K2", "chol_inv_logdet_kernel": "K3"}
+    per_kernel = {f"{short[name]}<{n}{'' if exact == '1' else ',rt'}>": int(r) for name, n, exact, _, r in linalg_found}
+    linalg_spills = {f"{short[name]}<{n}{'' if exact == '1' else ',rt'}>": int(sp)
+                     for name, n, exact, sp, _ in linalg_found if int(sp)}
+    check(len(per_kernel) == 3 * (len(hl.EXACT_WIDTHS) + len(hl.CAPACITIES)),
+          f"ptxas report names {sorted(per_kernel)}: expected K1, K2 and K3 at every width and capacity")
+    bidiag_found = re.findall(rf"{BIDIAG_KERNEL_NAME}.*?(\d+) bytes spill stores.*?Used (\d+) registers", log, re.S)
+    check(len(bidiag_found) == 1, f"ptxas report names {len(bidiag_found)} {BIDIAG_KERNEL_NAME}, expected one")
+    bidiag_regs = {"registers": int(bidiag_found[0][1]), "spill_store_bytes": int(bidiag_found[0][0])}
     # The FHN kernel per order and data path (staged in shared memory, or streamed past STAGED_MAX_OBS):
     # registers and spill stores (none expected), exactly one instantiation of each.
     fhn_found = re.findall(rf"{FHN_KERNEL_NAME}ILi(\d)ELb([01])EE.*?(\d+) bytes spill stores.*?Used (\d+) registers",
@@ -604,7 +651,8 @@ def phase_build() -> None:
         check(mirror == built, f"FHN output owners at order {order}: Python {mirror}, built {built}")
     say("build", seconds=seconds, library=str(lib_path), kernels=len(regs),
         max_registers=max(regs), max_spill_store_bytes=max(spills, default=0),
-        max_stack_frame_bytes=max(stack, default=0), registers=per_kernel, fhn_kernel=fhn_regs,
+        max_stack_frame_bytes=max(stack, default=0), registers=per_kernel, spill_store_bytes=linalg_spills,
+        bidiag_kernel=bidiag_regs, fhn_kernel=fhn_regs,
         gibbs_kernels=gibbs_regs, geometry={d: tuple(hl.launch_geometry(d)) for d in (3, 10, 15, 25, 48)},
         fhn_geometry={order: tuple(rt.ops.fhn_sens.launch_geometry(order, FHN_CHAINS, FHN_OBS))
                       for order in rt.ops.fhn_sens.ORDERS})
@@ -614,7 +662,8 @@ def phase_build() -> None:
 # registers, as in earlier builds of this loop; every other none.
 G1_SPILLS = {"gibbs_sweep_kernel<25>": 4}
 # Device kernels by the name torch.profiler shows them under.
-KERNEL_NAMES = {"cholesky": "cholesky_kernel", "chol_solve_logdet": "chol_solve_logdet_kernel"}
+KERNEL_NAMES = {"cholesky": "cholesky_kernel", "chol_solve_logdet": "chol_solve_logdet_kernel",
+                "chol_inv_logdet": "chol_inv_logdet_kernel"}
 # BLR australian, german; StochVol hyper; FHN; joint LGC hyper
 TIMED_SHAPES = ((NUM_CHAINS, 15), (NUM_CHAINS, 25), (NUM_CHAINS, 3), (1024, 3), (256, 3), (4, 2))
 
@@ -661,12 +710,26 @@ def check_kernels(c: int, d: int, err: dict) -> None:
     check(over_x <= 0 and over_l <= 0, f"K2 vs twin beyond tolerance at {at}: max |err| x {ex}, logdet {el}")
     err["chol_solve_logdet"] = max(err["chol_solve_logdet"], ex, el)
 
+    # K3: K1's factor bit for bit (NaN chains too), an exactly symmetric inverse, each output against the twin.
+    (l3, inv3, half3), (lp3, invp3, halfp3) = hl.chol_inv_logdet_cuda(g), hl.chol_inv_logdet_plain(g)
+    torch.cuda.synchronize()
+    check(torch.equal(l3.view(torch.int32), lk.view(torch.int32)), f"K3's factor is not K1's bit for bit {at}")
+    check(all(bool(torch.isfinite(x[ok]).all()) for x in (l3, inv3, half3)), f"K3 non-finite on a PD chain {at}")
+    check(not any(bool(torch.isfinite(x[bad]).flatten(1).all(1).any()) for x in (l3, inv3, half3[:, None])),
+          f"K3 finite on a non-PD chain {at}")
+    check(torch.equal(inv3[ok], inv3[ok].mT), f"K3's inverse not exactly symmetric {at}")
+    errs = [excess(k[ok], p[ok], TOL[name]) for k, p, name in ((l3, lp3, "L"), (inv3, invp3, "inv"),
+                                                               (half3, halfp3, "logdet"))]
+    check(all(over <= 0 for _, over in errs), f"K3 vs twin beyond tolerance at {at}: max |err| L, inv, "
+                                             f"half logdet {[e for e, _ in errs]}")
+    err["chol_inv_logdet"] = max(err["chol_inv_logdet"], *(e for e, _ in errs))
+
 
 def check_operand_forms(c: int, d: int) -> None:
     """An operand off 16-byte alignment (the kernels' 4-byte copy path) and a
     strided one (the wrapper's one copy) give the bits of the plain call."""
     g, b = spd_batch(c, d, seed=77)
-    l0, (x0, ld0) = hl.cholesky_cuda(g), hl.chol_solve_logdet_cuda(g, b)
+    l0, (x0, ld0), k3 = hl.cholesky_cuda(g), hl.chol_solve_logdet_cuda(g, b), hl.chol_inv_logdet_cuda(g)
     flat = torch.empty(g.numel() + 1, device=DEVICE)
     shifted = flat[1:].view_as(g).copy_(g)
     check(shifted.data_ptr() % 16 != 0 and shifted.is_contiguous(), "the shifted operand is 16-byte aligned")
@@ -675,9 +738,10 @@ def check_operand_forms(c: int, d: int) -> None:
     strided = wide[:, :d, :d]
     check(not strided.is_contiguous(), "the strided operand is contiguous")
     for form, gf in (("unaligned", shifted), ("strided", strided)):
-        lf, (xf, ldf) = hl.cholesky_cuda(gf), hl.chol_solve_logdet_cuda(gf, b)
+        lf, (xf, ldf), k3f = hl.cholesky_cuda(gf), hl.chol_solve_logdet_cuda(gf, b), hl.chol_inv_logdet_cuda(gf)
         torch.cuda.synchronize()
-        check(torch.equal(lf, l0) and torch.equal(xf, x0) and torch.equal(ldf, ld0),
+        check(torch.equal(lf, l0) and torch.equal(xf, x0) and torch.equal(ldf, ld0)
+              and all(torch.equal(u, v) for u, v in zip(k3f, k3)),
               f"{form} operand at C={c}, D={d}: result differs from the aligned contiguous one")
 
 
@@ -691,10 +755,16 @@ def library_solve_logdet_sequence(g, b):
     return x, 2.0 * torch.log(torch.diagonal(l, dim1=-2, dim2=-1)).sum(-1)
 
 
+def library_inv_logdet_sequence(g):
+    l = torch.linalg.cholesky_ex(g)[0]
+    return l, torch.cholesky_inverse(l), torch.log(torch.diagonal(l, dim1=-2, dim2=-1)).sum(-1)
+
+
 def time_kernels(c: int, d: int) -> dict:
     """Both kernels' times at one shape, beside twin, bound and library yardstick."""
     g, b = spd_batch(c, d, seed=d)
     l, x, logdet = torch.empty_like(g), torch.empty_like(b), torch.empty(c, device=DEVICE)
+    inv, half_logdet = torch.empty_like(g), torch.empty(c, device=DEVICE)
     lib = hl._lib()
     calls = {
         "cholesky": (lambda: hl.cholesky_cuda(g), lambda: hl.cholesky_plain(g),
@@ -704,6 +774,10 @@ def time_kernels(c: int, d: int) -> dict:
                               lambda: hl._launch("chol_solve_logdet", lib.rhmc_chol_solve_logdet,
                                                  (g, b, x, logdet), c, d),
                               "library_seq_ms", lambda: library_solve_logdet_sequence(g, b)),
+        "chol_inv_logdet": (lambda: hl.chol_inv_logdet_cuda(g), lambda: hl.chol_inv_logdet_plain(g),
+                            lambda: hl._launch("chol_inv_logdet", lib.rhmc_chol_inv_logdet,
+                                               (g, l, inv, half_logdet), c, d),
+                            "library_seq_ms", lambda: library_inv_logdet_sequence(g)),
     }
     out = {}
     for name, (wrapper, plain, launch, library_key, library) in calls.items():
@@ -720,28 +794,105 @@ def time_kernels(c: int, d: int) -> dict:
             "library_device_kernels_per_call": lib_dev["events_per_call"],
         }
     out["chol_solve_logdet"]["library_seq_note"] = "sequence of three library calls, information only"
+    out["chol_inv_logdet"]["library_seq_note"] = K3_LIBRARY_NOTE
     return out
 
 
 def phase_kernels(smi: str) -> dict:
-    """K1 and K2 against their twins; returns per-kernel max |err| and times."""
-    err = {"cholesky": 0.0, "chol_solve_logdet": 0.0}
+    """K1, K2 and K3 against their twins, then T1; returns per-kernel max |err| and times."""
+    err = dict(NO_LINALG, **{BIDIAG: 0.0})
     shapes = [(c, d) for d in (3, 7, 10, 15, 25) for c in (NUM_CHAINS, NUM_CHAINS + 1)] + [(SV_CHAINS, 3), (FHN_CHAINS, 3)]
     shapes += [(LGCJ_CHAINS, 2), (NUM_CHAINS + 1, 2)]  # the joint LGC hyper block's width
     for c, d in shapes + [(NUM_CHAINS + 1, 40)]:  # 40: two rows a lane
         check_kernels(c, d, err)
     for c, d in ((NUM_CHAINS + 1, 15), (NUM_CHAINS, 8), (NUM_CHAINS + 1, 40)):
         check_operand_forms(c, d)
-    say("kernels", checked="C in (4096, 4097) x D in (3, 7, 10, 15, 25), C in (1024, 256) x D=3, C in (4, 4097) x D=2 and C=4097 x D=40, "
-        "four non-PD chains each (first, middle, last of a block; last of the batch; one of the 4 at C=4); unaligned and strided operands at D in (15, 8, 40)",
-        max_abs_err=err, tolerance_rtol_atol=TOL)
+    say("kernels", checked="K1, K2, K3: C in (4096, 4097) x D in (3, 7, 10, 15, 25), C in (1024, 256) x D=3, C in (4, 4097) x D=2 and C=4097 x D=40, "
+        "four non-PD chains each (first, middle, last of a block; last of the batch; one of the 4 at C=4); unaligned and strided operands at D in (15, 8, 40); "
+        "K3's factor bit for bit K1's, its inverse exactly symmetric",
+        max_abs_err={k: err[k] for k in LINALG_COUNTED}, tolerance_rtol_atol=TOL)
 
     times = {}
     for c, d in TIMED_SHAPES:
         times[c, d] = time_kernels(c, d)
         for name, row in times[c, d].items():
             say("kernel-times", kernel=name, C=c, D=d, card=smi, **row)
-    return {"err": err, "times": times}
+    bidiag = phase_bidiag_kernel(smi, err)
+    return {"err": err, "times": times, "bidiag": bidiag}
+
+
+def bidiag_inputs(b: int, t: int, seed: int):
+    """A seeded SPD tridiagonal batch shaped as StochVol's latent metric G = iC + I/2 (AR(1) precision at
+    sigma in [0.1, 0.5], phi in [0.5, 0.99], one per chain), off an expanded view as the model makes it."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    sigma = 0.1 + 0.4 * torch.rand((b, 1), generator=gen, device=DEVICE)
+    phi = 0.5 + 0.49 * torch.rand((b, 1), generator=gen, device=DEVICE)
+    inv_s2 = 1.0 / sigma**2
+    idx = torch.arange(t, device=DEVICE)
+    diag = torch.where((idx == 0) | (idx == t - 1), inv_s2, (1.0 + phi**2) * inv_s2) + 0.5
+    return diag, (-phi * inv_s2).expand(b, t - 1)
+
+
+def check_bidiag(b: int, t: int, err: dict, case: str = "metric") -> dict:
+    """T1 against its twin at (B, T): ``metric`` (StochVol's), ``non-pd`` (chain B // 2 made indefinite at
+    T // 2: NaN from there on in that chain alone) or ``identity`` (HMC's mass: ld 1 and e 0 exactly)."""
+    if case == "identity":
+        diag, off = torch.ones((b, t), device=DEVICE), torch.zeros((b, t - 1), device=DEVICE)
+    else:
+        diag, off = bidiag_inputs(b, t, seed=b + t)
+    bad = b // 2
+    if case == "non-pd":
+        diag = diag.clone()
+        diag[bad, t // 2] = -1.0
+    at = f"T1 at (B={b}, T={t}, {case})"
+    kern, plain = rt.ops.tridiag.cholesky_cuda(diag, off), rt.ops.tridiag.cholesky_plain(diag, off)
+    torch.cuda.synchronize()
+    check(kern.ld.shape == (b, t) and kern.e.shape == (b, t - 1), f"{at}: shapes {kern.ld.shape}, {kern.e.shape}")
+    for name, k, p in (("ld", kern.ld, plain.ld), ("e", kern.e, plain.e)):
+        check(torch.equal(torch.isnan(k), torch.isnan(p)), f"{at}: {name} has NaN where the twin has not, or not where it has")
+    ok = torch.ones(b, dtype=torch.bool, device=DEVICE)
+    if case == "non-pd":
+        ok[bad] = False
+        check(bool(torch.isnan(kern.ld[bad, t // 2:]).all()) and bool(torch.isfinite(kern.ld[bad, : t // 2]).all()),
+              f"{at}: the non-PD chain is not NaN from T // 2 on")
+    check(bool(torch.isfinite(kern.ld[ok]).all() and torch.isfinite(kern.e[ok]).all()), f"{at}: non-finite on a PD chain")
+    if case == "identity":
+        check(bool((kern.ld == 1).all() and (kern.e == 0).all()), f"{at}: identity mass not ld 1, e 0 exactly")
+    el, over_l = excess(kern.ld[ok], plain.ld[ok], BIDIAG_TOL)
+    ee, over_e = excess(kern.e[ok], plain.e[ok], BIDIAG_TOL) if t > 1 else (0.0, 0.0)
+    check(over_l <= 0 and over_e <= 0, f"{at}: against the twin beyond {BIDIAG_TOL}: max |err| ld {el}, e {ee}")
+    err[BIDIAG] = max(err[BIDIAG], el, ee)
+    return {"B": b, "T": t, "case": case, "max_abs_err": max(el, ee),
+            "bit_for_bit": torch.equal(kern.ld[ok], plain.ld[ok]) and torch.equal(kern.e[ok], plain.e[ok])}
+
+
+def phase_bidiag_kernel(smi: str, err: dict) -> dict:
+    """T1 against its twin at BIDIAG_SHAPES (and a non-PD chain, the identity mass), then its times at
+    BIDIAG_TIMED beside its bound and the twin's."""
+    checked = [check_bidiag(b, t, err) for b, t in BIDIAG_SHAPES]
+    checked += [check_bidiag(*BIDIAG_TIMED, err, case) for case in ("non-pd", "identity")]
+    say("bidiag-kernel", checked=checked, tolerance_rtol_atol=BIDIAG_TOL)
+    b, t = BIDIAG_TIMED
+    diag, off = bidiag_inputs(b, t, seed=1)
+    off = off.contiguous()  # the operands the launch reads; the wrapper copies StochVol's expanded view
+    ld, e = torch.empty_like(diag), torch.empty_like(off)
+
+    def launch():
+        rt.ops.tridiag._launch((diag, off, ld, e), b, t)
+    dev = device_us(launch, launches=20, name_part=BIDIAG_KERNEL_NAME)
+    check(dev["events_per_call"] == 1, f"T1: {dev['events_per_call']} device kernels per launch")
+    bound, bound_by = bidiag_bound_us(b, t)
+    times = {
+        "ms": median_ms(lambda: rt.ops.tridiag.cholesky_cuda(diag, off), reps=20),
+        "burst_ms": burst_ms(lambda: rt.ops.tridiag.cholesky_cuda(diag, off), launches=20, warmup=2),
+        "kernel_only_ms": burst_ms(launch, launches=20, warmup=2),
+        "device_us": dev["us"], "device_us_source": dev["source"], "profiler_sessions": dev["sessions"],
+        "ns_per_position": 1e3 * dev["us"] / t,
+        "plain_ms": median_ms(lambda: rt.ops.tridiag.cholesky_plain(diag, off), reps=5, warmup=1),
+        "bound_us": bound, "bound_by": bound_by, "share_of_bound": bound / dev["us"],
+    }
+    say("bidiag-kernel-times", kernel=BIDIAG, B=b, T=t, card=smi, **times)
+    return {"checked": checked, "times": times}
 
 
 # -- phase 3, the Gibbs step's kernels: G1 (the sweep) and G2 (a GIG round) ------
@@ -1265,28 +1416,30 @@ def sample(model, method, seed: int, burn_in: int = BURN_IN, num_samples: int = 
 
 
 def blr_expected_launches(steps: int) -> dict:
-    """K1 / K2 launches of a BLR RMHMC run of ``steps`` steps: one geometry at
-    init and after each leapfrog step, one solve a position fixed-point round."""
-    return {"cholesky": 1 + L * steps, "chol_solve_logdet": L * K * steps}
+    """K1 / K2 / K3 launches of a BLR RMHMC run of ``steps`` steps: one geometry
+    (K3) at init and after each leapfrog step, one solve (K2) a position
+    fixed-point round, no K1."""
+    return {"cholesky": 0, "chol_solve_logdet": L * K * steps, "chol_inv_logdet": 1 + L * steps}
 
 
 def blr_launches() -> dict:
-    """K1 / K2 launches since the last reset, and G1 / G2's where they launched
-    (a Gibbs run): a run of another sampler that launched one shows the key."""
-    gibbs_counts = {name: n for name, n in rt.ops.launches.counts(GIBBS_COUNTED).items() if n}
-    return {**hl.launch_counts(), **gibbs_counts}
+    """K1 / K2 / K3 launches since the last reset, and G1 / G2's and T1's where
+    they launched (a Gibbs or StochVol run): a run of another sampler that
+    launched one shows the key."""
+    others = {name: n for name, n in rt.ops.launches.counts(SOMETIMES_COUNTED).items() if n}
+    return {**hl.launch_counts(), **others}
 
 
 def reset_blr_launches() -> None:
     hl.reset_launch_counts()
-    rt.ops.launches.reset(GIBBS_COUNTED)
+    rt.ops.launches.reset(SOMETIMES_COUNTED)
 
 
 def phase_main_path(model, smi: str) -> dict:
     steps = BURN_IN + NUM_SAMPLES
-    hl.reset_launch_counts()
+    reset_blr_launches()
     kern = sample(model, None, seed=1)
-    launches = hl.launch_counts()
+    launches = blr_launches()
     expected = blr_expected_launches(steps)
     check(launches == expected, f"launch counts {launches}, expected {expected}")
     lo, hi = ACCEPT_WINDOW
@@ -1296,13 +1449,13 @@ def phase_main_path(model, smi: str) -> dict:
     check(kern["rhat"] < MAX_RHAT, f"max split R-hat {kern['rhat']} >= {MAX_RHAT}")
 
     plain = sample(model, "unrolled", seed=2, burn_in=PLAIN_BURN_IN, num_samples=PLAIN_SAMPLES)
-    check(hl.launch_counts() == launches, "the plain-linalg run launched a kernel")
+    check(blr_launches() == launches, "the plain-linalg run launched a kernel")
     # The counts came from the kernels' device counters, which the step's graph adds to at each replay;
     # a few more replays of that graph under torch.profiler hold them against the device's own events.
     replays = replay_launches(kern["kernel"], kern["final_state"])
     per_replay = {name: n - blr_expected_launches(0)[name] for name, n in blr_expected_launches(1).items()}
     check(replays["counted"] == {**{k: n * GRAPH_REPLAYS for k, n in per_replay.items()}, "fhn_sensitivities": 0,
-                                 **dict.fromkeys(GIBBS_COUNTED, 0)},
+                                 **dict.fromkeys(SOMETIMES_COUNTED, 0)},
           f"main path: {GRAPH_REPLAYS} replays counted {replays['counted']}, expected {per_replay} each")
     check(replays["equal"], f"main path: the counters and torch.profiler's device events differ: {replays}")
     for run in (kern, plain):
@@ -1367,16 +1520,14 @@ class BlrRun:
         return self.burn_in + 2 * (self.samples // 2)
 
     def expected_launches(self) -> dict:
-        """K1 / K2 launches (and Gibbs's G1 / G2), read from the samplers' code (init + per step)."""
-        k1, k2 = 0, 0
-        if self.sampler in ("mmala", "mmala_simplified", "iwls"):
-            k1 = 1 + self.steps  # one factorization in init, one per proposal
-        elif self.sampler == "gibbs":  # ops.inv_psd and chol(V), no factorization in init; G1 and G2 once a step
-            return {"cholesky": 2 * self.steps, "chol_solve_logdet": 0, "gibbs_sweep": self.steps,
-                    "gig_half": self.steps}
-        elif self.sampler in ("rmhmc", "rmhmc_studentt"):
-            k1, k2 = 1 + L * self.steps, L * K * self.steps  # as phase 5
-        return {"cholesky": k1, "chol_solve_logdet": k2}
+        """K1 / K2 / K3 launches (and Gibbs's G1 / G2), read from the samplers' code (init + per step)."""
+        if self.sampler in ("mmala", "mmala_simplified", "iwls"):  # one factorization in init, one per proposal
+            return {**NO_LINALG, "cholesky": 1 + self.steps}
+        if self.sampler == "gibbs":  # ops.inv_psd and chol(V), no factorization in init; G1 and G2 once a step
+            return {**NO_LINALG, "cholesky": 2 * self.steps, "gibbs_sweep": self.steps, "gig_half": self.steps}
+        if self.sampler in ("rmhmc", "rmhmc_studentt"):
+            return blr_expected_launches(self.steps)  # as phase 5
+        return dict(NO_LINALG)
 
 
 # Burn-in lengths: enough for the slow mixers (component-wise AMH adapts its
@@ -1508,7 +1659,7 @@ def gibbs_musk(smi: str) -> dict:
     model = rt.interop.logreg_from_numpy(ds.X, ds.t, device=DEVICE)
     init = rt.utils.default_init(model, torch.Generator(device=DEVICE).manual_seed(GRAPH_SEED), MUSK_CHAINS)
     steps = sum(GRAPH_SMALL_RUN)
-    expected = {"cholesky": 0, "chol_solve_logdet": 0, "gibbs_sweep": steps, "gig_half": steps}
+    expected = {**NO_LINALG, "gibbs_sweep": steps, "gig_half": steps}
     pair = captured_pair_checked(MUSK_LABEL, gibbs.build(model), init, expected, lambda counts: counts["k1_k2"])
     layout = gibbs.sweep_layout(MUSK_CHAINS, d, torch.cuda.get_device_properties(0).multi_processor_count)
     say("blr-samplers", run=MUSK_LABEL, N=n, D=d, chains=MUSK_CHAINS, burn_in=GRAPH_SMALL_RUN[0],
@@ -1548,15 +1699,19 @@ HYPER_FP = rt.samplers.stochvol.StochVolConfig().hyper_num_fixed_point  # 5
 
 
 def sv_expected_launches(method: str, sweeps: int) -> dict:
-    """K1 / K2 launches of a stochvol run, read from the code: the hyper kernel
-    is rebuilt every sweep; RMHMC builds the geometry at the start and after
-    each leapfrog step (K1) and solves once per position fixed-point round
-    (K2); mMALA factors in ``init`` and at the proposal (K1)."""
+    """K1 / K2 / K3 and T1 launches of a stochvol run, read from the code: the
+    hyper kernel is rebuilt every sweep; RMHMC builds the geometry at the start
+    and after each leapfrog step (K3) and solves once per position fixed-point
+    round (K2); mMALA factors in ``init`` and at the proposal (K1).  The latent
+    update of rmhmc, hmc and mmala factors its tridiagonal metric once a sweep
+    (T1); MALA's has no metric."""
+    scan = {} if method == "mala" else {BIDIAG: sweeps}
     if method == "rmhmc":
-        return {"cholesky": (1 + HYPER_L) * sweeps, "chol_solve_logdet": HYPER_L * HYPER_FP * sweeps}
+        return {**NO_LINALG, "chol_solve_logdet": HYPER_L * HYPER_FP * sweeps,
+                "chol_inv_logdet": (1 + HYPER_L) * sweeps, **scan}
     if method == "mmala":
-        return {"cholesky": 2 * sweeps, "chol_solve_logdet": 0}
-    return {"cholesky": 0, "chol_solve_logdet": 0}
+        return {**NO_LINALG, "cholesky": 2 * sweeps, **scan}
+    return {**NO_LINALG, **scan}
 
 
 def chain_mean_z(a: np.ndarray, b_mean, b_sd, b_chains: int) -> np.ndarray:
@@ -1600,10 +1755,10 @@ def phase_stochvol(smi: str) -> dict:
     launches_by_path, rm = {}, None
     for method, (burn, samples) in SV_RUNS.items():
         label = f"stochvol/{method}"
-        hl.reset_launch_counts()
+        reset_blr_launches()
         res = experiments.run_workload("stochvol", method, device=DEVICE, num_chains=SV_CHAINS, num_samples=samples,
                                        burn_in=burn, seed=SV_SEED, keep_samples=True, stochvol_obs=SV_OBS)
-        launches = hl.launch_counts()
+        launches = blr_launches()
         sweeps = burn + 2 * (samples // 2)
         expected = sv_expected_launches(method, sweeps)
         check(launches == expected, f"{label}: launch counts {launches}, expected {expected}")
@@ -1671,7 +1826,7 @@ def phase_lgc(smi: str) -> dict:
         res = experiments.run_workload("lgc", sampler, device=DEVICE, num_chains=chains, num_samples=samples,
                                        burn_in=burn, seed=LGC_SEED, keep_samples=True, lgc_n=LGC_N)
         launches_by_path[label] = hl.launch_counts()  # D = 4096: the library factorization, no kernel
-        check(launches_by_path[label] == {"cholesky": 0, "chol_solve_logdet": 0}, f"{label}: a kernel launched at D={d}")
+        check(launches_by_path[label] == NO_LINALG, f"{label}: a kernel launched at D={d}")
         tol = LGC_ACCEPT_TOL.get(sampler, ACCEPT_TOL)
         lgc_check(label, res.accept_rate, LGC_JAX[sampler], tol, res.samples["latent"], (chains, samples, d))
         fields[sampler], accepts[sampler] = res.samples["latent"], res.accept_rate
@@ -1737,15 +1892,15 @@ JOINT_CFG = rt.samplers.lgc_joint.LGCJointConfig()  # hyper L = 1, 3 position fi
 
 
 def lgcj_expected_launches(sampler: str, sweeps: int) -> dict:
-    """K1 / K2 launches of a joint LGC run, read from the code: the hyper kernel
-    is rebuilt and ``init``-ed every sweep.  RMHMC builds the (C, 2, 2) geometry
-    in ``init`` and after each of its L leapfrog steps (K1) and solves once per
-    position fixed-point round (K2); mMALA factors in ``init`` and at the
-    proposal (K1).  The latent block and the GP algebra are at D = n^2: library calls."""
+    """K1 / K2 / K3 launches of a joint LGC run, read from the code: the hyper
+    kernel is rebuilt and ``init``-ed every sweep.  RMHMC builds the (C, 2, 2)
+    geometry in ``init`` and after each of its L leapfrog steps (K3) and solves
+    once per position fixed-point round (K2); mMALA factors in ``init`` and at
+    the proposal (K1).  The latent block and the GP algebra are at D = n^2: library calls."""
     if sampler == "rmhmc_joint":
-        return {"cholesky": (1 + JOINT_CFG.hyper_num_leapfrog) * sweeps,
+        return {**NO_LINALG, "chol_inv_logdet": (1 + JOINT_CFG.hyper_num_leapfrog) * sweeps,
                 "chol_solve_logdet": JOINT_CFG.hyper_num_leapfrog * JOINT_CFG.hyper_num_fixed_point * sweeps}
-    return {"cholesky": 2 * sweeps, "chol_solve_logdet": 0}
+    return {**NO_LINALG, "cholesky": 2 * sweeps}
 
 
 def lgcj_run(sampler: str, n: int, burn: int, samples: int, chains: int):
@@ -1974,18 +2129,28 @@ def check_kernels_on_fhn_metrics(data, k_err: dict) -> dict:
     lp = hl.cholesky_plain(g)
     b = (lp @ torch.randn((FHN_CHAINS, 3, 1), generator=gen, device=DEVICE))[..., 0]
     lk, (xk, ldk), (xp, ldp) = hl.cholesky_cuda(g), hl.chol_solve_logdet_cuda(g, b), hl.chol_solve_logdet_plain(g, b)
+    (l3, inv3, half3), (_, invp, halfp) = hl.chol_inv_logdet_cuda(g), hl.chol_inv_logdet_plain(g)
     torch.cuda.synchronize()
-    errs = {"L": excess(lk, lp, TOL["L"]), "x": excess(xk, xp, TOL["x"]), "logdet": excess(ldk, ldp, TOL["logdet"])}
-    check(all(over <= 0 for _, over in errs.values()), f"K1 / K2 vs twins on FHN metrics beyond tolerance: {errs}")
+    errs = {"L": excess(lk, lp, TOL["L"]), "x": excess(xk, xp, TOL["x"]), "logdet": excess(ldk, ldp, TOL["logdet"]),
+            "K3 half logdet": excess(half3, halfp, TOL["logdet"])}
+    check(all(over <= 0 for _, over in errs.values()), f"K1 / K2 / K3 vs twins on FHN metrics beyond tolerance: {errs}")
+    check(torch.equal(l3, lk) and torch.equal(inv3, inv3.mT), "K3 on FHN metrics: factor not K1's, or inverse not symmetric")
+    # These metrics are ill-conditioned: each chain's inverse against the twin's within INV_COND_TOL x its
+    # condition number, relative to its largest entry (two float32 inverses part by ~cond x eps).
+    cond = torch.linalg.cond(g.double())
+    inv_rel = ((inv3 - invp).abs().flatten(1).max(1).values / invp.abs().flatten(1).max(1).values).double()
+    check(bool((inv_rel <= INV_COND_TOL * cond).all()), f"K3's inverse vs twin on FHN metrics: relative "
+                                                         f"{float(inv_rel.max())} beyond {INV_COND_TOL} x cond")
     k_err["cholesky"] = max(k_err["cholesky"], errs["L"][0])
     k_err["chol_solve_logdet"] = max(k_err["chol_solve_logdet"], errs["x"][0], errs["logdet"][0])
-    cond = torch.linalg.cond(g.double())
+    k_err["chol_inv_logdet"] = max(k_err["chol_inv_logdet"], errs["K3 half logdet"][0])
     return {"max_abs_err": {name: e for name, (e, _) in errs.items()}, "max_entry": float(g.abs().max()),
-            "condition_min_max": [float(cond.min()), float(cond.max())]}
+            "condition_min_max": [float(cond.min()), float(cond.max())],
+            "k3_inverse_relative_err_over_cond_max": float((inv_rel / cond).max())}
 
 
 def phase_fhn_kernel(smi: str, k_err: dict) -> dict:
-    """The FHN kernel against its twin and its times, then K1 / K2 on its
+    """The FHN kernel against its twin and its times, then K1 / K2 / K3 on its
     metrics (``k_err``: phase 3's max |err| per kernel, raised here).  Runs
     right after phase 3, where torch.profiler sees the device."""
     data = fhn_data()
@@ -2085,17 +2250,17 @@ def fhn_scaling(data) -> dict:
 
 
 def fhn_expected_launches(sampler: str, sweeps: int) -> tuple[dict, dict]:
-    """(FHN-kernel launches by order, K1 / K2 launches) of a run, read from the
-    code: RMHMC calls ``manifold_state`` (order 2, then K1) in ``init`` and
+    """(FHN-kernel launches by order, K1 / K2 / K3 launches) of a run, read from the
+    code: RMHMC calls ``manifold_state`` (order 2, then K3) in ``init`` and
     after each leapfrog step and ``metric`` (order 1, then K2) in each round of
     the position fixed point; mMALA ``manifold_state`` and K1 in ``init`` and
     at the proposal; HMC ``logp`` in ``init`` and at the trajectory's end and
     ``grad`` at its start and after each of the L steps; MALA
     ``logp_and_grad`` in ``init`` and at the proposal; Metropolis ``logp``
     in ``init`` and once per coordinate."""
-    fhn, k1, k2 = {0: 0, 1: 0, 2: 0}, 0, 0
+    fhn, k1, k2, k3 = {0: 0, 1: 0, 2: 0}, 0, 0, 0
     if sampler == "rmhmc":
-        fhn[2] = k1 = 1 + FHN_RMHMC_L * sweeps
+        fhn[2] = k3 = 1 + FHN_RMHMC_L * sweeps
         fhn[1] = k2 = FHN_RMHMC_L * FHN_RMHMC_FP * sweeps
     elif sampler in ("mmala", "mmala_simplified"):
         fhn[2] = k1 = 1 + sweeps
@@ -2105,7 +2270,7 @@ def fhn_expected_launches(sampler: str, sweeps: int) -> tuple[dict, dict]:
         fhn[1] = 1 + sweeps
     else:  # metropolis
         fhn[0] = 1 + 3 * sweeps
-    return fhn, {"cholesky": k1, "chol_solve_logdet": k2}
+    return fhn, {"cholesky": k1, "chol_solve_logdet": k2, "chol_inv_logdet": k3}
 
 
 def phase_fhn(smi: str, kernel: dict) -> dict:
@@ -2121,7 +2286,7 @@ def phase_fhn(smi: str, kernel: dict) -> dict:
         fhn_launches, k_launches = rt.ops.fhn_sens.launch_counts(), hl.launch_counts()
         fhn_expected, k_expected = fhn_expected_launches(sampler, burn + 2 * (samples // 2))
         check(fhn_launches == fhn_expected, f"{label}: FHN kernel launches {fhn_launches}, expected {fhn_expected}")
-        check(k_launches == k_expected, f"{label}: K1 / K2 launches {k_launches}, expected {k_expected}")
+        check(k_launches == k_expected, f"{label}: K1 / K2 / K3 launches {k_launches}, expected {k_expected}")
         fhn_by_path[label], k_by_path[label] = fhn_launches, k_launches
 
         params = res.samples["params"]
@@ -2152,7 +2317,7 @@ FHN_LONG_LABEL = "fhn/rmhmc-8192x5-captured"
 
 
 def fhn_long_rmhmc(smi: str) -> tuple[dict, dict]:
-    """RMHMC at FHN_LONG_RUN, captured against eager; returns the captured run's FHN-kernel and K1 / K2
+    """RMHMC at FHN_LONG_RUN, captured against eager; returns the captured run's FHN-kernel and K1 / K2 / K3
     launch counts."""
     num_obs, substeps = FHN_LONG_RUN
     kernel, init_fn, *_ = experiments.build_workload("fhn", "rmhmc", device=DEVICE, seed=FHN_SEED, fhn_obs=num_obs,
@@ -2332,7 +2497,7 @@ def min_all_reduces(record: list):
 
 
 def split_runs(model) -> dict:
-    """label -> (kernel, global initial position, expected K1 / K2 launches
+    """label -> (kernel, global initial position, expected K1 / K2 / K3 launches
     of a run of ``steps`` transitions) of the four samplers."""
     steps = sum(DIST_SPLIT_RUN)
     init = rt.utils.default_init(model, torch.Generator(device=DEVICE).manual_seed(DIST_SEED), NUM_CHAINS)
@@ -2342,7 +2507,7 @@ def split_runs(model) -> dict:
                                                             lgc_n=LGCJ_SMALL_N)
     return {
         "metropolis-blr": (experiments.build_kernel("metropolis", model, "australian")[0], init,
-                           {"cholesky": 0, "chol_solve_logdet": 0}),
+                           dict(NO_LINALG)),
         "gibbs-blr": (experiments.build_kernel("gibbs", model, "australian")[0], init[:DIST_GIBBS_CHAINS].clone(),
                       BlrRun("gibbs", burn_in=steps, samples=0).expected_launches()),
         "stochvol-rmhmc": (sv_kernel, sv_init(DIST_SV_CHAINS), sv_expected_launches("rmhmc", steps)),
@@ -2367,7 +2532,7 @@ def issued_all_reduces(record: list):
 
 def dist_run(kernel, init, mesh, burn: int, samples: int, capture: bool | None = None) -> dict:
     """Burn-in and a timed sampling run through ``parallel.run(..., mesh=)``,
-    with the K1 / K2 launches, the all-reduces it made (device-counted, and
+    with the K1 / K2 / K3 launches, the all-reduces it made (device-counted, and
     issued on the host: the warm-up before a capture issues uncounted ones),
     the graphs captured in the burn-in and in the timed run (none)."""
     gen = torch.Generator(device=DEVICE).manual_seed(DIST_SEED)
@@ -2654,7 +2819,7 @@ def phase_distributed(smi: str) -> dict:
         same, same_eager = same_run(lgc_plain, lgc_world1), same_run(lgc_eager, lgc_world1)
         check(all(same.values()), f"distributed: LGC world 1 captured differs from the run without a mesh: {same}")
         check(all(same_eager.values()), f"distributed: LGC world 1 captured differs from eager: {same_eager}")
-        check(lgc_world1["launches"] == {"cholesky": 0, "chol_solve_logdet": 0}, "distributed: a kernel launched at D=4096")
+        check(lgc_world1["launches"] == NO_LINALG, "distributed: a kernel launched at D=4096")
         check(float(lgc_world1["accept"]) > 0.5, f"distributed: LGC acceptance {float(lgc_world1['accept'])}")
         captures = {"world1": (lgc_world1["captures"], lgc_world1["timed_captures"]),
                     "world1_eager": (lgc_eager["captures"], lgc_eager["timed_captures"])}
@@ -3054,7 +3219,7 @@ def graph_pair(label: str, kernel, init, burn: int, samples: int, warmup_kernel=
 
 
 def graph_small_runs() -> list[tuple]:
-    """(label, kernel, init, warmup_kernel, expected K1 / K2 launches or None)
+    """(label, kernel, init, warmup_kernel, expected K1 / K2 / K3 launches or None)
     of every capturable sampler but the main path's."""
     model = blr_model()
     init = rt.utils.default_init(model, torch.Generator(device=DEVICE).manual_seed(GRAPH_SEED), NUM_CHAINS)
@@ -3151,7 +3316,7 @@ def phase_graphs(smi: str) -> dict:
     if not noise["equal"]:
         failures.append(f"draw_noise: {noise['first_difference']}")
 
-    # The main path's configuration: K1 / K2 counts exact on the captured run.
+    # The main path's configuration: K1 / K2 / K3 counts exact on the captured run.
     burn, samples = GRAPH_RUN
     main_kernel = rmhmc.build(model)
     try:
@@ -3195,7 +3360,7 @@ def phase_graphs(smi: str) -> dict:
             failures.append(f"{label}: differs {pair['differs']}, launches equal {pair['launches_equal']}, "
                             f"host sync {pair['host_sync_in_step']}, replays under the profiler {replays}, "
                             f"captures {pair['captured']['captures']} of {pair['captures_expected']}, "
-                            f"K1 / K2 {pair['captured']['k1_k2']} against {expected}")
+                            f"K1 / K2 / K3 {pair['captured']['k1_k2']} against {expected}")
         if expected is not None:
             launches_by_path[f"graphs/{label}-captured"] = pair["captured"]["k1_k2"]
         say("graphs", **{k: v for k, v in pair.items() if k != "result"})
@@ -3277,6 +3442,29 @@ def phase_graphs(smi: str) -> dict:
     return launches_by_path
 
 
+# The path whose count each linalg kernel's entry of the kernels line gives.
+LAUNCHES_FROM = {"cholesky": "mmala/australian", "chol_solve_logdet": "rmhmc-main-path",
+                 "chol_inv_logdet": "rmhmc-main-path"}
+
+
+def bidiag_summary(kernels: dict, by_path: dict, smi: str) -> dict:
+    """T1's entry of the kernels line: its times at (1024, 2000), ``launches`` phase 7's StochVol RMHMC run
+    (one a sweep), every path's count under ``launches_by_path``."""
+    times = kernels["bidiag"]["times"]
+    paths = {label: counts[BIDIAG] for label, counts in by_path.items() if BIDIAG in counts}
+    check(paths.get("stochvol/rmhmc", 0) > 0, f"{BIDIAG}: no launch on stochvol/rmhmc ({paths})")
+    return {
+        "name": BIDIAG, "route": "cuda", "source": BIDIAG_SOURCE, "replaces": BIDIAG_REPLACES,
+        "launches": paths["stochvol/rmhmc"], "launches_from": "stochvol/rmhmc",
+        "launches_counted_by": LAUNCHES_COUNTED_BY, "max_abs_err": kernels["err"][BIDIAG],
+        "ms": times["ms"], "plain_ms": times["plain_ms"], "bound_ms": times["bound_us"] / 1e3,
+        "bound_by": times["bound_by"], "library_ms": None, "library_note": "no single PyTorch call computes it",
+        "device_us": times["device_us"], "share_of_bound": times["share_of_bound"],
+        "ns_per_position": times["ns_per_position"], "card": smi, "shape": {"B": BIDIAG_TIMED[0], "T": BIDIAG_TIMED[1]},
+        "checked": kernels["bidiag"]["checked"], "launches_by_path": paths,
+    }
+
+
 def gibbs_summary(kernels: dict, by_path: dict, smi: str) -> list[dict]:
     """G1's, G2's and the single round's entries of the kernels line: times at
     phase 6's shapes ((1024, 690, 15), the whole GIG draw at (1024, 690) and
@@ -3349,7 +3537,7 @@ def main(argv=None) -> None:
         smi = phase_device()
         phase_build()
         lap("device+build")
-        k_err = {"cholesky": 0.0, "chol_solve_logdet": 0.0}
+        k_err = dict(NO_LINALG)
         with rt.ops.launches.paused():  # launches that compare and time a kernel are not the run's
             if "kernels" in phases:
                 kernels = phase_kernels(smi)
@@ -3388,13 +3576,17 @@ def main(argv=None) -> None:
         print((_build.build().parent / "ptxas.log").read_text(), flush=True)
         return
 
-    # Top-level times: the main path's shape (C 4096, D 15); every timed shape under "shapes".
+    # Top-level times: the main path's shape (C 4096, D 15); every timed shape under "shapes".  Launches: on
+    # the path each kernel serves (K1 left RMHMC's geometry for K3: its count is phase 6's mMALA run's).
+    by_path["rmhmc-main-path"] = launches
     summary = []
-    for name in ("cholesky", "chol_solve_logdet"):
+    for name in LINALG_COUNTED:
         main_shape = kernels["times"][NUM_CHAINS, DIM][name]
+        check(by_path[LAUNCHES_FROM[name]][name] > 0, f"{name}: no launch on {LAUNCHES_FROM[name]}")
         summary.append({
             "name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
-            "launches": launches[name], "launches_counted_by": LAUNCHES_COUNTED_BY, "max_abs_err": kernels["err"][name],
+            "launches": by_path[LAUNCHES_FROM[name]][name], "launches_from": LAUNCHES_FROM[name],
+            "launches_counted_by": LAUNCHES_COUNTED_BY, "max_abs_err": kernels["err"][name],
             "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
             "bound_ms": main_shape["bound_us"] / 1e3, "bound_by": main_shape["bound_by"],
             "library_ms": main_shape.get("library_ms"),
@@ -3402,9 +3594,9 @@ def main(argv=None) -> None:
                if key in main_shape},
             "card": smi,
             "shapes": {f"C{c}_D{d}": row[name] for (c, d), row in kernels["times"].items()},
-            "launches_by_path": {"rmhmc-main-path": launches[name],
-                                 **{label: counts[name] for label, counts in by_path.items()}},
+            "launches_by_path": {label: counts[name] for label, counts in by_path.items() if name in counts},
         })
+    summary.append(bidiag_summary(kernels, by_path, smi))
     summary.append(fhn_summary(fhn, smi))
     summary += gibbs_summary(gibbs_kernels, by_path, smi)
     print(smi, flush=True)

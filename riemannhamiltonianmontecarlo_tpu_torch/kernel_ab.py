@@ -1,6 +1,6 @@
 """Time the hand-written kernels of two checkouts in turns on one CUDA card.
 
-    python -m riemannhamiltonianmontecarlo_tpu_torch.kernel_ab --parent DIR [--kernels linalg,fhn,gibbs] [--out FILE]
+    python -m riemannhamiltonianmontecarlo_tpu_torch.kernel_ab --parent DIR [--kernels linalg,fhn,gibbs,geometry,bidiag] [--out FILE]
 
 ``DIR`` holds another checkout of the repository (for example an earlier
 commit unpacked with ``git archive`` under the git-ignored ``build/``); this
@@ -49,6 +49,18 @@ B in registers on 32 lanes against the wide layout, at D = 32 x
 launch), its device time and CUDA-event times; and per turn G1's step loop
 in each build's SASS (``gibbs_sweep_loop``): instructions once through,
 branches, shuffles, MUFU instructions and loads.
+``--kernels geometry`` times RMHMC's geometry as each checkout computes it
+on a (C, D, D) CUDA batch at ``chip_smoke.TIMED_SHAPES``: ``ops.chol_inv_logdet``
+(K3, one launch) where the checkout has it, else ``ops.cholesky`` (K1), the
+unrolled ``ops.inv_psd_from_chol`` and ``0.5 * ops.logdet_from_chol``; and
+``--kernels bidiag`` StochVol's bidiagonal factor ``ops.tridiag.cholesky`` as
+each checkout runs it at ``BIDIAG_RUNS`` (T1 and the copy of the expanded
+off-diagonal, or the loop of three launches a position), on the latent
+metric as the model makes it and on HMC's identity mass.  Each is captured
+as one CUDA graph, as the captured step runs it: ``device_us`` (every device
+event of a replay, torch.profiler, 20 replays), ``device_events_per_call``,
+``replay_ms`` (median CUDA-event time of one replay) and ``burst_ms`` (20
+replays back to back), beside the function's ``bound_us``.
 Prints one JSON line per turn, kernel and shape, with the card's name and
 power limit.  Needs a CUDA device and nvcc; there is no CPU path.
 """
@@ -66,7 +78,8 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[1]
 TURNS = ("parent", "change", "change", "parent")
-KERNELS = ("linalg", "fhn", "gibbs")
+KERNELS = ("linalg", "fhn", "gibbs", "geometry", "bidiag")
+BIDIAG_RUNS = ((1024, 2000, "metric"), (1024, 2000, "identity"), (4096, 2000, "metric"))  # (B, T, G)
 FHN_CHAINS = (256, 4224)  # the FHN samplers' chain count; one warp on each SM at one lane per chain
 FHN_LONG = ((8192, 5), (50000, 1))  # (num_obs, substeps) past the first form's 6,144 observations
 GIBBS_DATA = 690  # australian's N
@@ -94,6 +107,65 @@ def _measure(root: Path, kernels: list[str]) -> list[dict]:
             rows += _measure_fhn(smoke)
         if "gibbs" in kernels:
             rows += _measure_gibbs(smoke)
+        if "geometry" in kernels:
+            rows += _measure_geometry(smoke)
+        if "bidiag" in kernels:
+            rows += _measure_bidiag(smoke)
+    return rows
+
+
+def _captured(smoke, fn) -> dict:
+    """``fn`` captured as one CUDA graph: its replay's device time (every device event), events, and times."""
+    import torch
+
+    fn()  # warm: allocations and builds happen outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    dev = smoke.device_us(graph.replay, launches=20)
+    return {"device_us": dev["us"], "device_us_source": dev["source"], "device_events_per_call": dev["events_per_call"],
+            "replay_ms": smoke.median_ms(graph.replay, reps=20), "burst_ms": smoke.burst_ms(graph.replay, launches=20)}
+
+
+def _measure_geometry(smoke) -> list[dict]:
+    import torch
+
+    ops, card, rows = smoke.rt.ops, smoke.smi_line(), []
+    if hasattr(ops, "chol_inv_logdet"):
+        route, geometry = "K3", ops.chol_inv_logdet
+    else:
+        route = "K1 + unrolled inverse + log-det"
+
+        def geometry(g):
+            l = ops.cholesky(g)
+            return l, ops.inv_psd_from_chol(l), 0.5 * ops.logdet_from_chol(l)
+    with torch.inference_mode():
+        for c, d in smoke.TIMED_SHAPES:
+            g, _ = smoke.spd_batch(c, d, seed=d)
+            bound, bound_by = smoke.bound_us("chol_inv_logdet", c, d)
+            row = _captured(smoke, lambda: geometry(g))
+            rows.append({"kernel": "geometry", "C": c, "D": d, "route": route, **row, "bound_us": bound,
+                         "bound_by": bound_by, "share_of_bound": bound / row["device_us"], "card": card})
+    return rows
+
+
+def _measure_bidiag(smoke) -> list[dict]:
+    import torch
+
+    tridiag, card, rows = smoke.rt.ops.tridiag, smoke.smi_line(), []
+    route = "T1" if hasattr(tridiag, "cholesky_cuda") else "loop of three launches a position"
+    with torch.inference_mode():
+        for b, t, case in BIDIAG_RUNS:
+            if case == "identity":  # HMC's mass, as the sampler makes it
+                diag, off = torch.ones((b, t), device=smoke.DEVICE), torch.zeros((b, t - 1), device=smoke.DEVICE)
+            else:  # the latent metric, its off-diagonal an expanded view as the model makes it
+                diag, off = smoke.bidiag_inputs(b, t, seed=b + t)
+            bound, bound_by = smoke.bidiag_bound_us(b, t)
+            row = _captured(smoke, lambda: tridiag.cholesky(diag, off))
+            rows.append({"kernel": "bidiag", "B": b, "T": t, "G": case, "route": route, **row, "bound_us": bound,
+                         "bound_by": bound_by, "share_of_bound": bound / row["device_us"], "card": card})
     return rows
 
 

@@ -1,12 +1,14 @@
 """Batched numerical ops: chain-vectorized linalg and its Hopper kernels,
-batched tridiagonal algebra (StochVol), the FitzHugh-Nagumo sensitivity
-kernel, the truncated-normal and GIG samplers of the Gibbs sampler."""
+batched tridiagonal algebra (StochVol) and its scan kernel, the
+FitzHugh-Nagumo sensitivity kernel, the truncated-normal and GIG samplers
+of the Gibbs sampler."""
 
 from riemannhamiltonianmontecarlo_tpu_torch.ops import fhn_sens, hopper_linalg, launches, tridiag
 from riemannhamiltonianmontecarlo_tpu_torch.ops.gig import sample_gig_half
 from riemannhamiltonianmontecarlo_tpu_torch.ops.truncnorm import truncated_normal_onesided
 from riemannhamiltonianmontecarlo_tpu_torch.ops.linalg import (
     cho_solve,
+    chol_inv_logdet,
     cholesky,
     inv_psd,
     inv_psd_from_chol,
@@ -24,6 +26,7 @@ __all__ = [
     "tridiag",
     "cholesky",
     "cho_solve",
+    "chol_inv_logdet",
     "solve_lower_triangular",
     "solve_upper_from_lower",
     "solve_psd",

@@ -5,10 +5,16 @@
 //                                 (_chol_kernel -> _chol_body)
 //   K2 rhmc_chol_solve_logdet  <- riemannhamiltonianmontecarlo_tpu/ops/pallas_linalg.py::chol_solve_logdet
 //                                 (_fused_kernel -> _chol_body + _solve_body)
+// and one that replaces no Pallas kernel:
+//   K3 rhmc_chol_inv_logdet    <- RMHMC's geometry, riemannhamiltonianmontecarlo_tpu/samplers/rmhmc.py:111-118:
+//                                 ops.cholesky, then ops/linalg.py::inv_psd_from_chol (:154-159, an
+//                                 unrolled substitution against the identity and a matmul) and
+//                                 logdet_from_chol (:162-165).  XLA fuses those into the jitted step;
+//                                 in eager PyTorch they are ~230 launches a geometry at D = 15.
 // Python wrappers, checks and plain-PyTorch twins: ops/hopper_linalg.py.
 //
-// Layout: the public one.  G and L are contiguous (C, D, D), b and x are
-// (C, D), logdet is (C,), all float32.  A chain's matrix is D*D neighbouring
+// Layout: the public one.  G, L and G^-1 are contiguous (C, D, D), b and x
+// are (C, D), logdet and half_logdet are (C,), all float32.  A chain's matrix is D*D neighbouring
 // floats and neighbouring chains are neighbouring memory, so a block that
 // owns kChains neighbouring chains owns one contiguous run of G.  No operand
 // is transposed or copied on its way in or out.
@@ -45,6 +51,29 @@
 //     subtract L[i][j] y_j -- the twin's operations in the twin's order, off
 //     the factor's own dependent chain.  For the back substitution the factor
 //     goes to the shared tile and lane i reads column i there.
+//   * K3 factors exactly as K1 (the same load_and_factor, so the same L bit
+//     for bit) and stores L as K1 does, from the tile.  Then, from that
+//     tile, lane c solves L y = e_c by forward substitution (row i reads
+//     L's row i, the same entries on every lane of the group: a broadcast)
+//     and keeps column c of L^-1 in registers, the twin's operations in the
+//     twin's order; the columns go back to the tile as its rows (lane c
+//     writes row c: the lanes' stores fall in different banks through the
+//     odd stride), and lane a forms row a of G^-1 = L^-T L^-1 as
+//     G^-1[a][b] = sum over k >= b of L^-1[k][a] L^-1[k][b], reading column
+//     b of L^-1 (a row of the tile, again a broadcast) from k = b on.  The
+//     terms k < max(a, b) are exact zeros, so (a, b) and (b, a) are the same
+//     products summed in the same order and G^-1 comes out exactly
+//     symmetric; each lane sums D (D + 1) / 2 products, what computing each
+//     pair once would average, without the bank conflicts of storing a
+//     pair's two entries (at D = 15, lane a's entry (a, a + t) lies in bank
+//     16 a + t: eight lanes to a bank).  The rows of G^-1 go to the tile and
+//     out as L did.  half_logdet is the group's butterfly sum of log L[i][i].
+//
+// K3's divisions: row i of column c divides by L[i][i]; above the column
+// (i < c) and wherever the sum is an exact zero it divides 1 instead and
+// multiplies the zero by that quotient, which gives what zero / L[i][i]
+// gives (zero / x leaves the division's fast path).  The quotient is used on
+// both sides so that nvcc cannot divide the sum and select afterwards.
 //
 // Shuffles need every lane of the warp: no thread returns early.  A group
 // whose chain is past C, and a lane whose row is past D (lane 15 at D = 15),
@@ -63,18 +92,22 @@
 //     the twin; its back substitution subtracts x_k in descending k where the
 //     twin sums in ascending k, and log|G| is a butterfly sum over the group:
 //     rounding differs in the last bits, inside the stated tolerance;
-//   * K1 writes exact zeros to the strict upper triangle: its output comes
-//     from torch.empty, so a slot it skipped would hold garbage;
+//   * K1 and K3 write exact zeros to the strict upper triangle: their output
+//     comes from torch.empty, so a slot they skipped would hold garbage;
 //   * a matrix that is not positive definite gives NaN (sqrt of a negative
 //     pivot) or inf in its own chain only: no trap, no early exit, no effect
 //     on other chains.  RMHMC's divergence masking relies on it;
-//   * K2 returns log|G| = 2 sum log diag L even where its caller drops it.
+//   * K2 returns log|G| = 2 sum log diag L even where its caller drops it;
+//     K3 returns half of it, sum log diag L (the twin's 0.5 (2 sum) is the
+//     same float).
 //
 // Registers and shared memory (ptxas of CUDA 12.8, sm_90a; chip_smoke.py
 // prints the report's numbers per instantiation): 28-46 registers a thread at
 // the compile-time widths up to 15, 46 (K1) and 48 (K2) at D = 25, 33-78 for
 // the run-time capacities up to 32 and 123 (K1) / 117 (K2) at capacity 48; no
-// spills anywhere.  The tile is kChains * D * (D | 1) * 4 bytes: 1,152 at
+// spills anywhere.  K3: 32-47 at the compile-time widths, 55-72 at the
+// run-time capacities to 32 (20 B of spill stores at 32) and 168 at 48.  The tile
+// (one matrix a chain, K3 too) is kChains * D * (D | 1) * 4 bytes: 1,152 at
 // D = 3, 7,200 at D = 15, 10,000 at D = 25, 37,632 at D = 48, all under the
 // 48 KB that need no opt-in.
 //
@@ -316,6 +349,106 @@ __global__ void __launch_bounds__(kThreads)
   if (seat.chain_ok && seat.lane == 0) logdet[seat.chain] = 2.0f * half_logdet;
 }
 
+template <typename W>
+__global__ void __launch_bounds__(kThreads)
+    chol_inv_logdet_kernel(const float* __restrict__ g, float* __restrict__ l, float* __restrict__ inv,
+                           float* __restrict__ half_logdet, int num_chains, int d_rt) {
+  extern __shared__ __align__(16) float tile[];
+  constexpr int N = W::kN;
+  const int d = W::kExact ? N : d_rt;
+  const int s = row_stride(d);
+  const int first_chain = blockIdx.x * W::kChains;
+  const int chains_here = min(W::kChains, num_chains - first_chain);
+  const size_t run = static_cast<size_t>(first_chain) * d * d;
+  tile_load(tile, g + run, chains_here * d * d, d);
+
+  // The factor, written to the tile and stored exactly as K1 does.
+  const Seat<W> seat(tile, first_chain, chains_here, d);
+  float a[W::kRows][N], diag[W::kRows], unused[W::kRows];
+  load_and_factor<W, false>(seat, d, a, diag, unused, unused);
+  bool real[W::kRows];
+  int col[W::kRows];  // this lane's column of L^-1 (a spare lane: a copy of the last)
+#pragma unroll
+  for (int r = 0; r < W::kRows; ++r) {
+    const int row = seat.row(r);
+    real[r] = seat.real(r, d);
+    col[r] = min(row, d - 1);
+    if (real[r]) {
+#pragma unroll
+      for (int k = 0; k < N; ++k)
+        if (W::kExact || k < d) seat.mine[row * s + k] = k <= row ? a[r][k] : 0.0f;
+    }
+  }
+  __syncthreads();
+  tile_store(l + run, tile, chains_here * d * d, d);
+
+  // Column col of L^-1: L y = e_col, row i from L's row i in the tile (the
+  // twin's s = e[i][col] - sum_{k < i} L[i][k] y[k], then s / L[i][i]).
+  float y[W::kRows][N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    if (!W::kExact && i >= d) break;
+    const float* li = seat.mine + i * s;
+#pragma unroll
+    for (int r = 0; r < W::kRows; ++r) {
+      float sum = i == col[r] ? 1.0f : 0.0f;
+#pragma unroll
+      for (int k = 0; k < i; ++k) sum -= li[k] * y[r][k];
+      const bool zero = sum == 0.0f;  // above the column, or a zero of L's pattern: zero / L[i][i] is the zero
+      const float q = (zero ? 1.0f : sum) / li[i];
+      y[r][i] = zero ? sum * q : q;
+    }
+  }
+  __syncthreads();  // every lane has read L
+#pragma unroll
+  for (int r = 0; r < W::kRows; ++r) {
+    if (real[r]) {
+#pragma unroll
+      for (int i = 0; i < N; ++i)
+        if (W::kExact || i < d) seat.mine[col[r] * s + i] = y[r][i];  // column col of L^-1 as row col
+    }
+  }
+  __syncthreads();
+
+  // Row col of G^-1: entry b sums L^-1[k][col] L^-1[k][b] over k from b on,
+  // column b of L^-1 read as row b of the tile.
+  float gi[W::kRows][N];
+#pragma unroll
+  for (int b = 0; b < N; ++b) {
+    if (!W::kExact && b >= d) break;
+    const float* yb = seat.mine + b * s;
+#pragma unroll
+    for (int r = 0; r < W::kRows; ++r) {
+      float sum = 0.0f;
+#pragma unroll
+      for (int k = b; k < N; ++k) {
+        if (!W::kExact && k >= d) break;
+        sum += y[r][k] * yb[k];
+      }
+      gi[r][b] = sum;
+    }
+  }
+  __syncthreads();  // every lane has read L^-1
+#pragma unroll
+  for (int r = 0; r < W::kRows; ++r) {
+    if (real[r]) {
+#pragma unroll
+      for (int b = 0; b < N; ++b)
+        if (W::kExact || b < d) seat.mine[col[r] * s + b] = gi[r][b];
+    }
+  }
+  __syncthreads();
+  tile_store(inv + run, tile, chains_here * d * d, d);
+
+  float sum_log = 0.0f;
+#pragma unroll
+  for (int r = 0; r < W::kRows; ++r) sum_log += logf(diag[r]);  // a spare lane adds log 1 = 0
+#pragma unroll
+  for (int offset = W::kLanes / 2; offset > 0; offset /= 2)
+    sum_log += __shfl_xor_sync(0xffffffffu, sum_log, offset, W::kLanes);
+  if (seat.chain_ok && seat.lane == 0) half_logdet[seat.chain] = sum_log;
+}
+
 // Call f with the Width that serves d: the width itself as a compile-time
 // constant for the widths the repo uses (the StochVol hyper block's D = 3;
 // tests and the five BLR datasets: 5, 6, 7, 8, 14, 15, 25), else the next
@@ -370,6 +503,19 @@ extern "C" int rhmc_chol_solve_logdet(const void* g, const void* b, void* x, voi
         <<<blocks_for<W>(num_chains), kThreads, tile_bytes<W>(d), static_cast<cudaStream_t>(stream)>>>(
             static_cast<const float*>(g), static_cast<const float*>(b), static_cast<float*>(x),
             static_cast<float*>(logdet), num_chains, d);
+    return cudaGetLastError();
+  });
+}
+
+extern "C" int rhmc_chol_inv_logdet(const void* g, void* l, void* inv, void* half_logdet, int num_chains, int d,
+                                    void* stream) {
+  if (bad_shape(num_chains, d)) return cudaErrorInvalidValue;
+  return with_width(d, [&](auto width) {
+    using W = decltype(width);
+    chol_inv_logdet_kernel<W>
+        <<<blocks_for<W>(num_chains), kThreads, tile_bytes<W>(d), static_cast<cudaStream_t>(stream)>>>(
+            static_cast<const float*>(g), static_cast<float*>(l), static_cast<float*>(inv),
+            static_cast<float*>(half_logdet), num_chains, d);
     return cudaGetLastError();
   });
 }

@@ -9,6 +9,15 @@ The port of ``riemannhamiltonianmontecarlo_tpu/ops/pallas_linalg.py``:
   (C, D, D), (C, D) -> (C, D), (C,).  Replaces
   ``pallas_linalg.chol_solve_logdet`` (``pallas_call`` at ``:150``).
 
+and RMHMC's geometry, which the JAX package leaves to XLA:
+
+* K3 ``chol_inv_logdet(g)``: L (K1's, bit for bit), G^-1 = L^-T L^-1
+  (exactly symmetric) and 1/2 log|G| in one launch, (C, D, D) -> (C, D, D),
+  (C, D, D), (C,).  Replaces no Pallas kernel: ``ops.cholesky`` followed by
+  the unrolled ``inv_psd_from_chol`` and ``logdet_from_chol``
+  (``riemannhamiltonianmontecarlo_tpu/ops/linalg.py:154-165``), ~230
+  launches a call in eager PyTorch at D = 15.
+
 Each has three functions.  ``<op>_cuda`` is the kernel's wrapper: it checks
 the input (CUDA device, float32, shape, D <= 48), allocates the outputs with
 ``torch.empty``, launches the CUDA kernel of ``csrc/hopper_linalg.cu`` on the
@@ -18,14 +27,14 @@ tensor included.  The kernels read and write the public layout, contiguous
 no copy and no transposed view on the way in or out; only an operand that is
 not contiguous is copied once.  ``<op>_plain`` is the plain-PyTorch twin: the
 same unrolled outer-product elimination and substitutions (``_chol_body`` /
-``_solve_body``).  ``<op>`` is what the rest of the port calls: the twin for
-a CPU tensor, the kernel for a CUDA one, never a fallback from one to the
-other.
+``_solve_body``; K3's, the three calls it replaces).  ``<op>`` is what the
+rest of the port calls: the twin for a CPU tensor, the kernel for a CUDA
+one, never a fallback from one to the other.
 
 On the card a group of lanes owns one chain and a block owns a run of
 neighbouring chains, staged through a shared-memory tile;
 ``launch_geometry(d)`` mirrors the source's choice of lanes per chain,
-chains per block and tile size for every width.
+chains per block and tile size for every width, the same for all three.
 
 The library is built by ``ops._build`` at the first CUDA call, never at
 import, so this module imports on a machine without CUDA.
@@ -51,11 +60,11 @@ CAPACITIES = (4, 8, 16, 32, 48)
 STATIC_SHARED_LIMIT = 48 * 1024  # bytes of shared memory a block gets without opting in
 _KERNEL_DEVICE = "cuda"  # the only device type the wrappers launch on
 
-_COUNTED = ("cholesky", "chol_solve_logdet")  # their names in ops.launches
+_COUNTED = ("cholesky", "chol_solve_logdet", "chol_inv_logdet")  # their names in ops.launches
 
 
 def launch_counts() -> dict[str, int]:
-    """Launches of K1 and K2 since the last reset (``ops.launches``)."""
+    """Launches of K1, K2 and K3 since the last reset (``ops.launches``)."""
     return launches.counts(_COUNTED)
 
 
@@ -98,6 +107,8 @@ def _lib() -> ctypes.CDLL:
     lib.rhmc_cholesky.restype = i32
     lib.rhmc_chol_solve_logdet.argtypes = [ptr, ptr, ptr, ptr, i32, i32, ptr]
     lib.rhmc_chol_solve_logdet.restype = i32
+    lib.rhmc_chol_inv_logdet.argtypes = [ptr, ptr, ptr, ptr, i32, i32, ptr]
+    lib.rhmc_chol_inv_logdet.restype = i32
     return lib
 
 
@@ -216,3 +227,36 @@ def chol_solve_logdet(g: Tensor, b: Tensor) -> tuple[Tensor, Tensor]:
     if g.device.type == "cpu":
         return chol_solve_logdet_plain(g, b)
     return chol_solve_logdet_cuda(g, b)
+
+
+# -- K3: factor, inverse and half log-det (RMHMC's geometry) --------------------
+
+
+def chol_inv_logdet_plain(g: Tensor) -> tuple[Tensor, Tensor, Tensor]:
+    """L, G^-1 and 1/2 log|G| as the port computed them before K3, op for op:
+    the unrolled factor, ``linalg.inv_psd_from_chol`` (the unrolled forward
+    substitution against the identity and a matmul, D <= 48) and
+    ``linalg.logdet_from_chol``."""
+    from riemannhamiltonianmontecarlo_tpu_torch.ops import linalg  # it imports this module
+
+    l = cholesky_plain(g)
+    return l, linalg.inv_psd_from_chol(l), 0.5 * linalg.logdet_from_chol(l)
+
+
+def chol_inv_logdet_cuda(g: Tensor) -> tuple[Tensor, Tensor, Tensor]:
+    """K3 on the card: (C, D, D) float32 CUDA -> L (C, D, D), G^-1 (C, D, D), 1/2 log|G| (C,)."""
+    _check_batch(g)
+    c, d, _ = g.shape
+    g = g.contiguous()  # g itself unless the caller's is strided
+    l, inv = torch.empty_like(g), torch.empty_like(g)
+    half_logdet = torch.empty(c, dtype=g.dtype, device=g.device)
+    if c > 0:
+        _launch("chol_inv_logdet", _lib().rhmc_chol_inv_logdet, (g, l, inv, half_logdet), c, d)
+    return l, inv, half_logdet
+
+
+def chol_inv_logdet(g: Tensor) -> tuple[Tensor, Tensor, Tensor]:
+    """Cholesky factor, inverse and half log-determinant: twin on CPU, K3 on CUDA."""
+    if g.device.type == "cpu":
+        return chol_inv_logdet_plain(g)
+    return chol_inv_logdet_cuda(g)

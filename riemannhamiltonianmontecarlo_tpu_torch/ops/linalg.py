@@ -18,6 +18,13 @@ factorization over the static dimension D, as the JAX package does.
 * ``"kernel"``: the Hopper kernels for any 3-D batch (their plain twins for
   a CPU tensor; the JAX package's ``"pallas"``).
 
+``chol_inv_logdet`` is RMHMC's geometry in one call: where ``cholesky``
+would take K1 it is the kernel K3 (factor, inverse and half log-determinant
+in one launch, in place of K1 and the ~230 launches of the unrolled
+``inv_psd_from_chol`` at D = 15); otherwise the factor by ``method``, then
+``inv_psd_from_chol`` and ``logdet_from_chol``, as the JAX package's
+``rmhmc.geometry`` does.
+
 All functions accept arbitrary leading batch axes.
 """
 
@@ -133,6 +140,16 @@ def inv_psd_from_chol(l: Tensor, *, method: str | None = None) -> Tensor:
     eye = torch.eye(d, dtype=l.dtype, device=l.device).expand(l.shape)
     linv = solve_lower_triangular(l, eye, method=method)
     return torch.matmul(linv.mT, linv)
+
+
+def chol_inv_logdet(a: Tensor, *, method: str | None = None) -> tuple[Tensor, Tensor, Tensor]:
+    """(L, A^{-1}, 1/2 log|A|) of symmetric PD matrices: K3 on a 3-D CUDA batch
+    (where ``cholesky`` takes K1), else ``cholesky(method=)``, the unrolled
+    ``inv_psd_from_chol`` and ``logdet_from_chol``."""
+    if _use_kernel(a, method):
+        return hopper_linalg.chol_inv_logdet(a)
+    l = cholesky(a, method=method)
+    return l, inv_psd_from_chol(l), 0.5 * logdet_from_chol(l)
 
 
 def logdet_from_chol(l: Tensor) -> Tensor:

@@ -18,8 +18,9 @@ Every theta~ move costs dense (C, D, D) factorizations and GEMMs (library
 calls, D = n^2 = 4096 at the reference size): batch a handful of chains.
 The hyper kernel is rebuilt on ``model.hyper_manifold(x)`` and
 re-initialized every sweep, and its (C, 2, 2) metric goes through ``ops``:
-on a CUDA batch RMHMC takes K1 (Cholesky) twice a sweep (``init`` and the
-geometry after its one leapfrog step) and K2 (fused solve) once per
+on a CUDA batch RMHMC takes K3 (factor, inverse and half log-determinant)
+twice a sweep (``init`` and the geometry after its one leapfrog step) and
+K2 (fused solve) once per
 position fixed-point round, three times a sweep; mMALA takes K1 twice
 (``init`` and the proposal) and no K2.
 

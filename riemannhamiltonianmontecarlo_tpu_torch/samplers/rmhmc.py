@@ -22,8 +22,9 @@ The step is split in two: ``transition(state, noise)`` is pure and takes
 all its randomness in an ``RMHMCNoise``; ``step(generator, state)`` draws
 that noise and calls it.  On a CUDA batch the factorizations go to the
 Hopper kernels through ``ops`` (``config.linalg`` passes ``method``): one
-K1 (Cholesky) per geometry build, one K2 (fused solve) per fixed-point
-round of the position update.
+K3 (factor, inverse and half log-determinant, ``ops.chol_inv_logdet``) per
+geometry build, one K2 (fused solve) per fixed-point round of the position
+update.
 """
 
 from __future__ import annotations
@@ -116,9 +117,7 @@ def build(model, config: RMHMCConfig = RMHMCConfig()) -> Kernel:
     def geometry(w: Tensor) -> _Geometry:
         ms = model.manifold_state(w)
         g = add_jitter(ms.metric)
-        l = ops.cholesky(g, method=config.linalg)
-        inv = ops.inv_psd_from_chol(l)
-        half_logdet = 0.5 * ops.logdet_from_chol(l)
+        l, inv, half_logdet = ops.chol_inv_logdet(g, method=config.linalg)
         return _Geometry(ms.logp, ms.grad, g, ms.cache, l, inv, half_logdet)
 
     def hamiltonian(geo: _Geometry, p: Tensor) -> Tensor:

@@ -15,10 +15,12 @@ sweep alternates
 
 The latent leapfrog runs the full L steps under a per-chain mask.  On a
 CUDA batch the hyper block's D=3 factorizations go to the Hopper kernels
-through ``ops``: RMHMC takes one K1 per geometry build (1 + L per sweep)
+through ``ops``: RMHMC takes one K3 per geometry build (1 + L per sweep)
 and one K2 per position fixed-point round (L x 5 per sweep); mMALA one K1
 in ``init`` and one per proposal (2 per sweep, since the hyper kernel is
-rebuilt and re-initialized every sweep).
+rebuilt and re-initialized every sweep).  The latent update of rmhmc, hmc
+and mmala factors its tridiagonal metric once a sweep, on a card by the
+scan kernel T1 (``ops.tridiag.cholesky``).
 
 The step is split as elsewhere in the port: ``transition(state, noise)`` is
 pure and takes a ``StochVolNoise``; ``step(generator, state)`` draws it with
@@ -26,7 +28,7 @@ pure and takes a ``StochVolNoise``; ``step(generator, state)`` draws it with
 (``parallel.chain_sliced``) can draw the noise of every chain.  The sweep
 reads nothing back to the host, so on a card the runner replays it as one
 CUDA graph (``Kernel.capturable``), hyper gradient and dG by ``torch.func``
-included; the latent block's bidiagonal scan is then ~3 T graph nodes.
+included; the latent block's bidiagonal scan is one of its nodes.
 Initialization per the reference: x = y, (beta, sigma, phi) = 0.5
 (``StochVol_RMHMC.m:86-89``).
 """

@@ -11,10 +11,21 @@ its sweep kernel G1, its GIG kernel G2 and PyTorch's random draws (kernel
 names with ``distribution``), and the peak of allocated device memory.  The idle share is 1 - busy / wall.  For StochVol
 (rmhmc, hmc and mmala, which run the bidiagonal Cholesky scan
 ``ops.tridiag.cholesky`` once a sweep) it also gives the scan's device time
-and launches (a CUDA graph of the scan alone at the sweep's shapes,
-replayed under torch.profiler) and its share of the sweep's device time,
-and on the eager row the scan's wall time inside the sweep, for its share
-of the sweep's wall.
+and launches (a CUDA graph of the scan alone at the sweep's shapes:
+CUDA events over its replays for the time, torch.profiler's events for
+the launches) and its share of the sweep's device time, and on the eager
+row the scan's wall time inside the sweep, for its share of the sweep's
+wall.  For BLR RMHMC it gives RMHMC's geometry the same way
+(``ops.chol_inv_logdet``: a CUDA graph of one geometry at the step's G),
+the geometries a step builds (the kernels' device counters) and their
+share of the step's device time.
+
+``--routes kernel,parent`` profiles each run twice: on this checkout's
+kernels, and on the two routes the kernels K3 and T1 replaced (RMHMC's
+geometry as K1, the unrolled inverse and the log-determinant; StochVol's
+bidiagonal factor as the loop of three launches a position), patched in
+for the run (``parent_routes``): the rows before and after that change,
+from one process on one card.  Each row names its ``route``.
 
 Each run whose kernel declares itself capturable gets four rows, in turns
 E C C E (both paths on either side of a drift in the card's state):
@@ -30,7 +41,7 @@ from ``with_sharding``: every row gives its all-reduces a step, counted on
 the device (``collectives.call_counts``).
 
     python -m riemannhamiltonianmontecarlo_tpu_torch.step_profile [--out FILE] \\
-        [--only lgc/rmhmc_joint fhn/rmhmc]
+        [--only lgc/rmhmc_joint fhn/rmhmc] [--routes kernel,parent]
 
 Prints one JSON line per row (and writes them to FILE).  Needs a CUDA
 device; there is no CPU path.
@@ -39,15 +50,17 @@ device; there is no CPU path.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import re
 import time
+import unittest.mock
 
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from riemannhamiltonianmontecarlo_tpu_torch import experiments, interop, models, parallel, utils
-from riemannhamiltonianmontecarlo_tpu_torch.ops import tridiag
+from riemannhamiltonianmontecarlo_tpu_torch import experiments, interop, models, ops, parallel, utils
+from riemannhamiltonianmontecarlo_tpu_torch.ops import hopper_linalg, tridiag
 from riemannhamiltonianmontecarlo_tpu_torch.parallel import collectives, graphs
 from riemannhamiltonianmontecarlo_tpu_torch.parallel.launch import free_port
 from riemannhamiltonianmontecarlo_tpu_torch.samplers import pmala, rmhmc
@@ -66,6 +79,23 @@ TRSM = re.compile(r"trsm", re.IGNORECASE)  # the triangular solves' part of FACT
 FHN = re.compile(r"fhn_sensitivities")
 GIBBS = {"gibbs_sweep_kernel": re.compile(r"gibbs_sweep(_wide)?_kernel"),
          "gig_half_kernel": re.compile(r"gig_half_kernel"), "draws": re.compile(r"distribution")}
+
+
+ROUTES = ("kernel", "parent")
+
+
+@contextlib.contextmanager
+def parent_routes():
+    """Inside, RMHMC's geometry and StochVol's bidiagonal factor take the routes the kernels K3 and T1
+    replaced: ``ops.cholesky`` (K1 on a card), the unrolled ``inv_psd_from_chol`` and ``logdet_from_chol``;
+    ``tridiag.cholesky_plain``, the loop of three launches a position (plain PyTorch, on the card)."""
+    def geometry(g, *, method=None):
+        l = ops.cholesky(g, method=method)
+        return l, ops.inv_psd_from_chol(l), 0.5 * ops.logdet_from_chol(l)
+
+    with unittest.mock.patch.object(ops, "chol_inv_logdet", geometry), \
+            unittest.mock.patch.object(tridiag, "cholesky", tridiag.cholesky_plain):
+        yield
 
 
 def _world1_mesh() -> parallel.Mesh:
@@ -125,8 +155,10 @@ def profile_run(workload: str, sampler: str, chains: int, *, warm: int, steps: i
                     box[0], _ = kernel.step(gen, box[0])
 
         collectives.reset_call_counts()
+        hopper_linalg.reset_launch_counts()
         wall = _wall_ms(lambda: run_steps(steps), 1) / steps
         all_reduce = collectives.call_counts()["all_reduce"] / steps
+        linalg_launches = {name: n / steps for name, n in hopper_linalg.launch_counts().items()}
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             run_steps(profiled)
             torch.cuda.synchronize()
@@ -151,6 +183,11 @@ def profile_run(workload: str, sampler: str, chains: int, *, warm: int, steps: i
     if sampler == "gibbs":
         out.update({f"{part}_share_of_device": sum(ms for name, ms in kernels if pattern.search(name)) / busy
                     for part, pattern in GIBBS.items()})
+    if workload in ("blr", "blr-mesh") and sampler == "rmhmc":  # the geometry: K3, or K1 and the inverse
+        geo = _geometry_device(box[0].geo.metric)
+        calls = linalg_launches["chol_inv_logdet"] + linalg_launches["cholesky"]
+        out.update(geo, geometry_calls_per_step=calls,
+                   geometry_share_of_device=calls * geo["geometry_device_ms_per_call"] / busy)
     if workload == "stochvol" and sampler != "mala":
         scan = _scan_device(box[0].x)
         out.update(scan, tridiag_scan_share_of_device=scan["tridiag_scan_device_ms_per_step"] / busy)
@@ -159,26 +196,45 @@ def profile_run(workload: str, sampler: str, chains: int, *, warm: int, steps: i
     return out
 
 
-def _scan_device(x: torch.Tensor, replays: int = 3) -> dict:
-    """The bidiagonal scan's device ms and launches per call at ``x``'s
-    (C, T): a CUDA graph of ``tridiag.cholesky`` alone (on an SPD
-    tridiagonal G like the latent metric's), replays under torch.profiler."""
-    diag, off = torch.full_like(x, 2.5), torch.full_like(x[:, 1:], -1.0)
+def _graph_alone(fn, replays: int = 10) -> tuple[float, float]:
+    """(device ms, launches) per call of ``fn`` captured alone as a CUDA graph: CUDA events around
+    ``replays`` replays back to back (a graph of a launch or two is too short for torch.profiler, which
+    now and then misses its events), the launches from torch.profiler's events over as many replays."""
     with torch.inference_mode():
-        tridiag.cholesky(diag, off)  # warm
+        fn()  # warm
         torch.cuda.synchronize()
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
-            tridiag.cholesky(diag, off)
+            fn()
         graph.replay()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
+        start.record()
+        for _ in range(replays):
+            graph.replay()
+        end.record()
+        end.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(replays):
                 graph.replay()
             torch.cuda.synchronize()
-    events = [e.time_range.elapsed_us() for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    return {"tridiag_scan_device_ms_per_step": sum(events) / 1e3 / replays,
-            "tridiag_scan_launches": len(events) / replays}
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return start.elapsed_time(end) / replays, len(events) / replays
+
+
+def _scan_device(x: torch.Tensor) -> dict:
+    """The bidiagonal scan's device ms and launches per call at ``x``'s (C, T): ``tridiag.cholesky``
+    alone (on an SPD tridiagonal G like the latent metric's) as a CUDA graph (``_graph_alone``)."""
+    diag, off = torch.full_like(x, 2.5), torch.full_like(x[:, 1:], -1.0)
+    ms, n = _graph_alone(lambda: tridiag.cholesky(diag, off))
+    return {"tridiag_scan_device_ms_per_step": ms, "tridiag_scan_launches": n}
+
+
+def _geometry_device(g: torch.Tensor) -> dict:
+    """RMHMC's geometry (``ops.chol_inv_logdet``: L, G^-1, 1/2 log|G|) at the step's G: device ms and
+    launches per call, one call as a CUDA graph (``_graph_alone``)."""
+    ms, n = _graph_alone(lambda: ops.chol_inv_logdet(g))
+    return {"geometry_device_ms_per_call": ms, "geometry_launches_per_call": n}
 
 
 def _scan_share(one_step, steps: int) -> dict:
@@ -213,7 +269,13 @@ def main(argv=None) -> None:
     ap.add_argument("--out", default=None, help="also write the JSON lines here")
     ap.add_argument("--only", nargs="+", default=None, metavar="WORKLOAD/SAMPLER",
                     help="profile these runs only (default: all of RUNS)")
+    ap.add_argument("--routes", default="kernel",
+                    help=f"comma-separated subset of {','.join(ROUTES)}: this checkout's kernels, and the routes "
+                         "K3 and T1 replaced (default: kernel)")
     args = ap.parse_args(argv)
+    routes = [r for r in args.routes.split(",") if r]
+    if not routes or set(routes) - set(ROUTES):
+        ap.error(f"--routes takes a comma-separated subset of {','.join(ROUTES)}, got {args.routes!r}")
     known = {f"{w}/{s}" for w, s, _ in RUNS}
     if args.only and not set(args.only) <= known:
         ap.error(f"--only takes names among {sorted(known)}")
@@ -223,14 +285,16 @@ def main(argv=None) -> None:
     for workload, sampler, chains in RUNS:
         if args.only and f"{workload}/{sampler}" not in args.only:
             continue
-        for captured in (False, True, True, False):
-            rec = profile_run(workload, sampler, chains, warm=args.warm, steps=args.steps, profiled=args.profiled,
-                              captured=captured)
-            rec["device"] = torch.cuda.get_device_name(0)
-            lines.append(json.dumps(rec))
-            print(lines[-1], flush=True)
-            if not rec["capturable"]:
-                break
+        for route in routes:
+            for captured in (False, True, True, False):
+                with parent_routes() if route == "parent" else contextlib.nullcontext():
+                    rec = profile_run(workload, sampler, chains, warm=args.warm, steps=args.steps,
+                                      profiled=args.profiled, captured=captured)
+                rec.update(route=route, device=torch.cuda.get_device_name(0))
+                lines.append(json.dumps(rec))
+                print(lines[-1], flush=True)
+                if not rec["capturable"]:
+                    break
     if torch.distributed.is_initialized():  # the blr-mesh rows' world of one rank
         torch.distributed.destroy_process_group()
     if args.out:

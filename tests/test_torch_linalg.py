@@ -1,5 +1,8 @@
 """Port parity: the Hopper kernels' plain twins and the ops.linalg dispatch.
 
+K3 (``chol_inv_logdet``, RMHMC's geometry in one launch) has no Pallas
+counterpart: its twin is held against the JAX package's three calls.
+
 The CUDA kernels run only on a card (``chip_smoke.py`` holds them against
 these twins there).  Here the twins are held against the Pallas kernels in
 interpret mode and against float64 numpy, and the CPU side of the
@@ -63,6 +66,33 @@ def test_torch_twins_match_numpy(c, d):
     np.testing.assert_allclose(ld.numpy(), np.linalg.slogdet(g64)[1], rtol=2e-4, atol=2e-3)
 
 
+# K3's twin against the JAX package's geometry (samplers/rmhmc.py:111-118): its
+# unrolled cholesky, inv_psd_from_chol and 0.5 logdet_from_chol, float32 on
+# both sides; rtol / atol 1e-5 (the same operations, sums in another order).
+@pytest.mark.parametrize("c,d", [(5, 7), (200, 15), (130, 25), (4, 2), (16, 3)])
+def test_torch_chol_inv_logdet_twin_matches_jax(c, d):
+    g, _ = spd(c, d, seed=c + d)
+    lj = jops.cholesky(jnp.asarray(g), method="unrolled")
+    refs = (lj, jops.inv_psd_from_chol(lj), 0.5 * jops.logdet_from_chol(lj))
+    outs = hl.chol_inv_logdet_plain(torch.from_numpy(g))
+    assert [tuple(o.shape) for o in outs] == [(c, d, d), (c, d, d), (c,)]
+    for out, ref in zip(outs, refs):
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-5)
+    assert torch.equal(hl.chol_inv_logdet(torch.from_numpy(g))[1], outs[1])  # a CPU tensor takes the twin
+
+
+# ops.chol_inv_logdet is, for every method, the three calls it stands for (on
+# the CPU the kernel route is the twin, itself those calls): equal bit for bit.
+@pytest.mark.parametrize("method", [None, "unrolled", "kernel", "library"])
+def test_torch_chol_inv_logdet_is_the_three_calls(method):
+    g, _ = spd(24, 6, seed=9)
+    gt = torch.from_numpy(g)
+    l = ops.cholesky(gt, method=method)
+    expected = (l, ops.inv_psd_from_chol(l), 0.5 * ops.logdet_from_chol(l))
+    for out, ref in zip(ops.chol_inv_logdet(gt, method=method), expected):
+        assert torch.equal(out, ref)
+
+
 @pytest.mark.parametrize("method", ["kernel", "unrolled", "library"])
 def test_torch_non_pd_chain_is_nan_alone(method):
     g, b = spd(12, 7, seed=4)
@@ -74,6 +104,9 @@ def test_torch_non_pd_chain_is_nan_alone(method):
     assert (np.triu(l, 1) == 0.0).all()
     x = ops.solve_psd(gt, bt, method=method).numpy()
     assert np.isfinite(x[ok]).all() and not np.isfinite(x[5]).all()
+    for out in ops.chol_inv_logdet(gt, method=method):  # L, G^-1, 1/2 log|G|
+        out = out.numpy()
+        assert np.isfinite(out[ok]).all() and not np.isfinite(out[5]).all()
     if method == "kernel":
         x, ld = hl.chol_solve_logdet(gt, bt)
         assert np.isfinite(ld.numpy()[ok]).all() and not np.isfinite(ld.numpy()[5])
@@ -124,7 +157,10 @@ def test_torch_cpu_tensors_never_launch():
     ops.solve_psd(gt, bt, method="kernel")
     hl.cholesky(gt)
     hl.chol_solve_logdet(gt, bt)
-    assert hl.launch_counts() == {"cholesky": 0, "chol_solve_logdet": 0}
+    ops.chol_inv_logdet(gt)
+    ops.chol_inv_logdet(gt, method="kernel")
+    hl.chol_inv_logdet(gt)
+    assert hl.launch_counts() == {"cholesky": 0, "chol_solve_logdet": 0, "chol_inv_logdet": 0}
 
 
 def test_torch_cuda_wrappers_refuse_cpu_tensors():
@@ -134,9 +170,13 @@ def test_torch_cuda_wrappers_refuse_cpu_tensors():
         hl.cholesky_cuda(gt)
     with pytest.raises(ValueError, match="CUDA tensor"):
         hl.chol_solve_logdet_cuda(gt, bt)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        hl.chol_inv_logdet_cuda(gt)
     with pytest.raises(ValueError, match="method"):
         ops.cholesky(gt, method="pallas")
-    assert hl.launch_counts() == {"cholesky": 0, "chol_solve_logdet": 0}
+    with pytest.raises(ValueError, match="method"):
+        ops.chol_inv_logdet(gt, method="pallas")
+    assert hl.launch_counts() == {"cholesky": 0, "chol_solve_logdet": 0, "chol_inv_logdet": 0}
 
 
 def test_torch_build_without_nvcc_raises(monkeypatch):
@@ -181,7 +221,8 @@ def recorded_launches(monkeypatch):
     check, the library is a stand-in and ``_launch`` records its operands."""
     seen = []
     monkeypatch.setattr(hl, "_KERNEL_DEVICE", "cpu")
-    monkeypatch.setattr(hl, "_lib", lambda: types.SimpleNamespace(rhmc_cholesky="k1", rhmc_chol_solve_logdet="k2"))
+    monkeypatch.setattr(hl, "_lib", lambda: types.SimpleNamespace(rhmc_cholesky="k1", rhmc_chol_solve_logdet="k2",
+                                                                   rhmc_chol_inv_logdet="k3"))
     monkeypatch.setattr(hl, "_launch", lambda name, fn, tensors, c, d: seen.append((name, fn, tensors, c, d)))
     return seen
 
@@ -195,16 +236,21 @@ def strided(t):
     return out
 
 
-@pytest.mark.parametrize("g_strided", [False, True], ids=["contiguous", "strided"])
-def test_torch_cholesky_cuda_hands_over_the_callers_operand(recorded_launches, g_strided):
+# K1, and K3 (the same operand, three outputs), with the caller's G contiguous or strided.
+@pytest.mark.parametrize("kernel,g_strided", [("cholesky", False), ("cholesky", True),
+                                              ("chol_inv_logdet", False), ("chol_inv_logdet", True)],
+                         ids=["contiguous", "strided", "chol_inv_logdet-contiguous", "chol_inv_logdet-strided"])
+def test_torch_cholesky_cuda_hands_over_the_callers_operand(recorded_launches, kernel, g_strided):
     g, _ = spd(6, 5, seed=11)
     g = strided(torch.from_numpy(g)) if g_strided else torch.from_numpy(g)
-    l = hl.cholesky_cuda(g)
-    ((name, fn, (g_seen, l_seen), c, d),) = recorded_launches  # one launch
-    assert (name, fn, c, d) == ("cholesky", "k1", 6, 5)
+    out = hl.cholesky_cuda(g) if kernel == "cholesky" else hl.chol_inv_logdet_cuda(g)
+    outs = (out,) if kernel == "cholesky" else out
+    ((name, fn, (g_seen, *seen), c, d),) = recorded_launches  # one launch
+    assert (name, fn, c, d) == (kernel, {"cholesky": "k1", "chol_inv_logdet": "k3"}[kernel], 6, 5)
     assert g_seen.is_contiguous() and torch.equal(g_seen, g)
     assert (g_seen.data_ptr() == g.data_ptr()) == (not g_strided)  # no copy unless it must
-    assert l_seen is l and l.is_contiguous() and l.shape == (6, 5, 5)
+    assert len(seen) == len(outs) and all(s is o and o.is_contiguous() for s, o in zip(seen, outs))
+    assert [tuple(o.shape) for o in outs] == [(6, 5, 5), (6, 5, 5), (6,)][: len(outs)]
 
 
 @pytest.mark.parametrize("g_strided,b_strided", [(False, False), (True, False), (False, True), (True, True)])
@@ -227,13 +273,26 @@ def test_torch_cuda_wrappers_launch_nothing_on_an_empty_batch(recorded_launches)
     assert hl.cholesky_cuda(g).shape == (0, 5, 5)
     x, logdet = hl.chol_solve_logdet_cuda(g, b)
     assert x.shape == (0, 5) and logdet.shape == (0,)
+    assert [tuple(o.shape) for o in hl.chol_inv_logdet_cuda(g)] == [(0, 5, 5), (0, 5, 5), (0,)]
     assert recorded_launches == []
 
 
-@pytest.mark.parametrize("bad", ["dtype", "shape", "width", "rhs"])
+# K3 takes what K1 takes: (argument, error, message) it refuses.
+K3_REFUSES = {
+    "k3-dtype": (torch.zeros((4, 5, 5), dtype=torch.float64), TypeError, "float32"),
+    "k3-shape": (torch.zeros((4, 5, 6)), ValueError, r"\(C, D, D\)"),
+    "k3-width": (torch.zeros((2, 49, 49)), ValueError, "D <= 48"),
+}
+
+
+@pytest.mark.parametrize("bad", ["dtype", "shape", "width", "rhs", *K3_REFUSES])
 def test_torch_cuda_wrappers_refuse_what_the_kernels_do_not_take(recorded_launches, bad):
     g, b = torch.zeros((4, 5, 5)), torch.zeros((4, 5))
-    if bad == "dtype":
+    if bad in K3_REFUSES:
+        arg, err, match = K3_REFUSES[bad]
+        with pytest.raises(err, match=match):
+            hl.chol_inv_logdet_cuda(arg)
+    elif bad == "dtype":
         with pytest.raises(TypeError, match="float32"):
             hl.cholesky_cuda(g.double())
     elif bad == "shape":
@@ -285,7 +344,11 @@ def test_torch_launch_geometry_mirrors_the_cuda_source():
     assert f"constexpr int kThreads = {hl.THREADS_PER_BLOCK};" in src
     assert "return n <= 4 ? 4 : n <= 8 ? 8 : n <= 16 ? 16 : 32;" in src  # lanes_for
     assert "constexpr int row_stride(int d) { return d | 1; }" in src
-    assert "permute" not in src and src.count("__global__") == 2  # one kernel template per function
+    assert "permute" not in src and src.count("__global__") == 3  # one kernel template per function: K1, K2, K3
+    # K3 launches as K1 does: the same widths, blocks and tile, so launch_geometry is its too.
+    for kernel in ("cholesky_kernel", "chol_inv_logdet_kernel"):
+        assert re.search(rf"{kernel}<W>\s*<<<blocks_for<W>\(num_chains\), kThreads, tile_bytes<W>\(d\),", src), kernel
+    assert src.count("return with_width(d, [&](auto width) {") == 4  # K1, K2, K3 and the geometry query
 
 
 # -- chip_smoke.py's bound ---------------------------------------------------------
@@ -304,6 +367,10 @@ def test_torch_launch_geometry_mirrors_the_cuda_source():
     ("chol_solve_logdet", 4096, 3, 262_144 / 3.35e6),
     ("chol_solve_logdet", 1024, 3, 65_536 / 3.35e6),
     ("chol_solve_logdet", 256, 3, 16_384 / 3.35e6),
+    ("chol_inv_logdet", 4096, 15, (3 * 4096 * 225 + 4096) * 4 / 3.35e6),  # G in, L and G^-1 out: 11.1 MB -> 3.3 us
+    ("chol_inv_logdet", 4096, 25, (3 * 4096 * 625 + 4096) * 4 / 3.35e6),  # 9.2 us
+    ("chol_inv_logdet", 1024, 3, (3 * 1024 * 9 + 1024) * 4 / 3.35e6),
+    ("chol_inv_logdet", 4, 2, (3 * 4 * 4 + 4) * 4 / 3.35e6),
 ])
 def test_torch_chip_smoke_bound_us(name, c, d, expected_us):
     assert (c, d) in chip_smoke.TIMED_SHAPES

@@ -17,7 +17,7 @@ import pytest
 import torch
 
 import riemannhamiltonianmontecarlo_tpu as rj
-from riemannhamiltonianmontecarlo_tpu_torch import interop
+from riemannhamiltonianmontecarlo_tpu_torch import interop, ops
 from riemannhamiltonianmontecarlo_tpu_torch.models import synthetic_logreg
 from riemannhamiltonianmontecarlo_tpu_torch.samplers import rmhmc
 from riemannhamiltonianmontecarlo_tpu_torch.samplers.base import metropolis_accept, tree_where
@@ -106,6 +106,21 @@ def test_torch_init_geometry_from_interop(target):
     assert lazy.geo is None
     c, _ = tk.transition(lazy, noise)  # geometry rebuilt lazily
     np.testing.assert_allclose(c.position.numpy(), b.position.numpy(), atol=1e-5)
+
+
+def test_torch_geometry_is_one_chol_inv_logdet_call(target, monkeypatch):
+    """The geometry is one ``ops.chol_inv_logdet`` call (K3 on a card), at init and after each of the L
+    leapfrog steps, with ``config.linalg`` as its method; none of the three calls it stands for."""
+    _, tm, pos = target
+    calls, real = [], ops.chol_inv_logdet
+    monkeypatch.setattr(ops, "chol_inv_logdet", lambda g, method=None: calls.append((tuple(g.shape), method))
+                        or real(g, method=method))
+    for name in ("cholesky", "inv_psd_from_chol", "logdet_from_chol"):
+        monkeypatch.setattr(ops, name, lambda *args, name=name, **kw: pytest.fail(f"geometry called ops.{name}"))
+    tk = rmhmc.build(tm, rmhmc.RMHMCConfig(linalg="unrolled"))
+    state = tk.init(torch.from_numpy(pos))
+    tk.transition(state, jax_noise(jax.random.key(4)))
+    assert calls == [((C, D, D), "unrolled")] * (1 + rmhmc.RMHMCConfig().num_leapfrog)
 
 
 def test_torch_zero_length_trajectory_keeps_position(target):
