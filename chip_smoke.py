@@ -13,14 +13,16 @@ It imports no jax.  Phases, each printing one line of findings:
 2. build: compiles ``ops/csrc/*.cu`` with nvcc (cached by source hash under
    the git-ignored ``build/``; one nvcc per source, all started together),
    prints the build seconds and the ptxas register / spill report (K1 / K2 / K3
-   per width, T1, the FHN kernel per order, G1 per count 1..SWEEP_ENT_MAX of
+   per width, T1, T2 per positions a thread and its device-memory form's
+   three rounds, the FHN kernel per order, G1 per count 1..SWEEP_ENT_MAX of
    B's entries a lane holds with and without its prologue and its wide
    layout's two forms, G2 and the single GIG round: exactly one
    instantiation each, G1's spilling in none), holds SWEEP_ENT_MAX and G1's
    scratch size against the library's, and
    holds ``hopper_linalg.launch_geometry`` (lanes per chain, chains per
    block, shared-memory tile) against the built library's own answer for
-   every width 1..48, and ``fhn_sens.launch_geometry`` (lanes per chain,
+   every width 1..48, ``tridiag.pcr_geometry`` against the library's at
+   16 lengths T across its forms' cut-overs, and ``fhn_sens.launch_geometry`` (lanes per chain,
    chains and threads per block, blocks, shared bytes) and
    ``fhn_sens.output_owners`` (the lane of a chain's group that writes each
    output entry) against the library's for orders 0-2 at C in {1, 31, 256,
@@ -50,13 +52,24 @@ It imports no jax.  Phases, each printing one line of findings:
    no one call computes, the sequence cholesky_ex, cholesky_solve, log of
    the diagonal (``library_seq_ms``: a sequence, for information only), for
    K3 cholesky_ex, cholesky_inverse, log of the diagonal (the same).  Then
-   T1, StochVol's bidiagonal scan (``ops/csrc/tridiag.cu``), against its
-   twin (the loop of three launches a position) at (B, T) = (1024, 2000),
-   (1025, 2000), (3, 1), (3, 2) and (64, 7) on seeded StochVol metrics
+   StochVol's tridiagonal kernels (``ops/csrc/tridiag.cu``; also run by
+   ``--phases stochvol``): T1, the bidiagonal scan on the pivots, against
+   its twin (the loop of seven launches a position) at (B, T) = (1024, 2000),
+   (1025, 2000), (3, 1), (3, 2) and (64, 7) on seeded StochVol metrics, off
+   an expanded view as the model makes it, read through its strides
    (rtol / atol 1e-5, NaN exactly where the twin has it), with a chain
    made indefinite at T / 2 (NaN from there on, in it alone) and HMC's
-   identity mass (ld 1, e 0 exactly), and its times at (1024, 2000): no
-   single PyTorch call computes it, so no library yardstick.
+   identity mass (ld 1, e 0 exactly), and its times at (1024, 2000), the
+   wrapper one device event (no copy); T2, the PCR solve, against
+   ``tridiag.solve_plain`` on the card, ``torch.equal``, at (B, T) =
+   (1024, 2000), (1025, 2000), (3, 1), (3, 2), (3, 3), (64, 7), (64, 1025)
+   and (64, 2049) on StochVol's metric, at (1024, 2000) on HMC's identity
+   mass and with a non-contiguous b, and at (4, 20000), past the
+   shared-memory form (one launch a round); its times at (1024, 2000)
+   (``pcr-kernel-times``: ``device_us`` beside ``pcr_bound_us``, the
+   wrapper's ``ms``, the twin's ``plain_ms`` and device time and launches,
+   registers and spill from the ptxas report) and at (4, 20000).  No single
+   PyTorch call computes either, so no library yardstick.
    Then the FitzHugh-Nagumo sensitivity kernel (``ops/csrc/fhn_sens.cu``)
    against its plain twin at (C, num_obs, substeps) = (256, 200, 5) and
    (257, 200, 5), orders 0, 1 and 2, on seeded theta around the truth with
@@ -131,14 +144,20 @@ It imports no jax.  Phases, each printing one line of findings:
 7. stochvol: ``experiments.run_workload("stochvol", m, device="cuda")`` for
    m in {rmhmc, hmc, mala, mmala} at T = 2000 latents and 1024 chains (the
    hyper block runs K1 / K2 / K3 at D = 3, the latent block T1 once a
-   sweep but under MALA): finite hyper and latent samples of
+   sweep and T2 once a latent leapfrog step and twice more (rmhmc, hmc) or
+   three times (mmala), but under MALA neither), after one captured sweep
+   each of rmhmc, hmc and mmala from one state and one noise through T2
+   and again with ``tridiag.solve_plain`` patched in, ``torch.equal`` leaf
+   for leaf, T1 once in both and T2 counted on the device in the first
+   alone: finite hyper and latent samples of
    the right shapes, acceptance in a window around the JAX package's at the
    same constants, depth, seed and data (measured on the CPU, PERF.md),
    divergences (no gate for hmc, whose reference rate is ~0.7%), hyper
    means against the JAX package's at the same depth from the same start
    (z < 5 over the chain means; only RMHMC has mixed at these depths) and
-   RMHMC's inside the boxes of tests/test_stochvol.py:77-79, and K1 / K2 / K3
-   and T1 launch counts equal to the formulas;
+   RMHMC's inside the boxes of tests/test_stochvol.py:77-79, and K1 / K2 / K3,
+   T1 and T2 launch counts equal to the formulas (T2's from each run's own
+   latent L);
 8. lgc: ``run_workload("lgc", s, device="cuda")`` on the 64 x 64 grid
    (D = 4096) for constant-metric RMHMC (phmc, 64 chains), the
    position-dependent mMALA (8 chains, a (C, 4096, 4096) metric per step)
@@ -257,8 +276,8 @@ It imports no jax.  Phases, each printing one line of findings:
    chains, StochVol's four methods at T = 2000 and 1024 chains, MALA with
    its transient burn-in kernel, and the joint LGC pair at n = 32 with 16
    chains), 3 + 3, eager against captured, bit for bit, with equal launch
-   counts (StochVol's and the joint pair's K1 / K2 / K3 counts equal to
-   ``sv_expected_launches`` / ``lgcj_expected_launches``) and one capture
+   counts (StochVol's K1 / K2 / K3, T1 and T2 counts and the joint pair's
+   K1 / K2 / K3 equal to ``sv_expected_launches`` / ``lgcj_expected_launches``) and one capture
    per kernel of the run, after one eager step of each of the run's kernels under
    ``torch.cuda.set_sync_debug_mode("error")``; where a run launched a
    hand-written kernel (and for the main path), three replays of its graph
@@ -374,7 +393,20 @@ BIDIAG_KERNEL_NAME = "bidiag_scan_kernel"
 # a few short chains; a non-PD chain and HMC's identity mass each at (1024, 2000).
 BIDIAG_SHAPES = ((1024, 2000), (1025, 2000), (3, 1), (3, 2), (64, 7))
 BIDIAG_TIMED = (1024, 2000)
-BIDIAG_TOL = (1e-5, 1e-5)  # (rtol, atol): the twin's operations in its order, d - e^2 rounded once in the kernel
+BIDIAG_TOL = (1e-5, 1e-5)  # (rtol, atol): the twin's operations in its order, each rounded as in the kernel
+# The StochVol latent block's PCR solve T2 (csrc/tridiag.cu): no Pallas kernel behind it either.
+PCR = "pcr_solve"  # its name in ops.launches
+PCR_REPLACES = "riemannhamiltonianmontecarlo_tpu/ops/tridiag.py:79-112 (the PCR solve's compiled loop; no pallas_call)"
+PCR_KERNEL_NAME = "pcr_solve"  # a part of both forms' names: pcr_solve_kernel<P>, pcr_solve_global_kernel<..>
+# T2 against solve_plain at (B, T), torch.equal: StochVol's width, a ragged batch, T = 1 (no round), 2, 3, a few
+# short chains, a T just past 2^10 and one past 2^11; StochVol's metric (off an expanded view), HMC's identity
+# mass and a non-contiguous b at (1024, 2000); past the shared-memory form, a few chains with the twin on the card.
+PCR_SHAPES = ((1024, 2000), (1025, 2000), (3, 1), (3, 2), (3, 3), (64, 7), (64, 1025), (64, 2049))
+PCR_TIMED = (1024, 2000)
+PCR_LONG = (4, 20000)  # (B, T): past tridiag.PCR_SHARED_MAX_T, one launch a round through device memory
+# T at which T2's launch geometry is held against the built library's: every positions-a-thread form, the
+# cut-over to one launch a round (tridiag.PCR_SHARED_MAX_T, 14,528) and past it.
+PCR_GEOMETRY_T = (1, 2, 3, 7, 31, 33, 257, 1025, 2000, 2049, 8192, 8193, 14528, 14529, 20000, 1 << 20)
 
 
 # The Gibbs step's two kernels (csrc/gibbs.cu): no Pallas kernel behind either.
@@ -391,7 +423,7 @@ GIBBS_KERNEL_NAMES = {"gibbs_sweep": "gibbs_sweep", "gig_half": "gig_half_kernel
                       "gig_round": "gig_round_kernel"}
 GIBBS_COUNTED = tuple(GIBBS_KERNEL_NAMES)
 # Counted kernels that a run's counts list only where they launched (a Gibbs or StochVol run).
-SOMETIMES_COUNTED = (*GIBBS_COUNTED, BIDIAG)
+SOMETIMES_COUNTED = (*GIBBS_COUNTED, BIDIAG, PCR)
 
 
 class SmokeFailure(RuntimeError):
@@ -495,7 +527,8 @@ def replay_launches(kernel, state, replays: int = GRAPH_REPLAYS, sessions: int =
 
     entry = rt.parallel.graphs.lookup(kernel.step, None, state)
     check(entry is not None, "no captured graph of the step: the run did not take the captured path")
-    names = {**KERNEL_NAMES, "fhn_sensitivities": FHN_KERNEL_NAME, **GIBBS_KERNEL_NAMES, BIDIAG: BIDIAG_KERNEL_NAME}
+    names = {**KERNEL_NAMES, "fhn_sensitivities": FHN_KERNEL_NAME, **GIBBS_KERNEL_NAMES, BIDIAG: BIDIAG_KERNEL_NAME,
+             PCR: PCR_KERNEL_NAME}
     gen = torch.Generator(device=DEVICE).manual_seed(GRAPH_SEED)
     seen = []
     for _ in range(sessions):
@@ -547,6 +580,17 @@ def bidiag_bound_us(b: int, t: int) -> tuple[float, str]:
     return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
 
 
+def pcr_bound_us(b: int, t: int) -> tuple[float, str]:
+    """T2's least microseconds on (B, T), and which side gives it.  Bytes: diag and b read once, x written
+    once, and off StochVol's expanded view, one float a row (3 B T + B floats).  Operations: two divisions,
+    six products, four sums and two negations a position and round, ceil(log2 T) rounds, and the last
+    division a position.  Neither sees that the rounds depend on each other."""
+    rounds = (t - 1).bit_length()
+    by_bytes = 1e6 * 4 * (3 * b * t + b) / HBM_BYTES_PER_S
+    by_ops = 1e6 * b * t * (14 * rounds + 1) / FP32_OPS_PER_S
+    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+
+
 def spd_batch(c: int, d: int, seed: int):
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
     a = torch.randn((c, d, d), generator=gen, device=DEVICE)
@@ -574,7 +618,8 @@ def phase_device() -> str:
     return line
 
 
-def phase_build() -> None:
+def phase_build() -> dict:
+    """Build the kernels and check the ptxas report; returns T1's and T2's registers and spill stores."""
     t0 = time.perf_counter()
     lib_path = _build.build()
     hl._lib()  # load and bind
@@ -599,6 +644,19 @@ def phase_build() -> None:
     bidiag_found = re.findall(rf"{BIDIAG_KERNEL_NAME}.*?(\d+) bytes spill stores.*?Used (\d+) registers", log, re.S)
     check(len(bidiag_found) == 1, f"ptxas report names {len(bidiag_found)} {BIDIAG_KERNEL_NAME}, expected one")
     bidiag_regs = {"registers": int(bidiag_found[0][1]), "spill_store_bytes": int(bidiag_found[0][0])}
+    # T2: the shared-memory form per positions a thread, the device-memory form per (first, last) round.
+    pcr_found = re.findall(r"(pcr_solve_kernel|pcr_solve_global_kernel)I(?:Li(\d+)E|Lb([01])ELb([01])E)E"
+                           r".*?(\d+) bytes spill stores.*?Used (\d+) registers", log, re.S)
+    pcr_regs = {(f"{name}<{per}>" if per else f"{name}<{first},{last}>"): {"registers": int(r),
+                                                                            "spill_store_bytes": int(sp)}
+                for name, per, first, last, sp, r in pcr_found}
+    expected = [*(f"pcr_solve_kernel<{per}>" for per in (1, 2, 4, 8, 16)),
+                *(f"pcr_solve_global_kernel<{f},{l}>" for f, l in ((1, 0), (0, 0), (0, 1)))]
+    check(len(pcr_found) == len(expected) and sorted(pcr_regs) == sorted(expected),
+          f"ptxas report names T2 kernels {sorted(pcr_regs)}, expected one each of {expected}")
+    for t in PCR_GEOMETRY_T:
+        mirror, built = rt.ops.tridiag.pcr_geometry(t), rt.ops.tridiag.built_pcr_geometry(t)
+        check(mirror == built, f"T2 launch geometry at T={t}: Python {mirror}, built library {built}")
     # The FHN kernel per order and data path (staged in shared memory, or streamed past STAGED_MAX_OBS):
     # registers and spill stores (none expected), exactly one instantiation of each.
     fhn_found = re.findall(rf"{FHN_KERNEL_NAME}ILi(\d)ELb([01])EE.*?(\d+) bytes spill stores.*?Used (\d+) registers",
@@ -652,10 +710,11 @@ def phase_build() -> None:
     say("build", seconds=seconds, library=str(lib_path), kernels=len(regs),
         max_registers=max(regs), max_spill_store_bytes=max(spills, default=0),
         max_stack_frame_bytes=max(stack, default=0), registers=per_kernel, spill_store_bytes=linalg_spills,
-        bidiag_kernel=bidiag_regs, fhn_kernel=fhn_regs,
+        bidiag_kernel=bidiag_regs, pcr_kernels=pcr_regs, fhn_kernel=fhn_regs,
         gibbs_kernels=gibbs_regs, geometry={d: tuple(hl.launch_geometry(d)) for d in (3, 10, 15, 25, 48)},
         fhn_geometry={order: tuple(rt.ops.fhn_sens.launch_geometry(order, FHN_CHAINS, FHN_OBS))
                       for order in rt.ops.fhn_sens.ORDERS})
+    return {BIDIAG: bidiag_regs, PCR: pcr_regs}
 
 
 # G1's spill stores by instantiation, bytes: 25 entries a lane without the prologue spills 4 B at 168
@@ -799,8 +858,8 @@ def time_kernels(c: int, d: int) -> dict:
 
 
 def phase_kernels(smi: str) -> dict:
-    """K1, K2 and K3 against their twins, then T1; returns per-kernel max |err| and times."""
-    err = dict(NO_LINALG, **{BIDIAG: 0.0})
+    """K1, K2 and K3 against their twins; returns per-kernel max |err| and times."""
+    err = dict(NO_LINALG)
     shapes = [(c, d) for d in (3, 7, 10, 15, 25) for c in (NUM_CHAINS, NUM_CHAINS + 1)] + [(SV_CHAINS, 3), (FHN_CHAINS, 3)]
     shapes += [(LGCJ_CHAINS, 2), (NUM_CHAINS + 1, 2)]  # the joint LGC hyper block's width
     for c, d in shapes + [(NUM_CHAINS + 1, 40)]:  # 40: two rows a lane
@@ -817,8 +876,7 @@ def phase_kernels(smi: str) -> dict:
         times[c, d] = time_kernels(c, d)
         for name, row in times[c, d].items():
             say("kernel-times", kernel=name, C=c, D=d, card=smi, **row)
-    bidiag = phase_bidiag_kernel(smi, err)
-    return {"err": err, "times": times, "bidiag": bidiag}
+    return {"err": err, "times": times}
 
 
 def bidiag_inputs(b: int, t: int, seed: int):
@@ -866,33 +924,114 @@ def check_bidiag(b: int, t: int, err: dict, case: str = "metric") -> dict:
             "bit_for_bit": torch.equal(kern.ld[ok], plain.ld[ok]) and torch.equal(kern.e[ok], plain.e[ok])}
 
 
-def phase_bidiag_kernel(smi: str, err: dict) -> dict:
+def phase_bidiag_kernel(smi: str, err: dict, regs: dict) -> dict:
     """T1 against its twin at BIDIAG_SHAPES (and a non-PD chain, the identity mass), then its times at
     BIDIAG_TIMED beside its bound and the twin's."""
     checked = [check_bidiag(b, t, err) for b, t in BIDIAG_SHAPES]
     checked += [check_bidiag(*BIDIAG_TIMED, err, case) for case in ("non-pd", "identity")]
     say("bidiag-kernel", checked=checked, tolerance_rtol_atol=BIDIAG_TOL)
     b, t = BIDIAG_TIMED
-    diag, off = bidiag_inputs(b, t, seed=1)
-    off = off.contiguous()  # the operands the launch reads; the wrapper copies StochVol's expanded view
-    ld, e = torch.empty_like(diag), torch.empty_like(off)
+    diag, off = bidiag_inputs(b, t, seed=1)  # off StochVol's expanded view, read by the kernel through its strides
+    ld, e = torch.empty_like(diag), torch.empty((b, t - 1), device=DEVICE)
 
     def launch():
         rt.ops.tridiag._launch((diag, off, ld, e), b, t)
     dev = device_us(launch, launches=20, name_part=BIDIAG_KERNEL_NAME)
     check(dev["events_per_call"] == 1, f"T1: {dev['events_per_call']} device kernels per launch")
+    wrapper = device_us(lambda: rt.ops.tridiag.cholesky_cuda(diag, off), launches=20)
     bound, bound_by = bidiag_bound_us(b, t)
     times = {
         "ms": median_ms(lambda: rt.ops.tridiag.cholesky_cuda(diag, off), reps=20),
         "burst_ms": burst_ms(lambda: rt.ops.tridiag.cholesky_cuda(diag, off), launches=20, warmup=2),
         "kernel_only_ms": burst_ms(launch, launches=20, warmup=2),
         "device_us": dev["us"], "device_us_source": dev["source"], "profiler_sessions": dev["sessions"],
+        "wrapper_device_events": wrapper["events_per_call"],
         "ns_per_position": 1e3 * dev["us"] / t,
         "plain_ms": median_ms(lambda: rt.ops.tridiag.cholesky_plain(diag, off), reps=5, warmup=1),
-        "bound_us": bound, "bound_by": bound_by, "share_of_bound": bound / dev["us"],
+        "bound_us": bound, "bound_by": bound_by, "share_of_bound": bound / dev["us"], **regs[BIDIAG],
     }
+    check(times["wrapper_device_events"] == 1, f"T1's wrapper: {times['wrapper_device_events']} device events a call, "
+                                               "expected the kernel alone (no copy of the expanded off)")
     say("bidiag-kernel-times", kernel=BIDIAG, B=b, T=t, card=smi, **times)
     return {"checked": checked, "times": times}
+
+
+def check_pcr(b: int, t: int, case: str = "metric") -> dict:
+    """T2 against ``solve_plain`` on the card at (B, T), ``torch.equal`` (the same operations, each rounded
+    as PyTorch rounds it): ``metric`` (StochVol's G, off an expanded view), ``identity`` (HMC's mass) or
+    ``strided-b`` (the metric with b a non-contiguous view, which the wrapper copies)."""
+    if case == "identity":
+        diag, off = torch.ones((b, t), device=DEVICE), torch.zeros((b, t - 1), device=DEVICE)
+    else:
+        diag, off = bidiag_inputs(b, t, seed=b + t)
+    gen = torch.Generator(device=DEVICE).manual_seed(7 * b + t)
+    rhs = torch.randn((b, t), generator=gen, device=DEVICE)
+    if case == "strided-b":
+        rhs = torch.randn((b, 2 * t), generator=gen, device=DEVICE)[:, ::2]
+        check(not rhs.is_contiguous(), "the strided case's b is contiguous")
+    x, plain = rt.ops.tridiag.solve_cuda(diag, off, rhs), rt.ops.tridiag.solve_plain(diag, off, rhs)
+    torch.cuda.synchronize()
+    at = f"T2 at (B={b}, T={t}, {case})"
+    check(x.shape == (b, t) and bool(torch.isfinite(x).all()), f"{at}: shape {tuple(x.shape)} or non-finite values")
+    residual = float((rt.ops.tridiag.matvec(diag, off, x) - rhs).abs().max()) if t > 1 else 0.0
+    max_err = float((x - plain).abs().max())
+    check(torch.equal(x, plain), f"{at}: not bit for bit solve_plain's (max |err| {max_err})")
+    return {"B": b, "T": t, "case": case, "bit_for_bit": True, "max_abs_err": max_err,
+            "launches_a_call": rt.ops.tridiag.pcr_geometry(t).launches, "max_abs_residual": residual}
+
+
+def phase_pcr_kernel(smi: str, err: dict, regs: dict) -> dict:
+    """T2 against solve_plain at PCR_SHAPES, on HMC's identity mass and a strided b at PCR_TIMED, and past
+    the shared-memory form at PCR_LONG; then its times at PCR_TIMED beside its bound and the twin's."""
+    checked = [check_pcr(b, t) for b, t in PCR_SHAPES]
+    checked += [check_pcr(*PCR_TIMED, case) for case in ("identity", "strided-b")]
+    checked.append(check_pcr(*PCR_LONG))
+    err[PCR] = max(row["max_abs_err"] for row in checked)
+    say("pcr-kernel", checked=checked, tolerance="torch.equal")
+    b, t = PCR_TIMED
+    diag, off = bidiag_inputs(b, t, seed=1)
+    rhs = torch.randn((b, t), generator=torch.Generator(device=DEVICE).manual_seed(2), device=DEVICE)
+    x = torch.empty_like(rhs)
+
+    def launch():
+        rt.ops.tridiag._launch_solve(diag, off, rhs, x, None, b, t)
+    dev = device_us(launch, launches=20, name_part=PCR_KERNEL_NAME)
+    check(dev["events_per_call"] == 1, f"T2: {dev['events_per_call']} device kernels per launch")
+    wrapper = device_us(lambda: rt.ops.tridiag.solve_cuda(diag, off, rhs), launches=20)
+    plain = device_us(lambda: rt.ops.tridiag.solve_plain(diag, off, rhs), launches=5)
+    bound, bound_by = pcr_bound_us(b, t)
+    geometry = rt.ops.tridiag.pcr_geometry(t)
+    times = {
+        "ms": median_ms(lambda: rt.ops.tridiag.solve_cuda(diag, off, rhs), reps=20),
+        "burst_ms": burst_ms(lambda: rt.ops.tridiag.solve_cuda(diag, off, rhs), launches=20, warmup=2),
+        "kernel_only_ms": burst_ms(launch, launches=20, warmup=2),
+        "device_us": dev["us"], "device_us_source": dev["source"], "profiler_sessions": dev["sessions"],
+        "wrapper_device_events": wrapper["events_per_call"],
+        "plain_ms": median_ms(lambda: rt.ops.tridiag.solve_plain(diag, off, rhs), reps=5, warmup=1),
+        "plain_device_us": plain["us"], "plain_launches": plain["events_per_call"],
+        "bound_us": bound, "bound_by": bound_by, "share_of_bound": bound / dev["us"],
+        "threads": geometry.threads, "positions_a_thread": geometry.per_thread, "shared_bytes": geometry.shared_bytes,
+        **regs[PCR][f"pcr_solve_kernel<{geometry.per_thread}>"],
+    }
+    check(times["wrapper_device_events"] == 1, f"T2's wrapper: {times['wrapper_device_events']} device events a call")
+    long_b, long_t = PCR_LONG
+    long_diag, long_off = bidiag_inputs(long_b, long_t, seed=3)
+    long_rhs = torch.randn((long_b, long_t), generator=torch.Generator(device=DEVICE).manual_seed(4), device=DEVICE)
+    long_dev = device_us(lambda: rt.ops.tridiag.solve_cuda(long_diag, long_off, long_rhs), launches=5,
+                         name_part=PCR_KERNEL_NAME)
+    times["long"] = {"B": long_b, "T": long_t, "device_us": long_dev["us"], "launches": long_dev["events_per_call"],
+                     "bound_us": pcr_bound_us(long_b, long_t)[0]}
+    check(long_dev["events_per_call"] == rt.ops.tridiag.pcr_geometry(long_t).launches,
+          f"T2 at T={long_t}: {long_dev['events_per_call']} launches a call, expected "
+          f"{rt.ops.tridiag.pcr_geometry(long_t).launches}")
+    say("pcr-kernel-times", kernel=PCR, B=b, T=t, card=smi, **times)
+    return {"checked": checked, "times": times}
+
+
+def phase_tridiag_kernels(smi: str, regs: dict) -> dict:
+    """T1 and T2 against their twins, and their times; returns their max |err|, checks and times."""
+    err = {BIDIAG: 0.0, PCR: 0.0}
+    return {"err": err, BIDIAG: phase_bidiag_kernel(smi, err, regs), PCR: phase_pcr_kernel(smi, err, regs)}
 
 
 # -- phase 3, the Gibbs step's kernels: G1 (the sweep) and G2 (a GIG round) ------
@@ -1698,20 +1837,77 @@ HYPER_L = rt.samplers.stochvol.StochVolConfig().hyper_num_leapfrog  # 6, the rmh
 HYPER_FP = rt.samplers.stochvol.StochVolConfig().hyper_num_fixed_point  # 5
 
 
-def sv_expected_launches(method: str, sweeps: int) -> dict:
-    """K1 / K2 / K3 and T1 launches of a stochvol run, read from the code: the
+def sv_config(method: str) -> "rt.samplers.stochvol.StochVolConfig":
+    """The StochVolConfig that ``experiments.build_workload`` gives ``method``'s sampling kernel (its
+    preset), recorded as the kernel is built."""
+    seen, inner = [], rt.samplers.stochvol.build
+
+    def build(model, config):
+        seen.append(config)
+        return inner(model, config)
+    with unittest.mock.patch.object(rt.samplers.stochvol, "build", build):
+        experiments.build_workload("stochvol", method, device=DEVICE, seed=SV_SEED, stochvol_obs=8)
+    return seen[0]  # MALA's burn-in kernel is built after its sampling kernel
+
+
+def sv_expected_launches(method: str, sweeps: int, t: int = SV_OBS) -> dict:
+    """K1 / K2 / K3, T1 and T2 launches of a stochvol run, read from the code: the
     hyper kernel is rebuilt every sweep; RMHMC builds the geometry at the start
     and after each leapfrog step (K3) and solves once per position fixed-point
     round (K2); mMALA factors in ``init`` and at the proposal (K1).  The latent
     update of rmhmc, hmc and mmala factors its tridiagonal metric once a sweep
-    (T1); MALA's has no metric."""
-    scan = {} if method == "mala" else {BIDIAG: sweeps}
+    (T1) and solves with it (T2) once a latent leapfrog step and twice for the
+    kinetic energies (rmhmc, hmc: L + 2 with the run's own latent L) or three
+    times (mmala: two drifts and the proposal's noise), each solve
+    ``tridiag.pcr_geometry(t).launches`` launches (one at t <= PCR_SHARED_MAX_T);
+    MALA's has no metric."""
+    solves = {"rmhmc": sv_config("rmhmc").latent_num_leapfrog + 2, "hmc": sv_config("hmc").latent_num_leapfrog + 2,
+              "mmala": 3, "mala": 0}[method]
+    launches = solves * rt.ops.tridiag.pcr_geometry(t).launches * sweeps
+    latent = {} if method == "mala" else {BIDIAG: sweeps, PCR: launches}
     if method == "rmhmc":
         return {**NO_LINALG, "chol_solve_logdet": HYPER_L * HYPER_FP * sweeps,
-                "chol_inv_logdet": (1 + HYPER_L) * sweeps, **scan}
+                "chol_inv_logdet": (1 + HYPER_L) * sweeps, **latent}
     if method == "mmala":
-        return {**NO_LINALG, "cholesky": 2 * sweeps, **scan}
-    return {**NO_LINALG, **scan}
+        return {**NO_LINALG, "cholesky": 2 * sweeps, **latent}
+    return {**NO_LINALG, **latent}
+
+
+def sv_sweep_routes(method: str) -> dict:
+    """One captured StochVol sweep from one state and one noise, through T2 and again with
+    ``tridiag.solve_plain`` patched in for ``tridiag.solve`` (T1 factors in both): the two must be
+    ``torch.equal`` leaf for leaf, and each graph's replay counts its own T1 and T2 launches."""
+    kernel, init_fn, *_ = experiments.build_workload("stochvol", method, device=DEVICE, seed=SV_SEED,
+                                                     stochvol_obs=SV_OBS)
+    gen = torch.Generator(device=DEVICE).manual_seed(SV_SEED + 1)
+    with rt.ops.launches.paused():
+        state = kernel.init(init_fn(SV_CHAINS))
+        for _ in range(2):  # a state off the initial x = y
+            state, _ = kernel.step(gen, state)
+        noise = kernel.draw_noise(gen, state)
+    out, counts = {}, {}
+    for route in ("T2", "solve_plain"):
+        patch = (unittest.mock.patch.object(rt.ops.tridiag, "solve", rt.ops.tridiag.solve_plain)
+                 if route == "solve_plain" else contextlib.nullcontext())
+        with patch:
+            with rt.ops.launches.paused():
+                kernel.transition(state, noise)  # warm: allocations outside the capture
+            torch.cuda.synchronize()
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                out[route] = kernel.transition(state, noise)
+        rt.ops.launches.reset((BIDIAG, PCR))
+        graph.replay()
+        counts[route] = rt.ops.launches.counts((BIDIAG, PCR))
+        del graph
+    differs = differing_leaves(out["T2"], out["solve_plain"])
+    expected = sv_expected_launches(method, 1)
+    check(not differs, f"stochvol/{method}: a captured sweep through T2 and one through solve_plain differ in "
+                       f"leaves {differs}")
+    check(counts["T2"] == {BIDIAG: 1, PCR: expected[PCR]} and counts["solve_plain"] == {BIDIAG: 1, PCR: 0},
+          f"stochvol/{method}: one captured sweep's T1 / T2 launches {counts}, expected T1 1 on both routes and "
+          f"T2 {expected[PCR]} through T2")
+    return {"run": f"stochvol/{method}", "equal": True, "launches": counts}
 
 
 def chain_mean_z(a: np.ndarray, b_mean, b_sd, b_chains: int) -> np.ndarray:
@@ -1752,6 +1948,8 @@ def check_hyper_autodiff() -> None:
 
 def phase_stochvol(smi: str) -> dict:
     check_hyper_autodiff()
+    for method in ("rmhmc", "hmc", "mmala"):
+        say("stochvol-sweep-routes", chains=SV_CHAINS, T=SV_OBS, **sv_sweep_routes(method))
     launches_by_path, rm = {}, None
     for method, (burn, samples) in SV_RUNS.items():
         label = f"stochvol/{method}"
@@ -3447,22 +3645,29 @@ LAUNCHES_FROM = {"cholesky": "mmala/australian", "chol_solve_logdet": "rmhmc-mai
                  "chol_inv_logdet": "rmhmc-main-path"}
 
 
-def bidiag_summary(kernels: dict, by_path: dict, smi: str) -> dict:
-    """T1's entry of the kernels line: its times at (1024, 2000), ``launches`` phase 7's StochVol RMHMC run
-    (one a sweep), every path's count under ``launches_by_path``."""
-    times = kernels["bidiag"]["times"]
-    paths = {label: counts[BIDIAG] for label, counts in by_path.items() if BIDIAG in counts}
-    check(paths.get("stochvol/rmhmc", 0) > 0, f"{BIDIAG}: no launch on stochvol/rmhmc ({paths})")
-    return {
-        "name": BIDIAG, "route": "cuda", "source": BIDIAG_SOURCE, "replaces": BIDIAG_REPLACES,
-        "launches": paths["stochvol/rmhmc"], "launches_from": "stochvol/rmhmc",
-        "launches_counted_by": LAUNCHES_COUNTED_BY, "max_abs_err": kernels["err"][BIDIAG],
-        "ms": times["ms"], "plain_ms": times["plain_ms"], "bound_ms": times["bound_us"] / 1e3,
-        "bound_by": times["bound_by"], "library_ms": None, "library_note": "no single PyTorch call computes it",
-        "device_us": times["device_us"], "share_of_bound": times["share_of_bound"],
-        "ns_per_position": times["ns_per_position"], "card": smi, "shape": {"B": BIDIAG_TIMED[0], "T": BIDIAG_TIMED[1]},
-        "checked": kernels["bidiag"]["checked"], "launches_by_path": paths,
-    }
+def tridiag_summary(tridiag: dict, by_path: dict, smi: str) -> list[dict]:
+    """T1's and T2's entries of the kernels line: their times at (1024, 2000), ``launches`` phase 7's StochVol
+    RMHMC run (T1 one a sweep, T2 L + 2), every path's count under ``launches_by_path``."""
+    rows = []
+    for name, source_name, replaces, shape in ((BIDIAG, BIDIAG_KERNEL_NAME, BIDIAG_REPLACES, BIDIAG_TIMED),
+                                               (PCR, PCR_KERNEL_NAME, PCR_REPLACES, PCR_TIMED)):
+        times = tridiag[name]["times"]
+        paths = {label: counts[name] for label, counts in by_path.items() if name in counts}
+        check(paths.get("stochvol/rmhmc", 0) > 0, f"{name}: no launch on stochvol/rmhmc ({paths})")
+        rows.append({
+            "name": name, "route": "cuda", "source": BIDIAG_SOURCE, "replaces": replaces, "kernel": source_name,
+            "launches": paths["stochvol/rmhmc"], "launches_from": "stochvol/rmhmc",
+            "launches_counted_by": LAUNCHES_COUNTED_BY, "max_abs_err": tridiag["err"][name],
+            "ms": times["ms"], "plain_ms": times["plain_ms"], "bound_ms": times["bound_us"] / 1e3,
+            "bound_by": times["bound_by"], "library_ms": None, "library_note": "no single PyTorch call computes it",
+            "device_us": times["device_us"], "share_of_bound": times["share_of_bound"],
+            "registers": times["registers"], "spill_store_bytes": times["spill_store_bytes"],
+            "card": smi, "shape": {"B": shape[0], "T": shape[1]},
+            "checked": tridiag[name]["checked"], "launches_by_path": paths,
+        })
+    rows[0]["ns_per_position"] = tridiag[BIDIAG]["times"]["ns_per_position"]
+    rows[1]["past_shared_memory"] = tridiag[PCR]["times"]["long"]
+    return rows
 
 
 def gibbs_summary(kernels: dict, by_path: dict, smi: str) -> list[dict]:
@@ -3535,7 +3740,7 @@ def main(argv=None) -> None:
     by_path = {}
     with torch.inference_mode():
         smi = phase_device()
-        phase_build()
+        regs = phase_build()
         lap("device+build")
         k_err = dict(NO_LINALG)
         with rt.ops.launches.paused():  # launches that compare and time a kernel are not the run's
@@ -3543,6 +3748,8 @@ def main(argv=None) -> None:
                 kernels = phase_kernels(smi)
                 k_err = kernels["err"]
                 gibbs_kernels = phase_gibbs_kernels(smi)
+            if "kernels" in phases or "stochvol" in phases:  # T1's and T2's checks and times; phase 7 drives them
+                tridiag = phase_tridiag_kernels(smi, regs)
             if "kernels" in phases or "fhn" in phases:  # the FHN kernel's checks and times; phase 10 reports them
                 fhn_kernel = phase_fhn_kernel(smi, k_err)
                 lap("kernels")
@@ -3596,7 +3803,7 @@ def main(argv=None) -> None:
             "shapes": {f"C{c}_D{d}": row[name] for (c, d), row in kernels["times"].items()},
             "launches_by_path": {label: counts[name] for label, counts in by_path.items() if name in counts},
         })
-    summary.append(bidiag_summary(kernels, by_path, smi))
+    summary += tridiag_summary(tridiag, by_path, smi)
     summary.append(fhn_summary(fhn, smi))
     summary += gibbs_summary(gibbs_kernels, by_path, smi)
     print(smi, flush=True)

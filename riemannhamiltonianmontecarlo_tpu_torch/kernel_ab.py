@@ -1,6 +1,6 @@
 """Time the hand-written kernels of two checkouts in turns on one CUDA card.
 
-    python -m riemannhamiltonianmontecarlo_tpu_torch.kernel_ab --parent DIR [--kernels linalg,fhn,gibbs,geometry,bidiag] [--out FILE]
+    python -m riemannhamiltonianmontecarlo_tpu_torch.kernel_ab --parent DIR [--kernels linalg,fhn,gibbs,geometry,bidiag,pcr] [--out FILE]
 
 ``DIR`` holds another checkout of the repository (for example an earlier
 commit unpacked with ``git archive`` under the git-ignored ``build/``); this
@@ -54,9 +54,13 @@ on a (C, D, D) CUDA batch at ``chip_smoke.TIMED_SHAPES``: ``ops.chol_inv_logdet`
 (K3, one launch) where the checkout has it, else ``ops.cholesky`` (K1), the
 unrolled ``ops.inv_psd_from_chol`` and ``0.5 * ops.logdet_from_chol``; and
 ``--kernels bidiag`` StochVol's bidiagonal factor ``ops.tridiag.cholesky`` as
-each checkout runs it at ``BIDIAG_RUNS`` (T1 and the copy of the expanded
-off-diagonal, or the loop of three launches a position), on the latent
-metric as the model makes it and on HMC's identity mass.  Each is captured
+each checkout runs it at ``BIDIAG_RUNS`` (T1 on the pivots reading the
+expanded off-diagonal through its strides, the earlier T1 walking ld_t after a
+copy of it, or the loop of three launches a position), on the latent
+metric as the model makes it and on HMC's identity mass; ``--kernels pcr``
+StochVol's PCR solve ``ops.tridiag.solve`` as each checkout runs it at
+``PCR_RUNS`` (T2, or the plain version's 335 launches) on the
+same two metrics and a seeded b.  Each is captured
 as one CUDA graph, as the captured step runs it: ``device_us`` (every device
 event of a replay, torch.profiler, 20 replays), ``device_events_per_call``,
 ``replay_ms`` (median CUDA-event time of one replay) and ``burst_ms`` (20
@@ -78,8 +82,9 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[1]
 TURNS = ("parent", "change", "change", "parent")
-KERNELS = ("linalg", "fhn", "gibbs", "geometry", "bidiag")
+KERNELS = ("linalg", "fhn", "gibbs", "geometry", "bidiag", "pcr")
 BIDIAG_RUNS = ((1024, 2000, "metric"), (1024, 2000, "identity"), (4096, 2000, "metric"))  # (B, T, G)
+PCR_RUNS = ((1024, 2000, "metric"), (1024, 2000, "identity"), (4096, 2000, "metric"), (4096, 2000, "identity"))
 FHN_CHAINS = (256, 4224)  # the FHN samplers' chain count; one warp on each SM at one lane per chain
 FHN_LONG = ((8192, 5), (50000, 1))  # (num_obs, substeps) past the first form's 6,144 observations
 GIBBS_DATA = 690  # australian's N
@@ -111,6 +116,8 @@ def _measure(root: Path, kernels: list[str]) -> list[dict]:
             rows += _measure_geometry(smoke)
         if "bidiag" in kernels:
             rows += _measure_bidiag(smoke)
+        if "pcr" in kernels:
+            rows += _measure_pcr(smoke)
     return rows
 
 
@@ -151,20 +158,49 @@ def _measure_geometry(smoke) -> list[dict]:
     return rows
 
 
+def _latent_system(smoke, b: int, t: int, case: str):
+    """(diag, off) of HMC's identity mass as the sampler makes it, or of the latent metric, its off-diagonal an
+    expanded view as the model makes it."""
+    import torch
+
+    if case == "identity":
+        return torch.ones((b, t), device=smoke.DEVICE), torch.zeros((b, t - 1), device=smoke.DEVICE)
+    return smoke.bidiag_inputs(b, t, seed=b + t)
+
+
 def _measure_bidiag(smoke) -> list[dict]:
     import torch
 
     tridiag, card, rows = smoke.rt.ops.tridiag, smoke.smi_line(), []
-    route = "T1" if hasattr(tridiag, "cholesky_cuda") else "loop of three launches a position"
+    if hasattr(tridiag, "solve_cuda"):
+        route = "T1 on the pivots, off through its strides"
+    elif hasattr(tridiag, "cholesky_cuda"):
+        route = "T1 on ld, off copied"
+    else:
+        route = "loop of three launches a position"
     with torch.inference_mode():
         for b, t, case in BIDIAG_RUNS:
-            if case == "identity":  # HMC's mass, as the sampler makes it
-                diag, off = torch.ones((b, t), device=smoke.DEVICE), torch.zeros((b, t - 1), device=smoke.DEVICE)
-            else:  # the latent metric, its off-diagonal an expanded view as the model makes it
-                diag, off = smoke.bidiag_inputs(b, t, seed=b + t)
+            diag, off = _latent_system(smoke, b, t, case)
             bound, bound_by = smoke.bidiag_bound_us(b, t)
             row = _captured(smoke, lambda: tridiag.cholesky(diag, off))
             rows.append({"kernel": "bidiag", "B": b, "T": t, "G": case, "route": route, **row, "bound_us": bound,
+                         "bound_by": bound_by, "share_of_bound": bound / row["device_us"], "card": card})
+    return rows
+
+
+def _measure_pcr(smoke) -> list[dict]:
+    import torch
+
+    tridiag, card, rows = smoke.rt.ops.tridiag, smoke.smi_line(), []
+    route = "T2" if hasattr(tridiag, "solve_cuda") else "plain PCR, elementwise launches"
+    with torch.inference_mode():
+        for b, t, case in PCR_RUNS:
+            diag, off = _latent_system(smoke, b, t, case)
+            gen = torch.Generator(device=smoke.DEVICE).manual_seed(t)
+            rhs = torch.randn((b, t), generator=gen, device=smoke.DEVICE)
+            bound, bound_by = smoke.pcr_bound_us(b, t)
+            row = _captured(smoke, lambda: tridiag.solve(diag, off, rhs))
+            rows.append({"kernel": "pcr", "B": b, "T": t, "G": case, "route": route, **row, "bound_us": bound,
                          "bound_by": bound_by, "share_of_bound": bound / row["device_us"], "card": card})
     return rows
 

@@ -7,21 +7,27 @@ one factorization (momentum sampling) and ~L tridiagonal solves ``G \\ p``.
 Everything is batched over the leading (chain) axes, with T last:
 
 * ``cholesky``: the bidiagonal factor by the sequential recurrence over T
-  (the JAX package's ``lax.scan``).  On a CUDA tensor it is the hand-written
-  kernel T1 (``csrc/tridiag.cu``, ``cholesky_cuda``): one launch, a thread a
-  chain walking T.  On a CPU tensor it is the plain twin ``cholesky_plain``,
-  a Python loop of three launches per position with the chains vectorized;
-  never a fallback from one to the other;
+  (the JAX package's ``lax.scan``), walked on the pivots q_t = ld_t^2 so
+  that a step's dependent chain is one division and one subtraction.  On a
+  CUDA tensor it is the hand-written kernel T1 (``csrc/tridiag.cu``,
+  ``cholesky_cuda``): one launch, a thread a chain walking T.  On a CPU
+  tensor it is the plain twin ``cholesky_plain``, a Python loop over T with
+  the chains vectorized;
 * ``matvec_chol``: L z (bidiagonal), one shifted multiply-add;
 * ``matvec``: G x;
 * ``solve``: parallel cyclic reduction (PCR), ceil(log2 T) lockstep rounds
-  of elementwise work; shifts are pad-and-slice, with zero fill for the
-  off-diagonals and identity fill (1.0) for the diagonal.
+  with zero fill for the off-diagonals and identity fill (1.0) for the
+  diagonal.  On a CUDA tensor it is the hand-written kernel T2
+  (``csrc/tridiag.cu``, ``solve_cuda``): one launch, a block a chain with
+  its system in shared memory, bit for bit the plain version on the card
+  (past ``PCR_SHARED_MAX_T`` positions, one launch a round through device
+  memory).  On a CPU tensor it is the plain twin ``solve_plain``, whose
+  elementwise ops are 335 device kernels a call at T = 2000 on a card.
 
+A CUDA tensor never falls back to a twin, nor a CPU tensor to a kernel.
 The JAX package has no Pallas kernel here: its scan and PCR are compiled
-loops.  The scan is T1 on the card; ``matvec_chol``, ``matvec`` and
-``solve`` are plain PyTorch (the PCR solve ~20 launches a round).  The
-library is built by ``ops._build`` at the first CUDA call, never at import.
+loops.  ``matvec_chol`` and ``matvec`` are plain PyTorch.  The library is
+built by ``ops._build`` at the first CUDA call, never at import.
 """
 
 from __future__ import annotations
@@ -36,8 +42,38 @@ from torch import Tensor
 
 from riemannhamiltonianmontecarlo_tpu_torch.ops import _build, launches
 
-_KERNEL_DEVICE = "cuda"  # the only device type the wrapper launches on
-_COUNTED = ("bidiag_cholesky",)  # T1's name in ops.launches
+_KERNEL_DEVICE = "cuda"  # the only device type the wrappers launch on
+BIDIAG, PCR = "bidiag_cholesky", "pcr_solve"  # T1's and T2's names in ops.launches
+_COUNTED = (BIDIAG, PCR)
+
+# T2's launch geometry, mirrored from csrc/tridiag.cu (chip_smoke.py holds it against the built library).
+PCR_SHARED_BYTES = 232448  # kPcrSharedBytes: the shared memory an H100 block may opt into
+PCR_SHARED_MAX_T = PCR_SHARED_BYTES // 16  # kPcrSharedMaxT: a, c, bb and d, 4 B each, a position
+PCR_POSITIONS_A_THREAD = 8  # kPcrPositionsAThread
+PCR_MAX_THREADS = 1024  # kPcrMaxThreads
+PCR_GLOBAL_THREADS = 256  # kPcrGlobalThreads
+
+
+class PcrGeometry(NamedTuple):
+    threads: int  # a block's
+    per_thread: int  # positions a thread; 0 in the device-memory form
+    shared_bytes: int  # dynamic shared memory a block
+    launches: int  # kernels a call
+    workspace: int  # floats a row of the wrapper's workspace: 8 T in the device-memory form, else 0
+
+
+def pcr_geometry(t: int) -> PcrGeometry:
+    """T2's launch geometry at T positions, as ``csrc/tridiag.cu::pcr_geometry`` computes it: up to
+    ``PCR_SHARED_MAX_T`` one launch of T / 8 threads (a warp to 1024) and the power of two of positions a
+    thread that covers T; past it ceil(log2 T) launches, a thread a position, through a workspace."""
+    if t > PCR_SHARED_MAX_T:
+        return PcrGeometry(PCR_GLOBAL_THREADS, 0, 0, (t - 1).bit_length(), 8 * t)
+    want = -(-t // PCR_POSITIONS_A_THREAD)
+    threads = min(PCR_MAX_THREADS, max(32, -(-want // 32) * 32))
+    per = 1
+    while per * threads < t:
+        per *= 2
+    return PcrGeometry(threads, per, 16 * t, 1, 0)
 
 
 class TridiagChol(NamedTuple):
@@ -48,7 +84,7 @@ class TridiagChol(NamedTuple):
 
 
 def launch_counts() -> dict[str, int]:
-    """Launches of T1 since the last reset (``ops.launches``)."""
+    """Launches of T1 and T2 since the last reset (``ops.launches``)."""
     return launches.counts(_COUNTED)
 
 
@@ -57,19 +93,24 @@ def reset_launch_counts() -> None:
 
 
 def cholesky_plain(diag: Tensor, off: Tensor) -> TridiagChol:
-    """Bidiagonal Cholesky of symmetric tridiagonal (diag, off), the plain twin.
+    """Bidiagonal Cholesky of symmetric tridiagonal (diag, off), the plain twin of T1.
 
-    diag: (..., T), off: (..., T-1).  ld_0 = sqrt(d_0); for t >= 1
-    e_t = off_{t-1} / ld_{t-1}, ld_t = sqrt(d_t - e_t^2): three launches a
-    position.
+    diag: (..., T), off: (..., T-1).  On the pivots q_t = ld_t^2: q_0 = d_0;
+    for t >= 1 q_t = d_t - off_{t-1} off_{t-1} / q_{t-1}, NaN where q_{t-1}
+    is not positive (so a chain is NaN from its first non-positive pivot
+    on); ld_t = sqrt(q_t), e_t = off_{t-1} / ld_{t-1}.  Seven launches a
+    position, T1's operations in its order.
     """
     t = diag.shape[-1]
-    ld = [torch.sqrt(diag[..., 0])]
+    q = diag[..., 0]
+    ld = [torch.sqrt(q)]
     e = []
     for i in range(1, t):
-        e_i = off[..., i - 1] / ld[-1]
-        ld.append(torch.sqrt(torch.addcmul(diag[..., i], e_i, e_i, value=-1.0)))
-        e.append(e_i)
+        o = off[..., i - 1]
+        q_next = diag[..., i] - o * o / q
+        e.append(o / ld[-1])
+        q = torch.where(q > 0, q_next, torch.nan)
+        ld.append(torch.sqrt(q))
     e_out = torch.stack(e, dim=-1) if e else off.new_empty(off.shape)
     return TridiagChol(torch.stack(ld, dim=-1), e_out)
 
@@ -77,47 +118,81 @@ def cholesky_plain(diag: Tensor, off: Tensor) -> TridiagChol:
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load_library()
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.rhmc_bidiag_cholesky.argtypes = [ptr, ptr, ptr, ptr, i32, i32, ptr]
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.rhmc_bidiag_cholesky.argtypes = [ptr, ptr, i64, i64, ptr, ptr, i32, i32, ptr]
     lib.rhmc_bidiag_cholesky.restype = i32
+    lib.rhmc_pcr_solve.argtypes = [ptr, ptr, i64, i64, ptr, ptr, ptr, i32, i32, ptr]
+    lib.rhmc_pcr_solve.restype = i32
+    lib.rhmc_pcr_geometry.argtypes = [i32, ctypes.POINTER(ctypes.c_int)]
+    lib.rhmc_pcr_geometry.restype = i32
     return lib
 
 
-def _check(diag: Tensor, off: Tensor) -> None:
-    if diag.device.type != _KERNEL_DEVICE or off.device != diag.device:
-        raise ValueError(f"the CUDA kernel needs CUDA tensors on one device, got {diag.device} and {off.device}")
-    if diag.dtype != torch.float32 or off.dtype != torch.float32:
-        raise TypeError(f"the CUDA kernel takes float32, got {diag.dtype} and {off.dtype}")
+def built_pcr_geometry(t: int) -> PcrGeometry:
+    """T2's launch geometry at T as the built library computes it (builds it; needs nvcc, not a card)."""
+    out = (ctypes.c_int * 5)()
+    err = _lib().rhmc_pcr_geometry(t, out)
+    if err != 0:
+        raise ValueError(f"rhmc_pcr_geometry({t}) failed with CUDA error {err}")
+    return PcrGeometry(*out)
+
+
+def _check(diag: Tensor, off: Tensor, *rest: Tensor) -> None:
+    """The kernels' operands: CUDA float32 on one device, diag (..., T) with T >= 1, off (..., T-1) and
+    each of ``rest`` (T2's b) shaped as diag."""
+    tensors = (diag, off, *rest)
+    if diag.device.type != _KERNEL_DEVICE or any(x.device != diag.device for x in tensors):
+        raise ValueError("the CUDA kernel needs CUDA tensors on one device, got "
+                         + ", ".join(str(x.device) for x in tensors))
+    if any(x.dtype != torch.float32 for x in tensors):
+        raise TypeError("the CUDA kernel takes float32, got " + ", ".join(str(x.dtype) for x in tensors))
     if diag.ndim < 1 or diag.shape[-1] < 1:
         raise ValueError(f"expected diag of shape (..., T) with T >= 1, got {tuple(diag.shape)}")
     want = diag.shape[:-1] + (diag.shape[-1] - 1,)
     if off.shape != want:
         raise ValueError(f"off must have shape {tuple(want)} for diag {tuple(diag.shape)}, got {tuple(off.shape)}")
+    for x in rest:
+        if x.shape != diag.shape:
+            raise ValueError(f"b must have diag's shape {tuple(diag.shape)}, got {tuple(x.shape)}")
+
+
+def _rows(diag: Tensor, off: Tensor) -> tuple[int, int, Tensor, Tensor]:
+    """(B, T, diag as contiguous (B, T) rows, off as (B, T-1) rows): off is a view wherever its strides
+    allow one (StochVol's expanded off is), read by the kernels through its strides, never copied for them."""
+    t = diag.shape[-1]
+    b = diag.numel() // t
+    return b, t, diag.reshape(b, t).contiguous(), off.reshape(b, t - 1)
+
+
+def _call(name: str, fn, count: int, device: torch.device, *args) -> None:
+    """Call the library's ``fn`` on the current stream, raise on its CUDA error, and count ``count``
+    launches of kernel ``name``."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed with CUDA error {err}")
+    for _ in range(count):
+        launches.count(name, device)
 
 
 def _launch(tensors: tuple[Tensor, ...], b: int, t: int) -> None:
-    """Launch T1 on (diag, off, ld, e) of ``b`` chains and length ``t``, and count it."""
-    for x in tensors:
+    """Launch T1 on (diag, off, ld, e) of ``b`` chains and length ``t``, and count it.  off is read through
+    its strides; the others are contiguous."""
+    diag, off, ld, e = tensors
+    for x in (diag, ld, e):
         if not x.is_contiguous():  # the kernel's index arithmetic assumes it
             raise ValueError("bidiag_cholesky: kernel operand is not contiguous")
-    device = tensors[0].device
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = _lib().rhmc_bidiag_cholesky(*(x.data_ptr() for x in tensors), b, t, stream)
-    if err != 0:
-        raise RuntimeError(f"bidiag_cholesky kernel launch failed with CUDA error {err}")
-    launches.count("bidiag_cholesky", device)
+    _call(BIDIAG, _lib().rhmc_bidiag_cholesky, 1, diag.device, diag.data_ptr(), off.data_ptr(), off.stride(0),
+          off.stride(1), ld.data_ptr(), e.data_ptr(), b, t)
 
 
 def cholesky_cuda(diag: Tensor, off: Tensor) -> TridiagChol:
-    """T1 on the card: diag (..., T), off (..., T-1) float32 CUDA -> (ld, e),
-    contiguous, shaped as diag and off.  An operand that is not contiguous
-    (StochVol's off is an expanded view) is copied once."""
+    """T1 on the card: diag (..., T), off (..., T-1) float32 CUDA -> (ld, e), contiguous, shaped as diag
+    and off.  StochVol's expanded off is read through its strides, not copied."""
     _check(diag, off)
-    t = diag.shape[-1]
-    b = diag.numel() // t
-    d2, o2 = diag.reshape(b, t).contiguous(), off.reshape(b, t - 1).contiguous()
-    ld, e = torch.empty_like(d2), torch.empty_like(o2)
+    b, t, d2, o2 = _rows(diag, off)
+    ld, e = torch.empty_like(d2), d2.new_empty((b, t - 1))
     if b > 0:
         _launch((d2, o2, ld, e), b, t)
     return TridiagChol(ld.view(diag.shape), e.view(off.shape))
@@ -157,8 +232,8 @@ def _from_after(x: Tensor, s: int, fill: float = 0.0) -> Tensor:
     return F.pad(x[..., s:], (0, s), value=fill)
 
 
-def solve(diag: Tensor, off: Tensor, b: Tensor) -> Tensor:
-    """Solve G x = b for symmetric tridiagonal G by parallel cyclic reduction.
+def solve_plain(diag: Tensor, off: Tensor, b: Tensor) -> Tensor:
+    """Solve G x = b for symmetric tridiagonal G by parallel cyclic reduction, the plain twin of T2.
 
     diag: (..., T), off: (..., T-1), b: (..., T).  ceil(log2 T) lockstep
     rounds; out-of-range neighbours are identity rows.  The arithmetic is
@@ -179,3 +254,42 @@ def solve(diag: Tensor, off: Tensor, b: Tensor) -> Tensor:
         c = gamma * _from_after(c, s)
         s *= 2
     return d / bb
+
+
+def _launch_solve(diag: Tensor, off: Tensor, b: Tensor, x: Tensor, workspace: Tensor | None, rows: int,
+                  t: int) -> None:
+    """Launch T2 on (B, T) rows: diag, b, x contiguous, off through its strides, ``workspace`` of
+    ``pcr_geometry(t).workspace`` floats a row past the shared-memory form; count each launch."""
+    for v in (diag, b, x):
+        if not v.is_contiguous():  # the kernel's index arithmetic assumes it
+            raise ValueError("pcr_solve: kernel operand is not contiguous")
+    geometry = pcr_geometry(t)
+    if geometry.workspace and (workspace is None or workspace.numel() < rows * geometry.workspace):
+        raise ValueError(f"pcr_solve: T = {t} needs a workspace of {rows * geometry.workspace} floats")
+    _call(PCR, _lib().rhmc_pcr_solve, geometry.launches, diag.device, diag.data_ptr(), off.data_ptr(),
+          off.stride(0), off.stride(1), b.data_ptr(), x.data_ptr(),
+          None if workspace is None else workspace.data_ptr(), rows, t)
+
+
+def solve_cuda(diag: Tensor, off: Tensor, b: Tensor) -> Tensor:
+    """T2 on the card: x = G^-1 b for diag (..., T), off (..., T-1), b (..., T) float32 CUDA; x contiguous,
+    shaped as b.  off is read through its strides (StochVol's expanded view is not copied); a
+    non-contiguous diag or b is copied once.  Capturable: no host sync, and the outputs (and past
+    ``PCR_SHARED_MAX_T`` the workspace) come from the caching allocator."""
+    _check(diag, off, b)
+    rows, t, d2, o2 = _rows(diag, off)
+    b2 = b.reshape(rows, t).contiguous()
+    x = torch.empty_like(d2)
+    if rows > 0:
+        geometry = pcr_geometry(t)
+        workspace = d2.new_empty(rows * geometry.workspace) if geometry.workspace else None
+        _launch_solve(d2, o2, b2, x, workspace, rows, t)
+    return x.view(b.shape)
+
+
+def solve(diag: Tensor, off: Tensor, b: Tensor) -> Tensor:
+    """Solve G x = b for symmetric tridiagonal G by parallel cyclic reduction: the twin on CPU tensors,
+    T2 on CUDA ones."""
+    if diag.device.type == "cpu":
+        return solve_plain(diag, off, b)
+    return solve_cuda(diag, off, b)

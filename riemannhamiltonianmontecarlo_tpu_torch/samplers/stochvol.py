@@ -20,7 +20,11 @@ and one K2 per position fixed-point round (L x 5 per sweep); mMALA one K1
 in ``init`` and one per proposal (2 per sweep, since the hyper kernel is
 rebuilt and re-initialized every sweep).  The latent update of rmhmc, hmc
 and mmala factors its tridiagonal metric once a sweep, on a card by the
-scan kernel T1 (``ops.tridiag.cholesky``).
+scan kernel T1 (``ops.tridiag.cholesky``), and solves with it by parallel
+cyclic reduction, on a card by the kernel T2 (``ops.tridiag.solve``, one
+launch a call): once a latent leapfrog step and twice for the kinetic
+energies under rmhmc and hmc (L + 2 a sweep), three times under mmala.  On
+a CPU batch both are their plain twins.
 
 The step is split as elsewhere in the port: ``transition(state, noise)`` is
 pure and takes a ``StochVolNoise``; ``step(generator, state)`` draws it with
@@ -28,7 +32,7 @@ pure and takes a ``StochVolNoise``; ``step(generator, state)`` draws it with
 (``parallel.chain_sliced``) can draw the noise of every chain.  The sweep
 reads nothing back to the host, so on a card the runner replays it as one
 CUDA graph (``Kernel.capturable``), hyper gradient and dG by ``torch.func``
-included; the latent block's bidiagonal scan is one of its nodes.
+included; the latent block's scan and solves are nodes of it.
 Initialization per the reference: x = y, (beta, sigma, phi) = 0.5
 (``StochVol_RMHMC.m:86-89``).
 """

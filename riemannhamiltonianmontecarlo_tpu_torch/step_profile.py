@@ -10,22 +10,27 @@ in the sensitivity kernel (``fhn_sensitivities_kernel``), for BLR Gibbs in
 its sweep kernel G1, its GIG kernel G2 and PyTorch's random draws (kernel
 names with ``distribution``), and the peak of allocated device memory.  The idle share is 1 - busy / wall.  For StochVol
 (rmhmc, hmc and mmala, which run the bidiagonal Cholesky scan
-``ops.tridiag.cholesky`` once a sweep) it also gives the scan's device time
-and launches (a CUDA graph of the scan alone at the sweep's shapes:
-CUDA events over its replays for the time, torch.profiler's events for
-the launches) and its share of the sweep's device time, and on the eager
-row the scan's wall time inside the sweep, for its share of the sweep's
-wall.  For BLR RMHMC it gives RMHMC's geometry the same way
+``ops.tridiag.cholesky`` once a sweep and the PCR solve ``ops.tridiag.solve``
+L + 2 or 3 times) it also gives the scan's and the solve's device time and
+launches a call (a CUDA graph of one call alone at the sweep's shapes,
+off StochVol's expanded view: CUDA events over its replays for the time,
+torch.profiler's events for the launches), the solve's calls a sweep
+(counted in one more eager sweep) and each one's share of the sweep's
+device time, and on the eager row the scan's wall time inside the sweep,
+for its share of the sweep's wall.  For BLR RMHMC it gives RMHMC's geometry the same way
 (``ops.chol_inv_logdet``: a CUDA graph of one geometry at the step's G),
 the geometries a step builds (the kernels' device counters) and their
 share of the step's device time.
 
-``--routes kernel,parent`` profiles each run twice: on this checkout's
-kernels, and on the two routes the kernels K3 and T1 replaced (RMHMC's
-geometry as K1, the unrolled inverse and the log-determinant; StochVol's
-bidiagonal factor as the loop of three launches a position), patched in
-for the run (``parent_routes``): the rows before and after that change,
-from one process on one card.  Each row names its ``route``.
+``--routes kernel,parent,pcr-plain`` profiles each run on each route: on
+this checkout's kernels; on the routes the kernels K3, T1 and T2 replaced
+(``parent``: RMHMC's geometry as K1, the unrolled inverse and the
+log-determinant; StochVol's bidiagonal factor as its plain loop over T;
+the PCR solve as ``tridiag.solve_plain``, 335 launches a call), patched in
+for the run (``parent_routes``); and on this checkout's kernels but T2
+(``pcr-plain``: ``tridiag.solve_plain`` alone patched in,
+``plain_solve_route``): the rows before and after those changes, from one
+process on one card.  Each row names its ``route``.
 
 Each run whose kernel declares itself capturable gets four rows, in turns
 E C C E (both paths on either side of a drift in the card's state):
@@ -41,7 +46,7 @@ from ``with_sharding``: every row gives its all-reduces a step, counted on
 the device (``collectives.call_counts``).
 
     python -m riemannhamiltonianmontecarlo_tpu_torch.step_profile [--out FILE] \\
-        [--only lgc/rmhmc_joint fhn/rmhmc] [--routes kernel,parent]
+        [--only lgc/rmhmc_joint fhn/rmhmc] [--routes kernel,parent,pcr-plain]
 
 Prints one JSON line per row (and writes them to FILE).  Needs a CUDA
 device; there is no CPU path.
@@ -81,21 +86,31 @@ GIBBS = {"gibbs_sweep_kernel": re.compile(r"gibbs_sweep(_wide)?_kernel"),
          "gig_half_kernel": re.compile(r"gig_half_kernel"), "draws": re.compile(r"distribution")}
 
 
-ROUTES = ("kernel", "parent")
+ROUTES = ("kernel", "parent", "pcr-plain")
 
 
 @contextlib.contextmanager
 def parent_routes():
-    """Inside, RMHMC's geometry and StochVol's bidiagonal factor take the routes the kernels K3 and T1
-    replaced: ``ops.cholesky`` (K1 on a card), the unrolled ``inv_psd_from_chol`` and ``logdet_from_chol``;
-    ``tridiag.cholesky_plain``, the loop of three launches a position (plain PyTorch, on the card)."""
+    """Inside, RMHMC's geometry and StochVol's bidiagonal factor and PCR solve take the routes the kernels
+    K3, T1 and T2 replaced: ``ops.cholesky`` (K1 on a card), the unrolled ``inv_psd_from_chol`` and
+    ``logdet_from_chol``; ``tridiag.cholesky_plain``, its loop over T; ``tridiag.solve_plain`` (plain
+    PyTorch, on the card)."""
     def geometry(g, *, method=None):
         l = ops.cholesky(g, method=method)
         return l, ops.inv_psd_from_chol(l), 0.5 * ops.logdet_from_chol(l)
 
     with unittest.mock.patch.object(ops, "chol_inv_logdet", geometry), \
-            unittest.mock.patch.object(tridiag, "cholesky", tridiag.cholesky_plain):
+            unittest.mock.patch.object(tridiag, "cholesky", tridiag.cholesky_plain), plain_solve_route():
         yield
+
+
+def plain_solve_route():
+    """Inside, StochVol's PCR solve is ``tridiag.solve_plain`` on the card, every other kernel this checkout's."""
+    return unittest.mock.patch.object(tridiag, "solve", tridiag.solve_plain)
+
+
+def _route(route: str):
+    return {"parent": parent_routes, "pcr-plain": plain_solve_route}.get(route, contextlib.nullcontext)()
 
 
 def _world1_mesh() -> parallel.Mesh:
@@ -191,6 +206,10 @@ def profile_run(workload: str, sampler: str, chains: int, *, warm: int, steps: i
     if workload == "stochvol" and sampler != "mala":
         scan = _scan_device(box[0].x)
         out.update(scan, tridiag_scan_share_of_device=scan["tridiag_scan_device_ms_per_step"] / busy)
+        pcr = _solve_device(box[0].x)
+        calls = _solve_calls(lambda: kernel.step(gen, box[0]))
+        out.update(pcr, pcr_solve_calls_per_step=calls,
+                   pcr_solve_share_of_device=calls * pcr["pcr_solve_device_ms_per_call"] / busy)
         if not captured:  # a replay runs no Python: the wall share is the eager step's
             out.update(_scan_share(lambda: run_steps(1), steps))
     return out
@@ -222,12 +241,38 @@ def _graph_alone(fn, replays: int = 10) -> tuple[float, float]:
     return start.elapsed_time(end) / replays, len(events) / replays
 
 
+def _latent_metric_like(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """An SPD tridiagonal G at ``x``'s (C, T), its off-diagonal an expanded view as the latent metric's."""
+    return torch.full_like(x, 2.5), torch.full_like(x[:, :1], -1.0).expand(-1, x.shape[-1] - 1)
+
+
 def _scan_device(x: torch.Tensor) -> dict:
     """The bidiagonal scan's device ms and launches per call at ``x``'s (C, T): ``tridiag.cholesky``
-    alone (on an SPD tridiagonal G like the latent metric's) as a CUDA graph (``_graph_alone``)."""
-    diag, off = torch.full_like(x, 2.5), torch.full_like(x[:, 1:], -1.0)
+    alone as a CUDA graph (``_graph_alone``)."""
+    diag, off = _latent_metric_like(x)
     ms, n = _graph_alone(lambda: tridiag.cholesky(diag, off))
     return {"tridiag_scan_device_ms_per_step": ms, "tridiag_scan_launches": n}
+
+
+def _solve_device(x: torch.Tensor) -> dict:
+    """The PCR solve's device ms and launches per call at ``x``'s (C, T): ``tridiag.solve`` of ``x`` alone
+    as a CUDA graph (``_graph_alone``), on whichever route ``tridiag.solve`` takes."""
+    diag, off = _latent_metric_like(x)
+    ms, n = _graph_alone(lambda: tridiag.solve(diag, off, x))
+    return {"pcr_solve_device_ms_per_call": ms, "pcr_solve_launches_per_call": n}
+
+
+def _solve_calls(one_step) -> int:
+    """The calls of ``tridiag.solve`` in one eager step (the samplers call it through the module)."""
+    inner, calls = tridiag.solve, [0]
+
+    def counted(*args):
+        calls[0] += 1
+        return inner(*args)
+
+    with unittest.mock.patch.object(tridiag, "solve", counted), torch.inference_mode():
+        one_step()
+    return calls[0]
 
 
 def _geometry_device(g: torch.Tensor) -> dict:
@@ -270,8 +315,9 @@ def main(argv=None) -> None:
     ap.add_argument("--only", nargs="+", default=None, metavar="WORKLOAD/SAMPLER",
                     help="profile these runs only (default: all of RUNS)")
     ap.add_argument("--routes", default="kernel",
-                    help=f"comma-separated subset of {','.join(ROUTES)}: this checkout's kernels, and the routes "
-                         "K3 and T1 replaced (default: kernel)")
+                    help=f"comma-separated subset of {','.join(ROUTES)}: this checkout's kernels, the routes "
+                         "K3, T1 and T2 replaced, and this checkout's kernels with the plain PCR solve "
+                         "(default: kernel)")
     args = ap.parse_args(argv)
     routes = [r for r in args.routes.split(",") if r]
     if not routes or set(routes) - set(ROUTES):
@@ -287,7 +333,7 @@ def main(argv=None) -> None:
             continue
         for route in routes:
             for captured in (False, True, True, False):
-                with parent_routes() if route == "parent" else contextlib.nullcontext():
+                with _route(route):
                     rec = profile_run(workload, sampler, chains, warm=args.warm, steps=args.steps,
                                       profiled=args.profiled, captured=captured)
                 rec.update(route=route, device=torch.cuda.get_device_name(0))
