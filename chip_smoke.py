@@ -399,9 +399,14 @@ PCR = "pcr_solve"  # its name in ops.launches
 PCR_REPLACES = "riemannhamiltonianmontecarlo_tpu/ops/tridiag.py:79-112 (the PCR solve's compiled loop; no pallas_call)"
 PCR_KERNEL_NAME = "pcr_solve"  # a part of both forms' names: pcr_solve_kernel<P>, pcr_solve_global_kernel<..>
 # T2 against solve_plain at (B, T), torch.equal: StochVol's width, a ragged batch, T = 1 (no round), 2, 3, a few
-# short chains, a T just past 2^10 and one past 2^11; StochVol's metric (off an expanded view), HMC's identity
-# mass and a non-contiguous b at (1024, 2000); past the shared-memory form, a few chains with the twin on the card.
-PCR_SHAPES = ((1024, 2000), (1025, 2000), (3, 1), (3, 2), (3, 3), (64, 7), (64, 1025), (64, 2049))
+# short chains, a one-warp block with rounds in registers (T = 100: 32 threads x 4), a T just past 2^10, one past
+# 2^11, 2^12 and the largest one-launch form (14,528: 1,024 threads x 16); StochVol's metric (off an expanded
+# view), HMC's identity mass, a non-contiguous b, a system whose a and c decay through subnormal values and one
+# whose couplings never decay (every round, those in registers included, moves x) at (1024, 2000); past the
+# shared-memory form, a few chains with the twin on the card.
+PCR_SHAPES = ((1024, 2000), (1025, 2000), (3, 1), (3, 2), (3, 3), (64, 7), (64, 100), (64, 1025), (64, 2049),
+              (64, 4096), (4, 14528))
+PCR_CASES = ("identity", "strided-b", "decay", "unit-root")  # at PCR_TIMED, beside the metric
 PCR_TIMED = (1024, 2000)
 PCR_LONG = (4, 20000)  # (B, T): past tridiag.PCR_SHARED_MAX_T, one launch a round through device memory
 # T at which T2's launch geometry is held against the built library's: every positions-a-thread form, the
@@ -956,15 +961,40 @@ def phase_bidiag_kernel(smi: str, err: dict, regs: dict) -> dict:
     return {"checked": checked, "times": times}
 
 
+def pcr_meets_subnormals(diag, off, rhs) -> bool:
+    """Whether ``solve_plain`` on these inputs shifts a subnormal value (a, c, bb or d) in some round."""
+    seen = []
+    shift = rt.ops.tridiag._from_before
+
+    def watched(x, s, fill=0.0):
+        v = x.abs()
+        seen.append((v > 0) & (v < torch.finfo(torch.float32).tiny))
+        return shift(x, s, fill)
+    rt.ops.tridiag._from_before = watched
+    try:
+        rt.ops.tridiag.solve_plain(diag, off, rhs)
+    finally:
+        rt.ops.tridiag._from_before = shift
+    return bool(torch.stack([m.any() for m in seen]).any())
+
+
 def check_pcr(b: int, t: int, case: str = "metric") -> dict:
     """T2 against ``solve_plain`` on the card at (B, T), ``torch.equal`` (the same operations, each rounded
-    as PyTorch rounds it): ``metric`` (StochVol's G, off an expanded view), ``identity`` (HMC's mass) or
-    ``strided-b`` (the metric with b a non-contiguous view, which the wrapper copies)."""
+    as PyTorch rounds it): ``metric`` (StochVol's G, off an expanded view), ``identity`` (HMC's mass),
+    ``strided-b`` (the metric with b a non-contiguous view, which the wrapper copies), ``decay`` (diag over
+    |off| 10 to 1,000 by chain: a and c pass through subnormal values on their way to zero) or ``unit-root``
+    (diag 2, off -1: a and c keep their size, so no round leaves x as it was)."""
+    gen = torch.Generator(device=DEVICE).manual_seed(7 * b + t)
     if case == "identity":
         diag, off = torch.ones((b, t), device=DEVICE), torch.zeros((b, t - 1), device=DEVICE)
+    elif case == "decay":
+        scale = 10.0 ** (1.0 + 2.0 * torch.rand((b, 1), generator=gen, device=DEVICE))
+        diag = scale * (1.0 + torch.rand((b, t), generator=gen, device=DEVICE))
+        off = torch.randn((b, t - 1), generator=gen, device=DEVICE)
+    elif case == "unit-root":
+        diag, off = torch.full((b, t), 2.0, device=DEVICE), torch.full((b, t - 1), -1.0, device=DEVICE)
     else:
         diag, off = bidiag_inputs(b, t, seed=b + t)
-    gen = torch.Generator(device=DEVICE).manual_seed(7 * b + t)
     rhs = torch.randn((b, t), generator=gen, device=DEVICE)
     if case == "strided-b":
         rhs = torch.randn((b, 2 * t), generator=gen, device=DEVICE)[:, ::2]
@@ -973,6 +1003,8 @@ def check_pcr(b: int, t: int, case: str = "metric") -> dict:
     torch.cuda.synchronize()
     at = f"T2 at (B={b}, T={t}, {case})"
     check(x.shape == (b, t) and bool(torch.isfinite(x).all()), f"{at}: shape {tuple(x.shape)} or non-finite values")
+    if case == "decay":  # the case's point: the rounds meet subnormal values
+        check(pcr_meets_subnormals(diag, off, rhs), f"{at}: no subnormal value in the rounds")
     residual = float((rt.ops.tridiag.matvec(diag, off, x) - rhs).abs().max()) if t > 1 else 0.0
     max_err = float((x - plain).abs().max())
     check(torch.equal(x, plain), f"{at}: not bit for bit solve_plain's (max |err| {max_err})")
@@ -981,10 +1013,10 @@ def check_pcr(b: int, t: int, case: str = "metric") -> dict:
 
 
 def phase_pcr_kernel(smi: str, err: dict, regs: dict) -> dict:
-    """T2 against solve_plain at PCR_SHAPES, on HMC's identity mass and a strided b at PCR_TIMED, and past
-    the shared-memory form at PCR_LONG; then its times at PCR_TIMED beside its bound and the twin's."""
+    """T2 against solve_plain at PCR_SHAPES, on PCR_CASES at PCR_TIMED, and past the shared-memory form at
+    PCR_LONG; then its times at PCR_TIMED beside its bound and the twin's."""
     checked = [check_pcr(b, t) for b, t in PCR_SHAPES]
-    checked += [check_pcr(*PCR_TIMED, case) for case in ("identity", "strided-b")]
+    checked += [check_pcr(*PCR_TIMED, case) for case in PCR_CASES]
     checked.append(check_pcr(*PCR_LONG))
     err[PCR] = max(row["max_abs_err"] for row in checked)
     say("pcr-kernel", checked=checked, tolerance="torch.equal")

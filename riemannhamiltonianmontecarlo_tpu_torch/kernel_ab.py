@@ -60,7 +60,10 @@ copy of it, or the loop of three launches a position), on the latent
 metric as the model makes it and on HMC's identity mass; ``--kernels pcr``
 StochVol's PCR solve ``ops.tridiag.solve`` as each checkout runs it at
 ``PCR_RUNS`` (T2, or the plain version's 335 launches) on the
-same two metrics and a seeded b.  Each is captured
+same two metrics and a seeded b, and per turn T2's round loop in each
+build's SASS (``pcr_round_loop``: instructions a position once through,
+the IEEE divisions' checks and slow-path calls, branches, shared-memory
+loads and stores, barriers).  Each is captured
 as one CUDA graph, as the captured step runs it: ``device_us`` (every device
 event of a replay, torch.profiler, 20 replays), ``device_events_per_call``,
 ``replay_ms`` (median CUDA-event time of one replay) and ``burst_ms`` (20
@@ -202,6 +205,8 @@ def _measure_pcr(smoke) -> list[dict]:
             row = _captured(smoke, lambda: tridiag.solve(diag, off, rhs))
             rows.append({"kernel": "pcr", "B": b, "T": t, "G": case, "route": route, **row, "bound_us": bound,
                          "bound_by": bound_by, "share_of_bound": bound / row["device_us"], "card": card})
+    if route == "T2":
+        rows.append({"kernel": "pcr_round_loop", "card": card, **_pcr_round_loop(smoke)})
     return rows
 
 
@@ -385,6 +390,31 @@ def _loops(body: str):
     loops = [(int(target, 16), addr) for addr, op, rest in code if op == "BRA"
              for target in re.findall(r"0x([0-9a-f]+)", rest) if int(target, 16) < addr]
     return code, loops
+
+
+def _pcr_round_loop(smoke) -> dict:
+    """T2's round loop through shared memory as each build compiled it, in the instantiation that
+    PCR_RUNS' T = 2000 launches: the loop holding the barriers, its SASS instructions once through (the
+    IEEE divisions' out-of-line slow paths excluded, their calls included) over the positions a thread, and
+    the divisions' checks (FCHK) and calls of their slow paths, the branch and reconvergence instructions,
+    the shared-memory loads and stores and the barriers in it."""
+    text = _sass(smoke)
+    if isinstance(text, dict):
+        return text
+    per = smoke.rt.ops.tridiag.pcr_geometry(PCR_RUNS[0][1]).per_thread
+    found = re.findall(rf"Function : (\S*pcr_solve_kernelILi{per}E\S*)(.*?)(?=Function :|\Z)", text, re.S)
+    if len(found) != 1:
+        return {"error": f"{len(found)} pcr_solve_kernel<{per}> in the SASS"}
+    code, loops = _loops(found[0][1])
+    barred = [(lo, hi) for lo, hi in loops if any(lo <= a <= hi and op == "BAR" for a, op, _ in code)]
+    if not barred:
+        return {"error": "no loop with a barrier"}
+    lo, hi = max(barred, key=lambda span: span[1] - span[0])
+    inside = [op for a, op, _ in code if lo <= a <= hi]
+    return {"per_thread": per, "instructions_a_position": len(inside) / per,
+            **{key: sum(op in ops for op in inside) for key, ops in
+               (("fchk", ("FCHK",)), ("calls", ("CALL",)), ("control", _CONTROL), ("lds", ("LDS",)),
+                ("sts", ("STS",)), ("bar", ("BAR",)), ("mufu", ("MUFU",)))}}
 
 
 GIBBS_LOOP_ENTRIES = (1, 2, 3, 4, 5, 8, 10, 15, 20, 40)  # D 15 and 40 on 32 to 1 lanes a chain

@@ -18,8 +18,9 @@ Everything is batched over the leading (chain) axes, with T last:
 * ``solve``: parallel cyclic reduction (PCR), ceil(log2 T) lockstep rounds
   with zero fill for the off-diagonals and identity fill (1.0) for the
   diagonal.  On a CUDA tensor it is the hand-written kernel T2
-  (``csrc/tridiag.cu``, ``solve_cuda``): one launch, a block a chain with
-  its system in shared memory, bit for bit the plain version on the card
+  (``csrc/tridiag.cu``, ``solve_cuda``): one launch, a block a chain, each
+  thread's rows in registers and the rounds below the block width through
+  16-byte slots in shared memory, bit for bit the plain version on the card
   (past ``PCR_SHARED_MAX_T`` positions, one launch a round through device
   memory).  On a CPU tensor it is the plain twin ``solve_plain``, whose
   elementwise ops are 335 device kernels a call at T = 2000 on a card.
@@ -48,32 +49,31 @@ _COUNTED = (BIDIAG, PCR)
 
 # T2's launch geometry, mirrored from csrc/tridiag.cu (chip_smoke.py holds it against the built library).
 PCR_SHARED_BYTES = 232448  # kPcrSharedBytes: the shared memory an H100 block may opt into
-PCR_SHARED_MAX_T = PCR_SHARED_BYTES // 16  # kPcrSharedMaxT: a, c, bb and d, 4 B each, a position
+PCR_SLOT_BYTES = 16  # kPcrSlotBytes: a position's (a, c, bb, d) as one float4
+PCR_SHARED_MAX_T = PCR_SHARED_BYTES // PCR_SLOT_BYTES  # kPcrSharedMaxT
 PCR_POSITIONS_A_THREAD = 8  # kPcrPositionsAThread
 PCR_MAX_THREADS = 1024  # kPcrMaxThreads
 PCR_GLOBAL_THREADS = 256  # kPcrGlobalThreads
 
 
 class PcrGeometry(NamedTuple):
-    threads: int  # a block's
+    threads: int  # a block's: a power of two
     per_thread: int  # positions a thread; 0 in the device-memory form
-    shared_bytes: int  # dynamic shared memory a block
+    shared_bytes: int  # dynamic shared memory a block: T 16-byte slots
     launches: int  # kernels a call
     workspace: int  # floats a row of the wrapper's workspace: 8 T in the device-memory form, else 0
 
 
 def pcr_geometry(t: int) -> PcrGeometry:
     """T2's launch geometry at T positions, as ``csrc/tridiag.cu::pcr_geometry`` computes it: up to
-    ``PCR_SHARED_MAX_T`` one launch of T / 8 threads (a warp to 1024) and the power of two of positions a
-    thread that covers T; past it ceil(log2 T) launches, a thread a position, through a workspace."""
+    ``PCR_SHARED_MAX_T`` one launch of 2^ceil(log2 T) / 8 threads (32 to 1024) of the power of two of
+    positions a thread that covers T, a 16-byte slot a position; past it ceil(log2 T) launches, a thread a
+    position, through a workspace."""
+    rounds = (t - 1).bit_length()
     if t > PCR_SHARED_MAX_T:
-        return PcrGeometry(PCR_GLOBAL_THREADS, 0, 0, (t - 1).bit_length(), 8 * t)
-    want = -(-t // PCR_POSITIONS_A_THREAD)
-    threads = min(PCR_MAX_THREADS, max(32, -(-want // 32) * 32))
-    per = 1
-    while per * threads < t:
-        per *= 2
-    return PcrGeometry(threads, per, 16 * t, 1, 0)
+        return PcrGeometry(PCR_GLOBAL_THREADS, 0, 0, rounds, 8 * t)
+    threads = min(PCR_MAX_THREADS, max(32, (1 << rounds) // PCR_POSITIONS_A_THREAD))
+    return PcrGeometry(threads, max(1, (1 << rounds) // threads), PCR_SLOT_BYTES * t, 1, 0)
 
 
 class TridiagChol(NamedTuple):

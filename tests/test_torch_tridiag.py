@@ -13,10 +13,13 @@ the pivots q_t = ld_t^2 (the JAX scan walks ld_t: the roundings differ).
 The kernels T1 (the factor) and T2 (the solve) of ``csrc/tridiag.cu`` run
 only on a card (``chip_smoke.py`` holds them against ``cholesky_plain`` and
 ``solve_plain`` there).  Here: the plain twins against the JAX package, their
-edge cases, that a CPU tensor never launches, what the wrappers hand to the
-launch and what they refuse before it, T2's launch geometry mirrored from
-the source, the solves a StochVol latent update makes, and
-``chip_smoke.py``'s bounds.
+edge cases, ``solve_plain`` against the JAX package on a system whose a
+and c decay through subnormal values and at T = 14,528 (T2's largest
+one-launch system), that a CPU tensor never launches, what the wrappers hand
+to the launch and what they refuse before it, T2's launch geometry mirrored
+from the source and its schedule replayed from that geometry (which rounds
+read shared memory, which the thread's own slots), the solves a StochVol
+latent update makes, and ``chip_smoke.py``'s bounds.
 """
 
 import re
@@ -116,6 +119,28 @@ def test_torch_tridiag_latent_systems_match_jax(case, t):
         close(ttri.matvec(td, to, x), b)
     if case == "identity":
         assert torch.equal(x, tb) and bool((chol.ld == 1).all()) and bool((chol.e == 0).all())
+
+
+def decay_system(t: int):
+    """A numpy-seeded system with diag >> |off| (a ratio of 1e-3 to 1e-1 by chain): PCR's a and c shrink by
+    powers of that ratio round after round, through the subnormal floats on their way to zero."""
+    rng = np.random.default_rng(t + 29)
+    scale = 10.0 ** rng.uniform(1.0, 3.0, size=(BATCH, 1))
+    diag = (scale * (1.0 + rng.uniform(size=(BATCH, t)))).astype(np.float32)
+    return diag, rng.normal(size=(BATCH, t - 1)).astype(np.float32), rng.normal(size=(BATCH, t)).astype(np.float32)
+
+
+@pytest.mark.parametrize("case,t", [("decay", 2000), ("largest-one-launch", ttri.PCR_SHARED_MAX_T)])
+def test_torch_pcr_solve_plain_matches_jax(case, t):
+    """``solve_plain`` (T2's twin, bit for bit T2 on the card) against the JAX package's PCR at the tolerance above:
+    on a system whose a and c pass through subnormal values (``chip_smoke.pcr_meets_subnormals``, phase 3's check
+    of its own decay case), and at T = 14,528, the most positions T2 solves in one launch."""
+    diag, off, b = decay_system(t) if case == "decay" else system(t)
+    td, to, tb = torch.from_numpy(diag), torch.from_numpy(off), torch.from_numpy(b)
+    assert chip_smoke.pcr_meets_subnormals(td, to, tb) or case != "decay"
+    x = ttri.solve_plain(td, to, tb)
+    close(x, jtri.solve(jnp.asarray(diag), jnp.asarray(off), jnp.asarray(b)))
+    close(ttri.matvec(td, to, x), b)
 
 
 def test_torch_tridiag_factor_reproduces_the_matrix():
@@ -288,11 +313,12 @@ def cuda_source_constant(name: str) -> int:
 
 
 def test_torch_pcr_geometry_mirrors_the_source():
-    """T2's shared-memory cut-over and launch geometry, mirrored from ``csrc/tridiag.cu`` (``chip_smoke.py``
-    holds the mirror against the built library at ``PCR_GEOMETRY_T``): 16 B a position in a block's 227 KB up
-    to ``PCR_SHARED_MAX_T``, T / 8 threads rounded up to a warp (32 to 1024) of a power of two of positions
+    """T2's shared-memory cut-over and launch geometry, mirrored from ``csrc/tridiag.cu`` (``chip_smoke.py`` holds the
+    mirror against the built library at ``PCR_GEOMETRY_T``): a 16-byte slot a position in a block's 227 KB up to
+    ``PCR_SHARED_MAX_T``, 2^ceil(log2 T) / 8 threads (a power of two, 32 to 1024) of the power of two of positions
     that covers T; past it ceil(log2 T) launches through a workspace of 8 T floats a row."""
     assert ttri.PCR_SHARED_BYTES == cuda_source_constant("kPcrSharedBytes") == 227 * 1024
+    assert ttri.PCR_SLOT_BYTES == cuda_source_constant("kPcrSlotBytes") == 16
     assert ttri.PCR_SHARED_MAX_T == ttri.PCR_SHARED_BYTES // 16 == 14528
     assert ttri.PCR_POSITIONS_A_THREAD == cuda_source_constant("kPcrPositionsAThread")
     assert ttri.PCR_MAX_THREADS == cuda_source_constant("kPcrMaxThreads")
@@ -300,15 +326,54 @@ def test_torch_pcr_geometry_mirrors_the_source():
     max_per = cuda_source_constant("kPcrMaxPer")
     for t in [*range(1, 300), 1025, 2000, 2049, 4096, 8192, 8193, 14527, 14528]:
         g = ttri.pcr_geometry(t)
-        assert g.threads % 32 == 0 and 32 <= g.threads <= ttri.PCR_MAX_THREADS
+        assert g.threads & (g.threads - 1) == 0 and 32 <= g.threads <= ttri.PCR_MAX_THREADS
         assert g.per_thread in (1, 2, 4, 8, max_per) and g.threads * g.per_thread >= t
         assert g.per_thread == 1 or g.threads * g.per_thread // 2 < t  # the smallest power of two that covers T
         assert (g.shared_bytes, g.launches, g.workspace) == (16 * t, 1, 0) and g.shared_bytes <= ttri.PCR_SHARED_BYTES
     assert ttri.pcr_geometry(2000) == ttri.PcrGeometry(256, 8, 32000, 1, 0)
+    assert ttri.pcr_geometry(1025) == ttri.PcrGeometry(256, 8, 16400, 1, 0)
+    assert ttri.pcr_geometry(100) == ttri.PcrGeometry(32, 4, 1600, 1, 0)
+    assert ttri.pcr_geometry(14528) == ttri.PcrGeometry(1024, 16, 232448, 1, 0)
     for t, rounds in ((14529, 14), (16384, 14), (16385, 15), (20000, 15), (1 << 20, 20)):
         assert ttri.pcr_geometry(t) == ttri.PcrGeometry(ttri.PCR_GLOBAL_THREADS, 0, 0, rounds, 8 * t)
     assert {ttri.PCR_SHARED_MAX_T, ttri.PCR_SHARED_MAX_T + 1} <= set(chip_smoke.PCR_GEOMETRY_T)
     assert chip_smoke.PCR_LONG[1] > ttri.PCR_SHARED_MAX_T
+
+
+@pytest.mark.parametrize("t", [1, 2, 3, 31, 33, 100, 1025, 2000, 2049, 8192, 14528])
+def test_torch_pcr_kernel_ownership_map(t):
+    """T2's schedule replayed from ``pcr_geometry`` with the kernel's own conditions: thread ``tid`` holds position
+    i = tid + j blockDim in its slot j, live where j < per / 2 (unchecked) or i < T, every position exactly once.
+    The rounds s < blockDim publish the live slots and read i -+ s only where they are published in that round
+    (inside the block's T slots), with the checks the kernel drops (i - s for j >= 1, i + s for j < per / 2 - 1)
+    always true; the rounds s >= blockDim read i -+ s in the thread's own slot j -+ s / blockDim, unchecked, so a
+    slot there is live exactly where its position is below T.  Together: the ceil(log2 T) rounds of
+    ``solve_plain``."""
+    g = ttri.pcr_geometry(t)
+    threads, per = g.threads, g.per_thread
+    tid, j = np.meshgrid(np.arange(threads), np.arange(per), indexing="ij")
+    i = tid + j * threads
+    live = (j < per // 2) | (i < t)
+    assert (i[j < per // 2] < t).all() and sorted(i[live]) == list(range(t))
+    published = np.zeros(t, bool)
+    published[i[live]] = True  # the only slots a round writes: no write past the T slots
+    rounds, s = [], 1
+    while s < threads and s < t:  # through the slots in shared memory
+        lo = live & ((j > 0) | (i >= s))
+        hi = live & ((j + 1 < per // 2) | (i + s < t))
+        assert (i[lo] - s >= 0).all() and (i[hi] + s < t).all()
+        assert published[i[lo] - s].all() and published[i[hi] + s].all()
+        rounds.append(s)
+        s *= 2
+    for m in (1 << k for k in range(per.bit_length() - 1)):  # in registers: m = 1, 2, ..., per / 2
+        s = m * threads
+        assert s < t
+        lo, hi = live & (j >= m), live & (j + m < per)
+        assert (i[lo] - s == (tid + (j - m) * threads)[lo]).all() and (i[lo] - s >= 0).all()
+        assert (live[:, m:] == (i[:, m:] < t)).all()  # a neighbour at i + s >= T is an identity slot
+        assert (live & (i + s < t) == hi & (i + s < t)).all()
+        rounds.append(s)
+    assert rounds == [1 << k for k in range((t - 1).bit_length())]
 
 
 @pytest.fixture
