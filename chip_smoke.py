@@ -646,6 +646,8 @@ def phase_build() -> dict:
                      for name, n, exact, sp, _ in linalg_found if int(sp)}
     check(len(per_kernel) == 3 * (len(hl.EXACT_WIDTHS) + len(hl.CAPACITIES)),
           f"ptxas report names {sorted(per_kernel)}: expected K1, K2 and K3 at every width and capacity")
+    k3_spills = {name: sp for name, sp in linalg_spills.items() if name.startswith("K3")}
+    check(not k3_spills, f"K3 spills at {k3_spills}: expected none at any width or capacity")
     bidiag_found = re.findall(rf"{BIDIAG_KERNEL_NAME}.*?(\d+) bytes spill stores.*?Used (\d+) registers", log, re.S)
     check(len(bidiag_found) == 1, f"ptxas report names {len(bidiag_found)} {BIDIAG_KERNEL_NAME}, expected one")
     bidiag_regs = {"registers": int(bidiag_found[0][1]), "spill_store_bytes": int(bidiag_found[0][0])}
@@ -705,6 +707,15 @@ def phase_build() -> dict:
     for d in range(1, hl.MAX_DIM + 1):
         mirror, built = hl.launch_geometry(d), hl.built_launch_geometry(d)
         check(mirror == built, f"launch geometry at D={d}: Python mirror {mirror}, built library {built}")
+        mirror, built = hl.k3_geometry(d), hl.built_k3_geometry(d)
+        check(mirror == built, f"K3 geometry at D={d}: Python mirror {mirror}, built library {built}")
+    k3_grids = {}
+    for c, d in K3_GRID_SHAPES:
+        blocks, resident = hl.built_k3_grid(c, d)
+        check(blocks == hl.k3_blocks(c, d, resident),
+              f"K3 grid at C={c}, D={d}: built {blocks} blocks of {resident} resident, mirror {hl.k3_blocks(c, d, resident)}")
+        k3_grids[f"C{c}_D{d}"] = {"blocks": blocks, "resident_blocks": resident,
+                                  "tiles_per_warp_most": max(map(len, hl.k3_schedule(c, d, blocks)))}
     for order in rt.ops.fhn_sens.ORDERS:
         for c in FHN_GEOMETRY_CHAINS:
             mirror = rt.ops.fhn_sens.launch_geometry(order, c, FHN_OBS)
@@ -717,6 +728,7 @@ def phase_build() -> dict:
         max_stack_frame_bytes=max(stack, default=0), registers=per_kernel, spill_store_bytes=linalg_spills,
         bidiag_kernel=bidiag_regs, pcr_kernels=pcr_regs, fhn_kernel=fhn_regs,
         gibbs_kernels=gibbs_regs, geometry={d: tuple(hl.launch_geometry(d)) for d in (3, 10, 15, 25, 48)},
+        k3_geometry={d: tuple(hl.k3_geometry(d)) for d in (3, 10, 15, 25, 48)}, k3_grids=k3_grids,
         fhn_geometry={order: tuple(rt.ops.fhn_sens.launch_geometry(order, FHN_CHAINS, FHN_OBS))
                       for order in rt.ops.fhn_sens.ORDERS})
     return {BIDIAG: bidiag_regs, PCR: pcr_regs}
@@ -728,25 +740,40 @@ G1_SPILLS = {"gibbs_sweep_kernel<25>": 4}
 # Device kernels by the name torch.profiler shows them under.
 KERNEL_NAMES = {"cholesky": "cholesky_kernel", "chol_solve_logdet": "chol_solve_logdet_kernel",
                 "chol_inv_logdet": "chol_inv_logdet_kernel"}
-# BLR australian, german; StochVol hyper; FHN; joint LGC hyper
-TIMED_SHAPES = ((NUM_CHAINS, 15), (NUM_CHAINS, 25), (NUM_CHAINS, 3), (1024, 3), (256, 3), (4, 2))
+# BLR australian, german; StochVol hyper; FHN; joint LGC hyper; australian at the bench's second chain count
+TIMED_SHAPES = ((NUM_CHAINS, 15), (NUM_CHAINS, 25), (NUM_CHAINS, 3), (1024, 3), (256, 3), (4, 2), (2 * NUM_CHAINS, 15))
+# K3's grid against its mirror: the timed shapes, a partial last tile, and more tiles than the card holds at once
+# Widths whose K3 instantiations run its factor's exact path once on scaled metrics: every exact width, and a width
+# of each run-time capacity a width reaches (4: D 2; 16: D 10; 32: D 20; 48: D 40; no width reaches capacity 8)
+K3_FALLBACK_WIDTHS = (15, 25, 3, 5, 6, 7, 8, 14, 2, 10, 20, 40)
+K3_GRID_SHAPES = ((NUM_CHAINS, 15), (NUM_CHAINS, 25), (NUM_CHAINS, 3), (NUM_CHAINS + 3, 3), (8 * NUM_CHAINS + 1, 15),
+                  (NUM_CHAINS + 1, 40), (1, 48))
 
 
-def non_pd_chains(c: int, d: int) -> list[int]:
-    """Chains to spoil: the first chain of a block, the middle of the next,
-    the last of the one after (blocks near C/2), and the batch's last chain;
-    one middle chain where the batch is smaller than that."""
+def non_pd_chains(c: int, d: int, k3_blocks: int) -> list[int]:
+    """Chains to spoil: K1 / K2's block edges (the first chain of a block,
+    the middle of the next, the last of the one after, blocks near C/2), K3's
+    tile edges (the first, middle and last chain of a warp's tile, tiles near
+    C/3, and the first and last chain of the last tile that the first block's
+    last warp walks on K3's grid of ``k3_blocks`` blocks), and the batch's
+    last chain; one middle chain where the batch is smaller than 8 blocks."""
     per_block = hl.launch_geometry(d).chains_per_block
     if c < 8 * per_block:
         return [c // 2]
     block = (c // 2) // per_block
-    return [block * per_block, (block + 1) * per_block + per_block // 2, (block + 3) * per_block - 1, c - 1]
+    k1 = [block * per_block, (block + 1) * per_block + per_block // 2, (block + 3) * per_block - 1]
+    geo = hl.k3_geometry(d)
+    per_tile, tile = geo.chains_per_warp, (c // 3) // geo.chains_per_warp
+    k3 = [tile * per_tile, (tile + 1) * per_tile + per_tile // 2, (tile + 3) * per_tile - 1]
+    last = hl.k3_schedule(c, d, k3_blocks)[geo.warps_per_block - 1][-1]
+    k3 += [last * per_tile, min(c, (last + 1) * per_tile) - 1]
+    return sorted({*k1, *k3, c - 1})
 
 
 def check_kernels(c: int, d: int, err: dict) -> None:
     """K1 and K2 against their twins on one seeded batch with non-PD chains in it."""
     g, b = spd_batch(c, d, seed=1000 * d + c)
-    bad = non_pd_chains(c, d)
+    bad = non_pd_chains(c, d, hl.built_k3_grid(c, d)[0])
     g[bad] = -torch.eye(d, device=DEVICE)  # not PD
     ok = torch.ones(c, dtype=torch.bool, device=DEVICE)
     ok[bad] = False
@@ -782,6 +809,7 @@ def check_kernels(c: int, d: int, err: dict) -> None:
     check(not any(bool(torch.isfinite(x[bad]).flatten(1).all(1).any()) for x in (l3, inv3, half3[:, None])),
           f"K3 finite on a non-PD chain {at}")
     check(torch.equal(inv3[ok], inv3[ok].mT), f"K3's inverse not exactly symmetric {at}")
+    check(torch.equal(inv3[ok], hl.inv_in_kernel_order(l3)[ok]), f"K3's inverse is not its replay's bit for bit {at}")
     errs = [excess(k[ok], p[ok], TOL[name]) for k, p, name in ((l3, lp3, "L"), (inv3, invp3, "inv"),
                                                                (half3, halfp3, "logdet"))]
     check(all(over <= 0 for _, over in errs), f"K3 vs twin beyond tolerance at {at}: max |err| L, inv, "
@@ -807,6 +835,19 @@ def check_operand_forms(c: int, d: int) -> None:
         check(torch.equal(lf, l0) and torch.equal(xf, x0) and torch.equal(ldf, ld0)
               and all(torch.equal(u, v) for u, v in zip(k3f, k3)),
               f"{form} operand at C={c}, D={d}: result differs from the aligned contiguous one")
+
+
+def check_k3_outside_fast_range(c: int, d: int) -> None:
+    """K3 on metrics whose every chain leaves its factor's fast range (entries near 2^-70 or 2^70): the
+    factor again with the IEEE square root and division, L bit for bit K1's, the inverse its replay's."""
+    g, _ = spd_batch(c, d, seed=7 * d + c)
+    for scale in (2.0**-70, 2.0**70):
+        gs = g * scale
+        lk, (l3, inv3, _) = hl.cholesky_cuda(gs), hl.chol_inv_logdet_cuda(gs)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(lk).all()), f"K1 non-finite on G x {scale} at C={c}, D={d}")
+        check(torch.equal(l3, lk) and torch.equal(inv3, inv3.mT) and torch.equal(inv3, hl.inv_in_kernel_order(l3)),
+              f"K3 on G x {scale} at C={c}, D={d}: factor not K1's, inverse not symmetric or not its replay's")
 
 
 def library_cholesky(g):
@@ -867,13 +908,20 @@ def phase_kernels(smi: str) -> dict:
     err = dict(NO_LINALG)
     shapes = [(c, d) for d in (3, 7, 10, 15, 25) for c in (NUM_CHAINS, NUM_CHAINS + 1)] + [(SV_CHAINS, 3), (FHN_CHAINS, 3)]
     shapes += [(LGCJ_CHAINS, 2), (NUM_CHAINS + 1, 2)]  # the joint LGC hyper block's width
-    for c, d in shapes + [(NUM_CHAINS + 1, 40)]:  # 40: two rows a lane
+    # 40: two rows a lane; C + 3 at D = 3: K3's last tile 3 of 8 chains; 8 C + 1 at D = 15: more of K3's tiles
+    # than the card holds at once, so its warps walk several, each with the next one's G arriving
+    for c, d in shapes + [(NUM_CHAINS + 1, 40), (NUM_CHAINS + 3, 3), (8 * NUM_CHAINS + 1, 15)]:
         check_kernels(c, d, err)
     for c, d in ((NUM_CHAINS + 1, 15), (NUM_CHAINS, 8), (NUM_CHAINS + 1, 40)):
         check_operand_forms(c, d)
-    say("kernels", checked="K1, K2, K3: C in (4096, 4097) x D in (3, 7, 10, 15, 25), C in (1024, 256) x D=3, C in (4, 4097) x D=2 and C=4097 x D=40, "
-        "four non-PD chains each (first, middle, last of a block; last of the batch; one of the 4 at C=4); unaligned and strided operands at D in (15, 8, 40); "
-        "K3's factor bit for bit K1's, its inverse exactly symmetric",
+    for d in K3_FALLBACK_WIDTHS:
+        check_k3_outside_fast_range(NUM_CHAINS + 1, d)
+    say("kernels", checked="K1, K2, K3: C in (4096, 4097) x D in (3, 7, 10, 15, 25), C in (1024, 256) x D=3, C in (4, 4097) x D=2, C=4097 x D=40, "
+        "C=4099 x D=3 and C=32769 x D=15, non-PD chains in each (first, middle, last of a K1 / K2 block and of a K3 tile; "
+        "the last tile K3's first block's last warp walks; last of the batch; one of the 4 at C=4); unaligned and strided operands at D in (15, 8, 40); "
+        "K3's factor bit for bit K1's, its inverse exactly symmetric and bit for bit hl.inv_in_kernel_order's replay, "
+        f"also on G x 2^-70 and x 2^70 (C=4097, D in {K3_FALLBACK_WIDTHS}: its factor's exact path at every instantiation "
+        "a width reaches)",
         max_abs_err={k: err[k] for k in LINALG_COUNTED}, tolerance_rtol_atol=TOL)
 
     times = {}
@@ -2365,6 +2413,7 @@ def check_kernels_on_fhn_metrics(data, k_err: dict) -> dict:
             "K3 half logdet": excess(half3, halfp, TOL["logdet"])}
     check(all(over <= 0 for _, over in errs.values()), f"K1 / K2 / K3 vs twins on FHN metrics beyond tolerance: {errs}")
     check(torch.equal(l3, lk) and torch.equal(inv3, inv3.mT), "K3 on FHN metrics: factor not K1's, or inverse not symmetric")
+    check(torch.equal(inv3, hl.inv_in_kernel_order(l3)), "K3 on FHN metrics: inverse not its replay's bit for bit")
     # These metrics are ill-conditioned: each chain's inverse against the twin's within INV_COND_TOL x its
     # condition number, relative to its largest entry (two float32 inverses part by ~cond x eps).
     cond = torch.linalg.cond(g.double())

@@ -63,7 +63,12 @@ StochVol's PCR solve ``ops.tridiag.solve`` as each checkout runs it at
 same two metrics and a seeded b, and per turn T2's round loop in each
 build's SASS (``pcr_round_loop``: instructions a position once through,
 the IEEE divisions' checks and slow-path calls, branches, shared-memory
-loads and stores, barriers).  Each is captured
+loads and stores, barriers).  With K3, ``geometry`` also gives per turn
+K3's body in each build's SASS at D 15 and 25 (``k3_body``: shuffles,
+shared loads by width, shared stores, barriers, division checks and
+slow-path calls, copies, each also a chain) and its phase split
+(``k3_phases``: a lab build of the checkout's ``hopper_linalg.cu`` with
+-DRHMC_K3_STAMPS, made under ``build/k3_lab/``).  Each is captured
 as one CUDA graph, as the captured step runs it: ``device_us`` (every device
 event of a replay, torch.profiler, 20 replays), ``device_events_per_call``,
 ``replay_ms`` (median CUDA-event time of one replay) and ``burst_ms`` (20
@@ -158,7 +163,131 @@ def _measure_geometry(smoke) -> list[dict]:
             row = _captured(smoke, lambda: geometry(g))
             rows.append({"kernel": "geometry", "C": c, "D": d, "route": route, **row, "bound_us": bound,
                          "bound_by": bound_by, "share_of_bound": bound / row["device_us"], "card": card})
+    if route == "K3":
+        rows.append({"kernel": "k3_body", "card": card, **_k3_body(smoke)})
+        rows += [{"kernel": "k3_phases", "C": c, "D": d, "card": card, **_k3_phases(smoke, c, d)}
+                 for c, d in K3_PHASE_SHAPES]
     return rows
+
+
+K3_SASS_WIDTHS = (15, 25)  # australian's and german's D
+K3_PHASE_SHAPES = ((4096, 15), (4096, 25), (8192, 15))
+# SASS opcode groups counted in K3's body: (key, opcodes, width suffix or None for any).
+_K3_OPS = (("shfl", ("SHFL",)), ("sts", ("STS",)), ("bar", ("BAR",)), ("warpsync", ("WARPSYNC",)),
+           ("fchk", ("FCHK",)), ("calls", ("CALL",)), ("ldgsts", ("LDGSTS",)), ("bulk", ("UBLKCP", "UTMALDG", "UTMASTG")),
+           ("syncs", ("SYNCS",)), ("ldg", ("LDG",)), ("stg", ("STG",)), ("mufu", ("MUFU",)), ("ffma", ("FFMA",)))
+
+
+def _k3_body(smoke) -> dict:
+    """K3 as each build compiled it, at the compile-time widths of K3_SASS_WIDTHS: static SASS instructions of
+    the whole function and by opcode (shuffles, shared loads by width, shared stores, barriers, the IEEE
+    divisions' checks and slow-path calls, cp.async and bulk copies, mbarrier operations), each also over the
+    chains a warp serves (``per_chain``).  Everything but the copy loops is unrolled, so the static count is a
+    tile's once through."""
+    text = _sass(smoke)
+    if isinstance(text, dict):
+        return text
+    out = {}
+    for d in K3_SASS_WIDTHS:
+        found = re.findall(rf"Function : (\S*chol_inv_logdet_kernel\S*WidthILi{d}ELb1E\S*)(.*?)(?=Function :|\Z)",
+                           text, re.S)
+        if len(found) != 1:
+            out[f"D{d}"] = {"error": f"{len(found)} chol_inv_logdet_kernel<{d}> in the SASS"}
+            continue
+        code, _ = _loops(found[0][1])
+        ops = [op for _, op, _ in code]
+        full = [text_ for _, _, text_ in code]
+        row = {"instructions": len(ops), **{key: sum(op in names for op in ops) for key, names in _K3_OPS}}
+        for width in ("", ".64", ".128"):
+            row[f"lds{width or '.32'}"] = sum(op == "LDS" and re.match(rf"LDS(\.U)?{re.escape(width)}(\s|$)",
+                                                                     t.split()[0] + " ") is not None
+                                               for op, t in zip(ops, full))
+        geo = smoke.hl.launch_geometry(d)
+        chains = max(1, 32 // geo.lanes_per_chain)
+        out[f"D{d}"] = {**row, "chains_per_warp": chains,
+                        "per_chain": {key: value / chains for key, value in row.items()}}
+    return out
+
+
+def _k3_stamped_lib(smoke):
+    """The stamped lab build of this checkout's ``hopper_linalg.cu`` alone (``-DRHMC_K3_STAMPS``), made here
+    under ``build/k3_lab/<hash>/`` and never loaded by the port; None where the source has no stamp hooks."""
+    import ctypes
+    import hashlib
+
+    build = smoke._build
+    src = build.CSRC_DIR / "hopper_linalg.cu"
+    if "RHMC_K3_STAMPS" not in src.read_text():
+        return None
+    flags = [*build.NVCC_FLAGS, "-DRHMC_K3_STAMPS", "-shared"]
+    key = hashlib.sha256(b"".join(path.read_bytes() for path in [src, *sorted(build.CSRC_DIR.glob("*.cuh"))])
+                         + " ".join(flags).encode()).hexdigest()[:16]
+    lib_path = build.BUILD_ROOT.parent / "k3_lab" / key / "libk3lab.so"
+    if not lib_path.exists():
+        lib_path.parent.mkdir(parents=True, exist_ok=True)
+        proc = subprocess.run([build._nvcc(), *flags, "-o", str(lib_path), str(src)], capture_output=True, text=True,
+                              check=False, timeout=600)
+        if proc.returncode != 0:
+            raise RuntimeError(f"stamped build failed: {proc.stdout[-800:]}{proc.stderr[-800:]}")
+        (lib_path.parent / "ptxas.log").write_text(proc.stdout + proc.stderr)
+    lib = ctypes.CDLL(str(lib_path))
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.rhmc_chol_inv_logdet.argtypes = [ptr, ptr, ptr, ptr, i32, i32, ptr]
+    return lib
+
+
+def _k3_launcher(lib, g):
+    """A launch of ``lib``'s K3 on g into outputs allocated once, on the current stream."""
+    import torch
+
+    c, d, _ = g.shape
+    l, inv, half = torch.empty_like(g), torch.empty_like(g), torch.empty(c, device=g.device)
+
+    def launch():
+        err = lib.rhmc_chol_inv_logdet(g.data_ptr(), l.data_ptr(), inv.data_ptr(), half.data_ptr(), c, d,
+                                       torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"lab K3 launch failed with CUDA error {err}")
+    return launch, (l, inv, half)
+
+
+def _k3_phases(smoke, c: int, d: int) -> dict:
+    """K3's phase split at (C, D) from a lab build with -DRHMC_K3_STAMPS (``_k3_stamped_lib``): lane 0 of each
+    warp adds the clock64() cycles of each phase over its tiles and keeps %globaltimer at its start and end.
+    Per warp that ran, averaged: the cycles of each phase and their shares; the warps' spans (ns) and the
+    kernel's (first start to last end).  ``{"error": ...}`` for a checkout without the hooks."""
+    import ctypes
+
+    import numpy as np
+    import torch
+
+    lib = _k3_stamped_lib(smoke)
+    if lib is None:
+        return {"error": "no stamp hooks in this checkout's K3"}
+    lib.rhmc_k3_stamps.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    phases = ("wait_g", "factor", "store_l", "subst", "product", "store_inv")
+    g, _ = smoke.spd_batch(c, d, seed=d)
+    launch, _ = _k3_launcher(lib, g)
+    launch()  # warm
+    torch.cuda.synchronize()
+    if lib.rhmc_k3_stamps_reset() != 0:
+        raise RuntimeError("stamps reset failed")
+    launch()
+    torch.cuda.synchronize()
+    warps = 1 << 15
+    host = np.zeros((warps, len(phases) + 3), dtype=np.uint64)
+    if lib.rhmc_k3_stamps(host.ctypes.data, warps) != 0:
+        raise RuntimeError("reading the stamps failed")
+    ran = host[host[:, len(phases)] > 0].astype(np.float64)
+    cycles = ran[:, : len(phases)]
+    start, end = ran[:, -2], ran[:, -1]
+    per_warp = cycles.sum(1)
+    return {"warps": int(len(ran)), "tiles_per_warp": float(ran[:, len(phases)].mean()),
+            "cycles": {p: float(v) for p, v in zip(phases, cycles.mean(0))},
+            "share": {p: float(v) for p, v in zip(phases, cycles.mean(0) / per_warp.mean())},
+            "warp_cycles_mean": float(per_warp.mean()), "warp_cycles_max": float(per_warp.max()),
+            "warp_span_ns_mean": float((end - start).mean()), "kernel_span_ns": float(end.max() - start.min()),
+            "start_spread_ns": float(start.max() - start.min()), "sm_clock_max_mhz": smoke.sm_clock_max_mhz()}
 
 
 def _latent_system(smoke, b: int, t: int, case: str):

@@ -4,8 +4,8 @@
 library with a plain C interface, at first use, under
 ``<checkout>/build/hopper_kernels/<hash>/`` (git-ignored): one ``nvcc -c``
 per source, all started together, then one link.  The hash covers the
-sources and the flags, so an edited source rebuilds and an unchanged one
-loads at once.  The ``-Xptxas -v`` report (registers, local memory and
+sources, the headers they share (``ops/csrc/*.cuh``) and the flags, so an
+edited source or header rebuilds and an unchanged tree loads at once.  The ``-Xptxas -v`` report (registers, local memory and
 spills of each kernel) is kept beside the library as ``ptxas.log``, the
 sources' reports one after the other.
 
@@ -49,7 +49,7 @@ def _nvcc() -> str:
 def library_dir() -> Path:
     """Directory of the library for the current sources and flags."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
-    for src in sorted(CSRC_DIR.glob("*.cu")):
+    for src in sorted([*CSRC_DIR.glob("*.cu"), *CSRC_DIR.glob("*.cuh")]):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_ROOT / h.hexdigest()[:16]

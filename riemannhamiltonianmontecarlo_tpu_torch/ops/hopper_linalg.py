@@ -31,10 +31,13 @@ same unrolled outer-product elimination and substitutions (``_chol_body`` /
 rest of the port calls: the twin for a CPU tensor, the kernel for a CUDA
 one, never a fallback from one to the other.
 
-On the card a group of lanes owns one chain and a block owns a run of
-neighbouring chains, staged through a shared-memory tile;
+On the card a group of lanes owns one chain.  K1 and K2: a block owns a run
+of neighbouring chains, staged through a shared-memory tile;
 ``launch_geometry(d)`` mirrors the source's choice of lanes per chain,
-chains per block and tile size for every width, the same for all three.
+chains per block and tile size for every width.  K3: a warp owns a tile of
+neighbouring chains and walks tiles with the grid's stride, the next one's
+G on its way while it works one; ``k3_geometry(d)`` mirrors its layout and
+``k3_schedule`` replays its walk and copies.
 
 The library is built by ``ops._build`` at the first CUDA call, never at
 import, so this module imports on a machine without CUDA.
@@ -97,6 +100,76 @@ def launch_geometry(d: int) -> LaunchGeometry:
     return LaunchGeometry(lanes, -(-rows // lanes), chains, stride, 4 * chains * d * stride)
 
 
+class K3Geometry(NamedTuple):
+    """How K3 lays a width out on the card (csrc: ``K3<W>``)."""
+
+    lanes_per_chain: int  # as K1's
+    rows_per_lane: int
+    chains_per_warp: int  # a tile: a warp's neighbouring chains
+    warps_per_block: int  # as many as keep the block within STATIC_SHARED_LIMIT, at most 4
+    row_stride: int  # floats between rows of L^T: a multiple of 4, an odd number of 16-byte slots
+    chain_stride: int  # floats between the chains' L^T: a multiple of 4, an odd number of 16-byte slots
+    stage_floats: int  # one of a warp's two stages: a tile's run of G, then of L and G^-1
+    shared_bytes: int  # the block's
+
+
+K3_STAGES = 2  # a warp's stages: the tile it works and the next one's G arriving
+
+
+def k3_geometry(d: int) -> K3Geometry:
+    """K3's layout for width ``d`` (csrc: ``K3<W>``), mirrored in Python.
+
+    ``rhmc_k3_geometry`` of the built library gives the source's own answer;
+    ``chip_smoke.py`` holds the two against each other on the card.
+    """
+    geo = launch_geometry(d)
+    n = d if d in EXACT_WIDTHS else next(cap for cap in CAPACITIES if d <= cap)
+    chains = 32 // geo.lanes_per_chain
+    pad = ((n + 3) // 4 | 1) * 4
+    chain_stride = n * pad if n * pad // 4 % 2 else n * pad + 4
+    stage = (chains * n * n + 6) // 4 * 4
+    warp_floats = K3_STAGES * stage + chains * chain_stride
+    warps = min(4, STATIC_SHARED_LIMIT // 4 // warp_floats)
+    return K3Geometry(geo.lanes_per_chain, geo.rows_per_lane, chains, warps, pad, chain_stride, stage,
+                      4 * warps * warp_floats)
+
+
+class K3Copy(NamedTuple):
+    """One warp's copy of a run of ``count`` floats starting ``first`` floats into its operand: ``head``
+    floats 4 bytes each up to the first 16-byte boundary, ``chunks`` 16-byte chunks, the rest 4 bytes each."""
+
+    first: int
+    count: int
+    head: int
+    chunks: int
+    tail: int
+
+
+def k3_copy(first: int, count: int, base_shift: int) -> K3Copy:
+    """The copy of floats ``first .. first + count`` of an operand whose data starts ``base_shift`` floats past
+    a 16-byte boundary (csrc: ``K3Transport``'s load and store; the chunks go by one bulk copy)."""
+    shift = (base_shift + first) % 4
+    head = min(count, (4 - shift) % 4)
+    chunks = (count - head) // 4
+    return K3Copy(first, count, head, chunks, count - head - 4 * chunks)
+
+
+def k3_blocks(c: int, d: int, resident_blocks: int) -> int:
+    """K3's grid for C chains on a card that holds ``resident_blocks`` of its blocks at once (csrc: ``k3_blocks``):
+    a block for every ``warps_per_block`` tiles, at most ``resident_blocks``."""
+    geo = k3_geometry(d)
+    tiles = -(-c // geo.chains_per_warp)
+    return min(-(-tiles // geo.warps_per_block), resident_blocks)
+
+
+def k3_schedule(c: int, d: int, blocks: int) -> list[list[int]]:
+    """The tiles each warp of a ``blocks``-block grid walks, in order (csrc: the tile loop of
+    ``chol_inv_logdet_kernel``): warp w takes tiles w, w + W, w + 2 W, ... for W warps in the grid."""
+    geo = k3_geometry(d)
+    tiles, warps = -(-c // geo.chains_per_warp), blocks * geo.warps_per_block
+    return [list(range(w, tiles, warps)) for w in range(warps)]
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load_library()
@@ -109,6 +182,10 @@ def _lib() -> ctypes.CDLL:
     lib.rhmc_chol_solve_logdet.restype = i32
     lib.rhmc_chol_inv_logdet.argtypes = [ptr, ptr, ptr, ptr, i32, i32, ptr]
     lib.rhmc_chol_inv_logdet.restype = i32
+    lib.rhmc_k3_geometry.argtypes = [i32, ctypes.POINTER(i32)]
+    lib.rhmc_k3_geometry.restype = i32
+    lib.rhmc_k3_grid.argtypes = [i32, i32, ctypes.POINTER(i32)]
+    lib.rhmc_k3_grid.restype = i32
     return lib
 
 
@@ -119,6 +196,25 @@ def built_launch_geometry(d: int) -> LaunchGeometry:
     if err != 0:
         raise RuntimeError(f"rhmc_launch_geometry({d}) failed with CUDA error {err}")
     return LaunchGeometry(*out)
+
+
+def built_k3_geometry(d: int) -> K3Geometry:
+    """The built library's own K3 layout for width ``d`` (builds the library: needs the toolkit)."""
+    out = (ctypes.c_int * len(K3Geometry._fields))()
+    err = _lib().rhmc_k3_geometry(d, out)
+    if err != 0:
+        raise RuntimeError(f"rhmc_k3_geometry({d}) failed with CUDA error {err}")
+    return K3Geometry(*out)
+
+
+def built_k3_grid(c: int, d: int) -> tuple[int, int]:
+    """(blocks K3 launches for C chains of width d, blocks of it the current card holds at once), from the built
+    library on the current device."""
+    out = (ctypes.c_int * 2)()
+    err = _lib().rhmc_k3_grid(c, d, out)
+    if err != 0:
+        raise RuntimeError(f"rhmc_k3_grid({c}, {d}) failed with CUDA error {err}")
+    return out[0], out[1]
 
 
 def _check_batch(g: Tensor, b: Tensor | None = None) -> None:
@@ -241,6 +337,45 @@ def chol_inv_logdet_plain(g: Tensor) -> tuple[Tensor, Tensor, Tensor]:
 
     l = cholesky_plain(g)
     return l, linalg.inv_psd_from_chol(l), 0.5 * linalg.logdet_from_chol(l)
+
+
+def _fma32(a: Tensor, b: Tensor, c: Tensor) -> Tensor:
+    """float32 a * b + c rounded once, as the card's fused multiply-add: the
+    product is exact in float64 and the sum is rounded to odd there, so that
+    its one rounding to float32 is the correct one."""
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    t = s - p
+    e = (p - (s - t)) + (c - t)  # s + e is p + c exactly
+    even = (s.view(torch.int64) & 1) == 0
+    to_odd = (e != 0) & even & torch.isfinite(s)
+    s = torch.where(to_odd, torch.nextafter(s, torch.where(e > 0, torch.inf, -torch.inf).to(s)), s)
+    return s.float()
+
+
+def inv_in_kernel_order(l: Tensor) -> Tensor:
+    """G^-1 from a lower factor L, (C, D, D) float32, with K3's operations in
+    K3's order, for the tests and ``chip_smoke.py`` to hold the kernel to bit
+    for bit: column c of L^-1 by s_i -= L[i][k] y_k (one fused multiply-add,
+    k ascending, as the twin's substitution orders its terms) and
+    y_k = s_k * (1 / L[k][k]) where the twin divides; then
+    G^-1[a][b] = sum over k from b of L^-1[k][a] L^-1[k][b], fused
+    multiply-adds in ascending k from 0."""
+    d = l.shape[-1]
+    rinv = 1.0 / torch.diagonal(l, dim1=-2, dim2=-1)
+    y = torch.eye(d, dtype=l.dtype, device=l.device).expand(l.shape).clone()  # y[:, c, i]: column c, row i
+    for k in range(d):
+        y[..., k] = y[..., k] * rinv[..., k, None]
+        for i in range(k + 1, d):
+            y[..., i] = _fma32(-l[..., i, k, None], y[..., k], y[..., i])
+    inv = torch.empty_like(l)
+    for b in range(d):
+        acc = torch.zeros_like(l[..., 0])
+        for k in range(b, d):
+            acc = _fma32(y[..., k], y[..., b, k, None], acc)
+        inv[..., b] = acc
+    return inv
 
 
 def chol_inv_logdet_cuda(g: Tensor) -> tuple[Tensor, Tensor, Tensor]:

@@ -191,6 +191,18 @@ def test_torch_build_without_nvcc_raises(monkeypatch):
     assert _build.library_dir() == _build.library_dir()  # keyed by content, stable
 
 
+def test_torch_build_key_covers_shared_headers(monkeypatch, tmp_path):
+    """An edited header that the sources include (``csrc/*.cuh``) makes a new build, as an edited source does."""
+    for name in ("hopper_linalg.cu", "tridiag.cu"):  # K3's factor and T1 share the IEEE fast paths
+        assert '#include "fast_math.cuh"' in (_build.CSRC_DIR / name).read_text()
+    (tmp_path / "a.cu").write_text('#include "shared.cuh"\n')
+    (tmp_path / "shared.cuh").write_text("// one\n")
+    monkeypatch.setattr(_build, "CSRC_DIR", tmp_path)
+    before = _build.library_dir()
+    (tmp_path / "shared.cuh").write_text("// two\n")
+    assert _build.library_dir() != before
+
+
 def test_torch_build_failure_leaves_no_objects(monkeypatch, tmp_path):
     """A source that does not compile raises with nvcc's report, and no
     object file or half-built library is left beside the report."""
@@ -345,10 +357,141 @@ def test_torch_launch_geometry_mirrors_the_cuda_source():
     assert "return n <= 4 ? 4 : n <= 8 ? 8 : n <= 16 ? 16 : 32;" in src  # lanes_for
     assert "constexpr int row_stride(int d) { return d | 1; }" in src
     assert "permute" not in src and src.count("__global__") == 3  # one kernel template per function: K1, K2, K3
-    # K3 launches as K1 does: the same widths, blocks and tile, so launch_geometry is its too.
-    for kernel in ("cholesky_kernel", "chol_inv_logdet_kernel"):
+    # K1 and K2 launch a block a tile of launch_geometry's chains; K3 launches its own grid of warps that walk
+    # tiles (k3_blocks), each block as k3_geometry lays it out, with the same widths.
+    for kernel in ("cholesky_kernel", "chol_solve_logdet_kernel"):
         assert re.search(rf"{kernel}<W>\s*<<<blocks_for<W>\(num_chains\), kThreads, tile_bytes<W>\(d\),", src), kernel
-    assert src.count("return with_width(d, [&](auto width) {") == 4  # K1, K2, K3 and the geometry query
+    assert re.search(r"chol_inv_logdet_kernel<W><<<k3_blocks<W>\(num_chains\), K3<W>::kThreads, K3<W>::kSharedBytes,",
+                     src)
+    for line in ("static constexpr int kChains = 32 / W::kLanes;",
+                 "static constexpr int kPad = ((kN + 3) / 4 | 1) * 4;",
+                 "static constexpr int kChainStride = kN * kPad / 4 % 2 ? kN * kPad : kN * kPad + 4;",
+                 "static constexpr int kStage = (kChains * kN * kN + 6) / 4 * 4;",
+                 f"static constexpr int kWarpFloats = {hl.K3_STAGES} * kStage + kChains * kChainStride;",
+                 "static constexpr int kWarps = kK3SharedFloats / kWarpFloats < 4 ? kK3SharedFloats / kWarpFloats : 4;",
+                 "static constexpr int kSharedBytes = 4 * kWarps * kWarpFloats;",
+                 f"constexpr int kK3SharedFloats = {hl.STATIC_SHARED_LIMIT // 1024} * 1024 / 4;",
+                 "const int tiles = (num_chains + T::kChains - 1) / T::kChains, per_block = T::kWarps;",
+                 "const int wanted = (tiles + per_block - 1) / per_block, resident = k3_resident_blocks<W>();",
+                 "for (int buf = 0; tile < tiles; tile += stride, buf ^= 1) {",
+                 "stride = gridDim.x * T::kWarps;", "int tile = blockIdx.x * T::kWarps + warp;"):
+        assert line in src, line
+    # K1, K2, K3, and the queries of K1 / K2's geometry, K3's geometry and K3's grid
+    assert src.count("return with_width(d, [&](auto width) {") == 6
+
+
+# -- K3's layout and walk, mirrored from the CUDA source ----------------------------
+
+
+@pytest.mark.parametrize("d", range(1, hl.MAX_DIM + 1))
+def test_torch_k3_geometry_covers_every_width(d):
+    geo, k1 = hl.k3_geometry(d), hl.launch_geometry(d)
+    n = d if d in hl.EXACT_WIDTHS else next(cap for cap in hl.CAPACITIES if d <= cap)  # rows unrolled for
+    assert (geo.lanes_per_chain, geo.rows_per_lane) == k1[:2]  # K1's lanes and rows, so K1's factor
+    assert geo.chains_per_warp * geo.lanes_per_chain == 32  # a tile is one warp's
+    assert 1 <= geo.warps_per_block <= 4 and geo.shared_bytes <= hl.STATIC_SHARED_LIMIT  # no opt-in needed
+    # L^T's rows and chains start 16-byte aligned (float4 reads), each an odd number of 16-byte slots long
+    assert geo.row_stride % 4 == 0 and geo.row_stride // 4 % 2 == 1 and n <= geo.row_stride < n + 8
+    assert geo.chain_stride % 4 == 0 and geo.chain_stride // 4 % 2 == 1 and geo.chain_stride >= n * geo.row_stride
+    # Bank mapping: the broadcast float4 of each chain of a warp lies in its own 16-byte slot of 128 bytes.
+    slots = {c * geo.chain_stride // 4 % 8 for c in range(geo.chains_per_warp)}
+    assert len(slots) == geo.chains_per_warp
+    # A stage holds a tile's run at any alignment (shift < 4) and keeps the next stage 16-byte aligned.
+    assert geo.stage_floats % 4 == 0 and geo.stage_floats >= geo.chains_per_warp * d * d + 3
+    warp_floats = hl.K3_STAGES * geo.stage_floats + geo.chains_per_warp * geo.chain_stride
+    assert geo.shared_bytes == 4 * geo.warps_per_block * warp_floats
+    assert (geo.warps_per_block == 4 or 4 * (geo.warps_per_block + 1) * warp_floats > hl.STATIC_SHARED_LIMIT)
+
+
+def test_torch_k3_fallback_widths_reach_every_instantiation():
+    """chip_smoke.py runs K3's exact factor once at each instantiation that a width reaches (``with_width``)."""
+    reached = {d if d in hl.EXACT_WIDTHS else next(cap for cap in hl.CAPACITIES if d <= cap)
+               for d in range(1, hl.MAX_DIM + 1)}
+    covered = {d if d in hl.EXACT_WIDTHS else next(cap for cap in hl.CAPACITIES if d <= cap)
+               for d in chip_smoke.K3_FALLBACK_WIDTHS}
+    assert covered == reached
+
+
+@pytest.mark.parametrize("d", [2, 3, 15, 25, 40, 48])
+@pytest.mark.parametrize("c", [1, 2, 7, 255, 4096, 4097, 33792])
+def test_torch_k3_schedule_covers_every_chain_once(c, d):
+    """K3's walk from the mirror: every chain in one warp's tile once, at any grid; every copy of a tile
+    (G at each alignment, L and G^-1) 16-byte chunks at 16-byte aligned starts, 4-byte copies at its ends."""
+    geo = hl.k3_geometry(d)
+    tiles = -(-c // geo.chains_per_warp)
+    for resident in (132 * 16, 132, 3):  # blocks a card holds at once: many, one an SM, few (warps walk far)
+        blocks = hl.k3_blocks(c, d, resident)
+        assert 1 <= blocks <= resident and (blocks == resident or blocks * geo.warps_per_block >= tiles)
+        walks = hl.k3_schedule(c, d, blocks)
+        assert len(walks) == blocks * geo.warps_per_block
+        owned = [chain for walk in walks for tile in walk
+                 for chain in range(tile * geo.chains_per_warp, min(c, (tile + 1) * geo.chains_per_warp))]
+        assert sorted(owned) == list(range(c))
+        assert all(b - a == len(walks) for walk in walks for a, b in zip(walk, walk[1:]))
+    for tile in {0, 1, 2, tiles // 2, tiles - 2, tiles - 1} & set(range(tiles)):
+        here = min(geo.chains_per_warp, c - tile * geo.chains_per_warp)
+        first, count = tile * geo.chains_per_warp * d * d, here * d * d
+        for shift in range(4):  # the operand's data this many floats past a 16-byte boundary
+            cp = hl.k3_copy(first, count, shift)
+            assert cp.head + 4 * cp.chunks + cp.tail == count and cp.head < 4 and cp.tail < 4
+            assert cp.chunks == 0 or (shift + first + cp.head) % 4 == 0  # 16-byte chunks start 16-byte aligned
+            assert cp.head == 0 or (shift + first) % 4 != 0  # the 4-byte path only off a boundary, or at the end
+            assert (shift + first) % 4 + count <= geo.stage_floats  # the image fits its stage
+
+
+# -- K3's inverse in its own order ----------------------------------------------------
+
+
+def test_torch_fma32_rounds_once():
+    """The replay's fused multiply-add: a * b + c rounded once to float32 (exact rationals decide), near
+    cancellation too."""
+    from fractions import Fraction
+
+    rng = np.random.default_rng(11)
+    a, b = rng.normal(size=(2, 3000)).astype(np.float32)
+    c = (-(a.astype(np.float64) * b) * (1 + rng.normal(size=3000) * 1e-6)).astype(np.float32)
+    c[::3] = rng.normal(size=1000).astype(np.float32)
+    got = hl._fma32(*(torch.from_numpy(x) for x in (a, b, c))).numpy()
+    for x, y, z, r in zip(a, b, c, got):
+        exact = Fraction(float(x)) * Fraction(float(y)) + Fraction(float(z))
+        err = abs(Fraction(float(r)) - exact)
+        for other in (np.nextafter(r, np.float32(np.inf)), np.nextafter(r, np.float32(-np.inf))):
+            other_err = abs(Fraction(float(other)) - exact)
+            assert err < other_err or (err == other_err and int(r.view(np.int32)) % 2 == 0)
+
+
+# K3 multiplies by a reciprocal where the twin divides (ops/hopper_linalg.py::inv_in_kernel_order replays it):
+# against the JAX package's geometry with chip_smoke.py's tolerances.
+@pytest.mark.parametrize("c,d", [(64, 3), (40, 15), (24, 25), (9, 40)])
+def test_torch_k3_inverse_order_matches_the_jax_geometry(c, d):
+    g, _ = spd(c, d, seed=7 * c + d)
+    l_ref = jops.cholesky(jnp.asarray(g), method="unrolled")
+    inv_ref = np.asarray(jops.inv_psd_from_chol(l_ref, method="unrolled"))
+    l = hl.cholesky_plain(torch.from_numpy(g))
+    np.testing.assert_allclose(l.numpy(), np.asarray(l_ref), rtol=1e-5, atol=1e-5)
+    inv = hl.inv_in_kernel_order(l)
+    rtol, atol = chip_smoke.TOL["inv"]
+    np.testing.assert_allclose(inv.numpy(), inv_ref, rtol=rtol, atol=atol)
+    assert torch.equal(inv, inv.mT)  # (a, b) and (b, a): the same products in the same order
+    half = 0.5 * np.asarray(jops.logdet_from_chol(l_ref))
+    np.testing.assert_allclose(hl.chol_inv_logdet_plain(torch.from_numpy(g))[2].numpy(), half, rtol=2e-4, atol=2e-3)
+
+
+def test_torch_k3_inverse_order_on_ill_conditioned_metrics():
+    """3 x 3 metrics shaped like FHN's (entries to ~1e4, condition numbers to ~1e5): each chain's inverse
+    within chip_smoke.INV_COND_TOL x its condition number of the JAX geometry's, relative to its largest entry."""
+    rng = np.random.default_rng(5)
+    q, _ = np.linalg.qr(rng.normal(size=(256, 3, 3)))
+    lam = 10.0 ** rng.uniform(0.0, 5.0, size=(256, 3))
+    g = ((q * lam[:, None, :]) @ np.swapaxes(q, -1, -2)).astype(np.float32)
+    g = 0.5 * (g + np.swapaxes(g, -1, -2))
+    cond = np.linalg.cond(g.astype(np.float64))
+    assert cond.max() > 1e4
+    l_ref = jops.cholesky(jnp.asarray(g), method="unrolled")
+    inv_ref = np.asarray(jops.inv_psd_from_chol(l_ref, method="unrolled")).astype(np.float64)
+    inv = hl.inv_in_kernel_order(hl.cholesky_plain(torch.from_numpy(g))).numpy().astype(np.float64)
+    rel = np.abs(inv - inv_ref).reshape(256, -1).max(1) / np.abs(inv_ref).reshape(256, -1).max(1)
+    assert (rel <= chip_smoke.INV_COND_TOL * cond).all(), float((rel / cond).max())
 
 
 # -- chip_smoke.py's bound ---------------------------------------------------------
@@ -371,6 +514,9 @@ def test_torch_launch_geometry_mirrors_the_cuda_source():
     ("chol_inv_logdet", 4096, 25, (3 * 4096 * 625 + 4096) * 4 / 3.35e6),  # 9.2 us
     ("chol_inv_logdet", 1024, 3, (3 * 1024 * 9 + 1024) * 4 / 3.35e6),
     ("chol_inv_logdet", 4, 2, (3 * 4 * 4 + 4) * 4 / 3.35e6),
+    ("cholesky", 8192, 15, 2 * 8192 * 225 * 4 / 3.35e6),  # australian at the bench's second chain count: 4.4 us
+    ("chol_solve_logdet", 8192, 15, (7_372_800 + 491_520 + 491_520 + 32_768) / 3.35e6),  # 2.5 us
+    ("chol_inv_logdet", 8192, 15, (3 * 8192 * 225 + 8192) * 4 / 3.35e6),  # 22.1 MB -> 6.6 us
 ])
 def test_torch_chip_smoke_bound_us(name, c, d, expected_us):
     assert (c, d) in chip_smoke.TIMED_SHAPES
