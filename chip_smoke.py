@@ -26,7 +26,8 @@ It imports no jax.  Phases, each printing one line of findings:
    chains and threads per block, blocks, shared bytes) and
    ``fhn_sens.output_owners`` (the lane of a chain's group that writes each
    output entry) against the library's for orders 0-2 at C in {1, 31, 256,
-   257, 4224};
+   257, 4224}; K4's and K5's registers and spill per width (none at D 15)
+   and ``logreg_fixed_point.launch_geometry`` against the library's;
 3. kernels: K1 (Cholesky), K2 (fused solve + log-det) and K3 (factor,
    inverse and half log-det: RMHMC's geometry) against their
    plain-PyTorch twins on the card, on seeded SPD batches at
@@ -112,7 +113,21 @@ It imports no jax.  Phases, each printing one line of findings:
    indices), at most 1e-4 of the elements differing, the split's rows the
    whole call's bit for bit, the rounds the elements ran (mean, maximum).
    For each, its device time beside its bound (G1 also beside the source's
-   critical path), the plain version's time, and the wrapper's.  A timed kernel that
+   critical path), the plain version's time, and the wrapper's.  Then BLR
+   RMHMC's two fixed points (``ops/csrc/logreg_fixed_point.cu``; also run by
+   ``--phases main-path``): K4 (the position fixed point, 4 rounds) and K5
+   (the momentum fixed point, 4 rounds, and its one-round half-step) against
+   the plain versions (the sampler's loops, K2 a position round) at (C, N, D)
+   = (4096, 690, 15), (4096, 1000, 25), (1024, 250, 3), (4, 32, 2) and
+   (256, 20000, 15) (X streamed in tiles), Student-t off and on, dt of both
+   signs: the yardstick is the plain version in float64 on the same float32
+   inputs, and a kernel's largest error against it must be at most twice the
+   float32 plain version's plus 1e-5; a chain whose G is not positive
+   definite is non-finite in both and every other chain bit for bit the
+   batch without it; at (4096, 690, 15) and (4096, 1000, 25) each one's
+   ``device_us`` beside its bound, the wrapper's and the plain version's ms
+   and the parent's route (the loops with K2) captured as one graph (no
+   PyTorch call computes either: information only).  A timed kernel that
    torch.profiler does not see fails the run;
 4. one RMHMC transition through the kernels against one through the plain
    linalg, on the same state and noise (BLR, synthetic data of the
@@ -122,8 +137,9 @@ It imports no jax.  Phases, each printing one line of findings:
    posterior means against a plain-linalg run under another seed; prints
    seconds per transition and min-ESS/s.  The counts are the kernels'
    device counters (``ops.launches``), which the step's CUDA graph adds to
-   at each replay; three more replays of that graph under torch.profiler
-   must show as many K1 / K2 / K3 device events as the counters count;
+   at each replay: K3 1 + L a step, K4 L and K5 2 L, K1 and K2 none; three
+   more replays of that graph under torch.profiler must show as many K1 -
+   K5 device events as the counters count;
 6. blr-samplers: the experiment entry point
    ``experiments.run_experiment(..., device="cuda")`` for all nine BLR
    samplers on a synthetic CSV of australian's shape (N=690, D=15), mMALA
@@ -136,7 +152,7 @@ It imports no jax.  Phases, each printing one line of findings:
    replays under torch.profiler against the counters.  Each run: finite samples of the
    right shape, acceptance in a window from RESULTS.md or the JAX
    package's tests, divergences, posterior means against the RMHMC run on
-   the same data (z < 5 from exact-mode ESS), and K1 / K2 / K3 launch counts
+   the same data (z < 5 from exact-mode ESS), and K1 - K5 launch counts
    (Gibbs's: and G1 and G2 once a step; its run, 1024 chains, replays
    a CUDA graph as every capturable run does) equal to the formulas the
    samplers' code gives; prints seconds per transition and min-ESS/s beside
@@ -197,11 +213,15 @@ It imports no jax.  Phases, each printing one line of findings:
    process, a process group of one rank over NCCL (a TCP store on a free
    local port, torn down at the end): BLR RMHMC at full width (4096 chains,
    20 + 20) through ``parallel.run(..., mesh=)`` on a ("chains", "data")
-   mesh of shape (1, 1) with the model from ``with_sharding``, and LGC phmc
+   mesh of shape (1, 1) with the model from ``with_sharding`` (the
+   sampler's loops, K2: its metric is all-reduced between the build and the
+   factor), and LGC phmc
    at D = 4096 (64 chains, 20 + 20) on a ("chains", "latent") mesh, each
    captured and ``torch.equal`` to the same mesh run eager and to the
-   captured run without a mesh, one capture in the burn-in and none in the
-   timed run, with K1 / K2 / K3 launch counts equal to the formulas and the
+   captured run without a mesh (BLR's on the loops too:
+   ``step_profile.parent_routes``), one
+   capture in the burn-in and none in the
+   timed run, with K1 - K5 launch counts equal to the formulas and the
    all-reduces counted on the device equal to those the eager run issued
    (72 a BLR step, 66 an LGC step); three replays of each graph: the device
    count against one eager step's issued all-reduces, and the NCCL kernels
@@ -218,9 +238,10 @@ It imports no jax.  Phases, each printing one line of findings:
    phase 6's CSV, its min-ESS equal to the exact-mode ESS of its samples to
    1e-10.  Then two ranks sharing the card over Gloo on CUDA tensors
    (``parallel.launch.spawn``, plain subprocesses with a timeout): BLR RMHMC
-   at full width, 10 + 10, chains split (2, 1) on the whole model, captured
-   and bit for bit each rank's eager run, and rows split (1, 2) on the
-   model from ``with_sharding``, eager (its all-reduces are Gloo's), with
+   at full width, 10 + 10, chains split (2, 1) on the whole model (K4 /
+   K5), captured and bit for bit each rank's eager run, and rows split
+   (1, 2) on the model from ``with_sharding`` (the loops, K2), eager (its
+   all-reduces are Gloo's), with
    ``capture=True`` refused naming Gloo.  Under the chain split each rank is
    bit for bit one process running that rank's half of the chains (the same
    noise, the same batch size); under the row split the ranks' positions
@@ -229,7 +250,7 @@ It imports no jax.  Phases, each printing one line of findings:
    abs / 1e-5 rel, except that a chain whose decisions came within 1e-3 of
    the boundary may part (counted); the largest ratio of a difference to its
    tolerance is printed, with which ops of a transition give other bits at
-   half the rows.  K1 / K2 / K3 launch counts per rank equal the formulas; the
+   half the rows.  K1 - K5 launch counts per rank equal the formulas; the
    checkpoint shards ``.p0`` / ``.p1`` round-trip.  Then, split (2, 1) over
    the same two ranks, the four samplers the chain split took last, 5 + 5
    each, captured and bit for bit each rank's eager run: AMH (BLR, 4096
@@ -257,7 +278,7 @@ It imports no jax.  Phases, each printing one line of findings:
    the C++ engine against NumPy within 1e-3), ``probe_scaling`` (FHN HMC at
    two chain counts, 2 steps) and ``scaling_table`` (world sizes 1 and 2
    over Gloo on the card, 5 + 5, every rank replaying its chain-split step's graph).  Each section is headed with the nvidia-smi line and holds the
-   expected number of rows of finite numbers; K1 / K2 / K3 launch counts of the
+   expected number of rows of finite numbers; K1 - K5 launch counts of the
    make_results, StochVol and ESS-engine rows equal the formulas; the rmhmc
    row's acceptance is within 0.05 of phase 5's, the StochVol row's of
    phase 7's (or, without those phases, in phase 5's window / within 0.05 of
@@ -267,7 +288,7 @@ It imports no jax.  Phases, each printing one line of findings:
    ``draw_noise`` alone replayed 8 times against 8 eager calls from one
    seed; BLR RMHMC at phase 5's configuration (4096 chains, 20 + 20) run
    with ``capture=False`` and ``capture=True`` from one seed: samples,
-   final state, acceptance and divergences equal bit for bit, K1 / K2 / K3
+   final state, acceptance and divergences equal bit for bit, K1 - K5
    launch counts of the captured run equal to ``blr_expected_launches``,
    one capture for both phases; then every other capturable sampler (the
    BLR ones and adaptive RMHMC at 4096 chains, Gibbs at 1024 with its G1 /
@@ -355,6 +376,9 @@ from riemannhamiltonianmontecarlo_tpu_torch.parallel.mesh import CHAIN_AXIS  # n
 from riemannhamiltonianmontecarlo_tpu_torch.ops import gig, truncnorm  # noqa: E402
 from riemannhamiltonianmontecarlo_tpu_torch.samplers import gibbs, pmala, rmhmc  # noqa: E402
 
+# K4 / K5's module; None where kernel_ab.py imports the port of a checkout from before them
+lfp = getattr(rt.ops, "logreg_fixed_point", None)
+
 DEVICE = "cuda"
 NUM_CHAINS = 4096
 N_DATA, DIM = 690, 15  # australian's shape: 690 rows, 14 features + intercept
@@ -427,8 +451,29 @@ GIBBS_REPLACES = {
 GIBBS_KERNEL_NAMES = {"gibbs_sweep": "gibbs_sweep", "gig_half": "gig_half_kernel",
                       "gig_round": "gig_round_kernel"}
 GIBBS_COUNTED = tuple(GIBBS_KERNEL_NAMES)
-# Counted kernels that a run's counts list only where they launched (a Gibbs or StochVol run).
-SOMETIMES_COUNTED = (*GIBBS_COUNTED, BIDIAG, PCR)
+# BLR RMHMC's two fixed points K4 and K5 (csrc/logreg_fixed_point.cu): no Pallas kernel behind either.
+FIXED_POINT_SOURCE = "riemannhamiltonianmontecarlo_tpu_torch/ops/csrc/logreg_fixed_point.cu"
+FIXED_POINT_REPLACES = {
+    "position_fixed_point": "riemannhamiltonianmontecarlo_tpu/samplers/rmhmc.py:208-217 (model.metric, "
+                            "models/logreg.py:166-183, and ops.solve_psd each round; XLA, no pallas_call)",
+    "momentum_fixed_point": "riemannhamiltonianmontecarlo_tpu/samplers/rmhmc.py:193-195 and :220-223 (momentum_force "
+                            ":166-185 through models/logreg.py:200-205; XLA, no pallas_call)",
+}
+FIXED_POINT_KERNEL_NAMES = {"position_fixed_point": "position_fixed_point_kernel",
+                            "momentum_fixed_point": "momentum_fixed_point_kernel"}
+FIXED_POINT_COUNTED = tuple(FIXED_POINT_KERNEL_NAMES)
+# K4 / K5 against their plain versions at (C, N, D): the main path, german's shape, a D-3 and a D-2 batch (run-time
+# width 2 on capacity 4), and an N past what shared memory holds whole (X streamed in tiles, c from device memory).
+FIXED_POINT_SHAPES = ((NUM_CHAINS, 690, 15), (NUM_CHAINS, 1000, 25), (1024, 250, 3), (4, 32, 2), (256, 20000, 15))
+FIXED_POINT_TIMED = ((NUM_CHAINS, 690, 15), (NUM_CHAINS, 1000, 25))
+# The yardstick is the plain version in float64 on the same float32 inputs: a kernel's largest error against it
+# must be at most twice the float32 plain version's, plus this absolute floor.
+FIXED_POINT_FLOOR = 1e-5
+FIXED_POINT_JITTER_NON_PD = -1.001  # x 1/alpha: a chain whose v are all 0 has G = -0.001 I / alpha (not PD)
+FIXED_POINT_WIDTHS = (3, 15, 25, 48)  # registers and spill reported; none may spill at 15
+
+# Counted kernels that a run's counts list only where they launched (a Gibbs, StochVol or BLR RMHMC run).
+SOMETIMES_COUNTED = (*GIBBS_COUNTED, BIDIAG, PCR, *FIXED_POINT_COUNTED)
 
 
 class SmokeFailure(RuntimeError):
@@ -533,7 +578,7 @@ def replay_launches(kernel, state, replays: int = GRAPH_REPLAYS, sessions: int =
     entry = rt.parallel.graphs.lookup(kernel.step, None, state)
     check(entry is not None, "no captured graph of the step: the run did not take the captured path")
     names = {**KERNEL_NAMES, "fhn_sensitivities": FHN_KERNEL_NAME, **GIBBS_KERNEL_NAMES, BIDIAG: BIDIAG_KERNEL_NAME,
-             PCR: PCR_KERNEL_NAME}
+             PCR: PCR_KERNEL_NAME, **FIXED_POINT_KERNEL_NAMES}
     gen = torch.Generator(device=DEVICE).manual_seed(GRAPH_SEED)
     seen = []
     for _ in range(sessions):
@@ -634,7 +679,7 @@ def phase_build() -> dict:
     spills = [int(s) for s in re.findall(r"(\d+) bytes spill stores", log)]
     stack = [int(s) for s in re.findall(r"(\d+) bytes stack frame", log)]
     check(regs, "ptxas report names no kernel")
-    for source in (SOURCE, FHN_SOURCE, GIBBS_SOURCE, BIDIAG_SOURCE):  # the kernels line's "source" fields
+    for source in (SOURCE, FHN_SOURCE, GIBBS_SOURCE, BIDIAG_SOURCE, FIXED_POINT_SOURCE):  # the kernels line's sources
         check((Path(__file__).resolve().parent / source).is_file(), f"kernel source {source} is not in the checkout")
     # Registers and spill stores per kernel and width, from the mangled names: K1 / K2 / K3, the rows
     # the instantiation is unrolled for, "rt" where the width comes at run time.
@@ -704,6 +749,22 @@ def phase_build() -> dict:
             mirror = gibbs.sweep_scratch_numel(c, n, lanes)
             built = gibbs._lib().rhmc_gibbs_sweep_scratch_floats(c, n, lanes)
             check(mirror == built, f"G1 scratch at C={c}, N={n}, {lanes} lanes: Python {mirror}, built {built}")
+    # K4 / K5 per width (the rows unrolled, "rt" where the width comes at run time): registers and spill
+    # stores, none at D 15; their layouts against the built library's at phase 3's shapes and past the cut-overs.
+    fp_found = re.findall(r"(position_fixed_point_kernel|momentum_fixed_point_kernel)INS_5WidthILi(\d+)ELb([01])E"
+                          r".*?(\d+) bytes spill stores.*?Used (\d+) registers", log, re.S)
+    fp_short = {"position_fixed_point_kernel": "K4", "momentum_fixed_point_kernel": "K5"}
+    fp_regs = {f"{fp_short[name]}<{n}{'' if exact == '1' else ',rt'}>": {"registers": int(r), "spill_store_bytes": int(sp)}
+               for name, n, exact, sp, r in fp_found}
+    check(len(fp_found) == len(fp_regs) == 2 * (len(hl.EXACT_WIDTHS) + len(hl.CAPACITIES)),
+          f"ptxas report names K4 / K5 {sorted(fp_regs)}: expected one of each at every width and capacity")
+    for k in ("K4", "K5"):
+        check(fp_regs[f"{k}<15>"]["spill_store_bytes"] == 0, f"{k} spills at D 15: {fp_regs[f'{k}<15>']}")
+    for name in FIXED_POINT_COUNTED:
+        for n, d in [(n, d) for _, n, d in FIXED_POINT_SHAPES] + [(1, 1), (690, 40), (4096, 48), (12000, 48),
+                                                                  (50000, 3)]:
+            mirror, built = lfp.launch_geometry(name, n, d), lfp.built_launch_geometry(name, n, d)
+            check(mirror == built, f"{name} layout at N={n}, D={d}: Python {mirror}, built library {built}")
     for d in range(1, hl.MAX_DIM + 1):
         mirror, built = hl.launch_geometry(d), hl.built_launch_geometry(d)
         check(mirror == built, f"launch geometry at D={d}: Python mirror {mirror}, built library {built}")
@@ -727,11 +788,12 @@ def phase_build() -> dict:
         max_registers=max(regs), max_spill_store_bytes=max(spills, default=0),
         max_stack_frame_bytes=max(stack, default=0), registers=per_kernel, spill_store_bytes=linalg_spills,
         bidiag_kernel=bidiag_regs, pcr_kernels=pcr_regs, fhn_kernel=fhn_regs,
-        gibbs_kernels=gibbs_regs, geometry={d: tuple(hl.launch_geometry(d)) for d in (3, 10, 15, 25, 48)},
+        gibbs_kernels=gibbs_regs, fixed_point_kernels={k: fp_regs[k] for k in sorted(fp_regs)},
+        geometry={d: tuple(hl.launch_geometry(d)) for d in (3, 10, 15, 25, 48)},
         k3_geometry={d: tuple(hl.k3_geometry(d)) for d in (3, 10, 15, 25, 48)}, k3_grids=k3_grids,
         fhn_geometry={order: tuple(rt.ops.fhn_sens.launch_geometry(order, FHN_CHAINS, FHN_OBS))
                       for order in rt.ops.fhn_sens.ORDERS})
-    return {BIDIAG: bidiag_regs, PCR: pcr_regs}
+    return {BIDIAG: bidiag_regs, PCR: pcr_regs, "fixed_point": fp_regs}
 
 
 # G1's spill stores by instantiation, bytes: 25 entries a lane without the prologue spills 4 B at 168
@@ -930,6 +992,175 @@ def phase_kernels(smi: str) -> dict:
         for name, row in times[c, d].items():
             say("kernel-times", kernel=name, C=c, D=d, card=smi, **row)
     return {"err": err, "times": times}
+
+
+# -- K4 / K5: BLR RMHMC's two fixed points ----------------------------------------
+
+
+def fixed_point_bound_us(name: str, c: int, n: int, d: int, rounds: int) -> tuple[float, str]:
+    """K4's (``position_fixed_point``) or K5's least microseconds for ``rounds`` rounds on C chains and N rows of
+    width D, and which side gives it.  Bytes: each input read once, the output written once (K4: X, w, pm, u0
+    and dt in, wf out; K5: X, G^-1, c, p, pm0, base and dt in, pm out).  Operations, a chain and round: K4
+    2 N D for the logits and N D (D + 1) for G's lower triangle (G is symmetric: D (D + 1) / 2 multiply-adds
+    a row), D^3 / 3 for the factor and 2 D^2 for the two substitutions; K5 2 D^2 for u = G^-1 pm, 2 N D each
+    for X u and for the sum of c (x_n u)^2 x_n, and 3 N for the weights."""
+    if name == "position_fixed_point":
+        floats = n * d + 4 * c * d + c
+        ops = c * rounds * (2 * n * d + n * d * (d + 1) + d**3 / 3 + 2 * d * d)
+    else:
+        floats = n * d + c * d * d + c * n + 4 * c * d + c
+        ops = c * rounds * (2 * d * d + 4 * n * d + 3 * n)
+    by_bytes, by_ops = 1e6 * 4 * floats / HBM_BYTES_PER_S, 1e6 * ops / FP32_OPS_PER_S
+    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+
+
+def fixed_point_inputs(c: int, n: int, d: int, seed: int) -> dict:
+    """A BLR model on seeded synthetic data of (N, D), a float64 copy of it, and the fixed points' inputs as the
+    sampler makes them at C chains around the MAP: w, G^-1 (K3), the dG weights c, a momentum p ~ N(0, G),
+    the force's base, u0 = G^-1 p (and its Student-t scaling), dt = +-0.5 by a coin a chain."""
+    ds = rt.models.synthetic_logreg(seed=seed, n=n, d=d)
+    model = rt.interop.logreg_from_numpy(ds.X, ds.t, device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    w = rt.utils.default_init(model, gen, c)
+    ms = model.manifold_state(w)
+    chol, inv, _ = hl.chol_inv_logdet_cuda(ms.metric)
+    p = rt.ops.mvn_sample(chol, torch.randn((c, d), generator=gen, device=DEVICE))
+    dt = torch.where(torch.rand(c, generator=gen, device=DEVICE) < 0.5, 0.5, -0.5)
+    u0 = torch.einsum("...ab,...b->...a", inv, p)
+    u0_t = (1.0 + d) * u0 / (1.0 + torch.sum(p * u0, dim=-1, keepdim=True))
+    return {"model": model, "model64": rt.models.LogisticRegression(model.X.double(), model.t.double(), model.alpha),
+            "w": w, "inv": inv, "cache": ms.cache, "p": p, "dt": dt, "u0": u0, "u0_t": u0_t,
+            "base": ms.grad - 0.5 * model.dg_trace(w, inv, cache=ms.cache)}
+
+
+def fixed_point_calls(inp: dict, name: str, st: bool, rounds: int, jitter: float = 0.0, **swap) -> tuple:
+    """(kernel, float32 plain, float64 plain) of one K4 or K5 call on ``inp`` (``swap`` replaces inputs): the
+    plain versions are the loops the sampler ran before the kernels (float32: the solve by K2; float64: the
+    unrolled solve on float64 copies of the same float32 inputs)."""
+    a = {**inp, **swap}
+    if name == "position_fixed_point":
+        args = (a["w"], a["p"], a["u0_t"] if st else a["u0"], a["dt"])
+        kw = dict(rounds=rounds, student_t=st, jitter=jitter)
+        return (lambda: lfp.position_fixed_point_cuda(a["model"].X, *args, alpha=a["model"].alpha, **kw),
+                lambda: lfp.position_fixed_point_plain(a["model"], *args, **kw),
+                lambda: lfp.position_fixed_point_plain(a["model64"], *(x.double() for x in args), method="unrolled",
+                                                       **kw))
+    pm0 = a.get("pm0", a["p"])
+    args = (a["inv"], a["cache"], a["p"], pm0, a["base"], a["dt"])
+    kw = dict(rounds=rounds, student_t=st)
+    return (lambda: lfp.momentum_fixed_point_cuda(a["model"].X, *args, **kw),
+            lambda: lfp.momentum_fixed_point_plain(a["model"], a["w"], *args, **kw),
+            lambda: lfp.momentum_fixed_point_plain(a["model64"], a["w"].double(), *(x.double() for x in args), **kw))
+
+
+def held(label: str, kernel: torch.Tensor, plain: torch.Tensor, plain64: torch.Tensor, ok: torch.Tensor) -> dict:
+    """The kernel's and the float32 plain version's largest errors against the float64 plain version over the
+    chains ``ok``; the kernel's must be finite and at most twice the plain version's plus FIXED_POINT_FLOOR."""
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(kernel[ok]).all()), f"{label}: non-finite output on a chain that should be finite")
+    e_k = float((kernel[ok].double() - plain64[ok]).abs().max())
+    e_p = float((plain[ok].double() - plain64[ok]).abs().max())
+    check(e_k <= 2 * e_p + FIXED_POINT_FLOOR,
+          f"{label}: max |kernel - float64 plain| {e_k} > 2 x max |float32 plain - float64 plain| {e_p} + "
+          f"{FIXED_POINT_FLOOR}")
+    return {"kernel_err": e_k, "plain_err": e_p}
+
+
+def check_fixed_point(inp: dict, c: int, n: int, d: int) -> dict:
+    """K4, K5 and K5's one-round half-step against the yardstick at (C, N, D), Student-t off and on, dt of both
+    signs in each batch; then a chain whose G is not positive definite (K4: its v all 0 under a jitter of
+    -1.001 / alpha, so G = -0.001 I / alpha; K5: its G^-1 NaN, as K3 leaves a non-PD G's): non-finite in that chain
+    alone, as in the plain version, every other chain bit for bit the batch without it."""
+    at, out = f"(C={c}, N={n}, D={d})", {}
+    ok = torch.ones(c, dtype=torch.bool, device=DEVICE)
+    for st in (False, True):
+        for name in FIXED_POINT_COUNTED:
+            kern, plain, plain64 = fixed_point_calls(inp, name, st, K)
+            out[f"{name}{'/t' if st else ''}"] = held(f"{name} {at} student_t={st}", kern(), plain(), plain64(), ok)
+        pm = fixed_point_calls(inp, "momentum_fixed_point", st, K)[1]()
+        kern, plain, plain64 = fixed_point_calls(inp, "momentum_fixed_point", st, 1, p=pm, pm0=pm)
+        out[f"momentum_half_step{'/t' if st else ''}"] = held(f"momentum half-step {at} student_t={st}", kern(), plain(),
+                                                             plain64(), ok)
+    bad = c // 2
+    ok[bad] = False
+    jitter = float(np.float32(FIXED_POINT_JITTER_NON_PD / inp["model"].alpha))
+    w_bad = inp["w"].clone()
+    w_bad[bad] *= 1e6  # every |x_n . w| past the sigmoid's range: v = 0
+    inv_bad = inp["inv"].clone()
+    inv_bad[bad] = float("nan")
+    for name, swap, kw in (("position_fixed_point", {"w": w_bad}, {"jitter": jitter}),
+                           ("momentum_fixed_point", {"inv": inv_bad}, {})):
+        clean = fixed_point_calls(inp, name, False, K, **kw)[0]()
+        kern, plain, plain64 = fixed_point_calls(inp, name, False, K, **kw, **swap)
+        got, want = kern(), plain()
+        label = f"{name} {at} non-PD chain {bad}"
+        check(not bool(torch.isfinite(got[bad]).all()) and not bool(torch.isfinite(want[bad]).all()),
+              f"{label}: finite in the kernel ({bool(torch.isfinite(got[bad]).all())}) or the plain version")
+        check(torch.equal(got[ok], clean[ok]), f"{label}: another chain's output changed")
+        out[f"{name}/non-pd"] = held(label, got, want, plain64(), ok)
+    return out
+
+
+def graph_of(fn):
+    """``fn`` (warmed) captured as one CUDA graph."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return graph
+
+
+def time_fixed_point(inp: dict, c: int, n: int, d: int) -> dict:
+    """K4, K5 and K5's half-step at (C, N, D): the kernel's own time (torch.profiler), the wrapper's, the plain
+    version's eager, and the parent's route (the loops with K2) captured as one graph: its replay's CUDA-event
+    time and device time and events (no one PyTorch call computes either function: the parent's route stands
+    where a library call would, information only), beside the bound."""
+    out = {}
+    for label, name, rounds in (("position_fixed_point", "position_fixed_point", K),
+                                ("momentum_fixed_point", "momentum_fixed_point", K),
+                                ("momentum_half_step", "momentum_fixed_point", 1)):
+        kern, plain, _ = fixed_point_calls(inp, name, False, rounds)
+        dev = device_us(kern, launches=20, name_part=FIXED_POINT_KERNEL_NAMES[name])
+        check(dev["events_per_call"] == 1, f"{label}: {dev['events_per_call']} device kernels per launch")
+        graph = graph_of(plain)
+        parent = device_us(graph.replay, launches=5)
+        bound, bound_by = fixed_point_bound_us(name, c, n, d, rounds)
+        out[label] = {
+            "rounds": rounds, "ms": median_ms(kern), "burst_ms": burst_ms(kern, launches=50),
+            "device_us": dev["us"], "device_us_source": dev["source"], "profiler_sessions": dev["sessions"],
+            "plain_ms": median_ms(plain, reps=10), "parent_route_ms": median_ms(graph.replay, reps=10),
+            "parent_route_device_us": parent["us"], "parent_route_events": parent["events_per_call"],
+            "bound_us": bound, "bound_by": bound_by, "share_of_bound": bound / dev["us"],
+        }
+        del graph
+    return out
+
+
+def phase_fixed_point_kernels(smi: str, regs: dict) -> dict:
+    """K4 and K5 against the yardstick at FIXED_POINT_SHAPES, and their times at FIXED_POINT_TIMED."""
+    err, times = dict.fromkeys(FIXED_POINT_COUNTED, 0.0), {}
+    for i, (c, n, d) in enumerate(FIXED_POINT_SHAPES):
+        inp = fixed_point_inputs(c, n, d, seed=50 + i)
+        cases = check_fixed_point(inp, c, n, d)
+        for case, row in cases.items():
+            name = "position_fixed_point" if case.startswith("position") else "momentum_fixed_point"
+            err[name] = max(err[name], row["kernel_err"])
+        say("fixed-point-kernels", C=c, N=n, D=d, layout={k: tuple(lfp.launch_geometry(k, n, d))
+                                                          for k in FIXED_POINT_COUNTED},
+            cases=cases, yardstick="the plain version in float64 on the same float32 inputs",
+            tolerance=f"kernel_err <= 2 plain_err + {FIXED_POINT_FLOOR}")
+        if (c, n, d) in FIXED_POINT_TIMED:
+            times[c, n, d] = time_fixed_point(inp, c, n, d)
+            for name, row in times[c, n, d].items():
+                say("fixed-point-kernel-times", kernel=name, C=c, N=n, D=d, card=smi, **row)
+        del inp
+    fp_regs = {w: {k: regs["fixed_point"][f"{k}<{w}>" if w in hl.EXACT_WIDTHS else f"{k}<48,rt>"] for k in ("K4", "K5")}
+               for w in FIXED_POINT_WIDTHS}
+    say("fixed-point-registers", widths=fp_regs)
+    return {"err": err, "times": times, "registers": fp_regs}
 
 
 def bidiag_inputs(b: int, t: int, seed: int):
@@ -1634,11 +1865,18 @@ def sample(model, method, seed: int, burn_in: int = BURN_IN, num_samples: int = 
     }
 
 
-def blr_expected_launches(steps: int) -> dict:
-    """K1 / K2 / K3 launches of a BLR RMHMC run of ``steps`` steps: one geometry
-    (K3) at init and after each leapfrog step, one solve (K2) a position
-    fixed-point round, no K1."""
-    return {"cholesky": 0, "chol_solve_logdet": L * K * steps, "chol_inv_logdet": 1 + L * steps}
+def blr_expected_launches(steps: int, loops: bool = False) -> dict:
+    """K1 / K2 / K3 (and K4 / K5) launches of a BLR RMHMC run of ``steps`` steps:
+    one geometry (K3) at init and after each leapfrog step, no K1; on a whole
+    model one position fixed point (K4) a leapfrog step and two momentum
+    launches (K5: the fixed point and the explicit half-step), no K2; with
+    ``loops`` (a data-sharded model, or the parent's route) the sampler's
+    loops instead, one solve (K2) a position fixed-point round."""
+    if loops:
+        return {"cholesky": 0, "chol_solve_logdet": L * K * steps, "chol_inv_logdet": 1 + L * steps}
+    return {"cholesky": 0, "chol_solve_logdet": 0, "chol_inv_logdet": 1 + L * steps,
+            "position_fixed_point": L * steps, "momentum_fixed_point": 2 * L * steps}
+
 
 
 def blr_launches() -> dict:
@@ -1673,8 +1911,8 @@ def phase_main_path(model, smi: str) -> dict:
     # a few more replays of that graph under torch.profiler hold them against the device's own events.
     replays = replay_launches(kern["kernel"], kern["final_state"])
     per_replay = {name: n - blr_expected_launches(0)[name] for name, n in blr_expected_launches(1).items()}
-    check(replays["counted"] == {**{k: n * GRAPH_REPLAYS for k, n in per_replay.items()}, "fhn_sensitivities": 0,
-                                 **dict.fromkeys(SOMETIMES_COUNTED, 0)},
+    check(replays["counted"] == {"fhn_sensitivities": 0, **dict.fromkeys(SOMETIMES_COUNTED, 0),
+                                 **{k: n * GRAPH_REPLAYS for k, n in per_replay.items()}},
           f"main path: {GRAPH_REPLAYS} replays counted {replays['counted']}, expected {per_replay} each")
     check(replays["equal"], f"main path: the counters and torch.profiler's device events differ: {replays}")
     for run in (kern, plain):
@@ -2999,6 +3237,10 @@ def batch_invariance(model, init: torch.Tensor) -> dict:
         "dg_bilinear": (model.dg_bilinear, (init, u, u)),
         "K1 cholesky": (hl.cholesky, (g,)),
         "K2 chol_solve_logdet": (lambda a, b: flat(*hl.chol_solve_logdet(a, b)), (g, init)),
+        "K4 position_fixed_point": (lambda w, pm, dt: model.position_fixed_point(w, pm, pm, dt, rounds=K),
+                                    (init, u, noise.u_dir)),
+        "K5 momentum_fixed_point": (lambda w, inv, c, p, dt: model.momentum_fixed_point(w, inv, c, p, p, p, dt, rounds=K),
+                                    (init, torch.linalg.inv(g), model.dg_cache(init), u, noise.u_dir)),
         "transition": (lambda w, *leaves: kernel.transition(kernel.init(w), type(noise)(*leaves))[0].position,
                        (init, *noise)),
     }
@@ -3029,6 +3271,8 @@ def host_profile(kernel, state, mesh) -> dict:
 def phase_distributed(smi: str) -> dict:
     """Phase 11: the parallel layer: world 1 over NCCL in this process, then
     two ranks sharing the card over Gloo; captured wherever declared."""
+    from riemannhamiltonianmontecarlo_tpu_torch import step_profile
+
     shutil.rmtree(DIST_DIR, ignore_errors=True)
     DIST_DIR.mkdir(parents=True)
     write_smoke_csvs()
@@ -3045,13 +3289,14 @@ def phase_distributed(smi: str) -> dict:
         burn, samples = DIST_BLR_RUN
         plain_kernel, world1_kernel = rmhmc.build(model), rmhmc.build(model.with_sharding(mesh))
         check(world1_kernel.capturable, "distributed: the model sharded over NCCL does not declare itself capturable")
-        plain = dist_run(plain_kernel, init, None, burn, samples)
+        with step_profile.parent_routes():  # the sharded model's route: the loops, K2 (not K4 / K5)
+            plain = dist_run(plain_kernel, init, None, burn, samples)
         world1 = dist_run(world1_kernel, init, mesh, burn, samples)
         world1_eager = dist_run(world1_kernel, init, mesh, burn, samples, capture=False)
         same, same_eager = same_run(plain, world1), same_run(world1_eager, world1)
         check(all(same.values()), f"distributed: world 1 captured differs from the run without a mesh: {same}")
         check(all(same_eager.values()), f"distributed: world 1 captured differs from world 1 eager: {same_eager}")
-        expected = blr_expected_launches(burn + samples)
+        expected = blr_expected_launches(burn + samples, loops=True)
         for run in (plain, world1, world1_eager):
             check(run["launches"] == expected, f"distributed: launch counts {run['launches']}, expected {expected}")
         captures = {"no_mesh": (plain["captures"], plain["timed_captures"]),
@@ -3079,7 +3324,8 @@ def phase_distributed(smi: str) -> dict:
             no_mesh_all_reduce=plain["all_reduce"])
         # Where the host's time goes in the eager step with and without the mesh (what the all-reduces cost).
         say("distributed-host-profile", run="world1-blr", card=smi, path="eager",
-            world1=host_profile(world1_kernel, world1["state"], mesh), no_mesh=host_profile(plain_kernel, plain["state"], None))
+            world1=host_profile(world1_kernel, world1["state"], mesh), no_mesh=host_profile(plain_kernel, plain["state"], None),
+            no_mesh_route="K4 / K5")
 
         # LGC phmc at D = 4096: the operators' rows over a ("chains", "latent") mesh of shape (1, 1).
         y, _ = rt.models.lgc.generate_data(seed=LGC_SEED, n=LGC_N)
@@ -3186,7 +3432,8 @@ def phase_distributed(smi: str) -> dict:
     spawn("chip_smoke:distributed_rank", 2, device=DEVICE, backend="gloo", args=[str(DIST_DIR)], timeout=DIST_TIMEOUT)
     launch_s = time.perf_counter() - t0
     r0, r1 = (np.load(DIST_DIR / f"two_rank.r{r}.npz") for r in range(2))
-    expected = blr_expected_launches(burn + samples)
+    # the chain split on the whole model (K4 / K5), the row split on the sharded one (the loops, K2)
+    expected_by = {"chains": blr_expected_launches(burn + samples), "data": blr_expected_launches(burn + samples, True)}
     fields = {}
     for r in (r0, r1):  # the chain split captured, bit for bit eager; the row split eager, capture=True refused
         check(bool(r["chains_capturable"]) and bool(r["chains_eager_equal"]) and list(r["chains_captures"]) == [1, 0, 0],
@@ -3198,6 +3445,7 @@ def phase_distributed(smi: str) -> dict:
               f"row split over Gloo: capturable {r['data_capturable']}, captures {r['data_captures']}, "
               f"capture=True gave {refused!r}")
     for label in ("chains", "data"):
+        expected = expected_by[label]
         for r in (r0, r1):
             got = {k: int(r[f"{label}_{k}"]) for k in expected}
             check(got == expected, f"distributed 2-rank {label}: launch counts {got} on a rank, expected {expected}")
@@ -3222,7 +3470,7 @@ def phase_distributed(smi: str) -> dict:
     say("distributed", run="2rank-gloo-blr", backend="gloo", chains=NUM_CHAINS, burn_in=burn, samples=samples,
         chain_split_captured=True, chain_split_bit_identical_to_eager=True, row_split_captured=False,
         row_split_capture_true_refused=str(r0["data_refused"]),
-        boundary_margin=DIST_MARGIN, launches_per_rank=expected, checkpoint_shards=shards,
+        boundary_margin=DIST_MARGIN, launches_per_rank=expected_by, checkpoint_shards=shards,
         **{f"split_{label}": {k: v for k, v in f.items() if k != "s_per_transition"} for label, f in fields.items()})
     say("distributed-times", run="2rank-gloo-blr", card=smi, launch_s=launch_s,
         **{f"split_{label}_s_per_transition": f["s_per_transition"] for label, f in fields.items()},
@@ -3721,9 +3969,40 @@ def phase_graphs(smi: str) -> dict:
     return launches_by_path
 
 
-# The path whose count each linalg kernel's entry of the kernels line gives.
-LAUNCHES_FROM = {"cholesky": "mmala/australian", "chol_solve_logdet": "rmhmc-main-path",
+# The path whose count each linalg kernel's entry of the kernels line gives (K2 left the main path for K4 in
+# PR 20: its count is StochVol RMHMC's hyper block's).
+LAUNCHES_FROM = {"cholesky": "mmala/australian", "chol_solve_logdet": "stochvol/rmhmc",
                  "chol_inv_logdet": "rmhmc-main-path"}
+
+
+def fixed_point_summary(fixed_point: dict, by_path: dict, smi: str) -> list[dict]:
+    """K4's and K5's entries of the kernels line: their times at the main path's (4096, 690, 15) (K5 at 4 rounds,
+    its one-round half-step beside), ``launches`` phase 5's main path, every path's count under
+    ``launches_by_path``."""
+    rows = []
+    for name in FIXED_POINT_COUNTED:
+        shapes = {f"C{c}_N{n}_D{d}": row for (c, n, d), row in fixed_point["times"].items()}
+        times = fixed_point["times"][FIXED_POINT_TIMED[0]][name]
+        paths = {label: counts[name] for label, counts in by_path.items() if name in counts}
+        check(paths.get("rmhmc-main-path", 0) > 0, f"{name}: no launch on rmhmc-main-path ({paths})")
+        rows.append({
+            "name": name, "route": "cuda", "source": FIXED_POINT_SOURCE, "replaces": FIXED_POINT_REPLACES[name],
+            "kernel": FIXED_POINT_KERNEL_NAMES[name], "launches": paths["rmhmc-main-path"],
+            "launches_from": "rmhmc-main-path", "launches_counted_by": LAUNCHES_COUNTED_BY,
+            "max_abs_err": fixed_point["err"][name], "max_abs_err_is": "against the plain version in float64",
+            "ms": times["ms"], "plain_ms": times["plain_ms"], "bound_ms": times["bound_us"] / 1e3,
+            "bound_by": times["bound_by"], "library_ms": None,
+            "library_note": "no single PyTorch call computes it; parent_route_ms: the loops with K2 captured",
+            "parent_route_ms": times["parent_route_ms"], "parent_route_device_us": times["parent_route_device_us"],
+            "device_us": times["device_us"], "share_of_bound": times["share_of_bound"], "rounds": times["rounds"],
+            "registers": {w: row[{"position_fixed_point": "K4", "momentum_fixed_point": "K5"}[name]]
+                          for w, row in fixed_point["registers"].items()},
+            "card": smi, "shape": {"C": FIXED_POINT_TIMED[0][0], "N": FIXED_POINT_TIMED[0][1], "D": FIXED_POINT_TIMED[0][2]},
+            "shapes": {label: {k: v for k, v in row.items() if k.startswith(name.split("_")[0])} for label, row in shapes.items()},
+            "launches_by_path": paths,
+        })
+    rows[1]["half_step"] = fixed_point["times"][FIXED_POINT_TIMED[0]]["momentum_half_step"]
+    return rows
 
 
 def tridiag_summary(tridiag: dict, by_path: dict, smi: str) -> list[dict]:
@@ -3833,6 +4112,8 @@ def main(argv=None) -> None:
                 tridiag = phase_tridiag_kernels(smi, regs)
             if "kernels" in phases or "fhn" in phases:  # the FHN kernel's checks and times; phase 10 reports them
                 fhn_kernel = phase_fhn_kernel(smi, k_err)
+            if "kernels" in phases or "main-path" in phases:  # K4 / K5's checks and times; phase 5 drives them
+                fixed_point = phase_fixed_point_kernels(smi, regs)
                 lap("kernels")
         model = blr_model()
         if "transition" in phases:
@@ -3884,6 +4165,7 @@ def main(argv=None) -> None:
             "shapes": {f"C{c}_D{d}": row[name] for (c, d), row in kernels["times"].items()},
             "launches_by_path": {label: counts[name] for label, counts in by_path.items() if name in counts},
         })
+    summary += fixed_point_summary(fixed_point, by_path, smi)
     summary += tridiag_summary(tridiag, by_path, smi)
     summary.append(fhn_summary(fhn, smi))
     summary += gibbs_summary(gibbs_kernels, by_path, smi)

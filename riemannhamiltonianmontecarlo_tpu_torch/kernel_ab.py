@@ -1,6 +1,6 @@
 """Time the hand-written kernels of two checkouts in turns on one CUDA card.
 
-    python -m riemannhamiltonianmontecarlo_tpu_torch.kernel_ab --parent DIR [--kernels linalg,fhn,gibbs,geometry,bidiag,pcr] [--out FILE]
+    python -m riemannhamiltonianmontecarlo_tpu_torch.kernel_ab --parent DIR [--kernels linalg,fhn,gibbs,geometry,bidiag,pcr,fixed_point] [--out FILE]
 
 ``DIR`` holds another checkout of the repository (for example an earlier
 commit unpacked with ``git archive`` under the git-ignored ``build/``); this
@@ -73,6 +73,16 @@ as one CUDA graph, as the captured step runs it: ``device_us`` (every device
 event of a replay, torch.profiler, 20 replays), ``device_events_per_call``,
 ``replay_ms`` (median CUDA-event time of one replay) and ``burst_ms`` (20
 replays back to back), beside the function's ``bound_us``.
+``--kernels fixed_point`` times BLR RMHMC's two fixed points as each
+checkout computes them at ``FIXED_POINT_RUNS`` on ``chip_smoke.fixed_point_inputs``:
+the model's ``position_fixed_point`` / ``momentum_fixed_point`` (K4 / K5)
+where the checkout has them, else the sampler's loops (``model.metric`` and
+``ops.solve_psd``, K2 a round; ``dg_bilinear``), 4 rounds and the one-round
+half-step, each captured as one CUDA graph as above, beside
+``chip_smoke.fixed_point_bound_us``; and per turn K4's and K5's round loops
+in each build's SASS at D 15 (``fixed_point_loops``: the innermost loop
+with the most FFMAs, its instructions, FFMAs, shared loads by width,
+shuffles and branches, and the kernel's registers from ``ptxas.log``).
 Prints one JSON line per turn, kernel and shape, with the card's name and
 power limit.  Needs a CUDA device and nvcc; there is no CPU path.
 """
@@ -90,7 +100,8 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[1]
 TURNS = ("parent", "change", "change", "parent")
-KERNELS = ("linalg", "fhn", "gibbs", "geometry", "bidiag", "pcr")
+KERNELS = ("linalg", "fhn", "gibbs", "geometry", "bidiag", "pcr", "fixed_point")
+FIXED_POINT_RUNS = ((4096, 690, 15), (4096, 1000, 25), (8192, 690, 15))  # (C, N, D): the main path, german, 2 x C
 BIDIAG_RUNS = ((1024, 2000, "metric"), (1024, 2000, "identity"), (4096, 2000, "metric"))  # (B, T, G)
 PCR_RUNS = ((1024, 2000, "metric"), (1024, 2000, "identity"), (4096, 2000, "metric"), (4096, 2000, "identity"))
 FHN_CHAINS = (256, 4224)  # the FHN samplers' chain count; one warp on each SM at one lane per chain
@@ -126,6 +137,8 @@ def _measure(root: Path, kernels: list[str]) -> list[dict]:
             rows += _measure_bidiag(smoke)
         if "pcr" in kernels:
             rows += _measure_pcr(smoke)
+        if "fixed_point" in kernels:
+            rows += _measure_fixed_point(smoke)
     return rows
 
 
@@ -612,6 +625,88 @@ def _fhn_rk4_loop(smoke) -> dict:
         out[f"fhn<{order}>" if kind in ("", "1") else f"fhn<{order},streamed>"] = {
             "steps_per_pass": steps, "instructions_per_step": len(inside) / steps if steps else None,
             "branches": sum(op in ("BRA", "BSSY", "BSYNC", "WARPSYNC") for op, _ in inside) - 1}
+    return out
+
+
+def _fixed_point_call(smoke, inp: dict, name: str, rounds: int, fused: bool):
+    """One call of a fixed point on ``inp`` as the checkout runs it: the model's method (K4 / K5 on a card) or,
+    in a checkout without them, the sampler's loops as that checkout wrote them (Gaussian momentum, no jitter)."""
+    ops, model, dt = smoke.rt.ops, inp["model"], inp["dt"]
+    w, inv, cache, p, base, u0 = (inp[k] for k in ("w", "inv", "cache", "p", "base", "u0"))
+    if fused and name == "position_fixed_point":
+        return lambda: model.position_fixed_point(w, p, u0, dt, rounds=rounds)
+    if fused:
+        return lambda: model.momentum_fixed_point(w, inv, cache, p, p, base, dt, rounds=rounds)
+    half = 0.5 * dt[:, None]
+
+    def position():
+        wf = w
+        for _ in range(rounds):
+            wf = w + half * (u0 + ops.solve_psd(model.metric(wf), p))
+        return wf
+
+    def momentum():
+        pm = p
+        for _ in range(rounds):
+            u = smoke.torch.einsum("...ab,...b->...a", inv, pm)
+            pm = p + half * (base + 0.5 * model.dg_bilinear(w, u, u, cache=cache))
+        return pm
+
+    return position if name == "position_fixed_point" else momentum
+
+
+def _measure_fixed_point(smoke) -> list[dict]:
+    import torch
+
+    fused = hasattr(smoke.rt.models.LogisticRegression, "position_fixed_point")
+    route = "K4 / K5" if fused else "the sampler's loops (K2 a position round)"
+    card, rows = smoke.smi_line(), []
+    with torch.inference_mode():
+        for c, n, d in FIXED_POINT_RUNS:
+            inp = smoke.fixed_point_inputs(c, n, d, seed=50)
+            for label, name, rounds in (("position_fixed_point", "position_fixed_point", 4),
+                                        ("momentum_fixed_point", "momentum_fixed_point", 4),
+                                        ("momentum_half_step", "momentum_fixed_point", 1)):
+                row = _captured(smoke, _fixed_point_call(smoke, inp, name, rounds, fused))
+                bound, bound_by = smoke.fixed_point_bound_us(name, c, n, d, rounds)
+                rows.append({"kernel": label, "C": c, "N": n, "D": d, "rounds": rounds, "route": route, **row,
+                             "bound_us": bound, "bound_by": bound_by, "share_of_bound": bound / row["device_us"],
+                             "card": card})
+            del inp
+    if fused:
+        rows.append({"kernel": "fixed_point_loops", "card": card, **_fixed_point_loops(smoke)})
+    return rows
+
+
+def _fixed_point_loops(smoke) -> dict:
+    """K4's and K5's round loops at D 15 as the build compiled them: per kernel the innermost loop with the most
+    FFMAs (K4: a row of G's sums; K5: a row of X u and of the force), its SASS instructions, FFMAs, shared loads by
+    width, shuffles and branch / reconvergence instructions, and the kernel's registers and spill from ptxas."""
+    text = _sass(smoke)
+    if isinstance(text, dict):
+        return text
+    log = (smoke._build.build().parent / "ptxas.log").read_text()
+    out = {}
+    for name in smoke.FIXED_POINT_KERNEL_NAMES.values():
+        found = re.findall(rf"Function : (\S*{name}INS_5WidthILi15ELb1EEE\S*)(.*?)(?=Function :|\Z)", text, re.S)
+        if len(found) != 1:
+            out[name] = {"error": f"{len(found)} {name}<15> in the SASS"}
+            continue
+        code, loops = _loops(found[0][1])
+        innermost = [(lo, hi) for lo, hi in loops if not any(lo <= a < b <= hi and (a, b) != (lo, hi) for a, b in loops)]
+        bodies = [[(op, rest) for a, op, rest in code if lo <= a <= hi] for lo, hi in innermost]
+        regs = re.findall(rf"{name}INS_5WidthILi15ELb1EEE.*?(\d+) bytes spill stores.*?Used (\d+) registers", log, re.S)
+        if not bodies:
+            out[name] = {"error": "no loop"}
+            continue
+        inside = max(bodies, key=lambda b: sum(op == "FFMA" for op, _ in b))
+        out[name] = {
+            "instructions": len(inside), "ffma": sum(op == "FFMA" for op, _ in inside),
+            "lds_32": sum(op == "LDS" and not re.search(r"\.(64|128)\b", rest.split()[0]) for op, rest in inside),
+            "lds_128": sum(op == "LDS" and ".128" in rest.split()[0] for op, rest in inside),
+            "shfl": sum(op == "SHFL" for op, _ in inside), "control": sum(op in _CONTROL for op, _ in inside),
+            "registers": int(regs[0][1]) if regs else None, "spill_store_bytes": int(regs[0][0]) if regs else None,
+            "kernel_instructions": len(code)}
     return out
 
 

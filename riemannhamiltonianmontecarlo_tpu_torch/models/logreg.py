@@ -12,6 +12,9 @@ statistical contract and the derivative algebra are the same:
 
 The model is an ``nn.Module`` whose design matrix, labels, mask and
 outer-feature matrix are buffers, so ``.to(device)`` moves all of them.
+``position_fixed_point`` / ``momentum_fixed_point`` are RMHMC's two fixed
+points on this model: on a whole model's CUDA batch the hand-written
+kernels K4 / K5 (``ops.logreg_fixed_point``), every round in one launch.
 ``with_sharding`` splits the rows over a mesh axis: each method then
 all-reduces its contractions over n (one collective per call, the partial
 sums packed into one buffer) before the prior term is added.
@@ -27,6 +30,7 @@ from typing import NamedTuple
 import torch
 from torch import Tensor, nn
 
+from riemannhamiltonianmontecarlo_tpu_torch.ops import logreg_fixed_point
 from riemannhamiltonianmontecarlo_tpu_torch.parallel import collectives
 
 
@@ -207,6 +211,46 @@ class LogisticRegression(nn.Module):
         """s_n = x_n^T M x_n, batched: one (..., D^2) x (D^2, N) GEMM (this rank's rows)."""
         m_flat = m.reshape(*m.shape[:-2], self.dim * self.dim)
         return torch.matmul(m_flat, self.outer_features.T)
+
+    # -- RMHMC's fixed points -------------------------------------------------
+
+    def fixed_point_kernels(self, w: Tensor, linalg: str | None = None) -> bool:
+        """Whether the two fixed points run as the kernels K4 / K5: a whole
+        model (no ``group``), a (C, D) CUDA batch with D <= 48, and a
+        ``linalg`` method that allows kernels (None or ``"kernel"``).  A
+        data-sharded model takes the plain loops by its configuration, not as
+        a fallback: its metric is all-reduced between the build and the
+        factor, which one launch cannot do."""
+        return (self.group is None and w.is_cuda and w.ndim == 2 and self.dim <= logreg_fixed_point.MAX_DIM
+                and linalg in (None, "kernel"))
+
+    def position_fixed_point(self, w: Tensor, pm: Tensor, u0: Tensor, dt: Tensor, *, rounds: int,
+                             student_t: bool = False, jitter: float = 0.0, linalg: str | None = None) -> Tensor:
+        """RMHMC's implicit position step from w: ``rounds`` times u = G(wf)^-1 pm
+        (Student-t scaled), wf = w + 0.5 dt (u0 + u).  K4 where
+        ``fixed_point_kernels``, else the plain loop (the solve by ``linalg``).
+        w, pm, u0: (C, D); dt: (C,)."""
+        if self.fixed_point_kernels(w, linalg):
+            return logreg_fixed_point.position_fixed_point_cuda(
+                self.X, w.contiguous(), pm.contiguous(), u0.contiguous(), dt.contiguous(), alpha=self.alpha,
+                rounds=rounds, student_t=student_t, jitter=jitter)
+        return logreg_fixed_point.position_fixed_point_plain(self, w, pm, u0, dt, rounds=rounds, student_t=student_t,
+                                                             jitter=jitter, method=linalg)
+
+    def momentum_fixed_point(self, w: Tensor, inv: Tensor, cache: Tensor, p: Tensor, pm0: Tensor, base: Tensor,
+                             dt: Tensor, *, rounds: int, student_t: bool = False,
+                             linalg: str | None = None) -> Tensor:
+        """RMHMC's implicit momentum step at w (G^-1 ``inv``, dG weights
+        ``cache``): ``rounds`` times pm = p + 0.5 dt (base + weight u^T dG u),
+        u = G^-1 pm, from pm0.  K5 where ``fixed_point_kernels``, else the
+        plain loop.  inv: (C, D, D); cache: (C, N); p, pm0, base: (C, D);
+        dt: (C,)."""
+        if self.fixed_point_kernels(w, linalg):
+            return logreg_fixed_point.momentum_fixed_point_cuda(
+                self.X, inv.contiguous(), cache.contiguous(), p.contiguous(), pm0.contiguous(), base.contiguous(),
+                dt.contiguous(), rounds=rounds, student_t=student_t)
+        return logreg_fixed_point.momentum_fixed_point_plain(self, w, inv, cache, p, pm0, base, dt, rounds=rounds,
+                                                             student_t=student_t)
 
     # -- IWLS helpers (``code/iwls.py:28-35``) ------------------------------
 

@@ -1,9 +1,9 @@
 """Batched numerical ops: chain-vectorized linalg and its Hopper kernels,
 batched tridiagonal algebra (StochVol) and its scan kernel, the
 FitzHugh-Nagumo sensitivity kernel, the truncated-normal and GIG samplers
-of the Gibbs sampler."""
+of the Gibbs sampler, RMHMC's two fixed points and BLR's kernels for them."""
 
-from riemannhamiltonianmontecarlo_tpu_torch.ops import fhn_sens, hopper_linalg, launches, tridiag
+from riemannhamiltonianmontecarlo_tpu_torch.ops import fhn_sens, hopper_linalg, launches, logreg_fixed_point, tridiag
 from riemannhamiltonianmontecarlo_tpu_torch.ops.gig import sample_gig_half
 from riemannhamiltonianmontecarlo_tpu_torch.ops.truncnorm import truncated_normal_onesided
 from riemannhamiltonianmontecarlo_tpu_torch.ops.linalg import (
@@ -23,6 +23,7 @@ __all__ = [
     "fhn_sens",
     "hopper_linalg",
     "launches",
+    "logreg_fixed_point",
     "tridiag",
     "cholesky",
     "cho_solve",

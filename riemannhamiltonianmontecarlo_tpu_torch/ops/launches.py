@@ -27,9 +27,11 @@ from torch import Tensor
 # The counted kernels: ops.hopper_linalg's K1, K2 and K3, ops.tridiag's bidiagonal scan T1 and PCR solve
 # T2 (each of its launches: one a call up to tridiag.PCR_SHARED_MAX_T positions), ops.fhn_sens's kernel by
 # order, the Gibbs sweep (samplers.gibbs), the whole GIG draw and one GIG rejection round from given draws
-# (ops.gig); the all-reduces of parallel.collectives.
+# (ops.gig), BLR RMHMC's position and momentum fixed points K4 and K5 (ops.logreg_fixed_point); the
+# all-reduces of parallel.collectives.
 NAMES = ("cholesky", "chol_solve_logdet", "chol_inv_logdet", "bidiag_cholesky", "pcr_solve", "fhn_sensitivities/0",
-         "fhn_sensitivities/1", "fhn_sensitivities/2", "gibbs_sweep", "gig_half", "gig_round", "all_reduce")
+         "fhn_sensitivities/1", "fhn_sensitivities/2", "gibbs_sweep", "gig_half", "gig_round",
+         "position_fixed_point", "momentum_fixed_point", "all_reduce")
 _SLOT = {name: i for i, name in enumerate(NAMES)}
 _COUNTS: dict[torch.device, Tensor] = {}
 _PAUSED = [0]

@@ -23,8 +23,13 @@ all its randomness in an ``RMHMCNoise``; ``step(generator, state)`` draws
 that noise and calls it.  On a CUDA batch the factorizations go to the
 Hopper kernels through ``ops`` (``config.linalg`` passes ``method``): one
 K3 (factor, inverse and half log-determinant, ``ops.chol_inv_logdet``) per
-geometry build, one K2 (fused solve) per fixed-point round of the position
-update.
+geometry build.  The two fixed points are the model's
+``position_fixed_point`` / ``momentum_fixed_point`` where it has them (a
+logistic regression: on a whole model's CUDA batch the kernels K4 / K5, one
+launch a fixed point and one a half-step, unless ``config.linalg`` is
+``"unrolled"`` or ``"library"``); for every other model they are the loops
+of ``ops.logreg_fixed_point`` (``*_plain``), one K2 (fused solve) per
+position round on a card.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ import torch
 from torch import Tensor
 
 from riemannhamiltonianmontecarlo_tpu_torch import ops
+from riemannhamiltonianmontecarlo_tpu_torch.ops import logreg_fixed_point
 from riemannhamiltonianmontecarlo_tpu_torch.samplers.base import Info, Kernel, metropolis_accept, model_capturable, tree_where
 
 
@@ -136,17 +142,23 @@ def build(model, config: RMHMCConfig = RMHMCConfig()) -> Kernel:
         """grad - 1/2 tr(G^-1 dG_d): constant across the fixed point."""
         return geo.grad - 0.5 * model.dg_trace(w, geo.inv, cache=geo.cache)
 
-    def momentum_force(w: Tensor, geo: _Geometry, pm: Tensor, base: Tensor) -> Tensor:
-        """dp/dt = base + weight * u^T dG_d u, u = G^-1 pm (weight 1/2, or
-        ((1+D)/2) / (1 + p^T G^-1 p) for Student-t, StudentT.m:296)."""
-        u_vec = torch.einsum("...ab,...b->...a", geo.inv, pm)
-        bil = model.dg_bilinear(w, u_vec, u_vec, cache=geo.cache)
-        if config.student_t:
-            quad = torch.sum(pm * u_vec, dim=-1, keepdim=True)
-            last = 0.5 * (1.0 + w.shape[-1]) * bil / (1.0 + quad)
-        else:
-            last = 0.5 * bil
-        return base + last
+    fixed_points = hasattr(model, "position_fixed_point") and hasattr(model, "momentum_fixed_point")
+
+    def momentum_update(w: Tensor, geo: _Geometry, p: Tensor, base: Tensor, dt: Tensor, rounds: int) -> Tensor:
+        """``rounds`` rounds of pm = p + 0.5 dt (base + weight u^T dG_d u), u = G^-1 pm, from pm = p
+        (weight 1/2, or ((1+D)/2) / (1 + p^T G^-1 p) for Student-t, StudentT.m:296)."""
+        kw = dict(rounds=rounds, student_t=config.student_t)
+        if fixed_points:
+            return model.momentum_fixed_point(w, geo.inv, geo.cache, p, p, base, dt, linalg=config.linalg, **kw)
+        return logreg_fixed_point.momentum_fixed_point_plain(model, w, geo.inv, geo.cache, p, p, base, dt, **kw)
+
+    def position_update(w: Tensor, pm: Tensor, u0: Tensor, dt: Tensor) -> Tensor:
+        """The implicit position step: n_fp rounds of wf = w + 0.5 dt (u0 + G(wf)^-1 pm), G recomputed
+        inside the loop (reference code/rmhmc.py:113-123)."""
+        kw = dict(rounds=n_fp, student_t=config.student_t, jitter=config.jitter)
+        if fixed_points:
+            return model.position_fixed_point(w, pm, u0, dt, linalg=config.linalg, **kw)
+        return logreg_fixed_point.position_fixed_point_plain(model, w, pm, u0, dt, method=config.linalg, **kw)
 
     def transition(state: RMHMCState, noise: RMHMCNoise) -> tuple[RMHMCState, Info]:
         c, d = state.position.shape
@@ -165,7 +177,7 @@ def build(model, config: RMHMCConfig = RMHMCConfig()) -> Kernel:
             direction = torch.where(noise.u_dir < 0.5, 1.0, -1.0).to(p0.dtype)
         else:
             direction = torch.ones((c,), dtype=p0.dtype, device=p0.device)
-        dt = (direction * eps)[:, None]  # (C, 1), broadcast over D
+        dt = direction * eps  # (C,)
 
         w, p, geo = state.position, p0, geo0
         bad = torch.zeros((c,), dtype=torch.bool, device=p0.device)
@@ -173,29 +185,18 @@ def build(model, config: RMHMCConfig = RMHMCConfig()) -> Kernel:
             active = i < n_steps
 
             # (a) implicit momentum half-step: fixed point on p'
-            base = force_base(w, geo)
-            pm = p
-            for _ in range(n_fp_mom):
-                pm = p + 0.5 * dt * momentum_force(w, geo, pm, base)
+            pm = momentum_update(w, geo, p, force_base(w, geo), dt, n_fp_mom)
 
-            # (b) implicit position step: fixed point on w', G recomputed
-            # inside the loop (reference code/rmhmc.py:113-123).
+            # (b) implicit position step: fixed point on w', G recomputed inside
             u0 = torch.einsum("...ab,...b->...a", geo.inv, pm)
             if config.student_t:
                 q0 = torch.sum(pm * u0, dim=-1, keepdim=True)
                 u0 = (1.0 + d) * u0 / (1.0 + q0)  # StudentT.m:327
-            wf = w
-            for _ in range(n_fp):
-                g_new = add_jitter(model.metric(wf))
-                u_new = ops.solve_psd(g_new, pm, method=config.linalg)
-                if config.student_t:
-                    qn = torch.sum(pm * u_new, dim=-1, keepdim=True)
-                    u_new = (1.0 + d) * u_new / (1.0 + qn)
-                wf = w + 0.5 * dt * (u0 + u_new)
+            wf = position_update(w, pm, u0, dt)
 
             # (c) explicit momentum half-step with fresh geometry at w'.
             geo_new = geometry(wf)
-            p_new = pm + 0.5 * dt * momentum_force(wf, geo_new, pm, force_base(wf, geo_new))
+            p_new = momentum_update(wf, geo_new, pm, force_base(wf, geo_new), dt, 1)
 
             step_bad = ~(torch.isfinite(wf).all(dim=-1) & torch.isfinite(p_new).all(dim=-1))
             ok = active & ~bad & ~step_bad

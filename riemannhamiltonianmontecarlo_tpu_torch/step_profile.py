@@ -20,15 +20,18 @@ device time, and on the eager row the scan's wall time inside the sweep,
 for its share of the sweep's wall.  For BLR RMHMC it gives RMHMC's geometry the same way
 (``ops.chol_inv_logdet``: a CUDA graph of one geometry at the step's G),
 the geometries a step builds (the kernels' device counters) and their
-share of the step's device time.
+share of the step's device time, and its two fixed points the same way
+(``position_fixed_point`` and ``momentum_fixed_point`` of the model at the
+step's state, each as a graph of one call: the momentum fixed point, its
+one-round half-step and the position fixed point, six of each a step) with
+their launches a call and their shares of the step's device time.
 
 ``--routes kernel,parent,pcr-plain`` profiles each run on each route: on
-this checkout's kernels; on the routes the kernels K3, T1 and T2 replaced
-(``parent``: RMHMC's geometry as K1, the unrolled inverse and the
-log-determinant; StochVol's bidiagonal factor as its plain loop over T;
-the PCR solve as ``tridiag.solve_plain``, 335 launches a call), patched in
-for the run (``parent_routes``); and on this checkout's kernels but T2
-(``pcr-plain``: ``tridiag.solve_plain`` alone patched in,
+this checkout's kernels; on the route the kernels K4 and K5 replaced
+(``parent``: BLR RMHMC's two fixed points as the sampler's loops, K2 a
+position round, ``LogisticRegression.fixed_point_kernels`` patched to
+False for the run, ``parent_routes``); and on this checkout's kernels but
+T2 (``pcr-plain``: ``tridiag.solve_plain`` alone patched in,
 ``plain_solve_route``): the rows before and after those changes, from one
 process on one card.  Each row names its ``route``.
 
@@ -65,7 +68,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from riemannhamiltonianmontecarlo_tpu_torch import experiments, interop, models, ops, parallel, utils
-from riemannhamiltonianmontecarlo_tpu_torch.ops import hopper_linalg, tridiag
+from riemannhamiltonianmontecarlo_tpu_torch.ops import hopper_linalg, launches, tridiag
 from riemannhamiltonianmontecarlo_tpu_torch.parallel import collectives, graphs
 from riemannhamiltonianmontecarlo_tpu_torch.parallel.launch import free_port
 from riemannhamiltonianmontecarlo_tpu_torch.samplers import pmala, rmhmc
@@ -89,19 +92,10 @@ GIBBS = {"gibbs_sweep_kernel": re.compile(r"gibbs_sweep(_wide)?_kernel"),
 ROUTES = ("kernel", "parent", "pcr-plain")
 
 
-@contextlib.contextmanager
 def parent_routes():
-    """Inside, RMHMC's geometry and StochVol's bidiagonal factor and PCR solve take the routes the kernels
-    K3, T1 and T2 replaced: ``ops.cholesky`` (K1 on a card), the unrolled ``inv_psd_from_chol`` and
-    ``logdet_from_chol``; ``tridiag.cholesky_plain``, its loop over T; ``tridiag.solve_plain`` (plain
-    PyTorch, on the card)."""
-    def geometry(g, *, method=None):
-        l = ops.cholesky(g, method=method)
-        return l, ops.inv_psd_from_chol(l), 0.5 * ops.logdet_from_chol(l)
-
-    with unittest.mock.patch.object(ops, "chol_inv_logdet", geometry), \
-            unittest.mock.patch.object(tridiag, "cholesky", tridiag.cholesky_plain), plain_solve_route():
-        yield
+    """Inside, BLR RMHMC's two fixed points take the route the kernels K4 and K5 replaced: the sampler's
+    loops (``ops.logreg_fixed_point``'s plain versions), K2 a position round on a card."""
+    return unittest.mock.patch.object(models.LogisticRegression, "fixed_point_kernels", lambda self, w, linalg=None: False)
 
 
 def plain_solve_route():
@@ -121,7 +115,7 @@ def _world1_mesh() -> parallel.Mesh:
 
 
 def _kernel(workload: str, sampler: str, device: torch.device):
-    """(kernel, init_fn, mesh or None) of a run of RUNS."""
+    """(kernel, init_fn, mesh or None, the BLR model or None) of a run of RUNS."""
     if workload in ("blr", "blr-mesh"):  # chip_smoke.py's main path (rmhmc) and phase 6's samplers
         ds = models.synthetic_logreg(seed=0, n=690, d=15)
         model = interop.logreg_from_numpy(ds.X, ds.t, device=device)
@@ -129,14 +123,15 @@ def _kernel(workload: str, sampler: str, device: torch.device):
         if mesh is not None:
             model = model.with_sharding(mesh)
         kernel = rmhmc.build(model) if sampler == "rmhmc" else experiments.build_kernel(sampler, model, "australian")[0]
-        return kernel, lambda c: utils.default_init(model, torch.Generator(device=device).manual_seed(0), c), mesh
+        return (kernel, lambda c: utils.default_init(model, torch.Generator(device=device).manual_seed(0), c), mesh,
+                model)
     if sampler == "pmala":  # constant-metric mMALA, built on the model's metric (RESULTS.md:78)
         y, _ = models.lgc.generate_data(seed=0, n=64)
         model = experiments.interop.lgc_from_numpy(y, 64, device=device)
         return (pmala.build(model, model.metric_chol, model.metric_inv),
-                lambda c: model.prior_mean().expand(c, -1).clone(), None)
+                lambda c: model.prior_mean().expand(c, -1).clone(), None, None)
     kernel, init_fn, _, _, _ = experiments.build_workload(workload, sampler, device=device, seed=0)
-    return kernel, init_fn, None
+    return kernel, init_fn, None, None
 
 
 def _wall_ms(fn, reps: int) -> float:
@@ -151,7 +146,7 @@ def _wall_ms(fn, reps: int) -> float:
 def profile_run(workload: str, sampler: str, chains: int, *, warm: int, steps: int, profiled: int,
                 captured: bool = False) -> dict:
     device = torch.device("cuda")
-    kernel, init_fn, mesh = _kernel(workload, sampler, device)
+    kernel, init_fn, mesh, model = _kernel(workload, sampler, device)
     gen = torch.Generator(device=device).manual_seed(0)
     with torch.inference_mode():
         state = parallel.run(kernel, gen, init_fn(chains), num_samples=0, burn_in=warm, collect=False,
@@ -170,10 +165,10 @@ def profile_run(workload: str, sampler: str, chains: int, *, warm: int, steps: i
                     box[0], _ = kernel.step(gen, box[0])
 
         collectives.reset_call_counts()
-        hopper_linalg.reset_launch_counts()
+        launches.reset()
         wall = _wall_ms(lambda: run_steps(steps), 1) / steps
         all_reduce = collectives.call_counts()["all_reduce"] / steps
-        linalg_launches = {name: n / steps for name, n in hopper_linalg.launch_counts().items()}
+        linalg_launches = {name: n / steps for name, n in launches.counts().items() if name != "all_reduce"}
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             run_steps(profiled)
             torch.cuda.synchronize()
@@ -202,7 +197,11 @@ def profile_run(workload: str, sampler: str, chains: int, *, warm: int, steps: i
         geo = _geometry_device(box[0].geo.metric)
         calls = linalg_launches["chol_inv_logdet"] + linalg_launches["cholesky"]
         out.update(geo, geometry_calls_per_step=calls,
-                   geometry_share_of_device=calls * geo["geometry_device_ms_per_call"] / busy)
+                   geometry_share_of_device=calls * geo["geometry_device_ms_per_call"] / busy,
+                   fixed_point_launches_per_step={name: linalg_launches[name] for name in
+                                                  ("position_fixed_point", "momentum_fixed_point", "chol_solve_logdet")})
+        fixed = _fixed_point_device(model, box[0], gen)
+        out.update(fixed, fixed_point_share_of_device=fixed["fixed_point_device_ms_per_step"] / busy)
     if workload == "stochvol" and sampler != "mala":
         scan = _scan_device(box[0].x)
         out.update(scan, tridiag_scan_share_of_device=scan["tridiag_scan_device_ms_per_step"] / busy)
@@ -282,6 +281,32 @@ def _geometry_device(g: torch.Tensor) -> dict:
     return {"geometry_device_ms_per_call": ms, "geometry_launches_per_call": n}
 
 
+def _fixed_point_device(model, state, gen: torch.Generator) -> dict:
+    """BLR RMHMC's two fixed points at the step's state (``rmhmc.RMHMCConfig()``'s: L 6, 4 rounds each, eps
+    0.5): the momentum fixed point, its one-round half-step and the position fixed point, each one call of
+    the model's method as a CUDA graph (``_graph_alone``): device ms and launches a call, and ms a step (six
+    of each: the leapfrog loop runs L steps in lockstep)."""
+    cfg = rmhmc.RMHMCConfig()
+    w, geo = state.position, state.geo
+    p = ops.mvn_sample(geo.chol, torch.randn(w.shape, generator=gen, device=w.device, dtype=w.dtype))
+    dt = torch.where(torch.rand(w.shape[:1], generator=gen, device=w.device) < 0.5, 1.0, -1.0) * cfg.step_size
+    base = geo.grad - 0.5 * model.dg_trace(w, geo.inv, cache=geo.cache)
+    mom = lambda rounds: model.momentum_fixed_point(w, geo.inv, geo.cache, p, p, base, dt, rounds=rounds)
+    with torch.inference_mode():
+        pm = mom(cfg.num_fixed_point)
+        u0 = torch.einsum("...ab,...b->...a", geo.inv, pm)
+    calls = {"momentum_fixed_point": lambda: mom(cfg.num_fixed_point), "momentum_half_step": lambda: mom(1),
+             "position_fixed_point": lambda: model.position_fixed_point(w, pm, u0, dt, rounds=cfg.num_fixed_point)}
+    out, total = {}, 0.0
+    with launches.paused():
+        for name, fn in calls.items():
+            ms, n = _graph_alone(fn)
+            out[f"{name}_device_ms_per_call"], out[f"{name}_launches_per_call"] = ms, n
+            total += cfg.num_leapfrog * ms
+    out["fixed_point_device_ms_per_step"] = total
+    return out
+
+
 def _scan_share(one_step, steps: int) -> dict:
     """The bidiagonal scan's wall ms per step and share of the step, in place:
     ``tridiag.cholesky`` is wrapped with a synchronize on both sides while
@@ -315,8 +340,8 @@ def main(argv=None) -> None:
     ap.add_argument("--only", nargs="+", default=None, metavar="WORKLOAD/SAMPLER",
                     help="profile these runs only (default: all of RUNS)")
     ap.add_argument("--routes", default="kernel",
-                    help=f"comma-separated subset of {','.join(ROUTES)}: this checkout's kernels, the routes "
-                         "K3, T1 and T2 replaced, and this checkout's kernels with the plain PCR solve "
+                    help=f"comma-separated subset of {','.join(ROUTES)}: this checkout's kernels, the route "
+                         "K4 and K5 replaced, and this checkout's kernels with the plain PCR solve "
                          "(default: kernel)")
     args = ap.parse_args(argv)
     routes = [r for r in args.routes.split(",") if r]

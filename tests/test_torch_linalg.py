@@ -345,8 +345,11 @@ def test_torch_launch_geometry_main_path_widths():
 
 
 def test_torch_launch_geometry_mirrors_the_cuda_source():
-    """The widths, capacities, block size and lane rule read from hopper_linalg.cu."""
+    """The widths, capacities, block size and lane rule read from hopper_linalg.cu and the header it shares
+    with K4 (chol_rows.cuh: the layout, the factor and the substitutions)."""
     src = (_build.CSRC_DIR / "hopper_linalg.cu").read_text()
+    assert '#include "chol_rows.cuh"' in src
+    src += (_build.CSRC_DIR / "chol_rows.cuh").read_text()
     exact = [(int(a), int(b)) for a, b in re.findall(r"case (\d+): return f\(Width<(\d+), true>", src)]
     assert all(a == b for a, b in exact) and tuple(a for a, _ in exact) == hl.EXACT_WIDTHS
     caps = [(int(a), int(b)) for a, b in re.findall(r"if \(d <= (\d+)\) return f\(Width<(\d+), false>", src)]
