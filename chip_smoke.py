@@ -26,8 +26,9 @@ It imports no jax.  Phases, each printing one line of findings:
    chains and threads per block, blocks, shared bytes) and
    ``fhn_sens.output_owners`` (the lane of a chain's group that writes each
    output entry) against the library's for orders 0-2 at C in {1, 31, 256,
-   257, 4224}; K4's and K5's registers and spill per width (none at D 15)
-   and ``logreg_fixed_point.launch_geometry`` against the library's;
+   257, 4224}; K4's and K5's registers and spill per width (none at D 15
+   or 25), ``logreg_fixed_point.launch_geometry`` against the library's,
+   and both refusing the widths they do not serve (D 17-24, 26-48);
 3. kernels: K1 (Cholesky), K2 (fused solve + log-det) and K3 (factor,
    inverse and half log-det: RMHMC's geometry) against their
    plain-PyTorch twins on the card, on seeded SPD batches at
@@ -118,11 +119,15 @@ It imports no jax.  Phases, each printing one line of findings:
    ``--phases main-path``): K4 (the position fixed point, 4 rounds) and K5
    (the momentum fixed point, 4 rounds, and its one-round half-step) against
    the plain versions (the sampler's loops, K2 a position round) at (C, N, D)
-   = (4096, 690, 15), (4096, 1000, 25), (1024, 250, 3), (4, 32, 2) and
-   (256, 20000, 15) (X streamed in tiles), Student-t off and on, dt of both
-   signs: the yardstick is the plain version in float64 on the same float32
-   inputs, and a kernel's largest error against it must be at most twice the
-   float32 plain version's plus 1e-5; a chain whose G is not positive
+   = (4096, 690, 15), (4096, 1000, 25), (1024, 250, 3), (4, 32, 2),
+   (256, 20000, 15) (X and c streamed in tiles) and (1024, 532, 10)
+   (capacity 16), Student-t off and on, dt of
+   both signs: the yardstick is the plain version in float64 on the same
+   float32 inputs, and a kernel's largest error against it must be at most
+   twice the float32 plain version's plus 1e-5 (at (256, 20000, 15) K4's
+   must also stay below 6.2e-6, the error of the earlier K4 whose row sums
+   ran in sequence, and at most 4 times the float32 loops' there, printed
+   beside it on a ``fixed-point-large-n`` line); a chain whose G is not positive
    definite is non-finite in both and every other chain bit for bit the
    batch without it; at (4096, 690, 15) and (4096, 1000, 25) each one's
    ``device_us`` beside its bound, the wrapper's and the plain version's ms
@@ -463,14 +468,23 @@ FIXED_POINT_KERNEL_NAMES = {"position_fixed_point": "position_fixed_point_kernel
                             "momentum_fixed_point": "momentum_fixed_point_kernel"}
 FIXED_POINT_COUNTED = tuple(FIXED_POINT_KERNEL_NAMES)
 # K4 / K5 against their plain versions at (C, N, D): the main path, german's shape, a D-3 and a D-2 batch (run-time
-# width 2 on capacity 4), and an N past what shared memory holds whole (X streamed in tiles, c from device memory).
-FIXED_POINT_SHAPES = ((NUM_CHAINS, 690, 15), (NUM_CHAINS, 1000, 25), (1024, 250, 3), (4, 32, 2), (256, 20000, 15))
+# width 2 on capacity 4), an N past what shared memory holds whole (X and c streamed in tiles, every round), and a
+# D-10 batch (run-time width 10 on capacity 16, the widest capacity the kernels serve).
+FIXED_POINT_SHAPES = ((NUM_CHAINS, 690, 15), (NUM_CHAINS, 1000, 25), (1024, 250, 3), (4, 32, 2), (256, 20000, 15),
+                      (1024, 532, 10))
 FIXED_POINT_TIMED = ((NUM_CHAINS, 690, 15), (NUM_CHAINS, 1000, 25))
 # The yardstick is the plain version in float64 on the same float32 inputs: a kernel's largest error against it
 # must be at most twice the float32 plain version's, plus this absolute floor.
 FIXED_POINT_FLOOR = 1e-5
 FIXED_POINT_JITTER_NON_PD = -1.001  # x 1/alpha: a chain whose v are all 0 has G = -0.001 I / alpha (not PD)
-FIXED_POINT_WIDTHS = (3, 15, 25, 48)  # registers and spill reported; none may spill at 15
+FIXED_POINT_WIDTHS = (3, 7, 8, 10, 14, 15, 25)  # registers and spill reported (10: capacity 16); none may spill at 15 or 25
+FIXED_POINT_NO_SPILL = (15, 25)  # the main path's width and german's
+# At (256, 20000, 15), K4's largest error against the yardstick must stay below that of the earlier K4 whose sums
+# over the rows ran in sequence, and within a small multiple of the float32 loops' error in the same run (blocked
+# sums, as cuBLAS's are; PERF.md: 1.52e-7 against the loops' 1.40e-7).
+FIXED_POINT_LARGE_N = (256, 20000, 15)
+FIXED_POINT_LARGE_N_K4_BEFORE = 6.2e-6
+FIXED_POINT_LARGE_N_LOOPS_MULTIPLE = 4
 
 # Counted kernels that a run's counts list only where they launched (a Gibbs, StochVol or BLR RMHMC run).
 SOMETIMES_COUNTED = (*GIBBS_COUNTED, BIDIAG, PCR, *FIXED_POINT_COUNTED)
@@ -756,15 +770,25 @@ def phase_build() -> dict:
     fp_short = {"position_fixed_point_kernel": "K4", "momentum_fixed_point_kernel": "K5"}
     fp_regs = {f"{fp_short[name]}<{n}{'' if exact == '1' else ',rt'}>": {"registers": int(r), "spill_store_bytes": int(sp)}
                for name, n, exact, sp, r in fp_found}
-    check(len(fp_found) == len(fp_regs) == 2 * (len(hl.EXACT_WIDTHS) + len(hl.CAPACITIES)),
-          f"ptxas report names K4 / K5 {sorted(fp_regs)}: expected one of each at every width and capacity")
+    fp_served = [*hl.EXACT_WIDTHS, *(cap for cap in hl.CAPACITIES if cap <= 16)]  # lfp.kernel_width's
+    check(len(fp_found) == len(fp_regs) == 2 * len(fp_served),
+          f"ptxas report names K4 / K5 {sorted(fp_regs)}: expected one of each at the widths and capacities "
+          f"{fp_served}")
     for k in ("K4", "K5"):
-        check(fp_regs[f"{k}<15>"]["spill_store_bytes"] == 0, f"{k} spills at D 15: {fp_regs[f'{k}<15>']}")
+        for w in FIXED_POINT_NO_SPILL:
+            check(fp_regs[f"{k}<{w}>"]["spill_store_bytes"] == 0, f"{k} spills at D {w}: {fp_regs[f'{k}<{w}>']}")
     for name in FIXED_POINT_COUNTED:
-        for n, d in [(n, d) for _, n, d in FIXED_POINT_SHAPES] + [(1, 1), (690, 40), (4096, 48), (12000, 48),
-                                                                  (50000, 3)]:
+        for n, d in [(n, d) for _, n, d in FIXED_POINT_SHAPES] + [(1, 1), (690, 7), (532, 8), (20000, 10),
+                                                                  (50000, 3), (300, 16), (12000, 25), (2048, 15)]:
             mirror, built = lfp.launch_geometry(name, n, d), lfp.built_launch_geometry(name, n, d)
             check(mirror == built, f"{name} layout at N={n}, D={d}: Python {mirror}, built library {built}")
+        for d in (17, 20, 26, 48):  # widths the kernels do not serve: both refuse them
+            try:
+                lfp.built_launch_geometry(name, 690, d)
+                refused = False
+            except RuntimeError:
+                refused = True
+            check(refused and not lfp.kernel_width(d), f"{name} at D={d}: the built library did not refuse it")
     for d in range(1, hl.MAX_DIM + 1):
         mirror, built = hl.launch_geometry(d), hl.built_launch_geometry(d)
         check(mirror == built, f"launch geometry at D={d}: Python mirror {mirror}, built library {built}")
@@ -1152,12 +1176,26 @@ def phase_fixed_point_kernels(smi: str, regs: dict) -> dict:
                                                           for k in FIXED_POINT_COUNTED},
             cases=cases, yardstick="the plain version in float64 on the same float32 inputs",
             tolerance=f"kernel_err <= 2 plain_err + {FIXED_POINT_FLOOR}")
+        if (c, n, d) == FIXED_POINT_LARGE_N:  # the blocked sums' accuracy at many rows
+            k4 = max(row["kernel_err"] for case, row in cases.items() if case in ("position_fixed_point",
+                                                                                  "position_fixed_point/t"))
+            loops = max(row["plain_err"] for case, row in cases.items() if case in ("position_fixed_point",
+                                                                                    "position_fixed_point/t"))
+            say("fixed-point-large-n", C=c, N=n, D=d, k4_err=k4, loops_float32_err=loops,
+                k4_err_before=FIXED_POINT_LARGE_N_K4_BEFORE, k4_err_limit_loops_multiple=FIXED_POINT_LARGE_N_LOOPS_MULTIPLE,
+                yardstick="the plain version in float64")
+            check(k4 < FIXED_POINT_LARGE_N_K4_BEFORE,
+                  f"K4 at {FIXED_POINT_LARGE_N}: error {k4} not below {FIXED_POINT_LARGE_N_K4_BEFORE}")
+            check(k4 <= FIXED_POINT_LARGE_N_LOOPS_MULTIPLE * loops,
+                  f"K4 at {FIXED_POINT_LARGE_N}: error {k4} above {FIXED_POINT_LARGE_N_LOOPS_MULTIPLE} x the float32 "
+                  f"loops' {loops}")
         if (c, n, d) in FIXED_POINT_TIMED:
             times[c, n, d] = time_fixed_point(inp, c, n, d)
             for name, row in times[c, n, d].items():
                 say("fixed-point-kernel-times", kernel=name, C=c, N=n, D=d, card=smi, **row)
         del inp
-    fp_regs = {w: {k: regs["fixed_point"][f"{k}<{w}>" if w in hl.EXACT_WIDTHS else f"{k}<48,rt>"] for k in ("K4", "K5")}
+    fp_regs = {w: {k: regs["fixed_point"][f"{k}<{w}>" if w in hl.EXACT_WIDTHS else f"{k}<{lfp._unrolled_rows(w)},rt>"]
+                   for k in ("K4", "K5")}
                for w in FIXED_POINT_WIDTHS}
     say("fixed-point-registers", widths=fp_regs)
     return {"err": err, "times": times, "registers": fp_regs}

@@ -79,10 +79,19 @@ the model's ``position_fixed_point`` / ``momentum_fixed_point`` (K4 / K5)
 where the checkout has them, else the sampler's loops (``model.metric`` and
 ``ops.solve_psd``, K2 a round; ``dg_bilinear``), 4 rounds and the one-round
 half-step, each captured as one CUDA graph as above, beside
-``chip_smoke.fixed_point_bound_us``; and per turn K4's and K5's round loops
-in each build's SASS at D 15 (``fixed_point_loops``: the innermost loop
-with the most FFMAs, its instructions, FFMAs, shared loads by width,
-shuffles and branches, and the kernel's registers from ``ptxas.log``).
+``chip_smoke.fixed_point_bound_us``; in every turn also the loops themselves
+(``route`` "loops": the checkout's plain versions, K2 a position round), so
+that each width's kernel is held against the route it replaced in the same
+process; per turn K4's and K5's round loops in each build's SASS at D 7, 15
+and 25 (``fixed_point_loops``: the loop with the most FFMAs of its own, nested
+loops' instructions left out, its instructions, FFMAs and their share,
+shared loads by width, shuffles and branches, each also a row, and the
+kernel's registers and spill from ``ptxas.log``); and, where the source has
+the hooks, K4's phase split at ``K4_PHASE_RUNS`` (``k4_phases``: a lab build
+of the checkout's ``logreg_fixed_point.cu`` with -DRHMC_K4_STAMPS, made under
+``build/k4_lab/``: thread 0 of each block adds the clock64() cycles of
+waiting for X, making the pair table, the logits and weights, the products, the chunks'
+barriers, the sets' sums and the factor with its solves and update).
 Prints one JSON line per turn, kernel and shape, with the card's name and
 power limit.  Needs a CUDA device and nvcc; there is no CPU path.
 """
@@ -101,7 +110,13 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parents[1]
 TURNS = ("parent", "change", "change", "parent")
 KERNELS = ("linalg", "fhn", "gibbs", "geometry", "bidiag", "pcr", "fixed_point")
-FIXED_POINT_RUNS = ((4096, 690, 15), (4096, 1000, 25), (8192, 690, 15))  # (C, N, D): the main path, german, 2 x C
+# (C, N, D): the main path (australian), german, 2 x C, the other BLR datasets' shapes (ripley, pima, heart: the
+# route by width below 15) and a run-time width on the capacity 16 (D 9-13 and 16 take it)
+FIXED_POINT_RUNS = ((4096, 690, 15), (4096, 1000, 25), (8192, 690, 15), (4096, 250, 7), (4096, 532, 8),
+                    (4096, 270, 14), (4096, 690, 10))
+K4_PHASE_RUNS = ((4096, 690, 15), (4096, 1000, 25), (4096, 250, 7))
+FIXED_POINT_ROUND_COUNTS = (1, 2, 4, 8)
+FIXED_POINT_SASS_WIDTHS = (7, 15, 25)
 BIDIAG_RUNS = ((1024, 2000, "metric"), (1024, 2000, "identity"), (4096, 2000, "metric"))  # (B, T, G)
 PCR_RUNS = ((1024, 2000, "metric"), (1024, 2000, "identity"), (4096, 2000, "metric"), (4096, 2000, "identity"))
 FHN_CHAINS = (256, 4224)  # the FHN samplers' chain count; one warp on each SM at one lane per chain
@@ -629,14 +644,20 @@ def _fhn_rk4_loop(smoke) -> dict:
 
 
 def _fixed_point_call(smoke, inp: dict, name: str, rounds: int, fused: bool):
-    """One call of a fixed point on ``inp`` as the checkout runs it: the model's method (K4 / K5 on a card) or,
-    in a checkout without them, the sampler's loops as that checkout wrote them (Gaussian momentum, no jitter)."""
+    """One call of a fixed point on ``inp`` as the checkout computes it: its kernels K4 / K5 (``fused``, at every
+    width, whatever route the model takes there) or the sampler's loops (Gaussian momentum, no jitter): the
+    checkout's plain versions where it has them, else the loops as that checkout wrote them."""
     ops, model, dt = smoke.rt.ops, inp["model"], inp["dt"]
     w, inv, cache, p, base, u0 = (inp[k] for k in ("w", "inv", "cache", "p", "base", "u0"))
+    plain = getattr(ops, "logreg_fixed_point", None)
     if fused and name == "position_fixed_point":
-        return lambda: model.position_fixed_point(w, p, u0, dt, rounds=rounds)
+        return lambda: plain.position_fixed_point_cuda(model.X, w, p, u0, dt, alpha=model.alpha, rounds=rounds)
     if fused:
-        return lambda: model.momentum_fixed_point(w, inv, cache, p, p, base, dt, rounds=rounds)
+        return lambda: plain.momentum_fixed_point_cuda(model.X, inv, cache, p, p, base, dt, rounds=rounds)
+    if plain is not None and name == "position_fixed_point":
+        return lambda: plain.position_fixed_point_plain(model, w, p, u0, dt, rounds=rounds)
+    if plain is not None:
+        return lambda: plain.momentum_fixed_point_plain(model, w, inv, cache, p, p, base, dt, rounds=rounds)
     half = 0.5 * dt[:, None]
 
     def position():
@@ -659,55 +680,182 @@ def _measure_fixed_point(smoke) -> list[dict]:
     import torch
 
     fused = hasattr(smoke.rt.models.LogisticRegression, "position_fixed_point")
-    route = "K4 / K5" if fused else "the sampler's loops (K2 a position round)"
+    routes = [("K4 / K5", True), ("loops", False)] if fused else [("loops", False)]
     card, rows = smoke.smi_line(), []
     with torch.inference_mode():
         for c, n, d in FIXED_POINT_RUNS:
             inp = smoke.fixed_point_inputs(c, n, d, seed=50)
-            for label, name, rounds in (("position_fixed_point", "position_fixed_point", 4),
-                                        ("momentum_fixed_point", "momentum_fixed_point", 4),
-                                        ("momentum_half_step", "momentum_fixed_point", 1)):
-                row = _captured(smoke, _fixed_point_call(smoke, inp, name, rounds, fused))
-                bound, bound_by = smoke.fixed_point_bound_us(name, c, n, d, rounds)
-                rows.append({"kernel": label, "C": c, "N": n, "D": d, "rounds": rounds, "route": route, **row,
-                             "bound_us": bound, "bound_by": bound_by, "share_of_bound": bound / row["device_us"],
-                             "card": card})
+            for route, kernel in routes:
+                for label, name, rounds in (("position_fixed_point", "position_fixed_point", 4),
+                                            ("momentum_fixed_point", "momentum_fixed_point", 4),
+                                            ("momentum_half_step", "momentum_fixed_point", 1)):
+                    row = _captured(smoke, _fixed_point_call(smoke, inp, name, rounds, kernel))
+                    bound, bound_by = smoke.fixed_point_bound_us(name, c, n, d, rounds)
+                    rows.append({"kernel": label, "C": c, "N": n, "D": d, "rounds": rounds, "route": route, **row,
+                                 "bound_us": bound, "bound_by": bound_by,
+                                 "share_of_bound": bound / row["device_us"], "card": card})
             del inp
     if fused:
         rows.append({"kernel": "fixed_point_loops", "card": card, **_fixed_point_loops(smoke)})
+        rows += [{"kernel": "k4_phases", "C": c, "N": n, "D": d, "card": card, **_k4_phases(smoke, c, n, d)}
+                 for c, n, d in K4_PHASE_RUNS]
+        rows += _fixed_point_rounds(smoke, card)
     return rows
 
 
+def _fixed_point_rounds(smoke, card: str) -> list[dict]:
+    """K4's and K5's own device time (torch.profiler, by name) at the main shape against the rounds of one launch,
+    ``FIXED_POINT_ROUND_COUNTS``: the slope is a round's cost, the rest the launch's (staging, the first round's
+    copies); K5's one-round form reads c from device memory, its other forms stage it."""
+    import torch
+
+    c, n, d = FIXED_POINT_RUNS[0]
+    inp = smoke.fixed_point_inputs(c, n, d, seed=50)
+    model, w, inv, cache, p, base, u0, dt = (inp[k] for k in ("model", "w", "inv", "cache", "p", "base", "u0", "dt"))
+    rows = []
+    with torch.inference_mode():
+        for label, name in (("position_fixed_point", "position_fixed_point_kernel"),
+                            ("momentum_fixed_point", "momentum_fixed_point_kernel")):
+            us = {}
+            for rounds in FIXED_POINT_ROUND_COUNTS:
+                if label == "position_fixed_point":
+                    call = lambda: model.position_fixed_point(w, p, u0, dt, rounds=rounds)  # noqa: E731
+                else:
+                    call = lambda: model.momentum_fixed_point(w, inv, cache, p, p, base, dt, rounds=rounds)  # noqa: E731
+                us[rounds] = smoke.device_us(call, launches=20, name_part=name)["us"]
+            rows.append({"kernel": f"{label}_rounds", "C": c, "N": n, "D": d, "device_us_by_rounds": us, "card": card})
+    return rows
+
+
+def _rows_per_pass(smoke, kernel: str, d: int) -> int:
+    """Rows of X one pass of ``kernel``'s round loop covers in a thread, from the checkout's layout mirror."""
+    lfp = smoke.rt.ops.logreg_fixed_point
+    if hasattr(lfp, "k4_tiles"):
+        return lfp.k4_tiles(d).rows_per_set if "position" in kernel else lfp.K5_PASS // 32
+    return lfp.k4_build(d).chunk if "position" in kernel else 1
+
+
 def _fixed_point_loops(smoke) -> dict:
-    """K4's and K5's round loops at D 15 as the build compiled them: per kernel the innermost loop with the most
-    FFMAs (K4: a row of G's sums; K5: a row of X u and of the force), its SASS instructions, FFMAs, shared loads by
-    width, shuffles and branch / reconvergence instructions, and the kernel's registers and spill from ptxas."""
+    """K4's and K5's round loops at FIXED_POINT_SASS_WIDTHS as the build compiled them: per kernel the loop without
+    shuffles with the most FFMAs of its own (nested loops' instructions left out: K4's chunk of products, K5's pass
+    of rows),
+    its SASS instructions, FFMAs and their share, shared loads by width, shuffles and branch / reconvergence
+    instructions, each also a row of X (``per_row``: over the rows one pass covers), and the kernel's static
+    instructions, registers and spill from ptxas."""
     text = _sass(smoke)
     if isinstance(text, dict):
         return text
     log = (smoke._build.build().parent / "ptxas.log").read_text()
     out = {}
     for name in smoke.FIXED_POINT_KERNEL_NAMES.values():
-        found = re.findall(rf"Function : (\S*{name}INS_5WidthILi15ELb1EEE\S*)(.*?)(?=Function :|\Z)", text, re.S)
-        if len(found) != 1:
-            out[name] = {"error": f"{len(found)} {name}<15> in the SASS"}
-            continue
-        code, loops = _loops(found[0][1])
-        innermost = [(lo, hi) for lo, hi in loops if not any(lo <= a < b <= hi and (a, b) != (lo, hi) for a, b in loops)]
-        bodies = [[(op, rest) for a, op, rest in code if lo <= a <= hi] for lo, hi in innermost]
-        regs = re.findall(rf"{name}INS_5WidthILi15ELb1EEE.*?(\d+) bytes spill stores.*?Used (\d+) registers", log, re.S)
-        if not bodies:
-            out[name] = {"error": "no loop"}
-            continue
-        inside = max(bodies, key=lambda b: sum(op == "FFMA" for op, _ in b))
-        out[name] = {
-            "instructions": len(inside), "ffma": sum(op == "FFMA" for op, _ in inside),
-            "lds_32": sum(op == "LDS" and not re.search(r"\.(64|128)\b", rest.split()[0]) for op, rest in inside),
-            "lds_128": sum(op == "LDS" and ".128" in rest.split()[0] for op, rest in inside),
-            "shfl": sum(op == "SHFL" for op, _ in inside), "control": sum(op in _CONTROL for op, _ in inside),
-            "registers": int(regs[0][1]) if regs else None, "spill_store_bytes": int(regs[0][0]) if regs else None,
-            "kernel_instructions": len(code)}
+        for d in FIXED_POINT_SASS_WIDTHS:
+            key = f"{name}<{d}>"
+            found = re.findall(rf"Function : (\S*{name}INS_5WidthILi{d}ELb1EEE\S*)(.*?)(?=Function :|\Z)", text, re.S)
+            if len(found) != 1:
+                out[key] = {"error": f"{len(found)} {key} in the SASS"}
+                continue
+            code, loops = _loops(found[0][1])
+            own = []
+            for lo, hi in loops:
+                nested = [(a, b) for a, b in loops if lo <= a <= b <= hi and (a, b) != (lo, hi)]
+                own.append([(op, rest) for a, op, rest in code
+                            if lo <= a <= hi and not any(x <= a <= y for x, y in nested)])
+            regs = re.findall(rf"{name}INS_5WidthILi{d}ELb1EEE.*?(\d+) bytes spill stores.*?Used (\d+) registers", log,
+                              re.S)
+            if not own:
+                out[key] = {"error": "no loop"}
+                continue
+            # the round loop of rows, not the factor's or the exchange's unrolled shuffles
+            rows_loops = [b for b in own if not any(op == "SHFL" for op, _ in b)] or own
+            inside = max(rows_loops, key=lambda b: sum(op == "FFMA" for op, _ in b))
+            counts = {
+                "instructions": len(inside), "ffma": sum(op == "FFMA" for op, _ in inside),
+                "lds_32": sum(op == "LDS" and not re.search(r"\.(64|128)\b", rest.split()[0]) for op, rest in inside),
+                "lds_64": sum(op == "LDS" and ".64" in rest.split()[0] for op, rest in inside),
+                "lds_128": sum(op == "LDS" and ".128" in rest.split()[0] for op, rest in inside),
+                "shfl": sum(op == "SHFL" for op, _ in inside), "control": sum(op in _CONTROL for op, _ in inside)}
+            rows = _rows_per_pass(smoke, name, d)
+            out[key] = {**counts, "ffma_share": counts["ffma"] / max(1, counts["instructions"]), "rows_per_pass": rows,
+                        "per_row": {k: v / rows for k, v in counts.items()},
+                        "registers": int(regs[0][1]) if regs else None,
+                        "spill_store_bytes": int(regs[0][0]) if regs else None, "kernel_instructions": len(code)}
     return out
+
+
+def _k4_stamped_lib(smoke):
+    """The stamped lab build of this checkout's ``logreg_fixed_point.cu`` alone (``-DRHMC_K4_STAMPS``), made here
+    under ``build/k4_lab/<hash>/`` and never loaded by the port; None where the source has no stamp hooks."""
+    import ctypes
+    import hashlib
+
+    build = smoke._build
+    src = build.CSRC_DIR / "logreg_fixed_point.cu"
+    if "RHMC_K4_STAMPS" not in src.read_text():
+        return None
+    flags = [*build.NVCC_FLAGS, "-DRHMC_K4_STAMPS", "-shared"]
+    key = hashlib.sha256(b"".join(path.read_bytes() for path in [src, *sorted(build.CSRC_DIR.glob("*.cuh"))])
+                         + " ".join(flags).encode()).hexdigest()[:16]
+    lib_path = build.BUILD_ROOT.parent / "k4_lab" / key / "libk4lab.so"
+    if not lib_path.exists():
+        lib_path.parent.mkdir(parents=True, exist_ok=True)
+        proc = subprocess.run([build._nvcc(), *flags, "-o", str(lib_path), str(src)], capture_output=True, text=True,
+                              check=False, timeout=600)
+        if proc.returncode != 0:
+            raise RuntimeError(f"stamped build failed: {proc.stdout[-800:]}{proc.stderr[-800:]}")
+        (lib_path.parent / "ptxas.log").write_text(proc.stdout + proc.stderr)
+    lib = ctypes.CDLL(str(lib_path))
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.rhmc_position_fixed_point.argtypes = [ptr] * 6 + [i32, i32, i32, f32, f32, i32, i32, ptr]
+    lib.rhmc_k4_stamps.argtypes = [ptr, i32]
+    return lib
+
+
+def _k4_phases(smoke, c: int, n: int, d: int) -> dict:
+    """K4's phase split at (C, N, D), 4 rounds, from the stamped lab build (``_k4_stamped_lib``): thread 0 of each
+    block adds the clock64() cycles of each phase over the rounds and keeps %globaltimer at its start and end.
+    Per block, averaged: the cycles of each phase and their shares; the blocks' spans (ns) and the kernel's
+    (first start to last end).  ``{"error": ...}`` for a checkout without the hooks."""
+    import numpy as np
+    import torch
+
+    lib = _k4_stamped_lib(smoke)
+    if lib is None:
+        return {"error": "no stamp hooks in this checkout's K4"}
+    # the checkout's phases, as its source names them (kWaitX -> wait_x)
+    (names,) = re.findall(r"enum K4Phase \{([^}]*)\}", (smoke._build.CSRC_DIR / "logreg_fixed_point.cu").read_text())
+    phases = tuple(re.sub(r"(?<!^)([A-Z])", r"_\1", n.strip()[1:]).lower() for n in names.split(",")
+                   if n.strip() != "kK4Phases")
+    inp = smoke.fixed_point_inputs(c, n, d, seed=50)
+    x, w, p, u0, dt = inp["model"].X, inp["w"], inp["p"], inp["u0"], inp["dt"]
+    out = torch.empty_like(w)
+    inv_alpha = float(torch.tensor(1.0, dtype=torch.float32) / torch.tensor(inp["model"].alpha, dtype=torch.float32))
+
+    def launch():
+        err = lib.rhmc_position_fixed_point(x.data_ptr(), w.data_ptr(), p.data_ptr(), u0.data_ptr(), dt.data_ptr(),
+                                            out.data_ptr(), c, n, d, inv_alpha, 0.0, 4, 0,
+                                            torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"lab K4 launch failed with CUDA error {err}")
+    launch()  # warm
+    torch.cuda.synchronize()
+    if lib.rhmc_k4_stamps_reset() != 0:
+        raise RuntimeError("stamps reset failed")
+    launch()
+    torch.cuda.synchronize()
+    blocks = 1 << 12
+    host = np.zeros((blocks, len(phases) + 3), dtype=np.uint64)
+    if lib.rhmc_k4_stamps(host.ctypes.data, blocks) != 0:
+        raise RuntimeError("reading the stamps failed")
+    ran = host[host[:, len(phases)] > 0].astype(np.float64)
+    cycles = ran[:, : len(phases)]
+    start, end = ran[:, -2], ran[:, -1]
+    per_block = cycles.sum(1)
+    return {"blocks": int(len(ran)), "rounds": float(ran[:, len(phases)].mean()),
+            "cycles": {q: float(v) for q, v in zip(phases, cycles.mean(0))},
+            "share": {q: float(v) for q, v in zip(phases, cycles.mean(0) / per_block.mean())},
+            "block_cycles_mean": float(per_block.mean()), "block_cycles_max": float(per_block.max()),
+            "block_span_ns_mean": float((end - start).mean()), "kernel_span_ns": float(end.max() - start.min()),
+            "start_spread_ns": float(start.max() - start.min()), "sm_clock_max_mhz": smoke.sm_clock_max_mhz()}
 
 
 def _with_critical_path(row: dict) -> dict:

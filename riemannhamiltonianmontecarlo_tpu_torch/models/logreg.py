@@ -216,12 +216,13 @@ class LogisticRegression(nn.Module):
 
     def fixed_point_kernels(self, w: Tensor, linalg: str | None = None) -> bool:
         """Whether the two fixed points run as the kernels K4 / K5: a whole
-        model (no ``group``), a (C, D) CUDA batch with D <= 48, and a
-        ``linalg`` method that allows kernels (None or ``"kernel"``).  A
-        data-sharded model takes the plain loops by its configuration, not as
-        a fallback: its metric is all-reduced between the build and the
+        model (no ``group``), a (C, D) CUDA batch of a width the kernels
+        serve faster than the loops (``logreg_fixed_point.kernel_width``),
+        and a ``linalg`` method that allows kernels (None or ``"kernel"``).
+        A data-sharded model takes the plain loops by its configuration, not
+        as a fallback: its metric is all-reduced between the build and the
         factor, which one launch cannot do."""
-        return (self.group is None and w.is_cuda and w.ndim == 2 and self.dim <= logreg_fixed_point.MAX_DIM
+        return (self.group is None and w.is_cuda and w.ndim == 2 and logreg_fixed_point.kernel_width(self.dim)
                 and linalg in (None, "kernel"))
 
     def position_fixed_point(self, w: Tensor, pm: Tensor, u0: Tensor, dt: Tensor, *, rounds: int,

@@ -34,7 +34,8 @@ struct Width {
 // tests and the five BLR datasets: 5, 6, 7, 8, 14, 15, 25), else the next
 // capacity with the width at run time.  The one place that lists them;
 // ops/hopper_linalg.py::launch_geometry mirrors it.
-template <typename F>
+// kLargestCapacity: the largest capacity instantiated (K4 / K5 build none past 16 rows); a wider d is refused.
+template <int kLargestCapacity = kMaxDim, typename F>
 cudaError_t with_width(int d, F&& f) {
   switch (d) {
     case 3: return f(Width<3, true>{});
@@ -50,8 +51,12 @@ cudaError_t with_width(int d, F&& f) {
   if (d <= 4) return f(Width<4, false>{});
   if (d <= 8) return f(Width<8, false>{});
   if (d <= 16) return f(Width<16, false>{});
-  if (d <= 32) return f(Width<32, false>{});
-  return f(Width<kMaxDim, false>{});
+  if constexpr (kLargestCapacity > 16) {
+    if (d <= 32) return f(Width<32, false>{});
+    return f(Width<kMaxDim, false>{});
+  } else {
+    return cudaErrorInvalidValue;
+  }
 }
 
 // Where a thread stands: its lane in the group, its chain and whether that

@@ -20,15 +20,21 @@ For a logistic regression on a card both loops are hand-written kernels of
 ``csrc/logreg_fixed_point.cu``, every round inside one launch (the JAX
 package has no Pallas kernel here; XLA compiles its loops):
 
-* K4 ``position_fixed_point_cuda``: each round builds G = X^T diag(v) X +
-  I / alpha (+ jitter I) from the data staged in shared memory, a block of
-  G a lane (``k4_build``), factors it and solves (K2's code), for every
-  chain at once; no (C, N) intermediate and no G reaches device memory;
+* K4 ``position_fixed_point_cuda``: each round builds the upper triangle of
+  G = X^T diag(v) X for a tile of chains as a register-tiled product of the
+  weights v and a pair table x_n[i] x_n[j] (``k4_tiles``, ``pair_of``; sets
+  of threads split the rows and their tiles are added in a fixed order), adds
+  I / alpha (+ jitter I), factors it and solves (K2's code), X arriving by
+  bulk copies; no (C, N) intermediate and no G reaches device memory;
 * K5 ``momentum_fixed_point_cuda``: each round's u, X u and X^T (c (Xu)^2),
-  c read once a launch.
+  a warp's chains sharing each row of X, the lanes' sums halved over the
+  warp (``k5_tiles``, ``k5_owned``), X and c arriving by bulk copies while
+  round 0 runs and staying for the later rounds.
 
-Each ``*_cuda`` checks its operands (a CUDA device shared by all, float32,
-shapes, contiguity, 1 <= D <= 48), allocates its output with
+Both serve the widths ``kernel_width`` names (D <= 16 and D 25); a model of
+another width takes the loops.  Each ``*_cuda`` checks its operands (a CUDA
+device shared by all, float32, shapes, contiguity, a width the kernels
+serve), allocates its output with
 ``torch.empty``, launches on the current stream, counts the launch
 (``ops.launches``) and raises on anything else, a CPU tensor included.
 ``position_fixed_point`` / ``momentum_fixed_point`` take the plain version
@@ -54,10 +60,17 @@ _COUNTED = (POSITION, MOMENTUM)
 _KERNEL_DEVICE = "cuda"
 
 # The layout, mirrored from csrc/logreg_fixed_point.cu (chip_smoke.py holds it against the built library).
-THREADS_PER_BLOCK = 256  # kFpThreads
-SHARED_BUDGET = 112 * 1024  # kSharedBudget: X staged whole where it fits (so that an SM holds two blocks)
-SHARED_OPT_IN = 227 * 1024  # the shared memory an H100 block may opt into
-STREAM_BYTES = 64 * 1024  # kStreamBytes: X's tile when the whole of it does not fit
+SHARED_OPT_IN = 232448  # kSmemMax: the shared memory an H100 block may opt into
+STREAM_BYTES = 64 * 1024  # kStreamBytes: K4's stage of streamed X at most
+K4_V_FLOATS = 2048  # kVFloats: a chunk's weights (rows x chains), each of K4's two buffers, at most
+K4_XX_FLOATS = 8192  # kXXFloats: a chunk's pair table (rows x pairs), each of K4's two buffers, at most
+K4_THREADS = 512  # kK4Threads
+K4_MAX_SETS = 16  # kK4MaxSets: sets of K4's threads splitting a chunk's rows, at most
+K5_THREADS = 256  # kK5Threads
+K5_COPY = 256  # kK5Copy: rows a copy of K5 (X's, and each chain's c)
+K5_PASS = 64  # kK5Pass: rows a pass of K5's lanes, two a lane
+K5_MAX_COPIES = 8  # kK5MaxCopies: X and c stay whole where they fit in at most this many copies
+K5_RING_STAGES = 3  # kK5RingStages
 
 
 def launch_counts() -> dict[str, int]:
@@ -72,69 +85,161 @@ def reset_launch_counts() -> None:
 class FixedPointGeometry(NamedTuple):
     """How K4 / K5 lay (N, D) out on the card (csrc: ``FpLayout``)."""
 
-    lanes_per_chain: int  # K1 / K2's groups: 4, 8, 16 or 32 by the width's rows
-    chains_per_block: int
-    x_stride: int  # floats between X's rows in shared memory: a multiple of 4, an odd number of 16-byte slots
-    x_rows: int  # rows of X a tile holds (N where X is staged whole)
-    x_whole: int  # 1 where X is staged once a launch
-    c_staged: int  # K5: 1 where the block's rows of c sit in shared memory
+    threads: int  # a block's
+    chains: int  # a block's
+    chunk_rows: int  # rows a pass (K4: the pair table's and the weights' chunk; K5: a copy)
+    tile_rows: int  # rows a copy of X brings (K4: a multiple of chunk_rows, all of X where whole; K5: a chunk)
+    stages: int  # copies resident at once (where whole: every one of the launch)
+    whole: int  # 1 where X (K5: and c) stays in shared memory for every round
     shared_bytes: int  # the block's
 
 
-class K4Build(NamedTuple):
-    """How K4's lanes split a chain's G (csrc: ``Build``): lane (ti, tk) of the group sums the block of rows
-    ti ri .. ti ri + ri - 1 and columns tk rk .. tk rk + rk - 1, on a grid of block_rows x block_cols blocks
-    over ``cols`` (X's padded width)."""
+class K4Tiles(NamedTuple):
+    """K4's register tiling of G's upper triangle (csrc: ``K4Plan``): ``sets`` sets of threads split a chunk's
+    rows, ``rows_per_set`` each; in a set, thread (cg, pg) sums chains 4 cg .. 4 cg + 3 and pairs tp pg ..
+    tp pg + tp - 1 of the pair table (``pair_of``).  The logits: thread (q, c) computes chain c's of rows q,
+    q + logit_slots, .. of a chunk (``k4_logit_tile``).  Between tiles of X the sets' tiles of G lie over the pair
+    table and weights (``scratch`` floats, the larger of the two) where they are summed in one pass
+    (``one_pass_sum``: more than 4 sets), else one set after another."""
 
-    block_rows: int
-    block_cols: int
-    ri: int
-    rk: int
-    cols: int
-    chunk: int  # rows of X a group weighs at a time (csrc: kCH)
-    buffer_floats: int  # the block's weighted rows: each group's chunk x the stride, and a bank skew
+    threads: int
+    chains: int  # a block's: the factor's groups of lanes
+    factor_threads: int  # the factor's: chains x lanes (the rest sit it out)
+    chains_per_thread: int
+    pairs_per_thread: int
+    pairs: int  # D (D + 1) / 2 at the width the kernel is unrolled for
+    padded_pairs: int  # the pair table's width
+    set_threads: int
+    sets: int
+    rows_per_set: int
+    chunk: int  # rows a chunk: sets x rows_per_set
+    logit_slots: int  # rows a pass of the logits
+    scratch: int  # floats: the pair table and weights (two buffers each), or the sets' tiles of G
+    one_pass_sum: bool  # the sets' tiles summed in one pass (more than 4 sets), else one set after another
+
+
+class K5Tiles(NamedTuple):
+    """K5's tiling (csrc: ``K5Plan``): a warp's ``chains_per_warp`` chains, b's ``padded_width`` columns each; after
+    the halving exchange lane l owns entries (l // lanes_per_entry) entries_per_lane + 0 .. entries_per_lane - 1
+    of the warp's chains_per_warp x padded_width (chain, column) entries."""
+
+    threads: int
+    chains: int  # a block's
+    chains_per_warp: int
+    padded_width: int
+    entries_per_lane: int
+    lanes_per_entry: int
+
+
+def kernel_width(d: int) -> bool:
+    """Whether K4 / K5 serve width ``d`` (csrc: ``fp_width``), and so whether a whole model of that width takes them
+    (``LogisticRegression.fixed_point_kernels``): D <= 16 (the exact widths and the capacities 4, 8, 16) and D 25.
+    At the capacities 32 and 48 (D 17-24 and 26-48) the sampler's loops were faster on an H100 than these kernels
+    and the earlier ones (``kernel_ab.py --kernels fixed_point`` at D 20, 32 and 48; PERF.md): none is built there."""
+    return 1 <= d <= 16 or d == 25
 
 
 def _unrolled_rows(d: int) -> int:
-    """The rows the kernels are unrolled for (csrc: with_width): d itself, or the next capacity."""
+    """The rows the kernels are unrolled for (csrc: ``with_fp_width``): d itself, or the next capacity."""
+    if not kernel_width(d):
+        raise ValueError(f"K4 / K5 serve 1 <= D <= 16 and D 25, got D = {d}")
     return d if d in hopper_linalg.EXACT_WIDTHS else next(cap for cap in hopper_linalg.CAPACITIES if d <= cap)
 
 
-def k4_build(d: int) -> K4Build:
-    """K4's blocks of G at width ``d``, mirrored from the source."""
-    n, lanes = _unrolled_rows(d), hopper_linalg.launch_geometry(d).lanes_per_chain
-    ti = 2 if lanes <= 8 else 4
-    tk = lanes // ti
-    ri, rk = (-(-n // ti) + 1) // 2 * 2, (-(-n // tk) + 1) // 2 * 2
-    cols, chunk = max(ti * ri, tk * rk), min(lanes, 16)
-    groups = THREADS_PER_BLOCK // lanes
-    return K4Build(ti, tk, ri, rk, cols, chunk, groups * (chunk * _stride(cols) + ti * ri))
+def _hull_floats(n: int) -> int:
+    """Floats a run of n floats' 16-byte-aligned hull spans at most, in whole 16-byte slots (csrc: hull_floats)."""
+    return (n + 9) // 4 * 4
 
 
-def _stride(cols: int) -> int:
-    """Floats between rows of X (and of K4's weighted rows) in shared memory: an odd number of 16-byte slots."""
-    return ((cols + 3) // 4 | 1) * 4
+def k4_tiles(d: int) -> K4Tiles:
+    """K4's tiles at width ``d``, mirrored from the source."""
+    n, threads, lanes = _unrolled_rows(d), K4_THREADS, hopper_linalg.launch_geometry(d).lanes_per_chain
+    chains = min(32, threads // lanes)
+    tch, tp = 4, 8
+    pairs = n * (n + 1) // 2
+    pad = -(-pairs // tp) * tp
+    set_threads = chains // tch * (pad // tp)
+    sets = min(K4_MAX_SETS, threads // set_threads)
+    rows = max(1, min(16, K4_V_FLOATS // (chains * sets), K4_XX_FLOATS // (pad * sets)))
+    chunk = sets * rows
+    scratch = max(2 * chunk * pad + 2 * chunk * chains, sets * chains * pad)
+    return K4Tiles(threads, chains, chains * lanes, tch, tp, pairs, pad, set_threads, sets, rows, chunk,
+                   threads // chains, scratch, sets > 4)
+
+
+def k4_logit_tile(d: int, thread: int) -> tuple[int, list[int]]:
+    """(chain, rows of a chunk) whose logits K4's ``thread`` computes at width ``d``."""
+    k = k4_tiles(d)
+    return thread % k.chains, list(range(thread // k.chains, k.chunk, k.logit_slots))
+
+
+def pair_of(p: int, n: int) -> tuple[int, int] | None:
+    """Pair ``p`` of width ``n`` as (i, j), i <= j, row-major over the upper triangle; None for padding."""
+    if p >= n * (n + 1) // 2:
+        return None
+    i = 0
+    while p >= n - i:
+        p, i = p - (n - i), i + 1
+    return i, i + p
+
+
+def k4_thread_tile(d: int, thread: int) -> tuple[int, range, range] | None:
+    """(set, chains, pair-table columns) of K4's ``thread`` at width ``d``; None for a thread outside the sets."""
+    k = k4_tiles(d)
+    if thread >= k.sets * k.set_threads:
+        return None
+    u = thread % k.set_threads
+    groups = k.chains // k.chains_per_thread
+    cg, pg = u % groups, u // groups
+    return (thread // k.set_threads, range(k.chains_per_thread * cg, k.chains_per_thread * (cg + 1)),
+            range(k.pairs_per_thread * pg, k.pairs_per_thread * (pg + 1)))
+
+
+def k5_tiles(d: int) -> K5Tiles:
+    """K5's tiles at width ``d``, mirrored from the source."""
+    n = _unrolled_rows(d)
+    per_warp = 4 if n <= 16 else 2
+    width = max(4, 1 << (n - 1).bit_length())
+    values = per_warp * width
+    return K5Tiles(K5_THREADS, K5_THREADS // 32 * per_warp, per_warp, width, max(1, values // 32),
+                   max(1, 32 // values))
+
+
+def k5_owned(d: int, lane: int) -> list[tuple[int, int]]:
+    """The (chain of the warp, column) entries of b that K5's ``lane`` holds after the halving exchange."""
+    k = k5_tiles(d)
+    first = lane // k.lanes_per_entry * k.entries_per_lane
+    return [divmod(first + i, k.padded_width) for i in range(k.entries_per_lane)]
 
 
 def launch_geometry(kernel: str, n: int, d: int) -> FixedPointGeometry:
     """K4's (``kernel`` = ``POSITION``) or K5's (``MOMENTUM``) layout at N rows of width D, as
-    ``csrc/logreg_fixed_point.cu::fp_layout`` computes it: X's rows padded (K4: to its blocks' width), whole
-    in shared memory where X fits the budget beside K4's factor tile (C D (D | 1) floats) and weighted rows,
-    else in tiles of 64 KB; K5's rows of c beside a whole X where both fit."""
+    ``csrc/logreg_fixed_point.cu::k4_layout`` / ``k5_layout`` compute it.  K4: X whole in one copy where it fits
+    beside the pair table, the weights, the sum, the iterates and the factor's tile (D (D | 1) floats a chain),
+    else streamed through two stages of a multiple of the chunk's rows; K5: X and c in copies of 256 rows, all
+    resident where at most 8 of them fit, else a ring of three."""
     if kernel not in _COUNTED:
         raise ValueError(f"kernel must be one of {_COUNTED}, got {kernel!r}")
-    if n < 1 or not 1 <= d <= MAX_DIM:
-        raise ValueError(f"the CUDA kernels take N >= 1 and 1 <= D <= {MAX_DIM}, got N = {n}, D = {d}")
-    geo = hopper_linalg.launch_geometry(d)
-    chains = THREADS_PER_BLOCK // geo.lanes_per_chain
-    stride = _stride(_unrolled_rows(d) if kernel == MOMENTUM else k4_build(d).cols)
-    tile = 0 if kernel == MOMENTUM else 4 * (chains * d * (d | 1) + k4_build(d).buffer_floats)
-    whole = 4 * n * stride + tile <= SHARED_BUDGET
-    x_rows = n if whole else STREAM_BYTES // (4 * stride)
-    c_bytes = 4 * chains * n
-    c_staged = kernel == MOMENTUM and whole and 4 * x_rows * stride + c_bytes <= SHARED_BUDGET
-    return FixedPointGeometry(geo.lanes_per_chain, chains, stride, x_rows, int(whole), int(c_staged),
-                              4 * x_rows * stride + tile + (c_bytes if c_staged else 0))
+    if n < 1 or not kernel_width(d):
+        raise ValueError(f"the CUDA kernels take N >= 1 and 1 <= D <= 16 or D 25, got N = {n}, D = {d}")
+    if kernel == POSITION:
+        k = k4_tiles(d)
+        wf_stride = -(-_unrolled_rows(d) // 4) * 4
+        fixed = k.scratch + k.chains * (k.padded_pairs + 4) + k.chains * wf_stride + k.chains * d * (d | 1)
+        if 16 + 4 * (fixed + _hull_floats(n * d)) <= SHARED_OPT_IN:
+            tile_rows, stages, whole = n, 1, 1
+        else:
+            stage = min(((SHARED_OPT_IN - 16) // 4 - fixed) // 2, STREAM_BYTES // 4)
+            tile_rows, stages, whole = max(0, (stage - 9) // d // k.chunk * k.chunk), 2, 0
+        return FixedPointGeometry(k.threads, k.chains, k.chunk, tile_rows, stages, whole,
+                                  16 + 4 * (fixed + stages * _hull_floats(tile_rows * d)))
+    k = k5_tiles(d)
+    fixed, stage = 2 * k.chains * k.padded_width, _hull_floats(K5_COPY * d) + k.chains * _hull_floats(K5_COPY)
+    copies = -(-n // K5_COPY)
+    whole = copies <= K5_MAX_COPIES and 8 * K5_MAX_COPIES + 4 * (fixed + copies * stage) <= SHARED_OPT_IN
+    stages = copies if whole else K5_RING_STAGES
+    return FixedPointGeometry(k.threads, k.chains, K5_PASS, K5_COPY, stages, int(whole),
+                              8 * K5_MAX_COPIES + 4 * (fixed + stages * stage))
 
 
 @functools.cache
@@ -177,8 +282,8 @@ def _check(name: str, x: Tensor, batch: dict[str, tuple[Tensor, tuple[int, ...]]
     if x.ndim != 2:
         raise ValueError(f"{name}: X must be (N, D), got shape {tuple(x.shape)}")
     n, d = x.shape
-    if n < 1 or not 1 <= d <= MAX_DIM:
-        raise ValueError(f"{name}: the CUDA kernel takes N >= 1 and 1 <= D <= {MAX_DIM}, got N = {n}, D = {d}")
+    if n < 1 or not kernel_width(d):
+        raise ValueError(f"{name}: the CUDA kernel takes N >= 1 and 1 <= D <= 16 or D 25, got N = {n}, D = {d}")
     c = batch["dt"][0].shape[0] if batch["dt"][0].ndim == 1 else -1
     sizes = {"C": c, "N": n, "D": d}
     for label, (t, shape) in {"X": (x, ("N", "D")), **batch}.items():

@@ -42,7 +42,8 @@ and ``captured`` (replays of the step's CUDA graph, ``parallel.graphs``, as
 ``run`` does by default on a card), the captured rows with the capture's
 seconds and the bytes of device memory its graph pool reserved.  The BLR
 rows are RMHMC at the reference constants (4096 chains) and Gibbs (1024) on
-synthetic data of australian's shape (N = 690, D = 15).  The ``blr-mesh``
+synthetic data of australian's shape (N = 690, D = 15); the ``blr-german``
+rows are that RMHMC run on german's shape (N = 1000, D = 25).  The ``blr-mesh``
 rows are that RMHMC run on a ("chains", "data") mesh of shape (1, 1) over
 NCCL in this process (world 1, a TCP store on a free local port), the model
 from ``with_sharding``: every row gives its all-reduces a step, counted on
@@ -75,12 +76,13 @@ from riemannhamiltonianmontecarlo_tpu_torch.samplers import pmala, rmhmc
 
 # (workload, sampler, chains): the chip-smoke configurations.
 RUNS = (
-    ("blr", "rmhmc", 4096), ("blr-mesh", "rmhmc", 4096), ("blr", "gibbs", 1024),
+    ("blr", "rmhmc", 4096), ("blr-german", "rmhmc", 4096), ("blr-mesh", "rmhmc", 4096), ("blr", "gibbs", 1024),
     ("stochvol", "rmhmc", 1024), ("stochvol", "hmc", 1024), ("stochvol", "mala", 1024), ("stochvol", "mmala", 1024),
     ("lgc", "rmhmc", 64), ("lgc", "pmala", 64), ("lgc", "mmala", 8), ("lgc", "mala_stationary", 16),
     ("lgc", "rmhmc_joint", 4), ("lgc", "mmala_joint", 4),
     ("fhn", "rmhmc", 256), ("fhn", "hmc", 256), ("fhn", "mmala", 256), ("fhn", "mala", 256),
 )
+BLR = ("blr", "blr-german", "blr-mesh")  # BLR workloads: australian's shape, german's, australian's on a mesh
 GEMM = re.compile(r"gemm|cutlass|xmma|gemv", re.IGNORECASE)
 FACTOR = re.compile(r"potrf|trsm|chol", re.IGNORECASE)
 TRSM = re.compile(r"trsm", re.IGNORECASE)  # the triangular solves' part of FACTOR
@@ -116,8 +118,9 @@ def _world1_mesh() -> parallel.Mesh:
 
 def _kernel(workload: str, sampler: str, device: torch.device):
     """(kernel, init_fn, mesh or None, the BLR model or None) of a run of RUNS."""
-    if workload in ("blr", "blr-mesh"):  # chip_smoke.py's main path (rmhmc) and phase 6's samplers
-        ds = models.synthetic_logreg(seed=0, n=690, d=15)
+    if workload in BLR:  # chip_smoke.py's main path (rmhmc) and phase 6's samplers
+        ds = models.synthetic_logreg(seed=0, n=1000, d=25) if workload == "blr-german" else \
+            models.synthetic_logreg(seed=0, n=690, d=15)
         model = interop.logreg_from_numpy(ds.X, ds.t, device=device)
         mesh = _world1_mesh() if workload == "blr-mesh" else None
         if mesh is not None:
@@ -193,7 +196,7 @@ def profile_run(workload: str, sampler: str, chains: int, *, warm: int, steps: i
     if sampler == "gibbs":
         out.update({f"{part}_share_of_device": sum(ms for name, ms in kernels if pattern.search(name)) / busy
                     for part, pattern in GIBBS.items()})
-    if workload in ("blr", "blr-mesh") and sampler == "rmhmc":  # the geometry: K3, or K1 and the inverse
+    if workload in BLR and sampler == "rmhmc":  # the geometry: K3, or K1 and the inverse
         geo = _geometry_device(box[0].geo.metric)
         calls = linalg_launches["chol_inv_logdet"] + linalg_launches["cholesky"]
         out.update(geo, geometry_calls_per_step=calls,

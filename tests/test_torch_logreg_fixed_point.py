@@ -222,13 +222,19 @@ def test_torch_stochvol_hyper_block_runs_the_sampler_loops(monkeypatch):
 
 
 def test_torch_fixed_point_kernels_route():
-    """K4 / K5 only for a whole model's (C, D) CUDA batch of D <= 48 under linalg None or "kernel"."""
+    """K4 / K5 only for a whole model's (C, D) CUDA batch under linalg None or "kernel", of a width the kernels
+    serve faster than the loops: the exact widths (25 among them) and the capacities up to 16 rows, not 17-24 or
+    26-48 (measured on the card: PERF.md)."""
     model = small_blr()
 
     class Cuda:  # what the rule reads of a batch
         is_cuda, ndim = True, 2
 
     assert model.fixed_point_kernels(Cuda()) and model.fixed_point_kernels(Cuda(), "kernel")
+    assert [d for d in range(1, lfp.MAX_DIM + 2) if lfp.kernel_width(d)] == [*range(1, 17), 25]
+    for d, kernels in ((15, True), (16, True), (20, False), (25, True), (32, False), (48, False)):
+        ds = models.synthetic_logreg(seed=1, n=30, d=d)
+        assert interop.logreg_from_numpy(ds.X, ds.t, device="cpu").fixed_point_kernels(Cuda()) is kernels
     assert not model.fixed_point_kernels(Cuda(), "unrolled") and not model.fixed_point_kernels(Cuda(), "library")
     assert not model.fixed_point_kernels(torch.zeros((4, 5)))  # a CPU batch
     model.group = object()  # a data-sharded model: its metric is all-reduced between the build and the factor
@@ -303,9 +309,9 @@ def test_torch_fixed_point_cuda_refuses(monkeypatch, kind, bad):
     monkeypatch.setattr(lfp, "_KERNEL_DEVICE", "cpu")
     monkeypatch.setattr(lfp, "_launch", lambda *args: seen.append(args))
     target = "w" if kind == "position" else "p"
-    if bad == "wide":
-        t = wrapper_inputs(d=lfp.MAX_DIM + 1)
-        match = "1 <= D <= 48"
+    if bad == "wide":  # a width the kernels do not serve (the model takes the loops there)
+        t = wrapper_inputs(d=20)
+        match = "1 <= D <= 16 or D 25"
     elif bad == "dtype":
         t[target] = t[target].double()
         match = "float32"
@@ -350,44 +356,122 @@ def cuda_source_constant(name: str) -> int:
 
 
 def test_torch_fixed_point_layout_mirrors_the_source():
-    """The layout of ``csrc/logreg_fixed_point.cu::fp_layout`` (``chip_smoke.py`` holds the mirror against the built
-    library): K1 / K2's lanes a chain, 256-thread blocks, X's rows an odd number of 16-byte slots apart, X whole
-    where it fits the 112 KB budget beside K4's tiles, else 64 KB tiles; K5's c beside a whole X."""
-    assert lfp.THREADS_PER_BLOCK == cuda_source_constant("kFpThreads") == 256
-    assert lfp.SHARED_BUDGET == cuda_source_constant("kSharedBudget")
+    """The layout of ``csrc/logreg_fixed_point.cu::k4_layout`` / ``k5_layout`` (``chip_smoke.py`` holds the mirror
+    against the built library): K4 512 threads and 32 chains a block (16 at D 25), X whole in one copy where it
+    fits beside the pair table, weights, sum, iterates and factor tile, else streamed through two stages of a
+    multiple of the chunk's rows; K5 8 warps, X and c in copies of 256 rows, all resident where at most 8 fit,
+    else a ring of three.  Both serve D <= 16 and D 25 only."""
+    assert lfp.SHARED_OPT_IN == cuda_source_constant("kSmemMax") == 227 * 1024
     assert lfp.STREAM_BYTES == cuda_source_constant("kStreamBytes")
-    for kernel in (lfp.POSITION, lfp.MOMENTUM):
-        for d in range(1, lfp.MAX_DIM + 1):
-            for n in (1, 33, 690, 1000, 5000, 20000):
-                g = lfp.launch_geometry(kernel, n, d)
-                assert g.lanes_per_chain == hopper_linalg.launch_geometry(d).lanes_per_chain
-                assert g.chains_per_block * g.lanes_per_chain == 256
-                assert g.x_stride % 4 == 0 and (g.x_stride // 4) % 2 == 1 and g.x_stride >= d
-                assert g.shared_bytes <= (lfp.SHARED_BUDGET if g.x_whole else lfp.SHARED_OPT_IN)
-                assert g.x_rows == n if g.x_whole else g.x_rows * g.x_stride * 4 <= lfp.STREAM_BYTES
-                assert not g.c_staged or (kernel == lfp.MOMENTUM and g.x_whole)
-    assert lfp.launch_geometry(lfp.POSITION, 690, 15) == lfp.FixedPointGeometry(16, 16, 20, 690, 1, 0, 91104)
-    assert lfp.launch_geometry(lfp.MOMENTUM, 690, 15) == lfp.FixedPointGeometry(16, 16, 20, 690, 1, 1, 99360)
-    assert lfp.launch_geometry(lfp.POSITION, 1000, 25) == lfp.FixedPointGeometry(32, 8, 36, 455, 0, 0, 104976)
-    assert lfp.launch_geometry(lfp.MOMENTUM, 1000, 25) == lfp.FixedPointGeometry(32, 8, 28, 1000, 1, 0, 112000)
-    assert lfp.launch_geometry(lfp.POSITION, 20000, 15).x_whole == 0  # chip_smoke's streamed shape
-    assert any(n * 20 * 4 > lfp.SHARED_BUDGET for _, n, d in chip_smoke.FIXED_POINT_SHAPES if d == 15)
+    assert lfp.K4_V_FLOATS == cuda_source_constant("kVFloats")
+    assert lfp.K4_XX_FLOATS == cuda_source_constant("kXXFloats")
+    assert lfp.K4_THREADS == cuda_source_constant("kK4Threads") == 512
+    assert lfp.K4_MAX_SETS == cuda_source_constant("kK4MaxSets")
+    src = (_build.CSRC_DIR / "logreg_fixed_point.cu").read_text()
+    assert "bool fp_width(int d) { return d >= 1 && (d <= 16 || d == 25); }" in src
+    assert src.count("return with_fp_width(d, [&](auto width) {") == 3 and "return with_width(d" not in src
+    assert lfp.K5_THREADS == cuda_source_constant("kK5Threads") == 256
+    assert lfp.K5_COPY == cuda_source_constant("kK5Copy")
+    assert lfp.K5_PASS == cuda_source_constant("kK5Pass")
+    assert lfp.K5_MAX_COPIES == cuda_source_constant("kK5MaxCopies")
+    assert lfp.K5_RING_STAGES == cuda_source_constant("kK5RingStages")
+    for d in range(1, lfp.MAX_DIM + 1):
+        lanes = hopper_linalg.launch_geometry(d).lanes_per_chain
+        if not lfp.kernel_width(d):
+            for kernel in (lfp.POSITION, lfp.MOMENTUM):
+                with pytest.raises(ValueError, match="D <= 16 or D 25"):
+                    lfp.launch_geometry(kernel, 690, d)
+            continue
+        for n in (1, 33, 690, 1000, 5000, 20000):
+            g = lfp.launch_geometry(lfp.POSITION, n, d)
+            assert g.threads == 512 and g.chains == min(32, 512 // lanes)
+            assert g.chunk_rows == lfp.k4_tiles(d).chunk and g.shared_bytes <= lfp.SHARED_OPT_IN
+            assert (g.whole, g.stages, g.tile_rows) == (1, 1, n) if g.whole else (
+                g.stages == 2 and g.tile_rows % g.chunk_rows == 0 and g.chunk_rows <= g.tile_rows < n
+                and g.tile_rows * d * 4 <= lfp.STREAM_BYTES)
+            g = lfp.launch_geometry(lfp.MOMENTUM, n, d)
+            assert g.threads == 256 and g.chains == 8 * lfp.k5_tiles(d).chains_per_warp
+            assert (g.chunk_rows, g.tile_rows) == (64, 256) and g.shared_bytes <= lfp.SHARED_OPT_IN
+            assert g.stages == -(-n // 256) <= 8 if g.whole else g.stages == 3
+    assert lfp.launch_geometry(lfp.POSITION, 690, 15) == lfp.FixedPointGeometry(512, 32, 64, 690, 1, 1, 165984)
+    assert lfp.launch_geometry(lfp.MOMENTUM, 690, 15) == lfp.FixedPointGeometry(256, 32, 64, 256, 3, 1, 151712)
+    assert lfp.launch_geometry(lfp.POSITION, 1000, 25) == lfp.FixedPointGeometry(512, 16, 24, 1000, 1, 1, 229136)
+    assert lfp.launch_geometry(lfp.MOMENTUM, 1000, 25) == lfp.FixedPointGeometry(256, 16, 64, 256, 4, 1, 174272)
+    assert lfp.launch_geometry(lfp.POSITION, 20000, 15) == lfp.FixedPointGeometry(512, 32, 64, 896, 2, 0, 232144)
+    assert lfp.launch_geometry(lfp.MOMENTUM, 20000, 15).whole == 0  # chip_smoke's streamed shape
+    assert any(not lfp.launch_geometry(lfp.POSITION, n, d).whole for _, n, d in chip_smoke.FIXED_POINT_SHAPES)
 
 
 @pytest.mark.parametrize("d", range(1, lfp.MAX_DIM + 1))
 def test_torch_k4_blocks_cover_the_metric(d):
-    """K4's lanes split a chain's G into block_rows x block_cols blocks of ri x rk (even: float2 / float4 loads of a
-    row of X), one a lane of the group, covering the rows the kernel is unrolled for; X's padded width is theirs."""
-    b, lanes = lfp.k4_build(d), hopper_linalg.launch_geometry(d).lanes_per_chain
-    rows = lfp._unrolled_rows(d)
-    assert b.block_rows * b.block_cols == lanes and b.ri % 2 == 0 and b.rk % 2 == 0
-    assert b.block_rows * b.ri >= rows and b.block_cols * b.rk >= rows and b.cols == max(b.block_rows * b.ri,
-                                                                                      b.block_cols * b.rk)
-    assert lfp.launch_geometry(lfp.POSITION, 690, d).x_stride >= b.cols
-    stride = ((b.cols + 3) // 4 | 1) * 4  # X's rows and the weighted rows: an odd number of 16-byte slots
-    assert b.chunk == min(lanes, 16) and b.buffer_floats == 256 // lanes * (b.chunk * stride + b.block_rows * b.ri)
-    assert lfp.k4_build(15) == lfp.K4Build(4, 4, 4, 4, 16, 16, 5376)
-    assert lfp.k4_build(25) == lfp.K4Build(4, 8, 8, 4, 32, 16, 4864)
+    """K4's register tiles: in each set of threads, the threads' (chains x pair-table columns) tiles cover every
+    chain of the block and every pair (i, j), i <= j, of the width the kernel is unrolled for exactly once, the
+    padding columns beyond; the sets split a chunk's rows; the block's chains are the factor's groups; the
+    threads' logits cover each (row of a chunk, chain) once.  A width the kernels do not serve has
+    no tiles."""
+    if not lfp.kernel_width(d):
+        with pytest.raises(ValueError, match="D <= 16 and D 25"):
+            lfp.k4_tiles(d)
+        return
+    k, n = lfp.k4_tiles(d), lfp._unrolled_rows(d)
+    assert k.chains * hopper_linalg.launch_geometry(d).lanes_per_chain == k.factor_threads <= k.threads
+    assert k.factor_threads % 32 == 0 and k.chains == (32 if n <= 16 else 16)  # whole warps factor; 128 blocks at C 4,096
+    assert k.padded_pairs % k.pairs_per_thread == 0 and k.padded_pairs - k.pairs < k.pairs_per_thread
+    assert k.sets >= 1 and k.sets * k.set_threads <= k.threads and k.chunk == k.sets * k.rows_per_set
+    assert k.chunk * k.chains <= lfp.K4_V_FLOATS or k.rows_per_set == 1
+    pairs = [lfp.pair_of(p, n) for p in range(k.padded_pairs)]
+    assert sorted(p for p in pairs if p) == [(i, j) for i in range(n) for j in range(i, n)]
+    assert all(p is None for p in pairs[k.pairs:]) and all(
+        lfp.pair_of(p, n)[0] * n - lfp.pair_of(p, n)[0] * (lfp.pair_of(p, n)[0] - 1) // 2
+        + lfp.pair_of(p, n)[1] - lfp.pair_of(p, n)[0] == p for p in range(k.pairs))
+    cover = {}
+    for t in range(k.threads):
+        tile = lfp.k4_thread_tile(d, t)
+        if tile is None:
+            continue
+        s, chains, cols = tile
+        for c in chains:
+            for p in cols:
+                cover[s, c, p] = cover.get((s, c, p), 0) + 1
+    assert set(cover.values()) == {1}
+    assert set(cover) == {(s, c, p) for s in range(k.sets) for c in range(k.chains) for p in range(k.padded_pairs)}
+    logits = {}
+    for t in range(k.threads):
+        c, rows = lfp.k4_logit_tile(d, t)
+        for r in rows:
+            logits[r, c] = logits.get((r, c), 0) + 1
+    assert set(logits.values()) == {1} and set(logits) == {(r, c) for r in range(k.chunk) for c in range(k.chains)}
+    # the sets' tiles fit over the pair table and weights, or the scratch grows to hold them
+    assert k.scratch >= 2 * k.chunk * (k.padded_pairs + k.chains) and k.scratch >= k.sets * k.chains * k.padded_pairs
+    assert k.one_pass_sum == (k.sets > 4) == (n <= 8)  # one pass at D <= 8 (measured faster there), else set by set
+    assert lfp.k4_tiles(15) == lfp.K4Tiles(512, 32, 512, 4, 8, 120, 120, 120, 4, 16, 64, 16, 19456, False)
+    assert lfp.k4_tiles(7) == lfp.K4Tiles(512, 32, 256, 4, 8, 28, 32, 32, 16, 4, 64, 16, 16384, True)
+    assert lfp.k4_tiles(25) == lfp.K4Tiles(512, 16, 512, 4, 8, 325, 328, 164, 3, 8, 24, 32, 16512, False)
+
+
+@pytest.mark.parametrize("d", range(1, lfp.MAX_DIM + 1))
+def test_torch_k5_tiles_cover_the_force(d):
+    """K5's tiles: the warps' chains cover the block's chains exactly once, and after the halving exchange
+    every (chain, column) entry of a warp's b is held by lanes_per_entry lanes, exactly one of them writing it,
+    the columns the width's (padding past it).  A width the kernels do not serve has no tiles."""
+    if not lfp.kernel_width(d):
+        with pytest.raises(ValueError, match="D <= 16 and D 25"):
+            lfp.k5_tiles(d)
+        return
+    k, n = lfp.k5_tiles(d), lfp._unrolled_rows(d)
+    assert k.chains == k.threads // 32 * k.chains_per_warp and k.padded_width >= n
+    assert k.padded_width & (k.padded_width - 1) == 0 and k.padded_width < 2 * max(n, 2) + 4
+    held, written = {}, {}
+    for lane in range(32):
+        for entry in lfp.k5_owned(d, lane):
+            held[entry] = held.get(entry, 0) + 1
+            if lane % k.lanes_per_entry == 0:
+                written[entry] = written.get(entry, 0) + 1
+    entries = {(c, col) for c in range(k.chains_per_warp) for col in range(k.padded_width)}
+    assert set(held) == set(written) == entries
+    assert set(held.values()) == {k.lanes_per_entry} and set(written.values()) == {1}
+    assert lfp.k5_tiles(15) == lfp.K5Tiles(256, 32, 4, 16, 2, 1)
+    assert lfp.k5_tiles(25) == lfp.K5Tiles(256, 16, 2, 32, 2, 1)
 
 
 def test_torch_fixed_point_kernel_names_are_apart():
