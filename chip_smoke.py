@@ -15,10 +15,11 @@ It imports no jax.  Phases, each printing one line of findings:
    prints the build seconds and the ptxas register / spill report (K1 / K2 / K3
    per width, T1, T2 per positions a thread and its device-memory form's
    three rounds, the FHN kernel per order, G1 per count 1..SWEEP_ENT_MAX of
-   B's entries a lane holds with and without its prologue and its wide
-   layout's two forms, G2 and the single GIG round: exactly one
-   instantiation each, G1's spilling in none), holds SWEEP_ENT_MAX and G1's
-   scratch size against the library's, and
+   B's entries a lane holds with and without its prologue and on a block of
+   warps, and its wide layout's two forms with B in memory, G2 and the single
+   GIG round: exactly one instantiation each, G1's spilling in none but
+   G1_SPILLS), holds SWEEP_ENT_MAX, G1's scratch size and its shared memory a
+   block against the library's, and
    holds ``hopper_linalg.launch_geometry`` (lanes per chain, chains per
    block, shared-memory tile) against the built library's own answer for
    every width 1..48, ``tridiag.pcr_geometry`` against the library's at
@@ -92,10 +93,15 @@ It imports no jax.  Phases, each printing one line of findings:
    the wrapper's lanes a chain and at each of ``SWEEP_LANES``),
    (1024, 1000, 25), (1025, 690, 15) and (257, 200, 40), on a state one plain step from
    init, past K1's 48 at UCI Sonar's shape (256, 208, 61), UCI Musk v1's
-   (1024, 476, 167) and (64, 300, 2049), where the wide layout runs, and
-   at D = 32 x SWEEP_ENT_MAX on (64, 300) in both layouts (B in registers,
-   the wide one with B in shared memory and in the output buffer: the same
-   bits in all three), each timed; at D >= 1024 the conditionals come from
+   (1024, 476, 167) and (64, 300, 2049), where the wide layout runs (a block
+   of warps a chain, B in registers), at D = 32 x SWEEP_ENT_MAX on (64, 300)
+   in both layouts (B in registers on 32 lanes; the wide layout on 8 warps
+   with B in registers, in shared memory and in the output buffer: the same
+   bits in those three), and at (4, 64, 12800), past the registers and past
+   48 KB of shared memory a block (the card's opt-in raised; B in the output
+   buffer there the same bits), each timed, and each wide layout also held
+   against the float64 plain version (its error at most twice the float32
+   plain version's plus 1e-5); at D >= 1024 the conditionals come from
    batched matmuls under a prior variance of 1e-2, not from a BLR model;
    and at (1024, 690, 15) on that state with z scaled by 8 (the tail
    case: some steps' bound a > 3, which must take each of the tail's three
@@ -154,7 +160,10 @@ It imports no jax.  Phases, each printing one line of findings:
    (N=476, D=167: V and chol(V) from torch.linalg, G1 on 32 lanes of 6
    entries), 1024 chains, 3 + 3 eager and captured: bit for bit, one
    capture, G1 / G2 counted on the device 6 each and K1 / K2 / K3 0, three
-   replays under torch.profiler against the counters.  Each run: finite samples of the
+   replays under torch.profiler against the counters; the same at N=300,
+   D=2049, 64 chains, under a prior of variance 1e-2 (G1's wide layout, 8
+   warps a chain; the outer features ~5.0 GB), printing G1's layout and the
+   peak of allocated memory.  Each run: finite samples of the
    right shape, acceptance in a window from RESULTS.md or the JAX
    package's tests, divergences, posterior means against the RMHMC run on
    the same data (z < 5 from exact-mode ESS), and K1 - K5 launch counts
@@ -452,7 +461,8 @@ GIBBS_REPLACES = {
     "gig_round": "riemannhamiltonianmontecarlo_tpu/ops/gig.py:143-168 (one round of the rejection lax.while_loop, "
                  "series :42-115; no pallas_call)",
 }
-# (G1's two kernels, the register layout's gibbs_sweep_kernel and gibbs_sweep_wide_kernel, share "gibbs_sweep")
+# (G1's kernels, the register layout's gibbs_sweep_kernel and the wide layout's gibbs_sweep_block_kernel and
+# gibbs_sweep_memory_kernel, share "gibbs_sweep")
 GIBBS_KERNEL_NAMES = {"gibbs_sweep": "gibbs_sweep", "gig_half": "gig_half_kernel",
                       "gig_round": "gig_round_kernel"}
 GIBBS_COUNTED = tuple(GIBBS_KERNEL_NAMES)
@@ -734,20 +744,21 @@ def phase_build() -> dict:
     fhn_regs = {f"fhn<{order}{'' if kind == '1' else ',streamed'}>": {"registers": int(r), "spill_store_bytes": int(sp)}
                 for order, kind, sp, r in fhn_found}
     # G1 per count of B's entries a lane holds (one instantiation for each of 1..SWEEP_ENT_MAX, with and
-    # without the prologue of a chain on a whole warp), its wide layout (B in shared memory or in the output
-    # buffer), G2 and the single round: registers and spill stores.  G1 spills in none but G1_SPILLS:
-    # SWEEP_ENT_MAX is the most entries a lane holds in registers.
-    gibbs_found = re.findall(r"(gibbs_sweep_kernel|gibbs_sweep_wide_kernel|gig_half_kernel|gig_round_kernel)"
-                             r"(?:I(?:Li(\d+)E)?(?:Lb([01])E)?E)?.*?(\d+) bytes spill stores.*?Used (\d+) registers", log,
-                             re.S)
+    # without the prologue of a chain on a whole warp, and on a block of warps), its wide layout with B in
+    # memory (shared or the output buffer), G2 and the single round: registers and spill stores.  G1 spills in
+    # none but G1_SPILLS: SWEEP_ENT_MAX is the most entries a lane holds in registers.
+    gibbs_found = re.findall(r"(gibbs_sweep_kernel|gibbs_sweep_block_kernel|gibbs_sweep_memory_kernel|gig_half_kernel"
+                             r"|gig_round_kernel)(?:I(?:Li(\d+)E)?(?:Lb([01])E)?E)?.*?(\d+) bytes spill stores.*?"
+                             r"Used (\d+) registers", log, re.S)
     gibbs_names = {"0": "", "1": ",prologue"}
     gibbs_regs = {
-        (f"{name}<{ent}{gibbs_names[flag]}>" if ent else f"{name}<{'shared' if flag == '1' else 'global'}>"
+        (f"{name}<{ent}{gibbs_names[flag] if flag else ''}>" if ent else f"{name}<{'shared' if flag == '1' else 'global'}>"
          if flag else name): {"registers": int(r), "spill_store_bytes": int(sp)}
         for name, ent, flag, sp, r in gibbs_found}
     expected = [*(f"gibbs_sweep_kernel<{e}{pro}>" for e in range(1, gibbs.SWEEP_ENT_MAX + 1)
                   for pro in gibbs_names.values()),
-                "gibbs_sweep_wide_kernel<shared>", "gibbs_sweep_wide_kernel<global>", "gig_half_kernel",
+                *(f"gibbs_sweep_block_kernel<{e}>" for e in range(1, gibbs.SWEEP_ENT_MAX + 1)),
+                "gibbs_sweep_memory_kernel<shared>", "gibbs_sweep_memory_kernel<global>", "gig_half_kernel",
                 "gig_round_kernel"]
     check(len(gibbs_found) == len(expected) and sorted(gibbs_regs) == sorted(expected),
           f"ptxas report names Gibbs kernels {sorted(gibbs_regs)}, expected one each of {expected}")
@@ -759,10 +770,13 @@ def phase_build() -> dict:
     check(built_ent_max == gibbs.SWEEP_ENT_MAX,
           f"G1's entries a lane: Python SWEEP_ENT_MAX {gibbs.SWEEP_ENT_MAX}, built {built_ent_max}")
     for c, n in ((1, 1), (1025, 690), (8448, 1000)):
-        for lanes in gibbs.SWEEP_LANES:
+        for lanes in (*gibbs.SWEEP_LANES, *(gibbs.SWEEP_THREADS * w for w in range(2, gibbs.SWEEP_MEMORY_WARPS + 1))):
             mirror = gibbs.sweep_scratch_numel(c, n, lanes)
             built = gibbs._lib().rhmc_gibbs_sweep_scratch_floats(c, n, lanes)
             check(mirror == built, f"G1 scratch at C={c}, N={n}, {lanes} lanes: Python {mirror}, built {built}")
+    for d in (1, 1089, 12_288, 58_046, 58_047, 100_000):
+        mirror, built = gibbs.sweep_shared_bytes(d), gibbs._lib().rhmc_gibbs_sweep_shared_bytes(d)
+        check(mirror == built, f"G1's shared memory a block at D={d}: Python {mirror}, built {built}")
     # K4 / K5 per width (the rows unrolled, "rt" where the width comes at run time): registers and spill
     # stores, none at D 15; their layouts against the built library's at phase 3's shapes and past the cut-overs.
     fp_found = re.findall(r"(position_fixed_point_kernel|momentum_fixed_point_kernel)INS_5WidthILi(\d+)ELb([01])E"
@@ -1392,11 +1406,20 @@ SWEEP_SHAPES = ((1024, 690, 15), (1024, 1000, 25), (1025, 690, 15), (257, 200, 4
 # (476 rows, 166 features), B in registers; and a width past 32 lanes of SWEEP_ENT_MAX entries, where
 # the wide layout runs (SWEEP_DIRECT_MIN_DIM).
 SWEEP_WIDE_SHAPES = ((256, 208, 61), (1024, 476, 167), (64, 300, 2049))
-# Where both layouts take D, (C, N) and D = 32 lanes of SWEEP_ENT_MAX entries: B in registers against the
-# wide layout, B in shared memory and in the output buffer (SWEEP_BOTH_LAYOUTS), all three bit for bit
-# (the same sums in the same order), each against the plain version and timed.
+# Where both layouts take D, (C, N) and D = 32 lanes of SWEEP_ENT_MAX entries: B in registers on 32 lanes
+# (the wrapper's own) against the wide layout on SWEEP_WIDE_WARPS warps with B in registers, in shared memory
+# and in the output buffer (SWEEP_BOTH_LAYOUTS: check_sweep's layouts, gibbs_sweep_cuda's keywords); the three
+# wide ones bit for bit (the same sums in the same order), each against the plain version and timed.
 SWEEP_BOTH_CN = (64, 300)
-SWEEP_BOTH_LAYOUTS = (None, "wide", "wide-global")
+SWEEP_BOTH_WARPS = 8  # samplers/gibbs.py::SWEEP_WIDE_WARPS (a literal: kernel_ab.py imports this module with an
+# earlier checkout's port)
+SWEEP_BOTH_LAYOUTS = (None, {"warps": SWEEP_BOTH_WARPS}, {"warps": SWEEP_BOTH_WARPS, "b_memory": "shared"},
+                      {"warps": SWEEP_BOTH_WARPS, "b_memory": "global"})
+# Past the registers and past the default 48 KB of shared memory a block (B's 4 D bytes), so that the
+# wrapper's layout (B in shared memory on SWEEP_MEMORY_WARPS warps) raises the card's opt-in: the wrapper's
+# layout against B in the output buffer, bit for bit, each against the plain version.
+SWEEP_OPTIN_SHAPE = (4, 64, 12_800)
+SWEEP_OPTIN_LAYOUTS = (None, {"b_memory": "global"})
 # From this D on, inputs come from the step's conditionals computed here by batched matmuls (V in
 # float64, then rounded), not from a BLR model, whose (N, D^2) outer features take N D^2 floats, under a
 # prior variance of SWEEP_DIRECT_PRIOR_VARIANCE, a ridge's shrinkage for more features than rows.  Under
@@ -1579,31 +1602,70 @@ def wrapper_lanes(c: int) -> int:
 
 def layout_kwargs(layout) -> dict:
     """``gibbs_sweep_cuda``'s keywords for a layout of check_sweep: None (the wrapper's own), a lane count
-    (B in registers), "wide" or "wide-global"."""
+    (B in registers on that many lanes of a warp) or the keywords themselves."""
     if layout is None:
         return {}
-    if isinstance(layout, int):
-        return {"lanes": layout}
-    return {"wide": True, "b_global": layout == "wide-global"}
+    return {"lanes": layout} if isinstance(layout, int) else dict(layout)
 
 
 def layout_name(c: int, d: int, layout) -> str:
-    """A layout of check_sweep by its lanes, or wide with where B lives."""
+    """A layout of check_sweep by its lanes, or its warps with where B lives."""
     resolved, code = gibbs.launch_layout(c, d, torch.device(DEVICE), **layout_kwargs(layout))
-    return {gibbs.SWEEP_REGISTERS: f"{resolved.lanes} lanes", gibbs.SWEEP_WIDE_SHARED: "wide, B in shared memory",
-            gibbs.SWEEP_WIDE_GLOBAL: "wide, B in the output buffer"}[code]
+    if code == gibbs.SWEEP_REGISTERS:
+        return f"{resolved.lanes} lanes"
+    return f"{resolved.warps} warps, B in " + {gibbs.SWEEP_WIDE_REGISTERS: "registers", gibbs.SWEEP_WIDE_SHARED:
+                                               "shared memory", gibbs.SWEEP_WIDE_GLOBAL: "the output buffer"}[code]
+
+
+def sweep_yardstick(label: str, c: int, kernel: tuple, plain: tuple, plain64: tuple, enforce: bool) -> dict:
+    """G1's outputs (B, z) and the float32 plain version's against the float64 plain version on the same
+    inputs, over the chains where the kernel kept to the float32 plain version and that to the float64 one
+    (SWEEP_TOL: a chain parted by a value within rounding of a threshold is left out, counted, and at most
+    SWEEP_MAX_PARTED of them).  The error of each output is its root mean square over those chains' entries:
+    a z_j whose u lies near 1, where ndtri's slope turns one ulp into 1e-3, sets the largest error of either
+    version by chance (both printed).  Where ``enforce`` (the wide layout), the kernel's error in B and in z
+    must each be at most twice the float32 plain version's plus FIXED_POINT_FLOOR, as phase 3 holds K4 and
+    K5; elsewhere it is printed."""
+    rtol, atol = SWEEP_TOL
+
+    def parted(a, ref):
+        return ((a[0] - ref[0]).abs() > atol + rtol * ref[0].abs()).any(1) | \
+            ((a[1] - ref[1]).abs() > atol + rtol * ref[1].abs()).any(1)
+
+    k64, p64 = [tuple(v.double() for v in out) for out in (kernel, plain)]
+    float_parted = parted(p64, plain64)
+    ok = ~(parted(k64, p64) | float_parted)
+    n_float_parted = int(float_parted.sum())
+    check(not enforce or n_float_parted <= SWEEP_MAX_PARTED * c, f"{label}: {n_float_parted} chains of the float32 "
+                                                                 f"plain version parted from the float64 one, more "
+                                                                 f"than {SWEEP_MAX_PARTED} of {c}")
+    out = {"float64_chains_left_out": int((~ok).sum()), "float32_plain_parted_from_float64": n_float_parted}
+    for name, i in (("b", 0), ("z", 1)):
+        diff_k, diff_p = (k64[i] - plain64[i])[ok], (p64[i] - plain64[i])[ok]
+        rms_k = float(diff_k.square().mean().sqrt()) if diff_k.numel() else 0.0
+        rms_p = float(diff_p.square().mean().sqrt()) if diff_p.numel() else 0.0
+        check(not enforce or rms_k <= 2 * rms_p + FIXED_POINT_FLOOR,
+              f"{label}: rms |kernel - float64 plain| of {name} {rms_k} > 2 x rms |float32 plain - float64 plain| "
+              f"{rms_p} + {FIXED_POINT_FLOOR}")
+        out.update({f"float64_kernel_rms_{name}": rms_k, f"float64_plain_rms_{name}": rms_p,
+                    f"float64_kernel_max_{name}": float(diff_k.abs().max()) if diff_k.numel() else 0.0,
+                    f"float64_plain_max_{name}": float(diff_p.abs().max()) if diff_p.numel() else 0.0})
+    return out
 
 
 def check_sweep(c: int, n: int, d: int, timed: bool, z_scale: float = 1.0, lanes_checked=(None,),
-                same_bits: bool = False) -> dict:
+                same_bits=()) -> dict:
     """G1 against its plain version at one shape, on a state whose z is scaled
     by ``z_scale`` (``gibbs_inputs``), at the wrapper's layout (None) and any
-    other of ``lanes_checked`` (``layout_kwargs``), and where ``same_bits``
-    (layouts whose sums run in one order) every layout's output bit for bit
-    the wrapper's; its times where ``timed``, every layout's device time there."""
+    other of ``lanes_checked`` (``layout_kwargs``), each also against the
+    float64 plain version (``sweep_yardstick``); the layouts of ``same_bits``
+    (which sum in one order) bit for bit each other; its times where
+    ``timed``, every layout's device time there."""
     model, state, cond, noise = gibbs_inputs(c, n, d, seed=c + n + d, z_scale=z_scale)
     args = (model.X, model.t, state.lam, cond.h, state.z, cond.s, cond.b, noise)
     bp, zp = gibbs.gibbs_sweep_plain(*args)
+    plain64 = gibbs.gibbs_sweep_plain(*(a.double() for a in args[:7]),
+                                      truncnorm.TruncNormNoise(*(u.double() for u in noise)))
     rtol, atol = SWEEP_TOL
     # z_j = m + s max(ndtri(u), a) is 0 up to rounding where ndtri(u) fell below the bound a (u near ndtr(a)):
     # the side of 0 is checked where the plain version's z_j is clear of it.
@@ -1616,6 +1678,7 @@ def check_sweep(c: int, n: int, d: int, timed: bool, z_scale: float = 1.0, lanes
         bk, zk = gibbs.gibbs_sweep_cuda(*args, **layout_kwargs(checked))
         torch.cuda.synchronize()
         lanes = layout_name(c, d, checked)
+        code = gibbs.launch_layout(c, d, torch.device(DEVICE), **layout_kwargs(checked))[1]
         outputs[lanes] = (bk, zk)
         at = f"(C={c}, N={n}, D={d}, z x {z_scale}, {lanes})"
         check(bk.shape == (c, d) and zk.shape == (c, n), f"G1 {at}: shapes {tuple(bk.shape)}, {tuple(zk.shape)}")
@@ -1633,11 +1696,13 @@ def check_sweep(c: int, n: int, d: int, timed: bool, z_scale: float = 1.0, lanes
         lo = torch.special.ndtr(torch.clamp(bound_a, -12.0, truncnorm.TAIL_SPLIT))
         u_over = (lo + noise.u_central.T * (1.0 - lo))[over_z]
         by_lanes[lanes] = {
-            "lanes": lanes, "max_abs_err_kept_chains": err, "worst_ratio_to_tolerance_kept_chains": ratio,
+            "lanes": lanes, "layout_code": code, "max_abs_err_kept_chains": err,
+            "worst_ratio_to_tolerance_kept_chains": ratio,
             "u_at_z_beyond_tolerance_min_max": [float(u_over.min()), float(u_over.max())] if u_over.numel() else None,
             "chains_parted": n_parted, "z_wrong_side": wrong,
             "elements_beyond_tolerance": int(over_z.sum()) + int(over_b.sum()),
-            "first_parted_chains": parted.nonzero().flatten()[:5].tolist()}
+            "first_parted_chains": parted.nonzero().flatten()[:5].tolist(),
+            **sweep_yardstick(f"G1 {at}", c, (bk, zk), (bp, zp), plain64, code != gibbs.SWEEP_REGISTERS)}
         say("gibbs-sweep-check", C=c, N=n, D=d, z_scale=z_scale, **tail, **by_lanes[lanes],
             z_at_zero_within_rounding=int((~clear).sum()))
         check(wrong == 0, f"G1 {at}: {wrong} z_j clear of 0 on the wrong side")
@@ -1646,12 +1711,15 @@ def check_sweep(c: int, n: int, d: int, timed: bool, z_scale: float = 1.0, lanes
     own = layout_name(c, d, None)
     out = {"C": c, "N": n, "D": d, "z_scale": z_scale, **tail, **by_lanes[own],
            "z_at_zero_within_rounding": int((~clear).sum()),
-           "other_lanes": {k: v for k, v in by_lanes.items() if k != own}}
+           "other_lanes": {k: v for k, v in by_lanes.items() if k != own},
+           "layout_codes": sorted({row["layout_code"] for row in by_lanes.values()})}
     if same_bits:
-        differ = [name for name, (bk, zk) in outputs.items()
-                  if not (torch.equal(bits(bk), bits(outputs[own][0])) and torch.equal(bits(zk), bits(outputs[own][1])))]
-        check(not differ, f"G1 (C={c}, N={n}, D={d}): {differ} differ from {own} in some bit")
-        out["layouts_bit_for_bit"] = sorted(outputs)
+        names = [layout_name(c, d, layout) for layout in same_bits]
+        first = outputs[names[0]]
+        differ = [name for name in names[1:] if not (torch.equal(bits(outputs[name][0]), bits(first[0]))
+                                                     and torch.equal(bits(outputs[name][1]), bits(first[1])))]
+        check(not differ, f"G1 (C={c}, N={n}, D={d}): {differ} differ from {names[0]} in some bit")
+        out["layouts_bit_for_bit"] = names
     if z_scale == SWEEP_TAIL_Z_SCALE:
         check(min(tail["round_1"], tail["round_2"], tail["round_3"]) > 0,
               f"G1 (C={c}, N={n}, D={d}, z x {z_scale}): the tail case did not take each of the tail's rounds: {tail}")
@@ -1816,7 +1884,15 @@ def phase_gibbs_kernels(smi: str) -> dict:
     sweeps.append(check_sweep(*SWEEP_SHAPES[0], timed=False, z_scale=SWEEP_TAIL_Z_SCALE))
     wide = [check_sweep(c, n, d, timed=True) for c, n, d in SWEEP_WIDE_SHAPES]
     wide.append(check_sweep(*SWEEP_BOTH_CN, gibbs.SWEEP_THREADS * gibbs.SWEEP_ENT_MAX, timed=True,
-                            lanes_checked=SWEEP_BOTH_LAYOUTS, same_bits=True))
+                            lanes_checked=SWEEP_BOTH_LAYOUTS, same_bits=SWEEP_BOTH_LAYOUTS[1:]))
+    c, n, d = SWEEP_OPTIN_SHAPE
+    optin = check_sweep(c, n, d, timed=True, lanes_checked=SWEEP_OPTIN_LAYOUTS, same_bits=SWEEP_OPTIN_LAYOUTS)
+    check(optin["layout_code"] == gibbs.SWEEP_WIDE_SHARED and gibbs.sweep_shared_bytes(d) > 48 * 1024,
+          f"G1 at {SWEEP_OPTIN_SHAPE}: the wrapper's layout did not take B in shared memory past 48 KB a block")
+    wide.append(optin)
+    codes = {code for row in wide for code in row["layout_codes"]}
+    check(codes == {gibbs.SWEEP_REGISTERS, gibbs.SWEEP_WIDE_REGISTERS, gibbs.SWEEP_WIDE_SHARED, gibbs.SWEEP_WIDE_GLOBAL},
+          f"G1's layouts run in phase 3: {sorted(codes)}, expected every one")
     for row in wide:
         say("gibbs-sweep-kernel-times", card=smi,
             **{k: v for k, v in row.items() if k not in ("first_parted_chains", "other_lanes")},
@@ -2116,6 +2192,7 @@ def phase_blr_samplers(smi: str) -> dict:
             min_ess_exact=float(ess.min()), min_ess_exact_per_s=float(ess.min()) / res.sampling_time_s,
             sampling_s=res.sampling_time_s)
     launches_by_path[MUSK_LABEL] = gibbs_musk(smi)
+    launches_by_path[GIBBS_WIDE_LABEL] = gibbs_wide(smi)
     return launches_by_path
 
 
@@ -2164,6 +2241,41 @@ def gibbs_musk(smi: str) -> dict:
     say("blr-samplers-times", run=MUSK_LABEL, card=smi,
         s_per_transition={path: pair[path]["seconds"] / steps for path in ("eager", "captured")})
     return pair["captured"]["k1_k2"]
+
+
+# Gibbs past 32 lanes of SWEEP_ENT_MAX entries, where G1 takes its wide layout (64 chains: a block of
+# SWEEP_WIDE_WARPS warps a chain, B in registers): more features than rows under a ridge prior of variance
+# SWEEP_DIRECT_PRIOR_VARIANCE (see there), GRAPH_SMALL_RUN eager against captured.  The model's (N, D^2)
+# outer features take ~5.0 GB.
+GIBBS_WIDE_SHAPE = (300, 2049, 0)  # (N, D, synthetic seed)
+GIBBS_WIDE_CHAINS = 64
+GIBBS_WIDE_LABEL = "gibbs-wide/captured"
+
+
+def gibbs_wide(smi: str) -> dict:
+    """Gibbs at GIBBS_WIDE_SHAPE, captured against eager; returns the captured run's launch counts."""
+    n, d, seed = GIBBS_WIDE_SHAPE
+    ds = rt.models.synthetic_logreg(seed=seed, n=n, d=d)
+    torch.cuda.reset_peak_memory_stats()
+    model = rt.interop.logreg_from_numpy(ds.X, ds.t, device=DEVICE)
+    init = rt.utils.default_init(model, torch.Generator(device=DEVICE).manual_seed(GRAPH_SEED), GIBBS_WIDE_CHAINS)
+    steps = sum(GRAPH_SMALL_RUN)
+    expected = {**NO_LINALG, "gibbs_sweep": steps, "gig_half": steps}
+    kernel = gibbs.build(model, gibbs.GibbsConfig(prior_variance=SWEEP_DIRECT_PRIOR_VARIANCE))
+    pair = captured_pair_checked(GIBBS_WIDE_LABEL, kernel, init, expected, lambda counts: counts["k1_k2"])
+    layout, code = gibbs.launch_layout(GIBBS_WIDE_CHAINS, d, torch.device(DEVICE))
+    check(code == gibbs.SWEEP_WIDE_REGISTERS, f"{GIBBS_WIDE_LABEL}: G1 took layout {code}, not the wide one in registers")
+    say("blr-samplers", run=GIBBS_WIDE_LABEL, N=n, D=d, chains=GIBBS_WIDE_CHAINS, burn_in=GRAPH_SMALL_RUN[0],
+        samples=GRAPH_SMALL_RUN[1], prior_variance=SWEEP_DIRECT_PRIOR_VARIANCE,
+        g1_layout={**layout._asdict(), "warps": layout.warps, "code": code}, launches=pair["captured"]["k1_k2"],
+        eager_and_captured_equal=True, replays_under_profiler=pair["replays_under_profiler"],
+        capture_s=pair["capture_s"], graph_pool_bytes=pair["graph_pool_bytes"],
+        max_memory_allocated_bytes=torch.cuda.max_memory_allocated())
+    say("blr-samplers-times", run=GIBBS_WIDE_LABEL, card=smi,
+        s_per_transition={path: pair[path]["seconds"] / steps for path in ("eager", "captured")})
+    counts = pair["captured"]["k1_k2"]
+    del model, kernel, pair
+    return counts
 
 
 # -- phase 7: stochastic volatility through the workload entry point -----------
@@ -4087,7 +4199,9 @@ def gibbs_summary(kernels: dict, by_path: dict, smi: str) -> list[dict]:
                              "shapes": {f"C{row['C']}_N{row['N']}_D{row['D']}": {
                                  key: row[key] for key in ("device_us", "bound_us", "bound_by", "share_of_bound",
                                                            "critical_path_us", "ms", "plain_ms", "lanes",
-                                                           "entries_a_lane", "wide", "device_us_by_layout")}
+                                                           "entries_a_lane", "wide", "device_us_by_layout",
+                                                           "float64_kernel_rms_b", "float64_plain_rms_b",
+                                                           "float64_kernel_rms_z", "float64_plain_rms_z")}
                                  for row in kernels["sweep"] if "device_us" in row}}),
             "gig_half": (half["times"], half["err"],
                          {"elements_differing": half["elements_differing"], "shape_CN": list(GIG_SHAPE),

@@ -44,11 +44,17 @@ while each warp has a scheduler of its own says a chain's sequence of
 steps is what bounds the kernel.  A checkout whose G1 takes any D (a
 ``sweep_layout``) is also timed at chip_smoke's ``SWEEP_WIDE_SHAPES`` and,
 B in registers on 32 lanes against the wide layout, at D = 32 x
-``SWEEP_ENT_MAX`` on (C, N) = ``SWEEP_BOTH_CN``.  Then the GIG draw of a step as each checkout runs it
+``SWEEP_ENT_MAX`` on (C, N) = ``SWEEP_BOTH_CN``, each wide shape on the
+wrapper's layout and on each of its checkout's wide forms (a warp a chain
+with B in shared memory or in the output buffer; or a block of 1, 2, 4 or
+8 warps a chain with B in registers, and B in shared memory and in the
+output buffer), and at chip_smoke's ``SWEEP_OPTIN_SHAPE`` where the wide
+layout is a block of warps.  Then the GIG draw of a step as each checkout runs it
 (``ops.sample_gig_half`` at (1024, 690): 64 rounds and 192 draws, or one
 launch), its device time and CUDA-event times; and per turn G1's step loop
-in each build's SASS (``gibbs_sweep_loop``): instructions once through,
-branches, shuffles, MUFU instructions and loads.
+in each build's SASS (``gibbs_sweep_loop``, the register layout's and the
+wide layout's kernels at the entries a lane of ``GIBBS_LOOP_ENTRIES``):
+instructions once through, branches, shuffles, MUFU instructions and loads.
 ``--kernels geometry`` times RMHMC's geometry as each checkout computes it
 on a (C, D, D) CUDA batch at ``chip_smoke.TIMED_SHAPES``: ``ops.chol_inv_logdet``
 (K3, one launch) where the checkout has it, else ``ops.cholesky`` (K1), the
@@ -124,6 +130,7 @@ FHN_LONG = ((8192, 5), (50000, 1))  # (num_obs, substeps) past the first form's 
 GIBBS_DATA = 690  # australian's N
 GIBBS_DIMS = (15, 40)  # australian's D; a width no BLR dataset has
 GIBBS_CHAINS = (32, 1024, 4224, 8448)  # a warp; phase 6's; a warp on each of 528 schedulers; two
+GIBBS_WIDE_WARPS = (1, 2, 4, 8)  # the wide layout's warps a chain with B in registers, timed each
 
 
 def _measure(root: Path, kernels: list[str]) -> list[dict]:
@@ -485,27 +492,46 @@ def _measure_gibbs(smoke) -> list[dict]:
     return rows
 
 
+def _wide_layouts(gibbs, c: int, d: int) -> list[dict | None]:
+    """The layouts at which to time G1 past 32 lanes of SWEEP_ENT_MAX entries, as ``gibbs_sweep_cuda``'s
+    keywords (None: the wrapper's own): in a checkout whose wide layout is a block of warps a chain, every
+    warp count GIBBS_WIDE_WARPS that keeps B in registers and B in shared memory and in the output buffer on
+    the wrapper's warps; in an earlier one, its warp a chain with B in shared memory and in the output buffer."""
+    if not hasattr(gibbs, "SWEEP_WIDE_REGISTERS"):
+        return [None, {"wide": True}, {"wide": True, "b_global": True}]
+    warps = [w for w in GIBBS_WIDE_WARPS if -(-d // (gibbs.SWEEP_THREADS * w)) <= gibbs.SWEEP_ENT_MAX]
+    return [None, *({"warps": w} for w in warps), {"b_memory": "shared"}, {"b_memory": "global"}]
+
+
 def _measure_gibbs_wide(smoke) -> list[dict]:
-    """G1 past K1's 48 at chip_smoke's SWEEP_WIDE_SHAPES on the wrapper's layout, and at D = 32 x
-    SWEEP_ENT_MAX (SWEEP_BOTH_CN) on 32 lanes of registers against the wide layout, B in shared memory
-    and in the output buffer: ``device_us`` (torch.profiler, 5 launches)."""
+    """G1 past K1's 48 at chip_smoke's SWEEP_WIDE_SHAPES and at D = 32 x SWEEP_ENT_MAX (SWEEP_BOTH_CN), on
+    the wrapper's layout and on each of ``_wide_layouts`` past 32 lanes of SWEEP_ENT_MAX entries (and at D =
+    32 x SWEEP_ENT_MAX on 32 lanes of registers); in a checkout with a block of warps a chain, also at
+    chip_smoke's SWEEP_OPTIN_SHAPE: ``device_us`` (torch.profiler, 5 launches)."""
     gibbs, rows = smoke.gibbs, []
     both = (*smoke.SWEEP_BOTH_CN, gibbs.SWEEP_THREADS * gibbs.SWEEP_ENT_MAX)
-    runs = [(shape, None) for shape in smoke.SWEEP_WIDE_SHAPES] + [(both, kind) for kind in smoke.SWEEP_BOTH_LAYOUTS]
-    inputs = {}
-    for (c, n, d), kind in runs:
-        if (c, n, d) not in inputs:
-            inputs = {(c, n, d): smoke.gibbs_inputs(c, n, d, seed=c + n + d)}
-        model, state, cond, noise = inputs[c, n, d]
+    shapes = [*smoke.SWEEP_WIDE_SHAPES, both]
+    if hasattr(gibbs, "SWEEP_WIDE_REGISTERS"):
+        shapes.append(smoke.SWEEP_OPTIN_SHAPE)
+    for c, n, d in shapes:
+        model, state, cond, noise = smoke.gibbs_inputs(c, n, d, seed=c + n + d)
         args = (model.X, model.t, state.lam, cond.h, state.z, cond.s, cond.b, noise)
-        kw = smoke.layout_kwargs(kind)
+        wide = d > gibbs.SWEEP_THREADS * gibbs.SWEEP_ENT_MAX
+        kinds = _wide_layouts(gibbs, c, d) if wide else [None]
+        if (c, n, d) == both:
+            kinds = [None, *_wide_layouts(gibbs, c, d)[1:]]  # the register layout and every wide one
+        for kind in kinds:
+            kw = kind or {}
 
-        def launch():
-            return gibbs.gibbs_sweep_cuda(*args, **kw)
-        dev = smoke.device_us(launch, launches=5, name_part=smoke.GIBBS_KERNEL_NAMES["gibbs_sweep"])
-        rows.append({"kernel": "gibbs_sweep", "C": c, "N": n, "D": d, "layout": smoke.layout_name(c, d, kind),
-                     "device_us": dev["us"], "device_us_source": dev["source"],
-                     "events_per_call": dev["events_per_call"], "card": smoke.smi_line()})
+            def launch():
+                return gibbs.gibbs_sweep_cuda(*args, **kw)
+            layout, code = gibbs.launch_layout(c, d, smoke.torch.device(smoke.DEVICE), **kw)
+            dev = smoke.device_us(launch, launches=5, name_part=smoke.GIBBS_KERNEL_NAMES["gibbs_sweep"])
+            rows.append({"kernel": "gibbs_sweep", "C": c, "N": n, "D": d, "layout": kind or "wrapper",
+                         "lanes": layout.lanes, "entries": layout.entries, "code": code,
+                         "device_us": dev["us"], "device_us_source": dev["source"],
+                         "events_per_call": dev["events_per_call"], "card": smoke.smi_line()})
+        del model, state, cond, noise, args
     return rows
 
 
@@ -574,7 +600,8 @@ def _pcr_round_loop(smoke) -> dict:
                 ("sts", ("STS",)), ("bar", ("BAR",)), ("mufu", ("MUFU",)))}}
 
 
-GIBBS_LOOP_ENTRIES = (1, 2, 3, 4, 5, 8, 10, 15, 20, 40)  # D 15 and 40 on 32 to 1 lanes a chain
+# D 15 and 40 on 32 to 1 lanes a chain; on a block of warps, D 1,088 and 2,049 on 8 warps (5, 9) and 2,049 on 2 (33)
+GIBBS_LOOP_ENTRIES = (1, 2, 3, 4, 5, 8, 9, 10, 15, 20, 33, 40)
 _CONTROL = ("BRA", "BSSY", "BSYNC", "WARPSYNC", "CALL", "BRX", "JMP")  # branch and reconvergence opcodes
 
 
@@ -589,12 +616,19 @@ def _gibbs_sweep_loop(smoke) -> dict:
     if isinstance(text, dict):
         return text
     out = {}
-    for name, body in re.findall(r"Function : (\S*gibbs_sweep_kernel\S*)(.*?)(?=Function :|\Z)", text, re.S):
-        found = re.search(r"gibbs_sweep_kernelILi(\d+)E(?:Lb([01])E)?E", name)
-        if not found or int(found.group(1)) not in GIBBS_LOOP_ENTRIES:
+    for name, body in re.findall(r"Function : (\S*gibbs_sweep_(?:block_|memory_|wide_)?kernel\S*)(.*?)"
+                                 r"(?=Function :|\Z)", text, re.S):
+        found = re.search(r"gibbs_sweep_(block_|memory_|wide_)?kernelI(?:Li(\d+)E)?((?:Lb[01]E)*)E", name)
+        if not found or (found.group(2) and int(found.group(2)) not in GIBBS_LOOP_ENTRIES):
             continue
-        ent, pro = found.groups()
-        key = f"<{ent}>" if pro in (None, "0") else f"<{ent},prologue>"  # prologue: a chain on a whole warp
+        form, ent, flags = found.groups()
+        flags = re.findall(r"Lb([01])E", flags)
+        if form and ent:  # the wide layout on a block of warps, by entries a lane (and its template's flags)
+            key = f"{form[:-1]}<{ent}>" if set(flags) <= {"0"} else f"{form[:-1]}<{ent},{''.join(flags)}>"
+        elif form:  # B in memory (shared / global)
+            key = f"{form[:-1]}<{'shared' if flags == ['1'] else 'global'}>"
+        else:
+            key = f"<{ent}>" if flags in ([], ["0"]) else f"<{ent},prologue>"  # prologue: a chain on a whole warp
         code, loops = _loops(body)
         if not loops:
             continue

@@ -77,17 +77,30 @@
 //     that a chain takes at ~27% of its steps;
 //   * the truncated normal's Rayleigh tail (a > 3) a branch: few steps take it.
 // A group past the last chain runs the last chain and writes nothing.
-// Past 32 kEntMax entries (32 lanes of kEntMax registers each), the wide
-// layout: a chain on a whole warp with B in the block's shared memory (past
-// the card's opt-in limit, in b_out itself), lane l owning entries l, l + 32,
-// ...; a step runs the chain, then one pass over B in chunks of 32 entries
-// that applies the step's update and sums the next step's R and Q, so the
-// pass adds to the step where the register layout's dot hides under the
-// chain.  Its sums run in the same order as the register layout's on 32
-// lanes, so where both take a D the two give the same bits; there (D 1,088)
-// it took 3.6x the register layout's time on an H100 (chip_smoke.py phase 3,
-// PERF.md).
-//
+// Past 32 kEntMax entries, the wide layout: a chain on a block of W warps.  What bounds it is the same
+// sequence plus the gather of S's column: a step reads one float from each of D rows of S that lie N floats
+// apart, D cache lines through the SM's L1 a step, and the warps of a chain meet once a step to add their
+// parts of the next dot.  An earlier form, a warp a chain with B in shared memory and one pass over B after
+// each step's chain, took 3.6x the register layout's time at D 1,088 (PERF.md).  What the design does:
+//   * B's entries in the registers of all the block's lanes (thread t owns t, t + 32 W, ...; at most kEntMax
+//     each, W <= kWideWarps so that 255 registers a thread stay open), so no pass over memory: the register
+//     layout's look-ahead runs in every lane as before, each warp's R and Q are summed over its lanes by
+//     shuffles, and the warps' sums meet in shared memory, added in warp order, so every warp holds the same
+//     bits;
+//   * every warp runs the scalar chain itself on the same inputs, so all hold the same delta_j and none waits
+//     for a hand-over; a warp writes its sums and arrives on an mbarrier before its chain, and waits on it
+//     after, so the only serial work a step is the chain and one wait and sum across the warps;
+//   * S's rows one sector ahead through L1 as on the register layout, each thread its own rows, so the D
+//     lines of a step are spread over W warps' load queues;
+//   * the step constants from a prologue of the whole block into the scratch, as on 32 lanes.
+// Past the registers (D > kWideWarps 32 kEntMax), the same structure on kMemoryWarps warps with B in the block's
+// shared memory (past the card's opt-in limit, in b_out): a pass over a thread's entries before each step's
+// chain applies the last step's update and sums its parts of R and Q.  The three forms sum in one order, so at
+// one W they give the same bits.  On an H100 at 64 chains, N 300 (kernel_ab.py --kernels gibbs, PERF.md): 3.4x
+// the earlier form's speed at D 2,049, and at D 1,088 on 8 warps faster than the register layout; the time grows
+// ~1 cycle a row of S and step, which points at the gather.  Slower there, and not kept: S's rows staged in
+// shared memory by bulk copies, and one warp running the chain and handing delta_j over through an mbarrier.
+
 // G2, what bounds it: operations, and how many rounds an element runs.  An
 // element runs rejection rounds until its first accepted candidate (at most
 // 64), each a Philox4x32-10 block (counter: the element's global index and
@@ -110,7 +123,7 @@
 
 namespace {
 
-constexpr int kSweepThreads = 32;  // G1: one warp a block, a chain on 1 to 32 of its lanes
+constexpr int kSweepThreads = 32;  // G1: a warp; the register layout's blocks are one, a chain on 1 to 32 of its lanes
 constexpr int kRoundThreads = 256;  // G2 and the single round: threads a block
 // G1: the most entries of B a lane holds in registers (samplers/gibbs.py::SWEEP_ENT_MAX): past it the
 // prologue's instantiations spill (8 B at 35 and 36, 254-255 registers), the others from 43 (ptxas
@@ -119,8 +132,10 @@ constexpr int kEntMax = 34;
 constexpr int kTailRounds = 3;  // ops/truncnorm.py::RETRY_ROUNDS
 constexpr int kRowAhead = 8;  // G1: steps ahead of the L1 prefetch of S's (C, D, N) rows, one sector
 constexpr int kUniformAhead = 4;  // G1: steps ahead of the L2 prefetch of the (N, C) uniforms
-constexpr int kWideGroup = 32;  // G1's wide layout: chunks of 32 entries whose loads a lane issues together
-constexpr int kXAhead = 4;  // G1's wide layout: steps ahead of the L1 prefetch of a row of x
+// G1's wide layout (samplers/gibbs.py::SWEEP_WIDE_WARPS, SWEEP_MEMORY_WARPS): the most warps a chain with B in
+// registers (256 threads, so ptxas may give each 255 registers), and the warps a chain with B in memory.
+constexpr int kWideWarps = 8;
+constexpr int kMemoryWarps = 16;
 
 // Constants as the plain versions' Python doubles reach a float32 tensor op.
 constexpr float kTailSplit = 3.0f;  // ops/truncnorm.py::TAIL_SPLIT
@@ -260,16 +275,17 @@ __device__ __forceinline__ void step_constants(float lam_j, float h_j, float z_o
   k[kZOld] = z_old_j;
 }
 
-// A chain's step constants of every step into k_c ([j][field]), the warp's 32 lanes 32 steps at once.
+// A chain's step constants of every step into k_c ([j][field]), `stride` threads `stride` steps at once, this
+// one from step `first`.  The caller orders the writes before the reads (__syncwarp / __syncthreads).
 __device__ __forceinline__ void write_step_constants(const float* lam_c, const float* h_c, const float* z_old_c,
-                                                     const float* t, int num_data, float* k_c) {
-  for (int j = threadIdx.x % kSweepThreads; j < num_data; j += kSweepThreads) {
+                                                     const float* t, int num_data, float* k_c, int first,
+                                                     int stride) {
+  for (int j = first; j < num_data; j += stride) {
     float k[kSweepFields];
     step_constants(__ldg(lam_c + j), __ldg(h_c + j), __ldg(z_old_c + j), __ldg(t + j), k);
 #pragma unroll
     for (int f = 0; f < kSweepFields; ++f) k_c[j * kSweepFields + f] = k[f];
   }
-  __syncwarp();  // orders the warp's writes before its reads (the block is the warp)
 }
 
 // One step's chain from p_j = B_j . x_j: the conditional mean m, z_j = m + s TN_above(-m / s), and
@@ -328,7 +344,10 @@ __global__ void __launch_bounds__(kSweepThreads) gibbs_sweep_kernel(
   const float* h_c = h + c * n;
   const float* z_old_c = z_old + c * n;
   float* k_c = Prologue ? scratch + c * n * kSweepFields : nullptr;  // the chain's constants, [j][field]
-  if constexpr (Prologue) write_step_constants(lam_c, h_c, z_old_c, t, num_data, k_c);
+  if constexpr (Prologue) {
+    write_step_constants(lam_c, h_c, z_old_c, t, num_data, k_c, threadIdx.x, kSweepThreads);
+    __syncwarp();  // the block is the warp
+  }
   const float* s_c = s + static_cast<size_t>(c) * dim * n;
   // Entry e of a lane is B's lane + e lanes; Ent = ceil(D / lanes), so only the last can lie past D.
   const bool last_valid = lane + (Ent - 1) * lanes < dim;
@@ -428,120 +447,250 @@ __global__ void __launch_bounds__(kSweepThreads) gibbs_sweep_kernel(
   }
 }
 
-// The wide layout, past 32 kEntMax entries: one warp a chain (a block each), lane l owning B's entries
-// l, l + 32, ..., which live in the block's dynamic shared memory (SharedB) or in b_out (the chain's
-// row of it, updated in place); no lane reads another's entries, so neither needs a barrier.  A step
-// reads S[:, j] for the update and S[:, j+1] for Q, each a load of 32 rows (32 cache lines) a chunk;
-// with SharedB the column S[:, j+1] read at step j is kept beside B for step j + 1, one such load a
-// chunk and step in place of two (B's form in b_out, past the card's shared memory, loads both).  The step
-// constants come from the warp's prologue, as on the register layout's 32 lanes.  Step j, with p_j,
-// R_j = B_j . x_{j+1} and Q_j = S[:, j] . x_{j+1} known: the chain gives delta_j, p_{j+1} = R_j +
-// delta_j Q_j, and one pass over B applies B += delta_j S[:, j] and sums R_{j+1} and Q_{j+1} from the
-// updated entries.  Each lane sums its entries in ascending order and the warp adds the lanes' sums
-// as group_sum does, which is the register layout's order on 32 lanes: the same bits where both run.
-template <bool SharedB>
-__global__ void __launch_bounds__(kSweepThreads) gibbs_sweep_wide_kernel(
+// -- G1's wide layout: a chain on a block of warps -------------------------------------
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void bar_init(unsigned long long* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+__device__ __forceinline__ void bar_wait(unsigned long long* bar, unsigned parity) {
+  unsigned done = 0;
+  while (!done)
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+}
+
+// Where the warps of a chain meet a step: each warp's sums (R, Q) of a step, in two steps' slots, and the
+// mbarrier on which the block's warps arrive, once each a step, when their sums are written.
+struct Exchange {
+  float part[2][kMemoryWarps][2];
+  unsigned long long bar;
+};
+
+// A warp's sums of step `slot`: every lane holds the same bits (group_sum), so every lane stores them to the
+// same place (no branch, which would end the basic block that the step's chain interleaves with), and lane
+// 0 alone arrives (a predicated instruction, likewise).
+__device__ __forceinline__ void exchange_publish(Exchange& ex, int slot, int warp, int lane, float r, float q) {
+  ex.part[slot][warp][0] = r;
+  ex.part[slot][warp][1] = q;
+  asm volatile(
+      "{\n .reg .pred p;\n setp.eq.u32 p, %1, 0;\n @p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n" ::"r"(
+          smem_u32(&ex.bar)),
+      "r"(lane)
+      : "memory");
+}
+
+// Waits until every warp has published step `step`'s sums, then adds them in warp order: the same bits in
+// every warp.
+__device__ __forceinline__ void exchange_sum(Exchange& ex, int step, int warps, float& r, float& q) {
+  bar_wait(&ex.bar, static_cast<unsigned>(step & 1));
+  const int slot = step & 1;
+  r = ex.part[slot][0][0];
+  q = ex.part[slot][0][1];
+#pragma unroll
+  for (int w = 1; w < kMemoryWarps; ++w) {
+    if (w < warps) {
+      r = add(r, ex.part[slot][w][0]);
+      q = add(q, ex.part[slot][w][1]);
+    }
+  }
+}
+
+// p_0 = B_0 . x_0 from each thread's part: a block barrier (before the steps' exchanges start), the warps'
+// sums added in warp order.  Uses the slot of step 1, which no warp writes before every warp is past step 0.
+__device__ __forceinline__ float block_sum_once(Exchange& ex, float part, int warps) {
+  ex.part[1][threadIdx.x / kSweepThreads][0] = group_sum(part, kSweepThreads);
+  __syncthreads();
+  float p = ex.part[1][0][0];
+#pragma unroll
+  for (int w = 1; w < kMemoryWarps; ++w)
+    if (w < warps) p = add(p, ex.part[1][w][0]);
+  return p;
+}
+
+// The register layout's sweep on a block of W = blockDim.x / 32 warps a chain (one block each): thread t owns
+// B's entries t, t + 32 W, ... (Ent = ceil(D / 32 W) of them, only the last possibly past D), in registers.
+// A step, as gibbs_sweep_kernel: the thread's terms of R_j = B_j . x_{j+1} and Q_j = S[:, j] . x_{j+1} (neither
+// needs z_j), summed over the warp by shuffles and published; the chain, run by every warp with the same
+// bits; then the warps' sums added in warp order, p_{j+1} = R_j + delta_j Q_j and B += delta_j S[:, j].  The
+// step constants come from the block's prologue into `scratch`; every input of a step is loaded a step ahead.
+template <int Ent>
+__global__ void __launch_bounds__(kWideWarps * kSweepThreads) gibbs_sweep_block_kernel(
     const float* __restrict__ x, const float* __restrict__ t, const float* __restrict__ lam,
     const float* __restrict__ h, const float* __restrict__ z_old, const float* __restrict__ s,
     const float* __restrict__ b_in, const float* __restrict__ u_central, const float* __restrict__ u_e,
-    const float* __restrict__ u_tail, int num_chains, int num_data, int dim, float* scratch, float* b_out,
-    float* __restrict__ z_out) {
-  extern __shared__ float b_shared[];  // B, then the column S[:, j+1] (SharedB: 2 D floats)
-  const int lane = threadIdx.x;
+    const float* __restrict__ u_tail, int num_chains, int num_data, int dim, float* scratch,
+    float* __restrict__ b_out, float* __restrict__ z_out) {
+  __shared__ Exchange ex;
+  const int threads = blockDim.x, warps = threads / kSweepThreads;
+  const int tid = threadIdx.x, lane = tid % kSweepThreads, warp = tid / kSweepThreads;
   const int c = blockIdx.x;
   const size_t n = num_data, cn = num_chains;
   const size_t round_stride = n * cn;
   const int last = num_data - 1;
   float* k_c = scratch + c * n * kSweepFields;
-  write_step_constants(lam + c * n, h + c * n, z_old + c * n, t, num_data, k_c);
+  write_step_constants(lam + c * n, h + c * n, z_old + c * n, t, num_data, k_c, tid, threads);
+  if (tid == 0) bar_init(&ex.bar, warps);
+  __syncthreads();  // the constants and the mbarrier before any use
   const float* s_c = s + static_cast<size_t>(c) * dim * n;
-  float* b_c = SharedB ? b_shared : b_out + static_cast<size_t>(c) * dim;
-  float* s_col = b_shared + dim;  // SharedB only
-  const float* x1 = x + static_cast<size_t>(min(1, last)) * dim;
-  float p = 0.0f, r = 0.0f, q = 0.0f;  // B_0 . x_0, R_0, Q_0
-  for (int e = lane; e < dim; e += kSweepThreads) {
-    const float b = b_in[static_cast<size_t>(c) * dim + e];
-    const float s_0 = __ldg(s_c + e * n);
-    b_c[e] = b;
-    if constexpr (SharedB) s_col[e] = s_0;
-    p = fmaf(b, __ldg(x + e), p);
-    r = fmaf(b, __ldg(x1 + e), r);
-    q = fmaf(s_0, __ldg(x1 + e), q);
+  const bool last_valid = tid + (Ent - 1) * threads < dim;
+  auto valid = [&](int e) { return e < Ent - 1 || last_valid; };
+  auto row = [&](int e) { return s_c + static_cast<size_t>(tid + e * threads) * n; };
+  auto load_s = [&](int j, float (&v)[Ent]) {
+#pragma unroll
+    for (int e = 0; e < Ent; ++e) v[e] = valid(e) ? __ldg(row(e) + j) : 0.0f;
+  };
+  auto load_x = [&](int j, float (&v)[Ent]) {
+#pragma unroll
+    for (int e = 0; e < Ent; ++e) v[e] = valid(e) ? __ldg(x + static_cast<size_t>(j) * dim + tid + e * threads) : 0.0f;
+  };
+  float b[Ent], s_j[Ent], x_next[Ent];
+#pragma unroll
+  for (int e = 0; e < Ent; ++e) b[e] = valid(e) ? b_in[static_cast<size_t>(c) * dim + tid + e * threads] : 0.0f;
+  load_x(0, x_next);
+  float p_part = 0.0f;
+#pragma unroll
+  for (int e = 0; e < Ent; ++e) p_part = fmaf(b[e], x_next[e], p_part);
+  float p = block_sum_once(ex, p_part, warps);  // p_0 = B_0 . x_0
+  float k[kSweepFields];
+#pragma unroll
+  for (int f = 0; f < kSweepFields; ++f) k[f] = k_c[f];
+  load_s(0, s_j);
+  load_x(min(1, last), x_next);
+  float uc = __ldg(u_central + c);
+
+  for (int j = 0; j < num_data; ++j) {
+    const int j1 = min(j + 1, last), j2 = min(j + 2, last);
+    float k_next[kSweepFields];
+#pragma unroll
+    for (int f = 0; f < kSweepFields; ++f) k_next[f] = k_c[j1 * kSweepFields + f];
+    float s_next[Ent], x_after[Ent];
+    load_s(j1, s_next);
+    load_x(j2, x_after);
+    const float uc_next = __ldg(u_central + j1 * cn + c);
+    const bool sector_start = (j & (kRowAhead - 1)) == 0;
+#pragma unroll
+    for (int e = 0; e < Ent; ++e)
+      if (sector_start && valid(e)) prefetch_l1(row(e) + min(j + kRowAhead, last));
+    prefetch_l2(u_central + min(j + kUniformAhead, last) * cn + c);
+    // Off the chain: this warp's parts of R_j = B_j . x_{j+1} and Q_j = S[:, j] . x_{j+1}.
+    float r_part = 0.0f, q_part = 0.0f;
+#pragma unroll
+    for (int e = 0; e < Ent; ++e) {
+      r_part = fmaf(b[e], x_next[e], r_part);
+      q_part = fmaf(s_j[e], x_next[e], q_part);
+    }
+    exchange_publish(ex, j & 1, warp, lane, group_sum(r_part, kSweepThreads), group_sum(q_part, kSweepThreads));
+
+    // The chain, in every warp.
+    float delta;
+    const float z_j = chain_step(p, k, uc, u_e + j * cn + c, u_tail + j * cn + c, round_stride, &delta);
+    if (tid == 0) z_out[c * n + j] = z_j;
+    float r_sum, q_sum;
+    exchange_sum(ex, j, warps, r_sum, q_sum);
+    p = fmaf(delta, q_sum, r_sum);  // B_{j+1} . x_{j+1}
+#pragma unroll
+    for (int e = 0; e < Ent; ++e) {
+      b[e] = add(b[e], mul(delta, s_j[e]));
+      s_j[e] = s_next[e];
+      x_next[e] = x_after[e];
+    }
+#pragma unroll
+    for (int f = 0; f < kSweepFields; ++f) k[f] = k_next[f];
+    uc = uc_next;
   }
-  p = group_sum(p, kSweepThreads);
-  float r_sum = group_sum(r, kSweepThreads), q_sum = group_sum(q, kSweepThreads);
-  // A step's constants and uniform are loaded a step before their use.
+#pragma unroll
+  for (int e = 0; e < Ent; ++e)
+    if (valid(e)) b_out[static_cast<size_t>(c) * dim + tid + e * threads] = b[e];
+}
+
+// The wide layout past the registers: the same warps a chain and the same sums in the same order as
+// gibbs_sweep_block_kernel, with B in the block's dynamic shared memory after the exchange (Shared) or in b_out
+// (the chain's row, updated in place); no thread touches another's entries.  The block's shared memory is its
+// dynamic allocation alone (wide_shared_bytes), so the wrapper knows it exactly.  Before each step's chain a
+// thread's pass over its entries applies the last step's update, B_j = B_{j-1} + delta_{j-1} S[:, j-1], and sums
+// its terms of R_j and Q_j from the updated entries; after the last step a pass applies delta_{N-1} and writes
+// b_out.
+template <bool Shared>
+__global__ void __launch_bounds__(kMemoryWarps * kSweepThreads) gibbs_sweep_memory_kernel(
+    const float* __restrict__ x, const float* __restrict__ t, const float* __restrict__ lam,
+    const float* __restrict__ h, const float* __restrict__ z_old, const float* __restrict__ s,
+    const float* __restrict__ b_in, const float* __restrict__ u_central, const float* __restrict__ u_e,
+    const float* __restrict__ u_tail, int num_chains, int num_data, int dim, float* scratch, float* b_out,
+    float* __restrict__ z_out) {
+  extern __shared__ __align__(16) unsigned char dynamic_shared[];  // the exchange, then (Shared) B's D floats
+  Exchange& ex = *reinterpret_cast<Exchange*>(dynamic_shared);
+  const int threads = blockDim.x, warps = threads / kSweepThreads;
+  const int tid = threadIdx.x, lane = tid % kSweepThreads, warp = tid / kSweepThreads;
+  const int c = blockIdx.x;
+  const size_t n = num_data, cn = num_chains;
+  const size_t round_stride = n * cn;
+  const int last = num_data - 1;
+  float* k_c = scratch + c * n * kSweepFields;
+  write_step_constants(lam + c * n, h + c * n, z_old + c * n, t, num_data, k_c, tid, threads);
+  if (tid == 0) bar_init(&ex.bar, warps);
+  __syncthreads();
+  const float* s_c = s + static_cast<size_t>(c) * dim * n;
+  float* b_c =
+      Shared ? reinterpret_cast<float*>(dynamic_shared + sizeof(Exchange)) : b_out + static_cast<size_t>(c) * dim;
+  float p_part = 0.0f;
+  for (int e = tid; e < dim; e += threads) {
+    const float b = b_in[static_cast<size_t>(c) * dim + e];
+    b_c[e] = b;
+    p_part = fmaf(b, __ldg(x + e), p_part);
+  }
+  float p = block_sum_once(ex, p_part, warps);  // p_0 = B_0 . x_0
   float k[kSweepFields];
 #pragma unroll
   for (int f = 0; f < kSweepFields; ++f) k[f] = k_c[f];
   float uc = __ldg(u_central + c);
-  // The pass over B, kWideGroup chunks at a time: a group's loads first, all in flight together (a
-  // chunk's store to B would otherwise hold the next chunk's loads behind it, a cache round trip each),
-  // then its updates.  The step's first group is loaded before its chain, which hides those loads.
-  // S's rows one sector (8 steps) ahead into L1, once every 8 steps; the row of x kXAhead steps ahead,
-  // every step (each step reads a new row).
-  float b_g[kWideGroup], s_g[kWideGroup], s_next_g[kWideGroup], x_g[kWideGroup];
-  auto load_group = [&](int first, int j, int j1, const float* x2, const float* x_ahead, bool sector_start) {
-#pragma unroll
-    for (int g = 0; g < kWideGroup; ++g) {
-      const int e = first + g * kSweepThreads;
-      if (e < dim) {
-        const float* s_row = s_c + e * n;
-        b_g[g] = b_c[e], s_next_g[g] = __ldg(s_row + j1), x_g[g] = __ldg(x2 + e);
-        s_g[g] = SharedB ? s_col[e] : __ldg(s_row + j);
-        prefetch_l1(x_ahead + e);
-        if (sector_start) prefetch_l1(s_row + min(j + kRowAhead, last));
-      }
-    }
-  };
-  // B_{j+1} = B_j + delta_j S[:, j] over the group, and its terms of R_{j+1} = B_{j+1} . x_{j+2} and
-  // Q_{j+1} = S[:, j+1] . x_{j+2}.
-  auto update_group = [&](int first, float delta) {
-#pragma unroll
-    for (int g = 0; g < kWideGroup; ++g) {
-      const int e = first + g * kSweepThreads;
-      if (e < dim) {
-        const float b = add(b_g[g], mul(delta, s_g[g]));
-        b_c[e] = b;
-        if constexpr (SharedB) s_col[e] = s_next_g[g];
-        r = fmaf(b, x_g[g], r);
-        q = fmaf(s_next_g[g], x_g[g], q);
-      }
-    }
-  };
+  float delta = 0.0f;  // delta_{j-1}
   for (int j = 0; j < num_data; ++j) {
-    const int j1 = min(j + 1, last), j2 = min(j + 2, last);
+    const int j1 = min(j + 1, last);
     const bool sector_start = (j & (kRowAhead - 1)) == 0;
-    const float* x2 = x + static_cast<size_t>(j2) * dim;
-    const float* x_ahead = x + static_cast<size_t>(min(j + kXAhead, last)) * dim;
-    load_group(lane, j, j1, x2, x_ahead, sector_start);
+    const float* x1 = x + static_cast<size_t>(j1) * dim;
+    float r_part = 0.0f, q_part = 0.0f;
+    for (int e = tid; e < dim; e += threads) {
+      const float* s_row = s_c + static_cast<size_t>(e) * n;
+      float b = b_c[e];
+      if (j > 0) {
+        b = add(b, mul(delta, __ldg(s_row + j - 1)));
+        b_c[e] = b;
+      }
+      const float x_e = __ldg(x1 + e);
+      r_part = fmaf(b, x_e, r_part);
+      q_part = fmaf(__ldg(s_row + j), x_e, q_part);
+      if (sector_start) prefetch_l1(s_row + min(j + kRowAhead, last));
+    }
+    exchange_publish(ex, j & 1, warp, lane, group_sum(r_part, kSweepThreads), group_sum(q_part, kSweepThreads));
     float k_next[kSweepFields];
 #pragma unroll
     for (int f = 0; f < kSweepFields; ++f) k_next[f] = k_c[j1 * kSweepFields + f];
     const float uc_next = __ldg(u_central + j1 * cn + c);
     prefetch_l2(u_central + min(j + kUniformAhead, last) * cn + c);
-    float delta;
     const float z_j = chain_step(p, k, uc, u_e + j * cn + c, u_tail + j * cn + c, round_stride, &delta);
-    if (lane == 0) z_out[c * n + j] = z_j;
+    if (tid == 0) z_out[c * n + j] = z_j;
+    float r_sum, q_sum;
+    exchange_sum(ex, j, warps, r_sum, q_sum);
     p = fmaf(delta, q_sum, r_sum);  // B_{j+1} . x_{j+1}
-    r = 0.0f, q = 0.0f;
-    update_group(lane, delta);
-    for (int first = lane + kWideGroup * kSweepThreads; first < dim; first += kWideGroup * kSweepThreads) {
-      load_group(first, j, j1, x2, x_ahead, sector_start);
-      update_group(first, delta);
-    }
-    r_sum = group_sum(r, kSweepThreads), q_sum = group_sum(q, kSweepThreads);
 #pragma unroll
     for (int f = 0; f < kSweepFields; ++f) k[f] = k_next[f];
     uc = uc_next;
   }
-  if constexpr (SharedB) {
-    for (int e = lane; e < dim; e += kSweepThreads) b_out[static_cast<size_t>(c) * dim + e] = b_c[e];
-  }
+  for (int e = tid; e < dim; e += threads)
+    b_out[static_cast<size_t>(c) * dim + e] = add(b_c[e], mul(delta, __ldg(s_c + static_cast<size_t>(e) * n + last)));
 }
 
-// Calls f(std::integral_constant<int, e>) for 1 <= e <= kEntMax: one instantiation of G1's register
-// layout per count of B's entries a lane holds.
+// Calls f(std::integral_constant<int, e>) for 1 <= e <= kEntMax: one instantiation of G1's layouts with B in
+// registers per count of B's entries a lane holds.
 template <int Ent = 1, typename F>
 cudaError_t with_entries(int e, F&& f) {
   if constexpr (Ent < kEntMax) {
@@ -709,15 +858,26 @@ __global__ void __launch_bounds__(kRoundThreads) gig_half_kernel(const float* __
   }
 }
 
-// The wide layout's shared memory for B past the default 48 KB: raised to the card's opt-in limit once
-// a device, at an eager launch (an attribute is not set inside a stream capture).
-cudaError_t allow_wide_shared(size_t bytes, cudaStream_t stream) {
+// The dynamic shared memory of a block of gibbs_sweep_memory_kernel at width D: the warps' exchange, and with B
+// in shared memory B's D floats.
+size_t wide_shared_bytes(int dim, bool shared_b = true) {
+  return sizeof(Exchange) + (shared_b ? sizeof(float) * static_cast<size_t>(dim) : 0);
+}
+
+// The dynamic shared memory of the form with B in shared memory past the default 48 KB a block: raised to the
+// card's opt-in limit, less the kernel's static shared memory (none), once a device, at an eager launch (an
+// attribute is not set inside a stream capture).
+cudaError_t allow_wide_shared(int dim, cudaStream_t stream) {
   constexpr size_t kDefaultShared = 48 * 1024;
   constexpr int kDevices = 64;
   static bool raised[kDevices] = {};
+  cudaFuncAttributes attr{};
+  cudaError_t err = cudaFuncGetAttributes(&attr, gibbs_sweep_memory_kernel<true>);
+  if (err != cudaSuccess) return err;
+  const size_t bytes = attr.sharedSizeBytes + wide_shared_bytes(dim);
   if (bytes <= kDefaultShared) return cudaSuccess;
   int device = 0, optin = 0;
-  cudaError_t err = cudaGetDevice(&device);
+  err = cudaGetDevice(&device);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   if (err != cudaSuccess) return err;
   if (device >= kDevices || bytes > static_cast<size_t>(optin)) return cudaErrorInvalidValue;
@@ -726,50 +886,61 @@ cudaError_t allow_wide_shared(size_t bytes, cudaStream_t stream) {
   err = cudaStreamIsCapturing(stream, &capturing);
   if (err != cudaSuccess) return err;
   if (capturing != cudaStreamCaptureStatusNone) return cudaErrorStreamCaptureUnsupported;
-  err = cudaFuncSetAttribute(gibbs_sweep_wide_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+  err = cudaFuncSetAttribute(gibbs_sweep_memory_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             optin - static_cast<int>(attr.sharedSizeBytes));
   if (err == cudaSuccess) raised[device] = true;
   return err;
 }
 
 }  // namespace
 
-// G1's layouts (samplers/gibbs.py::SWEEP_REGISTERS, SWEEP_WIDE_SHARED, SWEEP_WIDE_GLOBAL).
-enum SweepLayout { kRegisters = 0, kWideShared = 1, kWideGlobal = 2 };
+// G1's layouts (samplers/gibbs.py::SWEEP_REGISTERS, SWEEP_WIDE_REGISTERS, SWEEP_WIDE_SHARED, SWEEP_WIDE_GLOBAL).
+enum SweepLayout { kRegisters = 0, kWideRegisters = 1, kWideShared = 2, kWideGlobal = 3 };
 
 // B (C, D) and z (C, N) after the sweep.  x (N, D); t (N,) labels; lambda, h,
 // z_old (C, N); s (C, D, N); b_in (C, D); u_central (N, C); u_e, u_tail (3, N, C).
-// layout kRegisters: `lanes` (1, 2, 4, 8, 16 or 32) lanes a chain with ceil(D / lanes) <= kEntMax entries
-// a lane; on 32, the step constants come from the warp's prologue.  kWideShared / kWideGlobal: a warp a
-// chain (lanes 32), B in shared memory (with a column of S: 2 D floats a block, at most the card's opt-in
-// limit) or in b_out.
+// layout kRegisters: `lanes` (1, 2, 4, 8, 16 or 32) lanes of a warp a chain with ceil(D / lanes) <= kEntMax
+// entries a lane; on 32, the step constants come from the warp's prologue.  The wide layouts, a block of
+// lanes / 32 warps a chain: kWideRegisters (at most kWideWarps, ceil(D / lanes) <= kEntMax entries a lane),
+// kWideShared (at most kMemoryWarps, B in shared memory: wide_shared_bytes(D) at most the card's opt-in
+// limit) or kWideGlobal (at most kMemoryWarps, B in b_out).
 // scratch: the floats that rhmc_gibbs_sweep_scratch_floats names, written and read by this launch alone.
 extern "C" int rhmc_gibbs_sweep(const void* x, const void* t, const void* lam, const void* h, const void* z_old,
                                 const void* s, const void* b_in, const void* u_central, const void* u_e,
                                 const void* u_tail, int num_chains, int num_data, int dim, int lanes, int layout,
                                 void* scratch, void* b_out, void* z_out, void* stream) {
-  if (num_chains < 1 || num_data < 1 || dim < 1) return cudaErrorInvalidValue;
-  if (lanes < 1 || lanes > kSweepThreads || (lanes & (lanes - 1)) != 0) return cudaErrorInvalidValue;
+  if (num_chains < 1 || num_data < 1 || dim < 1 || lanes < 1) return cudaErrorInvalidValue;
   const auto f = [](const void* p) { return static_cast<const float*>(p); };
   auto* st = static_cast<cudaStream_t>(stream);
   auto* k = static_cast<float*>(scratch);
   auto* bo = static_cast<float*>(b_out);
   auto* zo = static_cast<float*>(z_out);
+  const int ent = (dim + lanes - 1) / lanes;
   if (layout == kWideShared || layout == kWideGlobal) {
-    if (lanes != kSweepThreads) return cudaErrorInvalidValue;
-    const size_t shared = layout == kWideShared ? 2 * sizeof(float) * dim : 0;
-    const cudaError_t err = allow_wide_shared(shared, st);
-    if (err != cudaSuccess) return err;
+    if (lanes % kSweepThreads != 0 || lanes > kMemoryWarps * kSweepThreads) return cudaErrorInvalidValue;
+    const size_t shared = wide_shared_bytes(dim, layout == kWideShared);
+    if (layout == kWideShared) {
+      const cudaError_t err = allow_wide_shared(dim, st);
+      if (err != cudaSuccess) return err;
+    }
     const auto launch = [&](auto kernel) {
-      kernel<<<num_chains, kSweepThreads, shared, st>>>(f(x), f(t), f(lam), f(h), f(z_old), f(s), f(b_in),
-                                                        f(u_central), f(u_e), f(u_tail), num_chains, num_data, dim, k,
-                                                        bo, zo);
+      kernel<<<num_chains, lanes, shared, st>>>(f(x), f(t), f(lam), f(h), f(z_old), f(s), f(b_in), f(u_central),
+                                                f(u_e), f(u_tail), num_chains, num_data, dim, k, bo, zo);
       return cudaGetLastError();
     };
-    return layout == kWideShared ? launch(gibbs_sweep_wide_kernel<true>) : launch(gibbs_sweep_wide_kernel<false>);
+    return layout == kWideShared ? launch(gibbs_sweep_memory_kernel<true>) : launch(gibbs_sweep_memory_kernel<false>);
   }
-  if (layout != kRegisters) return cudaErrorInvalidValue;
-  const int ent = (dim + lanes - 1) / lanes;
   if (ent > kEntMax) return cudaErrorInvalidValue;
+  if (layout == kWideRegisters) {
+    if (lanes % kSweepThreads != 0 || lanes > kWideWarps * kSweepThreads) return cudaErrorInvalidValue;
+    return with_entries(ent, [&](auto entries) {
+      gibbs_sweep_block_kernel<decltype(entries)::value><<<num_chains, lanes, 0, st>>>(
+          f(x), f(t), f(lam), f(h), f(z_old), f(s), f(b_in), f(u_central), f(u_e), f(u_tail), num_chains, num_data,
+          dim, k, bo, zo);
+      return cudaGetLastError();
+    });
+  }
+  if (layout != kRegisters || lanes > kSweepThreads || (lanes & (lanes - 1)) != 0) return cudaErrorInvalidValue;
   const int per_block = kSweepThreads / lanes;
   const int blocks = (num_chains + per_block - 1) / per_block;
   return with_entries(ent, [&](auto entries) {
@@ -787,10 +958,17 @@ extern "C" int rhmc_gibbs_sweep(const void* x, const void* t, const void* lam, c
 // kEntMax, for the wrapper's mirror (SWEEP_ENT_MAX).
 extern "C" int rhmc_gibbs_sweep_max_entries() { return kEntMax; }
 
-// The floats of G1's scratch for a launch on `lanes` lanes a chain: on 32, every chain's step constants.
+// The floats of G1's scratch for a launch on `lanes` lanes a chain: on a warp or more (the wide layouts), every
+// chain's step constants.
 extern "C" long long rhmc_gibbs_sweep_scratch_floats(int num_chains, int num_data, int lanes) {
-  if (num_chains < 1 || num_data < 1 || lanes < 1 || lanes > kSweepThreads) return -1;
-  return lanes == kSweepThreads ? static_cast<long long>(kSweepFields) * num_data * num_chains : 0;
+  if (num_chains < 1 || num_data < 1 || lanes < 1 || lanes > kMemoryWarps * kSweepThreads) return -1;
+  return lanes >= kSweepThreads ? static_cast<long long>(kSweepFields) * num_data * num_chains : 0;
+}
+
+// The bytes of shared memory a block of the wide layout with B in shared memory takes at width D
+// (samplers/gibbs.py::sweep_shared_bytes).
+extern "C" long long rhmc_gibbs_sweep_shared_bytes(int dim) {
+  return dim < 1 ? -1 : static_cast<long long>(wide_shared_bytes(dim));
 }
 
 // lambda for `count` elements of r, their global indices first_index, first_index + 1, ...; key one int64.

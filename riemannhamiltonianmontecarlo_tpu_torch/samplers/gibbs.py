@@ -12,8 +12,9 @@ same contract (``code/gibbs_sampler.py:73-139`` / MATLAB
   (``sweep``): on a CUDA batch one launch of the hand-written kernel G1
   (``csrc/gibbs.cu``, a chain on a group of lanes of one warp walking the
   N steps with B in their registers, or past 32 x ``SWEEP_ENT_MAX``
-  entries on a whole warp with B in shared memory: ``sweep_layout``), on a
-  CPU batch its plain version ``gibbs_sweep_plain``, a Python loop over j
+  entries on a block of warps, B in their registers to 8 x 32 x
+  ``SWEEP_ENT_MAX`` entries and in memory past that: ``sweep_layout``), on
+  a CPU batch its plain version ``gibbs_sweep_plain``, a Python loop over j
   with all chains in lockstep;
 * beta = B + L T, T ~ N(0, I);
 * mixing weights lambda_j ~ GIG(1/2, 1, r_j^2) by rejection (``ops/gig.py``:
@@ -137,22 +138,36 @@ def gibbs_sweep_plain(x: Tensor, t: Tensor, lam: Tensor, h: Tensor, z_old: Tenso
     return b, torch.stack(z_new, dim=1)
 
 
-SWEEP_THREADS = 32  # csrc/gibbs.cu::kSweepThreads: G1's blocks are one warp
-SWEEP_FIELDS = 6  # csrc/gibbs.cu::kSweepFields: the step constants G1's prologue writes per chain and step
-SWEEP_LANES = (1, 2, 4, 8, 16, 32)  # the lanes a chain may take in G1
-SWEEP_WARPS_PER_SM = 8  # two a scheduler: as many lanes a chain as keep G1's warps within this
+SWEEP_THREADS = 32  # csrc/gibbs.cu::kSweepThreads: a warp; the register layout's blocks are one
+SWEEP_FIELDS = 6  # csrc/gibbs.cu::kSweepFields: the step constants a prologue writes per chain and step
+SWEEP_LANES = (1, 2, 4, 8, 16, 32)  # the lanes of a warp a chain may take in G1's register layout
+SWEEP_WARPS_PER_SM = 8  # two a scheduler: as many lanes (or warps) a chain as keep G1's warps within this
 SWEEP_ENT_MAX = 34  # csrc/gibbs.cu::kEntMax: the most entries of B a lane holds in registers
-# csrc/gibbs.cu::SweepLayout: B in registers on `lanes` lanes a chain; a warp a chain with B in the block's
-# shared memory; the same with B in the output buffer (past the card's shared memory a block).
-SWEEP_REGISTERS, SWEEP_WIDE_SHARED, SWEEP_WIDE_GLOBAL = 0, 1, 2
+SWEEP_WIDE_WARPS = 8  # csrc/gibbs.cu::kWideWarps: the most warps a chain with B in registers (256 threads)
+SWEEP_MEMORY_WARPS = 16  # csrc/gibbs.cu::kMemoryWarps: the most warps a chain with B in memory, and past the
+# registers the warps a chain
+# csrc/gibbs.cu::SweepLayout: B in registers on `lanes` lanes of a warp a chain; the wide layout, a block of
+# warps a chain, with B in its lanes' registers, in the block's shared memory, or in the output buffer (past
+# the card's shared memory a block).
+SWEEP_REGISTERS, SWEEP_WIDE_REGISTERS, SWEEP_WIDE_SHARED, SWEEP_WIDE_GLOBAL = 0, 1, 2, 3
+SWEEP_EXCHANGE_BYTES = 264  # csrc/gibbs.cu::Exchange: the warps' sums of two steps (2 x 16 x 2 floats), an mbarrier
 H100_SMS = 132
 H100_SHARED_OPTIN = 232_448  # bytes of shared memory a block may opt in to on an H100 (227 KB)
+SWEEP_B_MEMORY = ("shared", "global")  # where the wide layout may be asked to keep B
 
 
 class SweepLayout(NamedTuple):
-    lanes: int  # lanes of a warp a chain
-    entries: int  # B's entries each lane holds: in registers, or (wide) walks in chunks of 32
-    wide: bool  # a warp a chain with B in memory: past 32 lanes of SWEEP_ENT_MAX entries
+    lanes: int  # lanes a chain: 1-32 of one warp, or (wide) a block of lanes / 32 warps
+    entries: int  # B's entries each lane holds: in registers, or (past them) walks in memory
+    wide: bool  # a chain on a block of warps: past 32 lanes of SWEEP_ENT_MAX entries
+
+    @property
+    def warps(self) -> int:
+        return -(-self.lanes // SWEEP_THREADS)
+
+    @property
+    def in_registers(self) -> bool:
+        return self.entries <= SWEEP_ENT_MAX and (not self.wide or self.warps <= SWEEP_WIDE_WARPS)
 
 
 def sweep_lanes(num_chains: int, sm_count: int = H100_SMS) -> int:
@@ -166,29 +181,45 @@ def sweep_lanes(num_chains: int, sm_count: int = H100_SMS) -> int:
     return lanes
 
 
+def sweep_warps(num_chains: int, dim: int, sm_count: int = H100_SMS) -> int:
+    """The warps of G1's wide layout a chain (a block each) at (C, D): the fewest that keep
+    SWEEP_ENT_MAX entries a lane or fewer, raised to as many as keep the launch within SWEEP_WARPS_PER_SM
+    warps an SM, at most SWEEP_WIDE_WARPS; past SWEEP_WIDE_WARPS such warps (D > 8,704) B leaves the
+    registers and a chain takes SWEEP_MEMORY_WARPS.  On an H100: 8 warps at 64 chains and D 1,089-8,704,
+    2 at 1024 chains and D 2,049.  Measured on an H100 at N 300 (kernel_ab.py --kernels gibbs, two calls,
+    PERF.md): at 64 chains, D 2,049 on 8 / 4 / 2 warps 466-480 / 436-443 / 466-506 us, D 1,088 on 8 / 4 / 2 /
+    1 warps 253-303 / 279-282 / 314-328 / 334-340 us (32 lanes of the register layout 323-325); at 128
+    chains, D 2,049, 8 warps 632-634 us against 4 warps' 693."""
+    fewest = -(-dim // (SWEEP_THREADS * SWEEP_ENT_MAX))
+    if fewest > SWEEP_WIDE_WARPS:
+        return SWEEP_MEMORY_WARPS
+    return max(fewest, min(SWEEP_WIDE_WARPS, SWEEP_WARPS_PER_SM * sm_count // num_chains))
+
+
 def sweep_layout(num_chains: int, dim: int, sm_count: int = H100_SMS) -> SweepLayout:
-    """G1's layout for (C, D): the larger of ``sweep_lanes(C)`` and the fewest lanes that keep
+    """G1's layout for (C, D): the larger of ``sweep_lanes(C)`` and the fewest lanes of a warp that keep
     ceil(D / lanes) <= SWEEP_ENT_MAX, B in registers; past 32 such lanes (D > 32 SWEEP_ENT_MAX), the wide
-    layout on a whole warp.  D takes no instantiation of its own: the kernel's entries a lane do."""
+    layout on ``sweep_warps(C, D)`` warps.  D takes no instantiation of its own: the kernel's entries a
+    lane do."""
     if num_chains < 1 or dim < 1:
         raise ValueError(f"G1 takes C >= 1 and D >= 1, got C = {num_chains}, D = {dim}")
     fewest = next((lanes for lanes in SWEEP_LANES if -(-dim // lanes) <= SWEEP_ENT_MAX), None)
     if fewest is None:
-        return SweepLayout(SWEEP_THREADS, -(-dim // SWEEP_THREADS), True)
+        lanes = SWEEP_THREADS * sweep_warps(num_chains, dim, sm_count)
+        return SweepLayout(lanes, -(-dim // lanes), True)
     lanes = max(sweep_lanes(num_chains, sm_count), fewest)
     return SweepLayout(lanes, -(-dim // lanes), False)
 
 
-def sweep_b_in_shared(dim: int, shared_optin: int = H100_SHARED_OPTIN) -> bool:
-    """Whether the wide layout holds a chain's B and a column of S (2 D floats) in its block's shared
-    memory (csrc/gibbs.cu::gibbs_sweep_wide_kernel)."""
-    return 8 * dim <= shared_optin
+def sweep_shared_bytes(dim: int) -> int:
+    """The shared memory a block of the wide layout takes with B in it (csrc/gibbs.cu::wide_shared_bytes)."""
+    return 4 * dim + SWEEP_EXCHANGE_BYTES
 
 
 def sweep_scratch_numel(num_chains: int, num_data: int, lanes: int) -> int:
-    """Floats of G1's scratch (csrc/gibbs.cu::rhmc_gibbs_sweep_scratch_floats): on a whole warp a
+    """Floats of G1's scratch (csrc/gibbs.cu::rhmc_gibbs_sweep_scratch_floats): on a warp or more a
     chain, every chain's step constants; else none."""
-    return SWEEP_FIELDS * num_data * num_chains if lanes == SWEEP_THREADS else 0
+    return SWEEP_FIELDS * num_data * num_chains if lanes >= SWEEP_THREADS else 0
 
 
 @functools.cache
@@ -201,43 +232,60 @@ def _lib() -> ctypes.CDLL:
     lib.rhmc_gibbs_sweep_max_entries.restype = ctypes.c_int
     lib.rhmc_gibbs_sweep_scratch_floats.argtypes = [ctypes.c_int] * 3
     lib.rhmc_gibbs_sweep_scratch_floats.restype = ctypes.c_longlong
+    lib.rhmc_gibbs_sweep_shared_bytes.argtypes = [ctypes.c_int]
+    lib.rhmc_gibbs_sweep_shared_bytes.restype = ctypes.c_longlong
     return lib
 
 
-def launch_layout(num_chains: int, dim: int, device: torch.device, *, lanes: int | None = None, wide: bool = False,
-                  b_global: bool = False) -> tuple[SweepLayout, int]:
-    """G1's layout on ``device`` and its code for the C entry (SWEEP_REGISTERS, SWEEP_WIDE_SHARED or
-    SWEEP_WIDE_GLOBAL): ``sweep_layout`` by default; B in registers on ``lanes`` lanes, or the wide
-    layout (``wide``), with B in the output buffer (``b_global``), where the caller asks."""
-    props = torch.cuda.get_device_properties(device)
+def choose_layout(num_chains: int, dim: int, *, sm_count: int = H100_SMS, shared_optin: int = H100_SHARED_OPTIN,
+                  lanes: int | None = None, warps: int | None = None,
+                  b_memory: str | None = None) -> tuple[SweepLayout, int]:
+    """G1's layout and its code for the C entry (SWEEP_REGISTERS, SWEEP_WIDE_REGISTERS, SWEEP_WIDE_SHARED
+    or SWEEP_WIDE_GLOBAL): ``sweep_layout`` by default, the wide layout's B in shared memory while
+    ``sweep_shared_bytes(D)`` fits a block's ``shared_optin``.  Where the caller asks: B in registers on
+    ``lanes`` lanes of a warp; the wide layout on ``warps`` warps (B in their registers where it fits);
+    the wide layout with B in ``b_memory`` ("shared" or "global"), on ``warps`` or ``sweep_warps`` warps."""
     if lanes is not None:
-        if wide or lanes not in SWEEP_LANES or -(-dim // lanes) > SWEEP_ENT_MAX:
-            raise ValueError(f"gibbs_sweep: B in registers on {lanes} lanes a chain at D = {dim}; the kernel takes "
-                             f"{SWEEP_LANES} lanes of at most {SWEEP_ENT_MAX} entries")
-        layout = SweepLayout(lanes, -(-dim // lanes), False)
-    elif wide:
-        layout = SweepLayout(SWEEP_THREADS, -(-dim // SWEEP_THREADS), True)
+        if warps is not None or b_memory is not None or lanes not in SWEEP_LANES or -(-dim // lanes) > SWEEP_ENT_MAX:
+            raise ValueError(f"gibbs_sweep: B in registers on {lanes} lanes a chain at D = {dim}; the register layout "
+                             f"takes {SWEEP_LANES} lanes of at most {SWEEP_ENT_MAX} entries")
+        return SweepLayout(lanes, -(-dim // lanes), False), SWEEP_REGISTERS
+    if b_memory is not None and b_memory not in SWEEP_B_MEMORY:
+        raise ValueError(f"gibbs_sweep: b_memory takes {SWEEP_B_MEMORY}, got {b_memory!r}")
+    if warps is None and b_memory is None:
+        layout = sweep_layout(num_chains, dim, sm_count)
     else:
-        layout = sweep_layout(num_chains, dim, props.multi_processor_count)
-    if b_global and not layout.wide:
-        raise ValueError("gibbs_sweep: B lies in the output buffer only on the wide layout")
+        warps = sweep_warps(num_chains, dim, sm_count) if warps is None else warps
+        if not 1 <= warps <= SWEEP_MEMORY_WARPS:
+            raise ValueError(f"gibbs_sweep: the wide layout takes 1 to {SWEEP_MEMORY_WARPS} warps, got {warps}")
+        layout = SweepLayout(SWEEP_THREADS * warps, -(-dim // (SWEEP_THREADS * warps)), True)
     if not layout.wide:
         return layout, SWEEP_REGISTERS
-    shared = sweep_b_in_shared(dim, getattr(props, "shared_memory_per_block_optin", H100_SHARED_OPTIN))
-    return layout, SWEEP_WIDE_SHARED if shared and not b_global else SWEEP_WIDE_GLOBAL
+    if b_memory is None and layout.in_registers:
+        return layout, SWEEP_WIDE_REGISTERS
+    shared = sweep_shared_bytes(dim) <= shared_optin
+    if b_memory == "shared" and not shared:
+        raise ValueError(f"gibbs_sweep: B in shared memory at D = {dim} takes {sweep_shared_bytes(dim)} bytes a "
+                         f"block, more than the card's {shared_optin}")
+    return layout, SWEEP_WIDE_SHARED if shared and b_memory != "global" else SWEEP_WIDE_GLOBAL
+
+
+def launch_layout(num_chains: int, dim: int, device: torch.device, **forced) -> tuple[SweepLayout, int]:
+    """``choose_layout`` for the SMs and the shared memory of ``device``."""
+    props = torch.cuda.get_device_properties(device)
+    return choose_layout(num_chains, dim, sm_count=props.multi_processor_count,
+                         shared_optin=getattr(props, "shared_memory_per_block_optin", H100_SHARED_OPTIN), **forced)
 
 
 def gibbs_sweep_cuda(x: Tensor, t: Tensor, lam: Tensor, h: Tensor, z_old: Tensor, s: Tensor, b: Tensor,
-                     noise: truncnorm.TruncNormNoise, *, lanes: int | None = None, wide: bool = False,
-                     b_global: bool = False) -> tuple[Tensor, Tensor]:
+                     noise: truncnorm.TruncNormNoise, *, lanes: int | None = None, warps: int | None = None,
+                     b_memory: str | None = None) -> tuple[Tensor, Tensor]:
     """Kernel G1 on the card: the arguments of ``gibbs_sweep_plain``, float32
     on one CUDA device, any D >= 1.  Returns (B (C, D), z (C, N)), new
     tensors.  An operand that is not contiguous (a rank's columns of the
     (N, C) uniforms under a chain split) is copied once.  The layout is
-    ``sweep_layout`` for the device's SMs, the wide one with B in shared
-    memory while its 2 D floats fit a block's.  ``lanes`` (B in registers on that
-    many lanes a chain), ``wide`` and ``b_global`` (B in the output buffer)
-    are for checking and timing the layouts against each other."""
+    ``choose_layout``'s for the device; ``lanes``, ``warps`` and ``b_memory``
+    force one of the layouts, for checking and timing them against each other."""
     n, d = x.shape
     c = lam.shape[0]
     if d < 1:
@@ -253,7 +301,7 @@ def gibbs_sweep_cuda(x: Tensor, t: Tensor, lam: Tensor, h: Tensor, z_old: Tensor
             raise TypeError(f"gibbs_sweep: the CUDA kernel takes float32, got {name} as {tensor.dtype}")
         if tuple(tensor.shape) != shape:
             raise ValueError(f"gibbs_sweep: {name} has shape {tuple(tensor.shape)}, expected {shape}")
-    layout, code = launch_layout(c, d, x.device, lanes=lanes, wide=wide, b_global=b_global)
+    layout, code = launch_layout(c, d, x.device, lanes=lanes, warps=warps, b_memory=b_memory)
     ins = [tensor.contiguous() for tensor, _ in shapes.values()]  # themselves unless the caller's are strided
     b_out, z = torch.empty_like(ins[6]), torch.empty_like(ins[2])
     scratch = torch.empty(sweep_scratch_numel(c, n, layout.lanes), dtype=torch.float32, device=x.device)

@@ -43,7 +43,9 @@ and ``captured`` (replays of the step's CUDA graph, ``parallel.graphs``, as
 seconds and the bytes of device memory its graph pool reserved.  The BLR
 rows are RMHMC at the reference constants (4096 chains) and Gibbs (1024) on
 synthetic data of australian's shape (N = 690, D = 15); the ``blr-german``
-rows are that RMHMC run on german's shape (N = 1000, D = 25).  The ``blr-mesh``
+rows are that RMHMC run on german's shape (N = 1000, D = 25); the ``blr-wide``
+rows Gibbs (64 chains) on N = 300, D = 2,049 under a prior of variance 1e-2,
+where G1 takes its wide layout (chip_smoke.py phase 6).  The ``blr-mesh``
 rows are that RMHMC run on a ("chains", "data") mesh of shape (1, 1) over
 NCCL in this process (world 1, a TCP store on a free local port), the model
 from ``with_sharding``: every row gives its all-reduces a step, counted on
@@ -68,7 +70,7 @@ import unittest.mock
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from riemannhamiltonianmontecarlo_tpu_torch import experiments, interop, models, ops, parallel, utils
+from riemannhamiltonianmontecarlo_tpu_torch import experiments, interop, models, ops, parallel, samplers, utils
 from riemannhamiltonianmontecarlo_tpu_torch.ops import hopper_linalg, launches, tridiag
 from riemannhamiltonianmontecarlo_tpu_torch.parallel import collectives, graphs
 from riemannhamiltonianmontecarlo_tpu_torch.parallel.launch import free_port
@@ -77,17 +79,19 @@ from riemannhamiltonianmontecarlo_tpu_torch.samplers import pmala, rmhmc
 # (workload, sampler, chains): the chip-smoke configurations.
 RUNS = (
     ("blr", "rmhmc", 4096), ("blr-german", "rmhmc", 4096), ("blr-mesh", "rmhmc", 4096), ("blr", "gibbs", 1024),
+    ("blr-wide", "gibbs", 64),
     ("stochvol", "rmhmc", 1024), ("stochvol", "hmc", 1024), ("stochvol", "mala", 1024), ("stochvol", "mmala", 1024),
     ("lgc", "rmhmc", 64), ("lgc", "pmala", 64), ("lgc", "mmala", 8), ("lgc", "mala_stationary", 16),
     ("lgc", "rmhmc_joint", 4), ("lgc", "mmala_joint", 4),
     ("fhn", "rmhmc", 256), ("fhn", "hmc", 256), ("fhn", "mmala", 256), ("fhn", "mala", 256),
 )
 BLR = ("blr", "blr-german", "blr-mesh")  # BLR workloads: australian's shape, german's, australian's on a mesh
+WIDE_PRIOR_VARIANCE = 1e-2  # blr-wide: a ridge prior for more features than rows (chip_smoke.SWEEP_DIRECT_PRIOR_VARIANCE)
 GEMM = re.compile(r"gemm|cutlass|xmma|gemv", re.IGNORECASE)
 FACTOR = re.compile(r"potrf|trsm|chol", re.IGNORECASE)
 TRSM = re.compile(r"trsm", re.IGNORECASE)  # the triangular solves' part of FACTOR
 FHN = re.compile(r"fhn_sensitivities")
-GIBBS = {"gibbs_sweep_kernel": re.compile(r"gibbs_sweep(_wide)?_kernel"),
+GIBBS = {"gibbs_sweep_kernel": re.compile(r"gibbs_sweep_\w*kernel"),
          "gig_half_kernel": re.compile(r"gig_half_kernel"), "draws": re.compile(r"distribution")}
 
 
@@ -128,6 +132,11 @@ def _kernel(workload: str, sampler: str, device: torch.device):
         kernel = rmhmc.build(model) if sampler == "rmhmc" else experiments.build_kernel(sampler, model, "australian")[0]
         return (kernel, lambda c: utils.default_init(model, torch.Generator(device=device).manual_seed(0), c), mesh,
                 model)
+    if workload == "blr-wide":  # chip_smoke.py phase 6's Gibbs past 32 x 34 features, G1's wide layout
+        ds = models.synthetic_logreg(seed=0, n=300, d=2049)
+        model = interop.logreg_from_numpy(ds.X, ds.t, device=device)
+        kernel = samplers.gibbs.build(model, samplers.gibbs.GibbsConfig(prior_variance=WIDE_PRIOR_VARIANCE))
+        return kernel, lambda c: utils.default_init(model, torch.Generator(device=device).manual_seed(0), c), None, model
     if sampler == "pmala":  # constant-metric mMALA, built on the model's metric (RESULTS.md:78)
         y, _ = models.lgc.generate_data(seed=0, n=64)
         model = experiments.interop.lgc_from_numpy(y, 64, device=device)

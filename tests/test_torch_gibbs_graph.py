@@ -29,6 +29,8 @@ the card in ``chip_smoke.py`` phase 3.
 """
 
 import math
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -305,8 +307,8 @@ def test_torch_gibbs_capturable_where_its_model_is(gibbs_setup, monkeypatch):
 
 @pytest.mark.parametrize("dim", [0, 49, 2049])
 def test_torch_gibbs_sweep_kernel_refuses_no_width_but_zero(dim):
-    """G1 takes any D >= 1 (B in registers to 32 x SWEEP_ENT_MAX entries, the
-    wide layout past that): its wrapper refuses D = 0 before it looks at the
+    """G1 takes any D >= 1 (B in registers on a warp to 32 x SWEEP_ENT_MAX entries, on a block of
+    warps past that): its wrapper refuses D = 0 before it looks at the
     device, and goes on to refuse a CPU tensor at D = 49 and 2049, past K1's 48."""
     c, n = 4, 6
     noise = truncnorm.draw_noise(torch.Generator().manual_seed(0), (n, c))
@@ -349,53 +351,71 @@ def lookahead_sweep(x, t, lam, h, z_old, s, b, noise, lanes):
     return b, z
 
 
-def chunked_sweep(x, t, lam, h, z_old, s, b, noise, lanes):
-    """G1's wide layout (csrc/gibbs.cu::gibbs_sweep_wide_kernel) in float64,
-    with ``lanes`` in place of the warp's 32: lane l owns B's entries l,
-    l + lanes, ..., kept in memory; p_0, R_0 = B_0 x_1 and Q_0 = S[:, 0] x_1
-    from one pass, then at step j the chain gives delta_j, p_{j+1} = R_j +
-    delta_j Q_j, and one pass over B in chunks of ``lanes`` entries applies
-    B += delta_j S[:, j] and sums R_{j+1} = B_{j+1} x_{j+2} and
-    Q_{j+1} = S[:, j+1] x_{j+2}, each lane over its entries in order."""
+def butterfly_sum(parts):
+    """A warp's sum over its lanes as ``group_sum`` takes it: at offsets 1, 2, 4, ... each lane adds the
+    partner lane's sum (lane ^ offset), so every lane ends with the same sum; lane 0's is returned."""
+    parts = list(parts)
+    off = 1
+    while off < len(parts):
+        parts = [parts[lane] + parts[lane ^ off] for lane in range(len(parts))]
+        off *= 2
+    return parts[0]
+
+
+def block_sweep(x, t, lam, h, z_old, s, b, noise, warps, lanes, memory):
+    """G1's wide layout in float64, with ``lanes`` lanes a warp in place of 32: thread th = warp x lanes +
+    lane owns B's entries th, th + warps x lanes, ...; each thread sums its terms in the order of its
+    entries, a warp's lanes meet as ``butterfly_sum``, and the warps' sums are added in warp order.  With
+    p_0 = B_0 x_0, step j's chain reads p_j, while the block sums R_j = B_j x_{j+1} and Q_j = S[:, j] x_{j+1};
+    then p_{j+1} = R_j + delta_j Q_j.  B += delta_j S[:, j] after the chain (csrc/gibbs.cu::
+    gibbs_sweep_block_kernel, B in registers), or (``memory``: gibbs_sweep_memory_kernel) in the pass
+    before step j + 1's sums, and once after the last step."""
     n, d = x.shape
-    c = b.shape[0]
+    threads = warps * lanes
+    owned = [list(range(th, d, threads)) for th in range(threads)]
     w = h / torch.clamp(lam - h, min=1e-12)
     sd = torch.sqrt(lam * (w + 1.0))
     signed = torch.where(t == 1.0, sd, -sd)
     terms = truncnorm.prepare(noise)
     b = b.clone()
-    last = n - 1
 
-    def lane_sums(u_of, x_row):  # (C, lanes): each lane's sum over its entries, chunk by chunk
-        part = torch.zeros((c, lanes), dtype=x.dtype)
-        for chunk in range(0, d, lanes):
-            e = torch.arange(chunk, min(chunk + lanes, d))
-            part[:, e - chunk] += u_of(e) * x_row[e]
-        return part.sum(dim=1)
+    def block_dot(u, row):
+        thread_parts = [sum((u[:, e] * row[e] for e in entries), torch.zeros(u.shape[0], dtype=u.dtype))
+                        for entries in owned]
+        warp_sums = [butterfly_sum(thread_parts[wp * lanes:(wp + 1) * lanes]) for wp in range(warps)]
+        return sum(warp_sums[1:], warp_sums[0])
 
-    p = lane_sums(lambda e: b[:, e], x[0])
-    r_sum, q_sum = lane_sums(lambda e: b[:, e], x[min(1, last)]), lane_sums(lambda e: s[:, e, 0], x[min(1, last)])
+    p = block_dot(b, x[0])
     z = torch.empty_like(z_old)
+    delta = None
     for j in range(n):
-        j1, j2 = min(j + 1, last), min(j + 2, last)
+        jn = min(j + 1, n - 1)
+        if memory and delta is not None:
+            b = b + delta[:, None] * s[:, :, j - 1]
+        r_sum, q_sum = block_dot(b, x[jn]), block_dot(s[:, :, j], x[jn])
         m = (1.0 + w[:, j]) * p - w[:, j] * z_old[:, j]
         z_std = truncnorm.std_truncnorm_above(-m / signed[:, j], truncnorm.TailTerms(*(u[..., j, :] for u in terms)))
         z[:, j] = m + signed[:, j] * z_std
         delta = (z[:, j] - z_old[:, j]) / lam[:, j]
+        if not memory:
+            b = b + delta[:, None] * s[:, :, j]
         p = r_sum + delta * q_sum
-        for chunk in range(0, d, lanes):  # the pass
-            e = slice(chunk, min(chunk + lanes, d))
-            b[:, e] = b[:, e] + delta[:, None] * s[:, e, j]
-        r_sum, q_sum = lane_sums(lambda e: b[:, e], x[j2]), lane_sums(lambda e: s[:, e, j1], x[j2])
+    if memory:
+        b = b + delta[:, None] * s[:, :, n - 1]
     return b, z
 
 
-@pytest.mark.parametrize("layout, lanes", [("registers", 1), ("registers", 4), ("registers", 8), ("wide", 2),
-                                           ("wide", 32)], ids=["1", "4", "8", "wide-2", "wide-32"])
-def test_torch_gibbs_sweep_lookahead_algebra_is_the_sweep(gibbs_setup, layout, lanes):
+WIDE_CASES = {"wide-2": (3, 2, False), "wide-32": (1, 32, False), "wide-2x2-memory": (2, 2, True),
+              "wide-3x1-memory": (3, 1, True)}  # (warps, lanes a warp, B in memory) at D = 5
+
+
+@pytest.mark.parametrize("layout", ["1", "4", "8", *WIDE_CASES])
+def test_torch_gibbs_sweep_lookahead_algebra_is_the_sweep(gibbs_setup, layout):
     """The look-ahead dot of G1, in float64, gives the plain sweep's B and z
     (float64) to 1e-9: the reordering changes only the rounding.  So does
-    the wide layout's chunked pass over B (2 lanes: D = 5 in three chunks)."""
+    the wide layout's block of warps, B in registers or updated in memory
+    before each step's sums (D = 5 over 3 warps of 2 lanes: ragged, the last
+    warp half empty; 2 x 2 and 3 x 1: a thread owning two entries)."""
     model, _, state = gibbs_setup
     c, n = state.z.shape
     state64 = gibbs.GibbsState(*(a.double() for a in state))
@@ -405,10 +425,23 @@ def test_torch_gibbs_sweep_lookahead_algebra_is_the_sweep(gibbs_setup, layout, l
         x, t = model.X.double(), model.t.double()
         args = (x, t, state64.lam, cond.h.double(), state64.z, cond.s.double(), cond.b.double(), noise)
         bp, zp = gibbs.gibbs_sweep_plain(*args)
-        bl, zl = (lookahead_sweep if layout == "registers" else chunked_sweep)(*args, lanes=lanes)
+        if layout in WIDE_CASES:
+            warps, lanes, memory = WIDE_CASES[layout]
+            bl, zl = block_sweep(*args, warps=warps, lanes=lanes, memory=memory)
+        else:
+            bl, zl = lookahead_sweep(*args, lanes=int(layout))
     assert bp.dtype == torch.float64
     torch.testing.assert_close(zl, zp, rtol=1e-9, atol=1e-9)
     torch.testing.assert_close(bl, bp, rtol=1e-9, atol=1e-9)
+
+
+def test_torch_gibbs_block_sweep_sums_in_the_kernels_order():
+    """The mirror's sums run in the kernel's order: on values where float64 addition is not associative,
+    the butterfly over a warp's lanes and the warps' sums added in order give the kernel's bits, which a
+    plain left-to-right sum over the threads does not."""
+    parts = [1e16, 1.0, -1e16, 1.0]
+    assert butterfly_sum(parts) == (1e16 + 1.0) + (-1e16 + 1.0)
+    assert butterfly_sum(parts) != sum(parts)
 
 
 @pytest.mark.parametrize("chains", [1, 31, 1024, 1057, 4224, 8448, 40000])
@@ -430,21 +463,98 @@ def test_torch_gibbs_sweep_layout(chains):
 @pytest.mark.parametrize("dim", [1, 48, 49, 61, 167, 1088, 1089, 1280, 2049, 40000])
 def test_torch_gibbs_sweep_layout_takes_any_width(chains, dim):
     """``sweep_layout``: B in registers on the larger of ``sweep_lanes(C)`` and
-    the fewest lanes that keep SWEEP_ENT_MAX entries a lane or fewer; the
-    wide layout exactly where 32 lanes do not (D > 32 SWEEP_ENT_MAX); either
-    way the lanes' entries cover D."""
+    the fewest lanes of a warp that keep SWEEP_ENT_MAX entries a lane or
+    fewer; the wide layout exactly where 32 lanes do not (D > 32
+    SWEEP_ENT_MAX), a block of warps a chain: the fewest warps that keep
+    SWEEP_ENT_MAX entries a lane, raised while the launch stays within
+    SWEEP_WARPS_PER_SM warps an SM, at most SWEEP_WIDE_WARPS (256 threads: 255
+    registers each fit an SM's 65,536); past that many warps B leaves the
+    registers for shared memory (while it fits a block's) or the output buffer,
+    on SWEEP_MEMORY_WARPS warps.  Either way the lanes' entries cover D."""
     layout = gibbs.sweep_layout(chains, dim)
-    assert layout.lanes in gibbs.SWEEP_LANES
+    _, code = gibbs.choose_layout(chains, dim)
     assert layout.lanes * layout.entries >= dim > layout.lanes * (layout.entries - 1)
     assert layout.wide == (-(-dim // gibbs.SWEEP_THREADS) > gibbs.SWEEP_ENT_MAX)
-    if layout.wide:
-        assert layout.lanes == gibbs.SWEEP_THREADS
-    else:
+    if not layout.wide:
+        assert code == gibbs.SWEEP_REGISTERS
+        assert layout.lanes in gibbs.SWEEP_LANES
         assert layout.entries <= gibbs.SWEEP_ENT_MAX
         assert layout.lanes >= gibbs.sweep_lanes(chains)
         # no fewer lanes would do: the chain count's own, or too many entries a lane
         assert layout.lanes == gibbs.sweep_lanes(chains) or -(-dim // (layout.lanes // 2)) > gibbs.SWEEP_ENT_MAX
-    assert gibbs.sweep_b_in_shared(dim) == (8 * dim <= gibbs.H100_SHARED_OPTIN)
+        return
+    warps, budget = layout.warps, gibbs.SWEEP_WARPS_PER_SM * gibbs.H100_SMS
+    assert layout.lanes == gibbs.SWEEP_THREADS * warps
+    fewest = -(-dim // (gibbs.SWEEP_THREADS * gibbs.SWEEP_ENT_MAX))
+    if fewest <= gibbs.SWEEP_WIDE_WARPS:
+        assert code == gibbs.SWEEP_WIDE_REGISTERS and layout.in_registers
+        assert fewest <= warps <= gibbs.SWEEP_WIDE_WARPS and layout.entries <= gibbs.SWEEP_ENT_MAX
+        assert layout.lanes * 255 <= 65_536  # the register budget of an SM
+        assert warps == fewest or warps * chains <= budget  # raised only within the budget,
+        assert warps == gibbs.SWEEP_WIDE_WARPS or (warps + 1) * chains > budget or warps == fewest  # and as far
+        assert gibbs.sweep_warps(chains, dim, sm_count=2 * gibbs.H100_SMS) >= warps
+    else:  # B leaves the registers
+        assert warps == gibbs.SWEEP_MEMORY_WARPS and not layout.in_registers
+        shared = 4 * dim + gibbs.SWEEP_EXCHANGE_BYTES <= gibbs.H100_SHARED_OPTIN
+        assert code == (gibbs.SWEEP_WIDE_SHARED if shared else gibbs.SWEEP_WIDE_GLOBAL)
+    assert gibbs.sweep_shared_bytes(dim) == 4 * dim + gibbs.SWEEP_EXCHANGE_BYTES
+
+
+@pytest.mark.parametrize("forced, want", [
+    ({"lanes": 32}, (32, 34, False, gibbs.SWEEP_REGISTERS)),
+    ({"warps": 1}, (32, 34, True, gibbs.SWEEP_WIDE_REGISTERS)),
+    ({"warps": 8}, (256, 5, True, gibbs.SWEEP_WIDE_REGISTERS)),
+    ({"b_memory": "shared"}, (256, 5, True, gibbs.SWEEP_WIDE_SHARED)),
+    ({"b_memory": "global"}, (256, 5, True, gibbs.SWEEP_WIDE_GLOBAL)),
+    ({"warps": 16}, (512, 3, True, gibbs.SWEEP_WIDE_SHARED)),
+], ids=["lanes", "one-warp", "eight-warps", "shared", "global", "sixteen-warps"])
+def test_torch_gibbs_sweep_forced_layouts(forced, want):
+    """What ``choose_layout`` gives where a check forces a layout at (64, 1,088), where the wrapper takes
+    32 lanes: B in shared memory or the output buffer keeps the wrapper's wide warps (8 at 64 chains), so
+    its sums run in the order of the wide layout in registers; past SWEEP_WIDE_WARPS warps B is in memory."""
+    layout, code = gibbs.choose_layout(64, 1088, **forced)
+    assert (layout.lanes, layout.entries, layout.wide, code) == want
+    assert gibbs.choose_layout(64, 1088) == (gibbs.SweepLayout(32, 34, False), gibbs.SWEEP_REGISTERS)
+
+
+@pytest.mark.parametrize("forced, match", [
+    ({"lanes": 32, "warps": 2}, "register layout"), ({"lanes": 16}, "register layout"),
+    ({"warps": 0}, "1 to 16 warps"), ({"warps": 17}, "1 to 16 warps"), ({"b_memory": "l2"}, "b_memory takes"),
+], ids=["lanes-and-warps", "too-many-entries", "no-warps", "past-the-warps", "nowhere"])
+def test_torch_gibbs_sweep_refuses_a_layout_it_does_not_build(forced, match):
+    with pytest.raises(ValueError, match=match):
+        gibbs.choose_layout(64, 1088, **forced)
+
+
+def test_torch_gibbs_sweep_refuses_b_in_shared_memory_past_the_card():
+    """Past the card's shared memory a block, B in shared memory is refused (the wrapper's own layout takes
+    the output buffer there)."""
+    dim = (gibbs.H100_SHARED_OPTIN - gibbs.SWEEP_EXCHANGE_BYTES) // 4 + 1
+    assert gibbs.choose_layout(4, dim)[1] == gibbs.SWEEP_WIDE_GLOBAL
+    assert gibbs.choose_layout(4, dim - 1)[1] == gibbs.SWEEP_WIDE_SHARED
+    with pytest.raises(ValueError, match="shared memory"):
+        gibbs.choose_layout(4, dim, b_memory="shared")
+
+
+def test_torch_gibbs_sweep_constants_mirror_the_cuda_source():
+    """The wrapper's mirrors of G1's constants are the source's: entries a lane, warps a chain, the step
+    constants' fields, and the bytes of the warps' exchange (2 steps x kMemoryWarps x (R, Q) floats and an
+    8-byte mbarrier)."""
+    source = (Path(gibbs.__file__).resolve().parents[1] / "ops" / "csrc" / "gibbs.cu").read_text()
+
+    def constant(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", source).group(1))
+
+    assert constant("kEntMax") == gibbs.SWEEP_ENT_MAX
+    assert constant("kWideWarps") == gibbs.SWEEP_WIDE_WARPS
+    assert constant("kMemoryWarps") == gibbs.SWEEP_MEMORY_WARPS
+    assert constant("kSweepThreads") == gibbs.SWEEP_THREADS
+    assert "float part[2][kMemoryWarps][2];" in source and "unsigned long long bar;" in source
+    assert gibbs.SWEEP_EXCHANGE_BYTES == 2 * gibbs.SWEEP_MEMORY_WARPS * 2 * 4 + 8
+    assert re.search(r"enum StepField \{(.*?)\}", source).group(1).count(",") == gibbs.SWEEP_FIELDS
+    codes = re.search(r"enum SweepLayout \{(.*?)\}", source).group(1)
+    assert [int(v) for v in re.findall(r"= (\d)", codes)] == [gibbs.SWEEP_REGISTERS, gibbs.SWEEP_WIDE_REGISTERS,
+                                                               gibbs.SWEEP_WIDE_SHARED, gibbs.SWEEP_WIDE_GLOBAL]
 
 
 @pytest.mark.parametrize("dims", [(0, 1), (1, 0)])
